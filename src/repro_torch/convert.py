@@ -1,0 +1,43 @@
+"""Turn the JAX reference's parameters into the port's state.
+
+The reference's params are ``repro.models.model.Model.init(...)`` mapped
+to numpy (``jax.tree.map(np.asarray, params)``): ``params["layers"][j]``
+holds pattern slot j with every leaf stacked over periods on axis 0.  The
+port's state keeps that tree, so the conversion is leaf for leaf; only
+the dtype (the config's) and the device change.  This module imports
+neither JAX nor the reference: it takes numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model import _DTYPES, build_model
+
+
+def _convert(tree, dtype, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, dtype, device) for v in tree]
+    arr = np.array(tree, dtype=np.float32)  # a writable copy
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def params_from_jax(tree_of_numpy, cfg: ModelConfig, *, device=None) -> dict:
+    """The port's state for ``cfg`` from the reference's numpy params."""
+    dev = resolve_device(device)
+    model = build_model(cfg)  # raises for a family the port lacks
+    state = _convert(tree_of_numpy, _DTYPES[cfg.dtype], dev)
+    if len(state["layers"]) != len(model.pattern):
+        raise ValueError(
+            f"{len(state['layers'])} pattern slots in the params, "
+            f"{len(model.pattern)} in {cfg.name}"
+        )
+    return state
+
+
+__all__ = ["params_from_jax"]

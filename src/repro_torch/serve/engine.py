@@ -1,0 +1,136 @@
+"""Serving substrate: prefill + batched greedy decode engine.
+
+Port of ``repro.serve.engine``.  ``make_prefill`` is the forward under the
+model's overlap context: with a :class:`~repro_torch.parallel.sharding.TPGroup`
+active (``tp_group``) and the ``dma`` backend, its TP MLPs run the
+copy-engine uniform-fused-1D path.  ``make_serve_step`` is ONE new token
+against the KV cache; :class:`DecodeEngine` adds the minimal batch loop.
+The reference's ``repro.obs`` spans and counters and its ``adapt=`` hook
+wait for their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model, build_model
+from repro_torch.parallel.context import overlap_context
+
+
+def make_serve_step(model: Model) -> Callable:
+    """(state, cache, tokens (B,1), pos) -> (logits, cache)."""
+
+    def serve_step(state, cache, tokens, pos):
+        with overlap_context(model.config.overlap):
+            return model.decode_step(state, cache, tokens, pos)
+
+    return serve_step
+
+
+def make_prefill(model: Model) -> Callable:
+    """(state, batch) -> logits (B, S, V)."""
+
+    def prefill(state, batch):
+        with overlap_context(model.config.overlap):
+            logits, _ = model.forward(state, batch)
+        return logits
+
+    return prefill
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray  # (P,) int32
+    max_new_tokens: int = 16
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class DecodeEngine:
+    """Tiny batched greedy engine over the serve step.
+
+    Prompts are fed token-by-token through the decode path (prefill via
+    decode keeps the engine simple and exercises the cache exactly as the
+    dry-run shapes do).
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        state,
+        *,
+        batch_size: int = 4,
+        cache_len: int = 128,
+        device=None,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg)
+        self.state = state
+        self.batch = batch_size
+        self.cache_len = cache_len
+        self.cache = self.model.init_cache(
+            batch_size, cache_len, device=self.device
+        )
+        self.step_fn = make_serve_step(self.model)
+
+    @torch.no_grad()
+    def run(self, requests: list[Request]) -> list[Request]:
+        if len(requests) > self.batch:
+            raise ValueError(
+                f"{len(requests)} requests for a batch of {self.batch}"
+            )
+        # A batch whose requests want zero new tokens (all
+        # max_new_tokens=0, or an empty/dummy-pad-only batch) has
+        # nothing to emit — skip the decode loop entirely instead of
+        # burning max_prompt + max_new steps producing nothing.
+        if not any(len(r.out) < r.max_new_tokens for r in requests):
+            for r in requests:
+                r.done = True
+            return requests
+        # left-align all prompts; pad batch with a dummy request
+        reqs = list(requests) + [
+            Request(np.zeros(1, np.int32), 0)
+            for _ in range(self.batch - len(requests))
+        ]
+        max_prompt = max(len(r.prompt) for r in reqs)
+        max_new = max((r.max_new_tokens for r in reqs), default=0)
+        for pos in range(max_prompt + max_new):
+            feed = []
+            for r in reqs:
+                if pos < len(r.prompt):
+                    feed.append(r.prompt[pos])
+                elif r.out:
+                    feed.append(r.out[-1])
+                else:
+                    feed.append(0)
+            tok = torch.as_tensor(
+                np.asarray(feed, np.int64)[:, None], device=self.device
+            )
+            logits, self.cache = self.step_fn(
+                self.state, self.cache, tok, pos
+            )
+            nxt = logits[:, 0].argmax(-1).cpu().numpy()
+            for i, r in enumerate(reqs[: len(requests)]):
+                if (
+                    pos >= len(r.prompt) - 1
+                    and len(r.out) < r.max_new_tokens
+                ):
+                    r.out.append(int(nxt[i]))
+            if all(
+                len(r.out) >= r.max_new_tokens
+                for r in reqs[: len(requests)]
+            ):
+                break
+        for r in requests:
+            r.done = True
+        return requests
+
+
+__all__ = ["make_serve_step", "make_prefill", "Request", "DecodeEngine"]

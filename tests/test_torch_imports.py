@@ -1,0 +1,114 @@
+"""The port stands alone: it imports no JAX and nothing of ``repro``, and
+its entry points refuse to run on a missing CUDA device unless the caller
+asks for the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+_ROOT = Path(__file__).resolve().parents[1]
+_PKG = _ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(_PKG.rglob("*.py")):
+        rel = path.relative_to(_PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(_ROOT / "src")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _tiny():
+    from repro_torch.configs import get_config
+
+    return get_config("tinyllama-1.1b").reduced()
+
+
+def _model_init():
+    from repro_torch.models.model import build_model
+
+    build_model(_tiny()).init(0)
+
+
+def _init_cache():
+    from repro_torch.models.model import build_model
+
+    build_model(_tiny()).init_cache(2, 16)
+
+
+def _tp_group():
+    from repro_torch.parallel.sharding import TPGroup
+
+    TPGroup(4)
+
+
+def _decode_engine():
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import DecodeEngine
+
+    cfg = _tiny()
+    DecodeEngine(cfg, build_model(cfg).init(0, device="cpu"))
+
+
+def _params_from_jax():
+    from repro_torch.convert import params_from_jax
+
+    params_from_jax({"embed": np.zeros((2, 2)), "layers": [{}]}, _tiny())
+
+
+def _launch_serve():
+    from repro_torch.launch.serve import main
+
+    main(["--arch", "tinyllama-1.1b", "--prompts", "1", "--new-tokens", "1"])
+
+
+ENTRY_POINTS = {
+    "Model.init": _model_init,
+    "Model.init_cache": _init_cache,
+    "TPGroup": _tp_group,
+    "DecodeEngine": _decode_engine,
+    "params_from_jax": _params_from_jax,
+    "launch.serve": _launch_serve,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_without_device_raises_without_cuda(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name]()
+
+
+def test_launch_serve_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch.serve import main
+
+    main(["--arch", "tinyllama-1.1b", "--prompts", "2", "--prompt-len", "3",
+          "--new-tokens", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "decoded 4 tokens" in out and "on cpu" in out
