@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them by ctypes.
 
-Each ``csrc/<name>.cu`` exports plain C functions that take device
+Each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers it includes)
+exports plain C functions that take device
 pointers and a stream as ``void*`` and return a ``cudaError_t``.  They are
 compiled at first use, for ``sm_90a`` (Hopper), into a shared library
 under ``build/kernels/`` at the root of the checkout, named after a hash
@@ -21,7 +22,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("chunked_gemm", "dma_exchange")
+SOURCES = ("chunked_gemm", "dma_exchange", "ficco_ag_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -49,6 +50,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = SRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):  # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

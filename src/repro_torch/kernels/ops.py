@@ -9,16 +9,19 @@ them and :func:`reset_launch_counts` sets them to 0.
 
 from __future__ import annotations
 
-from repro_torch.kernels.chunked_gemm import chunked_matmul
+from repro_torch.kernels.chunked_gemm import accumulate_matmul, chunked_matmul
 from repro_torch.kernels.dma_exchange import (
     a2a_chunk_exchange,
     ficco_uniform_fused_1d_dma,
 )
+from repro_torch.kernels.ficco_ag_matmul import ficco_ag_matmul_fused
 
 # The kernels of this package by the name of the TPU kernel each replaces.
 KERNELS = {
     "chunked_matmul": chunked_matmul,
+    "accumulate_matmul": accumulate_matmul,
     "a2a_chunk_exchange": a2a_chunk_exchange,
+    "ficco_ag_matmul_fused": ficco_ag_matmul_fused,
 }
 
 
@@ -26,6 +29,11 @@ def matmul(x, w, *, block_m=128, block_n=128, block_k=128):
     return chunked_matmul(
         x, w, block_m=block_m, block_n=block_n, block_k=block_k
     )
+
+
+def matmul_accumulate(c, x, w):
+    """C += x @ w in place (K2); returns C."""
+    return accumulate_matmul(c, x, w)
 
 
 def chunk_exchange(chunks, *, reverse=False):
@@ -36,6 +44,11 @@ def chunk_exchange(chunks, *, reverse=False):
 def ag_matmul_dma(x, w, *, group):
     """uniform-fused-1D with the exchange on ``group``'s copy stream."""
     return ficco_uniform_fused_1d_dma(x, w, copy_stream=group.copy_stream)
+
+
+def ag_matmul_fused(x, w, *, variant=None):
+    """The fused all-gather + step GEMM of every rank in one launch (K4)."""
+    return ficco_ag_matmul_fused(x, w, variant=variant)
 
 
 def launch_counts() -> dict[str, int]:
@@ -50,8 +63,10 @@ def reset_launch_counts() -> None:
 __all__ = [
     "KERNELS",
     "matmul",
+    "matmul_accumulate",
     "chunk_exchange",
     "ag_matmul_dma",
+    "ag_matmul_fused",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -18,6 +18,18 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
+def accumulate_matmul_ref(
+    c: torch.Tensor, x: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of ``accumulate_matmul``: C += x @ w in fp32, in place.
+
+    c: (M, N) or (g, M, N); the fp32 sum is cast to c.dtype and stored
+    back into c, which is returned (the TPU kernel aliases C's input and
+    output buffers).
+    """
+    return c.copy_(c.float() + torch.matmul(x.float(), w.float()))
+
+
 def a2a_chunk_exchange_ref(
     chunks: torch.Tensor,
     *,
@@ -44,7 +56,8 @@ def a2a_chunk_exchange_ref(
 
 
 def ag_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Oracle for ``ficco_uniform_fused_1d_dma``: all-gather, then one GEMM.
+    """Plain version of ``ficco_ag_matmul_fused`` and oracle for
+    ``ficco_uniform_fused_1d_dma``: all-gather, then one GEMM.
 
     x: (g, m_s, K) row shards; w: (g, K, n_local) column shards ->
     (g, g * m_s, n_local), rank r's block of the full product.
@@ -53,4 +66,9 @@ def ag_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.reshape(g * m_s, k), w)
 
 
-__all__ = ["matmul_ref", "a2a_chunk_exchange_ref", "ag_matmul_ref"]
+__all__ = [
+    "matmul_ref",
+    "accumulate_matmul_ref",
+    "a2a_chunk_exchange_ref",
+    "ag_matmul_ref",
+]

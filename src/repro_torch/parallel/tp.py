@@ -6,7 +6,9 @@ point: the activation is cut sequence-major over the active
 parallelism), the weight is column-sharded, and the data-dependent
 AG->GEMM runs as a FiCCO schedule.  Backend ``"dma"`` with schedule
 ``auto`` or ``uniform-fused-1d`` runs the copy-engine exchange and the K1
-step GEMM (:func:`repro_torch.kernels.ops.ag_matmul_dma`).
+step GEMM (:func:`repro_torch.kernels.ops.ag_matmul_dma`); every other
+mode goes through :func:`repro_torch.overlap.api.ficco_linear`, deciding
+for :data:`~repro_torch.core.machine.H100_SXM`.
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import OverlapConfig
+from repro_torch.core.machine import H100_SXM
+from repro_torch.core.schedule_types import Schedule
+from repro_torch.kernels.ops import ag_matmul_dma
+from repro_torch.overlap.api import ficco_linear
 from repro_torch.parallel.sharding import active_group, shard_columns
-
-UNIFORM_FUSED_1D = "uniform-fused-1d"
 
 
 def _mode_to_schedule(mode: str):
@@ -57,20 +61,16 @@ def tp_ficco_linear(
     schedule = _mode_to_schedule(overlap.mode)
     # (B, S, D) -> (g, S/g * B, D): rank-major, then seq-major rows.
     rows = x.view(b, g, s // g, d).permute(1, 2, 0, 3).reshape(g, -1, d)
-    if not (
+    if (
         overlap.backend == "dma"
-        and schedule in ("auto", UNIFORM_FUSED_1D)
+        and schedule in ("auto", Schedule.UNIFORM_FUSED_1D.value)
         and rows.shape[1] % g == 0
     ):
-        raise NotImplementedError(
-            f"overlap backend {overlap.backend!r} with schedule "
-            f"{schedule!r} runs ficco_linear, whose schedules are not ported "
-            "yet (ROADMAP queue A, item 1: overlap/schedules.py + "
-            "overlap/api.py)"
+        out = ag_matmul_dma(rows, shard_columns(w, g), group=group)
+    else:
+        out = ficco_linear(
+            rows, shard_columns(w, g), schedule=schedule, machine=H100_SXM
         )
-    from repro_torch.kernels.ops import ag_matmul_dma
-
-    out = ag_matmul_dma(rows, shard_columns(w, g), group=group)
     # (g, S * B, F/g) -> (B, S, g, F/g) -> (B, S, F)
     return out.view(g, s, b, f // g).permute(2, 1, 0, 3).reshape(b, s, f)
 

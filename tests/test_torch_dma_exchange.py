@@ -180,8 +180,10 @@ def test_ops_wrappers_take_plain_versions_on_cpu():
     ops.reset_launch_counts()
     got = ops.ag_matmul_dma(xs, ws, group=TPGroup(G, "cpu"))
     ex = ops.chunk_exchange(xs[:, :16])
-    assert ops.launch_counts() == {"chunked_matmul": 0,
-                                   "a2a_chunk_exchange": 0}
+    assert ops.launch_counts() == {
+        "chunked_matmul": 0, "accumulate_matmul": 0,
+        "a2a_chunk_exchange": 0, "ficco_ag_matmul_fused": 0,
+    }
     torch.testing.assert_close(got, ref.ag_matmul_ref(xs, ws), **TOL)
     assert ex.shape == (G, G, 16, K)
 

@@ -112,3 +112,12 @@ def test_launch_serve_runs_on_cpu_when_asked(capsys):
           "--new-tokens", "2", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "decoded 4 tokens" in out and "on cpu" in out
+
+
+def test_import_check_covers_the_schedule_path():
+    mods = set(_port_modules())
+    for name in ("core.schedule_types", "core.machine", "core.workload",
+                 "core.linkmodel", "core.heuristics",
+                 "parallel.collectives", "overlap.schedules", "overlap.api",
+                 "kernels.ficco_ag_matmul"):
+        assert f"repro_torch.{name}" in mods, name

@@ -1,5 +1,6 @@
-"""The whole slice vs the reference: a reduced TinyLlama forward (dense and
-through the DMA-path TP MLP on 4 logical ranks) and greedy decoding.
+"""The whole slice vs the reference: a reduced TinyLlama forward (dense,
+through the DMA-path TP MLP and through ``ficco_linear``'s schedules on 4
+logical ranks) and greedy decoding.
 
 The reference's ``Model.init(PRNGKey(0))`` params go to the port through
 ``repro_torch.convert.params_from_jax``; tokens come from numpy.  With
@@ -94,6 +95,38 @@ def test_dma_prefill_on_four_ranks_matches_reference(reference, monkeypatch):
         )
     # 2 layers x (up, gate) x 4 steps, each step GEMM (4 ranks, 256 rows)
     assert blocked == [(4, 256, 256)] * 16
+    np.testing.assert_allclose(logits.numpy(), reference["logits"], **TOL)
+
+
+@pytest.mark.parametrize(
+    "mode", ["uniform-fused-2d", "hetero-fused-1d", "shard_p2p", "ficco_auto"]
+)
+def test_collective_prefill_on_four_ranks_matches_reference(
+    reference, mode, monkeypatch
+):
+    """The up/gate projections go through ficco_linear's schedules; K2
+    folds every step of the 2D schedule."""
+    from repro_torch.kernels import ops
+
+    cfg, model, state = _port(reference, mode=mode, backend="collective")
+    folds = []
+    orig = ops.matmul_accumulate
+
+    def spy(c, x, w):
+        folds.append(tuple(x.shape))
+        return orig(c, x, w)
+
+    monkeypatch.setattr(ops, "matmul_accumulate", spy)
+    with tp_group(TPGroup(4, "cpu")):
+        logits = make_prefill(model)(
+            state, {"tokens": torch.from_numpy(reference["tokens"]).long()}
+        )
+    # 2 layers x (up, gate) x 4 K-slice steps of a (1024, d/4) panel.
+    want_folds = (
+        [(4, 1024, cfg.d_model // 4)] * 16 if mode == "uniform-fused-2d"
+        else []
+    )
+    assert folds == want_folds
     np.testing.assert_allclose(logits.numpy(), reference["logits"], **TOL)
 
 

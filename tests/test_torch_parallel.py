@@ -89,10 +89,15 @@ def test_mlp_takes_dense_path_when_overlap_does_not_apply():
     OverlapConfig(mode="uniform-fused-1d", backend="collective"),
 ])
 def test_schedules_not_ported_raise_with_roadmap_item(overlap):
+    """Every mode now runs through ficco_linear and matches the dense
+    product; only the tuner-backed mode is left, and it names its item."""
     x, w = _rand(1, 64, 16), _rand(16, 64)
     with tp_group(TPGroup(4, "cpu")):
-        with pytest.raises(NotImplementedError, match="item 1"):
-            tp.tp_ficco_linear(x, w, overlap)
+        got = tp.tp_ficco_linear(x, w, overlap)
+        torch.testing.assert_close(got, x @ w, rtol=1e-5, atol=1e-5)
+        autotune = dataclasses.replace(overlap, mode="ficco_autotune")
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            tp.tp_ficco_linear(x, w, autotune)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-1.5-large-398b",
@@ -113,3 +118,35 @@ def test_shard_map_decode_attention_raises_with_roadmap_item():
     with overlap_context(cfg.overlap):
         with pytest.raises(NotImplementedError, match="item 7"):
             model.decode_step(state, cache, torch.zeros((1, 1), dtype=torch.long), 0)
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_all_gather_matches_lax_on_every_rank(tiled):
+    import jax
+    import jax.numpy as jnp
+
+    from repro_torch.parallel.collectives import all_gather
+
+    x = np.random.default_rng(3).standard_normal((4, 3, 5)).astype(np.float32)
+    want = jax.vmap(
+        lambda v: jax.lax.all_gather(v, "r", axis=0, tiled=tiled),
+        axis_name="r",
+    )(jnp.asarray(x))
+    got = all_gather(torch.from_numpy(x)[:, :, 1:], tiled=tiled)  # strided
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[..., 1:])
+    assert got.is_contiguous()
+
+
+@pytest.mark.parametrize("shift", [1, 3])
+def test_ppermute_matches_lax_on_every_rank(shift):
+    import jax
+    import jax.numpy as jnp
+
+    from repro_torch.parallel.collectives import ppermute
+
+    x = np.random.default_rng(4).standard_normal((4, 2, 3)).astype(np.float32)
+    perm = [(i, (i + shift) % 4) for i in range(4)]
+    want = jax.vmap(lambda v: jax.lax.ppermute(v, "r", perm),
+                    axis_name="r")(jnp.asarray(x))
+    got = ppermute(torch.from_numpy(x), shift)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
