@@ -354,15 +354,8 @@ def phase_accumulate(device, timer):
     flops = 2 * GROUP * rows * k_c * n_local
     bound, by = _bound(flops, _nbytes(c, c, panel, w), bf16)
     # The fastest single PyTorch call for C + x @ w with an fp32 sum:
-    # baddbmm with an fp32 out_dtype over bf16 operands, where this
-    # PyTorch has that overload (else there is no single call: null).
-    try:
-        torch.baddbmm(c, panel, w, out_dtype=f32)
-        library = timer(lambda: torch.baddbmm(c, panel, w, out_dtype=f32))
-    except (TypeError, RuntimeError, NotImplementedError) as exc:
-        print(f"[kernels] torch.baddbmm(out_dtype=float32) unavailable: "
-              f"{type(exc).__name__}: {str(exc)[:200]}")
-        library = None
+    # baddbmm with an fp32 out_dtype over bf16 operands.
+    library = timer(lambda: torch.baddbmm(c, panel, w, out_dtype=f32))
     rec = dict(
         name="accumulate_matmul", route="cuda",
         source="src/repro_torch/kernels/csrc/chunked_gemm.cu",

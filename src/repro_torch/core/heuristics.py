@@ -20,8 +20,9 @@ operators below ``MIN_DECOMPOSE_FLOPS``, and the serial gate
     inflate = chunked/serial all-gather time from the link model,
 
 serial iff ``score > gate``.  The reference also consults a learned
-per-machine-family gate and a step profile here; both come with the
-port's ``learn`` and tuner packages, so this copy takes neither.
+per-machine-family gate and a step profile here, and takes ``tau`` and
+gate overrides; all come with the port's ``learn`` and tuner packages
+(ROADMAP A4/A8), so this copy uses the module constants.
 """
 
 from __future__ import annotations
@@ -51,25 +52,19 @@ DEFAULT_SERIAL_GATE = 1.2
 _GATE_COMM_CIL = 1.12
 
 
-def machine_serial_gate(machine: MachineSpec) -> float:
-    """The scalar gate threshold for a machine."""
-    return DEFAULT_SERIAL_GATE
-
-
-def serial_gate_terms_batch(m, n, k, dtype_bytes, machine: MachineSpec):
-    """Vectorized ``(r, inflate)`` terms of the serial-gate score.
+def serial_gate_score(gemm: GemmShape, machine: MachineSpec) -> float:
+    """Gate score ``r * (inflate * CIL - 1)``.
 
     ``r`` compares the serial all-gather against the peak-rate per-device
     GEMM; ``inflate`` is the chunked/serial all-gather time ratio from the
     link model (g FiCCO steps of 1/g^2-sized chunks vs one all-gather).
     """
-    m = np.asarray(m, dtype=np.float64)
-    n = np.asarray(n, dtype=np.float64)
-    k = np.asarray(k, dtype=np.float64)
-    b = np.asarray(dtype_bytes, dtype=np.float64)
+    m = np.float64(gemm.m)
+    n = np.float64(gemm.n)
+    k = np.float64(gemm.k)
     g = machine.group
     dev_n = np.where(n % g == 0, n / g, n)
-    mk_bytes = m * k * b
+    mk_bytes = m * k * np.float64(gemm.dtype_bytes)
     t_comm = mk_bytes / machine.ag_bw
     t_gemm = 2.0 * m * dev_n * k / machine.peak_flops
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -79,28 +74,7 @@ def serial_gate_terms_batch(m, n, k, dtype_bytes, machine: MachineSpec):
             mk_bytes / (g * g), machine
         )
         inflate = t_chunked_ag / t_serial_ag
-    return r, inflate
-
-
-def serial_gate_score_from_terms(r, inflate):
-    """Gate score from precomputed :func:`serial_gate_terms_batch` terms."""
-    with np.errstate(invalid="ignore"):
-        return r * (inflate * _GATE_COMM_CIL - 1.0)
-
-
-def serial_gate_score_batch(m, n, k, dtype_bytes, machine: MachineSpec):
-    """Vectorized gate score: comm/compute ratio x net chunking overhead."""
-    return serial_gate_score_from_terms(
-        *serial_gate_terms_batch(m, n, k, dtype_bytes, machine)
-    )
-
-
-def serial_gate_score(gemm: GemmShape, machine: MachineSpec) -> float:
-    return float(
-        serial_gate_score_batch(
-            gemm.m, gemm.n, gemm.k, gemm.dtype_bytes, machine
-        )
-    )
+        return float(r * (inflate * _GATE_COMM_CIL - 1.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,46 +85,27 @@ class HeuristicDecision:
     reason: str
 
 
-def machine_threshold(machine: MachineSpec, tau: float | None = None) -> float:
+def machine_threshold(machine: MachineSpec) -> float:
     """T = peak FLOP/s x TAU: 'op-to-byte x memory bandwidth = FLOPs'."""
-    return machine.peak_flops * (DEFAULT_TAU if tau is None else tau)
+    return machine.peak_flops * DEFAULT_TAU
 
 
-def select_schedule(
-    gemm: GemmShape,
-    machine: MachineSpec,
-    *,
-    tau: float | None = None,
-    allow_serial_guard: bool = True,
-    serial_gate: float | None = None,
-) -> HeuristicDecision:
-    """Static schedule pick (Fig. 12a tree + the serial gate).
-
-    ``serial_gate`` overrides the gate threshold; pass ``float("inf")`` to
-    disable the gate (the paper's original tree).  The gate only applies
-    when ``allow_serial_guard`` is True.
-    """
+def select_schedule(gemm: GemmShape, machine: MachineSpec) -> HeuristicDecision:
+    """Static schedule pick (Fig. 12a tree behind the serial gate)."""
     metric = gemm.otb * gemm.bytes_mt  # == gemm.flops
-    t = machine_threshold(machine, tau)
+    t = machine_threshold(machine)
 
-    if allow_serial_guard and gemm.flops < MIN_DECOMPOSE_FLOPS:
+    if gemm.flops < MIN_DECOMPOSE_FLOPS:
         return HeuristicDecision(
             Schedule.SERIAL, metric, t,
             "operator too small to amortize decomposition (beyond-paper guard)",
         )
-    if allow_serial_guard:
-        score = serial_gate_score(gemm, machine)
-        g_thr = (
-            serial_gate
-            if serial_gate is not None
-            else machine_serial_gate(machine)
+    if serial_gate_score(gemm, machine) > DEFAULT_SERIAL_GATE:
+        return HeuristicDecision(
+            Schedule.SERIAL, metric, t,
+            "comm-bound: chunking overhead exceeds hidden compute "
+            "(grid-learned serial gate)",
         )
-        if score > g_thr:
-            return HeuristicDecision(
-                Schedule.SERIAL, metric, t,
-                "comm-bound: chunking overhead exceeds hidden compute "
-                "(grid-learned serial gate)",
-            )
     if gemm.m < gemm.k:
         return HeuristicDecision(
             Schedule.UNIFORM_FUSED_2D, metric, t,
@@ -177,11 +132,7 @@ __all__ = [
     "MIN_DECOMPOSE_FLOPS",
     "DEFAULT_SERIAL_GATE",
     "HeuristicDecision",
-    "machine_serial_gate",
     "machine_threshold",
-    "serial_gate_terms_batch",
-    "serial_gate_score_from_terms",
-    "serial_gate_score_batch",
     "serial_gate_score",
     "select_schedule",
 ]

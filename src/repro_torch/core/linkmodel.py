@@ -1,6 +1,6 @@
 """The link model the serial gate reads.
 
-Copies of ``comm_time``, ``calibrated_s_half`` and ``_geomean_vec`` from
+Copies of ``calibrated_s_half`` and ``_geomean_vec`` from
 ``repro.core.inefficiency`` and of ``comm_time_vec``,
 ``ag_serial_time_vec`` and ``a2a_chunk_step_time_vec`` from
 ``repro.core.batch``, formulas unchanged.  A transfer of size s achieves
@@ -25,20 +25,6 @@ _COMM_S_HALF_TARGET_DIL = 1.10
 def _geomean_vec(vals: "np.ndarray") -> float:
     """Vectorized geomean (the calibration bisection's inner loop)."""
     return float(np.exp(np.mean(np.log(vals))))
-
-
-def comm_time(
-    nbytes_per_link: float,
-    machine: MachineSpec,
-    *,
-    s_half: float,
-    n_transfers: int = 1,
-) -> float:
-    """Time to push ``nbytes_per_link`` through one link, ``n_transfers``
-    sequential DMA descriptors (each pays latency + ramp)."""
-    per = nbytes_per_link / max(n_transfers, 1)
-    t_one = machine.link_latency + (per + s_half) / machine.link_bw
-    return n_transfers * t_one
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,7 +104,6 @@ def a2a_chunk_step_time_vec(
 
 
 __all__ = [
-    "comm_time",
     "calibrated_s_half",
     "comm_time_vec",
     "ag_serial_time_vec",

@@ -75,6 +75,17 @@ def _launch(x, w, out, steps: int, depth: int, reverse: bool) -> None:
     ficco_ag_matmul_fused.launches += 1
 
 
+def _plan(variant, g: int, m_s: int) -> tuple[int, int, bool]:
+    """(steps, buffer depth, reverse) of ``variant`` on g shards of m_s rows."""
+    steps = int(variant.chunks)
+    if m_s % steps:
+        steps = g  # promoted cut doesn't divide this shard; classic cut
+    if m_s % steps:
+        raise ValueError(f"{m_s} shard rows not divisible by {steps} chunks")
+    depth = max(2, min(int(variant.buffer_depth), steps))
+    return steps, depth, variant.dispatch_order == "reverse"
+
+
 def ficco_ag_matmul_fused(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -96,13 +107,7 @@ def ficco_ag_matmul_fused(
         raise ValueError(f"shards {tuple(x.shape)} and {tuple(w.shape)}")
     if variant is None:
         variant = default_variant("ficco_ag_matmul", group=g)
-    steps = int(variant.chunks)
-    if m_s % steps:
-        steps = g  # promoted cut doesn't divide this shard; classic cut
-    if m_s % steps:
-        raise ValueError(f"{m_s} shard rows not divisible by {steps} chunks")
-    depth = max(2, min(int(variant.buffer_depth), steps))
-    reverse = variant.dispatch_order == "reverse"
+    steps, depth, reverse = _plan(variant, g, m_s)
     if x.device.type == "cpu":
         return ag_matmul_ref(x, w)
     if x.device.type != "cuda":

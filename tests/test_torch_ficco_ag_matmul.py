@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.schedule_types import Schedule
 from repro_torch.kernels import ops
-from repro_torch.kernels.ficco_ag_matmul import ficco_ag_matmul_fused
+from repro_torch.kernels.ficco_ag_matmul import _plan, ficco_ag_matmul_fused
 from repro_torch.overlap.schedules import run_schedule
 from repro_torch.tune.variants import default_variant
 
@@ -126,11 +126,24 @@ def test_fused_matches_reference_oracle(reference, case):
     )
 
 
+# (steps, buffer depth, reverse) each variant launches with at m_s = 64.
+_PLANS = {
+    "default": (4, 2, False), "c2": (2, 2, False), "c4_d3": (4, 3, False),
+    "d3": (4, 3, False), "reverse": (4, 2, True),
+    "c3_fallback": (4, 2, False),  # 3 does not divide 64: one chunk a rank
+}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_variants_bit_equal_to_each_other_and_serial(dtype):
+    """Each variant is planned as the reference plans it (the chunks=3
+    fallback included) and, here on the plain version, gives the serial
+    schedule's bits.  That the kernel's variants give identical bits is
+    checked on the card by chip_smoke.py's kernels phase."""
     x, w = _stacked(*_inputs(64, 128, 128), dtype)
     want = run_schedule(Schedule.SERIAL, x, w)
     for name, v in _variants().items():
+        assert _plan(v, G, 64) == _PLANS[name], name
         got = ficco_ag_matmul_fused(x, w, variant=v)
         torch.testing.assert_close(got, want, rtol=0, atol=0, msg=name)
 

@@ -83,19 +83,27 @@ def test_mlp_takes_dense_path_when_overlap_does_not_apply():
     torch.testing.assert_close(got, layers.mlp_apply(p, x))
 
 
-@pytest.mark.parametrize("overlap", [
+_MODES = [
     OverlapConfig(mode="serial", backend="dma"),
     OverlapConfig(mode="ficco_auto", backend="collective"),
     OverlapConfig(mode="uniform-fused-1d", backend="collective"),
-])
-def test_schedules_not_ported_raise_with_roadmap_item(overlap):
-    """Every mode now runs through ficco_linear and matches the dense
-    product; only the tuner-backed mode is left, and it names its item."""
+]
+
+
+@pytest.mark.parametrize("overlap", _MODES)
+def test_every_mode_runs_through_ficco_linear(overlap):
     x, w = _rand(1, 64, 16), _rand(16, 64)
     with tp_group(TPGroup(4, "cpu")):
         got = tp.tp_ficco_linear(x, w, overlap)
-        torch.testing.assert_close(got, x @ w, rtol=1e-5, atol=1e-5)
-        autotune = dataclasses.replace(overlap, mode="ficco_autotune")
+    torch.testing.assert_close(got, x @ w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("overlap", _MODES)
+def test_schedules_not_ported_raise_with_roadmap_item(overlap):
+    """The tuner-backed mode is the one not ported; it names its item."""
+    x, w = _rand(1, 64, 16), _rand(16, 64)
+    autotune = dataclasses.replace(overlap, mode="ficco_autotune")
+    with tp_group(TPGroup(4, "cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP A4"):
             tp.tp_ficco_linear(x, w, autotune)
 

@@ -220,7 +220,7 @@ def test_2d_schedule_accumulates_through_k2(monkeypatch):
     want = torch.matmul(
         x.reshape(128, 64).float(), w.float()
     ).to(torch.bfloat16)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, **_tol("bfloat16"))
 
 
 def test_autotune_raises_naming_the_roadmap():
