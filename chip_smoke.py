@@ -7,9 +7,11 @@ Phases, each of which exits non-zero on failure:
   1. the card's name and power limit; build the CUDA kernels (one nvcc per
      source, in parallel) and print the build time;
   2. every kernel (K1-K4) against its plain PyTorch version on the card, at
-     the reference's test shapes and at the shapes of the main path, with
-     CUDA-event timings beside the plain version's and one PyTorch call's;
-     K4's variants bit for bit against each other;
+     the reference's test shapes, at the shapes of the main path and, for
+     K1 and K4 on the wgmma route, at edge shapes, with CUDA-event timings
+     beside the plain version's, one PyTorch call's and, for K1 and K4, the
+     older WMMA tile's; K4's variants bit for bit against each other, and
+     the route each launch took;
   3. the six FiCCO schedules through ``ficco_linear`` at the main path's
      projection shape, in bf16 and f32, against ``x_full @ w``, and what
      ``auto`` resolves to on the H100 machine model;
@@ -17,9 +19,10 @@ Phases, each of which exits non-zero on failure:
      tokens) through ``make_prefill`` on a group of 4 logical ranks, once
      with the DMA-backend uniform-fused-1D TP MLP (K1 + K3) and once with
      the collective-backend uniform-fused-2D schedule (K2), each held
-     against the dense forward, with the kernels' launch counts read around
-     each; then the fused AG->GEMM (K4) over the same model's 44 up/gate
-     projections through ``ops.ag_matmul_fused``, counted the same way;
+     against the dense forward, with the kernels' launch counts (and K1's
+     and K4's by route: every one on wgmma) read around each; then the
+     fused AG->GEMM (K4) over the same model's 44 up/gate projections
+     through ``ops.ag_matmul_fused``, counted the same way;
   5. serving: ``DecodeEngine`` answers 4 requests on the same weights;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
@@ -50,6 +53,8 @@ PREFILL_BATCH, PREFILL_SEQ, GROUP = 4, 512, 4
 # D_MODEL) @ (D_MODEL, D_FF), column-sharded over GROUP ranks.
 D_MODEL, D_FF = 2048, 5632
 REPS = 20
+# The wgmma route's tile widths (gemm_wgmma.cuh picks one per shape).
+TILE_WIDTHS = (128, 192, 256)
 # The reference's tolerances (tests/test_kernels.py, tests/multidev_*.py).
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -125,6 +130,17 @@ def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def _expect_routes(what, kernel, **want):
+    """Raise unless ``kernel.routes`` holds exactly ``want`` launches per
+    route (0 for a route not named); then set them to 0."""
+    got = dict(kernel.routes)
+    full = {name: want.get(name, 0) for name in got}
+    if got != full:
+        raise AssertionError(f"{what}: launches by route {got}, expected "
+                             f"{full}")
+    kernel.routes = dict.fromkeys(got, 0)
+
+
 def _randn_fn(device, seed: int):
     """randn(*shape, dtype, scale) on ``device`` from a seeded generator."""
     import torch
@@ -168,7 +184,7 @@ def phase_kernels(device, timer):
     """Each kernel vs its plain version; returns the kernels' records."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import chunked_gemm, ops, ref
     from repro_torch.kernels.chunked_gemm import chunked_matmul
     from repro_torch.kernels.dma_exchange import (
         a2a_chunk_exchange,
@@ -179,7 +195,9 @@ def phase_kernels(device, timer):
 
     randn = _randn_fn(device, 0)
 
-    # K1 at the reference's tests/test_kernels.py shapes and tolerances.
+    # K1 at the reference's tests/test_kernels.py shapes and tolerances:
+    # f32 on the CUDA cores, bf16 on the wgmma route.
+    ops.reset_launch_counts()
     for m, n, k in [(128, 128, 128), (256, 128, 384), (384, 256, 128),
                     (128, 384, 256)]:
         for dtype, tol in [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]:
@@ -188,19 +206,35 @@ def phase_kernels(device, timer):
             torch.cuda.synchronize()
             torch.testing.assert_close(got, ref.matmul_ref(x, w),
                                        rtol=tol, atol=tol)
-    # bf16 at a shape the tensor-core tile does not take (CUDA-core path),
-    # and at one whose rows it masks (192 rows: a half-empty second tile).
-    for n, k in [(320, 96), (128, 64)]:
-        x, w = randn(192, k, dtype=torch.bfloat16), randn(
-            k, n, dtype=torch.bfloat16)
-        got = chunked_matmul(x, w, block_m=64, block_n=64, block_k=32)
+    _expect_routes("K1 at the test_kernels shapes", chunked_matmul,
+                   simt=4, wgmma=4)
+    # bf16 edges of the wgmma route: M and N not multiples of 128, K not a
+    # multiple of 64 (and under 64), and more tiles than the card has SMs
+    # (4 ranks x 8 x 8 tiles of 128 x 128).
+    edges = [(1, 192, 320, 96), (1, 72, 136, 24), (1, 200, 328, 200),
+             (GROUP, 1000, 1000, 1000)]
+    for g, m, n, k in edges:
+        x = randn(g, m, k, dtype=torch.bfloat16)
+        w = randn(g, k, n, dtype=torch.bfloat16, scale=k ** -0.5)
+        got = chunked_matmul(x, w, block_m=m, block_n=n, block_k=k)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref.matmul_ref(x, w), rtol=2e-2,
-                                   atol=2e-2)
+                                   atol=2e-2, msg=lambda e: f"K1 {g}x{m}x"
+                                   f"{n}x{k}: {e}")
+    _expect_routes("K1 at the edge shapes", chunked_matmul, wgmma=len(edges))
+    # bf16 rows of 60 bytes: no tensor-core route takes them.
+    x, w = randn(100, 30, dtype=torch.bfloat16), randn(30, 60,
+                                                       dtype=torch.bfloat16)
+    got = chunked_matmul(x, w, block_m=100, block_n=60, block_k=30)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.matmul_ref(x, w), rtol=2e-2,
+                               atol=2e-2)
+    _expect_routes("K1 at 100x60x30 bf16", chunked_matmul, simt=1)
     print("[kernels] K1 chunked_matmul matches matmul_ref at the 4 "
-          "test_kernels shapes, f32 (1e-4) and bf16 (2e-2), and at "
-          "192x320x96 (CUDA cores) and 192x128x64 (masked tensor-core "
-          "tile) bf16")
+          "test_kernels shapes, f32 (1e-4, simt) and bf16 (2e-2, wgmma), "
+          "on the wgmma route at the bf16 edges "
+          + ", ".join(f"{g}x{m}x{n}x{k}" for g, m, n, k in edges)
+          + " (2e-2), and at 100x60x30 bf16 (simt, 2e-2)")
 
     # K1 at the main path's step GEMM: 4 ranks x (g*m_c=512, K=2048) @
     # (2048, n_local=1408), the weight a strided column-shard view.
@@ -211,12 +245,16 @@ def phase_kernels(device, timer):
         randn(d_model, d_ff, dtype=torch.bfloat16, scale=d_model ** -0.5),
         GROUP,
     )
+    ops.reset_launch_counts()
     got = chunked_matmul(x, w, block_k=d_model)
+    _expect_routes("K1 at the path shape", chunked_matmul, wgmma=1)
+    old = chunked_gemm._launch(x, w, "wmma")  # the PR-12 tile, by name
     torch.cuda.synchronize()
     want = ref.matmul_ref(x, w)
     # bf16 output: both sum in fp32, in different orders, so an element
     # may round to the neighbouring bf16 value (reference's bf16 tol).
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(old, want, rtol=2e-2, atol=2e-2)
     k1_err = _max_err(got, want)
     out = torch.empty_like(got)
     k1_flops = 2 * GROUP * rows * d_model * (d_ff // GROUP)
@@ -231,10 +269,16 @@ def phase_kernels(device, timer):
         bound_ms=k1_bound, bound_by=k1_by,
         library_ms=timer(lambda: torch.matmul(x, w)),
     )
+    wmma_ms = timer(lambda: chunked_gemm._launch(x, w, "wmma"))
+    widths = {n: timer(lambda n=n: chunked_gemm._launch(x, w, "wgmma", n))
+              for n in TILE_WIDTHS}
     print(f"[kernels] K1 path shape {GROUP}x{rows}x{d_model}x{d_ff // GROUP} "
-          f"bf16: max_abs_err {k1_err:.3e}, {k1['ms']:.4f} ms (plain "
-          f"{k1['plain_ms']:.4f}, torch.matmul {k1['library_ms']:.4f}, "
-          f"bound {k1_bound:.4f} {k1_by})")
+          f"bf16: max_abs_err {k1_err:.3e} (wmma tile "
+          f"{_max_err(old, want):.3e}), {k1['ms']:.4f} ms on wgmma (old "
+          f"wmma tile {wmma_ms:.4f} in this run; wgmma by tile width "
+          + ", ".join(f"128x{n} {t:.4f}" for n, t in widths.items())
+          + f") (plain {k1['plain_ms']:.4f}, torch.matmul "
+          f"{k1['library_ms']:.4f}, bound {k1_bound:.4f} {k1_by})")
 
     # K3 at the main path's chunk: 4 ranks x (m_c=128, K=2048) bf16.
     m_c = rows // GROUP
@@ -377,6 +421,7 @@ def phase_fused(device, timer):
     the main path's; its variants bit for bit; returns its record."""
     import torch
 
+    from repro_torch.kernels import ficco_ag_matmul as fused_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ficco_ag_matmul import ficco_ag_matmul_fused
     from repro_torch.parallel.collectives import all_gather
@@ -384,19 +429,32 @@ def phase_fused(device, timer):
     from repro_torch.tune.variants import default_variant
 
     randn = _randn_fn(device, 3)
-    # tests/multidev_kernels_driver.py's per-rank shards (m_s, K, n_local).
-    for m_s, k, n_local, dtype in [(64, 128, 128, torch.float32),
-                                   (32, 256, 128, torch.bfloat16)]:
-        x = randn(GROUP, m_s, k, dtype=dtype)
-        w = shard_columns(randn(k, GROUP * n_local, dtype=dtype), GROUP)
+    # tests/multidev_kernels_driver.py's per-rank shards (m_s, K, n_local):
+    # f32 on simt, bf16 (a shard of 32 rows: a quarter-full tile) on wgmma;
+    # then a bf16 edge on wgmma (m_s, K and n_local not multiples of the
+    # tile) and a group over the wgmma route's cap on the wmma tile.
+    cases = [(GROUP, 64, 128, 128, torch.float32, "simt"),
+             (GROUP, 32, 256, 128, torch.bfloat16, "wgmma"),
+             (GROUP, 200, 200, 136, torch.bfloat16, "wgmma"),
+             (17, 34, 128, 128, torch.bfloat16, "wmma")]
+    ops.reset_launch_counts()
+    for g, m_s, k, n_local, dtype, route in cases:
+        x = randn(g, m_s, k, dtype=dtype)
+        w = shard_columns(randn(k, g * n_local, dtype=dtype, scale=k ** -0.5),
+                          g)
         got = ficco_ag_matmul_fused(x, w)
         _sync()
         tol = TOL[str(dtype).split(".")[1]]
         torch.testing.assert_close(got, ref.ag_matmul_ref(x, w), rtol=tol,
-                                   atol=tol)
+                                   atol=tol, msg=lambda e: f"K4 {g}x{m_s}x"
+                                   f"{k}x{n_local} {dtype}: {e}")
+        _expect_routes(f"K4 {g}x{m_s}x{k}x{n_local}", ficco_ag_matmul_fused,
+                       **{route: 1})
     print("[kernels] K4 ficco_ag_matmul_fused matches ag_matmul_ref at "
-          "multidev_kernels_driver.py's shards 64x128x128 f32 (1e-5) and "
-          "32x256x128 bf16 (2e-2), 4 ranks")
+          "multidev_kernels_driver.py's shards 64x128x128 f32 (1e-5, simt) "
+          "and 32x256x128 bf16 (2e-2, wgmma), 4 ranks; at 200x200x136 bf16 "
+          "(wgmma) and, over the wgmma cap, 17 ranks of 34x128x128 bf16 "
+          "(wmma)")
 
     m_s, n_local = PREFILL_BATCH * PREFILL_SEQ // GROUP, D_FF // GROUP
     x = randn(GROUP, m_s, D_MODEL, dtype=torch.bfloat16)
@@ -406,20 +464,27 @@ def phase_fused(device, timer):
     )
     got = ficco_ag_matmul_fused(x, w)
     want = ref.ag_matmul_ref(x, w)
+    old = torch.empty_like(got)
+    fused_mod._launch(x, w, old, GROUP, 2, False, "wmma")  # the PR-12 tile
     _sync()
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(old, want, rtol=2e-2, atol=2e-2)
     err = _max_err(got, want)
     base = default_variant("ficco_ag_matmul", group=GROUP)
     variants = [
         dataclasses.replace(base, chunks=c, buffer_depth=d, dispatch_order=o)
         for c in (2, 4) for d in (2, 3) for o in ("forward", "reverse")
     ]
+    ficco_ag_matmul_fused.routes = dict.fromkeys(ficco_ag_matmul_fused.routes,
+                                                 0)
     for v in variants:
         if not torch.equal(ficco_ag_matmul_fused(x, w, variant=v), got):
             raise AssertionError(f"K4 variant {v} is not bit-equal to the "
                                  "default")
+    _expect_routes("K4 variants", ficco_ag_matmul_fused, wgmma=len(variants))
     print(f"[kernels] K4 path shape: {len(variants)} variants (chunks 2/4, "
-          "depth 2/3, forward/reverse) bit-equal to the default")
+          "depth 2/3, forward/reverse) bit-equal to the default, all on "
+          "wgmma")
 
     flops = 2 * GROUP * (GROUP * m_s) * D_MODEL * n_local
     bound, by = _bound(flops, _nbytes(x, w, got), x.dtype)
@@ -436,10 +501,19 @@ def phase_fused(device, timer):
         # against every rank's weight shard.
         library_ms=timer(lambda: torch.matmul(x.view(-1, D_MODEL), w)),
     )
+    wmma_ms = timer(lambda: fused_mod._launch(x, w, old, GROUP, 2, False,
+                                              "wmma"))
+    widths = {n: timer(lambda n=n: fused_mod._launch(x, w, old, GROUP, 2,
+                                                     False, "wgmma", n))
+              for n in TILE_WIDTHS}
     composer = timer(lambda: ops.ag_matmul_dma(x, w, group=group))
     serial = timer(lambda: torch.matmul(all_gather(x, tiled=True), w))
     print(f"[kernels] K4 path shape {GROUP}x{m_s}x{D_MODEL}x{n_local} bf16: "
-          f"max_abs_err {err:.3e}, {rec['ms']:.4f} ms (plain "
+          f"max_abs_err {err:.3e} (wmma tile {_max_err(old, want):.3e}), "
+          f"{rec['ms']:.4f} ms on wgmma (old wmma tile {wmma_ms:.4f} in this "
+          f"run; wgmma by tile width "
+          + ", ".join(f"128x{n} {t:.4f}" for n, t in widths.items())
+          + ") (plain "
           f"{rec['plain_ms']:.4f}, torch.matmul {rec['library_ms']:.4f}, "
           f"bound {bound:.4f} {by}); K3+K1 composer {composer:.4f} ms, "
           f"all-gather + torch.matmul {serial:.4f} ms")
@@ -559,13 +633,19 @@ def phase_prefill(device):
                 logits = run(state, batch)
             _sync()
             counts = ops.launch_counts()
+            routes = ops.route_counts()
         want = {name: expected.get(name, 0) for name in counts}
+        # Every K1 launch of the path on the wgmma route.
+        want_routes = {name: {r: expected.get(name, 0) if r == "wgmma" else 0
+                              for r in by_route}
+                       for name, by_route in routes.items()}
         print(f"[prefill] {label}: launches in one prefill {counts} "
               f"(expected {want}: {cfg.num_layers} layers x 2 projections "
-              f"x {GROUP} steps)")
-        if counts != want:
-            raise AssertionError(f"{label}: launches {counts}, expected "
-                                 f"{want}")
+              f"x {GROUP} steps); by route {routes}")
+        if counts != want or routes != want_routes:
+            raise AssertionError(f"{label}: launches {counts} by route "
+                                 f"{routes}, expected {want} by route "
+                                 f"{want_routes}")
         launches.update({name: counts[name] for name in expected})
         want_shape = (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size)
         if (tuple(logits.shape) != want_shape
@@ -632,12 +712,15 @@ def phase_fused_path(device, cfg, state):
         outs = [ops.ag_matmul_fused(x, w) for w in weights]
         _sync()
         counts = ops.launch_counts()
+        routes = ops.route_counts()["ficco_ag_matmul_fused"]
     want = {name: len(weights) if name == "ficco_ag_matmul_fused" else 0
             for name in counts}
+    want_routes = {r: len(weights) if r == "wgmma" else 0 for r in routes}
     print(f"[fused] K4 over {len(weights)} up/gate projections: launches "
-          f"{counts} (expected {want})")
-    if counts != want:
-        raise AssertionError(f"fused path: launches {counts}, expected {want}")
+          f"{counts} (expected {want}); K4 by route {routes}")
+    if counts != want or routes != want_routes:
+        raise AssertionError(f"fused path: launches {counts}, K4 by route "
+                             f"{routes}, expected {want} and {want_routes}")
     err = 0.0
     for out, w in zip(outs, weights):
         serial = ficco_linear(x, w, schedule="serial")

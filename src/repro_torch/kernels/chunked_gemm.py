@@ -10,6 +10,15 @@ arguments keep the reference's contract: a dim that does not divide its
 block raises ``ValueError``.  They do not choose the CUDA kernel's own
 tile, which masks its edges; for the same reason K2, whose reference took
 plain ``jnp`` for shapes that do not tile, launches for every shape.
+
+K1 picks its route here, by :func:`route`, and the C side launches that
+route or refuses the operands; nothing falls back.  ``"wgmma"`` is the
+persistent Hopper main loop of ``csrc/gemm_wgmma.cuh`` (TMA through an
+mbarrier ring into ``wgmma``) for bf16 operands whose bases are 16-byte
+aligned and whose strides are multiples of 8 elements; ``"wmma"`` is the
+older tile of ``csrc/gemm_tile.cuh``, kept for K2 and reached by K1 only
+when asked for by name; ``"simt"`` takes f32 and every other shape.
+``chunked_matmul.routes`` counts the launches of each route.
 """
 
 from __future__ import annotations
@@ -23,6 +32,32 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import accumulate_matmul_ref, matmul_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("simt", "wmma", "wgmma")  # codes 0, 1, 2 of the C entry points
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Base 16-byte aligned and every stride but the last a multiple of 16
+    bytes: what TMA's tensor maps and the tensor-core tiles' 16-byte loads
+    need."""
+    esize = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        s * esize % 16 == 0 for s in t.stride()[:-1]
+    )
+
+
+def route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The route a CUDA launch of ``chunked_matmul(x, w)`` takes.
+
+    ``"wgmma"`` for bf16 operands that :func:`aligned16` takes, with an
+    output width N that keeps the output's rows 16-byte aligned;
+    ``"simt"`` for f32 and the rest.  The ``"wmma"`` tile needs the same
+    alignment and more (128-multiple N, 32-multiple K), so K1 reaches it
+    only by name.
+    """
+    if (x.dtype == torch.bfloat16 and aligned16(x) and aligned16(w)
+            and w.shape[-1] % 8 == 0):
+        return "wgmma"
+    return "simt"
 
 
 @functools.cache
@@ -31,7 +66,7 @@ def _lib() -> ctypes.CDLL:
     lib.chunked_gemm.restype = ctypes.c_int
     lib.chunked_gemm.argtypes = (
         [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 5
+        + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 6
         + [ctypes.c_void_p]
     )
@@ -45,7 +80,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x3: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+def _launch(x3: torch.Tensor, w3: torch.Tensor, route_name: str | None = None,
+            tile_n: int = 0) -> torch.Tensor:
+    """One launch over the stacked ranks, on ``route(x3, w3)`` unless a
+    route is named; ``tile_n`` (128, 192 or 256; 0 picks) is the wgmma
+    route's tile width."""
     if x3.dtype not in _DTYPES or w3.dtype != x3.dtype:
         raise TypeError(
             f"chunked_matmul takes float32 or bfloat16 operands of one "
@@ -58,10 +97,11 @@ def _launch(x3: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     g, m, k = x3.shape
     n = w3.shape[-1]
     out = torch.empty((g, m, n), dtype=x3.dtype, device=x3.device)
+    name = route(x3, w3) if route_name is None else route_name
     lib = _lib()
     err = lib.chunked_gemm(
         x3.data_ptr(), w3.data_ptr(), out.data_ptr(), _DTYPES[x3.dtype],
-        g, m, n, k,
+        ROUTES.index(name), tile_n, g, m, n, k,
         x3.stride(0), x3.stride(1),
         w3.stride(0), w3.stride(1),
         out.stride(0), out.stride(1),
@@ -69,6 +109,7 @@ def _launch(x3: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     )
     _build.check(lib, "chunked_gemm", err)
     chunked_matmul.launches += 1
+    chunked_matmul.routes[name] += 1
     return out
 
 
@@ -112,8 +153,10 @@ def chunked_matmul(
     return _launch(x, w)
 
 
-# Kernel launches since the last reset (CUDA path only).
+# Kernel launches since the last reset (CUDA path only), in all and by
+# route.
 chunked_matmul.launches = 0
+chunked_matmul.routes = dict.fromkeys(ROUTES, 0)
 
 
 def _launch_accumulate(c3, x3, w3) -> None:
@@ -182,4 +225,10 @@ def accumulate_matmul(
 # Kernel launches since the last reset (CUDA path only).
 accumulate_matmul.launches = 0
 
-__all__ = ["chunked_matmul", "accumulate_matmul"]
+__all__ = [
+    "ROUTES",
+    "aligned16",
+    "route",
+    "chunked_matmul",
+    "accumulate_matmul",
+]

@@ -6,45 +6,52 @@
 // K blocks and cast to x's dtype at the end.  On the FiCCO path it is the
 // step GEMM of ficco_uniform_fused_1d_dma: every logical rank multiplies
 // its gathered (g*m_c, K) step buffer by its own (K, n_local) weight
-// shard, and grid dimension z runs over the ranks, so one launch does all
-// ranks' step GEMMs.
+// shard, so one launch does all ranks' step GEMMs.
 //
 // K2 replaces repro/kernels/chunked_gemm.py::accumulate_matmul: C += x @ w,
 // the fp32 accumulator seeded from C and the sum stored back into C, cast
 // to C's dtype (the TPU kernel aliases C's input and output).  It is the
 // per-step GEMM of the uniform-fused-2D schedule, where C is the fp32
-// (g*m_s, n_local) accumulator and x, w are bf16 K-slice panels.  The same
-// two kernels serve both: K2 is K1 with a prologue that loads the C tile
-// into the accumulator where K1 zeroes it.
+// (g*m_s, n_local) accumulator and x, w are bf16 K-slice panels.
 //
 // What bounds them on an H100: at the path shape (4 ranks x 512 x 2048 x
 // 1408, bf16) a K1 launch does 11.8 GFLOP against 37 MB of compulsory
 // traffic, about 320 operations per byte, above the card's bf16 ridge
 // point (its tensor-core peak over its memory rate): the bound is the
-// tensor cores' bf16 rate.  A K2 launch of the 2D schedule (4 ranks x
-// 2048 x 512 x 1408, C fp32) does the same 11.8 GFLOP but reads and
-// writes the 92 MB fp32 accumulator, about 110 operations per byte:
-// bound by bytes.
+// tensor cores' bf16 rate, then the 185 MB its 176 tiles of 128 x 128
+// bring from L2 into the SMs (A 11 x 8.4 MB, W 4 x 23 MB).  A K2 launch of
+// the 2D schedule (4 ranks x 2048 x 512 x 1408, C fp32) does the same
+// 11.8 GFLOP but reads and writes the 92 MB fp32 accumulator, about 110
+// operations per byte: bound by bytes.
 //
-// What the design does about it, in two kernels of one shape each, both
-// one output tile of gemm_tile.cuh per block with grid dimension z over
-// the ranks: K is looped inside the block (it takes the place of the TPU
-// grid's sequential K dimension, so nothing is carried between blocks),
-// the running sum stays in fp32 registers, and the result is cast once.
-//  * tc (bf16 operands, 128-multiple N, 32-multiple K, 16-byte aligned
-//    rows): 128 x 128 tiles of WMMA tensor-core products, the next K
-//    slab's 16-byte loads in flight under the current products.
-//  * simt (f32, and any shape the tc tile does not take): 64 x 64 tiles
-//    on the CUDA cores in fp32, edges masked.  f32 stays off the tensor
-//    cores, whose fp32 input mode (TF32) keeps only 10 bits.
+// What the design does about it.  K is looped inside the block (it takes
+// the place of the TPU grid's sequential K dimension, so nothing is
+// carried between blocks), the running sum stays in fp32 registers, and
+// the result is cast once.  K1 takes the route its Python wrapper names,
+// and refuses (cudaErrorInvalidValue) a shape the route cannot take:
+//  * wgmma (bf16, every base 16-byte aligned, every stride a multiple of 8
+//    elements): gemm_wgmma.cuh's persistent main loop, TMA-fed through an
+//    mbarrier ring, over 3D tensor maps of x (K, M, g), w (N, K, g) and
+//    out (N, M, g).  Tiles past M, N or K are zero-filled on load
+//    and clipped on store.  Tiles are 128 rows by 128, 192 or 256 columns,
+//    the width that leaves the least work on the busiest SM
+//    (gemm_wgmma::pick_bn): the path shape's 176 tiles of 128 x 128 are 2
+//    rounds of 132 SMs, its 128 tiles of 128 x 192 one round.
+//  * wmma (bf16, 128-multiple N, 32-multiple K, 16-byte aligned rows):
+//    gemm_tile.cuh's tc_tile, one 128 x 128 WMMA tile per block.  It stays
+//    for K2, which always takes it when its shape allows, and for the
+//    timing of the old tile beside the new one.
+//  * simt (f32, and any shape neither tensor-core route takes): 64 x 64
+//    tiles on the CUDA cores in fp32, edges masked.  f32 stays off the
+//    tensor cores, whose fp32 input mode (TF32) keeps only 10 bits.
 // The Python wrappers keep the reference's contracts (K1's divisibility
 // ValueError; K2 launches for every shape, where the TPU kernel fell back
-// to plain jnp for shapes that do not tile).  wgmma with TMA-fed
-// shared-memory rings is the later, faster version.
+// to plain jnp for shapes that do not tile).
 //
 // Strides are in elements; the last dim of x, w and out is contiguous.
 
 #include "gemm_tile.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -91,31 +98,117 @@ __global__ void __launch_bounds__(tc::THREADS) chunked_gemm_tc_kernel(
                          w + r * w_rank, w_row, K);
 }
 
-// One launch of either kernel over g ranks.  TA: operand type; TO: output
-// (and, for ACC, accumulator) type.
-template <typename TA, typename TO, bool ACC>
-int launch(const void* x, const void* w, void* out, int g, int M, int N,
-           int K, long long x_rank, long long x_row, long long w_rank,
-           long long w_row, long long o_rank, long long o_row,
-           cudaStream_t s) {
-  if (g < 1 || M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
-  if (g > 65535) return cudaErrorInvalidConfiguration;
-  constexpr bool bf16_operands = sizeof(TA) == 2;
-  const bool tc_ok = bf16_operands &&
-                     tc_weight_ok(w, N, K, w_rank, w_row) && aligned16(x) &&
-                     x_rank % 8 == 0 && x_row % 8 == 0;
-  if (tc_ok) {
-    const int grid_y = (M + tc::BM - 1) / tc::BM;
-    if (grid_y > 65535) return cudaErrorInvalidConfiguration;
-    const dim3 grid(N / tc::BN, grid_y, g);
-    auto kernel = M % tc::BM ? chunked_gemm_tc_kernel<TO, ACC, true>
-                             : chunked_gemm_tc_kernel<TO, ACC, false>;
-    kernel<<<grid, tc::THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), static_cast<TO*>(out), M, K,
-        x_rank, x_row, w_rank, w_row, o_rank, o_row);
-    return cudaGetLastError();
+// The wgmma route's tiles: rank-major, then column block, then row block,
+// so tiles 2P and 2P + 1 (a cluster's pair) share a weight column block.
+// The row blocks are counted up to an even number; a last, empty one loads
+// zeros and stores nothing.
+template <int BN>
+struct ChunkedProblem {
+  CUtensorMap x_map;  // (K, M, g)
+  CUtensorMap w_map;  // (N, K, g)
+  CUtensorMap o_map;  // (N, M, g)
+  int k, mt, nt, tiles;  // mt even
+  __device__ __forceinline__ gemm_wgmma::Tile tile(int t) const {
+    const int r = t / (mt * nt), rem = t % (mt * nt);
+    const int m0 = (rem % mt) * gemm_wgmma::BM, n0 = (rem / mt) * BN;
+    return gemm_wgmma::Tile{&x_map, m0, r, r, n0, m0, r, -1};
   }
+};
+
+template <int BN>
+__global__ void __launch_bounds__(gemm_wgmma::THREADS, 1)
+    chunked_gemm_wgmma_kernel(const __grid_constant__ ChunkedProblem<BN> p) {
+  gemm_wgmma::run<BN>(p);
+}
+
+template <int BN>
+int launch_wgmma_bn(const void* x, const void* w, void* out, int g, int M,
+                    int N, int K, long long x_rank, long long x_row,
+                    long long w_rank, long long w_row, long long o_rank,
+                    long long o_row, cudaStream_t s) {
+  using namespace gemm_wgmma;
+  ChunkedProblem<BN> p;
+  const long long x_dims[3] = {K, M, g}, x_strides[2] = {x_row, x_rank};
+  const long long o_dims[3] = {N, M, g}, o_strides[2] = {o_row, o_rank};
+  const int x_box[3] = {BK, BM, 1}, o_box[3] = {BOX_N, 64, 1};
+  cudaError_t err = encode(&p.x_map, x, 3, x_dims, x_strides, x_box);
+  if (err == cudaSuccess)
+    err = encode_weight(&p.w_map, w, g, N, K, w_rank, w_row);
+  if (err == cudaSuccess)
+    err = encode(&p.o_map, out, 3, o_dims, o_strides, o_box);
+  if (err != cudaSuccess) return err;
+  p.k = K;
+  p.mt = (M + 2 * BM - 1) / (2 * BM) * 2;
+  p.nt = (N + BN - 1) / BN;
+  const long long tiles = static_cast<long long>(g) * p.mt * p.nt;
+  if (tiles > (1LL << 30)) return cudaErrorInvalidConfiguration;
+  p.tiles = static_cast<int>(tiles);
+  return launch<BN>(chunked_gemm_wgmma_kernel<BN>, p, s);
+}
+
+// The wgmma route; tile_n 0 takes gemm_wgmma::pick_bn's width.
+int launch_wgmma(const void* x, const void* w, void* out, int g, int M,
+                 int N, int K, long long x_rank, long long x_row,
+                 long long w_rank, long long w_row, long long o_rank,
+                 long long o_row, int tile_n, cudaStream_t s) {
+  const bool ok = aligned16(x) && aligned16(w) && aligned16(out) &&
+                  x_rank % 8 == 0 && x_row % 8 == 0 && w_rank % 8 == 0 &&
+                  w_row % 8 == 0 && o_rank % 8 == 0 && o_row % 8 == 0;
+  if (!ok) return cudaErrorInvalidValue;
+  if (tile_n == 0) {
+    int sms = 0;
+    const cudaError_t err = gemm_wgmma::sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    const long long mt =
+        (M + 2 * gemm_wgmma::BM - 1) / (2 * gemm_wgmma::BM) * 2;
+    const long long tiles = g * mt;
+    tile_n = gemm_wgmma::pick_bn(tiles * ((N + 127) / 128),
+                                 tiles * ((N + 191) / 192),
+                                 tiles * ((N + 255) / 256), sms);
+  }
+#define K1_WGMMA(BN)                                                        \
+  launch_wgmma_bn<BN>(x, w, out, g, M, N, K, x_rank, x_row, w_rank, w_row, \
+                      o_rank, o_row, s)
+  switch (tile_n) {
+    case 128: return K1_WGMMA(128);
+    case 192: return K1_WGMMA(192);
+    case 256: return K1_WGMMA(256);
+  }
+#undef K1_WGMMA
+  return cudaErrorInvalidValue;
+}
+
+bool tc_ok(const void* x, const void* w, int N, int K, long long x_rank,
+           long long x_row, long long w_rank, long long w_row) {
+  return tc_weight_ok(w, N, K, w_rank, w_row) && aligned16(x) &&
+         x_rank % 8 == 0 && x_row % 8 == 0;
+}
+
+// The tc tile over g ranks (the caller checked tc_ok).  TO: output (and,
+// for ACC, accumulator) type.
+template <typename TO, bool ACC>
+int launch_tc(const void* x, const void* w, void* out, int g, int M, int N,
+              int K, long long x_rank, long long x_row, long long w_rank,
+              long long w_row, long long o_rank, long long o_row,
+              cudaStream_t s) {
+  const int grid_y = (M + tc::BM - 1) / tc::BM;
+  if (grid_y > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid(N / tc::BN, grid_y, g);
+  auto kernel = M % tc::BM ? chunked_gemm_tc_kernel<TO, ACC, true>
+                           : chunked_gemm_tc_kernel<TO, ACC, false>;
+  kernel<<<grid, tc::THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<TO*>(out), M, K,
+      x_rank, x_row, w_rank, w_row, o_rank, o_row);
+  return cudaGetLastError();
+}
+
+// The simt tile over g ranks.  TA: operand type.
+template <typename TA, typename TO, bool ACC>
+int launch_simt(const void* x, const void* w, void* out, int g, int M,
+                int N, int K, long long x_rank, long long x_row,
+                long long w_rank, long long w_row, long long o_rank,
+                long long o_row, cudaStream_t s) {
   const int grid_y = (M + simt::BM - 1) / simt::BM;
   if (grid_y > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((N + simt::BN - 1) / simt::BN, grid_y, g);
@@ -126,25 +219,58 @@ int launch(const void* x, const void* w, void* out, int g, int M, int N,
   return cudaGetLastError();
 }
 
+// K2's launch: the tc tile where it takes the shape, else simt.
+template <typename TA, typename TO>
+int launch_accumulate(const void* x, const void* w, void* out, int g, int M,
+                      int N, int K, long long x_rank, long long x_row,
+                      long long w_rank, long long w_row, long long o_rank,
+                      long long o_row, cudaStream_t s) {
+  if (g < 1 || M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+  if (g > 65535) return cudaErrorInvalidConfiguration;
+  if (sizeof(TA) == 2 && tc_ok(x, w, N, K, x_rank, x_row, w_rank, w_row))
+    return launch_tc<TO, true>(x, w, out, g, M, N, K, x_rank, x_row, w_rank,
+                               w_row, o_rank, o_row, s);
+  return launch_simt<TA, TO, true>(x, w, out, g, M, N, K, x_rank, x_row,
+                                   w_rank, w_row, o_rank, o_row, s);
+}
+
 }  // namespace
 
 // K1: out = x @ w.  dtype: 0 = float32, 1 = bfloat16 (operands and out).
-// Returns a cudaError_t.
+// route: 0 = simt, 1 = wmma (the tc tile), 2 = wgmma; f32 takes only simt.
+// tile_n: the wgmma route's tile width, 128, 192 or 256, or 0 for
+// gemm_wgmma::pick_bn's.  Returns a cudaError_t; cudaErrorInvalidValue
+// when the route cannot take the operands.
 extern "C" int chunked_gemm(
-    const void* x, const void* w, void* out, int dtype,
+    const void* x, const void* w, void* out, int dtype, int route,
+    int tile_n,
     int g, int M, int N, int K,
     long long x_rank, long long x_row,
     long long w_rank, long long w_row,
     long long o_rank, long long o_row,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, float, false>(x, w, out, g, M, N, K, x_rank, x_row,
-                                       w_rank, w_row, o_rank, o_row, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(
-        x, w, out, g, M, N, K, x_rank, x_row, w_rank, w_row, o_rank, o_row,
-        s);
+  if (g < 1 || M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+  if (g > 65535) return cudaErrorInvalidConfiguration;
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0 && route == 0)
+    return launch_simt<float, float, false>(x, w, out, g, M, N, K, x_rank,
+                                            x_row, w_rank, w_row, o_rank,
+                                            o_row, s);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if (route == 0)
+    return launch_simt<bf16, bf16, false>(x, w, out, g, M, N, K, x_rank,
+                                          x_row, w_rank, w_row, o_rank,
+                                          o_row, s);
+  if (route == 1) {
+    if (!tc_ok(x, w, N, K, x_rank, x_row, w_rank, w_row))
+      return cudaErrorInvalidValue;
+    return launch_tc<bf16, false>(x, w, out, g, M, N, K, x_rank, x_row,
+                                  w_rank, w_row, o_rank, o_row, s);
+  }
+  if (route == 2)
+    return launch_wgmma(x, w, out, g, M, N, K, x_rank, x_row, w_rank, w_row,
+                        o_rank, o_row, tile_n, s);
   return cudaErrorInvalidValue;
 }
 
@@ -160,13 +286,14 @@ extern "C" int accumulate_gemm(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c_dtype == 0 && ab_dtype == 0)
-    return launch<float, float, true>(x, w, c, g, M, N, K, x_rank, x_row,
-                                      w_rank, w_row, c_rank, c_row, s);
+    return launch_accumulate<float, float>(x, w, c, g, M, N, K, x_rank,
+                                           x_row, w_rank, w_row, c_rank,
+                                           c_row, s);
   if (c_dtype == 1 && ab_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, true>(
+    return launch_accumulate<__nv_bfloat16, __nv_bfloat16>(
         x, w, c, g, M, N, K, x_rank, x_row, w_rank, w_row, c_rank, c_row, s);
   if (c_dtype == 0 && ab_dtype == 1)
-    return launch<__nv_bfloat16, float, true>(
+    return launch_accumulate<__nv_bfloat16, float>(
         x, w, c, g, M, N, K, x_rank, x_row, w_rank, w_row, c_rank, c_row, s);
   return cudaErrorInvalidValue;
 }

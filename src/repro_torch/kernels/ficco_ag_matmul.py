@@ -11,11 +11,20 @@ CPU tensor the wrapper takes the plain version
 The :class:`repro_torch.tune.KernelVariant` keeps the reference's meaning:
 ``chunks`` cuts each shard into pipeline steps (falling back to one chunk
 per rank when it does not divide the shard), ``dispatch_order`` orders the
-steps' blocks, and every variant gives the same bits.  ``buffer_depth`` is
+steps' tiles, and every variant gives the same bits.  ``buffer_depth`` is
 checked and clamped as the reference clamps it, but moves nothing here:
 on one card the ranks' shards are all in device memory, so there is no
 step-buffer ring to rotate.  The ring, with its push and release-flag
 protocol, comes with groups over several cards (ROADMAP A9).
+
+The wrapper picks the route by :func:`route`, from the operands alone and
+never from the variant, and the C side launches it or refuses the
+operands: ``"wgmma"`` (the persistent TMA + ``wgmma`` main loop of
+``csrc/gemm_wgmma.cuh``, one tensor map per rank's shard) for aligned bf16
+operands of a group of at most ``MAX_WGMMA_RANKS``; ``"wmma"`` (the older
+tile of ``csrc/gemm_tile.cuh``, rows read through a pointer table) for
+larger groups it takes; ``"simt"`` for f32 and the rest.
+``ficco_ag_matmul_fused.routes`` counts the launches of each route.
 """
 
 from __future__ import annotations
@@ -26,11 +35,34 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.chunked_gemm import ROUTES, aligned16
 from repro_torch.kernels.ref import ag_matmul_ref
 from repro_torch.tune.variants import default_variant
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_RANKS = 64  # MAX_RANKS in the CUDA source
+MAX_WGMMA_RANKS = 16  # MAX_WGMMA_RANKS in the CUDA source
+
+
+def route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The route a CUDA launch of ``ficco_ag_matmul_fused(x, w)`` takes,
+    for any variant.
+
+    ``"wgmma"`` for bf16 shards and weight that
+    :func:`~repro_torch.kernels.chunked_gemm.aligned16` takes, an output
+    width that keeps the output's rows 16-byte aligned, and a group of at
+    most ``MAX_WGMMA_RANKS``; ``"wmma"`` for other aligned bf16 operands
+    with a 128-multiple width and 32-multiple K; ``"simt"`` otherwise.
+    """
+    g, _, k = x.shape
+    n = w.shape[-1]
+    if x.dtype != torch.bfloat16 or not (aligned16(x) and aligned16(w)):
+        return "simt"
+    if g <= MAX_WGMMA_RANKS and n % 8 == 0:
+        return "wgmma"
+    if n % 128 == 0 and k % 32 == 0:
+        return "wmma"
+    return "simt"
 
 
 @functools.cache
@@ -39,14 +71,17 @@ def _lib() -> ctypes.CDLL:
     lib.ficco_ag_matmul.restype = ctypes.c_int
     lib.ficco_ag_matmul.argtypes = (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_int] * 7
+        + [ctypes.c_int] * 9
         + [ctypes.c_longlong] * 5
         + [ctypes.c_void_p]
     )
     return lib
 
 
-def _launch(x, w, out, steps: int, depth: int, reverse: bool) -> None:
+def _launch(x, w, out, steps: int, depth: int, reverse: bool,
+            route_name: str | None = None, tile_n: int = 0) -> None:
+    """One launch, on ``route(x, w)`` unless a route is named; ``tile_n``
+    (128, 192 or 256; 0 picks) is the wgmma route's tile width."""
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(
             f"ficco_ag_matmul_fused takes float32 or bfloat16 operands of "
@@ -64,15 +99,18 @@ def _launch(x, w, out, steps: int, depth: int, reverse: bool) -> None:
     table = (ctypes.c_void_p * g)(*[
         x.data_ptr() + r * x.stride(0) * esize for r in range(g)
     ])
+    name = route(x, w) if route_name is None else route_name
     lib = _lib()
     err = lib.ficco_ag_matmul(
         table, g, w.data_ptr(), out.data_ptr(), _DTYPES[x.dtype],
-        m_s, w.shape[-1], k, steps, depth, int(reverse),
+        ROUTES.index(name), tile_n, m_s, w.shape[-1], k, steps, depth,
+        int(reverse),
         x.stride(1), w.stride(0), w.stride(1), out.stride(0), out.stride(1),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, "ficco_ag_matmul", err)
     ficco_ag_matmul_fused.launches += 1
+    ficco_ag_matmul_fused.routes[name] += 1
 
 
 def _plan(variant, g: int, m_s: int) -> tuple[int, int, bool]:
@@ -118,7 +156,9 @@ def ficco_ag_matmul_fused(
     return out
 
 
-# Kernel launches since the last reset (CUDA path only).
+# Kernel launches since the last reset (CUDA path only), in all and by
+# route.
 ficco_ag_matmul_fused.launches = 0
+ficco_ag_matmul_fused.routes = dict.fromkeys(ROUTES, 0)
 
-__all__ = ["ficco_ag_matmul_fused"]
+__all__ = ["MAX_WGMMA_RANKS", "route", "ficco_ag_matmul_fused"]

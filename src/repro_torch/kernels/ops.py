@@ -4,7 +4,8 @@ The reference's wrappers pick Pallas's interpret mode off the TPU; here
 the kernels pick their route from the tensor's device (CUDA: the
 hand-written kernel; CPU: its plain version).  Each kernel counts its CUDA
 launches on the function that launches it; :func:`launch_counts` reads
-them and :func:`reset_launch_counts` sets them to 0.
+them, :func:`route_counts` reads K1's and K4's counts by route, and
+:func:`reset_launch_counts` sets them all to 0.
 """
 
 from __future__ import annotations
@@ -55,9 +56,18 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def route_counts() -> dict[str, dict[str, int]]:
+    """Launches by route of the kernels that choose one (K1, K4)."""
+    return {name: dict(fn.routes) for name, fn in KERNELS.items()
+            if hasattr(fn, "routes")}
+
+
 def reset_launch_counts() -> None:
+    """Sets every launch count, and every per-route count, to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes = dict.fromkeys(fn.routes, 0)
 
 
 __all__ = [
@@ -68,5 +78,6 @@ __all__ = [
     "ag_matmul_dma",
     "ag_matmul_fused",
     "launch_counts",
+    "route_counts",
     "reset_launch_counts",
 ]

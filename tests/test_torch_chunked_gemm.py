@@ -159,3 +159,81 @@ def test_accumulate_matmul_rejects_bad_shapes(shapes):
     c, x, w = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         accumulate_matmul(c, x, w)
+
+
+# ---------------------------------------------------------------------------
+# K1's route choice (the wrapper picks it; the C side launches it or
+# refuses).  Shapes only: the tensors stay on the CPU.
+# ---------------------------------------------------------------------------
+
+def _path_operands():
+    """The DMA path's step GEMM: 4 ranks x (512, 2048) @ a strided
+    (2048, 1408) column shard of the (2048, 5632) weight."""
+    from repro_torch.parallel.sharding import shard_columns
+
+    x = torch.zeros((4, 512, 2048), dtype=torch.bfloat16)
+    w = shard_columns(torch.zeros((2048, 5632), dtype=torch.bfloat16), 4)
+    return x, w
+
+
+def _route_case(name):
+    bf16, f32 = torch.bfloat16, torch.float32
+    if name == "path_shard_columns":
+        return _path_operands()
+    if name == "edge_2d":  # M, N not multiples of 128, K not of 64
+        return torch.zeros((200, 200), dtype=bf16), torch.zeros((200, 328),
+                                                                dtype=bf16)
+    if name == "f32":
+        x, w = _path_operands()
+        return x.float(), w.float()
+    if name == "f32_small":
+        return torch.zeros((128, 128), dtype=f32), torch.zeros((128, 128),
+                                                               dtype=f32)
+    if name == "unaligned_row_stride":  # K = 30: rows 60 bytes apart
+        return torch.zeros((64, 30), dtype=bf16), torch.zeros((30, 128),
+                                                              dtype=bf16)
+    if name == "unaligned_base":  # x starts 2 bytes into its storage
+        x = torch.zeros((64 * 64 + 1,), dtype=bf16)[1:].view(64, 64)
+        return x, torch.zeros((64, 128), dtype=bf16)
+    if name == "unaligned_width":  # N = 100 in a padded weight
+        return torch.zeros((64, 64), dtype=bf16), torch.zeros(
+            (64, 104), dtype=bf16)[:, :100]
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("path_shard_columns", "wgmma"),
+    ("edge_2d", "wgmma"),
+    ("f32", "simt"),
+    ("f32_small", "simt"),
+    # The wmma tile needs the same 16-byte alignment (and more), so an
+    # unaligned stride, base or width leaves both tensor-core routes.
+    ("unaligned_row_stride", "simt"),
+    ("unaligned_base", "simt"),
+    ("unaligned_width", "simt"),
+])
+def test_route_choice(name, want):
+    from repro_torch.kernels.chunked_gemm import route
+
+    x, w = _route_case(name)
+    assert route(x, w) == want
+
+
+def test_path_weight_strides_fit_tma():
+    """The shard_columns view's strides: 5632 elements per row (11 264 B)
+    and 1408 per rank (2816 B), both 16-byte multiples."""
+    from repro_torch.kernels.chunked_gemm import aligned16
+
+    _, w = _path_operands()
+    assert w.stride() == (1408, 5632, 1)
+    assert aligned16(w)
+
+
+def test_cpu_call_counts_no_route():
+    x, w = _path_operands()
+    x, w = x[:, :8, :64], w[:, :64, :8]  # a small slice, same strides
+    ops.reset_launch_counts()
+    chunked_matmul(x, w, block_m=8, block_n=8, block_k=64)
+    assert ops.launch_counts()["chunked_matmul"] == 0
+    assert all(v == 0 for by_route in ops.route_counts().values()
+               for v in by_route.values())

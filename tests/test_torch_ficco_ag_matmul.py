@@ -165,5 +165,61 @@ def test_ops_wrapper_plain_on_cpu_counts_no_launch():
     )
 
 
+# ---------------------------------------------------------------------------
+# K4's route choice: from the operands alone, never from the variant.
+# Shapes only: the tensors stay on the CPU.
+# ---------------------------------------------------------------------------
+
+def _route_operands(g, m_s, k, n_local, dtype=torch.bfloat16):
+    from repro_torch.parallel.sharding import shard_columns
+
+    return (torch.zeros((g, m_s, k), dtype=dtype),
+            shard_columns(torch.zeros((k, g * n_local), dtype=dtype), g))
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((4, 512, 2048, 1408), torch.bfloat16, "wgmma"),  # the path shape
+    ((4, 32, 256, 128), torch.bfloat16, "wgmma"),  # the reference's bf16
+    ((4, 200, 200, 136), torch.bfloat16, "wgmma"),  # edges of every tile
+    ((4, 64, 128, 128), torch.float32, "simt"),  # the reference's f32
+    ((16, 32, 128, 128), torch.bfloat16, "wgmma"),  # the cap
+    ((17, 34, 128, 128), torch.bfloat16, "wmma"),  # over the cap
+    ((4, 32, 30, 128), torch.bfloat16, "simt"),  # rows 60 bytes apart
+    ((17, 32, 30, 128), torch.bfloat16, "simt"),  # neither tile takes it
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_route_choice(shape, dtype, want):
+    from repro_torch.kernels.ficco_ag_matmul import route
+
+    assert route(*_route_operands(*shape, dtype=dtype)) == want
+
+
+def test_route_is_the_same_for_every_smoke_variant():
+    """chip_smoke.py's 8 variants (chunks 2/4, depth 2/3, forward/reverse)
+    plan differently at the path shape and take one route."""
+    from repro_torch.kernels.ficco_ag_matmul import route
+
+    x, w = _route_operands(G, 512, 2048, 1408)
+    base = default_variant("ficco_ag_matmul", group=G)
+    variants = [
+        dataclasses.replace(base, chunks=c, buffer_depth=d, dispatch_order=o)
+        for c in (2, 4) for d in (2, 3) for o in ("forward", "reverse")
+    ]
+    # Depth is clamped to the step count, so chunks 2 plans depth 2 twice.
+    assert {_plan(v, G, 512) for v in variants} == {
+        (2, 2, False), (2, 2, True), (4, 2, False), (4, 2, True),
+        (4, 3, False), (4, 3, True),
+    }
+    assert {route(x, w) for _ in variants} == {"wgmma"}
+
+
+def test_cpu_call_counts_no_route():
+    x, w = _stacked(*_inputs(32, 64, 32), "bfloat16")
+    ops.reset_launch_counts()
+    ficco_ag_matmul_fused(x, w)
+    assert ops.launch_counts()["ficco_ag_matmul_fused"] == 0
+    assert all(v == 0 for by_route in ops.route_counts().values()
+               for v in by_route.values())
+
+
 if __name__ == "__main__":
     _reference_main(sys.argv[1])
