@@ -53,8 +53,6 @@ PREFILL_BATCH, PREFILL_SEQ, GROUP = 4, 512, 4
 # D_MODEL) @ (D_MODEL, D_FF), column-sharded over GROUP ranks.
 D_MODEL, D_FF = 2048, 5632
 REPS = 20
-# The wgmma route's tile widths (gemm_wgmma.cuh picks one per shape).
-TILE_WIDTHS = (128, 192, 256)
 # The reference's tolerances (tests/test_kernels.py, tests/multidev_*.py).
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -270,15 +268,12 @@ def phase_kernels(device, timer):
         library_ms=timer(lambda: torch.matmul(x, w)),
     )
     wmma_ms = timer(lambda: chunked_gemm._launch(x, w, "wmma"))
-    widths = {n: timer(lambda n=n: chunked_gemm._launch(x, w, "wgmma", n))
-              for n in TILE_WIDTHS}
     print(f"[kernels] K1 path shape {GROUP}x{rows}x{d_model}x{d_ff // GROUP} "
           f"bf16: max_abs_err {k1_err:.3e} (wmma tile "
           f"{_max_err(old, want):.3e}), {k1['ms']:.4f} ms on wgmma (old "
-          f"wmma tile {wmma_ms:.4f} in this run; wgmma by tile width "
-          + ", ".join(f"128x{n} {t:.4f}" for n, t in widths.items())
-          + f") (plain {k1['plain_ms']:.4f}, torch.matmul "
-          f"{k1['library_ms']:.4f}, bound {k1_bound:.4f} {k1_by})")
+          f"wmma tile {wmma_ms:.4f} in this run) (plain "
+          f"{k1['plain_ms']:.4f}, torch.matmul {k1['library_ms']:.4f}, "
+          f"bound {k1_bound:.4f} {k1_by})")
 
     # K3 at the main path's chunk: 4 ranks x (m_c=128, K=2048) bf16.
     m_c = rows // GROUP
@@ -503,17 +498,12 @@ def phase_fused(device, timer):
     )
     wmma_ms = timer(lambda: fused_mod._launch(x, w, old, GROUP, 2, False,
                                               "wmma"))
-    widths = {n: timer(lambda n=n: fused_mod._launch(x, w, old, GROUP, 2,
-                                                     False, "wgmma", n))
-              for n in TILE_WIDTHS}
     composer = timer(lambda: ops.ag_matmul_dma(x, w, group=group))
     serial = timer(lambda: torch.matmul(all_gather(x, tiled=True), w))
     print(f"[kernels] K4 path shape {GROUP}x{m_s}x{D_MODEL}x{n_local} bf16: "
           f"max_abs_err {err:.3e} (wmma tile {_max_err(old, want):.3e}), "
           f"{rec['ms']:.4f} ms on wgmma (old wmma tile {wmma_ms:.4f} in this "
-          f"run; wgmma by tile width "
-          + ", ".join(f"128x{n} {t:.4f}" for n, t in widths.items())
-          + ") (plain "
+          f"run) (plain "
           f"{rec['plain_ms']:.4f}, torch.matmul {rec['library_ms']:.4f}, "
           f"bound {bound:.4f} {by}); K3+K1 composer {composer:.4f} ms, "
           f"all-gather + torch.matmul {serial:.4f} ms")

@@ -10,8 +10,8 @@ below, builds K1 and K4 from the copy and times them at the main path's
 shapes (K1: 4 ranks x (512 x 2048) @ (2048 x 1408), K4: 4 ranks of 512 x
 2048 shards and 2048 x 1408 weight shards, bf16), with the L2 flushed
 before each run (cold, as ``chip_smoke.py`` times them) and back to back
-(warm).  The ablated kernels compute wrong results on purpose; they are
-timed and nothing else.
+(warm).  The ablated kernels compute wrong results on purpose (the width
+ablations excepted); they are timed and nothing else.
 
   full          the kernel as committed
   no_products   the consumers wait for every stage and hand it back
@@ -22,10 +22,8 @@ timed and nothing else.
   no_cluster    launched without clusters: the same tiles in the same
                 order, the two blocks of a pair no longer scheduled
                 together
-  multicast     each block loads every other W box and TMA multicasts it
-                into both blocks of the cluster, whose consumers release
-                each stage on both blocks' barriers: a quarter fewer L2->SM
-                bytes at 128 x 128 tiles
+  width128      every tile 128 x 128, whatever pick_bn would choose
+  width192      every tile 128 x 192, whatever pick_bn would choose
 
 Then one ``torch.matmul`` call per kernel on the same inputs, timed the
 same ways, as the yardstick.  Prints one line per ablation and, last, one
@@ -45,6 +43,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 # (old, new) edits of gemm_wgmma.cuh; each old text must occur once.
+_PICK = "inline int pick_bn(long long rows, long long n, int sms) {\n"
 ABLATIONS = {
     "full": [],
     "no_products": [(
@@ -73,67 +72,8 @@ ABLATIONS = {
         "    fit[dev] = n;",
         "    fit[dev] = n / 2;",
     )],
-    "multicast": [(
-        "// A shared-memory matrix descriptor with the 128B swizzle",
-        "__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,\n"
-        "                                                    uint32_t cta) {\n"
-        "  asm volatile(\"{\\n.reg .b32 remote;\\n\"\n"
-        "               \"mapa.shared::cluster.u32 remote, %0, %1;\\n\"\n"
-        "               \"mbarrier.arrive.shared::cluster.b64 _, [remote];\\n\"\n"
-        "               \"}\\n\" ::\"r\"(bar), \"r\"(cta) : \"memory\");\n"
-        "}\n"
-        "__device__ __forceinline__ void cluster_sync() {\n"
-        "  asm volatile(\"barrier.cluster.arrive.release.aligned;\\n\"\n"
-        "               \"barrier.cluster.wait.acquire.aligned;\\n\" ::: "
-        "\"memory\");\n"
-        "}\n"
-        "__device__ __forceinline__ void tma_load_3d_both(\n"
-        "    uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,\n"
-        "    int c1, int c2) {\n"
-        "  const uint16_t both = 0x3;\n"
-        "  asm volatile(\n"
-        "      \"cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::\"\n"
-        "      \"complete_tx::bytes.multicast::cluster [%0], [%1, {%3, %4, \"\n"
-        "      \"%5}], [%2], %6;\\n\" ::\"r\"(dst),\n"
-        "      \"l\"(reinterpret_cast<uint64_t>(map)), \"r\"(bar), \"r\"(c0),\n"
-        "      \"r\"(c1), \"r\"(c2), \"h\"(both) : \"memory\");\n"
-        "}\n"
-        "// A shared-memory matrix descriptor with the 128B swizzle",
-    ), (
-        "      mbar_init(empty(s), CONSUMERS);",
-        "      mbar_init(empty(s), 2 * CONSUMERS);",
-    ), (
-        "  __syncthreads();\n\n  const int nk",
-        "  cluster_sync();\n\n  const int nk",
-    ), (
-        "          tma_load_3d(b_stage(s) + h * BOX_BYTES, &p.w_map, full(s),",
-        "          if (h % 2 == half)\n"
-        "          tma_load_3d_both(b_stage(s) + h * BOX_BYTES, &p.w_map, "
-        "full(s),",
-    ), (
-        "      if (kb > 0 && signals) mbar_arrive(empty(prev));",
-        "      if (kb > 0 && signals) {\n"
-        "        mbar_arrive_cluster(empty(prev), 0);\n"
-        "        mbar_arrive_cluster(empty(prev), 1);\n"
-        "      }",
-    ), (
-        "    if (signals) mbar_arrive(empty(prev));",
-        "    if (signals) {\n"
-        "      mbar_arrive_cluster(empty(prev), 0);\n"
-        "      mbar_arrive_cluster(empty(prev), 1);\n"
-        "    }",
-    ), (
-        "    }\n    return;\n  }\n\n  // Consumer warpgroups",
-        "    }\n"
-        "    for (int i = 0; i < C::STAGES; ++i) {\n"
-        "      mbar_wait(empty(s), phase ^ 1);\n"
-        "      if (++s == C::STAGES) {\n"
-        "        s = 0;\n"
-        "        phase ^= 1;\n"
-        "      }\n"
-        "    }\n"
-        "    return;\n  }\n\n  // Consumer warpgroups",
-    )],
+    "width128": [(_PICK, _PICK + "  return 128;\n")],
+    "width192": [(_PICK, _PICK + "  return 192;\n")],
 }
 
 

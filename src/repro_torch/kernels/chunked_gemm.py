@@ -66,7 +66,7 @@ def _lib() -> ctypes.CDLL:
     lib.chunked_gemm.restype = ctypes.c_int
     lib.chunked_gemm.argtypes = (
         [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 7
+        + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 6
         + [ctypes.c_void_p]
     )
@@ -80,11 +80,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x3: torch.Tensor, w3: torch.Tensor, route_name: str | None = None,
-            tile_n: int = 0) -> torch.Tensor:
+def _launch(x3: torch.Tensor, w3: torch.Tensor,
+            route_name: str | None = None) -> torch.Tensor:
     """One launch over the stacked ranks, on ``route(x3, w3)`` unless a
-    route is named; ``tile_n`` (128, 192 or 256; 0 picks) is the wgmma
-    route's tile width."""
+    route is named."""
     if x3.dtype not in _DTYPES or w3.dtype != x3.dtype:
         raise TypeError(
             f"chunked_matmul takes float32 or bfloat16 operands of one "
@@ -101,7 +100,7 @@ def _launch(x3: torch.Tensor, w3: torch.Tensor, route_name: str | None = None,
     lib = _lib()
     err = lib.chunked_gemm(
         x3.data_ptr(), w3.data_ptr(), out.data_ptr(), _DTYPES[x3.dtype],
-        ROUTES.index(name), tile_n, g, m, n, k,
+        ROUTES.index(name), g, m, n, k,
         x3.stride(0), x3.stride(1),
         w3.stride(0), w3.stride(1),
         out.stride(0), out.stride(1),

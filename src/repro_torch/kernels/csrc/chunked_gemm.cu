@@ -33,14 +33,14 @@
 //    elements): gemm_wgmma.cuh's persistent main loop, TMA-fed through an
 //    mbarrier ring, over 3D tensor maps of x (K, M, g), w (N, K, g) and
 //    out (N, M, g).  Tiles past M, N or K are zero-filled on load
-//    and clipped on store.  Tiles are 128 rows by 128, 192 or 256 columns,
-//    the width that leaves the least work on the busiest SM
+//    and clipped on store.  Tiles are 128 rows by 128 or 192 columns, the
+//    width that leaves the least work on the busiest SM
 //    (gemm_wgmma::pick_bn): the path shape's 176 tiles of 128 x 128 are 2
 //    rounds of 132 SMs, its 128 tiles of 128 x 192 one round.
 //  * wmma (bf16, 128-multiple N, 32-multiple K, 16-byte aligned rows):
 //    gemm_tile.cuh's tc_tile, one 128 x 128 WMMA tile per block.  It stays
-//    for K2, which always takes it when its shape allows, and for the
-//    timing of the old tile beside the new one.
+//    for K2, which always takes it when its shape allows; K1 reaches it
+//    only by name, to time the old tile beside the new one.
 //  * simt (f32, and any shape neither tensor-core route takes): 64 x 64
 //    tiles on the CUDA cores in fp32, edges masked.  f32 stays off the
 //    tensor cores, whose fp32 input mode (TF32) keeps only 10 bits.
@@ -146,36 +146,24 @@ int launch_wgmma_bn(const void* x, const void* w, void* out, int g, int M,
   return launch<BN>(chunked_gemm_wgmma_kernel<BN>, p, s);
 }
 
-// The wgmma route; tile_n 0 takes gemm_wgmma::pick_bn's width.
+// The wgmma route, at gemm_wgmma::pick_bn's tile width.
 int launch_wgmma(const void* x, const void* w, void* out, int g, int M,
                  int N, int K, long long x_rank, long long x_row,
                  long long w_rank, long long w_row, long long o_rank,
-                 long long o_row, int tile_n, cudaStream_t s) {
+                 long long o_row, cudaStream_t s) {
   const bool ok = aligned16(x) && aligned16(w) && aligned16(out) &&
                   x_rank % 8 == 0 && x_row % 8 == 0 && w_rank % 8 == 0 &&
                   w_row % 8 == 0 && o_rank % 8 == 0 && o_row % 8 == 0;
   if (!ok) return cudaErrorInvalidValue;
-  if (tile_n == 0) {
-    int sms = 0;
-    const cudaError_t err = gemm_wgmma::sm_count(&sms);
-    if (err != cudaSuccess) return err;
-    const long long mt =
-        (M + 2 * gemm_wgmma::BM - 1) / (2 * gemm_wgmma::BM) * 2;
-    const long long tiles = g * mt;
-    tile_n = gemm_wgmma::pick_bn(tiles * ((N + 127) / 128),
-                                 tiles * ((N + 191) / 192),
-                                 tiles * ((N + 255) / 256), sms);
-  }
-#define K1_WGMMA(BN)                                                        \
-  launch_wgmma_bn<BN>(x, w, out, g, M, N, K, x_rank, x_row, w_rank, w_row, \
-                      o_rank, o_row, s)
-  switch (tile_n) {
-    case 128: return K1_WGMMA(128);
-    case 192: return K1_WGMMA(192);
-    case 256: return K1_WGMMA(256);
-  }
-#undef K1_WGMMA
-  return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = gemm_wgmma::sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long mt = (M + 2 * gemm_wgmma::BM - 1) / (2 * gemm_wgmma::BM) * 2;
+  if (gemm_wgmma::pick_bn(g * mt, N, sms) == 192)
+    return launch_wgmma_bn<192>(x, w, out, g, M, N, K, x_rank, x_row, w_rank,
+                                w_row, o_rank, o_row, s);
+  return launch_wgmma_bn<128>(x, w, out, g, M, N, K, x_rank, x_row, w_rank,
+                              w_row, o_rank, o_row, s);
 }
 
 bool tc_ok(const void* x, const void* w, int N, int K, long long x_rank,
@@ -238,12 +226,10 @@ int launch_accumulate(const void* x, const void* w, void* out, int g, int M,
 
 // K1: out = x @ w.  dtype: 0 = float32, 1 = bfloat16 (operands and out).
 // route: 0 = simt, 1 = wmma (the tc tile), 2 = wgmma; f32 takes only simt.
-// tile_n: the wgmma route's tile width, 128, 192 or 256, or 0 for
-// gemm_wgmma::pick_bn's.  Returns a cudaError_t; cudaErrorInvalidValue
-// when the route cannot take the operands.
+// Returns a cudaError_t; cudaErrorInvalidValue when the route cannot take
+// the operands.
 extern "C" int chunked_gemm(
     const void* x, const void* w, void* out, int dtype, int route,
-    int tile_n,
     int g, int M, int N, int K,
     long long x_rank, long long x_row,
     long long w_rank, long long w_row,
@@ -270,7 +256,7 @@ extern "C" int chunked_gemm(
   }
   if (route == 2)
     return launch_wgmma(x, w, out, g, M, N, K, x_rank, x_row, w_rank, w_row,
-                        o_rank, o_row, tile_n, s);
+                        o_rank, o_row, s);
   return cudaErrorInvalidValue;
 }
 

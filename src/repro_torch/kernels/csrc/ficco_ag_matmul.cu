@@ -35,7 +35,7 @@
 //    same maps would point at peer-mapped shards), plus a 3D map of the
 //    weight and a 4D map of the output; g + 2 maps of 128 bytes in the
 //    kernel's parameters.  A tile is (rank r, source rank d, row block j
-//    of d's shard, column block), 128 rows by 128, 192 or 256 columns
+//    of d's shard, column block), 128 rows by 128 or 192 columns
 //    (gemm_wgmma::pick_bn; at the path shape 128, 704 tiles): output row
 //    d*m_s + j*128 + i is x[d, j*128 + i] @ w[r] whatever the chunking,
 //    and rows past the shard are zero-filled on load and clipped on store
@@ -197,37 +197,27 @@ int launch_wgmma_bn(const void* const* x, int g, const void* w, void* out,
   return launch<BN>(ag_matmul_wgmma_kernel<BN>, p, s);
 }
 
-// The wgmma route; tile_n 0 takes gemm_wgmma::pick_bn's width.
+// The wgmma route, at gemm_wgmma::pick_bn's tile width.
 int launch_wgmma(const void* const* x, int g, const void* w, void* out,
                  int m_s, int n, int k, int reverse, long long x_row,
                  long long w_rank, long long w_row, long long o_rank,
-                 long long o_row, int tile_n, cudaStream_t s) {
+                 long long o_row, cudaStream_t s) {
   bool ok = g <= MAX_WGMMA_RANKS && aligned16(w) && aligned16(out) &&
             x_row % 8 == 0 && w_rank % 8 == 0 && w_row % 8 == 0 &&
             o_rank % 8 == 0 && o_row % 8 == 0;
   for (int d = 0; ok && d < g; ++d) ok = aligned16(x[d]);
   if (!ok) return cudaErrorInvalidValue;
-  if (tile_n == 0) {
-    int sms = 0;
-    const cudaError_t err = gemm_wgmma::sm_count(&sms);
-    if (err != cudaSuccess) return err;
-    const long long tiles =
-        static_cast<long long>(g) * g *
-        ((m_s + 2 * gemm_wgmma::BM - 1) / (2 * gemm_wgmma::BM) * 2);
-    tile_n = gemm_wgmma::pick_bn(tiles * ((n + 127) / 128),
-                                 tiles * ((n + 191) / 192),
-                                 tiles * ((n + 255) / 256), sms);
-  }
-#define K4_WGMMA(BN)                                                     \
-  launch_wgmma_bn<BN>(x, g, w, out, m_s, n, k, reverse, x_row, w_rank, \
-                      w_row, o_rank, o_row, s)
-  switch (tile_n) {
-    case 128: return K4_WGMMA(128);
-    case 192: return K4_WGMMA(192);
-    case 256: return K4_WGMMA(256);
-  }
-#undef K4_WGMMA
-  return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = gemm_wgmma::sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long rows =
+      static_cast<long long>(g) * g *
+      ((m_s + 2 * gemm_wgmma::BM - 1) / (2 * gemm_wgmma::BM) * 2);
+  if (gemm_wgmma::pick_bn(rows, n, sms) == 192)
+    return launch_wgmma_bn<192>(x, g, w, out, m_s, n, k, reverse, x_row,
+                                w_rank, w_row, o_rank, o_row, s);
+  return launch_wgmma_bn<128>(x, g, w, out, m_s, n, k, reverse, x_row,
+                              w_rank, w_row, o_rank, o_row, s);
 }
 
 }  // namespace
@@ -239,12 +229,11 @@ int launch_wgmma(const void* const* x, int g, const void* w, void* out,
 // `reverse`.  depth: the TPU kernel's step-buffer slots (2..steps, or 2 for
 // a single step); checked, and unused on one card.  dtype: 0 = float32,
 // 1 = bfloat16.  route: 0 = simt, 1 = wmma (the tc tile), 2 = wgmma; f32
-// takes only simt.  tile_n: the wgmma route's tile width, 128, 192 or 256,
-// or 0 for gemm_wgmma::pick_bn's.  Returns a cudaError_t;
-// cudaErrorInvalidValue when the route cannot take the operands.
+// takes only simt.  Returns a cudaError_t; cudaErrorInvalidValue when the
+// route cannot take the operands.
 extern "C" int ficco_ag_matmul(
     const void* const* x, int g, const void* w, void* out, int dtype,
-    int route, int tile_n, int m_s, int n, int k, int steps, int depth,
+    int route, int m_s, int n, int k, int steps, int depth,
     int reverse,
     long long x_row, long long w_rank, long long w_row,
     long long o_rank, long long o_row, void* stream) {
@@ -256,7 +245,7 @@ extern "C" int ficco_ag_matmul(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 2)
     return launch_wgmma(x, g, w, out, m_s, n, k, reverse, x_row, w_rank,
-                        w_row, o_rank, o_row, tile_n, s);
+                        w_row, o_rank, o_row, s);
   RankTable table = {};
   bool x_aligned = x_row % 8 == 0;
   for (int d = 0; d < g; ++d) {

@@ -46,7 +46,7 @@
 //    each block loads its own boxes.
 //  * Persistent: as many clusters as fit on the card walk the tile pairs
 //    in the order the Problem defines, so one tile's epilogue runs while
-//    the producer already loads the next.  The tile width, 128, 192 or 256
+//    the producer already loads the next.  The tile width, 128 or 192
 //    (pick_bn), leaves the least work on the busiest SM: K1's path shape
 //    is one round of 128 x 192 tiles where 128 x 128 takes two.
 //  * Tiles that pass M, N or K are zero-filled by TMA on load and clipped
@@ -88,10 +88,10 @@ constexpr int BOX_N = 64;                  // W box: 64 columns x BK rows
 constexpr int BOX_BYTES = BOX_N * BK * 2;  // 8 KB
 constexpr int SMEM_MAX = 232448;           // what a block may use (227 KB)
 
-// The tile widths: 128, 192 or 256 columns, 64-column boxes of W each.
+// The tile widths: 128 or 192 columns, 64-column boxes of W each.
 template <int BN>
 struct Cfg {
-  static_assert(BN == 128 || BN == 192 || BN == 256, "BN: 128, 192, 256");
+  static_assert(BN == 128 || BN == 192, "BN: 128 or 192");
   static constexpr int STAGE_BYTES = A_BYTES + BN * BK * 2;
   // The epilogue's bf16 tile, BN / 64 boxes of 64 columns per warpgroup.
   static constexpr int OUT_BYTES = BM * BN * 2;
@@ -105,17 +105,15 @@ struct Cfg {
   static_assert(STAGES >= 3 && SMEM <= SMEM_MAX, "shared memory");
 };
 
-// The tile width for a GEMM of tiles(BN) tiles on `sms` SMs: the least
-// work on the busiest SM, rounds of the SMs times the tile width; the
-// narrower width on a tie (more stages in the ring, fewer registers).
-inline int pick_bn(long long t128, long long t192, long long t256, int sms) {
-  const long long widths[3] = {128, 192, 256}, tiles[3] = {t128, t192, t256};
-  int best = 0;
-  for (int i = 1; i < 3; ++i)
-    if ((tiles[i] + sms - 1) / sms * widths[i] <
-        (tiles[best] + sms - 1) / sms * widths[best])
-      best = i;
-  return static_cast<int>(widths[best]);
+// The tile width for a GEMM of `rows` row blocks times N columns on `sms`
+// SMs: the one that leaves the least work on the busiest SM (rounds of
+// the SMs times the tile width); 128 on a tie (more stages in the ring,
+// fewer registers).
+inline int pick_bn(long long rows, long long n, int sms) {
+  const long long t128 = rows * ((n + 127) / 128);
+  const long long t192 = rows * ((n + 191) / 192);
+  return (t192 + sms - 1) / sms * 192 < (t128 + sms - 1) / sms * 128 ? 192
+                                                                    : 128;
 }
 
 // One output tile, as the Problem places it.  The output map `o_map` is
@@ -352,75 +350,13 @@ __device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t a,
-                                                uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87,"
-      " %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103,"
-      " %104, %105, %106, %107, %108, %109, %110, %111,"
-      " %112, %113, %114, %115, %116, %117, %118, %119,"
-      " %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
 template <int BN>
 __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b,
                                     int scale_d) {
   if constexpr (BN == 128)
     wgmma_m64n128k16(d, a, b, scale_d);
-  else if constexpr (BN == 192)
-    wgmma_m64n192k16(d, a, b, scale_d);
   else
-    wgmma_m64n256k16(d, a, b, scale_d);
+    wgmma_m64n192k16(d, a, b, scale_d);
 }
 
 // ---------------------------------------------------------------------------

@@ -71,7 +71,7 @@ def _lib() -> ctypes.CDLL:
     lib.ficco_ag_matmul.restype = ctypes.c_int
     lib.ficco_ag_matmul.argtypes = (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_int] * 9
+        + [ctypes.c_int] * 8
         + [ctypes.c_longlong] * 5
         + [ctypes.c_void_p]
     )
@@ -79,9 +79,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(x, w, out, steps: int, depth: int, reverse: bool,
-            route_name: str | None = None, tile_n: int = 0) -> None:
-    """One launch, on ``route(x, w)`` unless a route is named; ``tile_n``
-    (128, 192 or 256; 0 picks) is the wgmma route's tile width."""
+            route_name: str | None = None) -> None:
+    """One launch, on ``route(x, w)`` unless a route is named."""
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(
             f"ficco_ag_matmul_fused takes float32 or bfloat16 operands of "
@@ -103,7 +102,7 @@ def _launch(x, w, out, steps: int, depth: int, reverse: bool,
     lib = _lib()
     err = lib.ficco_ag_matmul(
         table, g, w.data_ptr(), out.data_ptr(), _DTYPES[x.dtype],
-        ROUTES.index(name), tile_n, m_s, w.shape[-1], k, steps, depth,
+        ROUTES.index(name), m_s, w.shape[-1], k, steps, depth,
         int(reverse),
         x.stride(1), w.stride(0), w.stride(1), out.stride(0), out.stride(1),
         torch.cuda.current_stream(x.device).cuda_stream,
