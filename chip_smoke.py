@@ -8,10 +8,12 @@ Phases, each of which exits non-zero on failure:
      source, in parallel) and print the build time;
   2. every kernel (K1-K4) against its plain PyTorch version on the card, at
      the reference's test shapes, at the shapes of the main path and, for
-     K1 and K4 on the wgmma route, at edge shapes, with CUDA-event timings
-     beside the plain version's, one PyTorch call's and, for K1 and K4, the
-     older WMMA tile's; K4's variants bit for bit against each other, and
-     the route each launch took;
+     K1, K2 and K4 on the wgmma route, at edge shapes, with CUDA-event
+     timings beside the plain version's and one PyTorch call's; K3 on both
+     its routes (one 2D copy per receiver, one copy per pair), bit for bit,
+     timed by copy-stream count, with the host wall per call and a trace
+     that shows its work as copies and no kernels; K4's variants bit for
+     bit against each other, and the route each launch took;
   3. the six FiCCO schedules through ``ficco_linear`` at the main path's
      projection shape, in bf16 and f32, against ``x_full @ w``, and what
      ``auto`` resolves to on the H100 machine model;
@@ -19,10 +21,10 @@ Phases, each of which exits non-zero on failure:
      tokens) through ``make_prefill`` on a group of 4 logical ranks, once
      with the DMA-backend uniform-fused-1D TP MLP (K1 + K3) and once with
      the collective-backend uniform-fused-2D schedule (K2), each held
-     against the dense forward, with the kernels' launch counts (and K1's
-     and K4's by route: every one on wgmma) read around each; then the
-     fused AG->GEMM (K4) over the same model's 44 up/gate projections
-     through ``ops.ag_matmul_fused``, counted the same way;
+     against the dense forward, with the kernels' launch counts and routes
+     (K1 and K2 on wgmma, K3 on strided) read around each; then the fused
+     AG->GEMM (K4) over the same model's 44 up/gate projections through
+     ``ops.ag_matmul_fused``, counted the same way (every one on wgmma);
   5. serving: ``DecodeEngine`` answers 4 requests on the same weights;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
@@ -182,12 +184,9 @@ def phase_kernels(device, timer):
     """Each kernel vs its plain version; returns the kernels' records."""
     import torch
 
-    from repro_torch.kernels import chunked_gemm, ops, ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.chunked_gemm import chunked_matmul
-    from repro_torch.kernels.dma_exchange import (
-        a2a_chunk_exchange,
-        ficco_uniform_fused_1d_dma,
-    )
+    from repro_torch.kernels.dma_exchange import ficco_uniform_fused_1d_dma
     from repro_torch.parallel.sharding import TPGroup, shard_columns
     from repro_torch.tune.variants import KernelVariant
 
@@ -246,13 +245,11 @@ def phase_kernels(device, timer):
     ops.reset_launch_counts()
     got = chunked_matmul(x, w, block_k=d_model)
     _expect_routes("K1 at the path shape", chunked_matmul, wgmma=1)
-    old = chunked_gemm._launch(x, w, "wmma")  # the PR-12 tile, by name
     torch.cuda.synchronize()
     want = ref.matmul_ref(x, w)
     # bf16 output: both sum in fp32, in different orders, so an element
     # may round to the neighbouring bf16 value (reference's bf16 tol).
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
-    torch.testing.assert_close(old, want, rtol=2e-2, atol=2e-2)
     k1_err = _max_err(got, want)
     out = torch.empty_like(got)
     k1_flops = 2 * GROUP * rows * d_model * (d_ff // GROUP)
@@ -267,46 +264,12 @@ def phase_kernels(device, timer):
         bound_ms=k1_bound, bound_by=k1_by,
         library_ms=timer(lambda: torch.matmul(x, w)),
     )
-    wmma_ms = timer(lambda: chunked_gemm._launch(x, w, "wmma"))
     print(f"[kernels] K1 path shape {GROUP}x{rows}x{d_model}x{d_ff // GROUP} "
-          f"bf16: max_abs_err {k1_err:.3e} (wmma tile "
-          f"{_max_err(old, want):.3e}), {k1['ms']:.4f} ms on wgmma (old "
-          f"wmma tile {wmma_ms:.4f} in this run) (plain "
-          f"{k1['plain_ms']:.4f}, torch.matmul {k1['library_ms']:.4f}, "
-          f"bound {k1_bound:.4f} {k1_by})")
+          f"bf16: max_abs_err {k1_err:.3e}, {k1['ms']:.4f} ms on wgmma "
+          f"(plain {k1['plain_ms']:.4f}, torch.matmul "
+          f"{k1['library_ms']:.4f}, bound {k1_bound:.4f} {k1_by})")
 
-    # K3 at the main path's chunk: 4 ranks x (m_c=128, K=2048) bf16.
-    m_c = rows // GROUP
-    chunks = randn(GROUP, m_c, d_model, dtype=torch.bfloat16)
-    want = ref.a2a_chunk_exchange_ref(chunks)
-    k3_err = 0.0
-    for reverse in (False, True):
-        got = a2a_chunk_exchange(chunks, reverse=reverse)
-        torch.cuda.synchronize()
-        k3_err = max(k3_err, _max_err(got, want))
-        if not torch.equal(got, want):
-            raise AssertionError(f"K3 (reverse={reverse}) is not bit-equal "
-                                 "to a2a_chunk_exchange_ref")
-    buf = torch.empty_like(want)
-    k3_bound, k3_by = _bound(0, _nbytes(chunks, buf), chunks.dtype)
-    k3 = dict(
-        name="a2a_chunk_exchange", route="cuda",
-        source="src/repro_torch/kernels/csrc/dma_exchange.cu",
-        replaces="src/repro/kernels/dma_exchange.py:91",
-        max_abs_err=k3_err,
-        ms=timer(lambda: a2a_chunk_exchange(chunks, out=buf)),
-        plain_ms=timer(lambda: ref.a2a_chunk_exchange_ref(chunks, out=buf)),
-        bound_ms=k3_bound, bound_by=k3_by,
-        library_ms=timer(
-            lambda: buf.copy_(chunks.unsqueeze(0).expand_as(buf))
-        ),
-    )
-    k3_wall = wall_ms(lambda: a2a_chunk_exchange(chunks, out=buf), REPS)
-    print(f"[kernels] K3 {GROUP}x{GROUP} copies of {m_c}x{d_model} bf16, "
-          f"forward and reverse bit-equal; {k3['ms']:.4f} ms on the device "
-          f"({k3_wall:.4f} ms host wall per call) (plain "
-          f"{k3['plain_ms']:.4f}, broadcast copy_ {k3['library_ms']:.4f}, "
-          f"bound {k3_bound:.4f} {k3_by})")
+    k3 = phase_exchange(device, timer)
 
     # The composer at the main path's per-rank shard (m_s = 512 rows).
     group = TPGroup(GROUP, device)
@@ -316,8 +279,10 @@ def phase_kernels(device, timer):
         kernel="dma_exchange", chunks=GROUP, block_m=128, block_n=128,
         block_k=128, dispatch_order="reverse",
     )
-    rev = ficco_uniform_fused_1d_dma(xs, w, variant=rev_variant,
-                                     copy_stream=group.copy_stream)
+    rev = ficco_uniform_fused_1d_dma(
+        xs, w, variant=rev_variant, copy_stream=group.copy_stream,
+        side_streams=group.copy_streams[1:],
+    )
     oracle = ref.ag_matmul_ref(xs, w)
     torch.cuda.synchronize()
     if not torch.equal(fwd, rev):
@@ -341,12 +306,120 @@ def phase_kernels(device, timer):
     return [k1, k3]
 
 
+def phase_exchange(device, timer):
+    """K3 on both routes against its plain version, bit for bit; its time
+    by copy-stream count; a trace of its work.  Returns its record."""
+    import torch
+
+    from repro_torch.kernels import dma_exchange, ops, ref
+    from repro_torch.kernels.dma_exchange import a2a_chunk_exchange
+    from repro_torch.parallel.sharding import COPY_STREAMS, TPGroup
+
+    randn = _randn_fn(device, 1)
+    k = a2a_chunk_exchange
+    streams = TPGroup(GROUP, device).copy_streams[1:]
+    m_c = PREFILL_BATCH * PREFILL_SEQ // GROUP // GROUP  # m_s / steps
+
+    def operands(m, width, dtype):
+        # Chunk 1 of the composer's x.reshape(g, steps, m_c, K), a step
+        # buffer, and the same as one tensor per rank (the pairs route).
+        x = randn(GROUP, GROUP * m, width, dtype=dtype)
+        chunks = x.reshape(GROUP, GROUP, m, width)[:, 1]
+        buf = torch.empty((GROUP, GROUP, m, width), dtype=dtype,
+                          device=device)
+        return (chunks, buf, [c.clone() for c in chunks],
+                [torch.empty_like(b) for b in buf])
+
+    # At the path's chunk (m_c x K bf16) and an odd f32 shape, both routes,
+    # forward and reverse, over the group's copy streams.
+    ops.reset_launch_counts()
+    shapes = [(m_c, D_MODEL, torch.bfloat16), (37, 129, torch.float32)]
+    k3_err = 0.0
+    for m, width, dtype in shapes:
+        chunks, buf, chunk_list, buf_list = operands(m, width, dtype)
+        want = ref.a2a_chunk_exchange_ref(chunks)
+        for reverse in (False, True):
+            for route, got in [
+                ("strided", lambda: k(chunks, reverse=reverse, out=buf,
+                                      streams=streams)),
+                ("pairs", lambda: torch.stack(k(chunk_list, reverse=reverse,
+                                                out=buf_list,
+                                                streams=streams))),
+            ]:
+                buf.fill_(float("nan"))
+                for b in buf_list:
+                    b.fill_(float("nan"))
+                out = got()
+                _sync()
+                k3_err = max(k3_err, _max_err(out, want))
+                if not torch.equal(out, want):
+                    raise AssertionError(
+                        f"K3 {route} (reverse={reverse}) at {GROUP}x{m}x"
+                        f"{width} {dtype} is not bit-equal to "
+                        "a2a_chunk_exchange_ref")
+    n_checks = len(shapes) * 2
+    _expect_routes("K3 checks", k, strided=n_checks, pairs=n_checks)
+    engines = dma_exchange.copy_engines()
+    print(f"[kernels] K3 a2a_chunk_exchange bit-equal to its plain version "
+          f"on both routes (strided, pairs), forward and reverse, at "
+          f"{GROUP}x{m_c}x{D_MODEL} bf16 and {GROUP}x37x129 f32, over "
+          f"{1 + len(streams)} copy streams; the card has {engines} copy "
+          "engines (cudaDevAttrAsyncEngineCount)")
+
+    # Time at the path's chunk: the strided route by copy-stream count,
+    # the pairs route at the group's, and the host wall per call of both.
+    chunks, buf, chunk_list, buf_list = operands(m_c, D_MODEL, torch.bfloat16)
+    by_streams = {}
+    for n in range(1, GROUP + 1):
+        side = TPGroup(GROUP, device, copy_streams=n).copy_streams[1:]
+        by_streams[n] = timer(lambda: k(chunks, out=buf, streams=side))
+    pairs_ms = timer(lambda: k(chunk_list, out=buf_list, streams=streams))
+    strided_wall = wall_ms(lambda: k(chunks, out=buf, streams=streams), REPS)
+    pairs_wall = wall_ms(lambda: k(chunk_list, out=buf_list,
+                                   streams=streams), REPS)
+    bound, by = _bound(0, _nbytes(chunks, buf), chunks.dtype)
+    rec = dict(
+        name="a2a_chunk_exchange", route="cuda",
+        source="src/repro_torch/kernels/csrc/dma_exchange.cu",
+        replaces="src/repro/kernels/dma_exchange.py:91",
+        max_abs_err=k3_err,
+        ms=by_streams[1 + len(streams)],
+        plain_ms=timer(lambda: ref.a2a_chunk_exchange_ref(chunks, out=buf)),
+        bound_ms=bound, bound_by=by,
+        library_ms=timer(
+            lambda: buf.copy_(chunks.unsqueeze(0).expand_as(buf))
+        ),
+    )
+    print(f"[kernels] K3 path chunk {GROUP}x{m_c}x{D_MODEL} bf16: strided "
+          f"route (one 2D copy per receiver) "
+          + ", ".join(f"{v:.4f} ms on {n} stream{'s' * (n > 1)}"
+                      for n, v in by_streams.items())
+          + f" (the group's {1 + len(streams)}, COPY_STREAMS "
+          f"{COPY_STREAMS}); pairs route ({GROUP * GROUP} copies) "
+          f"{pairs_ms:.4f} ms; host wall per call strided "
+          f"{strided_wall:.4f} ms, pairs {pairs_wall:.4f} ms (plain "
+          f"{rec['plain_ms']:.4f}, broadcast copy_ {rec['library_ms']:.4f}, "
+          f"bound {bound:.4f} {by})")
+
+    calls = 8
+    stats = phase_trace(
+        f"{calls} K3 calls (strided)",
+        lambda: [k(chunks, out=buf, streams=streams) for _ in range(calls)],
+    )
+    if stats["copies"] != calls * GROUP or stats["kernels"]:
+        raise AssertionError(
+            f"K3 trace: {stats['copies']} memcpy events and "
+            f"{stats['kernels']} kernels for {calls} calls; expected "
+            f"{calls * GROUP} copies (one per receiver) and no kernel")
+    return rec
+
+
 def phase_accumulate(device, timer):
     """K2 vs its plain version at the reference's shapes and the 2D
     schedule's step; returns its record."""
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.chunked_gemm import accumulate_matmul
     from repro_torch.parallel.sharding import shard_columns
 
@@ -365,19 +438,34 @@ def phase_accumulate(device, timer):
         return _max_err(got, want)
 
     # tests/test_kernels.py's shapes and tolerances (1e-4 for a K-blocked
-    # f32 GEMM, 2e-2 bf16), one shape no tile divides, one whose rows the
-    # tensor-core tile masks, and the 2D schedule's mix of an fp32 C with
-    # bf16 operands.
-    for m, n, k in [(128, 128, 128), (256, 128, 384), (384, 256, 128),
-                    (128, 384, 256), (100, 60, 30), (192, 128, 64)]:
+    # f32 GEMM, 2e-2 bf16), one shape no tile divides and one of two row
+    # blocks, in f32 and bf16 (simt) and as the 2D schedule's mix of an
+    # fp32 C with bf16 operands (wgmma, but for 100x60x30's 60-byte rows).
+    shapes = [(128, 128, 128), (256, 128, 384), (384, 256, 128),
+              (128, 384, 256), (100, 60, 30), (192, 128, 64)]
+    ops.reset_launch_counts()
+    for m, n, k in shapes:
         for dtype, tol in [(f32, 1e-4), (bf16, 2e-2)]:
             check(randn(m, n, dtype=dtype), randn(m, k, dtype=dtype),
                   randn(k, n, dtype=dtype), tol, f"{m}x{n}x{k} {dtype}")
         check(randn(m, n, dtype=f32), randn(m, k, dtype=bf16),
               randn(k, n, dtype=bf16), 1e-4, f"{m}x{n}x{k} mixed")
+    _expect_routes("K2 at the test_kernels shapes", accumulate_matmul,
+                   simt=2 * len(shapes) + 1, wgmma=len(shapes) - 1)
+    # The wgmma route at ragged aligned shapes: M, N and K not multiples
+    # of the 128 x 128 x 64 tile, K under 64, and more tiles than SMs.
+    edges = [(1, 200, 200, 72), (1, 72, 136, 24), (GROUP, 1000, 1000, 1000)]
+    for g, m, n, k in edges:
+        check(randn(g, m, n, dtype=f32), randn(g, m, k, dtype=bf16),
+              randn(g, k, n, dtype=bf16), 1e-4, f"{g}x{m}x{n}x{k} mixed")
+    _expect_routes("K2 at the edge shapes", accumulate_matmul,
+                   wgmma=len(edges))
     print("[kernels] K2 accumulate_matmul matches accumulate_matmul_ref in "
           "place at the 4 test_kernels shapes, 100x60x30 and 192x128x64, "
-          "f32 (1e-4), bf16 (2e-2) and f32 C with bf16 operands (1e-4)")
+          "f32 (1e-4) and bf16 (2e-2) on simt, f32 C with bf16 operands "
+          "(1e-4) on wgmma (100x60x30 on simt); on wgmma at "
+          + ", ".join(f"{g}x{m}x{n}x{k}" for g, m, n, k in edges)
+          + " (1e-4)")
 
     # The 2D schedule's step at the main path: C (4 ranks x 2048 x 1408)
     # fp32 += panel (2048 x 512) bf16 @ a K-slice of the strided weight
@@ -390,6 +478,7 @@ def phase_accumulate(device, timer):
         randn(D_MODEL, D_FF, dtype=bf16, scale=D_MODEL ** -0.5), GROUP
     )[:, k_c:2 * k_c]
     err = check(c, panel, w, 1e-4, "path shape")
+    _expect_routes("K2 at the path shape", accumulate_matmul, wgmma=1)
     flops = 2 * GROUP * rows * k_c * n_local
     bound, by = _bound(flops, _nbytes(c, c, panel, w), bf16)
     # The fastest single PyTorch call for C + x @ w with an fp32 sum:
@@ -405,7 +494,8 @@ def phase_accumulate(device, timer):
         bound_ms=bound, bound_by=by, library_ms=library,
     )
     print(f"[kernels] K2 path shape {GROUP}x{rows}x{k_c}x{n_local}, C f32, "
-          f"bf16 operands: max_abs_err {err:.3e}, {rec['ms']:.4f} ms (plain "
+          f"bf16 operands: max_abs_err {err:.3e}, {rec['ms']:.4f} ms on wgmma "
+          f"(plain "
           f"{rec['plain_ms']:.4f}, torch.baddbmm(out_dtype=float32) "
           f"{library}, bound {bound:.4f} {by})")
     return rec
@@ -416,7 +506,6 @@ def phase_fused(device, timer):
     the main path's; its variants bit for bit; returns its record."""
     import torch
 
-    from repro_torch.kernels import ficco_ag_matmul as fused_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ficco_ag_matmul import ficco_ag_matmul_fused
     from repro_torch.parallel.collectives import all_gather
@@ -459,11 +548,8 @@ def phase_fused(device, timer):
     )
     got = ficco_ag_matmul_fused(x, w)
     want = ref.ag_matmul_ref(x, w)
-    old = torch.empty_like(got)
-    fused_mod._launch(x, w, old, GROUP, 2, False, "wmma")  # the PR-12 tile
     _sync()
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
-    torch.testing.assert_close(old, want, rtol=2e-2, atol=2e-2)
     err = _max_err(got, want)
     base = default_variant("ficco_ag_matmul", group=GROUP)
     variants = [
@@ -496,14 +582,10 @@ def phase_fused(device, timer):
         # against every rank's weight shard.
         library_ms=timer(lambda: torch.matmul(x.view(-1, D_MODEL), w)),
     )
-    wmma_ms = timer(lambda: fused_mod._launch(x, w, old, GROUP, 2, False,
-                                              "wmma"))
     composer = timer(lambda: ops.ag_matmul_dma(x, w, group=group))
     serial = timer(lambda: torch.matmul(all_gather(x, tiled=True), w))
     print(f"[kernels] K4 path shape {GROUP}x{m_s}x{D_MODEL}x{n_local} bf16: "
-          f"max_abs_err {err:.3e} (wmma tile {_max_err(old, want):.3e}), "
-          f"{rec['ms']:.4f} ms on wgmma (old wmma tile {wmma_ms:.4f} in this "
-          f"run) (plain "
+          f"max_abs_err {err:.3e}, {rec['ms']:.4f} ms on wgmma (plain "
           f"{rec['plain_ms']:.4f}, torch.matmul {rec['library_ms']:.4f}, "
           f"bound {bound:.4f} {by}); K3+K1 composer {composer:.4f} ms, "
           f"all-gather + torch.matmul {serial:.4f} ms")
@@ -563,10 +645,16 @@ def phase_schedules(device, timer):
           f"{score:.3f}; above {DEFAULT_SERIAL_GATE} stays serial)")
 
 
+# The route every main-path launch of each kernel must take.
+PATH_ROUTES = {"chunked_matmul": "wgmma", "accumulate_matmul": "wgmma",
+               "a2a_chunk_exchange": "strided",
+               "ficco_ag_matmul_fused": "wgmma"}
+
+
 def phase_prefill(device):
     """Full-width TinyLlama-1.1B prefill on the DMA path and on the 2D
     schedule; launch counts around each.  Returns the counts of the kernels
-    each path runs."""
+    each path runs, and their counts by route."""
     import torch
 
     from repro_torch.configs import get_config
@@ -615,7 +703,7 @@ def phase_prefill(device):
         dense = prefill(state, batch)  # no group: the dense projections
         _sync()
     scale = dense.float().abs().max().item()
-    launches = {}
+    launches, by_route = {}, {}
     for label, (run, expected) in paths.items():
         with torch.no_grad():
             ops.reset_launch_counts()
@@ -625,10 +713,12 @@ def phase_prefill(device):
             counts = ops.launch_counts()
             routes = ops.route_counts()
         want = {name: expected.get(name, 0) for name in counts}
-        # Every K1 launch of the path on the wgmma route.
-        want_routes = {name: {r: expected.get(name, 0) if r == "wgmma" else 0
-                              for r in by_route}
-                       for name, by_route in routes.items()}
+        # Every launch of the path on its kernel's PATH_ROUTES route.
+        want_routes = {
+            name: {r: expected.get(name, 0) if r == PATH_ROUTES[name] else 0
+                   for r in per_route}
+            for name, per_route in routes.items()
+        }
         print(f"[prefill] {label}: launches in one prefill {counts} "
               f"(expected {want}: {cfg.num_layers} layers x 2 projections "
               f"x {GROUP} steps); by route {routes}")
@@ -637,6 +727,7 @@ def phase_prefill(device):
                                  f"{routes}, expected {want} by route "
                                  f"{want_routes}")
         launches.update({name: counts[name] for name in expected})
+        by_route.update({name: routes[name] for name in expected})
         want_shape = (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size)
         if (tuple(logits.shape) != want_shape
                 or not torch.isfinite(logits).all()):
@@ -672,9 +763,15 @@ def phase_prefill(device):
             ms = wall_ms(fn)
             print(f"[prefill] {PREFILL_BATCH}x{PREFILL_SEQ} tokens, {name}: "
                   f"{ms:.2f} ms wall ({tokens_n / ms * 1e3:.0f} tok/s)")
-        phase_trace("DMA-path prefill", in_group(prefill))
+        stats = phase_trace("DMA-path prefill", in_group(prefill))
+        # K3's work runs as copies: one 2D copy per receiver and call.
+        k3_copies = launches["a2a_chunk_exchange"] * GROUP
+        if stats["copies"] < k3_copies:
+            raise AssertionError(
+                f"DMA-path trace: {stats['copies']} memcpy events, fewer "
+                f"than K3's {k3_copies} copies")
         phase_trace("2D-path prefill", in_group(prefill_2d))
-    return cfg, model, state, launches
+    return cfg, model, state, launches, by_route
 
 
 def phase_fused_path(device, cfg, state):
@@ -718,7 +815,8 @@ def phase_fused_path(device, cfg, state):
         err = max(err, _max_err(out, serial))
     print(f"[fused] every output matches the serial schedule (2e-2); max_abs"
           f"_err {err:.3e}")
-    return {"ficco_ag_matmul_fused": counts["ficco_ag_matmul_fused"]}
+    return ({"ficco_ag_matmul_fused": counts["ficco_ag_matmul_fused"]},
+            {"ficco_ag_matmul_fused": routes})
 
 
 def _union(intervals):
@@ -749,7 +847,8 @@ def _overlap(xs, ys) -> float:
 def phase_trace(label, run):
     """``run`` under torch.profiler: device time by kind, the device's idle
     share over the window, and how much of the copies' time ran under
-    kernels (chunked_gemm.cu's and any)."""
+    kernels (chunked_gemm.cu's and any).  Returns the numbers of kernel and
+    memcpy events; raises if the profiler saw no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -770,9 +869,9 @@ def phase_trace(label, run):
             kernels.append((start, end))
             if "chunked_gemm" in ev.name:
                 k1.append((start, end))
-    if not kernels:
-        print("[trace] torch.profiler recorded no device events")
-        return
+    if not kernels and not copies:
+        raise AssertionError(f"[trace] {label}: torch.profiler recorded no "
+                             "device events")
     span = max(window) - min(window)
     k_union, k1_union, c_union = _union(kernels), _union(k1), _union(copies)
     busy_us = sum(b - a for a, b in _union(k_union + c_union))
@@ -793,6 +892,7 @@ def phase_trace(label, run):
                     if ev.device_type == torch.autograd.DeviceType.CUDA
                     and "memcpy" in ev.name.lower()})
     print(f"[trace] copy event names: {names}")
+    return {"kernels": len(kernels), "copies": len(copies)}
 
 
 def phase_serve(device, cfg, model, state):
@@ -885,14 +985,18 @@ def main() -> int:
     kernels = [k1, phase_accumulate(device, timer), k3,
                phase_fused(device, timer)]
     phase_schedules(device, timer)
-    cfg, model, state, launches = phase_prefill(device)
-    launches.update(phase_fused_path(device, cfg, state))
+    cfg, model, state, launches, by_route = phase_prefill(device)
+    fused_launches, fused_routes = phase_fused_path(device, cfg, state)
+    launches.update(fused_launches)
+    by_route.update(fused_routes)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["routes"] = by_route[k["name"]]
     phase_serve(device, cfg, model, state)
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "routes",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in kernels]}))
     print(json.dumps({"ok": True, "device": {

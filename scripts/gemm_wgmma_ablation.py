@@ -6,12 +6,14 @@
 Runs on one CUDA card (the kernels are built with ``nvcc`` for sm_90a).
 For each ablation it copies ``src/repro_torch/kernels/csrc`` into
 ``build/ablation/<name>``, edits the copy of ``gemm_wgmma.cuh`` as listed
-below, builds K1 and K4 from the copy and times them at the main path's
-shapes (K1: 4 ranks x (512 x 2048) @ (2048 x 1408), K4: 4 ranks of 512 x
-2048 shards and 2048 x 1408 weight shards, bf16), with the L2 flushed
-before each run (cold, as ``chip_smoke.py`` times them) and back to back
-(warm).  The ablated kernels compute wrong results on purpose (the width
-ablations excepted); they are timed and nothing else.
+below, builds K1, K2 and K4 from the copy and times them at the main
+paths' shapes (K1: 4 ranks x (512 x 2048) @ (2048 x 1408), K2: the 2D
+schedule's step, an fp32 C of 4 ranks x 2048 x 1408 += (2048 x 512) @
+(512 x 1408), K4: 4 ranks of 512 x 2048 shards and 2048 x 1408 weight
+shards, bf16), with the L2 flushed before each run (cold, as
+``chip_smoke.py`` times them) and back to back (warm).  The ablated
+kernels compute wrong results on purpose (the width ablations excepted);
+they are timed and nothing else.
 
   full          the kernel as committed
   no_products   the consumers wait for every stage and hand it back
@@ -24,9 +26,13 @@ ablations excepted); they are timed and nothing else.
                 together
   width128      every tile 128 x 128, whatever pick_bn would choose
   width192      every tile 128 x 192, whatever pick_bn would choose
+  store_not_add K2's epilogue stores its fp32 tile over C with a plain TMA
+                store instead of adding it into C (L2 writes C without
+                reading it); K1 and K4 are unchanged
 
-Then one ``torch.matmul`` call per kernel on the same inputs, timed the
-same ways, as the yardstick.  Prints one line per ablation and, last, one
+Then one PyTorch call per kernel on the same inputs (``torch.matmul``;
+``torch.baddbmm`` with an fp32 out_dtype for K2), timed the same ways, as
+the yardstick.  Prints one line per ablation and, last, one
 JSON object with the times.
 """
 
@@ -74,6 +80,10 @@ ABLATIONS = {
     )],
     "width128": [(_PICK, _PICK + "  return 128;\n")],
     "width192": [(_PICK, _PICK + "  return 192;\n")],
+    "store_not_add": [(
+        "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group",
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group",
+    )],
 }
 
 
@@ -137,10 +147,16 @@ def main() -> int:
     w = shard_columns(randn(d, n, dtype=torch.bfloat16, scale=d ** -0.5), g)
     out = torch.empty(g, g * rows, n // g, dtype=torch.bfloat16,
                       device=device)
+    # The 2D schedule's step: C (g, g*rows, n/g) fp32 += panel (g, g*rows,
+    # d/g) @ the second K slice of the weight shard.
+    c = randn(g, g * rows, n // g, dtype=torch.float32)
+    panel = randn(g, g * rows, d // g, dtype=torch.bfloat16)
+    w_slice = w[:, d // g:2 * d // g]
     timer = chip_smoke.Timer(device)
     kernels = {
-        "K1": lambda: k1._launch(x, w, "wgmma"),
-        "K4": lambda: k4._launch(x, w, out, g, 2, False, "wgmma"),
+        "K1": lambda: k1._launch(x, w),
+        "K2": lambda: k1._launch_accumulate(c, panel, w_slice),
+        "K4": lambda: k4._launch(x, w, out, g, 2, False),
     }
     results = {}
     for name, edits in ABLATIONS.items():
@@ -158,15 +174,17 @@ def main() -> int:
             for k, v in results[name].items()))
     library = {
         "K1": lambda: torch.matmul(x, w),
+        "K2": lambda: torch.baddbmm(c, panel, w_slice,
+                                    out_dtype=torch.float32),
         "K4": lambda: torch.matmul(x.view(-1, d), w),
     }
-    results["torch.matmul"] = {
+    results["library"] = {
         kname: {"cold_ms": timer(fn), "warm_ms": warm_ms(fn)}
         for kname, fn in library.items()
     }
-    print("[ablation] torch.matmul: " + "; ".join(
+    print("[ablation] library (torch.matmul; K2 torch.baddbmm): " + "; ".join(
         f"{k} cold {v['cold_ms']:.4f} ms, warm {v['warm_ms']:.4f} ms"
-        for k, v in results["torch.matmul"].items()))
+        for k, v in results["library"].items()))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "ablations": results}))
     return 0

@@ -11,14 +11,15 @@ block raises ``ValueError``.  They do not choose the CUDA kernel's own
 tile, which masks its edges; for the same reason K2, whose reference took
 plain ``jnp`` for shapes that do not tile, launches for every shape.
 
-K1 picks its route here, by :func:`route`, and the C side launches that
-route or refuses the operands; nothing falls back.  ``"wgmma"`` is the
-persistent Hopper main loop of ``csrc/gemm_wgmma.cuh`` (TMA through an
-mbarrier ring into ``wgmma``) for bf16 operands whose bases are 16-byte
-aligned and whose strides are multiples of 8 elements; ``"wmma"`` is the
-older tile of ``csrc/gemm_tile.cuh``, kept for K2 and reached by K1 only
-when asked for by name; ``"simt"`` takes f32 and every other shape.
-``chunked_matmul.routes`` counts the launches of each route.
+Each kernel picks its route here, by :func:`route` (K1) and
+:func:`accumulate_route` (K2), and the C side launches that route or
+refuses the operands; nothing falls back.  ``"wgmma"`` is the persistent
+Hopper main loop of ``csrc/gemm_wgmma.cuh`` (TMA through an mbarrier ring
+into ``wgmma``) for bf16 operands whose bases are 16-byte aligned and
+whose strides are multiples of 16 bytes; K2 takes it for an fp32 C, which
+its epilogue adds the product into with TMA's reduce-add.  ``"simt"``
+takes f32, a bf16 C and every other shape.  ``chunked_matmul.routes``
+and ``accumulate_matmul.routes`` count the launches of each route.
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import accumulate_matmul_ref, matmul_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("simt", "wmma", "wgmma")  # codes 0, 1, 2 of the C entry points
+# Codes 0, 1, 2 of the C entry points; K1 and K2 take simt and wgmma,
+# only K4 the wmma tile.
+ROUTES = ("simt", "wmma", "wgmma")
 
 
 def aligned16(t: torch.Tensor) -> bool:
@@ -50,12 +53,25 @@ def route(x: torch.Tensor, w: torch.Tensor) -> str:
 
     ``"wgmma"`` for bf16 operands that :func:`aligned16` takes, with an
     output width N that keeps the output's rows 16-byte aligned;
-    ``"simt"`` for f32 and the rest.  The ``"wmma"`` tile needs the same
-    alignment and more (128-multiple N, 32-multiple K), so K1 reaches it
-    only by name.
+    ``"simt"`` for f32 and the rest.
     """
     if (x.dtype == torch.bfloat16 and aligned16(x) and aligned16(w)
             and w.shape[-1] % 8 == 0):
+        return "wgmma"
+    return "simt"
+
+
+def accumulate_route(c: torch.Tensor, x: torch.Tensor,
+                     w: torch.Tensor) -> str:
+    """The route a CUDA launch of ``accumulate_matmul(c, x, w)`` takes.
+
+    ``"wgmma"`` for an fp32 C with bf16 operands, all three taken by
+    :func:`aligned16` (the 2D schedule's step); ``"simt"`` for f32
+    operands, a bf16 C and the rest.
+    """
+    if (c.dtype == torch.float32 and x.dtype == torch.bfloat16
+            and w.dtype == torch.bfloat16
+            and aligned16(c) and aligned16(x) and aligned16(w)):
         return "wgmma"
     return "simt"
 
@@ -73,17 +89,15 @@ def _lib() -> ctypes.CDLL:
     lib.accumulate_gemm.restype = ctypes.c_int
     lib.accumulate_gemm.argtypes = (
         [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 6
+        + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 6
         + [ctypes.c_void_p]
     )
     return lib
 
 
-def _launch(x3: torch.Tensor, w3: torch.Tensor,
-            route_name: str | None = None) -> torch.Tensor:
-    """One launch over the stacked ranks, on ``route(x3, w3)`` unless a
-    route is named."""
+def _launch(x3: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """One launch over the stacked ranks, on ``route(x3, w3)``."""
     if x3.dtype not in _DTYPES or w3.dtype != x3.dtype:
         raise TypeError(
             f"chunked_matmul takes float32 or bfloat16 operands of one "
@@ -96,7 +110,7 @@ def _launch(x3: torch.Tensor, w3: torch.Tensor,
     g, m, k = x3.shape
     n = w3.shape[-1]
     out = torch.empty((g, m, n), dtype=x3.dtype, device=x3.device)
-    name = route(x3, w3) if route_name is None else route_name
+    name = route(x3, w3)
     lib = _lib()
     err = lib.chunked_gemm(
         x3.data_ptr(), w3.data_ptr(), out.data_ptr(), _DTYPES[x3.dtype],
@@ -155,7 +169,7 @@ def chunked_matmul(
 # Kernel launches since the last reset (CUDA path only), in all and by
 # route.
 chunked_matmul.launches = 0
-chunked_matmul.routes = dict.fromkeys(ROUTES, 0)
+chunked_matmul.routes = dict.fromkeys(("simt", "wgmma"), 0)
 
 
 def _launch_accumulate(c3, x3, w3) -> None:
@@ -175,10 +189,11 @@ def _launch_accumulate(c3, x3, w3) -> None:
         raise ValueError("accumulate_matmul needs a contiguous last dim")
     g, m, k = x3.shape
     n = w3.shape[-1]
+    name = accumulate_route(c3, x3, w3)
     lib = _lib()
     err = lib.accumulate_gemm(
         c3.data_ptr(), x3.data_ptr(), w3.data_ptr(),
-        _DTYPES[c3.dtype], _DTYPES[x3.dtype],
+        _DTYPES[c3.dtype], _DTYPES[x3.dtype], ROUTES.index(name),
         g, m, n, k,
         x3.stride(0), x3.stride(1),
         w3.stride(0), w3.stride(1),
@@ -187,16 +202,20 @@ def _launch_accumulate(c3, x3, w3) -> None:
     )
     _build.check(lib, "chunked_gemm", err)
     accumulate_matmul.launches += 1
+    accumulate_matmul.routes[name] += 1
 
 
 def accumulate_matmul(
     c: torch.Tensor, x: torch.Tensor, w: torch.Tensor
 ) -> torch.Tensor:
-    """C += x @ w in place, the sum in fp32 seeded from C; returns C.
+    """C += x @ w in place, the sum in fp32; returns C.
 
     c: (M, N), x: (M, K), w: (K, N); or a leading rank dim g on all three.
     The 2D schedule's per-step accumulating GEMM (paper §IV-C1): C is its
     fp32 accumulator and x, w its bf16 K-slice panel and weight slice.
+    The sum is C + (x @ w), as the plain version takes it ("wgmma" adds
+    the product into C; "simt" seeds its sum from C, as the TPU kernel
+    does: the two differ in rounding only).
     """
     if x.dim() not in (2, 3) or not c.dim() == w.dim() == x.dim():
         raise ValueError(
@@ -221,13 +240,16 @@ def accumulate_matmul(
     return c
 
 
-# Kernel launches since the last reset (CUDA path only).
+# Kernel launches since the last reset (CUDA path only), in all and by
+# route.
 accumulate_matmul.launches = 0
+accumulate_matmul.routes = dict.fromkeys(("simt", "wgmma"), 0)
 
 __all__ = [
     "ROUTES",
     "aligned16",
     "route",
+    "accumulate_route",
     "chunked_matmul",
     "accumulate_matmul",
 ]

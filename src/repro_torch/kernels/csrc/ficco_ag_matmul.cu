@@ -131,8 +131,8 @@ __global__ void __launch_bounds__(tc::THREADS) ag_matmul_tc_kernel(
   const StepRows<__nv_bfloat16> rows =
       step_rows(&table, out, g, m_s, m_c, steps, reverse, tiles_per_step,
                 tc::BM, x_row, o_rank, o_row, &q0);
-  tc_tile<__nv_bfloat16, false, MASK>(rows, q0, blockIdx.x * tc::BN,
-                                      w + blockIdx.z * w_rank, w_row, K);
+  tc_tile<MASK>(rows, q0, blockIdx.x * tc::BN, w + blockIdx.z * w_rank,
+                w_row, K);
 }
 
 // The wgmma route's tiles, walked by pairs of row blocks first (last first
@@ -142,6 +142,7 @@ __global__ void __launch_bounds__(tc::THREADS) ag_matmul_tc_kernel(
 // even number; a last, empty one loads zeros and stores nothing.
 template <int BN>
 struct AgProblem {
+  static constexpr bool ACCUMULATE = false;
   CUtensorMap w_map;                   // (N, K, g)
   CUtensorMap o_map;                   // (N, m_s, d, r): row d*m_s + i
   CUtensorMap x_map[MAX_WGMMA_RANKS];  // rank d's (K, m_s)

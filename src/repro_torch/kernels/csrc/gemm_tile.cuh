@@ -1,9 +1,11 @@
-// One output tile of a GEMM with an fp32 accumulator: the main loop that
-// K1, K2 (chunked_gemm.cu) and K4 (ficco_ag_matmul.cu) share.
+// One output tile of a GEMM with an fp32 accumulator, for the shapes and
+// dtypes that gemm_wgmma.cuh's main loop does not take: K1, K2
+// (chunked_gemm.cu) and K4 (ficco_ag_matmul.cu) on the CUDA cores, and K4
+// groups of more than 16 ranks on the tensor cores.
 //
-// A block computes a tile of out = A @ W (or C += A @ W) where A's rows
-// are reached through a Rows policy, so one loop serves a strided rank
-// batch (K1, K2) and rows gathered from several ranks' shards (K4):
+// A block computes a tile of out = A @ W (or, simt only, C += A @ W) where
+// A's rows are reached through a Rows policy, so one loop serves a strided
+// rank batch (K1, K2) and rows gathered from several ranks' shards (K4):
 //
 //   struct Rows {
 //     int n;                           // rows in the row space
@@ -11,7 +13,7 @@
 //     TO* c(int q) const;              // row q of out / C
 //   };
 //
-// Two tiles, one shape each (see chunked_gemm.cu for what bounds them):
+// Two tiles (see chunked_gemm.cu for what bounds them):
 //  * simt_tile (any dtype, any shape): 64 x 64 on the CUDA cores in fp32, a
 //    16-deep K slab in shared memory, a 4 x 4 register tile per thread,
 //    rows and columns masked.
@@ -27,7 +29,7 @@
 //    path shape).  Both do the same arithmetic on the rows they store.
 // Either way K is looped inside the block in one fixed slab order, so an
 // output element's value does not depend on which tile or block holds it.
-// ACC seeds the accumulator from C instead of zero (K2).
+// simt_tile's ACC seeds the accumulator from C instead of zero (K2).
 
 #pragma once
 
@@ -169,10 +171,10 @@ inline bool tc_weight_ok(const void* w, int N, int K, long long w_rank,
          w_rank % 8 == 0 && w_row % 8 == 0;
 }
 
-// Rows [q0, q0 + 128) x columns [n0, n0 + 128); w is this rank's (K, N).
-// Every row Rows::a gives must be 16-byte aligned.  Without MASK, rows
-// [q0, q0 + 128) must all exist.
-template <typename TO, bool ACC, bool MASK, typename Rows>
+// Rows [q0, q0 + 128) x columns [n0, n0 + 128) of a bf16 out; w is this
+// rank's (K, N).  Every row Rows::a gives must be 16-byte aligned.
+// Without MASK, rows [q0, q0 + 128) must all exist.
+template <bool MASK, typename Rows>
 __device__ __forceinline__ void tc_tile(const Rows& rows, int q0, int n0,
                                         const __nv_bfloat16* __restrict__ w,
                                         long long w_row, int K) {
@@ -229,31 +231,11 @@ __device__ __forceinline__ void tc_tile(const Rows& rows, int q0, int n0,
     }
   };
 
-  // Each warp moves its fragments to and from device memory through a
-  // 16 x 16 fp32 staging tile, which converts C's dtype either way.
-  float* st = stage[warp];
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
+  for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      if (!ACC) {
-        wmma::fill_fragment(acc[i][j], 0.f);
-        continue;
-      }
-      for (int e = lane; e < 16 * 16; e += 32) {
-        // With MASK, a row past the last is never stored: read the last
-        // row in its place rather than branch.
-        const int r = q0 + wm * WM + i * 16 + e / 16;
-        const int q = MASK ? min(r, rows.n - 1) : r;
-        const int c = n0 + wn * WN + j * 16 + e % 16;
-        st[e] = to_f32(rows.c(q)[c]);
-      }
-      __syncwarp();
-      wmma::load_matrix_sync(acc[i][j], st, 16, wmma::mem_row_major);
-      __syncwarp();
-    }
-  }
+    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   load(0);
   for (int k0 = 0; k0 < K; k0 += BK) {
@@ -281,6 +263,9 @@ __device__ __forceinline__ void tc_tile(const Rows& rows, int q0, int n0,
     }
   }
 
+  // Each warp moves its fragments to device memory through a 16 x 16 fp32
+  // staging tile, which converts them to bf16.
+  float* st = stage[warp];
 #pragma unroll
   for (int i = 0; i < FM; ++i) {
 #pragma unroll
@@ -290,7 +275,8 @@ __device__ __forceinline__ void tc_tile(const Rows& rows, int q0, int n0,
       for (int e = lane; e < 16 * 16; e += 32) {
         const int q = q0 + wm * WM + i * 16 + e / 16;
         const int c = n0 + wn * WN + j * 16 + e % 16;
-        if (!MASK || q < rows.n) rows.c(q)[c] = from_f32<TO>(st[e]);
+        if (!MASK || q < rows.n)
+          rows.c(q)[c] = from_f32<__nv_bfloat16>(st[e]);
       }
       __syncwarp();
     }

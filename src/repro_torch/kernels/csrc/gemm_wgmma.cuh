@@ -1,16 +1,17 @@
-// The Hopper GEMM main loop that K1 (chunked_gemm.cu) and K4
+// The Hopper GEMM main loop that K1, K2 (chunked_gemm.cu) and K4
 // (ficco_ag_matmul.cu) launch for bf16 operands: persistent,
 // warp-specialised, fed by TMA through an mbarrier ring in shared memory
 // and computed with wgmma (sm_90a).
 //
 // What it replaces.  K1 is the port of the TPU kernel
-// repro/kernels/chunked_gemm.py::chunked_matmul and K4 of
-// repro/kernels/ficco_ag_matmul.py::ficco_ag_matmul_fused; both used to
-// run gemm_tile.cuh::tc_tile (WMMA, one 128 x 128 tile per block, 32-deep
-// K slabs staged through registers, one slab in flight).  tc_tile stays
-// for K2 and for the bf16 shapes this loop does not take (a group of more
-// than 16 ranks in K4, whose tensor maps would not fit the kernel's
-// parameters).
+// repro/kernels/chunked_gemm.py::chunked_matmul, K2 of
+// chunked_gemm.py::accumulate_matmul and K4 of
+// repro/kernels/ficco_ag_matmul.py::ficco_ag_matmul_fused; all three used
+// to run gemm_tile.cuh::tc_tile (WMMA, one 128 x 128 tile per block,
+// 32-deep K slabs staged through registers, one slab in flight, and for K2
+// the fp32 C read and written one element at a time).  tc_tile stays for
+// the bf16 shapes this loop does not take (a group of more than 16 ranks
+// in K4, whose tensor maps would not fit the kernel's parameters).
 //
 // What bounds it on an H100.  At the path shapes both GEMMs sit above the
 // card's bf16 ridge point (K1: 11.8 GFLOP over 37 MB, K4: 47.2 GFLOP over
@@ -54,16 +55,23 @@
 //    runs here, not only full tiles.
 //  * Epilogue: fp32 to bf16 by __float2bfloat16 (round to nearest even),
 //    written into a swizzled bf16 tile in shared memory and stored by TMA,
-//    which runs under the next tile's products.
+//    which runs under the next tile's products.  A Problem that
+//    accumulates (K2: C += A @ W with an fp32 C) stages the fp32 sum
+//    instead and stores it with TMA's reduce-add, so L2 adds it into C
+//    and no SM ever reads C: C's bytes cross HBM once each way and cost
+//    the SMs nothing.  The sum is C + (A @ W), the order of the plain
+//    version; the TPU kernel seeds its sum from C, which differs in
+//    rounding only.
 // K is walked in one fixed 64-deep order for every tile, so an output
 // element's value does not depend on which tile, block or order holds it:
 // K4's variants stay bit-identical.
 //
 // A Problem gives: `tiles` (even), `k`, a 3D weight map `w_map` over (N,
-// K, rank), an output map `o_map` (64 x 64 boxes), and `Tile tile(int t)
-// const` (which A map and coordinates, which weight rank and columns,
-// where in the output map the tile goes), where tiles 2P and 2P + 1 share
-// the weight rank and columns.
+// K, rank), an output map `o_map` (bf16, 64 x 64 boxes; or, when
+// `ACCUMULATE`, a 3D fp32 map with 32 x 64 boxes that the tile is added
+// into), and `Tile tile(int t) const` (which A map and coordinates, which
+// weight rank and columns, where in the output map the tile goes), where
+// tiles 2P and 2P + 1 share the weight rank and columns.
 //
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, reached
 // through the runtime's driver entry point (no -lcuda), and passed to the
@@ -88,13 +96,17 @@ constexpr int BOX_N = 64;                  // W box: 64 columns x BK rows
 constexpr int BOX_BYTES = BOX_N * BK * 2;  // 8 KB
 constexpr int SMEM_MAX = 232448;           // what a block may use (227 KB)
 
-// The tile widths: 128 or 192 columns, 64-column boxes of W each.
-template <int BN>
+// The tile widths: 128 or 192 columns, 64-column boxes of W each.  ACC:
+// the Problem adds an fp32 tile into C (twice the epilogue's bytes, so
+// fewer stages).
+template <int BN, bool ACC = false>
 struct Cfg {
   static_assert(BN == 128 || BN == 192, "BN: 128 or 192");
   static constexpr int STAGE_BYTES = A_BYTES + BN * BK * 2;
-  // The epilogue's bf16 tile, BN / 64 boxes of 64 columns per warpgroup.
-  static constexpr int OUT_BYTES = BM * BN * 2;
+  // The epilogue's tile: bf16 in BN / 64 boxes of 64 columns per
+  // warpgroup, or fp32 in BN / 32 boxes of 32 columns; each box is 64 rows
+  // of 128 bytes (BOX_BYTES).
+  static constexpr int OUT_BYTES = BM * BN * (ACC ? 4 : 2);
   // 1024 bytes of slack align the ring (the 128B swizzle repeats every 8
   // rows of 128 bytes); then the ring's barriers.
   static constexpr int FIXED = 1024 + OUT_BYTES + 2 * 6 * 8;
@@ -198,6 +210,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// Shared memory added into device memory (fp32 reduce-add in L2) through
+// a 3D tensor map, in a bulk group.
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map,
+                                               uint32_t src, int c0, int c1,
+                                               int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -365,12 +389,14 @@ __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b,
 
 // Stores the warpgroup's 64 x BN slab of the tile: thread (warp w, lane l)
 // holds rows 16w + l/4 and 16w + l/4 + 8 of columns 8i + 2(l%4) + {0, 1}.
-// The slab goes as bf16 into `out` (BN / 64 boxes of 64 rows x 128 bytes,
-// laid out in TMA's 128B swizzle, so the 16-byte chunks of the 8 rows a
-// warp writes at once fall in different banks), then one thread stores
-// the boxes through the output map and the warpgroup moves on: the store
-// runs under the next tile's products.  Before `out` is written again the
-// previous stores must have read it.
+// The slab goes into `out` as boxes of 64 rows x 128 bytes, laid out in
+// TMA's 128B swizzle, so the 16-byte chunks of the 8 rows a warp writes at
+// once fall in different banks: as bf16 (BN / 64 boxes of 64 columns),
+// or, when the Problem accumulates, as fp32 (BN / 32 boxes of 32 columns).
+// Then one thread stores the boxes through the output map (or adds them
+// into it) and the warpgroup moves on: the store runs under the next
+// tile's products.  Before `out` is written again the previous stores
+// must have read it.
 template <int BN, typename Problem>
 __device__ __forceinline__ void store_tile(const float* acc, const Tile& t,
                                            const Problem& p, uint32_t out,
@@ -384,37 +410,54 @@ __device__ __forceinline__ void store_tile(const float* acc, const Tile& t,
     const int r = r0 + 8 * h;
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
-      const __nv_bfloat162 v = __halves2bfloat162(
-          __float2bfloat16(acc[4 * i + 2 * h]),
-          __float2bfloat16(acc[4 * i + 2 * h + 1]));
-      const int chunk = (i % 8) ^ (r % 8);  // 16-byte chunk of the row
-      const uint32_t addr = out + (i / 8) * BOX_BYTES + r * 128 +
-                            chunk * 16 + (tid % 4) * 4;
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
-                   "r"(*reinterpret_cast<const uint32_t*>(&v))
-                   : "memory");
+      if constexpr (Problem::ACCUMULATE) {
+        // Columns 8i + 2(l%4): box i/4, byte 32(i%4) + 8(l%4) of its row.
+        const int chunk = (2 * (i % 4) + (tid % 4) / 2) ^ (r % 8);
+        const uint32_t addr = out + (i / 4) * BOX_BYTES + r * 128 +
+                              chunk * 16 + (tid % 2) * 8;
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+                     "f"(acc[4 * i + 2 * h]), "f"(acc[4 * i + 2 * h + 1])
+                     : "memory");
+      } else {
+        const __nv_bfloat162 v = __halves2bfloat162(
+            __float2bfloat16(acc[4 * i + 2 * h]),
+            __float2bfloat16(acc[4 * i + 2 * h + 1]));
+        const int chunk = (i % 8) ^ (r % 8);  // 16-byte chunk of the row
+        const uint32_t addr = out + (i / 8) * BOX_BYTES + r * 128 +
+                              chunk * 16 + (tid % 4) * 4;
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+                     "r"(*reinterpret_cast<const uint32_t*>(&v))
+                     : "memory");
+      }
     }
   }
   // The writes, made visible to the bulk copies (the async proxy).
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   wg_sync(wg);
   if (tid == 0) {
+    if constexpr (Problem::ACCUMULATE) {
 #pragma unroll
-    for (int h = 0; h < BN / BOX_N; ++h)
-      tma_store(&p.o_map, out + h * BOX_BYTES, t.n0 + h * BOX_N,
-                t.o_row + wg * 64, t.o_c2, t.o_c3);
+      for (int h = 0; h < BN / 32; ++h)
+        tma_reduce_add(&p.o_map, out + h * BOX_BYTES, t.n0 + h * 32,
+                       t.o_row + wg * 64, t.o_c2);
+    } else {
+#pragma unroll
+      for (int h = 0; h < BN / BOX_N; ++h)
+        tma_store(&p.o_map, out + h * BOX_BYTES, t.n0 + h * BOX_N,
+                  t.o_row + wg * 64, t.o_c2, t.o_c3);
+    }
     bulk_commit();
   }
 }
 
 // The body of a kernel launched in clusters of 2 blocks of THREADS
-// threads, Cfg<BN>::SMEM bytes of dynamic shared memory and at most one
-// block per SM.  The two blocks of a cluster take tiles 2P and 2P + 1,
+// threads, Cfg<BN, Problem::ACCUMULATE>::SMEM bytes of dynamic shared
+// memory and at most one block per SM.  The two blocks of a cluster take tiles 2P and 2P + 1,
 // which the Problem gives the same weight columns, so the pair reads the
 // same W boxes at the same time.
 template <int BN, typename Problem>
 __device__ __forceinline__ void run(const Problem& p) {
-  using C = Cfg<BN>;
+  using C = Cfg<BN, Problem::ACCUMULATE>;
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t ring = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t out = ring + C::STAGES * C::STAGE_BYTES;
@@ -543,11 +586,13 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 map over `rank` dims (innermost first), `strides` the rank - 1
-// outer strides in elements, boxes of `box`, 128B swizzle, zero fill.
-inline cudaError_t encode(CUtensorMap* map, const void* base, int rank,
-                          const long long* dims, const long long* strides,
-                          const int* box) {
+// A bf16 (or `type`) map over `rank` dims (innermost first), `strides`
+// the rank - 1 outer strides in elements, boxes of `box`, 128B swizzle,
+// zero fill.
+inline cudaError_t encode(
+    CUtensorMap* map, const void* base, int rank, const long long* dims,
+    const long long* strides, const int* box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled fn = encoder();
   if (!fn) return cudaErrorNotSupported;
   if (rank < 2 || rank > 4) return cudaErrorInvalidValue;
@@ -558,8 +603,9 @@ inline cudaError_t encode(CUtensorMap* map, const void* base, int rank,
     bdim[i] = static_cast<cuuint32_t>(box[i]);
   }
   for (int i = 0; i + 1 < rank; ++i)
-    gstride[i] = static_cast<cuuint64_t>(strides[i]) * 2;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+    gstride[i] = static_cast<cuuint64_t>(strides[i]) *
+                 (type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2);
+  const CUresult r = fn(map, type, rank,
                         const_cast<void*>(base), gdim, gstride, bdim,
                         estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -612,14 +658,14 @@ cudaError_t launch(void (*kernel)(Problem), const Problem& p,
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = Cfg<BN>::SMEM;
+  cfg.dynamicSmemBytes = Cfg<BN, Problem::ACCUMULATE>::SMEM;
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (!fit[dev]) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Cfg<BN>::SMEM);
+                               Cfg<BN, Problem::ACCUMULATE>::SMEM);
     if (err != cudaSuccess) return err;
     int sms = 0;
     err = sm_count(&sms);

@@ -1,23 +1,34 @@
 """K3: the FiCCO chunk exchange on the copy engines, and its composer.
 
 Port of ``repro.kernels.dma_exchange``.  :func:`a2a_chunk_exchange` is one
-FiCCO step's all-to-all: on a CUDA tensor it calls ``csrc/dma_exchange.cu``,
-which issues one device-to-device ``cudaMemcpyAsync`` per (sender, slot)
-pair, so the copy engines move the bytes and no SM does (the paper's
-``hipMemcpyDtoDAsync`` offload).  On a CPU tensor it takes the plain
-version :func:`repro_torch.kernels.ref.a2a_chunk_exchange_ref`.
+FiCCO step's all-to-all: on CUDA tensors it calls ``csrc/dma_exchange.cu``,
+which issues device-to-device copies, so the copy engines move the bytes
+and no SM does (the paper's ``hipMemcpyDtoDAsync`` offload).  On CPU
+tensors it takes the plain version
+:func:`repro_torch.kernels.ref.a2a_chunk_exchange_ref`.
+
+The wrapper picks the route by :func:`route`, from the operands alone, and
+the C side launches it or refuses the operands; nothing falls back.
+``"strided"``: the senders' chunks are one tensor and the step buffers
+another, so each receiver's g slots are filled by one 2D copy (g copies a
+step).  ``"pairs"``: one copy per (sender, slot) through pointer tables,
+for chunks or step buffers given as one tensor per rank, as peer-mapped
+buffers across cards would be.  ``a2a_chunk_exchange.routes`` counts the
+calls of each route.
 
 :func:`ficco_uniform_fused_1d_dma` composes the exchange with the step GEMM
 (K1) into uniform-fused-1D.  On the TPU, XLA's scheduler overlapped step
 s+1's DMAs with step s's matmul; here the overlap is written out: the
-exchange runs on the group's copy stream, the GEMMs on the compute stream,
-and CUDA events order them around two step buffers.
+exchange runs on the group's copy streams, the GEMMs on the compute
+stream, and CUDA events order them around two step buffers.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from collections.abc import Sequence
 
 import torch
 
@@ -29,17 +40,36 @@ from repro_torch.tune.variants import default_variant
 # Step buffers the pipeline rotates through: step s+1's exchange fills one
 # while step s's GEMM reads the other.
 _DEPTH = 2
+ROUTES = ("strided", "pairs")
+MAX_STREAMS = 16  # MAX_STREAMS in the CUDA source
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dma_exchange")
-    lib.dma_exchange.restype = ctypes.c_int
-    lib.dma_exchange.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    lib.dma_exchange_strided.restype = ctypes.c_int
+    lib.dma_exchange_strided.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
     ]
+    lib.dma_exchange_pairs.restype = ctypes.c_int
+    lib.dma_exchange_pairs.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ]
+    lib.dma_copy_engines.restype = ctypes.c_int
+    lib.dma_copy_engines.argtypes = [ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def copy_engines() -> int:
+    """The current CUDA device's copy-engine count
+    (``cudaDevAttrAsyncEngineCount``)."""
+    lib = _lib()
+    n = ctypes.c_int()
+    _build.check(lib, "dma_exchange", lib.dma_copy_engines(ctypes.byref(n)))
+    return n.value
 
 
 def _inner_contiguous(t: torch.Tensor, lead: int) -> bool:
@@ -53,66 +83,151 @@ def _inner_contiguous(t: torch.Tensor, lead: int) -> bool:
     return True
 
 
-def _launch(chunks: torch.Tensor, out: torch.Tensor, reverse: bool) -> None:
-    g = chunks.shape[0]
-    if not (_inner_contiguous(chunks, 1) and _inner_contiguous(out, 2)):
-        raise ValueError("a2a_chunk_exchange needs each rank's chunk and "
-                         "each step-buffer slot contiguous")
+def _pitches(chunks: torch.Tensor, out: torch.Tensor):
+    """(width, source pitch, destination rank stride, destination pitch)
+    in bytes of the strided route, for one tensor of chunks and one of
+    step buffers.  A size-1 rank dim takes the chunk width as its pitch."""
     esize = chunks.element_size()
-    src = (ctypes.c_void_p * g)(*[
-        chunks.data_ptr() + r * chunks.stride(0) * esize for r in range(g)
-    ])
-    dst = (ctypes.c_void_p * (g * g))(*[
-        out.data_ptr() + (r * out.stride(0) + s * out.stride(1)) * esize
-        for r in range(g) for s in range(g)
-    ])
-    nbytes = chunks[0].numel() * esize
+    width = math.prod(chunks.shape[1:]) * esize
+    g = chunks.shape[0]
+    spitch = chunks.stride(0) * esize if g > 1 else width
+    dpitch = out.stride(1) * esize if g > 1 else width
+    return width, spitch, out.stride(0) * esize, dpitch
+
+
+def route(chunks, out) -> str:
+    """The route a CUDA call of ``a2a_chunk_exchange(chunks, out=out)``
+    takes: ``"strided"`` when both are tensors and the senders' chunks and
+    each receiver's slots lie at a stride no smaller than a chunk (what a
+    2D copy's pitches must be); ``"pairs"`` for one tensor per rank, or
+    strides a 2D copy cannot take (a broadcast chunk, overlapping slots).
+    """
+    if not (isinstance(chunks, torch.Tensor)
+            and isinstance(out, torch.Tensor)):
+        return "pairs"
+    width, spitch, _, dpitch = _pitches(chunks, out)
+    return "strided" if spitch >= width and dpitch >= width else "pairs"
+
+
+def strided_plan(chunks: torch.Tensor, out: torch.Tensor,
+                 reverse: bool = False):
+    """The strided route's copies, in issue order, as ``dma_exchange.cu``
+    computes them: per receiver r, (source offset, source pitch,
+    destination offset, destination pitch, width, height) in bytes from
+    ``chunks``'s and ``out``'s first elements."""
+    g = chunks.shape[0]
+    width, spitch, drank, dpitch = _pitches(chunks, out)
+    order = [(g - j) % g if reverse else j for j in range(g)]
+    return [(0, spitch, r * drank, dpitch, width, g) for r in order]
+
+
+def _per_rank(t, lead: int) -> list[torch.Tensor]:
+    """t's rank blocks, raising unless every block's sub-blocks below
+    ``lead`` dims are contiguous."""
+    ranks = list(t)
+    for blk in ranks:
+        if not _inner_contiguous(blk, lead):
+            raise ValueError("a2a_chunk_exchange needs each rank's chunk and "
+                             "each step-buffer slot contiguous")
+    return ranks
+
+
+@functools.lru_cache(maxsize=64)
+def _stream_table(handles: tuple[int, ...]):
+    return (ctypes.c_void_p * len(handles))(*handles)
+
+
+def _launch(chunks, out, reverse: bool, streams) -> None:
+    g = len(chunks)
+    device = chunks[0].device
+    handles = tuple(s.cuda_stream for s in
+                    (torch.cuda.current_stream(device), *streams))
+    if len(handles) > MAX_STREAMS:
+        raise ValueError(f"{len(handles)} streams; the exchange takes up to "
+                         f"{MAX_STREAMS}")
+    table = _stream_table(handles)
+    name = route(chunks, out)
     lib = _lib()
-    err = lib.dma_exchange(
-        src, dst, nbytes, g, int(reverse),
-        torch.cuda.current_stream(chunks.device).cuda_stream,
-    )
+    if name == "strided":
+        if not (_inner_contiguous(chunks, 1) and _inner_contiguous(out, 2)):
+            raise ValueError("a2a_chunk_exchange needs each rank's chunk and "
+                             "each step-buffer slot contiguous")
+        width, spitch, drank, dpitch = _pitches(chunks, out)
+        err = lib.dma_exchange_strided(
+            chunks.data_ptr(), spitch, out.data_ptr(), drank, dpitch, width,
+            g, int(reverse), table, len(handles),
+        )
+    else:
+        srcs = _per_rank(chunks, 0)
+        dsts = _per_rank(out, 1)
+        esize = srcs[0].element_size()
+        src = (ctypes.c_void_p * g)(*[c.data_ptr() for c in srcs])
+        dst = (ctypes.c_void_p * (g * g))(*[
+            b.data_ptr() + s * b.stride(0) * esize
+            for b in dsts for s in range(g)
+        ])
+        err = lib.dma_exchange_pairs(
+            src, dst, srcs[0].numel() * esize, g, int(reverse), table,
+            len(handles),
+        )
     _build.check(lib, "dma_exchange", err)
     a2a_chunk_exchange.launches += 1
+    a2a_chunk_exchange.routes[name] += 1
 
 
 def a2a_chunk_exchange(
-    chunks: torch.Tensor,
+    chunks,
     *,
     reverse: bool = False,
-    out: torch.Tensor | None = None,
-) -> torch.Tensor:
+    out=None,
+    streams: Sequence = (),
+):
     """One FiCCO exchange step: (g, m_c, K) chunks -> (g, g, m_c, K).
 
     ``chunks[r]`` is rank r's chunk; ``out[r, s]`` is slot s of rank r's
     step buffer and receives rank s's chunk, so every rank ends with the
-    same gathered buffer (``all_gather(axis=0)``).  ``reverse`` issues the
-    copies to peers in descending offset order; the result is unchanged.
-    On CUDA the copies are enqueued on the current stream.
+    same gathered buffer (``all_gather(axis=0)``).  Either may also be a
+    sequence of g per-rank tensors ((m_c, K) chunks, (g, m_c, K) buffers),
+    as buffers that live in separate allocations are; ``out`` is then
+    returned as given.  ``reverse`` issues the copies to peers in
+    descending offset order; the result is unchanged.  On CUDA the copies
+    are enqueued on the current stream, spread by receiver over it and
+    ``streams`` (each forked from the current stream and joined back).
     """
-    g = chunks.shape[0]
+    g = len(chunks)
+    first = chunks[0]
+    shape, dtype, device = tuple(first.shape), first.dtype, first.device
     if out is None:
-        out = torch.empty(
-            (g, *chunks.shape), dtype=chunks.dtype, device=chunks.device
-        )
-    if out.shape != (g, *chunks.shape) or out.dtype != chunks.dtype:
+        out = torch.empty((g, g, *shape), dtype=dtype, device=device)
+    # One tensor is checked whole; per-rank tensors one by one.
+    if isinstance(chunks, torch.Tensor):
+        pieces = [(chunks, (g, *shape))]
+    else:
+        pieces = [(t, shape) for t in chunks]
+    if isinstance(out, torch.Tensor):
+        pieces.append((out, (g, g, *shape)))
+    else:
+        pieces += [(b, (g, *shape)) for b in out]
+    if len(out) != g or any(
+        tuple(t.shape) != want or t.dtype != dtype or t.device != device
+        for t, want in pieces
+    ):
         raise ValueError(
-            f"out {tuple(out.shape)} {out.dtype} does not hold the exchange "
-            f"of {tuple(chunks.shape)} {chunks.dtype}"
+            f"out does not hold the exchange of {g} chunks of {shape} "
+            f"{dtype} on {device}"
         )
-    if out.device != chunks.device:
-        raise ValueError(f"chunks on {chunks.device}, out on {out.device}")
-    if chunks.device.type == "cpu":
+    if device.type == "cpu":
         return a2a_chunk_exchange_ref(chunks, reverse=reverse, out=out)
-    if chunks.device.type != "cuda":
+    if device.type != "cuda":
         raise ValueError(f"a2a_chunk_exchange runs on cuda or cpu, not "
-                         f"{chunks.device}")
-    _launch(chunks, out, reverse)
+                         f"{device}")
+    _launch(chunks, out, reverse, streams)
     return out
 
 
-# Kernel launches (calls of the C function) since the last reset.
+# Calls of the C functions since the last reset, in all and by route.
 a2a_chunk_exchange.launches = 0
+a2a_chunk_exchange.routes = dict.fromkeys(ROUTES, 0)
 
 
 def ficco_uniform_fused_1d_dma(
@@ -121,6 +236,7 @@ def ficco_uniform_fused_1d_dma(
     *,
     variant=None,
     copy_stream=None,
+    side_streams: Sequence = (),
 ) -> torch.Tensor:
     """uniform-fused-1D with the chunk exchange on the copy engines.
 
@@ -135,7 +251,8 @@ def ficco_uniform_fused_1d_dma(
     divides the step GEMM, else a plain ``torch.matmul`` as the reference
     uses ``flat @ w``) and the dispatch order; ``None`` is the default
     variant for the group.  On CUDA, ``copy_stream`` is the stream the
-    exchange runs on.
+    exchange runs on, its copies spread over it and ``side_streams``
+    (forked from it and joined back before each step's GEMM may start).
     """
     g, m_s, k = x.shape
     n_local = w.shape[-1]
@@ -195,7 +312,8 @@ def ficco_uniform_fused_1d_dma(
         with torch.cuda.stream(copy_stream):
             if drained[i % _DEPTH] is not None:
                 copy_stream.wait_event(drained[i % _DEPTH])
-            a2a_chunk_exchange(chunks[:, order[i]], reverse=reverse, out=buf)
+            a2a_chunk_exchange(chunks[:, order[i]], reverse=reverse, out=buf,
+                               streams=side_streams)
             filled[i].record(copy_stream)
 
     exchange(0)
@@ -219,4 +337,11 @@ def ficco_uniform_fused_1d_dma(
     return out
 
 
-__all__ = ["a2a_chunk_exchange", "ficco_uniform_fused_1d_dma"]
+__all__ = [
+    "ROUTES",
+    "route",
+    "strided_plan",
+    "copy_engines",
+    "a2a_chunk_exchange",
+    "ficco_uniform_fused_1d_dma",
+]

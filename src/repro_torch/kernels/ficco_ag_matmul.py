@@ -78,9 +78,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x, w, out, steps: int, depth: int, reverse: bool,
-            route_name: str | None = None) -> None:
-    """One launch, on ``route(x, w)`` unless a route is named."""
+def _launch(x, w, out, steps: int, depth: int, reverse: bool) -> None:
+    """One launch, on ``route(x, w)``."""
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(
             f"ficco_ag_matmul_fused takes float32 or bfloat16 operands of "
@@ -98,7 +97,7 @@ def _launch(x, w, out, steps: int, depth: int, reverse: bool,
     table = (ctypes.c_void_p * g)(*[
         x.data_ptr() + r * x.stride(0) * esize for r in range(g)
     ])
-    name = route(x, w) if route_name is None else route_name
+    name = route(x, w)
     lib = _lib()
     err = lib.ficco_ag_matmul(
         table, g, w.data_ptr(), out.data_ptr(), _DTYPES[x.dtype],

@@ -4,7 +4,7 @@ The reference's wrappers pick Pallas's interpret mode off the TPU; here
 the kernels pick their route from the tensor's device (CUDA: the
 hand-written kernel; CPU: its plain version).  Each kernel counts its CUDA
 launches on the function that launches it; :func:`launch_counts` reads
-them, :func:`route_counts` reads K1's and K4's counts by route, and
+them, :func:`route_counts` reads their counts by route, and
 :func:`reset_launch_counts` sets them all to 0.
 """
 
@@ -43,8 +43,11 @@ def chunk_exchange(chunks, *, reverse=False):
 
 
 def ag_matmul_dma(x, w, *, group):
-    """uniform-fused-1D with the exchange on ``group``'s copy stream."""
-    return ficco_uniform_fused_1d_dma(x, w, copy_stream=group.copy_stream)
+    """uniform-fused-1D with the exchange on ``group``'s copy streams."""
+    return ficco_uniform_fused_1d_dma(
+        x, w, copy_stream=group.copy_stream,
+        side_streams=group.copy_streams[1:],
+    )
 
 
 def ag_matmul_fused(x, w, *, variant=None):
@@ -57,7 +60,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """Launches by route of the kernels that choose one (K1, K4)."""
+    """Launches by route of the kernels that choose one (K1-K4)."""
     return {name: dict(fn.routes) for name, fn in KERNELS.items()
             if hasattr(fn, "routes")}
 

@@ -30,28 +30,25 @@ def accumulate_matmul_ref(
     return c.copy_(c.float() + torch.matmul(x.float(), w.float()))
 
 
-def a2a_chunk_exchange_ref(
-    chunks: torch.Tensor,
-    *,
-    reverse: bool = False,
-    out: torch.Tensor | None = None,
-) -> torch.Tensor:
+def a2a_chunk_exchange_ref(chunks, *, reverse: bool = False, out=None):
     """Plain version of ``a2a_chunk_exchange``: the all-gather of the chunks.
 
     chunks: (g, m_c, K), rank r's chunk at [r] -> (g, g, m_c, K), where
-    out[r, s] is rank s's chunk in rank r's step buffer.  One slice copy
-    per (sender, slot) pair, in the kernel's issue order.
+    out[r][s] is rank s's chunk in rank r's step buffer.  Either may be a
+    sequence of per-rank tensors instead.  One slice copy per (sender,
+    slot) pair, in the pairs route's issue order.
     """
-    g = chunks.shape[0]
+    g = len(chunks)
     if out is None:
         out = torch.empty(
-            (g, *chunks.shape), dtype=chunks.dtype, device=chunks.device
+            (g, g, *chunks[0].shape), dtype=chunks[0].dtype,
+            device=chunks[0].device,
         )
     for me in range(g):
-        out[me, me].copy_(chunks[me])
+        out[me][me].copy_(chunks[me])
         for i in range(1, g):
             peer = (me + (g - i if reverse else i)) % g
-            out[peer, me].copy_(chunks[me])
+            out[peer][me].copy_(chunks[me])
     return out
 
 

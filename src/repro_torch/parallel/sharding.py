@@ -22,30 +22,48 @@ import torch
 from repro_torch.device import resolve_device
 
 _STATE = threading.local()
+# Copy streams a group's chunk exchange spreads its copies over, at most one
+# per rank (chosen from the stream counts timed by chip_smoke.py; PERF.md).
+COPY_STREAMS = 2
 
 
 class TPGroup:
     """``size`` logical tensor-parallel ranks held on one device.
 
-    On CUDA the group owns the copy stream that the chunk exchange runs
-    on, apart from the compute stream that runs the step GEMMs.
+    On CUDA the group owns the copy streams that the chunk exchange runs
+    on, apart from the compute stream that runs the step GEMMs: up to
+    ``copy_streams`` of them, at most one per rank.  The exchange is
+    issued on the first and spread over the others, which are forked from
+    it and joined back.
     """
 
-    def __init__(self, size: int, device=None):
+    def __init__(self, size: int, device=None, copy_streams=COPY_STREAMS):
         if size < 1:
             raise ValueError(f"group size must be >= 1, got {size}")
+        if copy_streams < 1:
+            raise ValueError(f"copy_streams must be >= 1, got {copy_streams}")
         self.size = int(size)
         self.device = resolve_device(device)
-        self._copy_stream = None
+        self.n_copy_streams = min(self.size, int(copy_streams))
+        self._copy_streams = ()
+
+    @property
+    def copy_streams(self) -> tuple:
+        """The dedicated copy streams (CUDA only; ``()`` on the CPU)."""
+        if self.device.type != "cuda":
+            return ()
+        if not self._copy_streams:
+            self._copy_streams = tuple(
+                torch.cuda.Stream(device=self.device)
+                for _ in range(self.n_copy_streams)
+            )
+        return self._copy_streams
 
     @property
     def copy_stream(self):
-        """The dedicated copy stream (CUDA only; ``None`` on the CPU)."""
-        if self.device.type != "cuda":
-            return None
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(device=self.device)
-        return self._copy_stream
+        """The first copy stream (CUDA only; ``None`` on the CPU)."""
+        streams = self.copy_streams
+        return streams[0] if streams else None
 
     def __repr__(self) -> str:
         return f"TPGroup(size={self.size}, device={str(self.device)!r})"
@@ -82,6 +100,7 @@ def shard_columns(w: torch.Tensor, g: int) -> torch.Tensor:
 
 
 __all__ = [
+    "COPY_STREAMS",
     "TPGroup",
     "active_group",
     "tp_group",

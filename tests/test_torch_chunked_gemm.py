@@ -237,3 +237,78 @@ def test_cpu_call_counts_no_route():
     assert ops.launch_counts()["chunked_matmul"] == 0
     assert all(v == 0 for by_route in ops.route_counts().values()
                for v in by_route.values())
+
+
+# ---------------------------------------------------------------------------
+# K2's route choice: "wgmma" for the 2D schedule's fp32 C with bf16
+# operands, "simt" for the rest.  Shapes only: the tensors stay on the CPU.
+# ---------------------------------------------------------------------------
+
+def _accumulate_case(name):
+    """(C, x, w) of one case; the path's is the 2D schedule's step: C (4,
+    2048, 1408) fp32 += panel (4, 2048, 512) bf16 @ a K slice of the
+    strided (2048, 1408) weight shard."""
+    from repro_torch.parallel.sharding import shard_columns
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    c = torch.zeros((4, 2048, 1408), dtype=f32)
+    x = torch.zeros((4, 2048, 512), dtype=bf16)
+    w = shard_columns(torch.zeros((2048, 5632), dtype=bf16), 4)[:, 512:1024]
+    if name == "path_2d_step":
+        return c, x, w
+    if name == "ragged_aligned":  # M, N, K not tile multiples
+        return (torch.zeros((200, 200), dtype=f32),
+                torch.zeros((200, 72), dtype=bf16),
+                torch.zeros((72, 200), dtype=bf16))
+    if name == "f32_operands":
+        return c, x.float(), w.float()
+    if name == "bf16_c":
+        return c.to(bf16), x, w
+    if name == "unaligned_k":  # K = 30: panel rows 60 bytes apart
+        return (torch.zeros((64, 128), dtype=f32),
+                torch.zeros((64, 30), dtype=bf16),
+                torch.zeros((30, 128), dtype=bf16))
+    if name == "unaligned_c_stride":  # C rows 520 bytes apart
+        return (torch.zeros((64, 130), dtype=f32)[:, :128],
+                torch.zeros((64, 64), dtype=bf16),
+                torch.zeros((64, 128), dtype=bf16))
+    if name == "unaligned_c_base":  # C starts 4 bytes into its storage
+        return (torch.zeros((64 * 128 + 1,), dtype=f32)[1:].view(64, 128),
+                torch.zeros((64, 64), dtype=bf16),
+                torch.zeros((64, 128), dtype=bf16))
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("path_2d_step", "wgmma"),
+    ("ragged_aligned", "wgmma"),
+    ("f32_operands", "simt"),
+    ("bf16_c", "simt"),
+    ("unaligned_k", "simt"),
+    ("unaligned_c_stride", "simt"),
+    ("unaligned_c_base", "simt"),
+])
+def test_accumulate_route_choice(name, want):
+    from repro_torch.kernels.chunked_gemm import accumulate_route
+
+    assert accumulate_route(*_accumulate_case(name)) == want
+
+
+def test_path_accumulator_strides_fit_tma():
+    """The 2D step's C rows are 1408 fp32 (5632 B) apart and its weight
+    slice starts 512 rows (5.5 MiB) into the shard: all 16-byte multiples."""
+    from repro_torch.kernels.chunked_gemm import aligned16
+
+    c, x, w = _accumulate_case("path_2d_step")
+    assert c.stride() == (2048 * 1408, 1408, 1)
+    assert w.storage_offset() == 512 * 5632
+    assert aligned16(c) and aligned16(x) and aligned16(w)
+
+
+def test_accumulate_cpu_call_counts_no_route():
+    c, x, w = _accumulate_case("path_2d_step")
+    c, x, w = c[:, :8, :8].clone(), x[:, :8, :16], w[:, :16, :8]
+    ops.reset_launch_counts()
+    accumulate_matmul(c, x, w)
+    assert ops.launch_counts()["accumulate_matmul"] == 0
+    assert ops.route_counts()["accumulate_matmul"] == {"simt": 0, "wgmma": 0}

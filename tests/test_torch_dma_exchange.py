@@ -188,6 +188,118 @@ def test_ops_wrappers_take_plain_versions_on_cpu():
     assert ex.shape == (G, G, 16, K)
 
 
+# ---------------------------------------------------------------------------
+# K3's routes (the wrapper picks one from the operands; the C side issues
+# it or refuses).  Shapes and plans only: the tensors stay on the CPU.
+# ---------------------------------------------------------------------------
+
+def _composer_step(steps=G, m_c=8, k=16, dtype=torch.float32):
+    """Chunk s = 1 of the composer's x.reshape(g, steps, m_c, k) and a
+    step buffer, as ``ficco_uniform_fused_1d_dma`` hands them over."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(
+        rng.standard_normal((G, steps * m_c, k)).astype(np.float32)
+    ).to(dtype)
+    chunks = x.reshape(G, steps, m_c, k)[:, 1]
+    return chunks, torch.empty((G, G, m_c, k), dtype=dtype)
+
+
+def _exchange_case(name):
+    chunks, buf = _composer_step()
+    if name == "composer_step":
+        return chunks, buf
+    if name == "contiguous":
+        return chunks.contiguous(), buf
+    if name == "separate_chunks":  # one allocation per rank
+        return [c.clone() for c in chunks], buf
+    if name == "separate_buffers":
+        return chunks, [b.clone() for b in buf]
+    if name == "broadcast_chunk":  # every rank's chunk is one tensor
+        return chunks[0].expand(G, *chunks.shape[1:]), buf
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("composer_step", "strided"),
+    ("contiguous", "strided"),
+    ("separate_chunks", "pairs"),
+    ("separate_buffers", "pairs"),
+    ("broadcast_chunk", "pairs"),
+])
+def test_exchange_route_choice(name, want):
+    from repro_torch.kernels.dma_exchange import route
+
+    assert route(*_exchange_case(name)) == want
+
+
+def _apply_plan(chunks, out, plan):
+    """The strided route's 2D copies, made with as_strided views."""
+    esize = chunks.element_size()
+    for src_off, spitch, dst_off, dpitch, width, height in plan:
+        assert src_off % esize == spitch % esize == 0
+        assert dst_off % esize == dpitch % esize == width % esize == 0
+        shape = (height, width // esize)
+        src = torch.as_strided(chunks, shape, (spitch // esize, 1),
+                               chunks.storage_offset() + src_off // esize)
+        dst = torch.as_strided(out, shape, (dpitch // esize, 1),
+                               out.storage_offset() + dst_off // esize)
+        dst.copy_(src)
+    return out
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape,dtype", [
+    ((G, 8, 16), torch.float32),  # the composer's step, in small
+    ((G, 5, 7), torch.float32),  # odd widths
+    ((G, 32, 64), torch.bfloat16),
+])
+def test_strided_plan_reproduces_reference(shape, dtype, reverse):
+    """The strided route's copies, one per receiver, as the C side issues
+    them: applied here with as_strided copies, bit-equal to the plain
+    version, forward and reverse."""
+    from repro_torch.kernels.dma_exchange import strided_plan
+
+    g, m_c, k = shape
+    chunks, buf = _composer_step(m_c=m_c, k=k, dtype=dtype)
+    plan = strided_plan(chunks, buf, reverse)
+    assert [p[2] // buf.stride(0) // buf.element_size() for p in plan] == (
+        [0, 3, 2, 1] if reverse else [0, 1, 2, 3]
+    )
+    assert all(p[5] == g and p[4] == m_c * k * buf.element_size()
+               for p in plan)
+    got = _apply_plan(chunks, torch.full_like(buf, float("nan")), plan)
+    want = ref.a2a_chunk_exchange_ref(chunks, reverse=reverse)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("name", ["separate_chunks", "separate_buffers"])
+def test_exchange_of_per_rank_tensors_matches_ref(name, reverse):
+    """Chunks or step buffers given as one tensor per rank (the pairs
+    route's operands) exchange to the same bits on the CPU, counting no
+    launch and no route."""
+    chunks, out = _exchange_case(name)
+    ops.reset_launch_counts()
+    got = a2a_chunk_exchange(chunks, reverse=reverse, out=out)
+    assert got is out
+    want = ref.a2a_chunk_exchange_ref(torch.stack(list(chunks)))
+    assert torch.equal(torch.stack(list(got)), want)
+    assert ops.launch_counts()["a2a_chunk_exchange"] == 0
+    assert ops.route_counts()["a2a_chunk_exchange"] == {
+        "strided": 0, "pairs": 0,
+    }
+
+
+def test_exchange_rejects_mismatched_buffers():
+    chunks, buf = _composer_step()
+    with pytest.raises(ValueError):
+        a2a_chunk_exchange(chunks, out=buf[:, :2])
+    with pytest.raises(ValueError):
+        a2a_chunk_exchange(chunks, out=[b for b in buf][:2])
+    with pytest.raises(ValueError):
+        a2a_chunk_exchange(list(chunks), out=buf.double())
+
+
 @pytest.mark.parametrize(
     "kernel", ["ficco_ag_matmul", "dma_exchange", "ficco_a2a_ffn"]
 )
