@@ -126,6 +126,23 @@ def wall_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def issue_ms(fn, reps: int = REPS) -> float:
+    """Host time to enqueue one call of ``fn``, the mean over ``reps``
+    calls queued while a spin kernel holds the stream (so the device's
+    work is not waited for)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(Timer.SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e3
+
+
 def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
@@ -366,14 +383,18 @@ def phase_exchange(device, timer):
           f"{1 + len(streams)} copy streams; the card has {engines} copy "
           "engines (cudaDevAttrAsyncEngineCount)")
 
-    # Time at the path's chunk: the strided route by copy-stream count,
-    # the pairs route at the group's, and the host wall per call of both.
+    # Time at the path's chunk: the strided route by copy-stream count
+    # (device ms, and the host's ms to issue one call), the pairs route at
+    # the group's, and the host wall per call of both.
     chunks, buf, chunk_list, buf_list = operands(m_c, D_MODEL, torch.bfloat16)
-    by_streams = {}
+    by_streams, issue = {}, {}
     for n in range(1, GROUP + 1):
         side = TPGroup(GROUP, device, copy_streams=n).copy_streams[1:]
         by_streams[n] = timer(lambda: k(chunks, out=buf, streams=side))
+        issue[n] = issue_ms(lambda: k(chunks, out=buf, streams=side))
     pairs_ms = timer(lambda: k(chunk_list, out=buf_list, streams=streams))
+    pairs_issue = issue_ms(lambda: k(chunk_list, out=buf_list,
+                                     streams=streams))
     strided_wall = wall_ms(lambda: k(chunks, out=buf, streams=streams), REPS)
     pairs_wall = wall_ms(lambda: k(chunk_list, out=buf_list,
                                    streams=streams), REPS)
@@ -392,11 +413,12 @@ def phase_exchange(device, timer):
     )
     print(f"[kernels] K3 path chunk {GROUP}x{m_c}x{D_MODEL} bf16: strided "
           f"route (one 2D copy per receiver) "
-          + ", ".join(f"{v:.4f} ms on {n} stream{'s' * (n > 1)}"
-                      for n, v in by_streams.items())
+          + ", ".join(f"{v:.4f} ms on {n} stream{'s' * (n > 1)} (issue "
+                      f"{issue[n]:.4f} ms)" for n, v in by_streams.items())
           + f" (the group's {1 + len(streams)}, COPY_STREAMS "
           f"{COPY_STREAMS}); pairs route ({GROUP * GROUP} copies) "
-          f"{pairs_ms:.4f} ms; host wall per call strided "
+          f"{pairs_ms:.4f} ms (issue {pairs_issue:.4f} ms); host wall per "
+          f"call strided "
           f"{strided_wall:.4f} ms, pairs {pairs_wall:.4f} ms (plain "
           f"{rec['plain_ms']:.4f}, broadcast copy_ {rec['library_ms']:.4f}, "
           f"bound {bound:.4f} {by})")

@@ -26,9 +26,11 @@ they are timed and nothing else.
                 together
   width128      every tile 128 x 128, whatever pick_bn would choose
   width192      every tile 128 x 192, whatever pick_bn would choose
-  no_c_load     K2 loads no C: its epilogue adds whatever the staging
-                tile holds and stores it (C written, never read); K1 and
-                K4 are unchanged
+  no_c_prefetch K2's producer does not prefetch C into L2 ahead of the
+                epilogue's reduce-add; K1 and K4 are unchanged
+  store_not_add K2's epilogue stores its fp32 tile over C with a plain TMA
+                store instead of adding it into C (L2 writes C without
+                reading it); K1 and K4 are unchanged
 
 Then one PyTorch call per kernel on the same inputs (``torch.matmul``;
 ``torch.baddbmm`` with an fp32 out_dtype for K2), timed the same ways, as
@@ -80,9 +82,13 @@ ABLATIONS = {
     )],
     "width128": [(_PICK, _PICK + "  return 128;\n")],
     "width192": [(_PICK, _PICK + "  return 192;\n")],
-    "no_c_load": [(
-        "        load_c<BN>(p, tile, staging, c_full(wg, it % 2), wg);\n",
-        "        mbar_arrive(c_full(wg, it % 2));\n",
+    "no_c_prefetch": [(
+        "      if constexpr (Problem::ACCUMULATE) prefetch_c<BN>(p, tile);\n",
+        "",
+    )],
+    "store_not_add": [(
+        "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group",
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group",
     )],
 }
 

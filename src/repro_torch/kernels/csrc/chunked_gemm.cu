@@ -37,10 +37,9 @@
 //    are zero-filled on load and clipped on store.  Tiles are 128 rows by
 //    128 or 192 columns, the width that leaves the least work on the
 //    busiest SM (gemm_wgmma::pick_bn): K1's path shape is 176 tiles of 128
-//    x 128 in 2 rounds of 132 SMs or 128 tiles of 128 x 192 in one.  K2
-//    takes 128 columns always: each tile TMA-loads its box of C while its
-//    products run and adds it in the epilogue, so C is read and written
-//    once, by TMA, under the products.
+//    x 128 in 2 rounds of 132 SMs or 128 tiles of 128 x 192 in one.  K2's
+//    epilogue adds its fp32 tile into C with TMA's reduce-add, so C is
+//    read and written once, by L2, and no SM waits on it.
 //  * simt (f32, a bf16 C, and any shape the wgmma route does not take): 64
 //    x 64 tiles on the CUDA cores in fp32, edges masked, K2's accumulator
 //    seeded from C.  f32 stays off the tensor cores, whose fp32 input mode
@@ -139,9 +138,7 @@ int launch_wgmma_bn(const void* x, const void* w, void* out, int g, int M,
 }
 
 // The wgmma route, at gemm_wgmma::pick_bn's tile width.  ACC: out is an
-// fp32 C to add into (K2), always in 128-column tiles (two fp32 staging
-// tiles of 192 columns leave no room for the ring), else a bf16 output
-// (K1).
+// fp32 C to add into (K2), else a bf16 output (K1).
 template <bool ACC>
 int launch_wgmma(const void* x, const void* w, void* out, int g, int M,
                  int N, int K, long long x_rank, long long x_row,
@@ -157,12 +154,9 @@ int launch_wgmma(const void* x, const void* w, void* out, int g, int M,
   const cudaError_t err = gemm_wgmma::sm_count(&sms);
   if (err != cudaSuccess) return err;
   const long long mt = (M + 2 * gemm_wgmma::BM - 1) / (2 * gemm_wgmma::BM) * 2;
-  if constexpr (!ACC) {
-    if (gemm_wgmma::pick_bn(g * mt, N, sms) == 192)
-      return launch_wgmma_bn<192, false>(x, w, out, g, M, N, K, x_rank,
-                                         x_row, w_rank, w_row, o_rank, o_row,
-                                         s);
-  }
+  if (gemm_wgmma::pick_bn(g * mt, N, sms) == 192)
+    return launch_wgmma_bn<192, ACC>(x, w, out, g, M, N, K, x_rank, x_row,
+                                     w_rank, w_row, o_rank, o_row, s);
   return launch_wgmma_bn<128, ACC>(x, w, out, g, M, N, K, x_rank, x_row,
                                    w_rank, w_row, o_rank, o_row, s);
 }

@@ -56,25 +56,25 @@
 //  * Epilogue: fp32 to bf16 by __float2bfloat16 (round to nearest even),
 //    written into a swizzled bf16 tile in shared memory and stored by TMA,
 //    which runs under the next tile's products.
-//  * A Problem that accumulates (K2: C += A @ W with an fp32 C) has two
-//    fp32 staging tiles per warpgroup.  At a tile's start the warpgroup
-//    TMA-loads C's box into one, so C arrives while the products run; the
-//    epilogue adds it to the sum in place and TMA-stores the tile, which
-//    runs under the next tile (whose C goes into the other staging tile).
-//    C's bytes cross HBM once each way, as loads and stores that many SMs
-//    keep in flight.  (The first version added the tile into C with
-//    TMA's reduce-add, so that no SM reads C; L2's reads for the reduce
-//    did not overlap the products.)
-//    The sum is (A @ W) + C, the order of the plain version; the TPU
-//    kernel seeds its sum from C, which differs in rounding only.
+//  * A Problem that accumulates (K2: C += A @ W with an fp32 C) stages
+//    the fp32 sum instead and stores it with TMA's reduce-add, so L2 adds
+//    it into C and no SM ever reads C.  A reduce whose lines miss in L2
+//    waits on HBM, so the producer, when it starts a tile's loads, asks
+//    TMA to prefetch the tile's box of C into L2; by the epilogue, more
+//    than a tile later, the reduce finds C there.  (Loading C into shared
+//    memory during the products and storing the sum, the other way to
+//    keep C off the critical path, was built and measured slower: its
+//    second fp32 staging tile left the ring 3 stages.)  The sum is C +
+//    (A @ W), the order of the plain version; the TPU kernel seeds its sum
+//    from C, which differs in rounding only.
 // K is walked in one fixed 64-deep order for every tile, so an output
 // element's value does not depend on which tile, block or order holds it:
 // K4's variants stay bit-identical.
 //
 // A Problem gives: `tiles` (even), `k`, a 3D weight map `w_map` over (N,
 // K, rank), an output map `o_map` (bf16, 64 x 64 boxes; or, when
-// `ACCUMULATE`, a 3D fp32 map of C with 32 x 64 boxes, which the tile is
-// read from and stored to), and `Tile tile(int t) const` (which A map and coordinates, which
+// `ACCUMULATE`, a 3D fp32 map with 32 x 64 boxes that the tile is added
+// into), and `Tile tile(int t) const` (which A map and coordinates, which
 // weight rank and columns, where in the output map the tile goes), where
 // tiles 2P and 2P + 1 share the weight rank and columns.
 //
@@ -102,19 +102,19 @@ constexpr int BOX_BYTES = BOX_N * BK * 2;  // 8 KB
 constexpr int SMEM_MAX = 232448;           // what a block may use (227 KB)
 
 // The tile widths: 128 or 192 columns, 64-column boxes of W each.  ACC:
-// the Problem adds its tile to C (two fp32 staging tiles per warpgroup:
-// four times the epilogue's bytes, so fewer stages; 128 columns only).
+// the Problem adds an fp32 tile into C (twice the epilogue's bytes, so
+// fewer stages).
 template <int BN, bool ACC = false>
 struct Cfg {
   static_assert(BN == 128 || BN == 192, "BN: 128 or 192");
   static constexpr int STAGE_BYTES = A_BYTES + BN * BK * 2;
-  // The epilogue's tiles: per warpgroup one bf16 tile in BN / 64 boxes of
-  // 64 columns, or two fp32 tiles in BN / 32 boxes of 32 columns each;
-  // each box is 64 rows of 128 bytes (BOX_BYTES).
-  static constexpr int OUT_BYTES = BM * BN * (ACC ? 8 : 2);
+  // The epilogue's tile: bf16 in BN / 64 boxes of 64 columns per
+  // warpgroup, or fp32 in BN / 32 boxes of 32 columns; each box is 64 rows
+  // of 128 bytes (BOX_BYTES).
+  static constexpr int OUT_BYTES = BM * BN * (ACC ? 4 : 2);
   // 1024 bytes of slack align the ring (the 128B swizzle repeats every 8
-  // rows of 128 bytes); then 16 barriers (the ring's, and C's).
-  static constexpr int FIXED = 1024 + OUT_BYTES + 16 * 8;
+  // rows of 128 bytes); then the ring's barriers.
+  static constexpr int FIXED = 1024 + OUT_BYTES + 2 * 6 * 8;
   static constexpr int STAGES = (SMEM_MAX - FIXED) / STAGE_BYTES < 6
                                     ? (SMEM_MAX - FIXED) / STAGE_BYTES
                                     : 6;
@@ -218,6 +218,28 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// Asks for a box of a 3D tensor map to be brought into L2; nothing waits
+// for it.
+__device__ __forceinline__ void tma_prefetch_3d(const CUtensorMap* map,
+                                                int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.3d.L2.global [%0, {%1, %2, %3}];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Shared memory added into device memory (fp32 reduce-add in L2) through
+// a 3D tensor map, in a bulk group.
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map,
+                                               uint32_t src, int c0, int c1,
+                                               int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Shared memory to device memory through a tensor map, in a bulk group.
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
                                           uint32_t src, int c0, int c1,
@@ -240,11 +262,9 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
-// Until at most N of the committed stores (the latest) have not read
-// their shared memory yet.
-template <int N = 0>
+// Until the committed stores have read their shared memory.
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 // Until the committed stores are done.
 __device__ __forceinline__ void bulk_wait() {
@@ -382,38 +402,23 @@ __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b,
 // the main loop
 // ---------------------------------------------------------------------------
 
-// The warpgroup's 64 x BN slab of C (BN / 32 fp32 boxes of 32 columns)
-// into `dst` through the output map; `bar` counts the bytes.
-template <int BN, typename Problem>
-__device__ __forceinline__ void load_c(const Problem& p, const Tile& t,
-                                       uint32_t dst, uint32_t bar, int wg) {
-  mbar_expect_tx(bar, BN / 32 * BOX_BYTES);
-#pragma unroll
-  for (int h = 0; h < BN / 32; ++h)
-    tma_load_3d(dst + h * BOX_BYTES, &p.o_map, bar, t.n0 + h * 32,
-                t.o_row + wg * 64, t.o_c2);
-}
-
 // Stores the warpgroup's 64 x BN slab of the tile: thread (warp w, lane l)
 // holds rows 16w + l/4 and 16w + l/4 + 8 of columns 8i + 2(l%4) + {0, 1}.
 // The slab goes into `out` as boxes of 64 rows x 128 bytes, laid out in
 // TMA's 128B swizzle, so the 16-byte chunks of the 8 rows a warp writes at
 // once fall in different banks: as bf16 (BN / 64 boxes of 64 columns),
-// or, when the Problem accumulates, as fp32 (BN / 32 boxes of 32 columns)
-// added to the C slab that load_c put there.  Then one thread stores the
-// boxes through the output map and the warpgroup moves on: the store runs
-// under the next tile's products.  Before a bf16 `out` is written again
-// the previous stores must have read it (an fp32 one was waited for
-// before C was loaded into it).
+// or, when the Problem accumulates, as fp32 (BN / 32 boxes of 32 columns).
+// Then one thread stores the boxes through the output map (or adds them
+// into it) and the warpgroup moves on: the store runs under the next
+// tile's products.  Before `out` is written again the previous stores
+// must have read it.
 template <int BN, typename Problem>
 __device__ __forceinline__ void store_tile(const float* acc, const Tile& t,
                                            const Problem& p, uint32_t out,
                                            int wg) {
   const int tid = threadIdx.x % 128;
-  if constexpr (!Problem::ACCUMULATE) {
-    if (tid == 0) bulk_wait_read();
-    wg_sync(wg);
-  }
+  if (tid == 0) bulk_wait_read();
+  wg_sync(wg);
   const int r0 = (tid / 32) * 16 + (tid % 32) / 4;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -425,14 +430,8 @@ __device__ __forceinline__ void store_tile(const float* acc, const Tile& t,
         const int chunk = (2 * (i % 4) + (tid % 4) / 2) ^ (r % 8);
         const uint32_t addr = out + (i / 4) * BOX_BYTES + r * 128 +
                               chunk * 16 + (tid % 2) * 8;
-        float c0, c1;
-        asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
-                     : "=f"(c0), "=f"(c1)
-                     : "r"(addr)
-                     : "memory");
         asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
-                     "f"(acc[4 * i + 2 * h] + c0),
-                     "f"(acc[4 * i + 2 * h + 1] + c1)
+                     "f"(acc[4 * i + 2 * h]), "f"(acc[4 * i + 2 * h + 1])
                      : "memory");
       } else {
         const __nv_bfloat162 v = __halves2bfloat162(
@@ -451,13 +450,30 @@ __device__ __forceinline__ void store_tile(const float* acc, const Tile& t,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   wg_sync(wg);
   if (tid == 0) {
-    constexpr int BOX_COLS = Problem::ACCUMULATE ? 32 : BOX_N;
+    if constexpr (Problem::ACCUMULATE) {
 #pragma unroll
-    for (int h = 0; h < BN / BOX_COLS; ++h)
-      tma_store(&p.o_map, out + h * BOX_BYTES, t.n0 + h * BOX_COLS,
-                t.o_row + wg * 64, t.o_c2, t.o_c3);
+      for (int h = 0; h < BN / 32; ++h)
+        tma_reduce_add(&p.o_map, out + h * BOX_BYTES, t.n0 + h * 32,
+                       t.o_row + wg * 64, t.o_c2);
+    } else {
+#pragma unroll
+      for (int h = 0; h < BN / BOX_N; ++h)
+        tma_store(&p.o_map, out + h * BOX_BYTES, t.n0 + h * BOX_N,
+                  t.o_row + wg * 64, t.o_c2, t.o_c3);
+    }
     bulk_commit();
   }
+}
+
+// The tile's BM x BN box of C (BN / 32 fp32 boxes of 32 columns per
+// 64 rows), into L2.
+template <int BN, typename Problem>
+__device__ __forceinline__ void prefetch_c(const Problem& p, const Tile& t) {
+#pragma unroll
+  for (int r = 0; r < BM; r += 64)
+#pragma unroll
+    for (int h = 0; h < BN / 32; ++h)
+      tma_prefetch_3d(&p.o_map, t.n0 + h * 32, t.o_row + r, t.o_c2);
 }
 
 // The body of a kernel launched in clusters of 2 blocks of THREADS
@@ -473,13 +489,9 @@ __device__ __forceinline__ void run(const Problem& p) {
   const uint32_t out = ring + C::STAGES * C::STAGE_BYTES;
   const uint32_t bars = out + C::OUT_BYTES;
   // full[s]: the producer's arrival plus the stage's TMA bytes; empty[s]:
-  // one arrival from each consumer warpgroup; c_full(w, b) (ACCUMULATE):
-  // warpgroup w's arrival plus the bytes of C in its staging tile b.
+  // one arrival from each consumer warpgroup.
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (C::STAGES + s); };
-  auto c_full = [&](int w, int b) {
-    return bars + 8 * (2 * C::STAGES + 2 * w + b);
-  };
   auto a_stage = [&](int s) { return ring + s * C::STAGE_BYTES; };
   auto b_stage = [&](int s) { return ring + s * C::STAGE_BYTES + A_BYTES; };
   const int pairs = p.tiles / 2, half = blockIdx.x % 2;
@@ -490,9 +502,6 @@ __device__ __forceinline__ void run(const Problem& p) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), CONSUMERS);
     }
-    if constexpr (Problem::ACCUMULATE)
-      for (int b = 0; b < 2 * CONSUMERS; ++b)
-        mbar_init(c_full(b / 2, b % 2), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -507,6 +516,7 @@ __device__ __forceinline__ void run(const Problem& p) {
     uint32_t phase = 0;
     for (int q = cluster; q < pairs; q += clusters) {
       const Tile tile = p.tile(2 * q + half);
+      if constexpr (Problem::ACCUMULATE) prefetch_c<BN>(p, tile);
       for (int kb = 0; kb < nk; ++kb) {
         mbar_wait(empty(s), phase ^ 1);  // a fresh ring passes at once
         mbar_expect_tx(full(s), C::STAGE_BYTES);
@@ -537,19 +547,8 @@ __device__ __forceinline__ void run(const Problem& p) {
   const bool signals = threadIdx.x % 128 == 0;
   int s = 0;
   uint32_t phase = 0;
-  int it = 0;  // this block's tiles so far
-  for (int q = cluster; q < pairs; q += clusters, ++it) {
+  for (int q = cluster; q < pairs; q += clusters) {
     const Tile tile = p.tile(2 * q + half);
-    uint32_t staging = out + wg * (C::OUT_BYTES / CONSUMERS);
-    if constexpr (Problem::ACCUMULATE) {
-      // C's slab into staging tile it % 2, once the store of tile it - 2
-      // has read it; it arrives while the products run.
-      staging += (it % 2) * (C::OUT_BYTES / (2 * CONSUMERS));
-      if (signals) {
-        bulk_wait_read<1>();
-        load_c<BN>(p, tile, staging, c_full(wg, it % 2), wg);
-      }
-    }
     int prev = 0;
     for (int kb = 0; kb < nk; ++kb) {
       mbar_wait(full(s), phase);
@@ -580,9 +579,7 @@ __device__ __forceinline__ void run(const Problem& p) {
     wgmma_wait<0>();
     fence_acc<BN / 2>(acc);
     if (signals) mbar_arrive(empty(prev));
-    if constexpr (Problem::ACCUMULATE)
-      mbar_wait(c_full(wg, it % 2), (it / 2) & 1);
-    store_tile<BN>(acc, tile, p, staging, wg);
+    store_tile<BN>(acc, tile, p, out + wg * (C::OUT_BYTES / 2), wg);
   }
   if (signals) bulk_wait();
 }

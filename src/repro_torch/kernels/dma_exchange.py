@@ -137,9 +137,8 @@ def _stream_table(handles: tuple[int, ...]):
     return (ctypes.c_void_p * len(handles))(*handles)
 
 
-def _launch(chunks, out, reverse: bool, streams) -> None:
+def _launch(chunks, out, reverse: bool, streams, device) -> None:
     g = len(chunks)
-    device = chunks[0].device
     handles = tuple(s.cuda_stream for s in
                     (torch.cuda.current_stream(device), *streams))
     if len(handles) > MAX_STREAMS:
@@ -195,8 +194,9 @@ def a2a_chunk_exchange(
     ``streams`` (each forked from the current stream and joined back).
     """
     g = len(chunks)
-    first = chunks[0]
-    shape, dtype, device = tuple(first.shape), first.dtype, first.device
+    one = chunks if isinstance(chunks, torch.Tensor) else chunks[0]
+    shape = tuple(chunks.shape[1:]) if one is chunks else tuple(one.shape)
+    dtype, device = one.dtype, one.device
     if out is None:
         out = torch.empty((g, g, *shape), dtype=dtype, device=device)
     # One tensor is checked whole; per-rank tensors one by one.
@@ -221,7 +221,7 @@ def a2a_chunk_exchange(
     if device.type != "cuda":
         raise ValueError(f"a2a_chunk_exchange runs on cuda or cpu, not "
                          f"{device}")
-    _launch(chunks, out, reverse, streams)
+    _launch(chunks, out, reverse, streams, device)
     return out
 
 

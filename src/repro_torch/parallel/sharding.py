@@ -23,8 +23,10 @@ from repro_torch.device import resolve_device
 
 _STATE = threading.local()
 # Copy streams a group's chunk exchange spreads its copies over, at most one
-# per rank (chosen from the stream counts timed by chip_smoke.py; PERF.md).
-COPY_STREAMS = 2
+# per rank: as many as an H100 has copy engines.  chip_smoke.py times the
+# exchange on 1-4 streams; 3 runs it faster than 2 on the device, and
+# issues as fast, where 4 costs the host more (PERF.md).
+COPY_STREAMS = 3
 
 
 class TPGroup:
