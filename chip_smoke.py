@@ -296,10 +296,8 @@ def phase_kernels(device, timer):
         kernel="dma_exchange", chunks=GROUP, block_m=128, block_n=128,
         block_k=128, dispatch_order="reverse",
     )
-    rev = ficco_uniform_fused_1d_dma(
-        xs, w, variant=rev_variant, copy_stream=group.copy_stream,
-        side_streams=group.copy_streams[1:],
-    )
+    rev = ficco_uniform_fused_1d_dma(xs, w, variant=rev_variant,
+                                     copy_streams=group.copy_streams)
     oracle = ref.ag_matmul_ref(xs, w)
     torch.cuda.synchronize()
     if not torch.equal(fwd, rev):
@@ -389,7 +387,7 @@ def phase_exchange(device, timer):
     chunks, buf, chunk_list, buf_list = operands(m_c, D_MODEL, torch.bfloat16)
     by_streams, issue = {}, {}
     for n in range(1, GROUP + 1):
-        side = TPGroup(GROUP, device, copy_streams=n).copy_streams[1:]
+        side = [torch.cuda.Stream(device=device) for _ in range(n - 1)]
         by_streams[n] = timer(lambda: k(chunks, out=buf, streams=side))
         issue[n] = issue_ms(lambda: k(chunks, out=buf, streams=side))
     pairs_ms = timer(lambda: k(chunk_list, out=buf_list, streams=streams))

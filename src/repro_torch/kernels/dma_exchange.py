@@ -235,8 +235,7 @@ def ficco_uniform_fused_1d_dma(
     w: torch.Tensor,
     *,
     variant=None,
-    copy_stream=None,
-    side_streams: Sequence = (),
+    copy_streams: Sequence = (),
 ) -> torch.Tensor:
     """uniform-fused-1D with the chunk exchange on the copy engines.
 
@@ -250,9 +249,10 @@ def ficco_uniform_fused_1d_dma(
     count, the step-GEMM tile (K1 with a full-K contraction when the tile
     divides the step GEMM, else a plain ``torch.matmul`` as the reference
     uses ``flat @ w``) and the dispatch order; ``None`` is the default
-    variant for the group.  On CUDA, ``copy_stream`` is the stream the
-    exchange runs on, its copies spread over it and ``side_streams``
-    (forked from it and joined back before each step's GEMM may start).
+    variant for the group.  On CUDA, ``copy_streams`` (at least one) are
+    the streams the exchange runs on: issued on the first, its copies
+    spread over all (the others forked from the first and joined back
+    before each step's GEMM may start).
     """
     g, m_s, k = x.shape
     n_local = w.shape[-1]
@@ -294,8 +294,9 @@ def ficco_uniform_fused_1d_dma(
 
     cuda = x.device.type == "cuda"
     if cuda:
-        if copy_stream is None:
+        if not copy_streams:
             raise ValueError("on CUDA the exchange needs a copy stream")
+        copy_stream, side_streams = copy_streams[0], copy_streams[1:]
         compute = torch.cuda.current_stream(x.device)
         # The copies read x, which the compute stream produced.  The last
         # step's GEMM waits for the last exchange, so every copy is done

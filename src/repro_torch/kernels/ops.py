@@ -44,10 +44,7 @@ def chunk_exchange(chunks, *, reverse=False):
 
 def ag_matmul_dma(x, w, *, group):
     """uniform-fused-1D with the exchange on ``group``'s copy streams."""
-    return ficco_uniform_fused_1d_dma(
-        x, w, copy_stream=group.copy_stream,
-        side_streams=group.copy_streams[1:],
-    )
+    return ficco_uniform_fused_1d_dma(x, w, copy_streams=group.copy_streams)
 
 
 def ag_matmul_fused(x, w, *, variant=None):

@@ -33,20 +33,17 @@ class TPGroup:
     """``size`` logical tensor-parallel ranks held on one device.
 
     On CUDA the group owns the copy streams that the chunk exchange runs
-    on, apart from the compute stream that runs the step GEMMs: up to
-    ``copy_streams`` of them, at most one per rank.  The exchange is
+    on, apart from the compute stream that runs the step GEMMs:
+    ``COPY_STREAMS`` of them, at most one per rank.  The exchange is
     issued on the first and spread over the others, which are forked from
     it and joined back.
     """
 
-    def __init__(self, size: int, device=None, copy_streams=COPY_STREAMS):
+    def __init__(self, size: int, device=None):
         if size < 1:
             raise ValueError(f"group size must be >= 1, got {size}")
-        if copy_streams < 1:
-            raise ValueError(f"copy_streams must be >= 1, got {copy_streams}")
         self.size = int(size)
         self.device = resolve_device(device)
-        self.n_copy_streams = min(self.size, int(copy_streams))
         self._copy_streams = ()
 
     @property
@@ -57,7 +54,7 @@ class TPGroup:
         if not self._copy_streams:
             self._copy_streams = tuple(
                 torch.cuda.Stream(device=self.device)
-                for _ in range(self.n_copy_streams)
+                for _ in range(min(self.size, COPY_STREAMS))
             )
         return self._copy_streams
 
