@@ -83,30 +83,33 @@ def _inner_contiguous(t: torch.Tensor, lead: int) -> bool:
     return True
 
 
-def _pitches(chunks: torch.Tensor, out: torch.Tensor):
+def _strided(chunks, out):
     """(width, source pitch, destination rank stride, destination pitch)
-    in bytes of the strided route, for one tensor of chunks and one of
-    step buffers.  A size-1 rank dim takes the chunk width as its pitch."""
+    in bytes of the strided route, or None when it does not take the
+    operands: they must be one tensor of chunks and one of step buffers,
+    with the senders' chunks and each receiver's slots at a stride no
+    smaller than a chunk (what a 2D copy's pitches must be).  A size-1
+    rank dim takes the chunk width as its pitch."""
+    if not (isinstance(chunks, torch.Tensor)
+            and isinstance(out, torch.Tensor)):
+        return None
     esize = chunks.element_size()
     width = math.prod(chunks.shape[1:]) * esize
     g = chunks.shape[0]
     spitch = chunks.stride(0) * esize if g > 1 else width
     dpitch = out.stride(1) * esize if g > 1 else width
+    if spitch < width or dpitch < width:
+        return None
     return width, spitch, out.stride(0) * esize, dpitch
 
 
 def route(chunks, out) -> str:
     """The route a CUDA call of ``a2a_chunk_exchange(chunks, out=out)``
-    takes: ``"strided"`` when both are tensors and the senders' chunks and
-    each receiver's slots lie at a stride no smaller than a chunk (what a
-    2D copy's pitches must be); ``"pairs"`` for one tensor per rank, or
+    takes: ``"strided"`` when one 2D copy per receiver can do the exchange
+    (see :func:`_strided`); ``"pairs"`` for one tensor per rank, or
     strides a 2D copy cannot take (a broadcast chunk, overlapping slots).
     """
-    if not (isinstance(chunks, torch.Tensor)
-            and isinstance(out, torch.Tensor)):
-        return "pairs"
-    width, spitch, _, dpitch = _pitches(chunks, out)
-    return "strided" if spitch >= width and dpitch >= width else "pairs"
+    return "pairs" if _strided(chunks, out) is None else "strided"
 
 
 def strided_plan(chunks: torch.Tensor, out: torch.Tensor,
@@ -116,7 +119,7 @@ def strided_plan(chunks: torch.Tensor, out: torch.Tensor,
     destination offset, destination pitch, width, height) in bytes from
     ``chunks``'s and ``out``'s first elements."""
     g = chunks.shape[0]
-    width, spitch, drank, dpitch = _pitches(chunks, out)
+    width, spitch, drank, dpitch = _strided(chunks, out)
     order = [(g - j) % g if reverse else j for j in range(g)]
     return [(0, spitch, r * drank, dpitch, width, g) for r in order]
 
@@ -145,13 +148,14 @@ def _launch(chunks, out, reverse: bool, streams, device) -> None:
         raise ValueError(f"{len(handles)} streams; the exchange takes up to "
                          f"{MAX_STREAMS}")
     table = _stream_table(handles)
-    name = route(chunks, out)
+    strided = _strided(chunks, out)
+    name = "pairs" if strided is None else "strided"
     lib = _lib()
-    if name == "strided":
+    if strided is not None:
         if not (_inner_contiguous(chunks, 1) and _inner_contiguous(out, 2)):
             raise ValueError("a2a_chunk_exchange needs each rank's chunk and "
                              "each step-buffer slot contiguous")
-        width, spitch, drank, dpitch = _pitches(chunks, out)
+        width, spitch, drank, dpitch = strided
         err = lib.dma_exchange_strided(
             chunks.data_ptr(), spitch, out.data_ptr(), drank, dpitch, width,
             g, int(reverse), table, len(handles),
@@ -209,7 +213,7 @@ def a2a_chunk_exchange(
     else:
         pieces += [(b, (g, *shape)) for b in out]
     if len(out) != g or any(
-        tuple(t.shape) != want or t.dtype != dtype or t.device != device
+        t.shape != want or t.dtype != dtype or t.device != device
         for t, want in pieces
     ):
         raise ValueError(
