@@ -39,7 +39,7 @@
 //    busiest SM (gemm_wgmma::pick_bn): K1's path shape is 176 tiles of 128
 //    x 128 in 2 rounds of 132 SMs or 128 tiles of 128 x 192 in one.  K2's
 //    epilogue adds its fp32 tile into C with TMA's reduce-add, so C is
-//    read and written once, by L2, and no SM waits on it.
+//    read and written once, by L2, and no SM reads it.
 //  * simt (f32, a bf16 C, and any shape the wgmma route does not take): 64
 //    x 64 tiles on the CUDA cores in fp32, edges masked, K2's accumulator
 //    seeded from C.  f32 stays off the tensor cores, whose fp32 input mode

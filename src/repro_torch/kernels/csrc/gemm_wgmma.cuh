@@ -60,13 +60,13 @@
 //    the fp32 sum instead and stores it with TMA's reduce-add, so L2 adds
 //    it into C and no SM ever reads C.  A reduce whose lines miss in L2
 //    waits on HBM, so the producer, when it starts a tile's loads, asks
-//    TMA to prefetch the tile's box of C into L2; by the epilogue, more
-//    than a tile later, the reduce finds C there.  (Loading C into shared
-//    memory during the products and storing the sum, the other way to
-//    keep C off the critical path, was built and measured slower: its
-//    second fp32 staging tile left the ring 3 stages.)  The sum is C +
-//    (A @ W), the order of the plain version; the TPU kernel seeds its sum
-//    from C, which differs in rounding only.
+//    TMA to prefetch the tile's box of C into L2, more than a tile ahead
+//    of the epilogue's reduce.  (Loading C into shared memory during the
+//    products and storing the sum, the other way to keep C off the
+//    critical path, was built and measured slower: its second fp32
+//    staging tile left the ring 3 stages.)  The sum is C + (A @ W), the
+//    order of the plain version; the TPU kernel seeds its sum from C,
+//    which differs in rounding only.
 // K is walked in one fixed 64-deep order for every tile, so an output
 // element's value does not depend on which tile, block or order holds it:
 // K4's variants stay bit-identical.

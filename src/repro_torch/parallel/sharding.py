@@ -24,8 +24,8 @@ from repro_torch.device import resolve_device
 _STATE = threading.local()
 # Copy streams a group's chunk exchange spreads its copies over, at most one
 # per rank: as many as an H100 has copy engines.  chip_smoke.py times the
-# exchange on 1-4 streams; 3 runs it faster than 2 on the device, and
-# issues as fast, where 4 costs the host more (PERF.md).
+# exchange on 1-4 streams (PERF.md): one stream per engine gave the
+# steadiest device time, and more streams cost the host more to issue.
 COPY_STREAMS = 3
 
 
