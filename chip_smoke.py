@@ -26,6 +26,15 @@ Phases, each of which exits non-zero on failure:
      AG->GEMM (K4) over the same model's 44 up/gate projections through
      ``ops.ag_matmul_fused``, counted the same way (every one on wgmma);
   5. serving: ``DecodeEngine`` answers 4 requests on the same weights;
+  6. training: full-width TinyLlama-1.1B train steps (4 x 512 tokens of
+     ``SyntheticLM``, AdamW) through ``make_train_step`` on the group of 4,
+     on the uniform-fused-2D schedule (K2 forward under its autograd
+     Function, 176 launches per step, all on wgmma) and dense, interleaved:
+     every gradient finite, the up/gate gradients nonzero in every layer
+     and held against dense with the loss and the gradient norm, the
+     parameters moved, the DMA backend refused under grad; step wall
+     times, tokens/s, the loss trajectory, peak memory and one profiled
+     2D step;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -35,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -51,6 +61,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 PREFILL_BATCH, PREFILL_SEQ, GROUP = 4, 512, 4
+# The training phase: a batch of 4 x 512 tokens, one warm-up step and
+# TRAIN_STEPS timed steps on each path.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
 # TinyLlama-1.1B's widths: the main path's projection is (4 * 512 tokens,
 # D_MODEL) @ (D_MODEL, D_FF), column-sharded over GROUP ranks.
 D_MODEL, D_FF = 2048, 5632
@@ -178,15 +191,20 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def phase_build():
-    from repro_torch.kernels import _build
-
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    print(_card())
     t0 = time.time()
     paths = _build.build()
     print(f"[build] {len(paths)} kernels built in {time.time() - t0:.1f}s "
@@ -683,6 +701,7 @@ def phase_prefill(device):
     from repro_torch.models.model import build_model
     from repro_torch.parallel.sharding import TPGroup, tp_group
     from repro_torch.serve.engine import make_prefill
+    from repro_torch.tree import leaves
 
     cfg = dataclasses.replace(
         get_config("tinyllama-1.1b"),
@@ -692,9 +711,7 @@ def phase_prefill(device):
     t0 = time.time()
     state = model.init(0, device=device)
     _sync()
-    n_params = sum(
-        t.numel() for t in _leaves(state)
-    )
+    n_params = sum(t.numel() for t in leaves(state))
     print(f"[prefill] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.3f}B "
@@ -864,11 +881,28 @@ def _overlap(xs, ys) -> float:
     return total
 
 
+def _kind(name: str) -> str:
+    """A device event's kind, from its name, for the trace's breakdown."""
+    low = name.lower()
+    for kind, keys in (("memcpy", ("memcpy",)),
+                       ("K1/K2 chunked_gemm.cu", ("chunked_gemm",)),
+                       ("cuBLAS GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+                       ("softmax", ("softmax",)),
+                       ("reductions", ("reduce",)),
+                       ("cat, index, gather", ("cat", "index", "gather",
+                                               "scatter")),
+                       ("elementwise", ("elementwise",))):
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
 def phase_trace(label, run):
     """``run`` under torch.profiler: device time by kind, the device's idle
-    share over the window, and how much of the copies' time ran under
-    kernels (chunked_gemm.cu's and any).  Returns the numbers of kernel and
-    memcpy events; raises if the profiler saw no device event."""
+    share over the window, how much of the copies' time ran under kernels
+    (chunked_gemm.cu's and any) and every device event's time summed by
+    :func:`_kind`.  Returns the numbers of kernel and memcpy events and
+    the device's busy ms; raises if the profiler saw no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -912,7 +946,17 @@ def phase_trace(label, run):
                     if ev.device_type == torch.autograd.DeviceType.CUDA
                     and "memcpy" in ev.name.lower()})
     print(f"[trace] copy event names: {names}")
-    return {"kernels": len(kernels), "copies": len(copies)}
+    kinds = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = kinds.get(_kind(ev.name), (0, 0.0))
+            kinds[_kind(ev.name)] = (
+                n + 1, us + ev.time_range.end - ev.time_range.start)
+    print(f"[trace] {label}: device time by kind: "
+          + "; ".join(f"{kind} x{n} {us / 1e3:.2f} ms" for kind, (n, us)
+                      in sorted(kinds.items(), key=lambda kv: -kv[1][1])))
+    return {"kernels": len(kernels), "copies": len(copies),
+            "busy_ms": busy_us / 1e3}
 
 
 def phase_serve(device, cfg, model, state):
@@ -970,15 +1014,203 @@ def phase_serve(device, cfg, model, state):
     print(f"[serve] req0: {[int(t) for t in out[0].prompt]} -> {out[0].out}")
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
+def phase_train(device, cfg, params):
+    """Full-width training steps on the 2D schedule and dense, from the
+    prefill's weights; returns each kernel's launches in the last timed 2D
+    training step, as the launch counters read them."""
+    import torch
+
+    from repro_torch.configs.base import OverlapConfig, ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.sharding import TPGroup, tp_group
+    from repro_torch.train.loop import loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import (
+        OptimizerConfig,
+        apply_updates,
+        init_state,
+    )
+    from repro_torch.tree import leaves, named_leaves
+
+    def model_for(**overlap):
+        return build_model(dataclasses.replace(
+            cfg, overlap=OverlapConfig(**overlap)))
+
+    model_2d = model_for(mode="uniform-fused-2d", backend="collective")
+    dense = model_for()  # gspmd_serial: the dense projections
+    group = TPGroup(GROUP, device)
+    ocfg = OptimizerConfig(warmup_steps=2)
+    shape = ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    data = SyntheticLM(cfg, shape, seed=0)
+    batches = [to_device(data.batch_at(i), device)
+               for i in range(1 + TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats(device)
+
+    # Gradients at the first step's state and batch, on both paths.
+    with tp_group(group):
+        _, _, grads_2d = loss_and_grads(model_2d, params, batches[0])
+    _, _, grads_dense = loss_and_grads(dense, params, batches[0])
+    _sync()
+    named_2d = dict(named_leaves(grads_2d))
+    worst = 0.0
+    for name, g in named_leaves(grads_dense):
+        g2 = named_2d[name]
+        if g2.shape != g.shape or not (torch.isfinite(g).all()
+                                        and torch.isfinite(g2).all()):
+            raise AssertionError(f"[train] gradient {name}: shapes "
+                                 f"{tuple(g2.shape)} and {tuple(g.shape)} "
+                                 "or not finite")
+        if not name.endswith(("ffn/w_up", "ffn/w_gate")):
+            continue
+        for layer in range(cfg.num_layers):
+            got, want = g2[layer].float(), g[layer].float()
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            if got.abs().max().item() == 0 or scale == 0:
+                raise AssertionError(f"[train] {name} layer {layer}: zero "
+                                     "gradient")
+            worst = max(worst, err / scale)
+            if err > 5e-2 * scale:
+                raise AssertionError(
+                    f"[train] {name} layer {layer}: 2D-path gradient "
+                    f"differs from dense by {err:.3e} (max |grad| "
+                    f"{scale:.3e})")
+    print(f"[train] gradients at step 1: all {len(named_2d)} leaves finite "
+          f"on both paths; w_up and w_gate nonzero in all {cfg.num_layers} "
+          f"layers, 2D path vs dense max |diff| / max |grad| per layer "
+          f"{worst:.3e} (limit 5e-2)")
+    del grads_2d, grads_dense, named_2d
+
+    # The DMA backend's kernels have no reverse-mode rule: refused.
+    try:
+        with tp_group(group):
+            loss_and_grads(model_for(mode="uniform-fused-1d", backend="dma"),
+                           params, batches[0])
+    except RuntimeError as e:
+        if "reverse-mode" not in str(e):
+            raise
+        print(f"[train] DMA backend under grad raises: {e}")
     else:
-        yield tree
+        raise AssertionError("[train] the DMA backend did not refuse to be "
+                             "differentiated")
+
+    per_step = cfg.num_layers * 2 * GROUP
+    paths = {"2D path": (make_train_step(model_2d, ocfg), group,
+                         {"accumulate_matmul": per_step}),
+             "dense": (make_train_step(dense, ocfg), None, {})}
+    # Both paths start from the prefill's weights and fresh moments.
+    states = dict.fromkeys(paths, {"params": params,
+                                   "opt_state": init_state(params)})
+    walls = {label: [] for label in paths}
+    metrics = {label: [] for label in paths}
+    train_counts = {}
+    for i, batch in enumerate(batches):
+        for label, (step, grp, expected) in paths.items():
+            _sync()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with tp_group(grp):
+                states[label], m = step(states[label], batch)
+            _sync()
+            walls[label].append((time.perf_counter() - t0) * 1e3)
+            counts, routes = ops.launch_counts(), ops.route_counts()
+            want = {name: expected.get(name, 0) for name in counts}
+            want_routes = {
+                name: {r: expected.get(name, 0) if r == PATH_ROUTES[name]
+                       else 0 for r in per_route}
+                for name, per_route in routes.items()
+            }
+            if counts != want or routes != want_routes:
+                raise AssertionError(
+                    f"[train] {label} step {i + 1}: launches {counts} by "
+                    f"route {routes}, expected {want} by route "
+                    f"{want_routes}")
+            if label == "2D path":
+                train_counts = counts
+            metrics[label].append({k: float(v) for k, v in m.items()})
+            if not all(map(math.isfinite, metrics[label][-1].values())):
+                raise AssertionError(f"[train] {label} step {i + 1}: "
+                                     f"metrics {metrics[label][-1]}")
+        if i == 0:
+            moved = 0
+            for (name, p0), (_, p1) in zip(
+                    named_leaves(params),
+                    named_leaves(states["2D path"]["params"])):
+                changed = int((p0 != p1).sum())
+                # A bf16 norm scale of 1.0 moves once an update passes
+                # half its ulp (2^-8), later in the warm-up.
+                if not name.endswith("scale") and not changed:
+                    raise AssertionError(f"[train] {name} did not change in "
+                                         "a step")
+                moved += changed
+            print(f"[train] step 1 moved {moved} of "
+                  f"{sum(p.numel() for p in leaves(params))} parameters "
+                  "(every leaf but the norm scales moved)")
+    first_2d, first_dense = metrics["2D path"][0], metrics["dense"][0]
+    for key, limit in (("loss", 1e-2), ("grad_norm", 5e-2)):
+        diff = abs(first_2d[key] - first_dense[key])
+        print(f"[train] step 1 {key}: 2D path {first_2d[key]:.6f}, dense "
+              f"{first_dense[key]:.6f} (relative diff "
+              f"{diff / abs(first_dense[key]):.3e}, limit {limit})")
+        if diff > limit * abs(first_dense[key]):
+            raise AssertionError(f"[train] step 1 {key} of the 2D path "
+                                 "differs from dense")
+    tokens_n = TRAIN_BATCH * TRAIN_SEQ
+    for label in paths:
+        timed = walls[label][1:]
+        med = statistics.median(timed)
+        print(f"[train] {cfg.name} full width, {TRAIN_BATCH}x{TRAIN_SEQ} "
+              f"tokens, {label}: step wall median {med:.2f} ms over "
+              f"{len(timed)} steps (min {min(timed):.2f}, max "
+              f"{max(timed):.2f}; warm-up {walls[label][0]:.2f}), "
+              f"{tokens_n / med * 1e3:.0f} tok/s; loss "
+              + " -> ".join(f"{m['loss']:.4f}" for m in metrics[label])
+              + "; lr " + ", ".join(f"{m['lr']:.2e}" for m in metrics[label]))
+    print(f"[train] launches in the last timed 2D training step: "
+          f"{train_counts} (K2: {cfg.num_layers} layers x 2 projections x "
+          f"{GROUP} steps, all on wgmma); peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+
+    def one_2d_step():
+        with tp_group(group):
+            paths["2D path"][0](states["2D path"], batches[0])
+
+    busy = phase_trace("2D-path train step", one_2d_step)["busy_ms"]
+
+    # Where a 2D step's wall goes, unprofiled, on the profiled step's state
+    # and batch: the whole step, then its forward and backward and its
+    # AdamW update with a synchronise between them (medians of 3).
+    state_2d = states["2D path"]
+    split = {"whole step": [], "forward + backward": [], "AdamW update": []}
+    for _ in range(3):
+        _sync()
+        t0 = time.perf_counter()
+        one_2d_step()
+        _sync()
+        t1 = time.perf_counter()
+        with tp_group(group):
+            _, _, grads = loss_and_grads(model_2d, state_2d["params"],
+                                         batches[0])
+        _sync()
+        t2 = time.perf_counter()
+        apply_updates(state_2d["params"], grads, state_2d["opt_state"], ocfg)
+        _sync()
+        split["whole step"].append((t1 - t0) * 1e3)
+        split["forward + backward"].append((t2 - t1) * 1e3)
+        split["AdamW update"].append((time.perf_counter() - t2) * 1e3)
+        del grads
+    print("[train] one 2D step, split (wall, median of 3): "
+          + ", ".join(f"{k} {statistics.median(v):.2f} ms (min {min(v):.2f},"
+                      f" max {max(v):.2f})" for k, v in split.items()))
+    whole = statistics.median(split["whole step"])
+    # The profiler's host cost stretches its window; the busy time over
+    # the unprofiled wall of the same step is the idle share without it.
+    print(f"[train] 2D step: device busy {busy:.2f} ms (profiled) over the "
+          f"unprofiled whole-step wall {whole:.2f} ms: idle share "
+          f"{1 - busy / whole:.3f}")
+    print(f"[train] card: {_card()}")
+    return train_counts
 
 
 def main() -> int:
@@ -996,6 +1228,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    t_start = time.time()
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
           f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
@@ -1013,10 +1246,14 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         k["routes"] = by_route[k["name"]]
     phase_serve(device, cfg, model, state)
+    train_counts = phase_train(device, cfg, state)
+    for k in kernels:
+        k["train_step_launches"] = train_counts[k["name"]]
 
+    print(f"[done] every phase passed in {time.time() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "routes",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "train_step_launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in kernels]}))
     print(json.dumps({"ok": True, "device": {

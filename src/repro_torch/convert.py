@@ -40,4 +40,22 @@ def params_from_jax(tree_of_numpy, cfg: ModelConfig, *, device=None) -> dict:
     return state
 
 
-__all__ = ["params_from_jax"]
+def opt_state_from_jax(numpy_opt_state, cfg: ModelConfig, *,
+                       device=None) -> dict:
+    """The port's optimizer state from the reference's, mapped to numpy.
+
+    ``m`` and ``v`` keep the params' tree in fp32, the moments'
+    ``init_state`` dtype in both packages' train loops; ``step`` becomes a
+    0-dim int32 tensor on the device.
+    """
+    dev = resolve_device(device)
+    build_model(cfg)  # raises for a family the port lacks
+    return {
+        "m": _convert(numpy_opt_state["m"], torch.float32, dev),
+        "v": _convert(numpy_opt_state["v"], torch.float32, dev),
+        "step": torch.tensor(int(np.asarray(numpy_opt_state["step"])),
+                             dtype=torch.int32, device=dev),
+    }
+
+
+__all__ = ["params_from_jax", "opt_state_from_jax"]

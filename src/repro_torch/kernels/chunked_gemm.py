@@ -20,6 +20,14 @@ whose strides are multiples of 16 bytes; K2 takes it for an fp32 C, which
 its epilogue adds the product into with TMA's reduce-add.  ``"simt"``
 takes f32, a bf16 C and every other shape.  ``chunked_matmul.routes``
 and ``accumulate_matmul.routes`` count the launches of each route.
+
+Gradients: K2 is the 2D schedule's step, which the reference writes in
+plain ``jnp`` and differentiates, so :func:`accumulate_matmul` runs through
+an autograd Function on both devices; its backward is the plain products
+that autodiff takes of ``C + x @ w`` (no kernel of the reference computes
+them).  K1 has no reverse-mode rule in the reference (``pallas_call`` has
+none), so :func:`chunked_matmul` refuses an operand that needs a gradient
+(:func:`refuse_grad`) rather than return a product autograd cannot see.
 """
 
 from __future__ import annotations
@@ -36,6 +44,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Codes 0, 1, 2 of the C entry points; K1 and K2 take simt and wgmma,
 # only K4 the wmma tile.
 ROUTES = ("simt", "wmma", "wgmma")
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through ``what``.
+
+    The launches write through ``ctypes``, which autograd does not see, and
+    the reference's Pallas kernels have no reverse-mode rule: this is
+    checked on the CPU path too, so both devices refuse alike.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} cannot be differentiated: the reference's Pallas "
+            "kernel has no reverse-mode rule (pallas_call); run it under "
+            "torch.no_grad(), or train through the collective backend"
+        )
 
 
 def aligned16(t: torch.Tensor) -> bool:
@@ -157,6 +180,7 @@ def chunked_matmul(
             f"({m},{n},{k}) not divisible by blocks "
             f"({block_m},{block_n},{block_k})"
         )
+    refuse_grad("chunked_matmul (K1)", x, w)
     if x.device.type == "cpu":
         return matmul_ref(x, w)
     if x.device.type != "cuda":
@@ -205,6 +229,42 @@ def _launch_accumulate(c3, x3, w3) -> None:
     accumulate_matmul.routes[name] += 1
 
 
+class _AccumulateMatmul(torch.autograd.Function):
+    """``C += x @ w`` in place, recorded for autograd.
+
+    Forward: K2 on CUDA, its plain version on the CPU, into C's storage
+    (``mark_dirty``).  Backward, per rank: dC passes through, dx = dC @ wᵀ
+    and dw = xᵀ @ dC, with dC cast to the operands' dtype, the products
+    that autodiff takes of the reference's ``acc + (panel @ w_slice)``.
+    The saved x is the step's gathered panel, so nothing is gathered again.
+    """
+
+    @staticmethod
+    def forward(ctx, c, x, w):
+        if x.device.type == "cpu":
+            accumulate_matmul_ref(c, x, w)
+        elif x.device.type != "cuda":
+            raise ValueError(f"accumulate_matmul runs on cuda or cpu, not "
+                             f"{x.device}")
+        elif x.dim() == 2:
+            _launch_accumulate(c.unsqueeze(0), x.unsqueeze(0), w.unsqueeze(0))
+        else:
+            _launch_accumulate(c, x, w)
+        ctx.mark_dirty(c)
+        ctx.save_for_backward(x, w)
+        return c
+
+    @staticmethod
+    def backward(ctx, dc):
+        x, w = ctx.saved_tensors
+        d = dc.to(x.dtype)
+        dx = torch.matmul(d, w.transpose(-1, -2)) \
+            if ctx.needs_input_grad[1] else None
+        dw = torch.matmul(x.transpose(-1, -2), d) \
+            if ctx.needs_input_grad[2] else None
+        return dc, dx, dw
+
+
 def accumulate_matmul(
     c: torch.Tensor, x: torch.Tensor, w: torch.Tensor
 ) -> torch.Tensor:
@@ -215,7 +275,9 @@ def accumulate_matmul(
     fp32 accumulator and x, w its bf16 K-slice panel and weight slice.
     The sum is C + (x @ w), as the plain version takes it ("wgmma" adds
     the product into C; "simt" seeds its sum from C, as the TPU kernel
-    does: the two differ in rounding only).
+    does: the two differ in rounding only).  With gradients enabled the
+    update is recorded for autograd (:class:`_AccumulateMatmul`), so C's
+    later uses differentiate through x and w on both devices.
     """
     if x.dim() not in (2, 3) or not c.dim() == w.dim() == x.dim():
         raise ValueError(
@@ -228,16 +290,7 @@ def accumulate_matmul(
         raise ValueError(
             f"shapes {tuple(c.shape)} += {tuple(x.shape)} @ {tuple(w.shape)}"
         )
-    if x.device.type == "cpu":
-        return accumulate_matmul_ref(c, x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"accumulate_matmul runs on cuda or cpu, not "
-                         f"{x.device}")
-    if x.dim() == 2:
-        _launch_accumulate(c.unsqueeze(0), x.unsqueeze(0), w.unsqueeze(0))
-    else:
-        _launch_accumulate(c, x, w)
-    return c
+    return _AccumulateMatmul.apply(c, x, w)
 
 
 # Kernel launches since the last reset (CUDA path only), in all and by
@@ -247,6 +300,7 @@ accumulate_matmul.routes = dict.fromkeys(("simt", "wgmma"), 0)
 
 __all__ = [
     "ROUTES",
+    "refuse_grad",
     "aligned16",
     "route",
     "accumulate_route",

@@ -33,7 +33,7 @@ from collections.abc import Sequence
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.chunked_gemm import chunked_matmul
+from repro_torch.kernels.chunked_gemm import chunked_matmul, refuse_grad
 from repro_torch.kernels.ref import a2a_chunk_exchange_ref
 from repro_torch.tune.variants import default_variant
 
@@ -256,8 +256,11 @@ def ficco_uniform_fused_1d_dma(
     variant for the group.  On CUDA, ``copy_streams`` (at least one) are
     the streams the exchange runs on: issued on the first, its copies
     spread over all (the others forked from the first and joined back
-    before each step's GEMM may start).
+    before each step's GEMM may start).  It refuses operands that need a
+    gradient (:func:`~repro_torch.kernels.chunked_gemm.refuse_grad`), as
+    the reference's ``pallas_dma`` path fails under ``jax.grad``.
     """
+    refuse_grad("ficco_uniform_fused_1d_dma (K3 + K1)", x, w)
     g, m_s, k = x.shape
     n_local = w.shape[-1]
     if w.shape != (g, k, n_local):

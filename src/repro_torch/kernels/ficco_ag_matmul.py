@@ -35,7 +35,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.chunked_gemm import ROUTES, aligned16
+from repro_torch.kernels.chunked_gemm import ROUTES, aligned16, refuse_grad
 from repro_torch.kernels.ref import ag_matmul_ref
 from repro_torch.tune.variants import default_variant
 
@@ -133,8 +133,11 @@ def ficco_ag_matmul_fused(
     x: (g, m_s, K), rank r's row shard; w: (g, K, n_local), rank r's
     column shard -> (g, g * m_s, n_local), rank r's column block of the
     full product, in ``x.dtype``.  ``variant=None`` is the default variant
-    for the group.
+    for the group.  Operands that need a gradient are refused
+    (:func:`~repro_torch.kernels.chunked_gemm.refuse_grad`): the reference
+    kernel has no reverse-mode rule.
     """
+    refuse_grad("ficco_ag_matmul_fused (K4)", x, w)
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"shards {tuple(x.shape)} and {tuple(w.shape)}")
     g, m_s, k = x.shape

@@ -27,13 +27,15 @@ KERNELS = {
 
 
 def matmul(x, w, *, block_m=128, block_n=128, block_k=128):
+    """x @ w with an fp32 sum (K1); refuses operands that need a gradient."""
     return chunked_matmul(
         x, w, block_m=block_m, block_n=block_n, block_k=block_k
     )
 
 
 def matmul_accumulate(c, x, w):
-    """C += x @ w in place (K2); returns C."""
+    """C += x @ w in place (K2); returns C, the update recorded for
+    autograd when an operand needs a gradient."""
     return accumulate_matmul(c, x, w)
 
 
@@ -43,12 +45,14 @@ def chunk_exchange(chunks, *, reverse=False):
 
 
 def ag_matmul_dma(x, w, *, group):
-    """uniform-fused-1D with the exchange on ``group``'s copy streams."""
+    """uniform-fused-1D with the exchange on ``group``'s copy streams;
+    refuses operands that need a gradient."""
     return ficco_uniform_fused_1d_dma(x, w, copy_streams=group.copy_streams)
 
 
 def ag_matmul_fused(x, w, *, variant=None):
-    """The fused all-gather + step GEMM of every rank in one launch (K4)."""
+    """The fused all-gather + step GEMM of every rank in one launch (K4);
+    refuses operands that need a gradient."""
     return ficco_ag_matmul_fused(x, w, variant=variant)
 
 

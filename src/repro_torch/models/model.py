@@ -11,6 +11,7 @@ Interface (used by serve/launch):
     model = build_model(config)
     state         = model.init(seed, device=...)
     logits, aux   = model.forward(state, batch)
+    loss, parts   = model.loss(state, batch)
     cache         = model.init_cache(batch, cache_len, device=...)
     logits, cache = model.decode_step(state, cache, tokens, pos)
 """
@@ -66,6 +67,16 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> list:
+    """The n periods of a tree whose leaves are stacked over periods, as
+    views by ``unbind``: under autograd each leaf's gradient is one
+    ``stack`` of the periods', not n full-size scatters."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _stack(trees: list):
@@ -154,8 +165,8 @@ class Model:
         x = state["embed"][tokens].to(_dtype(cfg))
         b, s = tokens.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        for i in range(self.n_periods):
-            x = _layer_apply(_index(state["layers"][0], i), cfg, x, positions)
+        for period in _unstack(state["layers"][0], self.n_periods):
+            x = _layer_apply(period, cfg, x, positions)
         x = layers.apply_norm(state["final_norm"], x, cfg.norm)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._unembed(state, x), aux
@@ -167,6 +178,26 @@ class Model:
             else state["unembed"]
         )
         return x @ w.to(x.dtype)
+
+    def loss(self, state, batch: dict):
+        """Vocab-wise fp32 cross entropy, as the reference's ``Model.loss``.
+
+        batch keys: tokens, labels (B, S).  Returns (ce + aux, {"ce",
+        "aux"}); aux is 0 for the dense family.  The max is detached and
+        the reductions run over the vocab dim in the reference's order:
+        logsumexp per position, then the mean over (B, S - 1).  The gold
+        logit is a gather, which equals the reference's masked sum over
+        the vocab exactly (one nonzero term).
+        """
+        logits, aux = self.forward(state, batch)
+        labels = batch["labels"]
+        lg = logits[:, :-1].float()
+        tg = labels[:, 1:].long()
+        m = lg.amax(dim=-1, keepdim=True).detach()
+        logz = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+        gold = lg.gather(-1, tg[..., None])[..., 0]
+        ce = (logz - gold).mean()
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # ---- decode ------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, *, device=None):

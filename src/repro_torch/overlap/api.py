@@ -25,6 +25,8 @@ from repro_torch.core.heuristics import select_schedule
 from repro_torch.core.machine import H100_SXM, MachineSpec, machine_for_group
 from repro_torch.core.schedule_types import Schedule
 from repro_torch.core.workload import GemmShape
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
 from repro_torch.overlap.schedules import SCHEDULE_FNS, run_schedule
 
 ScheduleLike = Union[Schedule, str]
@@ -45,21 +47,35 @@ def resolve_schedule(
     ``group`` is the actual overlap-group size; the decision tree (and in
     particular its group-sensitive serial gate) is evaluated against the
     machine model retargeted at that group, not the model's default.
+    Each resolution is an ``overlap/resolve`` span and bumps
+    ``overlap/resolve.{how}`` (``explicit``, ``named`` or ``auto``), as in
+    the reference.
     """
-    if isinstance(schedule, Schedule):
-        return schedule
-    if schedule == "autotune":
-        raise NotImplementedError(
-            "schedule='autotune' needs the runtime tuner, which the port "
-            "does not have yet (ROADMAP A4); pass 'auto' or a schedule name"
-        )
-    if schedule != "auto":
-        return Schedule(schedule)
-    eff = machine or H100_SXM
-    if group:
-        eff = machine_for_group(eff, group)
-    # The serial guard may also fire for shapes the schedules can't chunk.
-    return select_schedule(GemmShape(m, n, k, dtype_bytes), eff).schedule
+    def _resolved(how: str, sched: Schedule, sp) -> Schedule:
+        _metrics.get_metrics().counter(f"overlap/resolve.{how}").inc()
+        sp.set(how=how, schedule=sched.value)
+        return sched
+
+    with _trace.span(
+        "overlap/resolve", "overlap", m=m, n=n, k=k, group=group,
+    ) as sp:
+        if isinstance(schedule, Schedule):
+            return _resolved("explicit", schedule, sp)
+        if schedule == "autotune":
+            raise NotImplementedError(
+                "schedule='autotune' needs the runtime tuner, which the port "
+                "does not have yet (ROADMAP A4); pass 'auto' or a schedule "
+                "name"
+            )
+        if schedule != "auto":
+            return _resolved("named", Schedule(schedule), sp)
+        eff = machine or H100_SXM
+        if group:
+            eff = machine_for_group(eff, group)
+        dec = select_schedule(GemmShape(m, n, k, dtype_bytes), eff)
+        # The serial guard may also fire for shapes the schedules can't
+        # chunk.
+        return _resolved("auto", dec.schedule, sp)
 
 
 def _divisible(m_s: int, k: int, g: int, sched: Schedule) -> bool:

@@ -174,7 +174,9 @@ def ficco_uniform_fused_2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """uniform-fused-2D: chunks are K (column) slices; step s assembles the
     full-M (M, K/g) panel and runs the accumulating GEMM C += panel @
     w_slice (K2).  Output rows are contiguous — no Scatter; requires
-    accumulation instead.
+    accumulation instead.  K2 records its update for autograd, so the
+    result differentiates as the reference's ``jnp`` schedule does; the
+    K slices are ``split`` views, whose backward is one concatenation.
     """
     g, m_s, k = x.shape
     n_local = w.shape[-1]
@@ -184,11 +186,10 @@ def ficco_uniform_fused_2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     acc = torch.zeros(
         (g, g * m_s, n_local), dtype=torch.float32, device=x.device
     )
-    for s in range(g):
-        chunk = x[:, :, s * k_c:(s + 1) * k_c]  # (g, m_s, K/g)
+    # chunk s: (g, m_s, K/g); w_slice s: (g, K/g, n_local)
+    for chunk, w_slice in zip(x.split(k_c, dim=2), w.split(k_c, dim=1)):
         panel = all_gather(chunk, tiled=True)  # (g, M, K/g): rows contiguous
-        w_slice = w[:, s * k_c:(s + 1) * k_c]  # (g, K/g, n_local)
-        ops.matmul_accumulate(acc, panel, w_slice)  # C += A_s @ B_s
+        acc = ops.matmul_accumulate(acc, panel, w_slice)  # C += A_s @ B_s
     return acc.to(torch.promote_types(x.dtype, w.dtype))
 
 

@@ -5,8 +5,10 @@ model's overlap context: with a :class:`~repro_torch.parallel.sharding.TPGroup`
 active (``tp_group``) and the ``dma`` backend, its TP MLPs run the
 copy-engine uniform-fused-1D path.  ``make_serve_step`` is ONE new token
 against the KV cache; :class:`DecodeEngine` adds the minimal batch loop.
-The reference's ``repro.obs`` spans and counters and its ``adapt=`` hook
-wait for their slices.
+``DecodeEngine.run`` reports the reference's ``serve/run`` and
+``serve/step`` spans and ``serve/steps`` and ``serve/tokens`` counters
+(:mod:`repro_torch.obs`); its ``adapt=`` hook waits for the tuner
+(ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, build_model
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
 from repro_torch.parallel.context import overlap_context
 
 
@@ -101,33 +105,47 @@ class DecodeEngine:
         ]
         max_prompt = max(len(r.prompt) for r in reqs)
         max_new = max((r.max_new_tokens for r in reqs), default=0)
-        for pos in range(max_prompt + max_new):
-            feed = []
-            for r in reqs:
-                if pos < len(r.prompt):
-                    feed.append(r.prompt[pos])
-                elif r.out:
-                    feed.append(r.out[-1])
-                else:
-                    feed.append(0)
-            tok = torch.as_tensor(
-                np.asarray(feed, np.int64)[:, None], device=self.device
-            )
-            logits, self.cache = self.step_fn(
-                self.state, self.cache, tok, pos
-            )
-            nxt = logits[:, 0].argmax(-1).cpu().numpy()
-            for i, r in enumerate(reqs[: len(requests)]):
-                if (
-                    pos >= len(r.prompt) - 1
-                    and len(r.out) < r.max_new_tokens
+        reg = _metrics.get_metrics()
+        steps_c = reg.counter("serve/steps")
+        tokens_c = reg.counter("serve/tokens")
+        with _trace.span(
+            "serve/run", "serve",
+            n_requests=len(requests), batch=self.batch,
+            max_prompt=max_prompt, max_new=max_new,
+        ):
+            for pos in range(max_prompt + max_new):
+                feed = []
+                for r in reqs:
+                    if pos < len(r.prompt):
+                        feed.append(r.prompt[pos])
+                    elif r.out:
+                        feed.append(r.out[-1])
+                    else:
+                        feed.append(0)
+                tok = torch.as_tensor(
+                    np.asarray(feed, np.int64)[:, None], device=self.device
+                )
+                with _trace.span("serve/step", "serve", pos=pos) as sp:
+                    logits, self.cache = self.step_fn(
+                        self.state, self.cache, tok, pos
+                    )
+                    nxt = logits[:, 0].argmax(-1).cpu().numpy()
+                    emitted = 0
+                    for i, r in enumerate(reqs[: len(requests)]):
+                        if (
+                            pos >= len(r.prompt) - 1
+                            and len(r.out) < r.max_new_tokens
+                        ):
+                            r.out.append(int(nxt[i]))
+                            emitted += 1
+                    sp.set(tokens=emitted)
+                steps_c.inc()
+                tokens_c.inc(emitted)
+                if all(
+                    len(r.out) >= r.max_new_tokens
+                    for r in reqs[: len(requests)]
                 ):
-                    r.out.append(int(nxt[i]))
-            if all(
-                len(r.out) >= r.max_new_tokens
-                for r in reqs[: len(requests)]
-            ):
-                break
+                    break
         for r in requests:
             r.done = True
         return requests

@@ -88,6 +88,39 @@ def _launch_serve():
     main(["--arch", "tinyllama-1.1b", "--prompts", "1", "--new-tokens", "1"])
 
 
+def _init_train_state():
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import init_train_state
+
+    init_train_state(build_model(_tiny()), 0)
+
+
+def _make_pipeline():
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_pipeline
+
+    make_pipeline(_tiny(), ShapeConfig("t", 8, 2, "train"))
+
+
+def _opt_state_from_jax():
+    from repro_torch.convert import opt_state_from_jax
+
+    opt_state_from_jax({"m": {}, "v": {}, "step": np.int32(0)}, _tiny())
+
+
+def _train():
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.loop import train
+
+    train(_tiny(), ShapeConfig("t", 8, 2, "train"), steps=1)
+
+
+def _launch_train():
+    from repro_torch.launch.train import main
+
+    main(["--arch", "tinyllama-1.1b", "--steps", "1"])
+
+
 ENTRY_POINTS = {
     "Model.init": _model_init,
     "Model.init_cache": _init_cache,
@@ -95,6 +128,11 @@ ENTRY_POINTS = {
     "DecodeEngine": _decode_engine,
     "params_from_jax": _params_from_jax,
     "launch.serve": _launch_serve,
+    "init_train_state": _init_train_state,
+    "make_pipeline": _make_pipeline,
+    "opt_state_from_jax": _opt_state_from_jax,
+    "train": _train,
+    "launch.train": _launch_train,
 }
 
 
@@ -120,4 +158,12 @@ def test_import_check_covers_the_schedule_path():
                  "core.linkmodel", "core.heuristics",
                  "parallel.collectives", "overlap.schedules", "overlap.api",
                  "kernels.ficco_ag_matmul"):
+        assert f"repro_torch.{name}" in mods, name
+
+
+def test_import_check_covers_the_training_path():
+    mods = set(_port_modules())
+    for name in ("obs", "obs.trace", "obs.metrics", "tree",
+                 "train.optimizer", "train.loop", "data.pipeline",
+                 "ckpt.checkpoint", "launch.specs", "launch.train"):
         assert f"repro_torch.{name}" in mods, name
