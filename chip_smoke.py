@@ -16,7 +16,12 @@ Phases, each of which exits non-zero on failure:
      bit against each other, and the route each launch took;
   3. the six FiCCO schedules through ``ficco_linear`` at the main path's
      projection shape, in bf16 and f32, against ``x_full @ w``, and what
-     ``auto`` resolves to on the H100 machine model;
+     ``auto`` resolves to on the H100 machine model; then the port's
+     analytic core (``repro_torch.core``, NumPy on the host, no kernel):
+     the design-space grid of Table I on the H100, MI300X and TPU v5e
+     models through the scalar and the batched engine, bit for bit, and
+     the simulator's time for each schedule at the projection beside the
+     time the card took for it;
   4. the main paths: full-width TinyLlama-1.1B prefill (4 prompts x 512
      tokens) through ``make_prefill`` on a group of 4 logical ranks, once
      with the DMA-backend uniform-fused-1D TP MLP (K1 + K3) and once with
@@ -29,7 +34,9 @@ Phases, each of which exits non-zero on failure:
   6. training: full-width TinyLlama-1.1B train steps (4 x 512 tokens of
      ``SyntheticLM``, AdamW) through ``make_train_step`` on the group of 4,
      on the uniform-fused-2D schedule (K2 forward under its autograd
-     Function, 176 launches per step, all on wgmma) and dense, interleaved:
+     Function; each period recomputed in the backward, as the config's
+     ``remat`` asks, so 352 launches per step, all on wgmma) and dense,
+     interleaved:
      every gradient finite, the up/gate gradients nonzero in every layer
      and held against dense with the loss and the gradient norm, the
      parameters moved, the DMA backend refused under grad; step wall
@@ -674,6 +681,7 @@ def phase_schedules(device, timer):
         if times:
             print("[schedules] device ms per call, bf16: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+            bf16_times = times
     m = GROUP * m_s
     picked = resolve_schedule("auto", m=m, n=D_FF, k=D_MODEL, group=GROUP)
     score = serial_gate_score(GemmShape(m, D_FF, D_MODEL, 2),
@@ -681,6 +689,56 @@ def phase_schedules(device, timer):
     print(f"[schedules] auto on {H100_SXM.name} (group {GROUP}) at M {m}, "
           f"N {D_FF}, K {D_MODEL}, bf16 -> {picked.value} (serial-gate score "
           f"{score:.3f}; above {DEFAULT_SERIAL_GATE} stays serial)")
+    return bf16_times, picked
+
+
+def phase_design(measured, auto):
+    """The port's analytic core in this process: Table I on three machine
+    models through both grid engines (bit for bit), and the simulator's
+    time for each schedule at the main path's projection beside
+    ``measured`` (device ms per schedule from [schedules]).  The predicted
+    times are model outputs from data-sheet constants, and the logical
+    group's exchange on one card is device-memory copies, not the
+    machine model's NVLink: nothing here is held against the card."""
+    import numpy as np
+
+    from repro_torch.core import (
+        H100_SXM,
+        MI300X,
+        TABLE_I,
+        TPU_V5E,
+        GemmShape,
+        best_schedule,
+        explore_grid,
+        machine_for_group,
+    )
+
+    machines = [H100_SXM, MI300X, TPU_V5E]
+    t0 = time.perf_counter()
+    ex = {b: explore_grid(TABLE_I, machines=machines, backend=b)
+          for b in ("scalar", "numpy")}
+    dt = (time.perf_counter() - t0) * 1e3
+    scalar, batched = ex["scalar"].grid, ex["numpy"].grid
+    if not (np.array_equal(scalar.total, batched.total, equal_nan=True)
+            and np.array_equal(scalar.valid, batched.valid)):
+        raise AssertionError("[design] the scalar and numpy engines' "
+                             "GridResult.total differ")
+    for name, e in ex.items():
+        print(f"[design] explore_grid(TABLE_I, {[m.name for m in machines]})"
+              f" on {name}: {e.summary()}")
+    print(f"[design] scalar and numpy GridResult.total bit-equal over "
+          f"{scalar.total.size} (schedule x scenario x machine) entries "
+          f"({dt:.1f} ms for both)")
+    machine = machine_for_group(H100_SXM, GROUP)
+    gemm = GemmShape(PREFILL_BATCH * PREFILL_SEQ, D_FF, D_MODEL, 2)
+    best, results = best_schedule(gemm, machine)
+    print(f"[design] {machine.name} at group {GROUP}, M {gemm.m}, N {gemm.n},"
+          f" K {gemm.k}, bf16: predicted ms (model output, data-sheet "
+          "constants) vs measured device ms on this card: "
+          + ", ".join(f"{s.value} {r.total * 1e3:.4f} vs "
+                      f"{measured[s.value]:.4f}"
+                      for s, r in results.items()))
+    print(f"[design] best_schedule -> {best.value}, auto -> {auto.value}")
 
 
 # The route every main-path launch of each kernel must take.
@@ -1095,7 +1153,10 @@ def phase_train(device, cfg, params):
         raise AssertionError("[train] the DMA backend did not refuse to be "
                              "differentiated")
 
-    per_step = cfg.num_layers * 2 * GROUP
+    # K2 runs per layer, per up and gate projection, per step of the 2D
+    # schedule; with ``remat`` the backward recomputes every period's
+    # forward, so twice.
+    per_step = cfg.num_layers * 2 * GROUP * (2 if cfg.remat else 1)
     paths = {"2D path": (make_train_step(model_2d, ocfg), group,
                          {"accumulate_matmul": per_step}),
              "dense": (make_train_step(dense, ocfg), None, {})}
@@ -1167,10 +1228,13 @@ def phase_train(device, cfg, params):
               f"{tokens_n / med * 1e3:.0f} tok/s; loss "
               + " -> ".join(f"{m['loss']:.4f}" for m in metrics[label])
               + "; lr " + ", ".join(f"{m['lr']:.2e}" for m in metrics[label]))
+    remat = (f" x 2 (the forward, and its recomputation in the backward: "
+             f"remat, policy {cfg.remat_policy!r})" if cfg.remat else "")
     print(f"[train] launches in the last timed 2D training step: "
           f"{train_counts} (K2: {cfg.num_layers} layers x 2 projections x "
-          f"{GROUP} steps, all on wgmma); peak memory "
-          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+          f"{GROUP} steps{remat}, all on wgmma); peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
+          f"on {_card()}")
 
     def one_2d_step():
         with tp_group(group):
@@ -1209,6 +1273,29 @@ def phase_train(device, cfg, params):
     print(f"[train] 2D step: device busy {busy:.2f} ms (profiled) over the "
           f"unprofiled whole-step wall {whole:.2f} ms: idle share "
           f"{1 - busy / whole:.3f}")
+
+    # What recomputation saves: the 2D path's forward + backward, with the
+    # config's remat and without it, each from the same state and batch;
+    # the device memory it takes above what was allocated at its start,
+    # and its wall.  (The phase's peak above is the optimizer's: it holds
+    # a path's old and new state while the other path's is alive.)
+    for remat in (cfg.remat, not cfg.remat):
+        model = build_model(dataclasses.replace(model_2d.config, remat=remat))
+        _sync()
+        torch.cuda.reset_peak_memory_stats(device)
+        start = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        with tp_group(group):
+            _, _, grads = loss_and_grads(model, state_2d["params"],
+                                         batches[0])
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        del grads
+        peak = torch.cuda.max_memory_allocated(device)
+        print(f"[train] 2D path forward + backward, remat {remat} "
+              f"(policy {cfg.remat_policy!r}): peak {peak / 2**30:.2f} GiB, "
+              f"{(peak - start) / 2**30:.2f} GiB above its start "
+              f"({start / 2**30:.2f} GiB), wall {wall:.2f} ms")
     print(f"[train] card: {_card()}")
     return train_counts
 
@@ -1237,7 +1324,7 @@ def main() -> int:
     k1, k3 = phase_kernels(device, timer)
     kernels = [k1, phase_accumulate(device, timer), k3,
                phase_fused(device, timer)]
-    phase_schedules(device, timer)
+    phase_design(*phase_schedules(device, timer))
     cfg, model, state, launches, by_route = phase_prefill(device)
     fused_launches, fused_routes = phase_fused_path(device, cfg, state)
     launches.update(fused_launches)

@@ -8,10 +8,11 @@ the tree's structure as the reference prints it and the leaf count, and
 port, and a port checkpoint of fp32 leaves into the reference.
 
 numpy has no bfloat16, so a bf16 leaf is stored as its raw 16-bit words
-(``int16``), and the meta's ``dtypes`` list names every leaf's dtype;
-restoring it is bit-exact.  A leaf that the reference wrote with
-``ml_dtypes``' bfloat16 reads back as 2-byte void records, which are the
-same raw words.
+in 2-byte void records (``|V2``), the form in which a leaf that the
+reference wrote with ``ml_dtypes``' bfloat16 reads back; the meta's
+``dtypes`` list names every leaf's dtype, and restoring is bit-exact.
+The reference's restore casts numerically, so it refuses such a leaf
+(it has no cast from ``|V2``) rather than reading the words as integers.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from repro_torch.tree import leaves, treedef_str, unflatten
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy()
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
     return t.numpy()
 
 

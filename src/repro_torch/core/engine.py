@@ -1,0 +1,470 @@
+"""Unified engine facade: one backend protocol over the design-space grid
+(port of ``repro.core.engine``).
+
+Two numerically-pinned engines evaluate the same ``(schedule, scenario,
+machine)`` design-space grid on the host:
+
+  * :class:`ScalarEngine`  — the discrete simulator
+    (``repro_torch.core.simulator.simulate``) in Python loops; slow,
+    obvious, the ground truth the batched engine is tested against.
+  * :class:`NumpyEngine`   — the vectorized batched engine
+    (``repro_torch.core.batch``); bit-identical to the scalar recurrence.
+
+Both speak the same :class:`Engine` protocol — ``evaluate(batch) ->
+GridResult`` for **uniform and ragged** scenario batches — and register
+themselves in a process-wide registry, so everything downstream
+(``explore_grid``, the shortlist, the heuristic calibrators) resolves a
+backend by name:
+
+    from repro_torch.core.engine import get_engine
+    grid = get_engine("numpy").evaluate(scenarios, machines)
+
+The reference's jitted ``"jax"`` and ``"mixed"`` engines have no
+counterpart yet: a torch grid engine is ROADMAP item A8, and until it
+lands ``get_engine("jax")`` raises the unknown-backend error, which
+lists the registered engines.  The capability flags (``supports_ragged``,
+``jit``, ``differentiable``, ``trace_safe``) are kept so such an engine
+can declare itself.
+
+:class:`GridResult` — the one canonical dense result table — also lives
+here; ``repro_torch.core.batch`` re-exports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Protocol, runtime_checkable
+
+import numpy as np
+
+from repro_torch.core.machine import MachineSpec
+from repro_torch.core.schedule_types import STUDIED, Schedule
+from repro_torch.core.simulator import SimResult
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
+
+# Canonical schedule order — matches the dict order of
+# ``simulator.best_schedule`` so argmin tie-breaking is identical.
+GRID_SCHEDULES: tuple[Schedule, ...] = (
+    Schedule.SERIAL,
+    Schedule.SHARD_P2P,
+    *STUDIED,
+)
+SCHEDULE_INDEX = {s: i for i, s in enumerate(GRID_SCHEDULES)}
+
+_FICCO_SCHEDULES = frozenset(STUDIED)
+
+
+# ---------------------------------------------------------------------------
+# The one canonical result table.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GridResult:
+    """Dense result table over (schedule, scenario, machine).
+
+    ``total``/``comm_busy``/``compute_busy``/``exposed`` have shape
+    ``(L, S, M)`` with L = ``len(schedules)``; ``serial_comm`` /
+    ``serial_gemm`` are ``(S, M)``.  Entries where the scalar simulator
+    would raise (indivisible decompositions) are NaN with ``valid`` False.
+
+    Every engine returns exactly this shape (scenario-major layout).
+    """
+
+    schedules: tuple[Schedule, ...]
+    scenarios: "ScenarioBatch"  # noqa: F821 — repro_torch.core.batch (no cycle)
+    machines: tuple[MachineSpec, ...]
+    total: np.ndarray
+    comm_busy: np.ndarray
+    compute_busy: np.ndarray
+    exposed: np.ndarray
+    steps: np.ndarray  # (L, M) int
+    serial_comm: np.ndarray
+    serial_gemm: np.ndarray
+    valid: np.ndarray
+    dma: bool
+
+    @property
+    def serial_total(self) -> np.ndarray:
+        return self.serial_comm + self.serial_gemm
+
+    @property
+    def speedup(self) -> np.ndarray:
+        """(L, S, M) speedup of each schedule vs the serial reference."""
+        return self.serial_total[None, :, :] / self.total
+
+    def best_idx(self) -> np.ndarray:
+        """(S, M) index into ``schedules`` of the fastest valid schedule."""
+        masked = np.where(self.valid, self.total, np.inf)
+        return np.argmin(masked, axis=0)
+
+    def best_total(self) -> np.ndarray:
+        masked = np.where(self.valid, self.total, np.inf)
+        return np.min(masked, axis=0)
+
+    def schedule_idx(self, schedule: Schedule) -> int:
+        return self.schedules.index(schedule)
+
+    def sim_result(self, schedule: Schedule, i: int, j: int) -> SimResult:
+        """Materialize one scalar :class:`SimResult` from the grid."""
+        l = self.schedule_idx(schedule)
+        if not self.valid[l, i, j]:
+            raise ValueError(
+                f"{schedule} invalid for scenario {i} on "
+                f"{self.machines[j].name} (indivisible decomposition)"
+            )
+        return SimResult(
+            schedule,
+            float(self.total[l, i, j]),
+            float(self.comm_busy[l, i, j]),
+            float(self.compute_busy[l, i, j]),
+            float(self.exposed[l, i, j]),
+            int(self.steps[l, j]),
+            float(self.serial_comm[i, j]),
+            float(self.serial_gemm[i, j]),
+        )
+
+
+# ---------------------------------------------------------------------------
+# The engine protocol.
+# ---------------------------------------------------------------------------
+
+
+def as_scenario_sequence(scenarios):
+    """Materialize generic iterables so dispatch can inspect them.
+
+    Batches and lists/tuples pass through; generators and other
+    iterables are drained to a list (otherwise :func:`is_ragged` would
+    silently classify an iterator of RaggedScenario as uniform and the
+    profiles would be dropped).
+    """
+    from repro_torch.core.batch import ScenarioBatch
+
+    if isinstance(scenarios, (ScenarioBatch, list, tuple)):
+        return scenarios
+    return list(scenarios)
+
+
+def is_ragged(scenarios) -> bool:
+    """True iff ``scenarios`` carries non-uniform step profiles.
+
+    Pass generic iterables through :func:`as_scenario_sequence` first —
+    this predicate does not consume iterators.
+    """
+    from repro_torch.core.batch import RaggedBatch
+    from repro_torch.core.workload import RaggedScenario
+
+    if isinstance(scenarios, RaggedBatch):
+        return True
+    if isinstance(scenarios, (list, tuple)) and len(scenarios) > 0:
+        return isinstance(scenarios[0], RaggedScenario)
+    return False
+
+
+def _observe_evaluate(name: str, scenarios):
+    """Span + counter for one engine evaluation (no-op when disabled)."""
+    try:
+        n = len(scenarios)
+    except TypeError:  # raw generators: counted after coercion, skip here
+        n = None
+    _metrics.get_metrics().counter(f"engine/evaluate.{name}").inc()
+    return _trace.span(
+        "engine/evaluate", "engine", engine=name, n_scenarios=n
+    )
+
+
+@runtime_checkable
+class Engine(Protocol):
+    """One design-space evaluation backend.
+
+    ``evaluate`` accepts every scenario form the engines accept today —
+    ``ScenarioBatch`` / ``RaggedBatch`` / lists of ``Scenario`` /
+    ``RaggedScenario`` / ``GemmShape`` — dispatching uniform vs ragged
+    on the input type, and returns the canonical :class:`GridResult`.
+
+    Capability flags:
+      * ``supports_ragged`` — accepts non-uniform step profiles.
+      * ``jit``            — compiled/on-accelerator evaluation.
+      * ``differentiable`` — gradients flow through machine params/TAU.
+      * ``trace_safe``     — callable while a graph is being traced (a
+        non-safe engine would stage its own work into the caller's graph).
+    """
+
+    name: str
+    supports_ragged: bool
+    jit: bool
+    differentiable: bool
+    trace_safe: bool
+
+    def evaluate(
+        self,
+        scenarios,
+        machines,
+        *,
+        dma: bool = True,
+        dma_into_place: bool = False,
+        schedules: tuple[Schedule, ...] | None = None,
+    ) -> GridResult: ...
+
+
+class ScalarEngine:
+    """Scalar engine: ``simulate()`` in Python loops.
+
+    O(S x M x L) Python-level work — the ground truth for differential
+    tests and tiny queries; :class:`NumpyEngine` is the one for sweeps.
+    Matches :class:`NumpyEngine` bit for bit: same formulas, same
+    accumulation order (the batched pipeline scan replicates the scalar
+    recurrence exactly).
+    """
+
+    name = "scalar"
+    supports_ragged = True
+    jit = False
+    differentiable = False
+    trace_safe = True
+
+    def evaluate(
+        self,
+        scenarios,
+        machines,
+        *,
+        dma: bool = True,
+        dma_into_place: bool = False,
+        schedules: tuple[Schedule, ...] | None = None,
+    ) -> GridResult:
+        from repro_torch.core import batch as _batch
+        from repro_torch.core.simulator import simulate
+
+        schedules = (
+            GRID_SCHEDULES if schedules is None else tuple(schedules)
+        )
+        scenarios = as_scenario_sequence(scenarios)
+        ragged = is_ragged(scenarios)
+        sb = (
+            _batch._as_ragged_batch(scenarios)
+            if ragged
+            else _batch._as_batch(scenarios)
+        )
+        machines = tuple(machines)
+        _span = _observe_evaluate(self.name, sb)
+        _span.__enter__()
+        L, S, M = len(schedules), len(sb), len(machines)
+        total = np.full((L, S, M), np.nan)
+        comm_busy = np.full((L, S, M), np.nan)
+        compute_busy = np.full((L, S, M), np.nan)
+        exposed = np.full((L, S, M), np.nan)
+        steps = np.zeros((L, M), dtype=np.int64)
+        serial_comm = np.zeros((S, M))
+        serial_gemm = np.zeros((S, M))
+        valid = np.zeros((L, S, M), dtype=bool)
+        profiles = [sb.profile(i) for i in range(S)] if ragged else None
+        for j, machine in enumerate(machines):
+            # Step counts follow the engine convention (shared with the
+            # batched engines): serial collapses to one step, everything
+            # else pipelines over the group / padded profile length.
+            for l, sched in enumerate(schedules):
+                if sched is Schedule.SERIAL:
+                    steps[l, j] = 1
+                elif ragged and sched in _FICCO_SCHEDULES:
+                    steps[l, j] = sb.max_steps
+                else:
+                    steps[l, j] = machine.group
+            for i in range(S):
+                gemm = sb.gemm(i)
+                # Serial reference times are analytic metadata the
+                # batched engines compute for every scenario whatever
+                # the requested schedule subset — never raise.
+                r0 = simulate(gemm, machine, Schedule.SERIAL, dma=dma)
+                serial_comm[i, j] = r0.serial_comm
+                serial_gemm[i, j] = r0.serial_gemm
+                for l, sched in enumerate(schedules):
+                    prof = (
+                        profiles[i]
+                        if ragged and sched in _FICCO_SCHEDULES
+                        else None
+                    )
+                    try:
+                        r = simulate(
+                            gemm, machine, sched,
+                            dma=dma, dma_into_place=dma_into_place,
+                            profile=prof,
+                        )
+                    except ValueError:
+                        continue  # indivisible decomposition: stays NaN
+                    total[l, i, j] = r.total
+                    comm_busy[l, i, j] = r.comm_busy
+                    compute_busy[l, i, j] = r.compute_busy
+                    exposed[l, i, j] = r.exposed_comm
+                    valid[l, i, j] = True
+        _span.__exit__(None, None, None)
+        return GridResult(
+            schedules=schedules,
+            scenarios=sb,
+            machines=machines,
+            total=total,
+            comm_busy=comm_busy,
+            compute_busy=compute_busy,
+            exposed=exposed,
+            steps=steps,
+            serial_comm=serial_comm,
+            serial_gemm=serial_gemm,
+            valid=valid,
+            dma=dma,
+        )
+
+
+class NumpyEngine:
+    """The vectorized batched engine (``repro_torch.core.batch``)."""
+
+    name = "numpy"
+    supports_ragged = True
+    jit = False
+    differentiable = False
+    trace_safe = True
+
+    def evaluate(
+        self,
+        scenarios,
+        machines,
+        *,
+        dma: bool = True,
+        dma_into_place: bool = False,
+        schedules: tuple[Schedule, ...] | None = None,
+    ) -> GridResult:
+        from repro_torch.core import batch as _batch
+
+        scenarios = as_scenario_sequence(scenarios)
+        fn = (
+            _batch.evaluate_ragged_grid
+            if is_ragged(scenarios)
+            else _batch.evaluate_grid
+        )
+        with _observe_evaluate(self.name, scenarios):
+            return fn(
+                scenarios, machines, dma=dma, dma_into_place=dma_into_place,
+                schedules=GRID_SCHEDULES if schedules is None else schedules,
+            )
+
+
+# ---------------------------------------------------------------------------
+# Registry.
+# ---------------------------------------------------------------------------
+
+_REGISTRY: dict[str, Callable[[], Engine]] = {}
+_INSTANCES: dict[str, Engine] = {}
+
+
+def register_engine(
+    name: str,
+    factory: Callable[[], Engine],
+    *,
+    overwrite: bool = False,
+) -> None:
+    """Register an engine factory under ``name``.
+
+    Third parties (tests, experimental backends) can register their own.  A name collision
+    raises — registering over an existing engine would silently reroute
+    every ``backend=`` caller — unless ``overwrite=True`` is passed
+    explicitly; the error lists the registered names, mirroring
+    :func:`get_engine`'s unknown-name diagnostic.
+    """
+    if not overwrite and name in _REGISTRY:
+        raise ValueError(
+            f"engine {name!r} already registered (pass overwrite=True to "
+            f"replace it); registered engines: {', '.join(engine_names())}"
+        )
+    _REGISTRY[name] = factory
+    _INSTANCES.pop(name, None)
+
+
+def engine_names() -> tuple[str, ...]:
+    """Registered backend names, sorted."""
+    return tuple(sorted(_REGISTRY))
+
+
+def get_engine(backend) -> Engine:
+    """Resolve a backend name (or pass through an Engine instance).
+
+    Unknown names raise a ``ValueError`` that lists every registered
+    engine, so a typo'd ``backend=`` never falls through silently.
+    """
+    if not isinstance(backend, str):
+        if isinstance(backend, Engine):
+            return backend
+        raise TypeError(
+            f"backend must be an engine name or Engine, got {backend!r}"
+        )
+    factory = _REGISTRY.get(backend)
+    if factory is None:
+        raise ValueError(
+            f"unknown engine backend {backend!r}; registered engines: "
+            f"{', '.join(engine_names())}"
+        )
+    inst = _INSTANCES.get(backend)
+    if inst is None:
+        inst = _INSTANCES[backend] = factory()
+    return inst
+
+
+register_engine("scalar", ScalarEngine)
+register_engine("numpy", NumpyEngine)
+
+
+# ---------------------------------------------------------------------------
+# Backend-generic shortlist (what a tuner ranks with).
+# ---------------------------------------------------------------------------
+
+
+def shortlist(
+    gemm,
+    machine: MachineSpec,
+    *,
+    top: int = 3,
+    dma: bool = True,
+    backend: str = "numpy",
+    profile=None,
+    engine: Engine | None = None,
+) -> list[tuple[Schedule, float]]:
+    """Top-``top`` valid schedules for one GEMM, fastest first.
+
+    ``backend`` names any registered engine (``engine=`` passes an
+    instance directly).  Model times accompany each schedule so callers
+    can decide whether measuring is worth it (close calls) or not.
+    ``profile`` ranks the schedules under a ragged step profile instead
+    of the uniform split (skew-aware tuning).
+    """
+    from repro_torch.core.batch import RaggedBatch, ScenarioBatch
+
+    eng = engine if engine is not None else get_engine(backend)
+    if profile is not None:
+        batch = RaggedBatch.from_batch_and_profiles(
+            ScenarioBatch.from_gemms([gemm]), [profile]
+        )
+    else:
+        batch = ScenarioBatch.from_gemms([gemm])
+    grid = eng.evaluate(batch, (machine,), dma=dma)
+    total = np.where(grid.valid[:, 0, 0], grid.total[:, 0, 0], np.inf)
+    order = np.argsort(total, kind="stable")
+    out = []
+    for l in order[:top]:
+        if not np.isfinite(total[l]):
+            break
+        out.append((grid.schedules[int(l)], float(total[l])))
+    return out
+
+
+__all__ = [
+    "GRID_SCHEDULES",
+    "SCHEDULE_INDEX",
+    "GridResult",
+    "Engine",
+    "ScalarEngine",
+    "NumpyEngine",
+    "register_engine",
+    "engine_names",
+    "get_engine",
+    "as_scenario_sequence",
+    "is_ragged",
+    "shortlist",
+]

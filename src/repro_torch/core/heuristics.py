@@ -1,28 +1,42 @@
-"""FiCCO schedule selection (copy of ``repro.core.heuristics``, scalar part).
+"""FiCCO schedule-selection heuristics (paper Fig. 12a; port of
+``repro.core.heuristics``).
 
-The decision tree uses only *static* GEMM parameters so a runtime can pick
-a bespoke schedule without profiling (paper Fig. 12a):
+The decision tree uses only *static* GEMM parameters so frameworks/runtimes
+can pick a bespoke schedule without profiling:
 
   1. Communication shape: 1D if M > K else 2D — minimizes the dominant DIL
      direction (row-sharding hurts when M < K, §IV-C1).  2D has a single
      studied schedule: uniform-fused-2D.
-  2. Within 1D, compare the combined OTB x MT metric (== the GEMM's FLOPs)
-     against a machine threshold T = peak FLOP/s x TAU:
+  2. Within 1D, compare the combined OTB x MT metric (note OTB * MT_bytes
+     == 2*M*N*K == the GEMM's FLOPs) against a machine-level threshold
+     derived from peak compute (op-to-byte x memory bandwidth = FLOPs,
+     scaled by a one-time-tuned horizon TAU):
 
         metric <  T        -> uniform-fused-1D   (low DIL / high CIL)
         metric >= 5 * T    -> hetero-unfused-1D  (high DIL / low CIL)
         otherwise          -> hetero-fused-1D    (balanced)
 
-Ahead of the tree sit two "stay serial" escapes the paper does not model:
-operators below ``MIN_DECOMPOSE_FLOPS``, and the serial gate
+TAU is the paper's "one-time tuning cost for thresholds" (§VIII-C); it is
+fit once per machine in ``calibrate_tau`` against the simulator
+(:mod:`repro_torch.core.simulator`, through the grid engines) and then
+frozen (default below was frozen for MI300X).
+
+Beyond the paper, the tree carries a **serial gate** learned from the
+design-space grid: the paper's tree always decomposes, but at grid
+scale ~65% of (scenario, machine) points have a *serial* analytic
+optimum — comm-bound operators whose finer-grain exchange inflates the
+dominant communication stream (per-chunk latency + ramp, comm CIL) by
+more than the compute it hides.  The static signal is
 
     score = r * (inflate * CIL - 1),   r = T_comm / T_gemm (roofline),
     inflate = chunked/serial all-gather time from the link model,
 
-serial iff ``score > gate``.  The reference also consults a learned
-per-machine-family gate and a step profile here, and takes ``tau`` and
-gate overrides; all come with the port's ``learn`` and tuner packages
-(ROADMAP A4/A8), so this copy uses the module constants.
+"serial wins" iff the inflated comm overhead exceeds the hidden compute,
+i.e. score > gate with gate ~= 1 (the frozen default is calibrated on
+the grid, see ``calibrate_serial_gate``).
+
+The reference also takes a learned gate family (``gate=``, its ``learn``
+package); the port's comes with ROADMAP A4.
 """
 
 from __future__ import annotations
@@ -31,50 +45,158 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core import linkmodel
 from repro_torch.core.machine import MachineSpec
 from repro_torch.core.schedule_types import Schedule
 from repro_torch.core.workload import GemmShape
 
-# One-time tuned horizon (seconds of peak compute), frozen after
-# calibration against the reference's schedule simulator (paper §VIII-C).
+# One-time tuned horizon (seconds of peak compute) per machine family —
+# frozen after calibration against the schedule simulator (paper §VIII-C:
+# thresholds carry a one-time tuning cost per machine).  The port has that
+# simulator, so ``calibrate_tau`` re-derives it for any machine.
 DEFAULT_TAU = 0.02
+_TAU_OVERRIDES: dict[str, float] = {}
 
-# Operators too small to amortize even one extra kernel launch per chunk
-# are left serial.
+# Beyond-paper guard: operators too small to amortize even one extra kernel
+# launch per chunk are left serial (the paper's scenarios never hit this; our
+# smoke-scale models do).
 MIN_DECOMPOSE_FLOPS = 1.0e9
 
-# Serial/overlap gate: stay serial when ``serial_gate_score > gate``.  The
-# theory-derived breakeven is 1.0; 1.2 is the reference's grid-calibrated
-# default.
+# Serial/overlap gate (see module docstring): stay serial when
+# ``serial_gate_score > gate``.  The theory-derived breakeven is 1.0;
+# the frozen default is calibrated on the scenario-grid x
+# machine-grid sweep, constrained to keep the paper-fidelity sets
+# (Table I + 16 synthetic, MI300X) at their pre-gate accuracy.
 DEFAULT_SERIAL_GATE = 1.2
+_SERIAL_GATE_OVERRIDES: dict[str, float] = {}
 # FiCCO comm CIL geomean (paper §IV-D) used inside the gate score.
 _GATE_COMM_CIL = 1.12
 
 
-def serial_gate_score(gemm: GemmShape, machine: MachineSpec) -> float:
-    """Gate score ``r * (inflate * CIL - 1)``.
+def machine_serial_gate(machine: MachineSpec) -> float:
+    """The scalar gate threshold for a machine: a
+    :func:`calibrate_serial_gate` override, else the default.  (The
+    reference consults a learned per-machine-family gate ahead of it;
+    that comes with the port's ``learn`` package, ROADMAP A4.)"""
+    return _SERIAL_GATE_OVERRIDES.get(machine.name, DEFAULT_SERIAL_GATE)
 
-    ``r`` compares the serial all-gather against the peak-rate per-device
-    GEMM; ``inflate`` is the chunked/serial all-gather time ratio from the
-    link model (g FiCCO steps of 1/g^2-sized chunks vs one all-gather).
+
+def serial_gate_terms_batch(m, n, k, dtype_bytes, machine: MachineSpec):
+    """Vectorized ``(r, inflate)`` terms of the serial-gate score.
+
+    All quantities are static machine-model numbers (no profiling):
+    ``r`` compares the serial all-gather against the peak-rate
+    per-device GEMM; ``inflate`` is the chunked/serial all-gather time
+    ratio from the shared link model (g FiCCO steps of 1/g^2-sized
+    chunks vs one serial all-gather — both via the same
+    ``repro_torch.core.batch`` formulas the engines use, so a comm-model fix
+    propagates here automatically).  The reference's learned gate takes
+    these terms as its inputs.
     """
-    m = np.float64(gemm.m)
-    n = np.float64(gemm.n)
-    k = np.float64(gemm.k)
+    from repro_torch.core import batch as _batch  # local: avoids a cycle
+
+    m = np.asarray(m, dtype=np.float64)
+    n = np.asarray(n, dtype=np.float64)
+    k = np.asarray(k, dtype=np.float64)
+    b = np.asarray(dtype_bytes, dtype=np.float64)
     g = machine.group
     dev_n = np.where(n % g == 0, n / g, n)
-    mk_bytes = m * k * np.float64(gemm.dtype_bytes)
+    mk_bytes = m * k * b
     t_comm = mk_bytes / machine.ag_bw
     t_gemm = 2.0 * m * dev_n * k / machine.peak_flops
     with np.errstate(divide="ignore", invalid="ignore"):
         r = t_comm / t_gemm
-        t_serial_ag = linkmodel.ag_serial_time_vec(mk_bytes, machine)
-        t_chunked_ag = g * linkmodel.a2a_chunk_step_time_vec(
+        t_serial_ag = _batch.ag_serial_time_vec(mk_bytes, machine)
+        t_chunked_ag = g * _batch.a2a_chunk_step_time_vec(
             mk_bytes / (g * g), machine
         )
         inflate = t_chunked_ag / t_serial_ag
-        return float(r * (inflate * _GATE_COMM_CIL - 1.0))
+    return r, inflate
+
+
+def serial_gate_score_from_terms(r, inflate):
+    """Gate score from precomputed :func:`serial_gate_terms_batch` terms
+    (lets callers that also need the terms compute them once)."""
+    with np.errstate(invalid="ignore"):
+        return r * (inflate * _GATE_COMM_CIL - 1.0)
+
+
+def serial_gate_score_batch(m, n, k, dtype_bytes, machine: MachineSpec):
+    """Vectorized gate score: comm/compute ratio x net chunking overhead.
+
+    Overlap can hide at most the GEMM; chunking costs
+    ``(inflate * CIL - 1)`` of the comm — serial wins when the latter
+    (scaled by r) exceeds 1.  See :func:`serial_gate_terms_batch` for
+    the two terms.
+    """
+    return serial_gate_score_from_terms(
+        *serial_gate_terms_batch(m, n, k, dtype_bytes, machine)
+    )
+
+
+def serial_gate_score(gemm: GemmShape, machine: MachineSpec) -> float:
+    return float(
+        serial_gate_score_batch(
+            gemm.m, gemm.n, gemm.k, gemm.dtype_bytes, machine
+        )
+    )
+
+
+def calibrate_serial_gate(
+    machines,
+    scenarios,
+    candidates=(0.3, 0.5, 0.7, 0.9, 1.0, 1.2, 1.5, 2.0, 3.0),
+    *,
+    freeze: bool = False,
+    backend: str = "numpy",
+) -> float:
+    """Learn the serial/overlap gate from a grid: pick the candidate that
+    maximizes grid-wide within-5% accuracy of the gated heuristic.
+
+    One batched sweep supplies the analytic optima; every candidate is a
+    vectorized re-gating.  ``freeze=True`` records the winner as a
+    per-machine override for each machine in ``machines``.  ``backend``
+    names any registered engine (``repro_torch.core.engine``).
+    """
+    from repro_torch.core import batch as _batch  # local: avoids a cycle
+    from repro_torch.core.engine import get_engine
+
+    machines = tuple(machines)
+    sb = _batch.ScenarioBatch.from_scenarios(scenarios)
+    grid = get_engine(backend).evaluate(sb, machines)
+    best_total = grid.best_total()
+    s_idx = np.arange(len(sb))[:, None]
+    m_idx = np.arange(len(machines))[None, :]
+    base_picks = np.stack(
+        [
+            select_schedule_batch(
+                sb.m, sb.n, sb.k, sb.dtype_bytes, mach, serial_gate=np.inf
+            )
+            for mach in machines
+        ],
+        axis=1,
+    )
+    scores = np.stack(
+        [
+            serial_gate_score_batch(sb.m, sb.n, sb.k, sb.dtype_bytes, mach)
+            for mach in machines
+        ],
+        axis=1,
+    )
+    serial_l = _batch.SCHEDULE_INDEX[Schedule.SERIAL]
+
+    best_gate, best_acc = candidates[0], -1.0
+    for gate in candidates:
+        picks = np.where(scores > gate, serial_l, base_picks)
+        t = grid.total[picks, s_idx, m_idx]
+        acc = float(
+            np.mean(np.nan_to_num(t, nan=np.inf) <= 1.05 * best_total)
+        )
+        if acc > best_acc:
+            best_gate, best_acc = gate, acc
+    if freeze:
+        for mach in machines:
+            _SERIAL_GATE_OVERRIDES[mach.name] = best_gate
+    return best_gate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,27 +207,58 @@ class HeuristicDecision:
     reason: str
 
 
-def machine_threshold(machine: MachineSpec) -> float:
+def machine_threshold(machine: MachineSpec, tau: float | None = None) -> float:
     """T = peak FLOP/s x TAU: 'op-to-byte x memory bandwidth = FLOPs'."""
-    return machine.peak_flops * DEFAULT_TAU
+    if tau is None:
+        tau = _TAU_OVERRIDES.get(machine.name, DEFAULT_TAU)
+    return machine.peak_flops * tau
 
 
-def select_schedule(gemm: GemmShape, machine: MachineSpec) -> HeuristicDecision:
-    """Static schedule pick (Fig. 12a tree behind the serial gate)."""
+def select_schedule(
+    gemm: GemmShape,
+    machine: MachineSpec,
+    *,
+    tau: float | None = None,
+    allow_serial_guard: bool = True,
+    serial_gate: float | None = None,
+    profile=None,
+) -> HeuristicDecision:
+    """Static schedule pick (Fig. 12a tree + the learned serial gate).
+
+    ``serial_gate`` overrides the calibrated gate threshold; pass
+    ``float("inf")`` to disable the gate (the paper's original tree).
+    The gate only applies when ``allow_serial_guard`` is True — both are
+    "stay serial" escapes the paper does not model.
+
+    ``profile`` (a :class:`~repro_torch.core.workload.StepProfile`) makes the
+    gate **skew-aware**: a ragged decomposition's largest chunk sets the
+    pipeline's critical step, so the chunking-overhead score is scaled
+    by the profile's imbalance (max/mean active-step share) — heavily
+    skewed EP dispatches fall back to serial sooner, which is exactly
+    what the ragged grid's analytic optima show.
+    """
     metric = gemm.otb * gemm.bytes_mt  # == gemm.flops
-    t = machine_threshold(machine)
+    t = machine_threshold(machine, tau)
 
-    if gemm.flops < MIN_DECOMPOSE_FLOPS:
+    if allow_serial_guard and gemm.flops < MIN_DECOMPOSE_FLOPS:
         return HeuristicDecision(
             Schedule.SERIAL, metric, t,
             "operator too small to amortize decomposition (beyond-paper guard)",
         )
-    if serial_gate_score(gemm, machine) > DEFAULT_SERIAL_GATE:
-        return HeuristicDecision(
-            Schedule.SERIAL, metric, t,
-            "comm-bound: chunking overhead exceeds hidden compute "
-            "(grid-learned serial gate)",
+    if allow_serial_guard:
+        score = serial_gate_score(gemm, machine)
+        g_thr = (
+            serial_gate
+            if serial_gate is not None
+            else machine_serial_gate(machine)
         )
+        imbalance = 1.0 if profile is None else float(profile.imbalance)
+        if score * imbalance > g_thr:
+            return HeuristicDecision(
+                Schedule.SERIAL, metric, t,
+                "comm-bound: chunking overhead exceeds hidden compute "
+                "(grid-learned serial gate)",
+            )
     if gemm.m < gemm.k:
         return HeuristicDecision(
             Schedule.UNIFORM_FUSED_2D, metric, t,
@@ -127,12 +280,100 @@ def select_schedule(gemm: GemmShape, machine: MachineSpec) -> HeuristicDecision:
     )
 
 
-__all__ = [
-    "DEFAULT_TAU",
-    "MIN_DECOMPOSE_FLOPS",
-    "DEFAULT_SERIAL_GATE",
-    "HeuristicDecision",
-    "machine_threshold",
-    "serial_gate_score",
-    "select_schedule",
-]
+def select_schedule_batch(
+    m,
+    n,
+    k,
+    dtype_bytes,
+    machine: MachineSpec,
+    *,
+    tau: float | None = None,
+    allow_serial_guard: bool = True,
+    serial_gate: float | None = None,
+    imbalance=None,
+):
+    """Vectorized :func:`select_schedule` over ``(S,)`` shape arrays.
+
+    Returns an int array of indices into
+    ``repro_torch.core.batch.GRID_SCHEDULES`` (the same order the batched
+    simulator uses), replicating the scalar decision tree branch for
+    branch.
+
+    ``imbalance`` is the per-scenario ragged-profile imbalance factor
+    (``RaggedBatch.imbalance``; 1.0 == uniform): it scales the serial
+    gate score exactly like the scalar tree's ``profile`` argument.
+    """
+    from repro_torch.core.batch import SCHEDULE_INDEX  # local: avoids a cycle
+
+    m = np.asarray(m)
+    n = np.asarray(n)
+    k = np.asarray(k)
+    b = np.asarray(dtype_bytes)
+    flops = 2.0 * m * n * k
+    bytes_mt = (m * k + k * n + m * n).astype(np.float64) * b
+    metric = (flops / bytes_mt) * bytes_mt  # == flops, scalar-model order
+    t = machine_threshold(machine, tau)
+
+    if allow_serial_guard:
+        scores = serial_gate_score_batch(m, n, k, b, machine)
+        g_thr = (
+            serial_gate
+            if serial_gate is not None
+            else machine_serial_gate(machine)
+        )
+        imb = (
+            1.0 if imbalance is None
+            else np.asarray(imbalance, np.float64)
+        )
+        stay_serial = (flops < MIN_DECOMPOSE_FLOPS) | (
+            scores * imb > g_thr
+        )
+    else:
+        stay_serial = np.zeros(m.shape, dtype=bool)
+    conds = [
+        stay_serial,
+        m < k,
+        metric < t,
+        metric >= 5.0 * t,
+    ]
+    choices = [
+        SCHEDULE_INDEX[Schedule.SERIAL],
+        SCHEDULE_INDEX[Schedule.UNIFORM_FUSED_2D],
+        SCHEDULE_INDEX[Schedule.UNIFORM_FUSED_1D],
+        SCHEDULE_INDEX[Schedule.HETERO_UNFUSED_1D],
+    ]
+    return np.select(conds, choices, SCHEDULE_INDEX[Schedule.HETERO_FUSED_1D])
+
+
+def calibrate_tau(
+    machine: MachineSpec,
+    scenarios,
+    candidates=(0.02, 0.05, 0.1, 0.2, 0.5, 1.0),
+    *,
+    backend: str = "numpy",
+) -> float:
+    """One-time TAU fit: maximize agreement with the simulator-optimal
+    schedule over a calibration set (paper tunes thresholds per machine).
+
+    Runs as one batched sweep: the simulator-optimal schedules come from
+    a single engine evaluation (``backend`` names any registered engine)
+    and each TAU candidate is a vectorized re-threshold — no
+    per-(tau, scenario) scalar simulation.
+    """
+    from repro_torch.core import batch as _batch  # local: avoids a cycle
+    from repro_torch.core.engine import get_engine
+
+    sb = _batch.ScenarioBatch.from_scenarios(scenarios)
+    grid = get_engine(backend).evaluate(sb, (machine,))
+    best = grid.best_idx()[:, 0]
+
+    best_tau, best_acc = candidates[0], -1.0
+    for tau in candidates:
+        picks = select_schedule_batch(
+            sb.m, sb.n, sb.k, sb.dtype_bytes, machine, tau=tau
+        )
+        acc = float(np.mean(picks == best))
+        if acc > best_acc:
+            best_tau, best_acc = tau, acc
+    _TAU_OVERRIDES[machine.name] = best_tau
+    return best_tau

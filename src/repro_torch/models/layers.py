@@ -86,6 +86,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # GQA attention
 # ---------------------------------------------------------------------------
 
+def _block_attn(q, k, v, mask):
+    """One (query block, key block) pair of the online softmax.
+
+    q: (B, bq, H, D); k, v: (B, bk, KV, D); mask: broadcastable to
+    (bq, bk), or None where the block masks nothing.  GQA repeats K and V
+    to the heads over this key block only.  Returns the block's row max m
+    and row sum l (B, H, bq) and unnormalised output o (B, bq, H, D), all
+    fp32.  The result does not depend on the max (it cancels between o
+    and l), so m is detached: no gradient flows through it, as none flows
+    through the max inside ``torch.softmax``.
+    """
+    d = q.shape[-1]
+    rep = q.shape[2] // k.shape[2]
+    kr = k.repeat_interleave(rep, dim=2).float()
+    vr = v.repeat_interleave(rep, dim=2).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / math.sqrt(d)
+    if mask is not None:
+        scores = torch.where(mask, scores, _NEG_INF)
+    m = scores.detach().amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    return m, p.sum(dim=-1), torch.einsum("bhqk,bkhd->bqhd", p, vr)
+
+
+def _and(mask, term):
+    return term if mask is None else mask & term
+
+
 def blockwise_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -95,35 +122,60 @@ def blockwise_attention(
     window: Optional[int] = None,
     q_offset: int = 0,
     block_q: int = 512,
+    block_k: int = 512,
 ) -> torch.Tensor:
-    """Exact attention, one block of queries at a time (memory O(bq * Sk)).
+    """Exact attention over query blocks x key blocks with an online
+    softmax (memory O(block_q * block_k) per head), as the reference's.
 
     q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  ``q_offset`` is the absolute
-    position of q[0] relative to k[0].  Scores and softmax are fp32; the
-    result is cast to q's dtype (the reference's online softmax over KV
-    blocks computes the same function).
+    position of q[0] relative to k[0].  Both sequences are padded to block
+    multiples and the padding masked; the running max, sum and output merge
+    in fp32, and the result is cast to q's dtype.  The first key block
+    starts the running state, which is what the reference's merge into an
+    empty state (max -1e30, sums 0) gives exactly.
     """
     b, sq, h, d = q.shape
-    sk, kv = k.shape[1], k.shape[2]
-    rep = h // kv
-    kr = k.repeat_interleave(rep, dim=2).float()  # (B, Sk, H, D)
-    vr = v.repeat_interleave(rep, dim=2).float()
-    k_pos = torch.arange(sk, device=q.device)
+    sk = k.shape[1]
+    block_q = min(block_q, sq)
+    block_k = min(block_k, sk)
+    pq, pk = (-sq) % block_q, (-sk) % block_k
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+    q_base = torch.arange(block_q, device=q.device)
+    k_base = torch.arange(block_k, device=q.device)
     outs = []
-    for q0 in range(0, sq, block_q):
-        qb = q[:, q0:q0 + block_q].float()
-        scores = torch.einsum("bqhd,bkhd->bhqk", qb, kr) / math.sqrt(d)
-        q_pos = q_offset + q0 + torch.arange(qb.shape[1], device=q.device)
-        mask = torch.ones((qb.shape[1], sk), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= q_pos[:, None] >= k_pos[None, :]
-        if window is not None:
-            mask &= q_pos[:, None] - k_pos[None, :] < window
-        scores = scores.masked_fill(~mask, _NEG_INF)
-        p = torch.softmax(scores, dim=-1)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, vr))
-    return torch.cat(outs, dim=1).to(q.dtype)
+    for q0 in range(0, sq + pq, block_q):
+        q_pos = q_offset + q0 + q_base
+        for k0 in range(0, sk + pk, block_k):
+            k_pos = k0 + k_base
+            mask = None
+            if k0 + block_k > sk:  # padded keys
+                mask = _and(mask, (k_pos < sk)[None, :])
+            if q0 + block_q > sq:  # padded queries
+                mask = _and(mask, (q_pos < q_offset + sq)[:, None])
+            if causal:
+                mask = _and(mask, q_pos[:, None] >= k_pos[None, :])
+            if window is not None:
+                mask = _and(mask, q_pos[:, None] - k_pos[None, :] < window)
+            m_b, l_b, o_b = _block_attn(
+                q[:, q0:q0 + block_q], k[:, k0:k0 + block_k],
+                v[:, k0:k0 + block_k], mask,
+            )
+            if k0 == 0:
+                m_run, l_run, o_run = m_b, l_b, o_b
+                continue
+            m_new = torch.maximum(m_run, m_b)
+            a1 = torch.exp(m_run - m_new)
+            a2 = torch.exp(m_b - m_new)
+            l_run = l_run * a1 + l_b * a2
+            o_run = (o_run * a1.transpose(1, 2)[..., None]
+                     + o_b * a2.transpose(1, 2)[..., None])
+            m_run = m_new
+        outs.append(o_run / l_run.clamp_min(1e-30).transpose(1, 2)[..., None])
+    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
 
 
 def cache_attention(

@@ -22,11 +22,14 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint as tcp
 
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.models.layers import AttnDims
+from repro_torch.parallel.context import get_overlap, overlap_context
+from repro_torch.parallel.sharding import active_group, tp_group
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -105,6 +108,47 @@ def _layer_apply(p, cfg: ModelConfig, x, positions):
     return x + layers.mlp_apply(p["ffn"], h)
 
 
+def _remat_layer(p, cfg: ModelConfig, x, positions, overlap, group):
+    """A period under recomputation.  The backward reruns it after the
+    forward's overlap context and TP group have been left, so it enters
+    the ones the forward ran in."""
+    with overlap_context(overlap), tp_group(group):
+        return _layer_apply(p, cfg, x, positions)
+
+
+# The matmul family of aten ops: what ``remat_policy="dots"`` saves, as the
+# reference's ``dots_saveable`` saves the outputs of its dot products.
+_DOT_OPS = frozenset(
+    getattr(torch.ops.aten, name).default
+    for name in ("mm", "bmm", "addmm", "baddbmm", "matmul")
+)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (tcp.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else tcp.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return tcp.create_selective_checkpoint_contexts(_save_dots)
+
+
+def _remat_kwargs(cfg: ModelConfig) -> dict:
+    """``torch.utils.checkpoint`` arguments for the config's policy.
+
+    ``"nothing"`` keeps nothing inside a period (``nothing_saveable``);
+    ``"dots"`` keeps the matmuls' outputs (``dots_saveable``).  K2's
+    autograd Function is no aten matmul, so it is recomputed under both.
+    """
+    if cfg.remat_policy == "nothing":
+        return {}
+    if cfg.remat_policy == "dots":
+        return {"context_fn": _dots_contexts}
+    raise ValueError(
+        f"remat_policy must be 'nothing' or 'dots', got {cfg.remat_policy!r}"
+    )
+
+
 def _layer_decode(p, cfg: ModelConfig, x, cache, pos: int):
     h = layers.apply_norm(p["norm1"], x, cfg.norm)
     y, cache = layers.attn_decode(
@@ -128,6 +172,7 @@ class Model:
                 "(ROADMAP queue A, item 7)"
             )
         self.n_periods = config.num_layers // len(self.pattern)
+        self._remat = _remat_kwargs(config) if config.remat else None
 
     # ---- init -----------------------------------------------------------
     def init(self, seed: int = 0, *, device=None) -> dict:
@@ -165,8 +210,19 @@ class Model:
         x = state["embed"][tokens].to(_dtype(cfg))
         b, s = tokens.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        for period in _unstack(state["layers"][0], self.n_periods):
-            x = _layer_apply(period, cfg, x, positions)
+        periods = _unstack(state["layers"][0], self.n_periods)
+        if self._remat is not None and torch.is_grad_enabled():
+            # Each period's activations are recomputed in the backward,
+            # as the reference's ``jax.checkpoint`` around its period.  A
+            # period draws no random numbers, so no RNG state is kept.
+            ctx = (get_overlap(), active_group())
+            for period in periods:
+                x = tcp.checkpoint(_remat_layer, period, cfg, x, positions,
+                                   *ctx, use_reentrant=False,
+                                   preserve_rng_state=False, **self._remat)
+        else:
+            for period in periods:
+                x = _layer_apply(period, cfg, x, positions)
         x = layers.apply_norm(state["final_norm"], x, cfg.norm)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._unembed(state, x), aux

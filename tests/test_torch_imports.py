@@ -155,10 +155,18 @@ def test_launch_serve_runs_on_cpu_when_asked(capsys):
 def test_import_check_covers_the_schedule_path():
     mods = set(_port_modules())
     for name in ("core.schedule_types", "core.machine", "core.workload",
-                 "core.linkmodel", "core.heuristics",
+                 "core.inefficiency", "core.heuristics",
                  "parallel.collectives", "overlap.schedules", "overlap.api",
                  "kernels.ficco_ag_matmul"):
         assert f"repro_torch.{name}" in mods, name
+
+
+def test_import_check_covers_the_analytic_core():
+    mods = set(_port_modules())
+    for name in ("core", "core.inefficiency", "core.simulator", "core.engine",
+                 "core.batch", "core.explorer"):
+        assert f"repro_torch.{name}" in mods, name
+    assert "repro_torch.core.linkmodel" not in mods
 
 
 def test_import_check_covers_the_training_path():

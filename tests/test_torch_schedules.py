@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import heuristics, linkmodel
+from repro_torch.core import heuristics, inefficiency
 from repro_torch.core.machine import H100_SXM, MI300X, TPU_V5E
 from repro_torch.core.schedule_types import Schedule
 from repro_torch.core.workload import GemmShape
@@ -301,7 +301,7 @@ def test_constants_and_s_half_match_reference():
         assert getattr(heuristics, name) == getattr(jh, name), name
     for port_m, ref_m in _machines():
         np.testing.assert_allclose(
-            linkmodel.calibrated_s_half(port_m), jax_s_half(ref_m),
+            inefficiency.calibrated_s_half(port_m), jax_s_half(ref_m),
             rtol=1e-12,
         )
 

@@ -41,6 +41,7 @@ from repro_torch.launch.specs import train_specs
 from repro_torch.models.model import build_model
 from repro_torch.obs import metrics, trace
 from repro_torch.overlap.schedules import ficco_uniform_fused_2d
+from repro_torch.parallel.context import overlap_context
 from repro_torch.parallel.collectives import all_gather
 from repro_torch.parallel.sharding import TPGroup, shard_columns, tp_group
 from repro_torch.parallel.tp import tp_ficco_linear
@@ -279,6 +280,72 @@ def test_unreached_parameter_gets_zero_gradient(reference):
     assert torch.equal(grads["unused"], torch.zeros(3))
 
 
+# ---- recomputation (remat) ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def reference_remat(reference):
+    """One step of the reference's jitted step with ``remat=True`` (its
+    periods under ``jax.checkpoint``) from the module's state."""
+    model = jax_build_model(dataclasses.replace(reference["cfg"], remat=True))
+    step = jax.jit(jax_make_train_step(model, jax_opt.OptimizerConfig(**OCFG)))
+    state, m = step(jax.tree.map(jnp.asarray, reference["state"]),
+                    reference["batches"][0])
+    return jax.tree.map(np.asarray, state), {k: float(v) for k, v in m.items()}
+
+
+@pytest.mark.parametrize("path", ["dense", "uniform-fused-2d"])
+def test_remat_recomputes_each_period(reference, reference_remat, path,
+                                      monkeypatch):
+    """With ``remat`` the gradients equal the plain step's under both
+    policies, the 2D path runs K2 again in the backward (and only the
+    forward's count under ``no_grad``), and the step matches the
+    reference's remat step."""
+    base = (_port_cfg() if path == "dense"
+            else _port_cfg(mode=path, backend="collective"))
+    folds = []
+    orig = ops.matmul_accumulate
+
+    def spy(c, x, w):
+        folds.append(tuple(x.shape))
+        return orig(c, x, w)
+
+    monkeypatch.setattr(ops, "matmul_accumulate", spy)
+    state = _port_state(reference, base)
+    batch = _batch(reference["batches"][0])
+    per_forward = 16 if path != "dense" else 0  # 2 layers x 2 x 4 steps
+    grads, counts = {}, {}
+    with tp_group(TPGroup(4, "cpu")):
+        for policy in (None, "nothing", "dots"):
+            cfg = (base if policy is None else dataclasses.replace(
+                base, remat=True, remat_policy=policy))
+            folds.clear()
+            _, _, g = loss_and_grads(build_model(cfg), state["params"], batch)
+            grads[policy], counts[policy] = leaves(g), len(folds)
+        cfg = dataclasses.replace(base, remat=True)
+        folds.clear()
+        with torch.no_grad(), overlap_context(cfg.overlap):
+            build_model(cfg).loss(state["params"], batch)
+        assert len(folds) == per_forward
+        new, m = make_train_step(build_model(cfg),
+                                 opt.OptimizerConfig(**OCFG))(state, batch)
+    assert counts == {None: per_forward, "nothing": 2 * per_forward,
+                      "dots": 2 * per_forward}
+    for policy in ("nothing", "dots"):
+        for a, b in zip(grads[policy], grads[None]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    want_state, want_m = reference_remat
+    for k in ("loss", "ce", "aux", "lr", "grad_norm"):
+        np.testing.assert_allclose(m[k].item(), want_m[k], **TOL, err_msg=k)
+    for g, w in zip(leaves(new), jax.tree.leaves(want_state)):
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
+
+
+def test_unknown_remat_policy_raises():
+    cfg = dataclasses.replace(_port_cfg(), remat=True, remat_policy="offload")
+    with pytest.raises(ValueError, match="remat_policy"):
+        build_model(cfg)
+
+
 # ---- gradients through the kernels -----------------------------------------
 
 @pytest.mark.parametrize("g,m_s,k,n", [(4, 8, 16, 24), (2, 5, 6, 4)])
@@ -400,6 +467,22 @@ def test_reference_bf16_checkpoint_restores_bit_exact(tmp_path):
         str(tmp_path), {"w": torch.zeros(3, 4, dtype=torch.bfloat16)})
     np.testing.assert_array_equal(restored["w"].view(torch.int16).numpy(),
                                   np.asarray(w).view(np.int16))
+
+
+def test_port_bf16_checkpoint_is_refused_by_reference(tmp_path):
+    """A bf16 leaf is stored as 2-byte void records, the reference's own
+    on-disk form: the port restores it bit-exact, and the reference's
+    numeric cast refuses it instead of reading the words as integers
+    (bf16 1.5 as int16 would come back as 16320)."""
+    w = torch.tensor([[1.5, -2.25], [3.0e-3, 7.0]], dtype=torch.bfloat16)
+    save_checkpoint(str(tmp_path), {"w": w}, 1)
+    with np.load(tmp_path / "ckpt_00000001.npz") as data:
+        assert data["leaf_0"].dtype == np.dtype("V2")
+    restored, _ = restore_checkpoint(
+        str(tmp_path), {"w": torch.zeros(2, 2, dtype=torch.bfloat16)})
+    assert torch.equal(restored["w"].view(torch.int16), w.view(torch.int16))
+    with pytest.raises(ValueError, match="No cast function"):
+        jax_restore(str(tmp_path), {"w": jnp.zeros((2, 2), jnp.bfloat16)})
 
 
 def test_port_checkpoint_restores_into_reference(reference, tmp_path):
