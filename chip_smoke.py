@@ -30,8 +30,16 @@ Phases, each of which exits non-zero on failure:
      (K1 and K2 on wgmma, K3 on strided) read around each; then the fused
      AG->GEMM (K4) over the same model's 44 up/gate projections through
      ``ops.ag_matmul_fused``, counted the same way (every one on wgmma);
-  5. serving: ``DecodeEngine`` answers 4 requests on the same weights;
-  6. training: full-width TinyLlama-1.1B train steps (4 x 512 tokens of
+  5. the runtime tuner (``repro_torch.autotune``, in a cache directory of
+     its own): the measured tier times the six schedules at the
+     projection with CUDA events and records the fastest; the variant
+     searches of the K3 + K1 composer and of K4 time every feasible
+     variant and promote the fastest; the full-width prefill under
+     ``ficco_autotune`` (every projection resolved by the tuner, none by
+     the fallback) against dense; the DMA-path prefill on the promoted
+     variant, with the launch counts that variant implies;
+  6. serving: ``DecodeEngine`` answers 4 requests on the same weights;
+  7. training: full-width TinyLlama-1.1B train steps (4 x 512 tokens of
      ``SyntheticLM``, AdamW) through ``make_train_step`` on the group of 4,
      on the uniform-fused-2D schedule (K2 forward under its autograd
      Function; each period recomputed in the backward, as the config's
@@ -56,6 +64,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -739,6 +748,223 @@ def phase_design(measured, auto):
                       f"{measured[s.value]:.4f}"
                       for s, r in results.items()))
     print(f"[design] best_schedule -> {best.value}, auto -> {auto.value}")
+    return {s.value: r.total for s, r in results.items()}
+
+
+def _dma_launches(variant, n_sites):
+    """K1 and K3 launches of ``n_sites`` DMA-path projections at the main
+    path's shard on ``variant``, by the composer's rule: one exchange per
+    step (the variant's chunks, or one per rank where they do not cut the
+    shard), and K1 per step only where the variant's M x N tile divides
+    the step GEMM (else ``torch.matmul``)."""
+    m_s, n_local = PREFILL_BATCH * PREFILL_SEQ // GROUP, D_FF // GROUP
+    steps = variant.chunks if m_s % variant.chunks == 0 else GROUP
+    rows = GROUP * (m_s // steps)
+    blocked = (rows % variant.block_m == 0
+               and n_local % variant.block_n == 0
+               and (variant.block_m < rows or variant.block_n < n_local))
+    return {"chunked_matmul": n_sites * steps if blocked else 0,
+            "a2a_chunk_exchange": n_sites * steps}
+
+
+def phase_autotune(device, timer, cfg, state, measured, design):
+    """The port's runtime tuner on the card, in a cache directory of its
+    own; promotions and the tuner are dropped on the way out.  ``measured``
+    and ``design`` are [schedules]' device ms and [design]'s model seconds
+    per schedule."""
+    from repro_torch.autotune import reset_tuner
+    from repro_torch.tune import registry
+
+    outer = os.environ["REPRO_AUTOTUNE_CACHE_DIR"]
+    with tempfile.TemporaryDirectory(prefix="autotune-") as cache_dir:
+        os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = cache_dir
+        reset_tuner()
+        registry.reset_variants()
+        try:
+            _autotune(device, timer, cfg, state, measured, design)
+        finally:
+            registry.reset_variants()
+            reset_tuner()
+            os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = outer
+
+
+def _autotune(device, timer, cfg, state, measured, design):
+    """(a) the measured tier over the six schedules at the main path's
+    projection; (b)-(c) the variant searches of the K3 + K1 composer and
+    of K4, timed with :class:`Timer`; (d) the full-width prefill under
+    ``ficco_autotune``; (e) the DMA-path prefill on the promoted variant,
+    with the launch counts that variant implies."""
+    import torch
+
+    from repro_torch.autotune import get_tuner
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.core.machine import H100_SXM
+    from repro_torch.core.schedule_types import Schedule
+    from repro_torch.core.workload import GemmShape
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dma_exchange import ficco_uniform_fused_1d_dma
+    from repro_torch.kernels.ficco_ag_matmul import ficco_ag_matmul_fused
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import metrics
+    from repro_torch.parallel.sharding import TPGroup, shard_columns, tp_group
+    from repro_torch.serve.engine import make_prefill
+    from repro_torch.tune import registry, search_kernel_variants
+
+    randn = _randn_fn(device, 6)
+    m_s = PREFILL_BATCH * PREFILL_SEQ // GROUP
+    x = randn(GROUP, m_s, D_MODEL, dtype=torch.bfloat16)
+    w = shard_columns(
+        randn(D_MODEL, D_FF, dtype=torch.bfloat16, scale=D_MODEL ** -0.5),
+        GROUP,
+    )
+    gemm = GemmShape(GROUP * m_s, D_FF, D_MODEL, 2)
+    tuner = get_tuner()
+    print(f"[autotune] tuner: backend {tuner.backend}, cache "
+          f"{tuner.cache.path}")
+
+    # (a) The measured tier: every schedule, once to warm up, then 3 runs
+    # between CUDA events, the fastest kept.
+    t0 = time.perf_counter()
+    dec = tuner.measure(x, w, schedules=list(Schedule), iters=3)
+    took = time.perf_counter() - t0
+    times = dict(dec.shortlist)
+    print(f"[autotune] (a) measure at {dec.key} in {took:.2f}s host: "
+          f"tuner ms (min of 3, CUDA events, no L2 flush) vs [schedules] "
+          f"ms (median of {REPS}, cold L2) vs [design] model ms: "
+          + ", ".join(f"{s.value} {times[s.value] * 1e3:.4f} vs "
+                      f"{measured[s.value]:.4f} vs "
+                      f"{design[s.value] * 1e3:.4f}" for s in Schedule)
+          + f" -> {dec.schedule.value} ({dec.source})")
+    if dec.source != "measured" or len(times) != len(Schedule) or not all(
+            math.isfinite(t) and t > 0 for t in times.values()):
+        raise AssertionError(f"[autotune] measure: {dec}")
+    again = tuner.pick(gemm, H100_SXM, group=GROUP)
+    if (again.source, again.schedule) != ("cache", dec.schedule):
+        raise AssertionError(f"[autotune] pick after measure: {again}")
+    print(f"[autotune] (a) pick at the same key -> {again.schedule.value} "
+          f"({again.source})")
+
+    # (b), (c) The variant searches, each variant timed as the [kernels]
+    # phase times a kernel (median device ms, cold L2).
+    group = TPGroup(GROUP, device)
+    runs = {
+        "dma_exchange": lambda v: ficco_uniform_fused_1d_dma(
+            x, w, variant=v, copy_streams=group.copy_streams),
+        "ficco_ag_matmul": lambda v: ficco_ag_matmul_fused(x, w, variant=v),
+    }
+    for label, kernel in (("(b)", "dma_exchange"),
+                          ("(c)", "ficco_ag_matmul")):
+        res = search_kernel_variants(
+            kernel, gemm, H100_SXM, group=GROUP,
+            runner=lambda v, run=runs[kernel]: timer(lambda: run(v)) / 1e3,
+        )
+        reasons = {}
+        for r in res.rejected:
+            reasons[r.reason] = reasons.get(r.reason, 0) + 1
+        print(f"[autotune] {label} {kernel}: {res.n_enumerated} enumerated, "
+              f"{res.n_feasible} feasible, {len(res.rejected)} rejected "
+              f"{reasons}; search {res.seconds:.2f}s host")
+        print(f"[autotune] {label} {kernel} ms per variant: "
+              + ", ".join(f"{v.digest()} {t * 1e3:.4f}"
+                          for v, t in res.timings))
+        print(f"[autotune] {label} {kernel}: winner {res.best.digest()} "
+              f"{res.best_seconds * 1e3:.4f} ms, default "
+              f"{res.default.digest()} {res.default_seconds * 1e3:.4f} ms, "
+              f"speedup {res.speedup:.4f}")
+        records = {k: e for k, e in tuner.cache.entries.items()
+                   if e.get("kernel") == kernel and "/v" in k}
+        if (len(records) != res.n_feasible
+                or {e["source"] for e in records.values()} != {"measured"}
+                or res.default not in dict(res.timings)):
+            raise AssertionError(
+                f"[autotune] {kernel}: {len(records)} records, sources "
+                f"{ {e['source'] for e in records.values()} }, default "
+                f"{res.default.digest()} feasible: "
+                f"{res.default in dict(res.timings)}")
+        plain = tuner.cache.get(dec.key)
+        print(f"[autotune] {label} the decision record at {dec.key} now: "
+              f"{plain}")
+
+    # (d) The full-width prefill with every up/gate projection resolved by
+    # the tuner (the [prefill] phase's weights and prompts).
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (PREFILL_BATCH, PREFILL_SEQ),
+                                     generator=gen, device=device)}
+    sites = cfg.num_layers * 2
+
+    def prefill_on(**overlap):
+        return make_prefill(build_model(dataclasses.replace(
+            cfg, overlap=OverlapConfig(**overlap))))
+
+    with torch.no_grad():
+        dense = prefill_on(mode="gspmd_serial")(state, batch)
+        _sync()
+        scale = dense.float().abs().max().item()
+
+        def check(label, logits):
+            err = _max_err(logits, dense)
+            print(f"[autotune] {label} logits vs dense: max_abs_err "
+                  f"{err:.4e} (max |logit| {scale:.4f}, ratio "
+                  f"{err / scale:.3e})")
+            if not torch.isfinite(logits).all() or err > 5e-2 * scale:
+                raise AssertionError(f"[autotune] {label}: logits differ "
+                                     f"from dense by {err}")
+
+        tuned = prefill_on(mode="ficco_autotune", backend="collective")
+        metrics.reset_metrics()
+        ops.reset_launch_counts()
+        with tp_group(group):
+            logits = tuned(state, batch)
+        _sync()
+        counters = metrics.get_metrics().snapshot()["counters"]
+        resolve = {k: v for k, v in counters.items()
+                   if k.startswith("overlap/resolve.")}
+        print(f"[autotune] (d) ficco_autotune prefill: {resolve}, "
+              f"tuner_tier_rates {metrics.tuner_tier_rates()}, decisions "
+              f"{counters.get('tuner/decisions', 0)}; launches "
+              f"{ops.launch_counts()}")
+        if (counters.get("overlap/resolve.autotune", 0) != sites
+                or counters.get("overlap/resolve.autotune_fallback", 0)
+                or counters.get("tuner/pick.heuristic", 0)):
+            raise AssertionError(f"[autotune] (d) counters {counters}")
+        check("(d) ficco_autotune prefill", logits)
+        walls = {}
+        for name, fn in [("ficco_autotune", tuned),
+                         ("serial", prefill_on(mode="serial"))] * 2:
+            def go(fn=fn):
+                with tp_group(group):
+                    fn(state, batch)
+            walls.setdefault(name, []).append(wall_ms(go))
+        print("[autotune] (d) prefill wall ms (median of 5, two turns): "
+              + ", ".join(f"{k} " + " / ".join(f"{ms:.2f}" for ms in v)
+                          for k, v in walls.items()))
+
+        # (e) The DMA path with variant=None: the composer resolves the
+        # variant (b) promoted.
+        variant = registry.resolve_variant("dma_exchange", group=GROUP)
+        ops.reset_launch_counts()
+        with tp_group(group):
+            logits = prefill_on(mode="uniform-fused-1d",
+                                backend="dma")(state, batch)
+        _sync()
+        counts, routes = ops.launch_counts(), ops.route_counts()
+        want = {name: 0 for name in counts}
+        want.update(_dma_launches(variant, sites))
+        want_routes = {
+            name: {r: want[name] if r == PATH_ROUTES[name] else 0
+                   for r in per_route}
+            for name, per_route in routes.items()
+        }
+        print(f"[autotune] (e) DMA prefill on the promoted variant "
+              f"{variant.digest()}: launches {counts} (expected {want}); "
+              f"by route {routes}")
+        if counts != want or routes != want_routes:
+            raise AssertionError(f"[autotune] (e) launches {counts} by "
+                                 f"route {routes}, expected {want} by route "
+                                 f"{want_routes}")
+        check("(e) promoted DMA prefill", logits)
 
 
 # The route every main-path launch of each kernel must take.
@@ -1315,6 +1541,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(prefix="autotune-") as cache_dir:
+        # The kernels resolve an unnamed variant through the tuner's
+        # cache: this run reads and writes a directory of its own.
+        os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = cache_dir
+        return drive(device)
+
+
+def drive(device) -> int:
+    """Every phase in turn; the kernels' line and the result line."""
+    import torch
+
     t_start = time.time()
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
           f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -1324,11 +1561,13 @@ def main() -> int:
     k1, k3 = phase_kernels(device, timer)
     kernels = [k1, phase_accumulate(device, timer), k3,
                phase_fused(device, timer)]
-    phase_design(*phase_schedules(device, timer))
+    measured, auto = phase_schedules(device, timer)
+    design = phase_design(measured, auto)
     cfg, model, state, launches, by_route = phase_prefill(device)
     fused_launches, fused_routes = phase_fused_path(device, cfg, state)
     launches.update(fused_launches)
     by_route.update(fused_routes)
+    phase_autotune(device, timer, cfg, state, measured, design)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["routes"] = by_route[k["name"]]

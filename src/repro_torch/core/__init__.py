@@ -19,7 +19,7 @@ Sweeping a design space takes three lines::
     print(ex.summary())   # accuracy + losses over all schedules at once
 
 The reference's jitted grid engine and learned gate are ROADMAP items A8
-and A4; their names are not exported yet.
+and A4 step 2; their names are not exported yet.
 """
 
 from repro_torch.core.machine import (

@@ -188,7 +188,7 @@ def explore_grid(
     ``workload.ragged_scenario_grid``) route through the masked ragged
     engines on any backend; the heuristic picks then carry the
     skew-aware serial gate (``imbalance``).  The reference's learned
-    gate family (``gate=``) comes with ROADMAP A4.
+    gate family (``gate=``) comes with ROADMAP A4 step 2.
     """
     eng = engine if engine is not None else get_engine(backend)
     grid = eng.evaluate(

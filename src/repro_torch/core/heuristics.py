@@ -36,7 +36,7 @@ i.e. score > gate with gate ~= 1 (the frozen default is calibrated on
 the grid, see ``calibrate_serial_gate``).
 
 The reference also takes a learned gate family (``gate=``, its ``learn``
-package); the port's comes with ROADMAP A4.
+package); the port's comes with ROADMAP A4 step 2.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def machine_serial_gate(machine: MachineSpec) -> float:
     """The scalar gate threshold for a machine: a
     :func:`calibrate_serial_gate` override, else the default.  (The
     reference consults a learned per-machine-family gate ahead of it;
-    that comes with the port's ``learn`` package, ROADMAP A4.)"""
+    that comes with the port's ``learn`` package, ROADMAP A4 step 2.)"""
     return _SERIAL_GATE_OVERRIDES.get(machine.name, DEFAULT_SERIAL_GATE)
 
 

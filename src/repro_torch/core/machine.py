@@ -13,9 +13,9 @@ chunk-level all-to-all uses all of them.  On a *torus ring*, P2P ring steps
 are already bandwidth-optimal.  A *switch* gives every device one aggregate
 port, modelled as one link of the aggregate rate.
 
-The reference's DMA-engine budgets (semaphore slots, DMA granule) serve
-its kernel-variant pruner, which the port does not have; the rest of
-:class:`MachineSpec` is copied field for field.
+:class:`MachineSpec` is copied field for field, the DMA-engine budgets
+that the kernel-variant pruner (:mod:`repro_torch.tune.prune`) reads
+included.
 """
 
 from __future__ import annotations
@@ -66,6 +66,14 @@ class MachineSpec:
     parallel_units: int = 304
     # Pipeline fill/drain + cold-cache ramp of one kernel.
     kernel_ramp: float = 20.0e-6
+    # DMA-engine resource budgets, consumed by the kernel-variant
+    # feasibility pruner (repro_torch.tune.prune), not by the analytic
+    # model: completion-semaphore slots one kernel may allocate, regular
+    # (flow-control) semaphore slots, and the minimum granule one DMA
+    # descriptor moves efficiently (transfers must be a whole multiple).
+    dma_sem_slots: int = 128
+    reg_sem_slots: int = 32
+    dma_granule: int = 512
 
     # ---- derived ------------------------------------------------------
     @property
@@ -134,6 +142,13 @@ TPU_V5E = MachineSpec(
 # NVLink 4 at 450 GB/s per direction in aggregate, which the switch lets
 # one transfer use whole (one link of the aggregate rate).  Latencies and
 # ramp keep the reference's GPU defaults until measurements fit them.
+# fast_mem_bytes is the L2, the reference's "LLC (GPU)" convention (MI300X
+# gives its LLC): the variant pruner counts a kernel's whole weight shard
+# and step buffers against it (12-27 MB at TinyLlama-1.1B's projection), so
+# the 227 KB of shared memory per block would reject every variant.  The
+# DMA-engine budgets keep their defaults: the copy engines take
+# cudaMemcpyAsync calls and allocate no semaphores, and a chunk's bytes are
+# a whole multiple of 512 at every shape the port runs.
 # ---------------------------------------------------------------------------
 H100_SXM = MachineSpec(
     name="h100-sxm-8",

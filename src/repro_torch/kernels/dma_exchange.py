@@ -35,7 +35,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.chunked_gemm import chunked_matmul, refuse_grad
 from repro_torch.kernels.ref import a2a_chunk_exchange_ref
-from repro_torch.tune.variants import default_variant
+from repro_torch.tune.registry import resolve_variant
 
 # Step buffers the pipeline rotates through: step s+1's exchange fills one
 # while step s's GEMM reads the other.
@@ -252,13 +252,14 @@ def ficco_uniform_fused_1d_dma(
     ``variant`` (a :class:`repro_torch.tune.KernelVariant`) picks the chunk
     count, the step-GEMM tile (K1 with a full-K contraction when the tile
     divides the step GEMM, else a plain ``torch.matmul`` as the reference
-    uses ``flat @ w``) and the dispatch order; ``None`` is the default
-    variant for the group.  On CUDA, ``copy_streams`` (at least one) are
-    the streams the exchange runs on: issued on the first, its copies
-    spread over all (the others forked from the first and joined back
-    before each step's GEMM may start).  It refuses operands that need a
-    gradient (:func:`~repro_torch.kernels.chunked_gemm.refuse_grad`), as
-    the reference's ``pallas_dma`` path fails under ``jax.grad``.
+    uses ``flat @ w``) and the dispatch order; ``None`` resolves the
+    promoted default from :mod:`repro_torch.tune.registry`.  On CUDA,
+    ``copy_streams`` (at least one) are the streams the exchange runs on:
+    issued on the first, its copies spread over all (the others forked
+    from the first and joined back before each step's GEMM may start).
+    It refuses operands that need a gradient
+    (:func:`~repro_torch.kernels.chunked_gemm.refuse_grad`), as the
+    reference's ``pallas_dma`` path fails under ``jax.grad``.
     """
     refuse_grad("ficco_uniform_fused_1d_dma (K3 + K1)", x, w)
     g, m_s, k = x.shape
@@ -266,7 +267,7 @@ def ficco_uniform_fused_1d_dma(
     if w.shape != (g, k, n_local):
         raise ValueError(f"shards {tuple(x.shape)} and {tuple(w.shape)}")
     if variant is None:
-        variant = default_variant("dma_exchange", group=g)
+        variant = resolve_variant("dma_exchange", group=g)
     steps = int(variant.chunks)
     if m_s % steps:
         steps = g  # promoted cut doesn't divide this shard; classic cut

@@ -37,7 +37,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.chunked_gemm import ROUTES, aligned16, refuse_grad
 from repro_torch.kernels.ref import ag_matmul_ref
-from repro_torch.tune.variants import default_variant
+from repro_torch.tune.registry import resolve_variant
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_RANKS = 64  # MAX_RANKS in the CUDA source
@@ -132,8 +132,9 @@ def ficco_ag_matmul_fused(
 
     x: (g, m_s, K), rank r's row shard; w: (g, K, n_local), rank r's
     column shard -> (g, g * m_s, n_local), rank r's column block of the
-    full product, in ``x.dtype``.  ``variant=None`` is the default variant
-    for the group.  Operands that need a gradient are refused
+    full product, in ``x.dtype``.  ``variant=None`` resolves the promoted
+    default from :mod:`repro_torch.tune.registry`.  Operands that need a
+    gradient are refused
     (:func:`~repro_torch.kernels.chunked_gemm.refuse_grad`): the reference
     kernel has no reverse-mode rule.
     """
@@ -145,7 +146,7 @@ def ficco_ag_matmul_fused(
     if w.shape != (g, k, n_local):
         raise ValueError(f"shards {tuple(x.shape)} and {tuple(w.shape)}")
     if variant is None:
-        variant = default_variant("ficco_ag_matmul", group=g)
+        variant = resolve_variant("ficco_ag_matmul", group=g)
     steps, depth, reverse = _plan(variant, g, m_s)
     if x.device.type == "cpu":
         return ag_matmul_ref(x, w)

@@ -6,9 +6,11 @@ Usage:
 
 Port of ``repro.launch.serve``: the same flags and the same ``.reduced()``
 model, plus ``--device`` (default ``cuda``; with no CUDA device the
-launcher raises unless ``--device cpu`` is given).  The reference's
-``--adapt*`` and ``--signatures`` flags wait for the tuner and
-observability slices.
+launcher raises unless ``--device cpu`` is given).  ``--overlap-mode
+ficco_autotune`` resolves each overlapped projection through the
+runtime tuner (:mod:`repro_torch.autotune`).  The reference's
+``--adapt*`` and ``--signatures`` flags wait for the serving tier
+(ROADMAP A4 step 3).
 """
 
 from __future__ import annotations

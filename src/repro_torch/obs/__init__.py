@@ -1,18 +1,49 @@
-"""repro_torch.obs — tracing and metrics (port of ``repro.obs``).
+"""repro_torch.obs — tracing, metrics and schedule-decision provenance
+(port of ``repro.obs``).
 
 * :mod:`repro_torch.obs.trace` — near-zero-overhead span tracer exporting
   Chrome trace-event / Perfetto JSON (``REPRO_TRACE=path`` or
   ``trace.enable()``).
 * :mod:`repro_torch.obs.metrics` — counter/histogram registry with JSONL
-  snapshot export.
+  snapshot export (tuner tier rates, gate agreement).
+* :mod:`repro_torch.obs.audit` — per-decision provenance records persisted
+  beside the autotune cache, replayable offline
+  (``REPRO_AUTOTUNE_AUDIT=path`` or ``Autotuner(audit=...)``).
+* :mod:`repro_torch.obs.timeline` — any simulated schedule rendered as a
+  per-step comm/GEMM/DMA lane trace with its inefficiency signature.
+* :mod:`repro_torch.obs.signature` — the signature as a *streaming*
+  observable: every tuner decision decomposed into the paper's loss
+  categories and accumulated per (machine family, scenario class,
+  schedule) (``REPRO_SIGNATURES=path`` or
+  ``signature.enable_signatures()``).
 
-Both are copies of the reference's modules, in its schemas.  The
-reference's ``audit``, ``signature``, ``sentinel`` and ``timeline`` serve
-its tuner and come with the port's (ROADMAP A4).
+All are copies of the reference's modules, in its schemas.  The
+reference's ``sentinel`` serves its adaptive serving tier and comes with
+it (ROADMAP A4 step 3).
+
+This ``__init__`` stays light: the instrumented modules
+(``repro_torch.core.engine``, the tuner) import ``repro_torch.obs.trace``
+at their own import time, which executes this file — pulling
+``repro_torch.core`` back in here would be a cycle.  ``timeline`` (which
+needs the simulator) and ``signature`` are therefore exported lazily
+(PEP 562).
 """
 
 from __future__ import annotations
 
-from repro_torch.obs import metrics, trace
+from repro_torch.obs import audit, metrics, trace
 
-__all__ = ["trace", "metrics"]
+_LAZY = {"timeline", "signature"}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        return importlib.import_module(f"repro_torch.obs.{name}")
+    raise AttributeError(
+        f"module 'repro_torch.obs' has no attribute {name!r}"
+    )
+
+
+__all__ = ["trace", "metrics", "audit", "timeline", "signature"]

@@ -26,10 +26,15 @@ Metric key glossary (the names the port's instrumentation uses):
 
   ``serve/tokens``,``serve/steps``  tokens emitted / decode steps run
   ``train/steps``            train steps run
-  ``overlap/resolve.<how>``  schedule resolutions (explicit|named|auto)
-
-The reference's tuner metrics (``tuner_tier_rates``,
-``observe_gate_agreement``) come with the port's tuner (ROADMAP A4).
+  ``overlap/resolve.<how>``  schedule resolutions (explicit|named|auto|
+                             autotune|autotune_fallback)
+  ``tuner/decisions``        tuner decisions (pick + measure)
+  ``tuner/pick.<tier>``      decisions by tier (cache|analytic|measured|
+                             heuristic); :func:`tuner_tier_rates`
+  ``tuner/pick_seconds``     host seconds per decision (histogram)
+  ``tuner/measure``          measured-tier sessions
+  ``tuner/measure_variants`` kernel-variant timings recorded
+  ``gate/agree``,``gate/points``  :func:`observe_gate_agreement`
 """
 
 from __future__ import annotations
@@ -283,6 +288,45 @@ def reset_metrics() -> None:
     _REGISTRY.reset()
 
 
+def tuner_tier_rates(registry: MetricsRegistry | None = None) -> dict:
+    """Per-tier decision fractions — the ``hit_rate`` scalar, itemized."""
+    reg = registry or _REGISTRY
+    total = reg.counter("tuner/decisions").value
+    tiers = ("cache", "analytic", "measured", "heuristic")
+    if not total:
+        return {t: 0.0 for t in tiers}
+    return {
+        t: reg.counter(f"tuner/pick.{t}").value / total for t in tiers
+    }
+
+
+def observe_gate_agreement(
+    grid, *, gate=None, tau=None, registry: MetricsRegistry | None = None
+) -> float:
+    """Heuristic-pick agreement rate against the grid's analytic argmin.
+
+    Folds ``gate/agree`` / ``gate/points`` counters into the registry
+    and returns this grid's rate — the live signal for "is the deployed
+    gate still tracking the analytic optimum".  Opt-in (it costs one
+    vectorized heuristic evaluation per grid).  A learned ``gate`` waits
+    for ROADMAP A4 step 2 and raises until then.
+    """
+    if gate is not None:
+        raise NotImplementedError(
+            "a learned gate needs repro_torch.learn (ROADMAP A4 step 2)"
+        )
+    # Lazy: the core imports this package (its engine reports here).
+    from repro_torch.core.explorer import GridExploration
+
+    ex = GridExploration.from_grid(grid, tau=tau)
+    agree = int(ex.exact.sum())
+    points = int(ex.exact.size)
+    reg = registry or _REGISTRY
+    reg.counter("gate/agree").inc(agree)
+    reg.counter("gate/points").inc(points)
+    return agree / points if points else 0.0
+
+
 # ---------------------------------------------------------------------------
 # Snapshot schema validation.
 # ---------------------------------------------------------------------------
@@ -488,6 +532,8 @@ __all__ = [
     "host_identity",
     "get_metrics",
     "reset_metrics",
+    "tuner_tier_rates",
+    "observe_gate_agreement",
     "validate_snapshot",
     "merge_snapshots",
     "validate_merged_snapshot",

@@ -10,9 +10,10 @@ ranks: ``schedule="auto"`` consults
 :func:`repro_torch.core.heuristics.select_schedule` with the *static*
 global GEMM dimensions — no profiling — and dispatches the chosen schedule.
 The machine defaults to :data:`~repro_torch.core.machine.H100_SXM`.
-``schedule="autotune"`` raises until the port has its tuner (ROADMAP A4):
-the reference falls back to the static heuristic when its tuner cannot
-answer, and a quiet fallback here would hide that there is none.
+``schedule="autotune"`` asks the process-wide runtime tuner
+(:func:`repro_torch.autotune.get_tuner`): a cached (analytic or measured)
+decision, else the analytic ranking; should the tuner raise, the static
+heuristic answers, counted as ``overlap/resolve.autotune_fallback``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Union
 
 import torch
 
+from repro_torch.autotune import get_tuner
 from repro_torch.core.heuristics import select_schedule
 from repro_torch.core.machine import H100_SXM, MachineSpec, machine_for_group
 from repro_torch.core.schedule_types import Schedule
@@ -48,8 +50,8 @@ def resolve_schedule(
     particular its group-sensitive serial gate) is evaluated against the
     machine model retargeted at that group, not the model's default.
     Each resolution is an ``overlap/resolve`` span and bumps
-    ``overlap/resolve.{how}`` (``explicit``, ``named`` or ``auto``), as in
-    the reference.
+    ``overlap/resolve.{how}`` (``explicit``, ``named``, ``auto``,
+    ``autotune`` or ``autotune_fallback``), as in the reference.
     """
     def _resolved(how: str, sched: Schedule, sp) -> Schedule:
         _metrics.get_metrics().counter(f"overlap/resolve.{how}").inc()
@@ -61,17 +63,20 @@ def resolve_schedule(
     ) as sp:
         if isinstance(schedule, Schedule):
             return _resolved("explicit", schedule, sp)
-        if schedule == "autotune":
-            raise NotImplementedError(
-                "schedule='autotune' needs the runtime tuner, which the port "
-                "does not have yet (ROADMAP A4); pass 'auto' or a schedule "
-                "name"
-            )
-        if schedule != "auto":
-            return _resolved("named", Schedule(schedule), sp)
         eff = machine or H100_SXM
         if group:
             eff = machine_for_group(eff, group)
+        if schedule == "autotune":
+            gemm = GemmShape(m, n, k, dtype_bytes)
+            try:
+                sched = get_tuner().pick(gemm, machine, group=group).schedule
+                return _resolved("autotune", sched, sp)
+            except Exception:
+                # Zero-cost fallback: the static decision tree.
+                sched = select_schedule(gemm, eff).schedule
+                return _resolved("autotune_fallback", sched, sp)
+        if schedule != "auto":
+            return _resolved("named", Schedule(schedule), sp)
         dec = select_schedule(GemmShape(m, n, k, dtype_bytes), eff)
         # The serial guard may also fire for shapes the schedules can't
         # chunk.
@@ -101,8 +106,8 @@ def ficco_linear(
       x: (g, M/g, K), rank r's row shard of the activation at [r].
       w: (g, K, N/g), rank r's resident column shard of the weight at [r]
         (``repro_torch.parallel.sharding.shard_columns``).
-      schedule: explicit :class:`Schedule`, its string value, or "auto"
-        (static heuristic).
+      schedule: explicit :class:`Schedule`, its string value, "auto"
+        (static heuristic) or "autotune" (the runtime tuner).
       machine: the machine the heuristic decides for (default H100_SXM).
 
     Returns:

@@ -7,8 +7,8 @@ copy-engine uniform-fused-1D path.  ``make_serve_step`` is ONE new token
 against the KV cache; :class:`DecodeEngine` adds the minimal batch loop.
 ``DecodeEngine.run`` reports the reference's ``serve/run`` and
 ``serve/step`` spans and ``serve/steps`` and ``serve/tokens`` counters
-(:mod:`repro_torch.obs`); its ``adapt=`` hook waits for the tuner
-(ROADMAP A4).
+(:mod:`repro_torch.obs`); its ``adapt=`` hook waits for the serving
+tier (ROADMAP A4 step 3).
 """
 
 from __future__ import annotations

@@ -175,3 +175,12 @@ def test_import_check_covers_the_training_path():
                  "train.optimizer", "train.loop", "data.pipeline",
                  "ckpt.checkpoint", "launch.specs", "launch.train"):
         assert f"repro_torch.{name}" in mods, name
+
+
+def test_import_check_covers_the_tuner():
+    mods = set(_port_modules())
+    for name in ("autotune", "autotune.cache", "autotune.tuner", "tune",
+                 "tune.variants", "tune.prune", "tune.cost", "tune.search",
+                 "tune.registry", "obs.audit", "obs.signature",
+                 "obs.timeline"):
+        assert f"repro_torch.{name}" in mods, name

@@ -1,6 +1,7 @@
 """The port's tensor-parallel layer on the CPU: the stacked-rank layout,
 ``tp_ficco_linear`` against the dense product, when the overlap applies,
-and the paths that are not ported yet raising with their ROADMAP item."""
+the tuner-backed mode, and the paths that are not ported yet raising with
+their ROADMAP item."""
 
 import dataclasses
 
@@ -100,12 +101,21 @@ def test_every_mode_runs_through_ficco_linear(overlap):
 
 @pytest.mark.parametrize("overlap", _MODES)
 def test_schedules_not_ported_raise_with_roadmap_item(overlap):
-    """The tuner-backed mode is the one not ported; it names its item."""
-    x, w = _rand(1, 64, 16), _rand(16, 64)
-    autotune = dataclasses.replace(overlap, mode="ficco_autotune")
-    with tp_group(TPGroup(4, "cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            tp.tp_ficco_linear(x, w, autotune)
+    """The tuner-backed mode runs on either backend; the tuner's learned
+    gate is what is not ported, and it names its item."""
+    from repro_torch.autotune import get_tuner, reset_tuner
+
+    reset_tuner()
+    try:
+        x, w = _rand(1, 64, 16), _rand(16, 64)
+        autotune = dataclasses.replace(overlap, mode="ficco_autotune")
+        with tp_group(TPGroup(4, "cpu")):
+            got = tp.tp_ficco_linear(x, w, autotune)
+        torch.testing.assert_close(got, x @ w, rtol=1e-5, atol=1e-5)
+        with pytest.raises(NotImplementedError, match="ROADMAP A4 step 2"):
+            get_tuner().set_gate(object())
+    finally:
+        reset_tuner()
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-1.5-large-398b",

@@ -224,9 +224,22 @@ def test_2d_schedule_accumulates_through_k2(monkeypatch):
 
 
 def test_autotune_raises_naming_the_roadmap():
-    x, w = _port_args(*_linear_inputs())
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        ficco_linear(x, w, schedule="autotune")
+    """``schedule="autotune"`` runs the schedule the tuner picks; what it
+    cannot do yet, take a learned gate, raises naming its ROADMAP step."""
+    from repro_torch.autotune import Autotuner, get_tuner, reset_tuner
+
+    reset_tuner()
+    try:
+        x, w = _port_args(*_linear_inputs())
+        got = ficco_linear(x, w, schedule="autotune")
+        dec = get_tuner().pick(GemmShape(256, 128, 128, 4), group=G)
+        assert dec.source == "cache"
+        torch.testing.assert_close(got, run_schedule(dec.schedule, x, w),
+                                   **_tol("float32"))
+        with pytest.raises(NotImplementedError, match="ROADMAP A4 step 2"):
+            Autotuner(gate=object())
+    finally:
+        reset_tuner()
 
 
 # ---------------------------------------------------------------------------
