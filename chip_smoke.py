@@ -50,6 +50,25 @@ Phases, each of which exits non-zero on failure:
      parameters moved, the DMA backend refused under grad; step wall
      times, tokens/s, the loss trajectory, peak memory and one profiled
      2D step;
+  8. the design-space grid engine on the card (``[grid]``): the ``"torch"``
+     engine over a dense grid of 1e5 synthetic scenarios and a ragged
+     one of 2e4, each times the machine grid, held against the
+     ``"numpy"`` engine on the host (valid totals within 1e-9 relative,
+     the same best schedule wherever the top two are not tied), with
+     points per second on each; ``calibrate_tau`` on the card against
+     its scan-and-bisect reference (5%); the analytic tier's pick
+     latency at the projection on either backend;
+  9. the machine fit (``[fit]``): ``fit_machine`` on the card recovers a
+     perturbed ``H100_SXM`` (5%), then fits ``H100_SXM``'s link constants
+     to the times ``Autotuner.measure`` records at four sizes of the
+     projection (loss no worse than before, the result persisted and
+     read back, not deployed);
+ 10. the learned gate (``[gate]``): statistics from a reduce-mode sweep on
+     the ``"torch"`` engine, a trained gate held to the reference's
+     accuracy thresholds on its held-out grids, installed with
+     ``Autotuner.set_gate`` and read back from a pick's decision record,
+     and the ``"measured"`` engine's shortlist ranking from [fit]'s
+     records;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -86,6 +105,9 @@ D_MODEL, D_FF = 2048, 5632
 REPS = 20
 # The reference's tolerances (tests/test_kernels.py, tests/multidev_*.py).
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# What [done] counts: every phase the script prints, in order.
+PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
+          "autotune", "serve", "train", "grid", "fit", "gate")
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -1526,6 +1548,333 @@ def phase_train(device, cfg, params):
     return train_counts
 
 
+# [grid], [fit], [gate]: the design-space grid engine on the card, the
+# machine fit and the learned gate.  Sizes: a dense grid of GRID_DENSE
+# synthetic scenarios and a ragged one of GRID_RAGGED, each over the whole
+# machine grid; the fit's measured records at FIT_SIZES rows of the
+# projection; the gate trained at the reference's test sizes.
+GRID_DENSE, GRID_RAGGED = 100_000, 20_000
+GRID_RTOL = 1e-9
+FIT_SIZES = (512, 2048, 8192, 32768)
+PICKS = 20
+
+
+def _timed(fn):
+    """(result, host seconds) of ``fn`` run to completion on the card."""
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, time.perf_counter() - t0
+
+
+def _grid_check(label, got, want):
+    """Valid totals within GRID_RTOL of the numpy engine's, and the same
+    best schedule wherever the top two valid totals are not tied within
+    GRID_RTOL.  Returns (max relative difference, untied points)."""
+    import numpy as np
+
+    if not np.array_equal(got.valid, want.valid):
+        raise AssertionError(f"[grid] {label}: validity masks differ")
+    ok = want.valid
+    rel = np.abs(got.total[ok] - want.total[ok]) / np.abs(want.total[ok])
+    worst = float(rel.max())
+    t = np.sort(np.where(ok, want.total, np.inf), axis=0)
+    untied = (t[1] - t[0]) > GRID_RTOL * t[0]
+    same = got.best_idx() == want.best_idx()
+    if worst > GRID_RTOL or not same[untied].all():
+        raise AssertionError(
+            f"[grid] {label}: max relative difference {worst:.3e}, "
+            f"{int((~same[untied]).sum())} untied best_idx differ")
+    return worst, int(untied.sum())
+
+
+def phase_grid(device):
+    """The ``"torch"`` grid engine on the card against the ``"numpy"``
+    engine on the host: a dense and a ragged grid over the machine grid,
+    points per second on each (the card synchronised, a warm-up first);
+    ``calibrate_tau`` on the card against its scan-and-bisect reference;
+    and the analytic tier's pick latency at the projection on each
+    backend."""
+    from repro_torch.autotune import AutotuneCache, Autotuner, torchgrid
+    from repro_torch.core import H100_SXM, TABLE_I, GemmShape
+    from repro_torch.core.engine import GRID_SCHEDULES, TorchEngine, get_engine
+    from repro_torch.core.workload import machine_grid
+    from repro_torch.sweep import synthetic_batch, synthetic_ragged_batch
+
+    card = _card()
+    machines = machine_grid()
+    on_card, on_host = TorchEngine(device), get_engine("numpy")
+    for warm in (synthetic_batch(1000, seed=5),
+                 synthetic_ragged_batch(1000, seed=6)):
+        on_card.evaluate(warm, machines)
+    raw_fn = {"dense": torchgrid.evaluate_grid_raw,
+              "ragged": torchgrid.evaluate_ragged_grid_raw}
+    rates = {}
+    for label, batch in (
+            ("dense", synthetic_batch(GRID_DENSE, seed=0)),
+            ("ragged", synthetic_ragged_batch(GRID_RAGGED, seed=1))):
+        _, t_raw = _timed(lambda: raw_fn[label](batch, machines,
+                                                device=device))
+        got, t_card = _timed(lambda: on_card.evaluate(batch, machines))
+        want, t_host = _timed(lambda: on_host.evaluate(batch, machines))
+        worst, untied = _grid_check(label, got, want)
+        points = len(batch) * len(machines)
+        rates[label] = (points / t_card, points / t_host)
+        print(f"[grid] {label}: {len(batch)} scenarios x {len(machines)} "
+              f"machines x {len(GRID_SCHEDULES)} schedules; torch on the "
+              f"card {t_card * 1e3:.1f} ms ({points / t_card:.4g} points/s; "
+              f"{t_raw * 1e3:.1f} ms, {points / t_raw:.4g} points/s with "
+              f"the outputs left on the card), numpy on the host "
+              f"{t_host * 1e3:.1f} ms ({points / t_host:.4g} points/s): "
+              f"{t_host / t_card:.2f}x; max relative difference of valid "
+              f"totals {worst:.3e} (limit {GRID_RTOL:g}); best_idx equal "
+              f"at all {untied} untied points [{card}]")
+
+    gemms = [sc.gemm for sc in TABLE_I]
+    tau, t_tau = _timed(lambda: torchgrid.calibrate_tau(
+        H100_SXM, gemms, device=device))
+    tau_ref, t_ref = _timed(lambda: torchgrid.calibrate_tau_reference(
+        H100_SXM, gemms, device=device))
+    print(f"[grid] calibrate_tau({H100_SXM.name}, Table I) on the card: "
+          f"{tau:.6g} ({t_tau:.2f} s, Adam by autograd) vs the scan-and-"
+          f"bisect reference {tau_ref:.6g} ({t_ref:.2f} s): "
+          f"{abs(tau / tau_ref - 1) * 100:.3f}% apart (limit 5%) [{card}]")
+    if not abs(tau / tau_ref - 1.0) < 0.05:
+        raise AssertionError(f"[grid] calibrate_tau {tau} vs {tau_ref}")
+
+    gemm = GemmShape(PREFILL_BATCH * PREFILL_SEQ, D_FF, D_MODEL, 2)
+    picks = {}
+    for backend in ("numpy", "torch"):
+        tuner = Autotuner(AutotuneCache(path=os.path.join(
+            os.environ["REPRO_AUTOTUNE_CACHE_DIR"], f"pick-{backend}.json")),
+            backend=backend, persist=False, audit=False)
+        times = []
+        for _ in range(PICKS + 1):
+            tuner.cache.entries.clear()
+            dec, dt = _timed(lambda: tuner.pick(gemm, H100_SXM, group=GROUP))
+            if dec.source != "analytic":
+                raise AssertionError(f"[grid] {backend} pick: {dec}")
+            times.append(dt * 1e3)
+        picks[backend] = (dec, statistics.median(times[1:]))
+    (d_np, ms_np), (d_t, ms_t) = picks["numpy"], picks["torch"]
+    print(f"[grid] analytic pick at {d_np.key} (median of {PICKS} misses "
+          f"after a warm-up): numpy {ms_np:.3f} ms -> {d_np.schedule.value}, "
+          f"torch {ms_t:.3f} ms -> {d_t.schedule.value} [{card}]")
+    if d_np.schedule is not d_t.schedule or not math.isclose(
+            d_np.model_total_s, d_t.model_total_s, rel_tol=GRID_RTOL):
+        raise AssertionError(f"[grid] picks differ: {d_np} vs {d_t}")
+    return {"rates": rates, "tau": (tau, tau_ref),
+            "pick_ms": {"numpy": ms_np, "torch": ms_t}}
+
+
+def phase_fit(device, tuner):
+    """``fit_machine`` on the card: first the reference's recovery test on
+    a perturbed ``H100_SXM``, then ``H100_SXM``'s link constants fitted to
+    the times ``Autotuner.measure`` records at FIT_SIZES rows of the
+    projection.  The fit is printed, persisted and read back, and not
+    deployed: on one card the logical group's exchange is device-memory
+    copies, not NVLink.  Returns the measured records."""
+    import numpy as np
+    import torch
+
+    from repro_torch.autotune import torchgrid
+    from repro_torch.core import H100_SXM, GemmShape, machine_for_group
+    from repro_torch.core.engine import GRID_SCHEDULES
+    from repro_torch.core.schedule_types import Schedule
+    from repro_torch.core.workload import synthetic_scenarios
+    from repro_torch.learn import (
+        fit_machine,
+        load_fit,
+        records_from_cache,
+        save_fit,
+        synthesize_records,
+    )
+    from repro_torch.parallel.sharding import shard_columns
+
+    card = _card()
+    params = ("link_bw", "s_half")
+    true = {"link_bw": H100_SXM.link_bw * 0.8, "s_half": 3.2e6}
+    records = synthesize_records(
+        H100_SXM, [sc.gemm for sc in synthetic_scenarios(12)],
+        (Schedule.SERIAL, Schedule.UNIFORM_FUSED_1D,
+         Schedule.HETERO_UNFUSED_1D),
+        overrides=true, device=device)
+    fit, secs = _timed(lambda: fit_machine(H100_SXM, records, params=params,
+                                           steps=300, device=device))
+    errs = {p: fit.fitted[p] / true[p] - 1.0 for p in params}
+    print(f"[fit] recovery: {len(records)} records synthesized from "
+          f"{H100_SXM.name} with link_bw x 0.8 and s_half 3.2e6; "
+          f"fit_machine on the card in {secs:.2f} s (300 Adam steps): "
+          + ", ".join(f"{p} {fit.initial[p]:.6g} -> {fit.fitted[p]:.6g} "
+                      f"(true {true[p]:.6g}, {errs[p] * 100:+.4f}%)"
+                      for p in params)
+          + f"; loss {fit.loss0:.4e} -> {fit.loss:.4e} [{card}]")
+    if not (fit.loss < fit.loss0 and all(abs(e) < 0.05
+                                         for e in errs.values())):
+        raise AssertionError(f"[fit] recovery: {fit}")
+
+    randn = _randn_fn(device, 8)
+    w = shard_columns(randn(D_MODEL, D_FF, dtype=torch.bfloat16,
+                            scale=D_MODEL ** -0.5), GROUP)
+    for m in FIT_SIZES:
+        x = randn(GROUP, m // GROUP, D_MODEL, dtype=torch.bfloat16)
+        dec = tuner.measure(x, w, schedules=list(Schedule), iters=3)
+        print(f"[fit] measure at {dec.key}: "
+              + ", ".join(f"{s} {t * 1e3:.4f}" for s, t in dec.shortlist)
+              + f" ms -> {dec.schedule.value} [{card}]")
+    records = sorted(records_from_cache(tuner.cache, H100_SXM.name),
+                     key=lambda r: r.gemm.m)
+    if len(records) != len(FIT_SIZES):
+        raise AssertionError(f"[fit] {len(records)} measured records")
+    fit, secs = _timed(lambda: fit_machine(H100_SXM, records, params=params,
+                                           device=device))
+    if not (all(math.isfinite(fit.fitted[p]) and fit.fitted[p] > 0
+                for p in params) and math.isfinite(fit.loss)
+            and fit.loss <= fit.loss0):
+        raise AssertionError(f"[fit] measured fit: {fit}")
+    save_fit(fit, cache=tuner.cache)
+    if load_fit(f"{fit.machine}/g{fit.group}", cache=tuner.cache) != fit:
+        raise AssertionError("[fit] the FitResult did not survive "
+                             "save_fit/load_fit")
+    eff = machine_for_group(H100_SXM, GROUP)
+    gemms = [r.gemm for r in records]
+    rows = [GRID_SCHEDULES.index(r.schedule) for r in records]
+    before, after = (
+        torchgrid.evaluate_grid_raw(gemms, mp)[0][0].cpu().numpy()
+        for mp in (torchgrid.machine_arrays((eff,), device=device),
+                   fit.machine_arrays(device=device)))
+    lanes = np.arange(len(records))
+    print(f"[fit] {H100_SXM.name} at group {GROUP} fitted to {len(records)} "
+          f"records measured on this card ({secs:.2f} s): "
+          + ", ".join(f"{p} {fit.initial[p]:.6g} -> {fit.fitted[p]:.6g} "
+                      f"(x {fit.scale(p):.4g})" for p in params)
+          + f"; loss {fit.loss0:.4e} -> {fit.loss:.4e}; survives "
+          f"save_fit/load_fit [{card}]")
+    print("[fit] per record, measured vs model ms before -> after the fit: "
+          + ", ".join(f"m{r.gemm.m} {r.schedule.value} {r.seconds * 1e3:.4f}"
+                      f" vs {b * 1e3:.4f} -> {a * 1e3:.4f}"
+                      for r, b, a in zip(records, before[rows, lanes],
+                                         after[rows, lanes]))
+          + " (not deployed: on one card the group's exchange is "
+          f"device-memory copies, not NVLink) [{card}]")
+    return records, fit
+
+
+def phase_gate(device, tuner, records):
+    """``sweep_stats`` in reduce mode on the ``"torch"`` engine on the card,
+    ``train_gate_from_stats``, and ``gate_accuracy`` on the held-out grids
+    of the reference's headline test at its thresholds (on its machine
+    grid: MI300X and TPU v5e); the gate installed with
+    ``Autotuner.set_gate`` and read back from a pick's decision record;
+    the ``"measured"`` engine's shortlist ranking from [fit]'s records."""
+    from repro_torch.autotune import AutotuneCache, Autotuner
+    from repro_torch.core import (
+        H100_SXM,
+        TABLE_I,
+        GemmShape,
+        machine_for_group,
+        synthetic_scenarios,
+    )
+    from repro_torch.core.batch import RaggedBatch, ScenarioBatch
+    from repro_torch.core.engine import get_engine, shortlist
+    from repro_torch.core.workload import (
+        machine_grid,
+        ragged_scenario_grid,
+        scenario_grid,
+    )
+    from repro_torch.learn import (
+        MeasuredEngine,
+        gate_accuracy,
+        sweep_stats,
+        train_gate_from_stats,
+    )
+    from repro_torch.sweep import synthetic_batch, synthetic_ragged_batch
+
+    card = _card()
+    on_card = get_engine("torch")
+    fam = ragged_scenario_grid(
+        steps=8, skews=(1.0, 2.0, 4.0), zipf_alphas=(1.0,),
+        top_k=((2, 0.6),),
+        scenarios=[s for s in TABLE_I if s.parallelism == "EP"]
+        + synthetic_scenarios(12))
+    held_out = {
+        "skewed EP family": RaggedBatch.from_ragged_scenarios(fam),
+        "held-out Dirichlet": synthetic_ragged_batch(1500, seed=99),
+        "uniform scenario_grid": ScenarioBatch.from_scenarios(
+            scenario_grid()),
+    }
+
+    def train(machines):
+        t0 = time.perf_counter()
+        stats_r, _ = sweep_stats(synthetic_ragged_batch(2000, seed=7),
+                                 machines, backend="torch", num_shards=8)
+        stats_u, _ = sweep_stats(synthetic_batch(2000, seed=8), machines,
+                                 backend="torch", num_shards=8)
+        gate = train_gate_from_stats(stats_r + stats_u)
+        acc = {}
+        for name, batch in held_out.items():
+            grid = on_card.evaluate(batch, machines)
+            acc[name] = (gate_accuracy(grid), gate_accuracy(grid, gate))
+        return gate, stats_r.n_points + stats_u.n_points, acc, (
+            time.perf_counter() - t0)
+
+    def show(label, gate, n, acc, secs):
+        print(f"[gate] {label}: trained from {n} points in reduce mode on "
+              f"the card ({gate.n_leaves} leaves), within-5% accuracy "
+              "scalar -> learned: "
+              + ", ".join(f"{k} {a:.4f} -> {b:.4f}"
+                          for k, (a, b) in acc.items())
+              + f" ({secs:.2f} s) [{card}]")
+
+    gate, n, acc, secs = train(machine_grid()[:8])
+    show("the reference's machine grid (MI300X, TPU v5e)", gate, n, acc,
+         secs)
+    (s_fam, l_fam), (s_ho, l_ho), (s_u, l_u) = acc.values()
+    if not (l_fam >= 0.75 and l_fam >= s_fam and l_ho >= 0.75
+            and l_ho > s_ho and l_u >= s_u - 0.005):
+        raise AssertionError(f"[gate] accuracies {acc}")
+    show("the whole machine grid (H100_SXM's variants too; not asserted)",
+         *train(machine_grid()))
+
+    gemm = GemmShape(PREFILL_BATCH * PREFILL_SEQ, D_FF, D_MODEL, 2)
+    picker = Autotuner(AutotuneCache(path=os.path.join(
+        os.environ["REPRO_AUTOTUNE_CACHE_DIR"], "gate-pick.json")),
+        persist=False, audit=False)
+    picker.set_gate(gate)
+    dec = picker.pick(gemm, H100_SXM, group=GROUP)
+    print(f"[gate] set_gate, then pick at {dec.key}: {dec.schedule.value} "
+          f"({dec.source}); gate verdict {dec.gate} [{card}]")
+    if (dec.source not in ("analytic", "heuristic") or not dec.gate
+            or dec.gate.get("kind") != "LearnedGate"):
+        raise AssertionError(f"[gate] the decision record carries no "
+                             f"learned gate: {dec}")
+
+    measured = MeasuredEngine(tuner.cache, top=6)
+    eff = machine_for_group(H100_SXM, GROUP)
+    for rec in records:
+        ranked = shortlist(rec.gemm, eff, top=6, engine=measured)
+        print(f"[gate] measured-engine shortlist at m{rec.gemm.m}: "
+              + ", ".join(f"{s.value} {t * 1e3:.4f}" for s, t in ranked)
+              + f" ms [{card}]")
+        if (rec.schedule, rec.seconds) not in ranked:
+            raise AssertionError(f"[gate] {rec} not in the measured "
+                                 f"shortlist {ranked}")
+
+
+def phase_learn(device):
+    """[fit] and [gate] in a cache directory of their own: the measured
+    records [fit] writes are what [gate]'s measured engine ranks from."""
+    from repro_torch.autotune import AutotuneCache, Autotuner
+
+    with tempfile.TemporaryDirectory(prefix="learn-") as cache_dir:
+        tuner = Autotuner(AutotuneCache(path=os.path.join(
+            cache_dir, "learn.json")), audit=False)
+        records, fit = phase_fit(device, tuner)
+        phase_gate(device, tuner, records)
+    return fit
+
+
 def main() -> int:
     import torch
 
@@ -1575,8 +1924,11 @@ def drive(device) -> int:
     train_counts = phase_train(device, cfg, state)
     for k in kernels:
         k["train_step_launches"] = train_counts[k["name"]]
+    phase_grid(device)
+    phase_learn(device)
 
-    print(f"[done] every phase passed in {time.time() - t_start:.1f}s")
+    print(f"[done] every phase passed ({', '.join(PHASES)}) in "
+          f"{time.time() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "routes",
             "train_step_launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -7,13 +7,15 @@
 * :mod:`repro_torch.autotune.cache` — versioned on-disk JSON store
   (``$REPRO_AUTOTUNE_CACHE_DIR``, default ``~/.cache/repro_autotune``,
   file ``autotune-torch-v2.json``).
+* :mod:`repro_torch.autotune.torchgrid` — the grid engine on the card
+  (the reference's ``jaxgrid``): float64 tensor math over every machine
+  at once, differentiable by autograd (``calibrate_tau``, the machine fit
+  of ``repro_torch.learn.fit``), registered as the ``"torch"`` engine.
+  Imported lazily: importing this package launches nothing.
 
 The runtime entry point is ``ficco_linear(schedule="autotune")`` (see
 ``repro_torch.overlap.api``), with ``select_schedule`` as the zero-cost
-static fallback.  The reference's jitted grid engine (``jaxgrid``:
-``evaluate_grid(backend="jax")``, ``calibrate_tau``) is ROADMAP A8; the
-analytic tier ranks with the ``"numpy"`` engine of
-:mod:`repro_torch.core.engine`.
+static fallback.
 """
 
 from repro_torch.autotune.cache import (

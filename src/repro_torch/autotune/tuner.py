@@ -4,10 +4,11 @@
 Port of ``repro.autotune.tuner``.  The machine defaults to
 :data:`~repro_torch.core.machine.H100_SXM` (the machine ``ficco_linear``
 decides for), the analytic tier ranks with the ``"numpy"`` engine of
-:mod:`repro_torch.core.engine` (the port has no ``"jax"`` engine, ROADMAP
-A8), the measured tier times the port's schedules over a logical group's
-stacked ranks with CUDA events, and the learned gate waits for ROADMAP A4
-step 2.
+:mod:`repro_torch.core.engine` by default (where the reference defaults to
+its jitted ``"jax"`` engine; ``backend="torch"`` ranks on the card), the
+measured tier times the port's schedules over a logical group's stacked
+ranks with CUDA events, and the heuristic fallback consults the learned
+gate of :mod:`repro_torch.learn` ahead of the scalar gate.
 
 The paper's heuristic picks a schedule from static GEMM signals alone
 (~81% of unseen scenarios within 5%).  The autotuner closes the rest of
@@ -49,8 +50,6 @@ from repro_torch.obs import signature as _signature
 from repro_torch.obs import trace as _trace
 
 from repro_torch.autotune.cache import AutotuneCache
-
-_GATE_STEP = "a learned gate needs repro_torch.learn (ROADMAP A4 step 2)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,9 +123,12 @@ class TuneDecision:
     (None only for pre-provenance constructions), ``shortlist`` the
     analytic ranking consulted — ``(schedule value, modelled seconds)``
     pairs, empty when no ranking ran (cache hit, heuristic fallback) —
-    and ``gate`` the gate verdict behind a heuristic decision
-    (``{"kind": None, "metric": ..., "threshold": ..., "reason": ...}``:
-    the scalar-gated tree, until the learned gate of ROADMAP A4 step 2).
+    and ``gate`` the learned-gate verdict behind a heuristic decision
+    (``{"kind": ..., "metric": ..., "threshold": ..., "reason": ...}``).
+    Where a learned gate resolves, an analytic decision carries its
+    verdict too, with the schedule the gated tree would have picked
+    (``"schedule"``) beside the analytic winner: the reference records
+    none there.
     """
 
     schedule: Schedule
@@ -182,11 +184,13 @@ class Autotuner:
 
     ``backend`` names the analytic engine in the
     :mod:`repro_torch.core.engine` registry: ``"numpy"`` (default),
-    ``"scalar"`` or any registered third-party engine (the reference's
-    ``"jax"`` engine is ROADMAP A8: naming it raises the unknown-engine
-    error).  Every decision — including analytic ones — is recorded, so a
-    repeated query costs one dict lookup.  ``gate=`` (a learned serial
-    gate) waits for ROADMAP A4 step 2 and raises until then.
+    ``"torch"`` (on the card), ``"scalar"`` or any registered third-party
+    engine (the reference's default, ``"jax"``, is not a registered name
+    here: naming it raises the unknown-engine error).  Every decision —
+    including analytic ones — is recorded, so a repeated query costs one
+    dict lookup.  ``gate=`` pins a learned serial gate
+    (:class:`repro_torch.learn.gate.LearnedGate`) for the heuristic
+    fallback; see :meth:`learned_gate` for the resolution order.
     """
 
     def __init__(
@@ -201,8 +205,6 @@ class Autotuner:
         from repro_torch.core.engine import get_engine
 
         get_engine(backend)  # fail fast: ValueError lists valid engines
-        if gate is not None:
-            raise NotImplementedError(_GATE_STEP)
         self.cache = cache if cache is not None else AutotuneCache()
         self.backend = backend
         # True = eager save per decision, False = in-memory only,
@@ -218,18 +220,26 @@ class Autotuner:
         # (the offline replayer uses this so replays never append to
         # the log being replayed).
         self._audit = audit
+        self._gate = gate
+        # Artifact gates load lazily, once per artifact name ("default"
+        # plus one "machine:<family>" slot per family queried).
+        self._artifact_gates: dict = {}
 
     def set_gate(self, gate) -> None:
-        """Install a learned gate: ROADMAP A4 step 2.  ``None`` (no learned
-        gate, the scalar-gated tree) is what the tuner already consults."""
-        if gate is not None:
-            raise NotImplementedError(_GATE_STEP)
+        """Atomically swap the explicit learned gate this tuner consults.
+
+        One attribute store (atomic under the GIL), so a background
+        re-fit thread can install a freshly trained gate while request
+        threads are mid-``pick`` — each pick sees either the old or the
+        new gate, never a torn state.  ``None`` reverts to the ambient
+        gate resolution order (see :meth:`learned_gate`).
+        """
+        self._gate = gate
 
     @property
     def gate(self):
-        """The explicitly installed learned gate: always ``None`` until
-        ROADMAP A4 step 2."""
-        return None
+        """The explicitly installed gate (``set_gate``), or ``None``."""
+        return self._gate
 
     # -- observability ---------------------------------------------------
 
@@ -286,6 +296,52 @@ class Autotuner:
                 })
         except Exception:  # pragma: no cover - observability best-effort
             pass
+
+    def learned_gate(self, machine=None):
+        """The learned serial-gate family this tuner's fallback consults.
+
+        Resolution order: explicit ``gate=`` constructor argument, the
+        process-wide gates (``repro_torch.learn.gate`` — the ``machine``'s
+        family gate first, then the global default; both re-checked on
+        every call, so installing or clearing one after this tuner was
+        built takes effect immediately), then gates persisted in this
+        cache's artifact segment (family slot ahead of the default
+        slot, each loaded once).  The learned family takes precedence
+        over the hand-tuned scalar gate inside ``select_schedule``;
+        None means "no learned gate" and the scalar gate applies as
+        before.
+        """
+        if self._gate is not None:
+            return self._gate
+        try:
+            from repro_torch.learn import gate as _gate_mod
+        except Exception:  # pragma: no cover - learn is a sibling package
+            return None
+        if machine is not None:
+            fam = _gate_mod.get_machine_gate(machine)
+            if fam is not None:
+                return fam
+        ambient = _gate_mod.get_default_gate()
+        if ambient is not None:
+            return ambient
+        names = ["default"]
+        if machine is not None:
+            names.insert(
+                0,
+                _gate_mod.MACHINE_GATE_PREFIX
+                + _gate_mod.machine_family(machine),
+            )
+        for name in names:
+            if name not in self._artifact_gates:
+                try:
+                    self._artifact_gates[name] = _gate_mod.load_gate(
+                        cache=self.cache, name=name
+                    )
+                except Exception:
+                    self._artifact_gates[name] = None
+            if self._artifact_gates[name] is not None:
+                return self._artifact_gates[name]
+        return None
 
     # -- tier 1+2: cache / analytic ------------------------------------
 
@@ -360,15 +416,29 @@ class Autotuner:
             sched, model_t = ranked[0]  # serial always survives the filter
         except Exception:
             # Zero-cost fallback, against the group-retargeted machine so
-            # the decision tree + serial gate see the real group size
-            # (the scalar gate: the learned one is ROADMAP A4 step 2).
-            dec = select_schedule(gemm, eff, profile=profile)
-            gate_info = {
-                "kind": None,
-                "metric": dec.metric,
-                "threshold": dec.threshold,
-                "reason": dec.reason,
-            }
+            # the decision tree + serial gate see the real group size;
+            # a learned gate (sweep-trained threshold family) is
+            # consulted ahead of the hand-tuned scalar gate.  The
+            # never-raise contract outranks the gate: a malformed gate
+            # artifact degrades to the scalar-gated tree.
+            gate_info = None
+            try:
+                gate = self.learned_gate(eff)
+                dec = select_schedule(gemm, eff, profile=profile, gate=gate)
+                gate_info = {
+                    "kind": type(gate).__name__ if gate is not None else None,
+                    "metric": dec.metric,
+                    "threshold": dec.threshold,
+                    "reason": dec.reason,
+                }
+            except Exception:
+                dec = select_schedule(gemm, eff, profile=profile)
+                gate_info = {
+                    "kind": None,
+                    "metric": dec.metric,
+                    "threshold": dec.threshold,
+                    "reason": dec.reason,
+                }
             return TuneDecision(
                 dec.schedule, "heuristic", key=key, gate=gate_info
             )
@@ -376,7 +446,26 @@ class Autotuner:
         return TuneDecision(
             sched, "analytic", model_t, key=key,
             shortlist=tuple((s.value, float(t)) for s, t in ranked[:3]),
+            gate=self._gate_verdict(gemm, eff, profile),
         )
+
+    def _gate_verdict(self, gemm, machine, profile):
+        """What the learned gate's tree picks beside an analytic decision,
+        or None when no learned gate resolves (or it fails: never raises)."""
+        try:
+            gate = self.learned_gate(machine)
+            if gate is None:
+                return None
+            dec = select_schedule(gemm, machine, profile=profile, gate=gate)
+        except Exception:
+            return None
+        return {
+            "kind": type(gate).__name__,
+            "metric": dec.metric,
+            "threshold": dec.threshold,
+            "reason": dec.reason,
+            "schedule": dec.schedule.value,
+        }
 
     def executable_ranking(
         self,

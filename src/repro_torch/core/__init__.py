@@ -18,8 +18,10 @@ Sweeping a design space takes three lines::
     ex = explore_grid(TABLE_I, machines=[MI300X, TPU_V5E])
     print(ex.summary())   # accuracy + losses over all schedules at once
 
-The reference's jitted grid engine and learned gate are ROADMAP items A8
-and A4 step 2; their names are not exported yet.
+The ``"torch"`` engine (:class:`TorchEngine`, float64 tensor math on the
+card through :mod:`repro_torch.autotune.torchgrid`) takes the reference's
+jitted ``"jax"`` engine's role; the learned gate lives in
+:mod:`repro_torch.learn`.
 """
 
 from repro_torch.core.machine import (
@@ -72,6 +74,7 @@ from repro_torch.core.engine import (
     Engine,
     GridResult,
     NumpyEngine,
+    TorchEngine,
     ScalarEngine,
     engine_names,
     get_engine,
@@ -118,7 +121,7 @@ __all__ = [
     "SimResult", "best_schedule", "simulate",
     "GRID_SCHEDULES", "GridResult", "RaggedBatch", "ScenarioBatch",
     "evaluate_grid", "evaluate_ragged_grid",
-    "Engine", "ScalarEngine", "NumpyEngine",
+    "Engine", "ScalarEngine", "NumpyEngine", "TorchEngine",
     "engine_names", "get_engine", "register_engine",
     "HeuristicDecision", "calibrate_serial_gate", "calibrate_tau",
     "machine_serial_gate", "machine_threshold",

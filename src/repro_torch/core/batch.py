@@ -145,6 +145,17 @@ class RaggedBatch(ScenarioBatch):
         active = self.frac > 0.0
         return self.frac.max(axis=1) * active.sum(axis=1)
 
+    @property
+    def active_steps(self) -> np.ndarray:
+        """(S,) count of non-empty pipeline steps (float64).
+
+        The single source of the "active" convention (strictly positive
+        share) — the explorer's skew-aware gate features and
+        ``repro_torch.learn.features`` both read this, so the training
+        features and the applied features cannot drift apart.
+        """
+        return (self.frac > 0.0).sum(axis=1).astype(np.float64)
+
     def profile(self, i: int) -> StepProfile:
         return StepProfile(tuple(float(f) for f in self.frac[i])).trimmed()
 

@@ -1,30 +1,33 @@
 """Unified engine facade: one backend protocol over the design-space grid
 (port of ``repro.core.engine``).
 
-Two numerically-pinned engines evaluate the same ``(schedule, scenario,
-machine)`` design-space grid on the host:
+Three numerically-pinned engines evaluate the same ``(schedule, scenario,
+machine)`` design-space grid:
 
   * :class:`ScalarEngine`  — the discrete simulator
     (``repro_torch.core.simulator.simulate``) in Python loops; slow,
-    obvious, the ground truth the batched engine is tested against.
+    obvious, the ground truth the batched engines are tested against.
   * :class:`NumpyEngine`   — the vectorized batched engine
-    (``repro_torch.core.batch``); bit-identical to the scalar recurrence.
+    (``repro_torch.core.batch``) on the host; bit-identical to the scalar
+    recurrence.
+  * :class:`TorchEngine`   — float64 tensor math on the card
+    (``repro_torch.autotune.torchgrid``, the reference's jitted ``"jax"``
+    engine's role): within 1e-9 relative of NumPy, every machine in one
+    batched evaluation, differentiable through TAU and the machine
+    parameters by autograd.
 
-Both speak the same :class:`Engine` protocol — ``evaluate(batch) ->
+All three speak the same :class:`Engine` protocol — ``evaluate(batch) ->
 GridResult`` for **uniform and ragged** scenario batches — and register
 themselves in a process-wide registry, so everything downstream
-(``explore_grid``, the shortlist, the heuristic calibrators) resolves a
-backend by name:
+(``explore_grid``, the shortlist, the heuristic calibrators,
+``repro_torch.sweep``) resolves a backend by name:
 
     from repro_torch.core.engine import get_engine
-    grid = get_engine("numpy").evaluate(scenarios, machines)
+    grid = get_engine("torch").evaluate(scenarios, machines)
 
-The reference's jitted ``"jax"`` and ``"mixed"`` engines have no
-counterpart yet: a torch grid engine is ROADMAP item A8, and until it
-lands ``get_engine("jax")`` raises the unknown-backend error, which
-lists the registered engines.  The capability flags (``supports_ragged``,
-``jit``, ``differentiable``, ``trace_safe``) are kept so such an engine
-can declare itself.
+The reference's ``"jax"`` and ``"mixed"`` names are not registered:
+``get_engine("jax")`` raises the unknown-backend error, which lists the
+registered engines, and the mixed-precision engine is ROADMAP A8.
 
 :class:`GridResult` — the one canonical dense result table — also lives
 here; ``repro_torch.core.batch`` re-exports it.
@@ -69,7 +72,9 @@ class GridResult:
     ``serial_gemm`` are ``(S, M)``.  Entries where the scalar simulator
     would raise (indivisible decompositions) are NaN with ``valid`` False.
 
-    Every engine returns exactly this shape (scenario-major layout).
+    Every engine returns exactly this shape (scenario-major layout); the
+    torch engine assembles it from its machine-major stacks via
+    :meth:`from_machine_major`.
     """
 
     schedules: tuple[Schedule, ...]
@@ -105,6 +110,44 @@ class GridResult:
 
     def schedule_idx(self, schedule: Schedule) -> int:
         return self.schedules.index(schedule)
+
+    @classmethod
+    def from_machine_major(
+        cls,
+        raw,
+        *,
+        schedules,
+        scenarios,
+        machines,
+        dma: bool,
+    ) -> "GridResult":
+        """Assemble from the torch engine's machine-major stacks.
+
+        ``raw`` is the 8-tuple ``(total, comm_busy, compute_busy,
+        exposed, steps, valid, serial_comm, serial_gemm)`` with a
+        leading machine axis — ``total`` is ``(M, L, S)``, ``steps`` is
+        ``(M, L)``, ``serial_*`` are ``(M, S)`` — exactly what
+        ``torchgrid.evaluate_grid_raw`` / ``evaluate_ragged_grid_raw``
+        produce (as host arrays).  Transposed here, once, to the
+        canonical scenario-major layout.
+        """
+        total, comm_busy, compute_busy, exposed, steps, valid, sc, sg = (
+            np.asarray(a) for a in raw
+        )
+        return cls(
+            schedules=tuple(schedules),
+            scenarios=scenarios,
+            machines=tuple(machines),
+            total=np.transpose(total, (1, 2, 0)),
+            comm_busy=np.transpose(comm_busy, (1, 2, 0)),
+            compute_busy=np.transpose(compute_busy, (1, 2, 0)),
+            exposed=np.transpose(exposed, (1, 2, 0)),
+            steps=np.transpose(steps, (1, 0)),
+            serial_comm=np.transpose(sc, (1, 0)),
+            serial_gemm=np.transpose(sg, (1, 0)),
+            valid=np.transpose(valid, (1, 2, 0)),
+            dma=dma,
+        )
 
     def sim_result(self, schedule: Schedule, i: int, j: int) -> SimResult:
         """Materialize one scalar :class:`SimResult` from the grid."""
@@ -347,6 +390,56 @@ class NumpyEngine:
             )
 
 
+class TorchEngine:
+    """Float64 tensor math on the card (``repro_torch.autotune.torchgrid``).
+
+    The reference's :class:`JaxEngine` role, without a compiler: the same
+    formulas as the NumPy engine in the same accumulation order, every
+    machine of the grid a leading tensor dimension, gradients by
+    autograd.  ``device`` defaults to the card; a host without CUDA
+    raises at ``evaluate`` unless the engine was built with
+    ``device="cpu"``.  ``torchgrid`` is imported lazily, so resolving
+    ``get_engine("torch")`` costs nothing until ``evaluate``.
+
+    Capability flags: ``jit`` is False (eager PyTorch, no compilation,
+    no CUDA graph) and so is ``trace_safe`` (it launches its own device
+    work).
+    """
+
+    name = "torch"
+    supports_ragged = True
+    jit = False
+    differentiable = True
+    trace_safe = False
+
+    def __init__(self, device=None):
+        self.device = device
+
+    def evaluate(
+        self,
+        scenarios,
+        machines,
+        *,
+        dma: bool = True,
+        dma_into_place: bool = False,
+        schedules: tuple[Schedule, ...] | None = None,
+    ) -> GridResult:
+        from repro_torch.autotune import torchgrid
+
+        scenarios = as_scenario_sequence(scenarios)
+        fn = (
+            torchgrid.evaluate_ragged_grid
+            if is_ragged(scenarios)
+            else torchgrid.evaluate_grid
+        )
+        with _observe_evaluate(self.name, scenarios):
+            return fn(
+                scenarios, machines, dma=dma, dma_into_place=dma_into_place,
+                schedules=GRID_SCHEDULES if schedules is None else schedules,
+                device=self.device,
+            )
+
+
 # ---------------------------------------------------------------------------
 # Registry.
 # ---------------------------------------------------------------------------
@@ -363,7 +456,8 @@ def register_engine(
 ) -> None:
     """Register an engine factory under ``name``.
 
-    Third parties (tests, experimental backends) can register their own.  A name collision
+    Third parties (tests, experimental backends such as
+    ``repro_torch.learn.measured``) can register their own.  A name collision
     raises — registering over an existing engine would silently reroute
     every ``backend=`` caller — unless ``overwrite=True`` is passed
     explicitly; the error lists the registered names, mirroring
@@ -409,6 +503,7 @@ def get_engine(backend) -> Engine:
 
 register_engine("scalar", ScalarEngine)
 register_engine("numpy", NumpyEngine)
+register_engine("torch", TorchEngine)
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +524,10 @@ def shortlist(
     """Top-``top`` valid schedules for one GEMM, fastest first.
 
     ``backend`` names any registered engine (``engine=`` passes an
-    instance directly).  Model times accompany each schedule so callers
+    instance directly).  It defaults to ``"numpy"`` where the reference
+    defaults to ``"jax"``: one GEMM's ranking is host work, and the
+    NumPy engine is the oracle the ``"torch"`` engine is held to.
+    Model times accompany each schedule so callers
     can decide whether measuring is worth it (close calls) or not.
     ``profile`` ranks the schedules under a ragged step profile instead
     of the uniform split (skew-aware tuning).
@@ -461,6 +559,7 @@ __all__ = [
     "Engine",
     "ScalarEngine",
     "NumpyEngine",
+    "TorchEngine",
     "register_engine",
     "engine_names",
     "get_engine",

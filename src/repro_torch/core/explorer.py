@@ -83,21 +83,29 @@ class GridExploration:
 
     @classmethod
     def from_grid(
-        cls, grid: GridResult, *, tau: float | None = None
+        cls, grid: GridResult, *, tau: float | None = None, gate=None
     ) -> "GridExploration":
         """Attach vectorized heuristic picks to an already-evaluated grid.
 
         Works on any engine's :class:`GridResult` (the heuristic is
         engine-independent); ragged grids feed their per-scenario
-        imbalance into the skew-aware serial gate.
+        imbalance (and active step counts) into the skew-aware serial
+        gate.  ``gate`` (a :class:`repro_torch.learn.gate.LearnedGate`) swaps
+        the scalar gate for the sweep-learned threshold family.
         """
         sb = grid.scenarios
-        imbalance = sb.imbalance if isinstance(sb, RaggedBatch) else None
+        if isinstance(sb, RaggedBatch):
+            imbalance = sb.imbalance
+            active_steps = sb.active_steps
+        else:
+            imbalance = None
+            active_steps = None
         heuristic = np.stack(
             [
                 select_schedule_batch(
                     sb.m, sb.n, sb.k, sb.dtype_bytes, machine, tau=tau,
-                    imbalance=imbalance,
+                    imbalance=imbalance, active_steps=active_steps,
+                    gate=gate,
                 )
                 for machine in grid.machines
             ],
@@ -166,6 +174,7 @@ def explore_grid(
     tau: float | None = None,
     backend: str = "numpy",
     engine: Engine | None = None,
+    gate=None,
 ) -> GridExploration:
     """Batched :func:`explore` over S scenarios x M machines at once.
 
@@ -178,8 +187,10 @@ def explore_grid(
     ``scenarios`` accepts Scenario lists, GemmShape lists or a prebuilt
     :class:`~repro_torch.core.batch.ScenarioBatch` (e.g. from
     ``workload.scenario_grid``).  ``backend`` names any engine in the
-    :mod:`repro_torch.core.engine` registry — ``"numpy"`` (default) or
-    ``"scalar"`` (the simulator loop); an unknown name raises a
+    :mod:`repro_torch.core.engine` registry — ``"numpy"`` (default),
+    ``"torch"`` (float64 tensor math on the card, numbers within 1e-9 of
+    numpy, differentiable for calibration) or ``"scalar"`` (the simulator
+    loop); an unknown name raises a
     ``ValueError`` listing the registered engines.  ``engine=``
     passes an :class:`~repro_torch.core.engine.Engine` instance directly.
 
@@ -187,14 +198,17 @@ def explore_grid(
     lists / a :class:`~repro_torch.core.batch.RaggedBatch`, e.g. from
     ``workload.ragged_scenario_grid``) route through the masked ragged
     engines on any backend; the heuristic picks then carry the
-    skew-aware serial gate (``imbalance``).  The reference's learned
-    gate family (``gate=``) comes with ROADMAP A4 step 2.
+    skew-aware serial gate (``imbalance``).
+
+    ``gate`` (a :class:`repro_torch.learn.gate.LearnedGate`) evaluates the
+    heuristic with the sweep-learned threshold family instead of the
+    scalar serial gate.
     """
     eng = engine if engine is not None else get_engine(backend)
     grid = eng.evaluate(
         scenarios, machines, dma=dma, dma_into_place=dma_into_place
     )
-    return GridExploration.from_grid(grid, tau=tau)
+    return GridExploration.from_grid(grid, tau=tau, gate=gate)
 
 
 def _variant_proxy_time(

@@ -33,10 +33,9 @@ more than the compute it hides.  The static signal is
 
 "serial wins" iff the inflated comm overhead exceeds the hidden compute,
 i.e. score > gate with gate ~= 1 (the frozen default is calibrated on
-the grid, see ``calibrate_serial_gate``).
-
-The reference also takes a learned gate family (``gate=``, its ``learn``
-package); the port's comes with ROADMAP A4 step 2.
+the grid, see ``calibrate_serial_gate``).  A sweep-learned gate family
+(``gate=``, :class:`repro_torch.learn.gate.LearnedGate`) replaces the
+scalar threshold with one conditioned on the profile's skew.
 """
 
 from __future__ import annotations
@@ -73,11 +72,34 @@ _GATE_COMM_CIL = 1.12
 
 
 def machine_serial_gate(machine: MachineSpec) -> float:
-    """The scalar gate threshold for a machine: a
-    :func:`calibrate_serial_gate` override, else the default.  (The
-    reference consults a learned per-machine-family gate ahead of it;
-    that comes with the port's ``learn`` package, ROADMAP A4 step 2.)"""
+    """The hand-tuned scalar gate threshold for a machine.
+
+    This is the *scalar* end of the gate resolution:
+    ``select_schedule`` consults a learned per-machine-family gate
+    (:func:`repro_torch.learn.gate.set_machine_gate`) ahead of this value —
+    see :func:`_family_gate` — so this threshold applies only when no
+    learned family covers the machine.
+    """
     return _SERIAL_GATE_OVERRIDES.get(machine.name, DEFAULT_SERIAL_GATE)
+
+
+def _family_gate(machine: MachineSpec):
+    """Learned family gate for a machine, or None.
+
+    Soft lookup through ``sys.modules``: the core package never imports
+    :mod:`repro_torch.learn` (which would drag the training stack into
+    every import of the core), so family gates only steer decisions in
+    processes that already loaded the learn package and registered one.
+    """
+    import sys
+
+    mod = sys.modules.get("repro_torch.learn.gate")
+    if mod is None:
+        return None
+    try:
+        return mod.get_machine_gate(machine)
+    except Exception:
+        return None
 
 
 def serial_gate_terms_batch(m, n, k, dtype_bytes, machine: MachineSpec):
@@ -89,8 +111,9 @@ def serial_gate_terms_batch(m, n, k, dtype_bytes, machine: MachineSpec):
     ratio from the shared link model (g FiCCO steps of 1/g^2-sized
     chunks vs one serial all-gather — both via the same
     ``repro_torch.core.batch`` formulas the engines use, so a comm-model fix
-    propagates here automatically).  The reference's learned gate takes
-    these terms as its inputs.
+    propagates here automatically).  ``repro_torch.learn.features`` reuses
+    these terms as learned-gate inputs, so the heuristic and the
+    learner can never drift apart on their definitions.
     """
     from repro_torch.core import batch as _batch  # local: avoids a cycle
 
@@ -222,6 +245,7 @@ def select_schedule(
     allow_serial_guard: bool = True,
     serial_gate: float | None = None,
     profile=None,
+    gate=None,
 ) -> HeuristicDecision:
     """Static schedule pick (Fig. 12a tree + the learned serial gate).
 
@@ -236,6 +260,14 @@ def select_schedule(
     by the profile's imbalance (max/mean active-step share) — heavily
     skewed EP dispatches fall back to serial sooner, which is exactly
     what the ragged grid's analytic optima show.
+
+    ``gate`` (a :class:`repro_torch.learn.gate.LearnedGate`) replaces the
+    scalar threshold with the sweep-learned threshold *family*: the raw
+    gate score is compared against a per-scenario threshold conditioned
+    on ``(imbalance, active_steps, OTB, r)`` — the profile's skew enters
+    as a tree feature rather than a fixed multiplicative scaling.  It
+    takes precedence over both the calibrated per-machine gate and an
+    explicit ``serial_gate`` float.
     """
     metric = gemm.otb * gemm.bytes_mt  # == gemm.flops
     t = machine_threshold(machine, tau)
@@ -247,18 +279,34 @@ def select_schedule(
         )
     if allow_serial_guard:
         score = serial_gate_score(gemm, machine)
-        g_thr = (
-            serial_gate
-            if serial_gate is not None
-            else machine_serial_gate(machine)
-        )
-        imbalance = 1.0 if profile is None else float(profile.imbalance)
-        if score * imbalance > g_thr:
-            return HeuristicDecision(
-                Schedule.SERIAL, metric, t,
+        if gate is None and serial_gate is None:
+            # Neither an explicit learned gate nor an explicit scalar:
+            # a registered per-machine-family gate outranks the
+            # hand-tuned scalar below.
+            gate = _family_gate(machine)
+        if gate is not None:
+            # ``>=`` matches the learned gate's training accounting
+            # (score bins are right-closed at the threshold edges).
+            thr = float(gate.threshold_for(gemm, machine, profile=profile))
+            stay_serial = score >= thr
+            reason = (
                 "comm-bound: chunking overhead exceeds hidden compute "
-                "(grid-learned serial gate)",
+                "(sweep-learned gate family)"
             )
+        else:
+            g_thr = (
+                serial_gate
+                if serial_gate is not None
+                else machine_serial_gate(machine)
+            )
+            imbalance = 1.0 if profile is None else float(profile.imbalance)
+            stay_serial = score * imbalance > g_thr
+            reason = (
+                "comm-bound: chunking overhead exceeds hidden compute "
+                "(grid-learned serial gate)"
+            )
+        if stay_serial:
+            return HeuristicDecision(Schedule.SERIAL, metric, t, reason)
     if gemm.m < gemm.k:
         return HeuristicDecision(
             Schedule.UNIFORM_FUSED_2D, metric, t,
@@ -291,6 +339,9 @@ def select_schedule_batch(
     allow_serial_guard: bool = True,
     serial_gate: float | None = None,
     imbalance=None,
+    active_steps=None,
+    gate=None,
+    terms=None,
 ):
     """Vectorized :func:`select_schedule` over ``(S,)`` shape arrays.
 
@@ -302,6 +353,14 @@ def select_schedule_batch(
     ``imbalance`` is the per-scenario ragged-profile imbalance factor
     (``RaggedBatch.imbalance``; 1.0 == uniform): it scales the serial
     gate score exactly like the scalar tree's ``profile`` argument.
+
+    ``gate`` (a :class:`repro_torch.learn.gate.LearnedGate`) swaps the
+    scalar gate for the learned threshold family, exactly like the scalar
+    tree's ``gate`` argument; ``active_steps`` (per-scenario active step
+    counts, default ``machine.group``) is a gate feature alongside
+    ``imbalance``.  ``terms`` optionally carries precomputed
+    :func:`serial_gate_terms_batch` output so batch callers evaluate the
+    link model exactly once.
     """
     from repro_torch.core.batch import SCHEDULE_INDEX  # local: avoids a cycle
 
@@ -315,19 +374,35 @@ def select_schedule_batch(
     t = machine_threshold(machine, tau)
 
     if allow_serial_guard:
-        scores = serial_gate_score_batch(m, n, k, b, machine)
-        g_thr = (
-            serial_gate
-            if serial_gate is not None
-            else machine_serial_gate(machine)
-        )
-        imb = (
-            1.0 if imbalance is None
-            else np.asarray(imbalance, np.float64)
-        )
-        stay_serial = (flops < MIN_DECOMPOSE_FLOPS) | (
-            scores * imb > g_thr
-        )
+        if terms is None:
+            terms = serial_gate_terms_batch(m, n, k, b, machine)
+        scores = serial_gate_score_from_terms(*terms)
+        if gate is None and serial_gate is None:
+            # Same family-gate precedence as the scalar tree.
+            gate = _family_gate(machine)
+        if gate is not None:
+            # ``>=`` matches the learned gate's training accounting.
+            # The precomputed terms ride along so the gate's feature
+            # matrix does not recompute the link model.
+            thr = gate.thresholds_batch(
+                m, n, k, b, machine,
+                imbalance=imbalance, active_steps=active_steps,
+                terms=terms,
+            )
+            stay_serial = (flops < MIN_DECOMPOSE_FLOPS) | (scores >= thr)
+        else:
+            g_thr = (
+                serial_gate
+                if serial_gate is not None
+                else machine_serial_gate(machine)
+            )
+            imb = (
+                1.0 if imbalance is None
+                else np.asarray(imbalance, np.float64)
+            )
+            stay_serial = (flops < MIN_DECOMPOSE_FLOPS) | (
+                scores * imb > g_thr
+            )
     else:
         stay_serial = np.zeros(m.shape, dtype=bool)
     conds = [

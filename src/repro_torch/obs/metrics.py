@@ -308,17 +308,14 @@ def observe_gate_agreement(
     Folds ``gate/agree`` / ``gate/points`` counters into the registry
     and returns this grid's rate — the live signal for "is the deployed
     gate still tracking the analytic optimum".  Opt-in (it costs one
-    vectorized heuristic evaluation per grid).  A learned ``gate`` waits
-    for ROADMAP A4 step 2 and raises until then.
+    vectorized heuristic evaluation per grid).  ``gate`` (a
+    :class:`repro_torch.learn.gate.LearnedGate`) evaluates the heuristic
+    with the learned threshold family.
     """
-    if gate is not None:
-        raise NotImplementedError(
-            "a learned gate needs repro_torch.learn (ROADMAP A4 step 2)"
-        )
     # Lazy: the core imports this package (its engine reports here).
     from repro_torch.core.explorer import GridExploration
 
-    ex = GridExploration.from_grid(grid, tau=tau)
+    ex = GridExploration.from_grid(grid, tau=tau, gate=gate)
     agree = int(ex.exact.sum())
     points = int(ex.exact.size)
     reg = registry or _REGISTRY

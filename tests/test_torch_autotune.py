@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import learn as jlearn
 from repro.core import engine as jengine
 from repro.core import machine as jmachine
 from repro.core import simulator as jsim
@@ -37,9 +38,21 @@ from repro_torch.autotune import (
 )
 from repro_torch.autotune import cache as cache_mod
 from repro_torch.core import explorer, simulator
+from repro_torch.core.engine import shortlist
+from repro_torch.core.heuristics import select_schedule
 from repro_torch.core.machine import H100_SXM, MI300X, TPU_V5E
 from repro_torch.core.schedule_types import Schedule
 from repro_torch.core.workload import TABLE_I, GemmShape
+from repro_torch.learn import (
+    LearnedGate,
+    MeasuredEngine,
+    clear_machine_gates,
+    machine_family,
+    save_gate,
+    save_machine_gates,
+    set_default_gate,
+    set_machine_gate,
+)
 from repro_torch.obs import audit, metrics, signature, timeline
 from repro_torch.obs import trace as _trace
 from repro_torch.overlap import api, schedules
@@ -52,8 +65,8 @@ MACHINES = (MI300X, TPU_V5E, H100_SXM)
 @pytest.fixture(autouse=True)
 def _fresh_singletons():
     """The port's process-wide tuner, promotions, audit log, signature
-    stream and metrics (``tests/conftest.py`` resets the reference's
-    only)."""
+    stream, metrics and learned gates (``tests/conftest.py`` resets the
+    reference's only)."""
 
     def reset():
         reset_tuner()
@@ -61,6 +74,8 @@ def _fresh_singletons():
         audit.disable_audit()
         signature._STREAM = None
         metrics.reset_metrics()
+        set_default_gate(None)
+        clear_machine_gates()
 
     reset()
     yield
@@ -148,12 +163,12 @@ def test_default_machine_backend_and_gate(tuner):
     assert autotune_schedule(2048, 5632, 2048, group=4) is Schedule.SERIAL
     with pytest.raises(ValueError, match="jax"):
         Autotuner(backend="jax")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4 step 2"):
-        Autotuner(gate=object())
+    gate = LearnedGate(tree={"leaf": True, "gate": float("inf")})
+    assert Autotuner(gate=gate, audit=False).gate is gate
+    tuner.set_gate(gate)
+    assert tuner.gate is gate and tuner.learned_gate(MI300X) is gate
     tuner.set_gate(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4 step 2"):
-        tuner.set_gate(object())
-    assert tuner.gate is None
+    assert tuner.gate is None and tuner.learned_gate(MI300X) is None
 
 
 def test_pick_falls_back_to_the_heuristic_and_does_not_persist(
@@ -374,8 +389,11 @@ def test_gate_agreement_matches_reference():
         jex.grid, registry=jmetrics.MetricsRegistry())
     counters = metrics.get_metrics().snapshot()["counters"]
     assert counters["gate/points"] == ex.grid.total.shape[1] * 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A4 step 2"):
-        metrics.observe_gate_agreement(ex.grid, gate=object())
+    gate = LearnedGate(tree={"leaf": True, "gate": 1.0})
+    assert metrics.observe_gate_agreement(ex.grid, gate=gate) == (
+        jmetrics.observe_gate_agreement(
+            jex.grid, gate=jlearn.LearnedGate.from_json(gate.to_json()),
+            registry=jmetrics.MetricsRegistry()))
 
 
 def test_set_tuner_is_what_autotune_consults(tuner):
@@ -392,3 +410,113 @@ def test_launch_serve_takes_the_autotune_mode(capsys):
           "--new-tokens", "2", "--overlap-mode", "ficco_autotune",
           "--device", "cpu"])
     assert "decoded 2 tokens" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The learned gate in the tuner (ROADMAP A4 step 2)
+# ---------------------------------------------------------------------------
+
+def _always_serial_gate():
+    return LearnedGate(tree={"leaf": True, "gate": float("-inf"), "n": 0,
+                             "win5": 0, "regret_q": 0})
+
+
+def test_autotuner_consults_learned_gate(tmp_path, monkeypatch):
+    """The heuristic fallback applies the learned family ahead of the
+    scalar gate: explicitly, via the process default (re-checked per
+    call) and via the cache's artifact segment; a malformed artifact
+    degrades to the scalar-gated tree (the reference's test)."""
+    def fresh(tag):
+        return AutotuneCache(path=str(tmp_path / f"{tag}.json"))
+
+    gemm = TABLE_I[1].gemm
+    baseline = select_schedule(gemm, MI300X).schedule
+    assert baseline is not Schedule.SERIAL
+
+    def boom(self, *a, **kw):
+        raise RuntimeError("force the heuristic fallback")
+
+    monkeypatch.setattr(Autotuner, "_shortlist", boom)
+    serial_gate = _always_serial_gate()
+    dec = Autotuner(fresh("a"), gate=serial_gate, audit=False).pick(
+        gemm, MI300X)
+    assert dec.schedule is Schedule.SERIAL and dec.source == "heuristic"
+    assert dec.gate["kind"] == "LearnedGate"
+    assert "sweep-learned gate family" in dec.gate["reason"]
+
+    t2 = Autotuner(fresh("b"), audit=False)
+    assert t2.pick(gemm, MI300X).schedule is baseline
+    set_default_gate(serial_gate)
+    assert t2.pick(gemm, MI300X).schedule is Schedule.SERIAL
+    set_default_gate(None)
+    assert t2.pick(gemm, MI300X).gate["kind"] is None
+
+    cache = fresh("c")
+    save_gate(serial_gate, cache=cache)
+    assert Autotuner(cache, audit=False).pick(
+        gemm, MI300X).schedule is Schedule.SERIAL
+
+    broken = LearnedGate(tree={"feature": "no-such-feature", "edge": 1.0,
+                               "lo": {"leaf": True, "gate": 0.0},
+                               "hi": {"leaf": True, "gate": 0.0}})
+    cache5 = fresh("e")
+    save_gate(broken, cache=cache5)
+    assert Autotuner(cache5, audit=False).pick(
+        gemm, MI300X).schedule is baseline
+
+
+def test_tuner_resolves_family_before_default(tmp_path):
+    """``learned_gate(machine)``: ambient family > ambient default > family
+    artifact > default artifact."""
+    fam_gate = _always_serial_gate()
+    default_gate = LearnedGate(tree={"leaf": True, "gate": 99.0})
+    cache = AutotuneCache(path=str(tmp_path / "c.json"))
+    save_machine_gates({machine_family(H100_SXM): fam_gate}, cache=cache)
+    save_gate(default_gate, cache=cache)
+    t = Autotuner(cache, audit=False)
+    assert t.learned_gate(H100_SXM).to_json() == fam_gate.to_json()
+    assert t.learned_gate().to_json() == default_gate.to_json()
+    assert t.learned_gate(MI300X).to_json() == default_gate.to_json()
+    ambient = LearnedGate(tree={"leaf": True, "gate": 7.0})
+    set_default_gate(ambient)
+    assert t.learned_gate(MI300X) is ambient
+    set_machine_gate(H100_SXM, ambient)
+    assert t.learned_gate(H100_SXM) is ambient
+    clear_machine_gates()
+    set_default_gate(None)
+    assert t.learned_gate(H100_SXM).to_json() == fam_gate.to_json()
+
+
+def test_analytic_pick_carries_the_gate_verdict(tuner):
+    """With a learned gate installed, an analytic decision records what the
+    gated tree picks beside the analytic winner; without one it records
+    nothing, as the reference does."""
+    gemm = GemmShape(2048, 5632, 2048, 2)
+    plain = tuner.pick(gemm, H100_SXM, group=4)
+    assert (plain.source, plain.gate) == ("analytic", None)
+    tuner.set_gate(_always_serial_gate())
+    tuner.cache.entries.clear()
+    dec = tuner.pick(gemm, H100_SXM, group=4)
+    assert dec.source == "analytic" and dec.schedule is plain.schedule
+    assert dec.gate["kind"] == "LearnedGate"
+    assert dec.gate["schedule"] == Schedule.SERIAL.value
+    assert "sweep-learned" in dec.gate["reason"]
+
+
+def test_measured_engine_shortlist_ranks_from_records(tmp_path):
+    """The ``"measured"`` engine's shortlist puts a measured record ahead of
+    the model's ranking; unmeasured keys keep the model's order."""
+    gemm = GemmShape(2048, 5632, 2048, 2)
+    cache = AutotuneCache(path=str(tmp_path / "c.json"))
+    model = shortlist(gemm, H100_SXM, top=3)
+    runner_up = model[1][0]
+    cache.put(str(TuneKey.for_gemm(gemm, H100_SXM)),
+              {"schedule": runner_up.value, "source": "measured",
+               "model_total_s": None,
+               "measured_total_s": 0.5 * model[0][1]}, persist=False)
+    ranked = shortlist(gemm, H100_SXM, top=3, engine=MeasuredEngine(cache))
+    assert ranked[0] == (runner_up, 0.5 * model[0][1])
+    other = GemmShape(4096, 5632, 2048, 2)
+    assert shortlist(other, H100_SXM, top=3,
+                     engine=MeasuredEngine(cache)) == shortlist(
+        other, H100_SXM, top=3)

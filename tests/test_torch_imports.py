@@ -121,6 +121,24 @@ def _launch_train():
     main(["--arch", "tinyllama-1.1b", "--steps", "1"])
 
 
+def _torch_engine():
+    from repro_torch.core.engine import get_engine
+    from repro_torch.core.machine import H100_SXM
+    from repro_torch.core.workload import TABLE_I
+
+    get_engine("torch").evaluate(TABLE_I, [H100_SXM])
+
+
+def _fit_machine():
+    from repro_torch.core.machine import H100_SXM
+    from repro_torch.core.schedule_types import Schedule
+    from repro_torch.core.workload import GemmShape
+    from repro_torch.learn import MeasuredRecord, fit_machine
+
+    fit_machine(H100_SXM, [MeasuredRecord(GemmShape(2048, 5632, 2048, 2),
+                                          Schedule.SERIAL, 1e-4, 8)])
+
+
 ENTRY_POINTS = {
     "Model.init": _model_init,
     "Model.init_cache": _init_cache,
@@ -133,6 +151,8 @@ ENTRY_POINTS = {
     "opt_state_from_jax": _opt_state_from_jax,
     "train": _train,
     "launch.train": _launch_train,
+    "get_engine(\"torch\")": _torch_engine,
+    "fit_machine": _fit_machine,
 }
 
 
@@ -184,3 +204,12 @@ def test_import_check_covers_the_tuner():
                  "tune.registry", "obs.audit", "obs.signature",
                  "obs.timeline"):
         assert f"repro_torch.{name}" in mods, name
+
+
+def test_import_check_covers_the_grid_engine_sweep_and_learn():
+    mods = set(_port_modules())
+    for name in ("autotune.torchgrid", "sweep", "sweep.plan", "sweep.synth",
+                 "sweep.runner", "learn", "learn.features", "learn.stats",
+                 "learn.gate", "learn.fit", "learn.measured"):
+        assert f"repro_torch.{name}" in mods, name
+    assert "repro_torch.sweep.device" not in mods

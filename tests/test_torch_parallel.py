@@ -101,9 +101,10 @@ def test_every_mode_runs_through_ficco_linear(overlap):
 
 @pytest.mark.parametrize("overlap", _MODES)
 def test_schedules_not_ported_raise_with_roadmap_item(overlap):
-    """The tuner-backed mode runs on either backend; the tuner's learned
-    gate is what is not ported, and it names its item."""
+    """The tuner-backed mode runs on either backend, and the tuner takes a
+    learned gate (ROADMAP A4 step 2 is ported)."""
     from repro_torch.autotune import get_tuner, reset_tuner
+    from repro_torch.learn import LearnedGate
 
     reset_tuner()
     try:
@@ -112,8 +113,12 @@ def test_schedules_not_ported_raise_with_roadmap_item(overlap):
         with tp_group(TPGroup(4, "cpu")):
             got = tp.tp_ficco_linear(x, w, autotune)
         torch.testing.assert_close(got, x @ w, rtol=1e-5, atol=1e-5)
-        with pytest.raises(NotImplementedError, match="ROADMAP A4 step 2"):
-            get_tuner().set_gate(object())
+        gate = LearnedGate(tree={"leaf": True, "gate": float("inf")})
+        get_tuner().set_gate(gate)
+        assert get_tuner().gate is gate
+        with tp_group(TPGroup(4, "cpu")):
+            torch.testing.assert_close(tp.tp_ficco_linear(x, w, autotune),
+                                       x @ w, rtol=1e-5, atol=1e-5)
     finally:
         reset_tuner()
 

@@ -224,9 +224,10 @@ def test_2d_schedule_accumulates_through_k2(monkeypatch):
 
 
 def test_autotune_raises_naming_the_roadmap():
-    """``schedule="autotune"`` runs the schedule the tuner picks; what it
-    cannot do yet, take a learned gate, raises naming its ROADMAP step."""
+    """``schedule="autotune"`` runs the schedule the tuner picks, and the
+    tuner takes a learned gate (ROADMAP A4 step 2 is ported)."""
     from repro_torch.autotune import Autotuner, get_tuner, reset_tuner
+    from repro_torch.learn import LearnedGate
 
     reset_tuner()
     try:
@@ -236,8 +237,8 @@ def test_autotune_raises_naming_the_roadmap():
         assert dec.source == "cache"
         torch.testing.assert_close(got, run_schedule(dec.schedule, x, w),
                                    **_tol("float32"))
-        with pytest.raises(NotImplementedError, match="ROADMAP A4 step 2"):
-            Autotuner(gate=object())
+        gate = LearnedGate(tree={"leaf": True, "gate": float("inf")})
+        assert Autotuner(gate=gate).learned_gate() is gate
     finally:
         reset_tuner()
 
