@@ -69,6 +69,19 @@ Phases, each of which exits non-zero on failure:
      ``Autotuner.set_gate`` and read back from a pick's decision record,
      and the ``"measured"`` engine's shortlist ranking from [fit]'s
      records;
+ 11. the MoE family (``[moe]``), once TinyLlama's state is freed:
+     DeepSeek-V2-Lite-16B whole at full width (27 MoE layers of 64 experts
+     top-6 and 2 shared, MLA), its parameter bytes and memory; a 4 x 512
+     prefill dense and on the DMA path on the group of 4 (the shared
+     experts' up/gate projections: K3, 216 launches), timed in turns
+     beside the bound, one profiled run each, the logits held against
+     dense (5 %) with the share of expert choices that differ; cached
+     decode through the MLA latent cache against the forward (5 %, on
+     the forward's expert choices; the free-running decode printed); the
+     ``DecodeEngine`` per step beside its byte bound; and the
+     expert-parallel dispatch at the model's MoE layer
+     (``serial_a2a_ffn``, ``ficco_a2a_ffn``'s variants) against each
+     other, each timed with CUDA events beside its bound;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -107,7 +120,7 @@ REPS = 20
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # What [done] counts: every phase the script prints, in order.
 PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
-          "autotune", "serve", "train", "grid", "fit", "gate")
+          "autotune", "serve", "train", "grid", "fit", "gate", "moe")
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -1875,6 +1888,454 @@ def phase_learn(device):
     return fit
 
 
+# [moe]: DeepSeek-V2-Lite-16B whole, and the expert-parallel dispatch at
+# its MoE layer: GROUP ranks of PREFILL_SEQ tokens each route top-6 of 64
+# experts at capacity factor 1.25, so 512 * 6 * 1.25 / 64 = 60 rows per
+# expert and rank.
+MOE_ARCH = "deepseek-v2-lite-16b"
+EP_CAPACITY = 60
+EP_SIZES = (20, 0, 25, 15)  # explicit chunk sizes with an empty chunk
+
+
+def _moe_work(cfg, batch: int, seq: int, ctx: float) -> dict:
+    """Operations of one forward over (batch, seq) new tokens that attend
+    to ``ctx`` positions each on average, by part, as the reference's
+    arithmetic runs them: the routed experts at capacity, every
+    projection, the router, the causal attention and the unembedding."""
+    d, h, n = cfg.d_model, cfg.num_heads, cfg.num_layers
+    m, e = cfg.mla, cfg.moe
+    t = batch * seq
+    qk = m.nope_head_dim + m.rope_head_dim
+    cap = int(max(e.capacity_factor * t * e.top_k / e.num_experts, 4))
+    per_token_mla = (d * h * qk + d * (m.kv_lora_rank + m.rope_head_dim)
+                     + m.kv_lora_rank * h * (m.nope_head_dim + m.v_head_dim)
+                     + h * m.v_head_dim * d)
+    return {
+        "routed experts": n * 3 * 2 * e.num_experts * cap * d * e.d_ff_expert,
+        "shared experts": n * 3 * 2 * t * d * e.d_ff_expert
+        * e.num_shared_experts,
+        "MLA projections": n * 2 * t * per_token_mla,
+        "router": n * 2 * t * d * e.num_experts,
+        "attention": n * 2 * t * ctx * h * (qk + m.v_head_dim),
+        "unembedding": 2 * t * d * cfg.vocab_size,
+    }
+
+
+class _Routing:
+    """Within ``with``: wraps ``repro_torch.models.moe.route`` so each call
+    records its top-k experts (``calls``) or, while ``replay`` holds an
+    iterator, takes its experts from it, their weights renormalised from
+    the call's own probabilities.  Replaying one run's choices in another
+    holds the two to the same discrete routing, so what remains between
+    them is arithmetic."""
+
+    def __init__(self):
+        self.calls, self.replay = [], None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.module, self.orig = moe, moe.route
+        moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.orig
+
+    def __call__(self, params, xf, mcfg):
+        logits, probs, top_w, top_e = self.orig(params, xf, mcfg)
+        if self.replay is not None:
+            top_e = next(self.replay)
+            top_w = probs.gather(-1, top_e)
+            top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        self.calls.append(top_e)
+        return logits, probs, top_w, top_e
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def _choices_differ(a, b, num_experts: int) -> float:
+    """Share of (token, k) expert choices in ``a`` that ``b`` lacks."""
+    import torch
+
+    def hot(idx):
+        return torch.zeros(idx.shape[0], num_experts, device=idx.device
+                           ).scatter_(1, idx, 1.0)
+
+    return ((hot(a) - hot(b)).clamp_min(0).sum() / a.numel()).item()
+
+
+def _dropped_share(choices, cfg, tokens: int) -> float:
+    """Share of the (token, k) assignments that the capacity clip drops."""
+    import torch
+
+    e = cfg.moe.num_experts
+    cap = int(max(cfg.moe.capacity_factor * tokens * cfg.moe.top_k / e, 4))
+    drops = total = 0
+    for idx in choices:
+        counts = torch.zeros(e, device=idx.device).index_add_(
+            0, idx.reshape(-1), torch.ones(idx.numel(), device=idx.device))
+        drops += (counts - cap).clamp_min(0).sum().item()
+        total += idx.numel()
+    return drops / total
+
+
+def phase_moe(device, timer):
+    """DeepSeek-V2-Lite-16B at full width: build, dense and DMA-path
+    prefill, the logits and the MLA cache checked, ``DecodeEngine``, then
+    the expert-parallel dispatch at the model's MoE layer.  Returns each
+    kernel's launches in one DMA-path prefill."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.sharding import TPGroup, tp_group
+    from repro_torch.serve.engine import make_prefill
+    from repro_torch.tree import named_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(
+        get_config(MOE_ARCH),
+        overlap=OverlapConfig(mode="ficco_auto", backend="dma"))
+    m, e = cfg.mla, cfg.moe
+    print(f"[moe] {cfg.name}: {cfg.num_layers} layers "
+          f"({[s.ffn for s in build_model(cfg).pattern]} per period), d "
+          f"{cfg.d_model}, {cfg.num_heads} heads, MLA kv_lora "
+          f"{m.kv_lora_rank} / rope {m.rope_head_dim} / nope "
+          f"{m.nope_head_dim} / v {m.v_head_dim}; {e.num_experts} experts "
+          f"top-{e.top_k} + {e.num_shared_experts} shared, d_ff_expert "
+          f"{e.d_ff_expert}, capacity factor {e.capacity_factor}; vocab "
+          f"{cfg.vocab_size}; {cfg.dtype}")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    state = model.init(0, device=device)
+    _sync()
+    init_s = time.time() - t0
+    leaves = named_leaves(state)
+    n_params = sum(t.numel() for _, t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    fp32 = sorted({p.split("/")[-1] for p, t in leaves
+                   if t.dtype == torch.float32})
+    gib = 2 ** 30
+    print(f"[moe] {n_params / 1e9:.3f}e9 parameters, {n_bytes / 1e9:.2f} GB "
+          f"(fp32 leaves: {fp32}); random weights (seed 0) in {init_s:.1f}s;"
+          f" allocated after init "
+          f"{torch.cuda.memory_allocated(device) / gib:.2f} GiB, init peak "
+          f"{torch.cuda.max_memory_allocated(device) / gib:.2f} GiB")
+    embed_bytes = state["embed"].numel() * state["embed"].element_size()
+
+    # (b) prefill, dense and on the DMA path, with the routing recorded.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ),
+                           generator=gen, device=device)
+    batch = {"tokens": tokens}
+    prefill = make_prefill(model)
+    group = TPGroup(GROUP, device)
+    n_tok = PREFILL_BATCH * PREFILL_SEQ
+    torch.cuda.reset_peak_memory_stats(device)
+    want_shape = (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size)
+    layers_n = cfg.num_layers
+    with torch.no_grad(), _Routing() as routing:
+        dense = prefill(state, batch)
+        dense_choices = routing.take()
+        again = prefill(state, batch)
+        routing.take()
+        ops.reset_launch_counts()
+        with tp_group(group):
+            dma = prefill(state, batch)
+        _sync()
+        counts, routes = ops.launch_counts(), ops.route_counts()
+        dma_choices = routing.take()
+    prefill_peak = torch.cuda.max_memory_allocated(device)
+    k3 = cfg.num_layers * 2 * GROUP
+    n_local = e.d_ff_expert * e.num_shared_experts // GROUP
+    print(f"[moe] DMA-path prefill {PREFILL_BATCH}x{PREFILL_SEQ}: launches "
+          f"{counts} (K3 expected {k3}: {cfg.num_layers} layers x 2 shared-"
+          f"expert projections x {GROUP} steps; K1 as the composer's blocked"
+          f" rule falls: n_local {n_local}); by route {routes}")
+    if (counts["a2a_chunk_exchange"] != k3
+            or routes["a2a_chunk_exchange"] != {"strided": k3, "pairs": 0}
+            or counts["accumulate_matmul"] or counts["ficco_ag_matmul_fused"]):
+        raise AssertionError(f"[moe] DMA-path launches {counts} by route "
+                             f"{routes}; expected K3 = {k3} on strided and "
+                             "no K2 or K4")
+    for label, lg in (("dense", dense), ("DMA path", dma)):
+        if tuple(lg.shape) != want_shape or not torch.isfinite(lg).all():
+            raise AssertionError(f"[moe] {label} logits {tuple(lg.shape)} "
+                                 f"not finite or not {want_shape}")
+
+    # (c) the logits: the DMA path against dense.  A near-tied router
+    # choice flips where the two round differently, and moves which
+    # assignments the capacity drops: the share is printed beside them.
+    flipped = [_choices_differ(a, b, e.num_experts)
+               for a, b in zip(dense_choices, dma_choices)]
+    print(f"[moe] dense prefill run to run: "
+          f"{'bit-equal' if torch.equal(again, dense) else 'not bit-equal'}"
+          f"; expert choices that differ between the dense and DMA paths: "
+          f"{statistics.mean(flipped):.2e} of (token, k) over {layers_n} "
+          f"layers (max {max(flipped):.2e} in one); assignments dropped "
+          f"past capacity in the dense prefill: "
+          f"{_dropped_share(dense_choices, cfg, n_tok):.4f}")
+    scale = dense.float().abs().max().item()
+    per_token = (dma.float() - dense.float()).abs().amax(-1).flatten()
+    err = per_token.max().item()
+    agree = (dma.argmax(-1) == dense.argmax(-1)).float().mean().item()
+    print(f"[moe] DMA-path logits vs dense: max_abs_err {err:.4e} (max "
+          f"|logit| {scale:.4f}, ratio {err / scale:.3e}); per-token max "
+          f"|d| median {per_token.median().item():.3e}, tokens above 5%: "
+          f"{int((per_token > 5e-2 * scale).sum())} of {n_tok}; argmax "
+          f"agreement {agree:.4f}")
+    if err > 5e-2 * scale:
+        raise AssertionError(f"[moe] DMA-path logits differ from dense by "
+                             f"{err} (> 5% of {scale})")
+    del dense, again, dma
+    gc.collect()
+
+    with torch.no_grad():
+        def in_group(run):
+            def go():
+                with tp_group(group):
+                    run(state, batch)
+            return go
+
+        timed = [("DMA path", in_group(prefill)),
+                 ("dense", lambda: prefill(state, batch))]
+        walls = {}
+        for name, fn in timed * 2:
+            ms = wall_ms(fn, reps=3)
+            walls.setdefault(name, []).append(ms)
+            print(f"[moe] prefill {PREFILL_BATCH}x{PREFILL_SEQ}, {name}: "
+                  f"{ms:.2f} ms wall ({n_tok / ms * 1e3:.0f} tok/s)")
+        work = _moe_work(cfg, PREFILL_BATCH, PREFILL_SEQ, PREFILL_SEQ / 2)
+        # Every weight read once (the embedding: the rows of these
+        # tokens), the tokens read and the logits written.
+        moved = (n_bytes - embed_bytes + n_tok * cfg.d_model * 2
+                 + tokens.numel() * 8 + math.prod(want_shape) * 2)
+        bound, by = _bound(sum(work.values()), moved, torch.bfloat16)
+        print(f"[moe] prefill bound {bound:.2f} ms by {by} "
+              f"({sum(work.values()) / 1e12:.2f} TFLOP: "
+              + ", ".join(f"{k} {v / 1e12:.2f}" for k, v in work.items())
+              + f"; {moved / 1e9:.2f} GB); best wall over the bound: DMA "
+              f"path {min(walls['DMA path']) / bound:.2f}x, dense "
+              f"{min(walls['dense']) / bound:.2f}x")
+        stats = phase_trace("DeepSeek DMA-path prefill", in_group(prefill))
+        if stats["copies"] < k3 * GROUP:
+            raise AssertionError(f"[moe] DMA-path trace: {stats['copies']} "
+                                 f"memcpy events, fewer than K3's "
+                                 f"{k3 * GROUP} copies")
+        phase_trace("DeepSeek dense prefill", lambda: prefill(state, batch))
+    print(f"[moe] peak memory of the two checked prefills "
+          f"{prefill_peak / 2**30:.2f} GiB")
+
+    # (c) cached decode through the MLA latent cache against the forward.
+    phase_moe_decode(device, cfg, state, n_bytes - embed_bytes)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_dispatch(device, timer, cfg)
+    return counts
+
+
+def phase_moe_decode(device, cfg, state, weight_bytes: int):
+    """[moe] (c) the MLA cache against the forward, and (d) DecodeEngine.
+
+    A decode step's 4 tokens never overflow an expert's capacity of 4; the
+    forward's 32 prompt tokens may, so (c) runs both at capacity factor
+    E / k, where nothing is dropped.  A decode step's GEMMs (4 rows) round
+    differently from the forward's (32), and near-tied router choices
+    flip: (c) prints the free-running decode and holds to 5 % the decode
+    that takes the forward's expert choices (:class:`_Routing`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    prompts, prompt_len, new_tokens, cache_len = 4, 8, 16, 128
+    no_drop = dataclasses.replace(
+        cfg, overlap=OverlapConfig(),
+        moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    model = build_model(no_drop)
+    raw = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (prompts, prompt_len))
+    toks = torch.as_tensor(raw, device=device)
+
+    def decode():
+        cache = model.init_cache(prompts, cache_len, device=device)
+        steps = []
+        for pos in range(prompt_len):
+            lg, cache = model.decode_step(state, cache, toks[:, pos:pos + 1],
+                                          pos)
+            steps.append(lg)
+        return torch.cat(steps, dim=1), cache
+
+    with torch.no_grad(), _Routing() as routing:
+        full, _ = model.forward(state, {"tokens": toks})
+        # The forward's choices for token (b, p) in layer l, in the order
+        # the decode steps ask for them: step p, layer l, rows b.
+        fwd = [c.view(prompts, prompt_len, -1) for c in routing.take()]
+        free, _ = decode()
+        calls, n, k = routing.take(), cfg.num_layers, cfg.moe.top_k
+        flipped = statistics.mean(
+            _choices_differ(f.reshape(-1, k),
+                            torch.stack(calls[i::n], 1).reshape(-1, k),
+                            cfg.moe.num_experts)
+            for i, f in enumerate(fwd))
+        routing.replay = iter([f[:, p] for p in range(prompt_len)
+                               for f in fwd])
+        decoded, cache = decode()
+        routing.replay = None
+    scale = full.float().abs().max().item()
+    cache_mib = _nbytes(*cache[0].values()) / 2 ** 20
+    per_token = (free.float() - full.float()).abs().amax(-1).flatten()
+    print(f"[moe] decode through the MLA cache ({sorted(cache[0])}, "
+          f"{cache_mib:.1f} MiB for {prompts}x{cache_len}) vs forward over "
+          f"{prompts}x{prompt_len} prompt tokens, capacity factor "
+          f"{no_drop.moe.capacity_factor:.3f} (max |logit| {scale:.4f}): "
+          f"free-running max_abs_err {per_token.max().item():.4e}, "
+          f"per-token median {per_token.median().item():.3e}, tokens above "
+          f"5%: {int((per_token > 5e-2 * scale).sum())} of "
+          f"{per_token.numel()}, expert choices that differ {flipped:.2e};"
+          f" on the forward's choices max_abs_err "
+          f"{_max_err(decoded, full):.4e}")
+    err = _max_err(decoded, full)
+    if not torch.isfinite(decoded).all() or err > 5e-2 * scale:
+        raise AssertionError(f"[moe] decode logits on the forward's routing "
+                             f"differ from the forward by {err}")
+    del cache, decoded, free, full
+
+    n_steps = []
+
+    def answer():
+        eng = DecodeEngine(cfg, state, batch_size=prompts,
+                           cache_len=cache_len, device=device)
+        step = eng.step_fn
+
+        def counted(*args):
+            n_steps.append(1)
+            return step(*args)
+
+        eng.step_fn = counted
+        reqs = [Request(raw[i].astype(np.int32), max_new_tokens=new_tokens)
+                for i in range(prompts)]
+        t0 = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        return eng, out, time.perf_counter() - t0
+
+    _, _, first = answer()
+    n_steps.clear()
+    ops.reset_launch_counts()
+    eng, out, dt = answer()
+    total = sum(len(r.out) for r in out)
+    if total != prompts * new_tokens or not all(
+        r.done and all(0 <= t < cfg.vocab_size for t in r.out) for r in out
+    ):
+        raise AssertionError("[moe] DecodeEngine did not answer every "
+                             "request")
+    per_step = dt * 1e3 / len(n_steps)
+    # One step reads every weight once (the embedding: 4 rows) and the
+    # latent cache; its operations are those of 4 tokens.
+    cache_bytes = (cfg.num_layers * prompts * cache_len
+                   * (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim) * 2)
+    moved = weight_bytes + cache_bytes + prompts * cfg.d_model * 2
+    work = sum(_moe_work(cfg, prompts, 1,
+                         (prompt_len + new_tokens) / 2).values())
+    bound, by = _bound(work, moved, torch.bfloat16)
+    print(f"[moe] DecodeEngine: {prompts} requests x {new_tokens} new tokens"
+          f" (prompt {prompt_len}, cache {cache_len}): {total} tokens in "
+          f"{dt:.3f}s, {total / dt:.1f} tok/s (first run {first:.3f}s); "
+          f"{len(n_steps)} steps, {per_step:.2f} ms per step against a bound "
+          f"of {bound:.2f} ms by {by} ({moved / 1e9:.2f} GB, "
+          f"{work / 1e9:.1f} GFLOP), {per_step / bound:.2f}x; launches "
+          f"{ops.launch_counts()}")
+    print(f"[moe] req0: {[int(t) for t in out[0].prompt]} -> {out[0].out}")
+    last = torch.as_tensor([[r.out[-1]] for r in out], device=device)
+    with torch.no_grad():
+        phase_trace("DeepSeek decode step", lambda: eng.model.decode_step(
+            state, eng.cache, last, prompt_len + new_tokens - 1))
+
+
+def phase_moe_dispatch(device, timer, cfg):
+    """[moe] (e): ``serial_a2a_ffn`` and ``ficco_a2a_ffn``'s variants on
+    GROUP logical ranks at the model's MoE layer, against each other, each
+    timed on the card beside its bound."""
+    import torch
+
+    from repro_torch.core.workload import StepProfile
+    from repro_torch.overlap import ficco_a2a_ffn, serial_a2a_ffn
+    from repro_torch.tune.variants import default_variant
+
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    randn = _randn_fn(device, 7)
+    x = randn(GROUP, e, EP_CAPACITY, d, dtype=torch.bfloat16)
+    w_up = randn(GROUP, e // GROUP, d, f, dtype=torch.bfloat16,
+                 scale=d ** -0.5)
+    w_down = randn(GROUP, e // GROUP, f, d, dtype=torch.bfloat16,
+                   scale=f ** -0.5)
+    reverse = dataclasses.replace(
+        default_variant("ficco_a2a_ffn", group=GROUP),
+        dispatch_order="reverse")
+    profile = StepProfile.skewed(GROUP, 2.0)
+    runs = {
+        "serial": lambda: serial_a2a_ffn(x, w_up, w_down),
+        "ficco default": lambda: ficco_a2a_ffn(x, w_up, w_down),
+        "ficco chunks=2": lambda: ficco_a2a_ffn(x, w_up, w_down, chunks=2),
+        "ficco reverse": lambda: ficco_a2a_ffn(x, w_up, w_down,
+                                               variant=reverse),
+        "ficco skewed(4, 2.0)": lambda: ficco_a2a_ffn(x, w_up, w_down,
+                                                      profile=profile),
+        f"ficco sizes {EP_SIZES}": lambda: ficco_a2a_ffn(
+            x, w_up, w_down, chunk_sizes=EP_SIZES),
+    }
+    with torch.no_grad():
+        outs = {name: fn() for name, fn in runs.items()}
+        _sync()
+    serial, default = outs["serial"], outs["ficco default"]
+    for name, out in outs.items():
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"[moe] EP {name}: not finite")
+        torch.testing.assert_close(out, serial, rtol=TOL["bfloat16"],
+                                   atol=TOL["bfloat16"])
+    if not torch.equal(outs["ficco reverse"], default):
+        raise AssertionError("[moe] EP: the reverse variant is not bit-equal"
+                             " to the default")
+    rows = GROUP * EP_CAPACITY
+    flops = 2 * 2 * GROUP * (e // GROUP) * rows * d * f
+    moved = _nbytes(x, w_up, w_down, serial)
+    bound, by = _bound(flops, moved, torch.bfloat16)
+    print(f"[moe] EP dispatch: x {tuple(x.shape)} per rank group, w_up "
+          f"{tuple(w_up.shape)}, w_down {tuple(w_down.shape)} bf16; {rows} "
+          f"rows per local expert; bound {bound:.3f} ms by {by} "
+          f"({flops / 1e9:.1f} GFLOP, {moved / 1e9:.3f} GB)")
+    times = {}
+    with torch.no_grad():
+        for name, fn in runs.items():
+            times[name] = timer(fn)
+            same = torch.equal(outs[name], default)
+            print(f"[moe] EP {name}: {times[name]:.3f} ms device "
+                  f"({times[name] / bound:.2f}x the bound); vs serial "
+                  f"max_abs_err {_max_err(outs[name], serial):.3e}, vs the "
+                  f"default {_max_err(outs[name], default):.3e}"
+                  f"{' (bit-equal)' if same else ''}")
+    print(f"[moe] EP ficco default / serial: "
+          f"{times['ficco default'] / times['serial']:.3f} (on one card the "
+          f"all-to-all is a device copy: the ratio prices cutting the expert"
+          f" GEMMs, not overlap)")
+
+
 def main() -> int:
     import torch
 
@@ -1926,11 +2387,17 @@ def drive(device) -> int:
         k["train_step_launches"] = train_counts[k["name"]]
     phase_grid(device)
     phase_learn(device)
+    # [moe] needs the card's memory: TinyLlama's state goes first.
+    del model, state
+    moe_counts = phase_moe(device, timer)
+    for k in kernels:
+        k["moe_prefill_launches"] = moe_counts[k["name"]]
 
     print(f"[done] every phase passed ({', '.join(PHASES)}) in "
           f"{time.time() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "routes",
-            "train_step_launches", "max_abs_err", "ms", "plain_ms",
+            "train_step_launches", "moe_prefill_launches", "max_abs_err",
+            "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in kernels]}))

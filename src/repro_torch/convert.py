@@ -4,8 +4,11 @@ The reference's params are ``repro.models.model.Model.init(...)`` mapped
 to numpy (``jax.tree.map(np.asarray, params)``): ``params["layers"][j]``
 holds pattern slot j with every leaf stacked over periods on axis 0.  The
 port's state keeps that tree, so the conversion is leaf for leaf; only
-the dtype (the config's) and the device change.  This module imports
-neither JAX nor the reference: it takes numpy arrays.
+the device changes, and each leaf takes the dtype the reference's
+``Model.init`` gives it: the config's, except the leaves it keeps in fp32
+(the MoE router, :data:`repro_torch.models.moe.FP32_LEAVES`), as the
+port's ``Model.init`` does.  This module imports neither JAX nor the
+reference: it takes numpy arrays.
 """
 
 from __future__ import annotations
@@ -16,11 +19,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import _DTYPES, build_model
+from repro_torch.models.moe import FP32_LEAVES
 
 
 def _convert(tree, dtype, device):
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+        return {
+            k: _convert(v, torch.float32 if k in FP32_LEAVES else dtype,
+                        device)
+            for k, v in tree.items()
+        }
     if isinstance(tree, (list, tuple)):
         return [_convert(v, dtype, device) for v in tree]
     arr = np.array(tree, dtype=np.float32)  # a writable copy

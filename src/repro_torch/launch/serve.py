@@ -4,6 +4,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --prompts 4 --new-tokens 16 [--device cpu]
 
+``--arch`` takes the dense and MoE families (``deepseek-v2-lite-16b``,
+``arctic-480b``); the others raise until their slice is ported.
+
 Port of ``repro.launch.serve``: the same flags and the same ``.reduced()``
 model, plus ``--device`` (default ``cuda``; with no CUDA device the
 launcher raises unless ``--device cpu`` is given).  ``--overlap-mode

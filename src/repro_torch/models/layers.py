@@ -89,11 +89,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def _block_attn(q, k, v, mask):
     """One (query block, key block) pair of the online softmax.
 
-    q: (B, bq, H, D); k, v: (B, bk, KV, D); mask: broadcastable to
-    (bq, bk), or None where the block masks nothing.  GQA repeats K and V
-    to the heads over this key block only.  Returns the block's row max m
-    and row sum l (B, H, bq) and unnormalised output o (B, bq, H, D), all
-    fp32.  The result does not depend on the max (it cancels between o
+    q: (B, bq, H, Dk); k: (B, bk, KV, Dk); v: (B, bk, KV, Dv), where Dv
+    may be narrower than Dk (MLA); the scale is 1/sqrt(Dk).  mask:
+    broadcastable to (bq, bk), or None where the block masks nothing.
+    GQA repeats K and V to the heads over this key block only.  Returns
+    the block's row max m and row sum l (B, H, bq) and unnormalised output
+    o (B, bq, H, Dv), all fp32.  The result does not depend on the max (it cancels between o
     and l), so m is detached: no gradient flows through it, as none flows
     through the max inside ``torch.softmax``.
     """
@@ -127,8 +128,9 @@ def blockwise_attention(
     """Exact attention over query blocks x key blocks with an online
     softmax (memory O(block_q * block_k) per head), as the reference's.
 
-    q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  ``q_offset`` is the absolute
-    position of q[0] relative to k[0].  Both sequences are padded to block
+    q: (B, Sq, H, Dk); k: (B, Sk, KV, Dk); v: (B, Sk, KV, Dv) -> (B, Sq,
+    H, Dv).  ``q_offset`` is the absolute position of q[0] relative to
+    k[0].  Both sequences are padded to block
     multiples and the padding masked; the running max, sum and output merge
     in fp32, and the result is cast to q's dtype.  The first key block
     starts the running state, which is what the reference's merge into an
@@ -186,7 +188,8 @@ def cache_attention(
     *,
     ring: bool = False,
 ) -> torch.Tensor:
-    """Single-token decode attention over a (B, S, KV, D) cache.
+    """Single-token decode attention over a (B, S, KV, Dk) key cache and
+    a (B, S, KV, Dv) value cache -> (B, 1, H, Dv), scaled by 1/sqrt(Dk).
 
     ``valid_len`` - number of valid cache entries.  With ``ring`` the whole
     buffer is valid (sliding-window ring cache, already full).

@@ -1,11 +1,13 @@
-"""Model assembly (dense family) — port of ``repro.models.model``.
+"""Model assembly (dense and MoE families) — port of ``repro.models.model``.
 
 A model is a stack of **periods**, the smallest repeating layer pattern
-(dense: one attention + MLP layer).  The state keeps the reference's
-parameter tree: ``state["layers"][j]`` holds pattern slot j with every
-leaf stacked over periods on dim 0, so :mod:`repro_torch.convert` maps the
-reference's params leaf for leaf.  The other families (MoE, hybrid, SSM,
-VLM, audio) raise ``NotImplementedError`` until their slices land.
+(dense: one attention + MLP layer; MoE: ``every_k_layers`` layers, the
+last with an MoE FFN; attention is MLA where the config has one).  The
+state keeps the reference's parameter tree: ``state["layers"][j]`` holds
+pattern slot j with every leaf stacked over periods on dim 0, so
+:mod:`repro_torch.convert` maps the reference's params leaf for leaf.  The
+other families (hybrid, SSM, VLM, audio) raise ``NotImplementedError``
+until their slices land.
 
 Interface (used by serve/launch):
     model = build_model(config)
@@ -26,7 +28,7 @@ import torch.utils.checkpoint as tcp
 
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, mla, moe
 from repro_torch.models.layers import AttnDims
 from repro_torch.parallel.context import get_overlap, overlap_context
 from repro_torch.parallel.sharding import active_group, tp_group
@@ -36,19 +38,25 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str  # attn (mla | mamba | mlstm | slstm wait for their slices)
-    ffn: str  # mlp (moe | none wait for their slices)
+    mixer: str  # attn | mla (mamba | mlstm | slstm wait for their slices)
+    ffn: str  # mlp | moe
 
 
 def layer_pattern(cfg: ModelConfig) -> list[LayerSpec]:
     """The repeating period of layer kinds for this architecture."""
-    if cfg.family is not Family.DENSE or cfg.moe or cfg.mla:
-        item = 5 if cfg.family is Family.MOE or cfg.moe else 7
+    if cfg.family not in (Family.DENSE, Family.MOE):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family.value} family is not ported yet "
-            f"(ROADMAP queue A, item {item})"
+            "(ROADMAP queue A, item 7)"
         )
-    return [LayerSpec("attn", "mlp")]
+    mixer = "mla" if cfg.mla else "attn"
+    if cfg.moe:
+        period = cfg.moe.every_k_layers
+        return [
+            LayerSpec(mixer, "moe" if i == period - 1 else "mlp")
+            for i in range(period)
+        ]
+    return [LayerSpec(mixer, "mlp")]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -82,38 +90,82 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked_like(tree, n: int):
+    """Uninitialised leaves like ``tree``'s with a leading dim of n."""
+    if isinstance(tree, dict):
+        return {k: _stacked_like(v, n) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_stacked_like(v, n) for v in tree]
+    return tree.new_empty((n, *tree.shape))
 
 
-def _layer_init(gen, cfg: ModelConfig, device):
+def _put(stacked, tree, i: int) -> None:
+    """Copy ``tree``'s leaves into period i of ``stacked``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put(stacked[k], v, i)
+    elif isinstance(tree, list):
+        for dst, v in zip(stacked, tree):
+            _put(dst, v, i)
+    else:
+        stacked[i].copy_(tree)
+
+
+def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, device):
     dt = _dtype(cfg)
-    return {
-        "norm1": layers.norm_init(cfg.d_model, cfg.norm, dt, device),
-        "attn": layers.attn_init(gen, _attn_dims(cfg), dt, device),
-        "norm2": layers.norm_init(cfg.d_model, cfg.norm, dt, device),
-        "ffn": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device),
+    p: dict[str, Any] = {
+        "norm1": layers.norm_init(cfg.d_model, cfg.norm, dt, device)
     }
+    if spec.mixer == "attn":
+        p["attn"] = layers.attn_init(gen, _attn_dims(cfg), dt, device)
+    else:
+        p["attn"] = mla.mla_init(gen, cfg.d_model, cfg.num_heads, cfg.mla,
+                                 dt, device)
+    p["norm2"] = layers.norm_init(cfg.d_model, cfg.norm, dt, device)
+    if spec.ffn == "moe":
+        p["ffn"] = moe.moe_init(gen, cfg.d_model, cfg.moe, dt, device)
+    else:
+        p["ffn"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device)
+    return p
 
 
-def _layer_apply(p, cfg: ModelConfig, x, positions):
+def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions):
+    """One layer.  Returns (x, aux): the MoE FFN's aux loss, or None."""
     h = layers.apply_norm(p["norm1"], x, cfg.norm)
-    x = x + layers.attn_apply(
-        p["attn"], h, _attn_dims(cfg),
-        rope_theta=cfg.rope_theta, positions=positions, window=_window(cfg),
-    )
+    if spec.mixer == "attn":
+        y = layers.attn_apply(
+            p["attn"], h, _attn_dims(cfg), rope_theta=cfg.rope_theta,
+            positions=positions, window=_window(cfg),
+        )
+    else:
+        y = mla.mla_apply(p["attn"], h, cfg.num_heads, cfg.mla,
+                          positions=positions, window=_window(cfg))
+    x = x + y
     h = layers.apply_norm(p["norm2"], x, cfg.norm)
-    return x + layers.mlp_apply(p["ffn"], h)
+    if spec.ffn == "moe":
+        y, aux = moe.moe_apply(p["ffn"], h, cfg.moe)
+        return x + y, aux
+    return x + layers.mlp_apply(p["ffn"], h), None
 
 
-def _remat_layer(p, cfg: ModelConfig, x, positions, overlap, group):
+def _period_apply(period, pattern, cfg: ModelConfig, x, positions):
+    """The layers of one period (period[j] holds slot j's parameters).
+    Returns (x, the period's summed aux loss or None)."""
+    aux = None
+    for p, spec in zip(period, pattern):
+        x, a = _layer_apply(p, spec, cfg, x, positions)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+def _remat_period(period, pattern, cfg: ModelConfig, x, positions,
+                  overlap, group):
     """A period under recomputation.  The backward reruns it after the
     forward's overlap context and TP group have been left, so it enters
     the ones the forward ran in."""
     with overlap_context(overlap), tp_group(group):
-        return _layer_apply(p, cfg, x, positions)
+        return _period_apply(period, pattern, cfg, x, positions)
 
 
 # The matmul family of aten ops: what ``remat_policy="dots"`` saves, as the
@@ -149,19 +201,42 @@ def _remat_kwargs(cfg: ModelConfig) -> dict:
     )
 
 
-def _layer_decode(p, cfg: ModelConfig, x, cache, pos: int):
+def _layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
+                      cache_len: int, device, lead: tuple):
+    dt = _dtype(cfg)
+    if spec.mixer == "mla":
+        return mla.mla_init_cache(batch, cache_len, cfg.mla, dt, device,
+                                  lead=lead)
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    s = min(cache_len, cfg.sliding_window or cache_len)
+    shape = (*lead, batch, s, kv, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+    }
+
+
+def _layer_decode(p, spec: LayerSpec, cfg: ModelConfig, x, cache, pos: int):
     h = layers.apply_norm(p["norm1"], x, cfg.norm)
-    y, cache = layers.attn_decode(
-        p["attn"], h, cache, pos, _attn_dims(cfg),
-        rope_theta=cfg.rope_theta, window=_window(cfg),
-    )
+    if spec.mixer == "attn":
+        y, cache = layers.attn_decode(
+            p["attn"], h, cache, pos, _attn_dims(cfg),
+            rope_theta=cfg.rope_theta, window=_window(cfg),
+        )
+    else:
+        y, cache = mla.mla_decode(p["attn"], h, cache, pos, cfg.num_heads,
+                                  cfg.mla)
     x = x + y
     h = layers.apply_norm(p["norm2"], x, cfg.norm)
-    return x + layers.mlp_apply(p["ffn"], h), cache
+    if spec.ffn == "moe":
+        y, _ = moe.moe_apply(p["ffn"], h, cfg.moe)
+    else:
+        y = layers.mlp_apply(p["ffn"], h)
+    return x + y, cache
 
 
 class Model:
-    """Decoder LM (dense family)."""
+    """Decoder LM (dense and MoE families)."""
 
     def __init__(self, config: ModelConfig):
         self.config = config
@@ -171,12 +246,22 @@ class Model:
                 f"{config.name}: encoder/frontend models are not ported yet "
                 "(ROADMAP queue A, item 7)"
             )
+        if config.num_layers % len(self.pattern):
+            raise ValueError(
+                f"{config.name}: {config.num_layers} layers not divisible "
+                f"by period {len(self.pattern)}"
+            )
         self.n_periods = config.num_layers // len(self.pattern)
         self._remat = _remat_kwargs(config) if config.remat else None
 
     # ---- init -----------------------------------------------------------
     def init(self, seed: int = 0, *, device=None) -> dict:
-        """Random weights from a seeded ``torch.Generator`` on ``device``."""
+        """Random weights from a seeded ``torch.Generator`` on ``device``.
+
+        Each stacked leaf is allocated once and filled period by period,
+        so at no time does the device hold more than the state and one
+        period's weights (with one leaf's fp32 draw).
+        """
         cfg = self.config
         dev = resolve_device(device)
         dt = _dtype(cfg)
@@ -189,12 +274,16 @@ class Model:
                             device=dev) * std
             ).to(dt),
             "final_norm": layers.norm_init(cfg.d_model, cfg.norm, dt, dev),
-            "layers": [
-                _stack([
-                    _layer_init(gen, cfg, dev) for _ in range(self.n_periods)
-                ])
-            ],
         }
+        stacked = None
+        for i in range(self.n_periods):
+            period = [_layer_init(gen, spec, cfg, dev)
+                      for spec in self.pattern]
+            if stacked is None:
+                stacked = _stacked_like(period, self.n_periods)
+            _put(stacked, period, i)
+            del period
+        state["layers"] = stacked
         if not cfg.tie_embeddings:
             state["unembed"] = (
                 torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
@@ -204,27 +293,32 @@ class Model:
 
     # ---- forward ----------------------------------------------------------
     def forward(self, state, batch: dict):
-        """batch keys: tokens (B, S).  Returns (logits, aux_loss)."""
+        """batch keys: tokens (B, S).  Returns (logits, aux_loss): aux is
+        the MoE layers' summed load-balance and z losses (0 without)."""
         cfg = self.config
         tokens = batch["tokens"]
         x = state["embed"][tokens].to(_dtype(cfg))
         b, s = tokens.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        periods = _unstack(state["layers"][0], self.n_periods)
-        if self._remat is not None and torch.is_grad_enabled():
-            # Each period's activations are recomputed in the backward,
-            # as the reference's ``jax.checkpoint`` around its period.  A
-            # period draws no random numbers, so no RNG state is kept.
-            ctx = (get_overlap(), active_group())
-            for period in periods:
-                x = tcp.checkpoint(_remat_layer, period, cfg, x, positions,
-                                   *ctx, use_reentrant=False,
-                                   preserve_rng_state=False, **self._remat)
-        else:
-            for period in periods:
-                x = _layer_apply(period, cfg, x, positions)
-        x = layers.apply_norm(state["final_norm"], x, cfg.norm)
+        slots = [_unstack(slot, self.n_periods) for slot in state["layers"]]
+        remat = self._remat is not None and torch.is_grad_enabled()
+        # Each period's activations are recomputed in the backward, as the
+        # reference's ``jax.checkpoint`` around its period.  A period draws
+        # no random numbers, so no RNG state is kept.
+        ctx = (get_overlap(), active_group()) if remat else ()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(self.n_periods):
+            period = [periods[i] for periods in slots]
+            if remat:
+                x, a = tcp.checkpoint(
+                    _remat_period, period, self.pattern, cfg, x, positions,
+                    *ctx, use_reentrant=False, preserve_rng_state=False,
+                    **self._remat)
+            else:
+                x, a = _period_apply(period, self.pattern, cfg, x, positions)
+            if a is not None:
+                aux = aux + a
+        x = layers.apply_norm(state["final_norm"], x, cfg.norm)
         return self._unembed(state, x), aux
 
     def _unembed(self, state, x):
@@ -257,15 +351,14 @@ class Model:
 
     # ---- decode ------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, *, device=None):
-        cfg = self.config
+        """One cache per pattern slot, stacked over periods: attention
+        keeps K and V, MLA its latent and shared rope key."""
         dev = resolve_device(device)
-        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-        s = min(cache_len, cfg.sliding_window or cache_len)
-        shape = (self.n_periods, batch, s, kv, hd)
-        return [{
-            "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-        }]
+        return [
+            _layer_init_cache(spec, self.config, batch, cache_len, dev,
+                              (self.n_periods,))
+            for spec in self.pattern
+        ]
 
     def decode_step(self, state, cache, tokens, pos: int):
         """tokens: (B, 1) int; pos: position. -> (logits, cache).
@@ -275,10 +368,11 @@ class Model:
         cfg = self.config
         x = state["embed"][tokens].to(_dtype(cfg))
         for i in range(self.n_periods):
-            x, _ = _layer_decode(
-                _index(state["layers"][0], i), cfg, x,
-                _index(cache[0], i), pos,
-            )
+            for j, spec in enumerate(self.pattern):
+                x, _ = _layer_decode(
+                    _index(state["layers"][j], i), spec, cfg, x,
+                    _index(cache[j], i), pos,
+                )
         x = layers.apply_norm(state["final_norm"], x, cfg.norm)
         return self._unembed(state, x), cache
 

@@ -3,8 +3,11 @@
 Port of ``repro.serve.engine``.  ``make_prefill`` is the forward under the
 model's overlap context: with a :class:`~repro_torch.parallel.sharding.TPGroup`
 active (``tp_group``) and the ``dma`` backend, its TP MLPs run the
-copy-engine uniform-fused-1D path.  ``make_serve_step`` is ONE new token
-against the KV cache; :class:`DecodeEngine` adds the minimal batch loop.
+copy-engine uniform-fused-1D path (for an MoE model: its shared experts'
+and dense residual FFN's).  ``make_serve_step`` is ONE new token against
+the model's cache (K and V per attention layer, the latent and the shared
+rope key per MLA layer); :class:`DecodeEngine` adds the minimal batch
+loop.
 ``DecodeEngine.run`` reports the reference's ``serve/run`` and
 ``serve/step`` spans and ``serve/steps`` and ``serve/tokens`` counters
 (:mod:`repro_torch.obs`); its ``adapt=`` hook waits for the serving

@@ -213,3 +213,10 @@ def test_import_check_covers_the_grid_engine_sweep_and_learn():
                  "learn.gate", "learn.fit", "learn.measured"):
         assert f"repro_torch.{name}" in mods, name
     assert "repro_torch.sweep.device" not in mods
+
+
+def test_import_check_covers_the_moe_path():
+    mods = set(_port_modules())
+    for name in ("overlap", "overlap.moe", "models.mla", "models.moe",
+                 "parallel.collectives"):
+        assert f"repro_torch.{name}" in mods, name

@@ -123,10 +123,12 @@ def test_schedules_not_ported_raise_with_roadmap_item(overlap):
         reset_tuner()
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-1.5-large-398b",
+@pytest.mark.parametrize("arch", ["internvl2-76b", "jamba-1.5-large-398b",
                                   "xlstm-1.3b", "seamless-m4t-large-v2"])
 def test_other_families_raise_with_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+    """The dense and MoE families are ported; the hybrid, SSM, VLM and
+    audio families wait for ROADMAP A7."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 7"):
         build_model(get_config(arch).reduced())
 
 

@@ -19,7 +19,14 @@ ERR.txt``) it evaluates, with ``JAX_PLATFORMS=cpu``:
     over Table I;
   * ``shortlist``: ``shortlist(backend="jax")`` of ``SHORTLIST_GEMMS``;
   * ``fit``: ``synthesize_records`` from a perturbed MI300X and
-    ``fit_machine`` on them (the reference's recovery test).
+    ``fit_machine`` on them (the reference's recovery test);
+  * ``moe``: ``serial_a2a_ffn`` and ``ficco_a2a_ffn`` (each case of
+    ``MOE_CASES``) under ``shard_map`` on ``MOE["g"]`` devices, on the
+    operands :func:`moe_operands` makes.
+
+The script runs with ``MOE["g"]`` forced host devices
+(``--xla_force_host_platform_device_count``); the other entries run on
+the first, as they would on one.
 
 :func:`start` launches the script once per test session, whatever the
 number of pytest-xdist workers (the first caller, under a lock in the
@@ -35,6 +42,8 @@ import sys
 import time
 import traceback
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -52,6 +61,27 @@ FIT_TRUE = {"link_bw_scale": 0.8, "s_half": 3.2e6}
 FIT_STEPS = 300
 SHORTLIST_GEMMS = ((8192, 4096, 4096, 2), (2048, 5632, 2048, 2),
                    (65536, 8192, 1024, 1))
+# The expert-parallel dispatch: g ranks, E global experts, capacity C,
+# widths D and F.  C = 12 takes the uniform cuts of 4 (one per rank) and
+# of 3, and the explicit sizes below (one empty chunk).
+MOE = dict(g=4, e=8, c=12, d=16, f=32, seed=21)
+MOE_SIZES = (5, 0, 4, 3)
+MOE_SKEW = 2.0  # StepProfile.skewed(g, MOE_SKEW)
+MOE_CASES = ("serial", "default", "chunks3", "reverse", "skewed", "sizes")
+
+
+def moe_operands():
+    """x (g, E, C, D), w_up (g, E/g, D, F), w_down (g, E/g, F, D) in
+    fp32, rank r's block at [r]: the reference's shard_map blocks of
+    (g * E, C, D), (E, D, F) and (E, F, D)."""
+    g, e, c, d, f = (MOE[k] for k in "gecdf")
+    rng = np.random.default_rng(MOE["seed"])
+    x = rng.standard_normal((g, e, c, d)).astype(np.float32)
+    w_up = (rng.standard_normal((g, e // g, d, f)) / np.sqrt(d)).astype(
+        np.float32)
+    w_down = (rng.standard_normal((g, e // g, f, d)) / np.sqrt(f)).astype(
+        np.float32)
+    return x, w_up, w_down
 
 
 def main(out_path: str, err_path: str) -> None:
@@ -129,6 +159,47 @@ def _evaluate() -> dict:
          r.schedule.value, r.seconds) for r in records
     ]
     out["fit"] = fit.to_payload()
+    out["moe"] = _moe_dispatch()
+    return out
+
+
+def _moe_dispatch() -> dict:
+    import dataclasses
+    import functools
+
+    import jax
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from repro.compat import shard_map
+    from repro.core.workload import StepProfile
+    from repro.overlap.moe import ficco_a2a_ffn, serial_a2a_ffn
+    from repro.tune.variants import default_variant
+
+    g = MOE["g"]
+    x, w_up, w_down = moe_operands()
+    mesh = Mesh(np.array(jax.devices()[:g]), ("ep",))
+    spec = P("ep", None, None)
+    flat = [a.reshape(-1, *a.shape[2:]) for a in (x, w_up, w_down)]
+    reverse = dataclasses.replace(
+        default_variant("ficco_a2a_ffn", group=g), dispatch_order="reverse")
+    cases = {
+        "serial": (serial_a2a_ffn, {}),
+        "default": (ficco_a2a_ffn, {}),
+        "chunks3": (ficco_a2a_ffn, {"chunks": 3}),
+        "reverse": (ficco_a2a_ffn, {"variant": reverse}),
+        "skewed": (ficco_a2a_ffn,
+                   {"profile": StepProfile.skewed(g, MOE_SKEW)}),
+        "sizes": (ficco_a2a_ffn, {"chunk_sizes": MOE_SIZES}),
+    }
+    out = {}
+    for name in MOE_CASES:
+        fn, kw = cases[name]
+        run = jax.jit(shard_map(
+            functools.partial(fn, axis_name="ep", **kw), mesh=mesh,
+            in_specs=(spec, spec, spec), out_specs=spec, check_vma=False,
+        ))
+        out[name] = np.asarray(run(*flat)).reshape(x.shape)
     return out
 
 
@@ -157,7 +228,8 @@ def start(tmp_path_factory) -> None:
         env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
             "PYTHONPATH", "")
         env["JAX_PLATFORMS"] = "cpu"
-        env.pop("XLA_FLAGS", None)
+        env["XLA_FLAGS"] = (
+            f"--xla_force_host_platform_device_count={MOE['g']}")
         _LAUNCHED.append(subprocess.Popen(
             [sys.executable, __file__, str(out), str(err)], env=env,
             stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
