@@ -39,6 +39,21 @@ Phases, each of which exits non-zero on failure:
      the fallback) against dense; the DMA-path prefill on the promoted
      variant, with the launch counts that variant implies;
   6. serving: ``DecodeEngine`` answers 4 requests on the same weights;
+     then the serving tier (``[adapt]``, in a cache directory of its
+     own): ``AdaptiveTier`` on ``H100_SXM`` at group 4 with its re-fit
+     thread running, driven by 4-request batches whose prompt lengths
+     drift, at TinyLlama's FFN widths, its measured sessions timed on
+     the card by ``Autotuner.measure`` (CUDA events): every pick served,
+     none by the heuristic, at least 6 measured sessions with a finite
+     time per candidate, K2's launches as the sessions that timed
+     uniform-fused-2d imply, every audit record and sentinel event
+     valid, and an alarm's re-fit deploying ``link_bw``; picks and their
+     latency by tier, the sentinel's state, the re-fit and the recovery;
+     ``DecodeEngine(adapt=tier)`` against the same engine without it
+     (tokens equal, ms per step, the ``serve/run`` span's schedule); and
+     the decode with ``decode_attn="shard_map"`` on the group of 4 at a
+     cache of 2048 against the plain decode (5 %), ms per step beside a
+     byte bound;
   7. training: full-width TinyLlama-1.1B train steps (4 x 512 tokens of
      ``SyntheticLM``, AdamW) through ``make_train_step`` on the group of 4,
      on the uniform-fused-2D schedule (K2 forward under its autograd
@@ -120,7 +135,8 @@ REPS = 20
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # What [done] counts: every phase the script prints, in order.
 PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
-          "autotune", "serve", "train", "grid", "fit", "gate", "moe")
+          "autotune", "serve", "adapt", "train", "grid", "fit", "gate",
+          "moe")
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -1333,6 +1349,461 @@ def phase_serve(device, cfg, model, state):
     print(f"[serve] req0: {[int(t) for t in out[0].prompt]} -> {out[0].out}")
 
 
+# [adapt]: the online-adaptation tier on the card.  Request batches of
+# ADAPT_BATCH requests (ADAPT_NEW new tokens each) whose prompt lengths
+# drift upward; every third batch repeats the one before it (a memory
+# hit).  ADAPT_PICKS batches are picked before the drift re-fit and after
+# it.  While exploring, the policy's error bar is ADAPT_SIGMA (the
+# reference's own drift test does the same): AdaptConfig.default_sigma
+# also seeds the sentinel's residual scale, so widening it there would
+# blind the sentinel.  The token bucket (ADAPT_BURST, no refill) bounds
+# the measured sessions.
+ADAPT_BATCH, ADAPT_NEW = 4, 16
+ADAPT_PICKS = (24, 24)
+ADAPT_BURST = 28
+ADAPT_SIGMA = 10.0
+ADAPT_TIERS = ("memory", "analytic", "measured", "heuristic")
+ADAPT_REFIT_WAIT_S = 120.0
+# (c): the sharded decode attention at a cache of DECODE_ATTN_CACHE,
+# DECODE_ATTN_STEPS decode steps at its end.
+DECODE_ATTN_CACHE, DECODE_ATTN_STEPS = 2048, 8
+
+
+def _adapt_batches(cfg, n: int, seed: int) -> list:
+    """``n`` batches of ADAPT_BATCH requests.  The j-th new batch's prompts
+    are 32 + 64 j + 16 * {0..3} tokens (its total grows by 256 a batch, so
+    every new batch is a new GEMM M); every third batch repeats the last."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    out, j = [], 0
+    for i in range(n):
+        if i % 3 == 2:
+            out.append(out[-1])
+            continue
+        lens = 32 + 64 * j + 16 * rng.integers(0, 4, ADAPT_BATCH)
+        out.append([Request(rng.integers(0, cfg.vocab_size, int(n_tok))
+                            .astype(np.int32), max_new_tokens=ADAPT_NEW)
+                    for n_tok in lens])
+        j += 1
+    return out
+
+
+def _tokens(reqs) -> int:
+    return sum(len(r.prompt) + r.max_new_tokens for r in reqs)
+
+
+def _pcts(ms: list) -> str:
+    if not ms:
+        return "none"
+    q = statistics.quantiles(ms, n=20, method="inclusive") if len(ms) > 1 \
+        else [ms[0]] * 19
+    return (f"{len(ms)} picks, p50 {statistics.median(ms):.4f} ms, "
+            f"p95 {q[18]:.4f} ms")
+
+
+def phase_adapt(device, cfg, state):
+    """The serving tier on the card (``repro_torch.serve.adapt``), in a
+    cache directory of its own: (a) ``AdaptiveTier`` with its re-fit
+    thread, measured sessions timed by ``Autotuner.measure`` with CUDA
+    events, the drift sentinel and its re-fit; (b) ``DecodeEngine(adapt=
+    tier)`` against the same engine without it; (c) the sharded decode
+    attention (``decode_attn="shard_map"``) against the plain decode."""
+    from repro_torch.obs import audit
+
+    t0 = time.perf_counter()
+    outer = os.environ["REPRO_AUTOTUNE_CACHE_DIR"]
+    with tempfile.TemporaryDirectory(prefix="adapt-") as cache_dir:
+        os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = cache_dir
+        audit.enable_audit(os.path.join(cache_dir, "decisions-torch.jsonl"))
+        try:
+            tier = _adapt_tier(device, cfg)
+            try:
+                _adapt_engine(device, cfg, state, tier)
+            finally:
+                refitter = tier._refitter
+                tier.stop()
+                if refitter is not None and refitter.is_alive():
+                    raise AssertionError("[adapt] the re-fit thread did not "
+                                         "stop")
+            _adapt_audit(audit.get_audit().path)
+        finally:
+            audit.disable_audit()
+            os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = outer
+    _adapt_decode_attn(device, cfg, state)
+    print(f"[adapt] phase total {time.perf_counter() - t0:.1f}s "
+          f"({_card()})")
+
+
+def _adapt_tier(device, cfg):
+    """(a): the tier under drifting batches; returns it, still running."""
+    import torch
+
+    from repro_torch.core.machine import H100_SXM
+    from repro_torch.core.schedule_types import Schedule
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+    from repro_torch.parallel.sharding import shard_columns
+    from repro_torch.serve.adapt import (
+        AdaptConfig,
+        AdaptiveTier,
+        ExplorationPolicy,
+    )
+
+    randn = _randn_fn(device, 7)
+    w = shard_columns(
+        randn(D_MODEL, D_FF, dtype=torch.bfloat16, scale=D_MODEL ** -0.5),
+        GROUP,
+    )
+    # The measured sessions time on a stream of their own: the re-fit
+    # thread's fit runs on the card at the same time, on its default
+    # stream, and must not fall between a session's two events.
+    stream = torch.cuda.Stream(device)
+    sessions = []
+
+    def measure(gemm, candidates, profile):
+        """The measured tier's hook (``measure_fn``): the batch's FFN
+        GEMM as stacked shards, each candidate timed by the tier's
+        ``Autotuner.measure`` (CUDA events, min of 3 after a warm-up),
+        which records the winner for the machine re-fit.  The schedules
+        are uniform: the profile only keys the decision."""
+        x = randn(GROUP, gemm.m // GROUP, gemm.k, dtype=torch.bfloat16)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        t1 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            dec = tier.tuner.measure(x, w, machine=tier.machine,
+                                     schedules=candidates)
+        times = {Schedule(s): t for s, t in dec.shortlist}
+        sessions.append({"m": gemm.m, "candidates": list(candidates),
+                         "times": times,
+                         "host_s": time.perf_counter() - t1})
+        return times
+
+    metrics.reset_metrics()
+    reg = metrics.get_metrics()
+    tier = AdaptiveTier(
+        machine=H100_SXM, group=GROUP, device=device, measure_fn=measure,
+        config=AdaptConfig(explore_rate=0.0, explore_burst=ADAPT_BURST,
+                           refit_interval_s=3600.0, refit_min_picks=8),
+    )
+    # What the default error bar would have granted on the same rankings.
+    shadow = ExplorationPolicy(AdaptConfig(explore_rate=0.0,
+                                           explore_burst=ADAPT_BURST))
+    explore = tier.policy.should_measure
+
+    def both(ranked):
+        shadow.should_measure(ranked)
+        return explore(ranked)
+
+    tier.policy.should_measure = both
+    tier.policy.set_sigma(ADAPT_SIGMA)
+    batches = _adapt_batches(cfg, sum(ADAPT_PICKS), seed=8)
+    lat = {t: [] for t in ADAPT_TIERS}
+    picks = []
+
+    def pick(reqs):
+        before = {t: reg.counter(f"serve/adapt.pick.{t}").value
+                  for t in ADAPT_TIERS}
+        t1 = time.perf_counter()
+        dec = tier.pick_for_requests(reqs, cfg)
+        ms = (time.perf_counter() - t1) * 1e3
+        (which,) = [t for t in ADAPT_TIERS
+                    if reg.counter(f"serve/adapt.pick.{t}").value
+                    != before[t]]
+        lat[which].append(ms)
+        picks.append(which)
+        if not isinstance(dec.schedule, Schedule):
+            raise AssertionError(f"[adapt] pick served no schedule: {dec}")
+
+    ops.reset_launch_counts()
+    tier.start()
+    t_drive = time.perf_counter()
+    for reqs in batches[:ADAPT_PICKS[0]]:
+        pick(reqs)
+    sentinel = tier.sentinel
+    alarmed = sentinel.alarms > 0
+    waited = 0.0
+    if alarmed:
+        # The alarm kicked the re-fit thread; wait for its cycle.
+        t1 = time.perf_counter()
+        while sentinel.refits < 1:
+            if time.perf_counter() - t1 > ADAPT_REFIT_WAIT_S:
+                raise AssertionError("[adapt] the drift re-fit did not run "
+                                     f"within {ADAPT_REFIT_WAIT_S}s")
+            time.sleep(0.01)
+        waited = time.perf_counter() - t1
+    n_before = len(sessions)
+    tier.policy.set_sigma(ADAPT_SIGMA)  # re-open the measured tier
+    for reqs in batches[ADAPT_PICKS[0]:]:
+        pick(reqs)
+    # A later alarm kicks another cycle: let it finish before (b).
+    t1 = time.perf_counter()
+    while sentinel.should_refit() or sentinel.refits < sentinel.alarms:
+        if time.perf_counter() - t1 > ADAPT_REFIT_WAIT_S:
+            raise AssertionError("[adapt] a re-fit did not finish within "
+                                 f"{ADAPT_REFIT_WAIT_S}s")
+        time.sleep(0.01)
+    waited += time.perf_counter() - t1
+    torch.cuda.synchronize(device)
+    drive_s = time.perf_counter() - t_drive
+    counts = ops.launch_counts()
+
+    by_tier = {t: picks.count(t) for t in ADAPT_TIERS}
+    print(f"[adapt] (a) AdaptiveTier(H100_SXM, group {GROUP}) with its re-fit"
+          f" thread: {len(picks)} picks of {ADAPT_BATCH}-request batches "
+          f"(FFN GEMM M x {D_FF} x {D_MODEL}, M = the batch's tokens, "
+          f"{_tokens(batches[0])}..{_tokens(batches[-1])}) in "
+          f"{drive_s:.2f}s ({waited:.2f}s of it waiting for re-fits); "
+          f"by tier {by_tier}")
+    for t in ADAPT_TIERS:
+        print(f"[adapt] (a) pick latency, {t}: {_pcts(lat[t])}")
+    print(f"[adapt] (a) policy at sigma {ADAPT_SIGMA}: ambiguous "
+          f"{tier.policy.ambiguous}, granted {tier.policy.granted}, denied "
+          f"{tier.policy.denied}; the default sigma "
+          f"{AdaptConfig().default_sigma} on the same rankings: ambiguous "
+          f"{shadow.ambiguous}, granted {shadow.granted}, denied "
+          f"{shadow.denied}")
+    n2d = sum(Schedule.UNIFORM_FUSED_2D in s["candidates"] for s in sessions)
+    pairs, winners = {}, {}
+    for s in sessions:
+        pair = " + ".join(c.value for c in s["candidates"])
+        win = min(s["times"], key=s["times"].get).value
+        pairs[pair] = pairs.get(pair, 0) + 1
+        winners[win] = winners.get(win, 0) + 1
+    print(f"[adapt] (a) {len(sessions)} measured sessions ({n_before} before"
+          f" the re-fit), winner ms (CUDA events): "
+          + ", ".join(f"M{s['m']} {min(s['times'].values()) * 1e3:.4f}"
+                      for s in sessions)
+          + f"; candidates {pairs}, winners {winners}; host s per session p50 "
+          f"{statistics.median(s['host_s'] for s in sessions):.4f}; "
+          f"{n2d} timed uniform-fused-2d: K2 launches "
+          f"{counts['accumulate_matmul']}; launches {counts}")
+    if by_tier["heuristic"] or reg.counter(
+            "serve/adapt.pick.heuristic").value:
+        raise AssertionError("[adapt] a pick fell back to the heuristic")
+    n_measures = reg.counter("serve/adapt.measures").value
+    if n_measures < 6 or n_measures != len(sessions) or by_tier[
+            "measured"] != len(sessions):
+        raise AssertionError(f"[adapt] measured sessions {len(sessions)}, "
+                             f"serve/adapt.measures {n_measures}, measured "
+                             f"picks {by_tier['measured']}")
+    for s in sessions:  # every candidate runs at these shapes
+        if set(s["times"]) != set(s["candidates"]) or not all(
+                math.isfinite(t) and t > 0 for t in s["times"].values()):
+            raise AssertionError(f"[adapt] session timed {s['times']} of "
+                                 f"{s['candidates']}")
+    # 4 runs (a warm-up and 3 timed) x GROUP K-slice steps per 2D session.
+    if counts["accumulate_matmul"] != 4 * GROUP * n2d:
+        raise AssertionError(f"[adapt] K2 launches {counts} for {n2d} "
+                             "sessions that timed uniform-fused-2d")
+
+    st = sentinel.state()
+    print(f"[adapt] (a) sentinel: {st}")
+    events = sentinel.events
+    refit = [e for e in events if e["kind"] == "sentinel_refit"]
+    recovery = [e for e in events if e["kind"] == "sentinel_recovery"]
+    if alarmed:
+        rep = refit[0]["report"] if refit else {}
+        if not refit or refit[0]["trigger"] != "drift" or "link_bw" not in \
+                rep.get("fit_deployed", ""):
+            raise AssertionError(f"[adapt] the alarm's re-fit: {refit}")
+        if tier.machine.link_bw == H100_SXM.link_bw or (
+                H100_SXM.link_bw != 450e9):
+            raise AssertionError("[adapt] link_bw not deployed")
+        print(f"[adapt] (a) drift re-fit: trigger {refit[0]['trigger']}, "
+              f"channel {refit[0]['channel']}, {rep.get('fit_records')} "
+              f"records, fit_sigma {rep.get('fit_sigma'):.4f}, link_bw "
+              f"{H100_SXM.link_bw / 1e9:.2f} -> "
+              f"{tier.machine.link_bw / 1e9:.4f} GB/s "
+              f"(x {tier.machine.link_bw / H100_SXM.link_bw:.4f}), "
+              f"deployed {rep.get('fit_deployed')}; the module's H100_SXM "
+              f"keeps {H100_SXM.link_bw / 1e9:.0f} GB/s")
+    else:
+        print("[adapt] (a) the sentinel did not alarm: no drift re-fit")
+    if recovery:
+        r = recovery[0]
+        print(f"[adapt] (a) recovery after {r['samples']} residuals: "
+              f"post_mean {r['post_mean']:.4f}, post_rms {r['post_rms']:.4f}"
+              f" against the pre-refit EWMA {r['pre_refit_ewma']:.4f} "
+              f"(ratio {r['post_mean'] / r['pre_refit_ewma']:.4f})")
+    elif alarmed:
+        print("[adapt] (a) no recovery event: fewer than "
+              f"{sentinel.config.min_samples} residuals after the re-fit")
+    print(f"[adapt] (a) gate: version {tier.gate_version}, agreement on its "
+          f"live grid {tier.last_agreement}; stats {tier.stats()}")
+    return tier
+
+
+def _adapt_audit(path: str) -> None:
+    from repro_torch.obs import audit, sentinel
+
+    recs = audit.read_audit(path)
+    kinds = {}
+    for r in recs:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    errors = audit.validate_audit(recs) + sentinel.validate_sentinel(
+        [r for r in recs if r["kind"].startswith("sentinel_")])
+    if errors or not kinds.get("adapt_measure"):
+        raise AssertionError(f"[adapt] audit records {kinds}: {errors[:5]}")
+    print(f"[adapt] audit log: {len(recs)} records {kinds}, all valid")
+
+
+def _adapt_engine(device, cfg, state, tier):
+    """(b): DecodeEngine with the tier against the same engine without it,
+    in turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    prompts, prompt_len, cache_len, n_batches = 4, 8, 128, 3
+    rng = np.random.default_rng(9)
+    raws = [rng.integers(0, cfg.vocab_size, (prompts, prompt_len + 4 * b))
+            for b in range(n_batches)]
+    steps = []
+
+    def answer(raw, adapt):
+        eng = DecodeEngine(cfg, state, batch_size=prompts,
+                           cache_len=cache_len, device=device, adapt=adapt)
+        step = eng.step_fn
+
+        def counted(*args):
+            steps.append(1)
+            return step(*args)
+
+        eng.step_fn = counted
+        reqs = [Request(r.astype(np.int32), max_new_tokens=ADAPT_NEW)
+                for r in raw]
+        t1 = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize(device)
+        return eng, [r.out for r in out], time.perf_counter() - t1
+
+    answer(raws[0], None)  # warm
+    ops.reset_launch_counts()
+    tracer = trace.enable()
+    per_step = {"with": [], "without": []}
+    try:
+        for raw in raws:
+            for label, adapt in (("without", None), ("with", tier),
+                                 ("with", tier), ("without", None)):
+                steps.clear()
+                eng, toks, dt = answer(raw, adapt)
+                per_step[label].append(dt * 1e3 / len(steps))
+                if label == "with":
+                    got, dec = toks, eng.last_decision
+                else:
+                    want = toks
+            if got != want or sum(map(len, got)) != prompts * ADAPT_NEW:
+                raise AssertionError("[adapt] (b) the tier changed the "
+                                     "tokens")
+    finally:
+        trace.disable()
+    runs = [e for e in tracer.events if e["name"] == "serve/run"]
+    tagged = [e for e in runs if "overlap_schedule" in e["args"]]
+    if len(tagged) != 2 * n_batches or len(runs) != 4 * n_batches:
+        raise AssertionError(f"[adapt] (b) serve/run spans {runs}")
+    print(f"[adapt] (b) DecodeEngine(adapt=tier), {n_batches} batches of "
+          f"{prompts} requests x {ADAPT_NEW} new tokens (cache {cache_len}),"
+          f" in turns: ms per step with the tier "
+          + ", ".join(f"{t:.3f}" for t in per_step["with"])
+          + " / without " + ", ".join(f"{t:.3f}" for t in per_step["without"])
+          + f" (medians {statistics.median(per_step['with']):.3f} / "
+          f"{statistics.median(per_step['without']):.3f}); tokens equal; "
+          f"serve/run carries overlap_schedule "
+          f"{tagged[-1]['args']['overlap_schedule']} "
+          f"({tagged[-1]['args']['overlap_tier']}); last decision "
+          f"{dec.schedule.value} ({dec.source}); launches "
+          f"{ops.launch_counts()}")
+
+
+def _adapt_decode_attn(device, cfg, state):
+    """(c): TinyLlama-1.1B's decode with ``decode_attn="shard_map"`` on a
+    group of GROUP ranks, at a cache of DECODE_ATTN_CACHE filled with
+    random keys and values, against the plain decode on the same cache."""
+    import torch
+
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel import decode_attn
+    from repro_torch.parallel.context import overlap_context
+    from repro_torch.parallel.sharding import TPGroup, tp_group
+    from repro_torch.tree import leaves
+
+    prompts, s = 4, DECODE_ATTN_CACHE
+    plain_cfg = dataclasses.replace(cfg, overlap=OverlapConfig())
+    sharded_cfg = dataclasses.replace(
+        cfg, overlap=OverlapConfig(decode_attn="shard_map"))
+    plain, sharded = build_model(plain_cfg), build_model(sharded_cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(10)
+    caches = [plain.init_cache(prompts, s, device=device)]
+    for c in caches[0]:
+        for t in c.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=device))
+    caches.append([{k: t.clone() for k, t in c.items()} for c in caches[0]])
+    toks = torch.randint(0, cfg.vocab_size, (prompts, DECODE_ATTN_STEPS),
+                         generator=gen, device=device)
+    group = TPGroup(GROUP, device)
+    calls = []
+    real = decode_attn.shard_map_attn_decode
+
+    def counted(*args):
+        calls.append(1)
+        return real(*args)
+
+    def step(which, i):
+        pos = s - DECODE_ATTN_STEPS + i
+        if which == "plain":
+            return plain.decode_step(state, caches[0], toks[:, i:i + 1],
+                                     pos)[0]
+        with tp_group(group), overlap_context(sharded_cfg.overlap):
+            return sharded.decode_step(state, caches[1], toks[:, i:i + 1],
+                                       pos)[0]
+
+    decode_attn.shard_map_attn_decode = counted
+    try:
+        with torch.no_grad():
+            errs, scale = [], 0.0
+            for i in range(DECODE_ATTN_STEPS):
+                want, got = step("plain", i), step("sharded", i)
+                scale = max(scale, want.float().abs().max().item())
+                errs.append(_max_err(got, want))
+                if not torch.isfinite(got).all():
+                    raise AssertionError("[adapt] (c) non-finite logits")
+            n_calls = len(calls)
+            if n_calls != cfg.num_layers * DECODE_ATTN_STEPS:
+                raise AssertionError(f"[adapt] (c) {n_calls} sharded "
+                                     "decode attention calls")
+            ms = {}
+            for which in ("plain", "sharded", "sharded", "plain"):
+                ms.setdefault(which, []).append(wall_ms(
+                    lambda w=which: step(w, DECODE_ATTN_STEPS - 1)))
+    finally:
+        decode_attn.shard_map_attn_decode = real
+    if max(errs) > 5e-2 * scale:
+        raise AssertionError(f"[adapt] (c) sharded decode differs by "
+                             f"{max(errs)} (max |logit| {scale})")
+    weight_bytes = _nbytes(*leaves(state))
+    cache_bytes = sum(_nbytes(*c.values()) for c in caches[0])
+    bound = (weight_bytes + cache_bytes) / PEAK_BYTES * 1e3
+    print(f"[adapt] (c) decode_attn=\"shard_map\" on {GROUP} ranks, "
+          f"{prompts} requests at a cache of {s} ({cache_bytes / 2 ** 20:.1f}"
+          f" MiB): {n_calls} sharded calls over {DECODE_ATTN_STEPS} steps;"
+          f" per-step logits max_abs_err {max(errs):.4e} of max |logit| "
+          f"{scale:.4f} ({max(errs) / scale:.2e}); ms per step (host wall, "
+          f"median of 5, in turns) plain "
+          + ", ".join(f"{t:.3f}" for t in ms["plain"]) + " / sharded "
+          + ", ".join(f"{t:.3f}" for t in ms["sharded"])
+          + f" against a byte bound of {bound:.3f} ms "
+          f"({(weight_bytes + cache_bytes) / 1e9:.3f} GB at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s)")
+
+
 def phase_train(device, cfg, params):
     """Full-width training steps on the 2D schedule and dense, from the
     prefill's weights; returns each kernel's launches in the last timed 2D
@@ -2382,6 +2853,7 @@ def drive(device) -> int:
         k["launches"] = launches[k["name"]]
         k["routes"] = by_route[k["name"]]
     phase_serve(device, cfg, model, state)
+    phase_adapt(device, cfg, state)
     train_counts = phase_train(device, cfg, state)
     for k in kernels:
         k["train_step_launches"] = train_counts[k["name"]]

@@ -482,9 +482,9 @@ class Autotuner:
         Ragged picks go to the profile-quantized kernel path
         (ficco_a2a_ffn), which handles arbitrary chunk sizes — the cost
         model's own validity mask already applied.  Shared by
-        ``_pick_impl`` and the reference's adaptive serving tier (ROADMAP
-        A4 step 3), so an online re-rank can never pick a schedule the
-        runtime would refuse.
+        ``_pick_impl`` and the adaptive serving tier
+        (:mod:`repro_torch.serve.adapt`), so an online re-rank can never
+        pick a schedule the runtime would refuse.
         """
         eff = machine_for_group(machine, group) if group else machine
         ranked = self._shortlist(gemm, eff, top=None, profile=profile)

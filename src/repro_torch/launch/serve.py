@@ -11,9 +11,17 @@ Port of ``repro.launch.serve``: the same flags and the same ``.reduced()``
 model, plus ``--device`` (default ``cuda``; with no CUDA device the
 launcher raises unless ``--device cpu`` is given).  ``--overlap-mode
 ficco_autotune`` resolves each overlapped projection through the
-runtime tuner (:mod:`repro_torch.autotune`).  The reference's
-``--adapt*`` and ``--signatures`` flags wait for the serving tier
-(ROADMAP A4 step 3).
+runtime tuner (:mod:`repro_torch.autotune`).
+
+``--adapt`` additionally runs the online-adaptation tier
+(:mod:`repro_torch.serve.adapt`): a bounded in-memory decision cache over
+the persistent store (``autotune-torch-v2.json`` under
+``$REPRO_AUTOTUNE_CACHE_DIR``), a background re-fit thread (its machine
+fit on ``--device``), and the exploration-budget measured tier.  Knobs:
+``--adapt-cache-size``, ``--adapt-ttl``, ``--adapt-refit-s``,
+``--adapt-explore-rate``, ``--adapt-no-sentinel``.  ``--signatures PATH``
+streams per-decision inefficiency signatures to a JSONL file
+(:mod:`repro_torch.obs.signature`).
 """
 
 from __future__ import annotations
@@ -43,11 +51,34 @@ def main(argv=None):
         help="gspmd_serial | serial | shard_p2p | ficco_auto | "
         "ficco_autotune | explicit schedule value",
     )
+    ap.add_argument(
+        "--adapt", action="store_true",
+        help="enable the online-adaptation tier (repro_torch.serve.adapt)",
+    )
+    ap.add_argument("--adapt-cache-size", type=int, default=4096,
+                    help="in-memory decision cache bound (LRU beyond)")
+    ap.add_argument("--adapt-ttl", type=float, default=300.0,
+                    help="decision TTL seconds (expiry forces a re-rank)")
+    ap.add_argument("--adapt-refit-s", type=float, default=2.0,
+                    help="background re-fit cadence seconds")
+    ap.add_argument("--adapt-explore-rate", type=float, default=1.0,
+                    help="measured-tier token-bucket refill (sessions/s)")
+    ap.add_argument("--adapt-no-sentinel", action="store_true",
+                    help="disable the drift sentinel "
+                    "(repro_torch.obs.sentinel)")
+    ap.add_argument("--signatures", metavar="PATH", default=None,
+                    help="stream per-decision inefficiency signatures to "
+                    "this JSONL path (repro_torch.obs.signature)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.signatures:
+        from repro_torch.obs import signature as _signature
+
+        _signature.enable_signatures(args.signatures)
+
     cfg = get_config(args.arch).reduced()
     if args.overlap_mode != "gspmd_serial":
         cfg = dataclasses.replace(
@@ -56,9 +87,23 @@ def main(argv=None):
         )
     model = build_model(cfg)
     state = model.init(0, device=device)
+    tier = None
+    if args.adapt:
+        from repro_torch.serve.adapt import AdaptConfig, AdaptiveTier
+
+        tier = AdaptiveTier(
+            config=AdaptConfig(
+                cache_size=args.adapt_cache_size,
+                ttl_s=args.adapt_ttl,
+                refit_interval_s=args.adapt_refit_s,
+                explore_rate=args.adapt_explore_rate,
+                sentinel=not args.adapt_no_sentinel,
+            ),
+            device=device,
+        ).start()
     eng = DecodeEngine(
         cfg, state, batch_size=args.prompts, cache_len=args.cache_len,
-        device=device,
+        device=device, adapt=tier,
     )
     rng = np.random.default_rng(0)
     reqs = [
@@ -79,6 +124,21 @@ def main(argv=None):
     )
     print(f"decoded {total} tokens in {dt:.2f}s "
           f"({total / dt:.1f} tok/s on {name})")
+    if tier is not None:
+        dec = eng.last_decision
+        sched = dec.schedule.value if dec is not None else "-"
+        print(f"adapt: schedule={sched} stats={tier.stats()}")
+        tier.stop()
+    if args.signatures:
+        from repro_torch.obs import signature as _signature
+
+        stream = _signature.get_signatures()
+        if stream is not None:
+            snap = stream.export_jsonl()
+            print(
+                f"signatures: {len(snap['cells'])} cells "
+                f"-> {args.signatures}"
+            )
     for i, r in enumerate(out):
         print(f"req{i}: {list(r.prompt)} -> {r.out}")
 

@@ -42,10 +42,13 @@ def train_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
     if cfg.family is not Family.DENSE or cfg.moe or cfg.mla or (
         cfg.encdec is not None or cfg.frontend is not None
     ):
-        item = 5 if cfg.family is Family.MOE or cfg.moe else 7
+        item = (
+            "A11: MoE training" if cfg.family is Family.MOE or cfg.moe
+            else "queue A, item 7"
+        )
         raise NotImplementedError(
             f"{cfg.name}: training inputs of the {cfg.family.value} family "
-            f"are not ported yet (ROADMAP queue A, item {item})"
+            f"are not ported yet (ROADMAP {item})"
         )
     b, s = shape.global_batch, shape.seq_len
     return {

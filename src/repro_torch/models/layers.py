@@ -277,10 +277,13 @@ def attn_decode(
 
     ov = get_overlap()
     if ov is not None and ov.decode_attn == "shard_map":
-        raise NotImplementedError(
-            "decode_attn='shard_map' (parallel/decode_attn.py) is not ported "
-            "yet (ROADMAP queue A, item 7: the other model families)"
-        )
+        from repro_torch.parallel import decode_attn
+
+        if decode_attn.applicable(cache["k"], window):
+            out, cache["k"], cache["v"] = decode_attn.shard_map_attn_decode(
+                q, k, v, cache["k"], cache["v"], pos
+            )
+            return out.reshape(b, 1, h * hd) @ params["wo"], cache
     s_cache = cache["k"].shape[1]
     slot = pos % s_cache if window is not None else pos
     cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)

@@ -16,24 +16,25 @@
   categories and accumulated per (machine family, scenario class,
   schedule) (``REPRO_SIGNATURES=path`` or
   ``signature.enable_signatures()``).
+* :mod:`repro_torch.obs.sentinel` — the drift sentinel: EWMA/CUSUM over
+  the serving tier's predicted-vs-measured residuals and its gate
+  agreement, with typed alarm / refit / recovery events.
 
-All are copies of the reference's modules, in its schemas.  The
-reference's ``sentinel`` serves its adaptive serving tier and comes with
-it (ROADMAP A4 step 3).
+All are copies of the reference's modules, in its schemas.
 
 This ``__init__`` stays light: the instrumented modules
 (``repro_torch.core.engine``, the tuner) import ``repro_torch.obs.trace``
 at their own import time, which executes this file — pulling
 ``repro_torch.core`` back in here would be a cycle.  ``timeline`` (which
-needs the simulator) and ``signature`` are therefore exported lazily
-(PEP 562).
+needs the simulator), ``signature`` and ``sentinel`` are therefore
+exported lazily (PEP 562).
 """
 
 from __future__ import annotations
 
 from repro_torch.obs import audit, metrics, trace
 
-_LAZY = {"timeline", "signature"}
+_LAZY = {"timeline", "signature", "sentinel"}
 
 
 def __getattr__(name: str):
@@ -46,4 +47,4 @@ def __getattr__(name: str):
     )
 
 
-__all__ = ["trace", "metrics", "audit", "timeline", "signature"]
+__all__ = ["trace", "metrics", "audit", "timeline", "signature", "sentinel"]

@@ -192,8 +192,8 @@ _PICK_FIELDS = ("machine", "group", "m", "n", "k", "dtype_bytes")
 
 # Non-decision record kinds that legitimately share the audit stream:
 # the serving tier's budgeted measured sessions and the drift
-# sentinel's typed events (validated in depth by the reference's
-# ``obs.sentinel.validate_sentinel``, ROADMAP A4 step 3) — structurally they only
+# sentinel's typed events (validated in depth by
+# ``repro_torch.obs.sentinel.validate_sentinel``) — structurally they only
 # need a numeric timestamp here.
 _AUX_KINDS = ("adapt_measure",)
 _AUX_PREFIXES = ("sentinel_",)

@@ -8,8 +8,8 @@ so the two packages never append to one default file.
 :mod:`repro_torch.obs.timeline` renders the paper's inefficiency signature
 (DIL / CIL-contention / exposed comm) for one ``simulate()`` result,
 offline.  This module makes the signature a *streaming* observable: every
-live schedule decision — ``Autotuner.pick``/``measure`` (and the
-reference's serving tier's picks, ROADMAP A4 step 3) — is decomposed into
+live schedule decision — ``Autotuner.pick``/``measure`` and the serving
+tier's picks (:mod:`repro_torch.serve.adapt`) — is decomposed into
 the paper's loss categories via :func:`repro_torch.core.inefficiency.
 loss_components` + :func:`repro_torch.core.simulator.schedule_steps`, and
 accumulated into windowed per-``(machine-family, scenario-class,
@@ -22,7 +22,7 @@ the compute side into serial + DIL + contention; ragged lowerings keep
 it whole; the ``comm_tail_s`` term closes the identity in comm-bound
 regimes).  When the decision carries a measured time, the
 log-residual ``log(measured / model)`` is accumulated beside the
-components — the same signal the reference's ``obs.sentinel`` monitors.
+components — the same signal :mod:`repro_torch.obs.sentinel` monitors.
 
 Hot-path budget: the serving tier picks in tens of microseconds, so
 :meth:`SignatureStream.observe_decision` memoizes the (pure, analytic)

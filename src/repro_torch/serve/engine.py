@@ -10,8 +10,10 @@ rope key per MLA layer); :class:`DecodeEngine` adds the minimal batch
 loop.
 ``DecodeEngine.run`` reports the reference's ``serve/run`` and
 ``serve/step`` spans and ``serve/steps`` and ``serve/tokens`` counters
-(:mod:`repro_torch.obs`); its ``adapt=`` hook waits for the serving
-tier (ROADMAP A4 step 3).
+(:mod:`repro_torch.obs`); its ``adapt=`` hook streams each batch's
+request-load digest through the online-adaptation tier
+(:class:`repro_torch.serve.adapt.AdaptiveTier`) and records the tuned
+overlap schedule, which never changes what the model computes.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ class DecodeEngine:
         batch_size: int = 4,
         cache_len: int = 128,
         device=None,
+        adapt=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -86,6 +89,11 @@ class DecodeEngine:
             batch_size, cache_len, device=self.device
         )
         self.step_fn = make_serve_step(self.model)
+        # Online-adaptation tier (repro_torch.serve.adapt.AdaptiveTier):
+        # when set, every run() streams its request-load digest through
+        # the tier and records the tuned overlap schedule for the batch.
+        self.adapt = adapt
+        self.last_decision = None
 
     @torch.no_grad()
     def run(self, requests: list[Request]) -> list[Request]:
@@ -111,10 +119,26 @@ class DecodeEngine:
         reg = _metrics.get_metrics()
         steps_c = reg.counter("serve/steps")
         tokens_c = reg.counter("serve/tokens")
+        overlap_args = {}
+        if self.adapt is not None:
+            self.last_decision = self.adapt.pick_for_requests(
+                requests, self.cfg
+            )
+            # Surface the batch's overlap decision on the run span so a
+            # merged fleet trace reads which schedule served which
+            # batch without joining against the audit log.  The hook is
+            # duck-typed (tests stub it), so only annotate when the
+            # decision actually carries a schedule.
+            sched = getattr(self.last_decision, "schedule", None)
+            if sched is not None:
+                overlap_args = {
+                    "overlap_schedule": sched.value,
+                    "overlap_tier": self.last_decision.source,
+                }
         with _trace.span(
             "serve/run", "serve",
             n_requests=len(requests), batch=self.batch,
-            max_prompt=max_prompt, max_new=max_new,
+            max_prompt=max_prompt, max_new=max_new, **overlap_args,
         ):
             for pos in range(max_prompt + max_new):
                 feed = []

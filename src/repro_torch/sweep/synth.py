@@ -89,7 +89,7 @@ def synthetic_ragged_batch(
 
 
 # ---------------------------------------------------------------------------
-# Drifting-skew serving traffic (the adaptive serving tier, ROADMAP A4 step 3).
+# Drifting-skew serving traffic (the adaptive serving tier, serve/adapt.py).
 # ---------------------------------------------------------------------------
 
 

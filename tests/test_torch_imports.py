@@ -139,6 +139,12 @@ def _fit_machine():
                                           Schedule.SERIAL, 1e-4, 8)])
 
 
+def _adaptive_tier():
+    from repro_torch.serve.adapt import AdaptiveTier
+
+    AdaptiveTier()
+
+
 ENTRY_POINTS = {
     "Model.init": _model_init,
     "Model.init_cache": _init_cache,
@@ -153,6 +159,7 @@ ENTRY_POINTS = {
     "launch.train": _launch_train,
     "get_engine(\"torch\")": _torch_engine,
     "fit_machine": _fit_machine,
+    "AdaptiveTier": _adaptive_tier,
 }
 
 
@@ -219,4 +226,11 @@ def test_import_check_covers_the_moe_path():
     mods = set(_port_modules())
     for name in ("overlap", "overlap.moe", "models.mla", "models.moe",
                  "parallel.collectives"):
+        assert f"repro_torch.{name}" in mods, name
+
+
+def test_import_check_covers_the_serving_tier():
+    mods = set(_port_modules())
+    for name in ("serve.adapt", "obs.sentinel", "parallel.decode_attn",
+                 "serve.engine", "launch.serve"):
         assert f"repro_torch.{name}" in mods, name

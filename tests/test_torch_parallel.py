@@ -1,7 +1,8 @@
 """The port's tensor-parallel layer on the CPU: the stacked-rank layout,
 ``tp_ficco_linear`` against the dense product, when the overlap applies,
-the tuner-backed mode, and the paths that are not ported yet raising with
-their ROADMAP item."""
+the tuner-backed mode, the sharded decode attention against the plain
+decode, and the paths that are not ported yet raising with their ROADMAP
+item."""
 
 import dataclasses
 
@@ -132,17 +133,43 @@ def test_other_families_raise_with_roadmap_item(arch):
         build_model(get_config(arch).reduced())
 
 
-def test_shard_map_decode_attention_raises_with_roadmap_item():
-    cfg = dataclasses.replace(
-        get_config("tinyllama-1.1b").reduced(),
-        overlap=OverlapConfig(decode_attn="shard_map"),
-    )
-    model = build_model(cfg)
+@pytest.mark.parametrize("cache_len,group,sharded", [
+    (1024, 4, True),    # the flash-decode over the time-sharded cache
+    (8, 4, False),      # S < 1024: falls through to the plain decode
+    (1024, None, False),  # no TP group: the plain decode
+])
+def test_shard_map_decode_attention_matches_plain_decode(
+        cache_len, group, sharded, monkeypatch):
+    """decode_attn="shard_map" serves the reduced TinyLlama's decode
+    through parallel/decode_attn.py where it applies (and the plain
+    path elsewhere), with the plain decode's logits and caches."""
+    from repro_torch.parallel import decode_attn
+
+    calls = []
+    real = decode_attn.shard_map_attn_decode
+    monkeypatch.setattr(decode_attn, "shard_map_attn_decode",
+                        lambda *a: calls.append(1) or real(*a))
+    base = get_config("tinyllama-1.1b").reduced()
+    cfg = dataclasses.replace(base,
+                              overlap=OverlapConfig(decode_attn="shard_map"))
+    model, plain_model = build_model(cfg), build_model(base)
     state = model.init(0, device="cpu")
-    cache = model.init_cache(1, 8, device="cpu")
-    with overlap_context(cfg.overlap):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            model.decode_step(state, cache, torch.zeros((1, 1), dtype=torch.long), 0)
+    toks = torch.as_tensor(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 6)))
+    caches = [m.init_cache(2, cache_len, device="cpu")
+              for m in (model, plain_model)]
+    grp = TPGroup(group, "cpu") if group else None
+    for pos in range(toks.shape[1]):
+        with tp_group(grp), overlap_context(cfg.overlap):
+            got, caches[0] = model.decode_step(
+                state, caches[0], toks[:, pos:pos + 1], pos)
+        want, caches[1] = plain_model.decode_step(
+            state, caches[1], toks[:, pos:pos + 1], pos)
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    for a, b in zip(caches[0], caches[1]):  # one dict per pattern slot
+        for k in a:
+            torch.testing.assert_close(a[k], b[k], rtol=2e-3, atol=2e-3)
+    assert len(calls) == (cfg.num_layers * toks.shape[1] if sharded else 0)
 
 
 @pytest.mark.parametrize("tiled", [False, True])

@@ -209,6 +209,17 @@ def test_train_specs_refuse_families_not_ported():
                     ShapeConfig("t", 32, 4, "train"))
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])
+def test_train_specs_name_moe_training_item(arch):
+    """The MoE family serves (A5) but does not train yet: the refusal
+    names A11, not the done A5."""
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP A11: MoE training\)") as err:
+        train_specs(get_config(arch).reduced(),
+                    ShapeConfig("t", 32, 4, "train"))
+    assert "item 5" not in str(err.value)
+
+
 # ---- loss and train steps -------------------------------------------------
 
 def test_loss_matches_reference(reference):

@@ -22,7 +22,13 @@ ERR.txt``) it evaluates, with ``JAX_PLATFORMS=cpu``:
     ``fit_machine`` on them (the reference's recovery test);
   * ``moe``: ``serial_a2a_ffn`` and ``ficco_a2a_ffn`` (each case of
     ``MOE_CASES``) under ``shard_map`` on ``MOE["g"]`` devices, on the
-    operands :func:`moe_operands` makes.
+    operands :func:`moe_operands` makes;
+  * ``adapt``: the reference's ``AdaptiveTier`` through
+    :func:`adapt_script` (the port's tests run the same script);
+  * ``decode_attn``: ``shard_map_attn_decode`` on a mesh of
+    ``DECODE_ATTN["g"]`` devices on the ``model`` axis, at each of
+    ``DECODE_ATTN_POS``, on the operands :func:`decode_attn_operands`
+    makes.
 
 The script runs with ``MOE["g"]`` forced host devices
 (``--xla_force_host_platform_device_count``); the other entries run on
@@ -68,6 +74,98 @@ MOE = dict(g=4, e=8, c=12, d=16, f=32, seed=21)
 MOE_SIZES = (5, 0, 4, 3)
 MOE_SKEW = 2.0  # StepProfile.skewed(g, MOE_SKEW)
 MOE_CASES = ("serial", "default", "chunks3", "reverse", "skewed", "sizes")
+# The adaptive tier's scripted run: N requests of the drifting stream at
+# one request per DT seconds of an injected clock, every UNIFORM_EVERY-th
+# a uniform pick of the next ADAPT_UNIFORM GEMM (the machine fit's
+# records), a refit_now() before request REFIT_AT, and every pick
+# measured while the budget (BURST, no refill) lasts.
+ADAPT = dict(n=200, seed=0, drift_every=50, dt=0.25, uniform_every=5,
+             refit_at=100, burst=48.0, sigma=10.0)
+ADAPT_UNIFORM = tuple((4096 * (i + 1), 8192, 8192, 2) for i in range(8))
+# Decode attention over a time-sharded cache: B, S, H, KV, D; pos in the
+# first, a middle and the last of the g time shards.
+DECODE_ATTN = dict(g=4, b=2, s=1024, h=8, kv=2, d=16, seed=31)
+DECODE_ATTN_POS = (5, 600, 1023)
+
+
+class FakeClock:
+    """An injected monotonic clock the script advances by hand."""
+
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def adapt_script(pkg: str, cache_path: str, **tier_kw) -> dict:
+    """Drive ``pkg``'s ``AdaptiveTier`` (``"repro"`` or ``"repro_torch"``)
+    on ``TPU_V5E`` through the scripted run above; returns every pick,
+    the re-fit's report, the deployed gate's JSON, the machine the fit
+    deployed, ``stats()`` and the sentinel's events without timestamps.
+    """
+    import importlib
+
+    adapt = importlib.import_module(f"{pkg}.serve.adapt")
+    AutotuneCache = importlib.import_module(
+        f"{pkg}.autotune.cache").AutotuneCache
+    Autotuner = importlib.import_module(f"{pkg}.autotune.tuner").Autotuner
+    TPU_V5E = importlib.import_module(f"{pkg}.core.machine").TPU_V5E
+    GemmShape = importlib.import_module(f"{pkg}.core.workload").GemmShape
+    stream = importlib.import_module(f"{pkg}.sweep.synth")
+
+    clock = FakeClock()
+    tuner = Autotuner(cache=AutotuneCache(path=cache_path), backend="numpy",
+                      persist="defer")
+    tier = adapt.AdaptiveTier(
+        tuner, machine=TPU_V5E, clock=clock,
+        config=adapt.AdaptConfig(explore_rate=0.0,
+                                 explore_burst=ADAPT["burst"]),
+        measure_fn=adapt.simulated_measure_fn(TPU_V5E, seed=0), **tier_kw,
+    )
+    tier.policy.set_sigma(ADAPT["sigma"])
+    uniform = [GemmShape(*g) for g in ADAPT_UNIFORM]
+    picks, report = [], None
+    for i, req in enumerate(stream.drifting_request_stream(
+            ADAPT["n"], seed=ADAPT["seed"],
+            drift_every=ADAPT["drift_every"])):
+        if i == ADAPT["refit_at"]:
+            report = tier.refit_now()
+        if i % ADAPT["uniform_every"] == 0:
+            j = i // ADAPT["uniform_every"]
+            dec = tier.pick(uniform[j % len(uniform)])
+        else:
+            dec = tier.pick(req.gemm, profile=req.profile)
+        picks.append((dec.key, dec.source, dec.schedule.value,
+                      dec.model_total_s, dec.measured_total_s))
+        clock.advance(ADAPT["dt"])
+    events = [{k: v for k, v in ev.items() if k != "ts"}
+              for ev in tier.sentinel.events]
+    return {
+        "picks": picks,
+        "report": report,
+        "gate": tier.tuner.gate.to_json(),
+        "link_bw": (TPU_V5E.link_bw, tier.machine.link_bw),
+        "machine_name": tier.machine.name,
+        "stats": tier.stats(),
+        "events": events,
+    }
+
+
+def decode_attn_operands():
+    """q (B, 1, H, D), k_new and v_new (B, 1, KV, D), the caches (B, S,
+    KV, D), fp32."""
+    b, s, h, kv, d = (DECODE_ATTN[k] for k in ("b", "s", "h", "kv", "d"))
+    rng = np.random.default_rng(DECODE_ATTN["seed"])
+
+    def draw(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return (draw(b, 1, h, d), draw(b, 1, kv, d), draw(b, 1, kv, d),
+            draw(b, s, kv, d), draw(b, s, kv, d))
 
 
 def moe_operands():
@@ -160,6 +258,30 @@ def _evaluate() -> dict:
     ]
     out["fit"] = fit.to_payload()
     out["moe"] = _moe_dispatch()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out["adapt"] = adapt_script(
+            "repro", os.path.join(tmp, "adapt.json"))
+    out["decode_attn"] = _decode_attn()
+    return out
+
+
+def _decode_attn() -> dict:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from repro.compat import set_mesh
+    from repro.parallel import decode_attn
+
+    mesh = Mesh(np.array(jax.devices()[:DECODE_ATTN["g"]]), ("model",))
+    args = [jnp.asarray(a) for a in decode_attn_operands()]
+    out = {}
+    with set_mesh(mesh):
+        run = jax.jit(decode_attn.shard_map_attn_decode)
+        for pos in DECODE_ATTN_POS:
+            out[pos] = [np.asarray(a) for a in run(*args, jnp.int32(pos))]
     return out
 
 
