@@ -97,6 +97,22 @@ Phases, each of which exits non-zero on failure:
      expert-parallel dispatch at the model's MoE layer
      (``serial_a2a_ffn``, ``ficco_a2a_ffn``'s variants) against each
      other, each timed with CUDA events beside its bound;
+ 12. MoE training (``[moe-train]``): DeepSeek-V2-Lite-16B at full width,
+     cut to 2 of its 27 layers, train steps (4 x 512 ``SyntheticLM``
+     tokens, AdamW) on the uniform-fused-2D schedule (K2 on the shared
+     experts' up/gate projections, 32 launches per step with remat) and
+     dense, interleaved: two equal gradient computations bit for bit on
+     each path, every MoE leaf finite and nonzero, the step-1 loss (1 %)
+     and gradient norm (5 %) against dense, the DMA backend refused under
+     grad; step walls beside the bound, peak memory, one profiled step;
+ 13. the encoder-decoder and VLM paths (``[encdec]``, ``[vlm]``):
+     SeamlessM4T-v2-large whole and InternVL2-76B at full width cut to 8 of
+     its 80 layers, a 4 x 512 prefill (Seamless: 512 encoder frames;
+     InternVL2: 256 projected patches + 256 text tokens) dense and on the
+     DMA path (K3 + K1 in every MLP, the encoder's too), the logits
+     against dense (5 %), walls and busy time beside the bound; the cached
+     decode (Seamless: cross K/V from ``prefill_cross``) against the
+     forward (5 %), and ``DecodeEngine`` per step beside its byte bound;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -136,7 +152,7 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # What [done] counts: every phase the script prints, in order.
 PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
           "autotune", "serve", "adapt", "train", "grid", "fit", "gate",
-          "moe")
+          "moe", "moe-train", "encdec", "vlm")
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -1000,21 +1016,11 @@ def _autotune(device, timer, cfg, state, measured, design):
             logits = prefill_on(mode="uniform-fused-1d",
                                 backend="dma")(state, batch)
         _sync()
-        counts, routes = ops.launch_counts(), ops.route_counts()
-        want = {name: 0 for name in counts}
-        want.update(_dma_launches(variant, sites))
-        want_routes = {
-            name: {r: want[name] if r == PATH_ROUTES[name] else 0
-                   for r in per_route}
-            for name, per_route in routes.items()
-        }
+        counts, routes = _check_launches(
+            "autotune", "(e) DMA prefill on the promoted variant",
+            _dma_launches(variant, sites))
         print(f"[autotune] (e) DMA prefill on the promoted variant "
-              f"{variant.digest()}: launches {counts} (expected {want}); "
-              f"by route {routes}")
-        if counts != want or routes != want_routes:
-            raise AssertionError(f"[autotune] (e) launches {counts} by "
-                                 f"route {routes}, expected {want} by route "
-                                 f"{want_routes}")
+              f"{variant.digest()}: launches {counts}; by route {routes}")
         check("(e) promoted DMA prefill", logits)
 
 
@@ -1022,6 +1028,26 @@ def _autotune(device, timer, cfg, state, measured, design):
 PATH_ROUTES = {"chunked_matmul": "wgmma", "accumulate_matmul": "wgmma",
                "a2a_chunk_exchange": "strided",
                "ficco_ag_matmul_fused": "wgmma"}
+
+
+def _check_launches(label, what, expected):
+    """Raise unless the launch counts since the last reset are ``expected``
+    (0 for a kernel not named), each on its PATH_ROUTES route; returns the
+    counts."""
+    from repro_torch.kernels import ops
+
+    counts, routes = ops.launch_counts(), ops.route_counts()
+    want = {name: expected.get(name, 0) for name in counts}
+    want_routes = {
+        name: {r: expected.get(name, 0) if r == PATH_ROUTES[name] else 0
+               for r in per_route}
+        for name, per_route in routes.items()
+    }
+    if counts != want or routes != want_routes:
+        raise AssertionError(f"[{label}] {what}: launches {counts} by route "
+                             f"{routes}, expected {want} by route "
+                             f"{want_routes}")
+    return counts, routes
 
 
 def phase_prefill(device):
@@ -1082,22 +1108,10 @@ def phase_prefill(device):
             with tp_group(group):
                 logits = run(state, batch)
             _sync()
-            counts = ops.launch_counts()
-            routes = ops.route_counts()
-        want = {name: expected.get(name, 0) for name in counts}
-        # Every launch of the path on its kernel's PATH_ROUTES route.
-        want_routes = {
-            name: {r: expected.get(name, 0) if r == PATH_ROUTES[name] else 0
-                   for r in per_route}
-            for name, per_route in routes.items()
-        }
+        counts, routes = _check_launches("prefill", label, expected)
         print(f"[prefill] {label}: launches in one prefill {counts} "
-              f"(expected {want}: {cfg.num_layers} layers x 2 projections "
-              f"x {GROUP} steps); by route {routes}")
-        if counts != want or routes != want_routes:
-            raise AssertionError(f"{label}: launches {counts} by route "
-                                 f"{routes}, expected {want} by route "
-                                 f"{want_routes}")
+              f"({cfg.num_layers} layers x 2 projections x {GROUP} steps); "
+              f"by route {routes}")
         launches.update({name: counts[name] for name in expected})
         by_route.update({name: routes[name] for name in expected})
         want_shape = (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab_size)
@@ -1907,18 +1921,8 @@ def phase_train(device, cfg, params):
                 states[label], m = step(states[label], batch)
             _sync()
             walls[label].append((time.perf_counter() - t0) * 1e3)
-            counts, routes = ops.launch_counts(), ops.route_counts()
-            want = {name: expected.get(name, 0) for name in counts}
-            want_routes = {
-                name: {r: expected.get(name, 0) if r == PATH_ROUTES[name]
-                       else 0 for r in per_route}
-                for name, per_route in routes.items()
-            }
-            if counts != want or routes != want_routes:
-                raise AssertionError(
-                    f"[train] {label} step {i + 1}: launches {counts} by "
-                    f"route {routes}, expected {want} by route "
-                    f"{want_routes}")
+            counts, _ = _check_launches("train", f"{label} step {i + 1}",
+                                        expected)
             if label == "2D path":
                 train_counts = counts
             metrics[label].append({k: float(v) for k, v in m.items()})
@@ -2616,6 +2620,51 @@ def phase_moe(device, timer):
     return counts
 
 
+def _answer_requests(label, cfg, state, device, raw, new_tokens: int,
+                     cache_len: int, *, enc_len: int = 0, frames=None):
+    """``DecodeEngine`` answers one request per row of ``raw`` (prompts),
+    ``new_tokens`` each; an encoder-decoder's cross K/V first filled from
+    ``frames`` by ``prefill_cross``.  The first run pays one-time set-up,
+    the second is timed (host clock, synchronised).  Raises unless every
+    request got its tokens.  Returns (engine, requests, seconds and decode
+    steps of the timed run, seconds of the first)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    def run():
+        eng = DecodeEngine(cfg, state, batch_size=len(raw),
+                           cache_len=cache_len, enc_len=enc_len,
+                           device=device)
+        if frames is not None:
+            with torch.no_grad():
+                eng.cache = eng.model.prefill_cross(state, eng.cache, frames)
+        steps, step = [], eng.step_fn
+
+        def counted(*args):
+            steps.append(1)
+            return step(*args)
+
+        eng.step_fn = counted
+        reqs = [Request(p.astype(np.int32), max_new_tokens=new_tokens)
+                for p in raw]
+        _sync()
+        t0 = time.perf_counter()
+        out = eng.run(reqs)
+        _sync()
+        return eng, out, time.perf_counter() - t0, len(steps)
+
+    first = run()[2]
+    eng, out, dt, n_steps = run()
+    if sum(len(r.out) for r in out) != len(raw) * new_tokens or not all(
+        r.done and all(0 <= t < cfg.vocab_size for t in r.out) for r in out
+    ):
+        raise AssertionError(f"[{label}] DecodeEngine did not answer every "
+                             "request")
+    return eng, out, dt, n_steps, first
+
+
 def phase_moe_decode(device, cfg, state, weight_bytes: int):
     """[moe] (c) the MLA cache against the forward, and (d) DecodeEngine.
 
@@ -2631,7 +2680,6 @@ def phase_moe_decode(device, cfg, state, weight_bytes: int):
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
-    from repro_torch.serve.engine import DecodeEngine, Request
 
     prompts, prompt_len, new_tokens, cache_len = 4, 8, 16, 128
     no_drop = dataclasses.replace(
@@ -2687,36 +2735,11 @@ def phase_moe_decode(device, cfg, state, weight_bytes: int):
                              f"differ from the forward by {err}")
     del cache, decoded, free, full
 
-    n_steps = []
-
-    def answer():
-        eng = DecodeEngine(cfg, state, batch_size=prompts,
-                           cache_len=cache_len, device=device)
-        step = eng.step_fn
-
-        def counted(*args):
-            n_steps.append(1)
-            return step(*args)
-
-        eng.step_fn = counted
-        reqs = [Request(raw[i].astype(np.int32), max_new_tokens=new_tokens)
-                for i in range(prompts)]
-        t0 = time.perf_counter()
-        out = eng.run(reqs)
-        torch.cuda.synchronize()
-        return eng, out, time.perf_counter() - t0
-
-    _, _, first = answer()
-    n_steps.clear()
     ops.reset_launch_counts()
-    eng, out, dt = answer()
+    eng, out, dt, n_steps, first = _answer_requests(
+        "moe", cfg, state, device, raw, new_tokens, cache_len)
     total = sum(len(r.out) for r in out)
-    if total != prompts * new_tokens or not all(
-        r.done and all(0 <= t < cfg.vocab_size for t in r.out) for r in out
-    ):
-        raise AssertionError("[moe] DecodeEngine did not answer every "
-                             "request")
-    per_step = dt * 1e3 / len(n_steps)
+    per_step = dt * 1e3 / n_steps
     # One step reads every weight once (the embedding: 4 rows) and the
     # latent cache; its operations are those of 4 tokens.
     cache_bytes = (cfg.num_layers * prompts * cache_len
@@ -2728,7 +2751,7 @@ def phase_moe_decode(device, cfg, state, weight_bytes: int):
     print(f"[moe] DecodeEngine: {prompts} requests x {new_tokens} new tokens"
           f" (prompt {prompt_len}, cache {cache_len}): {total} tokens in "
           f"{dt:.3f}s, {total / dt:.1f} tok/s (first run {first:.3f}s); "
-          f"{len(n_steps)} steps, {per_step:.2f} ms per step against a bound "
+          f"{n_steps} steps, {per_step:.2f} ms per step against a bound "
           f"of {bound:.2f} ms by {by} ({moved / 1e9:.2f} GB, "
           f"{work / 1e9:.1f} GFLOP), {per_step / bound:.2f}x; launches "
           f"{ops.launch_counts()}")
@@ -2807,6 +2830,514 @@ def phase_moe_dispatch(device, timer, cfg):
           f" GEMMs, not overlap)")
 
 
+# [moe-train]: DeepSeek-V2-Lite-16B at full width, cut to MOE_TRAIN_LAYERS of
+# its 27 layers: its parameters, gradients and AdamW's fp32 moments for two
+# paths at once must fit the card.  One warm-up step and MOE_TRAIN_STEPS
+# timed steps on each path, interleaved.
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
+# [encdec]: SeamlessM4T-v2-large whole; [vlm]: InternVL2-76B at full width,
+# cut to VLM_LAYERS of its 80 layers.  Each prefill is PREFILL_BATCH x
+# PREFILL_SEQ positions (InternVL2's: 256 patches and 256 text tokens);
+# then DecodeEngine answers DECODE_PROMPTS requests.
+ENCDEC_ARCH, VLM_ARCH, VLM_LAYERS = ("seamless-m4t-large-v2",
+                                     "internvl2-76b", 8)
+DECODE_PROMPTS, DECODE_PROMPT_LEN, DECODE_NEW, DECODE_CACHE = 4, 8, 16, 128
+
+
+def _hold_path_kernels(label, device, *, k1=None, k2=None, k3=None):
+    """Each kernel of a path against its plain version at the shapes the
+    path gives it, before the path's counted run: K1's step GEMM (rows, K)
+    @ a column shard of (K, N) on GROUP ranks and K3's chunk (m_c, K) of
+    each rank (the composer's), or K2's fold of a (M, K/g) panel into the
+    fp32 (M, N/g) accumulator (the 2D schedule's)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked_gemm import (
+        accumulate_matmul,
+        accumulate_route,
+        chunked_matmul,
+        route,
+    )
+    from repro_torch.kernels.dma_exchange import a2a_chunk_exchange
+    from repro_torch.parallel.sharding import TPGroup, shard_columns
+
+    randn = _randn_fn(device, 11)
+    bf16, held = torch.bfloat16, []
+    if k1:
+        rows, k, n = k1
+        x = randn(GROUP, rows, k, dtype=bf16)
+        w = shard_columns(randn(k, n, dtype=bf16, scale=k ** -0.5), GROUP)
+        got = chunked_matmul(x, w, block_m=rows, block_n=n // GROUP,
+                             block_k=k)
+        want = ref.matmul_ref(x, w)
+        _sync()
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+        held.append(f"K1 {GROUP}x{rows}x{k}x{n // GROUP} bf16 on "
+                    f"{route(x, w)}: max_abs_err {_max_err(got, want):.3e} "
+                    "(rtol = atol = 2e-2)")
+    if k3:
+        m_c, k = k3
+        x = randn(GROUP, GROUP * m_c, k, dtype=bf16)
+        chunks = x.reshape(GROUP, GROUP, m_c, k)[:, 1]
+        buf = torch.full((GROUP, GROUP, m_c, k), float("nan"), dtype=bf16,
+                         device=device)
+        got = a2a_chunk_exchange(
+            chunks, out=buf, streams=TPGroup(GROUP, device).copy_streams[1:])
+        _sync()
+        if not torch.equal(got, ref.a2a_chunk_exchange_ref(chunks)):
+            raise AssertionError(f"[{label}] K3 at {GROUP}x{m_c}x{k} is not "
+                                 "bit-equal to its plain version")
+        held.append(f"K3 {GROUP}x{m_c}x{k} bf16 on strided: bit-equal")
+    if k2:
+        m, k, n = k2
+        k_c = k // GROUP
+        c = randn(GROUP, m, n // GROUP, dtype=torch.float32)
+        panel = randn(GROUP, m, k_c, dtype=bf16)
+        w = shard_columns(randn(k, n, dtype=bf16, scale=k ** -0.5),
+                          GROUP)[:, :k_c]
+        want = ref.accumulate_matmul_ref(c.clone(), panel, w)
+        got = accumulate_matmul(c, panel, w)
+        _sync()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        held.append(f"K2 {GROUP}x{m}x{k_c}x{n // GROUP}, C f32, bf16 "
+                    f"operands, on {accumulate_route(c, panel, w)}: "
+                    f"max_abs_err {_max_err(got, want):.3e} (rtol = atol = "
+                    "1e-4)")
+    print(f"[{label}] the path's kernels against their plain versions at "
+          "its shapes: " + "; ".join(held))
+
+
+def phase_moe_train(device):
+    """DeepSeek-V2-Lite-16B train steps at full width (2 of 27 layers) on
+    the 2D schedule and dense: two equal gradient computations bit for
+    bit, the MoE leaves finite and nonzero, the step-1 loss and gradient
+    norm against dense, K2's launches per step, walls beside the bound,
+    one profiled step.  Returns each kernel's launches in the last timed
+    2D step."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OverlapConfig, ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.sharding import TPGroup, tp_group
+    from repro_torch.train.loop import loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.tree import leaves, named_leaves
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS)
+
+    def model_for(**overlap):
+        return build_model(dataclasses.replace(
+            cfg, overlap=OverlapConfig(**overlap)))
+
+    model_2d = model_for(mode="uniform-fused-2d", backend="collective")
+    dense = model_for()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = dense.init(0, device=device)
+    n_params = sum(t.numel() for t in leaves(params))
+    n_bytes = _nbytes(*leaves(params))
+    e = cfg.moe
+    print(f"[moe-train] {cfg.name} at full width (d {cfg.d_model}, "
+          f"{cfg.num_heads} heads, MLA, {e.num_experts} experts top-"
+          f"{e.top_k} + {e.num_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}), cut to {cfg.num_layers} of its "
+          f"{full.num_layers} layers: {n_params / 1e9:.3f}e9 parameters, "
+          f"{n_bytes / 1e9:.2f} GB {cfg.dtype}; remat {cfg.remat} (policy "
+          f"{cfg.remat_policy!r}); {TRAIN_BATCH}x{TRAIN_SEQ} SyntheticLM "
+          "tokens (seed 0), AdamW")
+    group = TPGroup(GROUP, device)
+    data = SyntheticLM(cfg, ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH,
+                                        "train"), seed=0)
+    batches = [to_device(data.batch_at(i), device)
+               for i in range(1 + MOE_TRAIN_STEPS)]
+
+    # (a) Two equal gradient computations on each path, bit for bit: a
+    # flipped rounding would move expert choices from step 2 on.
+    grads = {}
+    for label, model, grp in (("dense", dense, None),
+                              ("2D path", model_2d, group)):
+        runs = []
+        for _ in range(2):
+            with tp_group(grp):
+                _, _, g = loss_and_grads(model, params, batches[0])
+            runs.append(dict(named_leaves(g)))
+        _sync()
+        differ = [n for n in runs[0] if not torch.equal(runs[0][n],
+                                                        runs[1][n])]
+        print(f"[moe-train] {label}: two equal gradient computations, "
+              f"{len(runs[0]) - len(differ)} of {len(runs[0])} leaves "
+              f"bit-equal" + (f"; differ: {differ}" if differ else ""))
+        if [n for n in differ if "/ffn/" in n]:
+            raise AssertionError(f"[moe-train] {label}: the MoE leaves' "
+                                 f"gradients differ run to run: {differ}")
+        grads[label] = runs[0]
+        del runs
+    moe_leaves = [n for n in grads["dense"] if "/ffn/" in n]
+    worst = 0.0
+    for label, g in grads.items():
+        for name in moe_leaves:
+            for layer in range(cfg.num_layers):
+                t = g[name][layer]
+                if not torch.isfinite(t).all() or not t.abs().max().item():
+                    raise AssertionError(f"[moe-train] {label} {name} layer "
+                                         f"{layer}: not finite or zero")
+    for name in moe_leaves:
+        if name.endswith(("shared/w_up", "shared/w_gate")):
+            for layer in range(cfg.num_layers):
+                got = grads["2D path"][name][layer].float()
+                want = grads["dense"][name][layer].float()
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                worst = max(worst, err / scale)
+                if err > 5e-2 * scale:
+                    raise AssertionError(
+                        f"[moe-train] {name} layer {layer}: 2D-path "
+                        f"gradient differs from dense by {err:.3e} (max "
+                        f"|grad| {scale:.3e})")
+    print(f"[moe-train] all {len(moe_leaves)} MoE leaves ("
+          + ", ".join(n.split("/ffn/")[1] for n in moe_leaves)
+          + f") finite and nonzero in every layer on both paths; the shared"
+          f" experts' w_up / w_gate, 2D path vs dense, max |diff| / max "
+          f"|grad| per layer {worst:.3e} (limit 5e-2)")
+    del grads
+
+    try:
+        with tp_group(group):
+            loss_and_grads(model_for(mode="uniform-fused-1d", backend="dma"),
+                           params, batches[0])
+    except RuntimeError as err:
+        if "reverse-mode" not in str(err):
+            raise
+        print(f"[moe-train] DMA backend under grad raises: {err}")
+    else:
+        raise AssertionError("[moe-train] the DMA backend did not refuse to "
+                             "be differentiated")
+
+    # (b) Train steps, interleaved.  K2 runs per layer, per shared-expert
+    # up and gate projection, per step of the 2D schedule; the backward
+    # recomputes every period's forward (remat), so twice.
+    ocfg = OptimizerConfig(warmup_steps=2)
+    per_step = cfg.num_layers * 2 * GROUP * (2 if cfg.remat else 1)
+    paths = {"2D path": (make_train_step(model_2d, ocfg), group,
+                         {"accumulate_matmul": per_step}),
+             "dense": (make_train_step(dense, ocfg), None, {})}
+    _hold_path_kernels("moe-train", device, k2=(
+        TRAIN_BATCH * TRAIN_SEQ, cfg.d_model,
+        e.d_ff_expert * e.num_shared_experts))
+    states = dict.fromkeys(paths, {"params": params,
+                                   "opt_state": init_state(params)})
+    walls = {label: [] for label in paths}
+    metrics = {label: [] for label in paths}
+    for i, batch in enumerate(batches):
+        for label, (step, grp, expected) in paths.items():
+            _sync()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with tp_group(grp):
+                states[label], m = step(states[label], batch)
+            _sync()
+            walls[label].append((time.perf_counter() - t0) * 1e3)
+            counts, routes = _check_launches("moe-train",
+                                             f"{label} step {i + 1}",
+                                             expected)
+            if label == "2D path":
+                train_counts, train_routes = counts, routes
+            metrics[label].append({k: float(v) for k, v in m.items()})
+            if not all(map(math.isfinite, metrics[label][-1].values())):
+                raise AssertionError(f"[moe-train] {label} step {i + 1}: "
+                                     f"metrics {metrics[label][-1]}")
+    first_2d, first_dense = metrics["2D path"][0], metrics["dense"][0]
+    for key, limit in (("loss", 1e-2), ("grad_norm", 5e-2)):
+        diff = abs(first_2d[key] - first_dense[key])
+        print(f"[moe-train] step 1 {key}: 2D path {first_2d[key]:.6f}, "
+              f"dense {first_dense[key]:.6f} (relative diff "
+              f"{diff / abs(first_dense[key]):.3e}, limit {limit})")
+        if diff > limit * abs(first_dense[key]):
+            raise AssertionError(f"[moe-train] step 1 {key} of the 2D path "
+                                 "differs from dense")
+    tokens_n = TRAIN_BATCH * TRAIN_SEQ
+    for label in paths:
+        timed = walls[label][1:]
+        med = statistics.median(timed)
+        print(f"[moe-train] {label}: step wall median {med:.2f} ms over "
+              f"{len(timed)} steps (min {min(timed):.2f}, max "
+              f"{max(timed):.2f}; warm-up {walls[label][0]:.2f}), "
+              f"{tokens_n / med * 1e3:.0f} tok/s; loss "
+              + " -> ".join(f"{m['loss']:.4f}" for m in metrics[label])
+              + " (aux " + ", ".join(f"{m['aux']:.4f}"
+                                     for m in metrics[label]) + ")")
+    print(f"[moe-train] launches in the last timed 2D step: {train_counts} "
+          f"by route {train_routes} (K2: {cfg.num_layers} layers x 2 shared-"
+          f"expert projections x {GROUP} steps x 2, the forward and its "
+          f"recomputation; n_local {e.d_ff_expert * e.num_shared_experts // GROUP}"
+          f", which 128 does not divide: wgmma with masked edges); peak "
+          f"memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+
+    def one_2d_step():
+        with tp_group(group):
+            paths["2D path"][0](states["2D path"], batches[0])
+
+    busy = phase_trace("DeepSeek 2D-path train step", one_2d_step)["busy_ms"]
+    wall = statistics.median(walls["2D path"][1:])
+    # The bound: the forward's operations three times over (forward and
+    # backward; the recomputation not counted), the routed experts at
+    # capacity; the bytes that must move are the parameters and AdamW's
+    # moments, each read once and written once.
+    fwd = _moe_work(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ / 2)
+    ops_n = 3 * sum(fwd.values())
+    moments = leaves(states["2D path"]["opt_state"]["m"])
+    moved = 2 * n_bytes + 2 * 2 * _nbytes(*moments)
+    bound, by = _bound(ops_n, moved, torch.bfloat16)
+    # The parameters a token reaches: MLA, the shared experts, the router
+    # and the unembedding (from the forward's parts), and top-k routed
+    # experts.
+    active = sum(fwd[k] for k in ("MLA projections", "shared experts",
+                                  "router", "unembedding")) / (2 * tokens_n)
+    active += cfg.num_layers * 3 * e.top_k * cfg.d_model * e.d_ff_expert
+    print(f"[moe-train] bound {bound:.2f} ms by {by}: {ops_n / 1e12:.2f} "
+          f"TFLOP (3 x the forward's {sum(fwd.values()) / 1e12:.3f}: "
+          + ", ".join(f"{k} {v / 1e12:.3f}" for k, v in fwd.items())
+          + f"; 6 x {active / 1e6:.0f}e6 active parameters x {tokens_n} "
+          f"tokens = {6 * active * tokens_n / 1e12:.2f}), "
+          f"{ops_n / PEAK_BF16_FLOPS * 1e3:.2f} ms at the bf16 peak; "
+          f"{moved / 1e9:.2f} GB (parameters and fp32 moments read and "
+          f"written), {moved / PEAK_BYTES * 1e3:.2f} ms; the 2D step's wall "
+          f"median {wall:.2f} ms is {wall / bound:.1f}x the bound; device "
+          f"busy {busy:.2f} ms (profiled) over it: idle share "
+          f"{1 - busy / wall:.3f}; on {_card()}")
+    del states, params
+    print(f"[moe-train] phase total {time.time() - t_phase:.1f}s")
+    return train_counts
+
+
+def _frontend_work(cfg, batch: int, s_text: int, s_prefix: int = 0,
+                   s_enc: int = 0) -> dict:
+    """Operations of one forward of a dense-attention model with the stub
+    frontends, by part: the decoder over s_prefix + s_text positions per
+    row (causal attention to s/2 positions on average), the encoder's
+    bidirectional layers over s_enc frames and the decoder's
+    cross-attention to them, the projector of the patches, the
+    unembedding of the text."""
+    d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    s = s_prefix + s_text
+    t, t_enc = batch * s, batch * s_enc
+    proj = 2 * d * h * hd + 2 * d * kv * hd  # q and o, k and v
+    mlp = 3 * d * cfg.d_ff
+    n = cfg.num_layers
+    work = {
+        "decoder projections": n * 2 * t * proj,
+        "decoder MLPs": n * 2 * t * mlp,
+        "decoder attention": n * 4 * t * (s / 2) * h * hd,
+    }
+    if s_enc:
+        work["encoder"] = cfg.encdec.encoder_layers * (
+            2 * t_enc * (proj + mlp) + 4 * t_enc * s_enc * h * hd)
+        work["cross-attention"] = n * (2 * t * 2 * d * h * hd
+                                       + 2 * t_enc * 2 * d * kv * hd
+                                       + 4 * t * s_enc * h * hd)
+    if s_prefix and cfg.frontend.embed_dim:
+        work["projector"] = 2 * batch * s_prefix * cfg.frontend.embed_dim * d
+    work["unembedding"] = 2 * batch * s_text * d * cfg.vocab_size
+    return work
+
+
+def phase_frontend(device, label, arch, num_layers=None):
+    """[encdec] / [vlm]: a 4 x 512 prefill dense and on the DMA path (K3 +
+    K1 in every MLP, the encoder's too) through ``make_prefill``, the
+    logits against dense, walls beside the bound with one profiled run
+    each; the cached decode against the forward; ``DecodeEngine``.
+    Returns each kernel's launches in one DMA-path prefill."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OverlapConfig, ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.sharding import TPGroup, tp_group
+    from repro_torch.serve.engine import make_prefill
+    from repro_torch.tree import leaves
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(arch)
+    cfg = dataclasses.replace(
+        full, num_layers=num_layers or full.num_layers,
+        overlap=OverlapConfig(mode="ficco_auto", backend="dma"))
+    model = build_model(cfg)
+    t0 = time.time()
+    state = model.init(0, device=device)
+    _sync()
+    n_params = sum(t.numel() for t in leaves(state))
+    n_bytes = _nbytes(*leaves(state))
+    cut = (f"cut to {cfg.num_layers} of its {full.num_layers} layers"
+           if cfg.num_layers != full.num_layers else "nothing cut")
+    enc = (f", encoder {cfg.encdec.encoder_layers} layers"
+           if cfg.encdec else "")
+    front = (f", {cfg.frontend.prefix_tokens} prefix patches through the "
+             f"{cfg.frontend.embed_dim} -> {cfg.d_model} projector"
+             if cfg.frontend and cfg.frontend.embed_dim else "")
+    print(f"[{label}] {cfg.name} ({cut}): {cfg.num_layers} decoder layers"
+          f"{enc}, d {cfg.d_model}, {cfg.num_heads} heads / "
+          f"{cfg.num_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.norm}{front}; {n_params / 1e9:.3f}e9 parameters, "
+          f"{n_bytes / 1e9:.2f} GB {cfg.dtype}, random (seed 0) in "
+          f"{time.time() - t0:.1f}s")
+    shape = ShapeConfig("smoke", PREFILL_SEQ, PREFILL_BATCH, "prefill")
+    batch = to_device(SyntheticLM(cfg, shape, seed=0).batch_at(0), device)
+    s_text = batch["tokens"].shape[1]
+    s_prefix = batch["prefix_embeds"].shape[1] if "prefix_embeds" in batch \
+        else 0
+    s_enc = batch["enc_frames"].shape[1] if "enc_frames" in batch else 0
+    print(f"[{label}] batch (SyntheticLM, seed 0): "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()))
+    mlp_layers = cfg.num_layers + (cfg.encdec.encoder_layers
+                                   if cfg.encdec else 0)
+    per_path = mlp_layers * 2 * GROUP
+    rows = PREFILL_BATCH * PREFILL_SEQ // GROUP  # g * m_c
+    _hold_path_kernels(label, device, k1=(rows, cfg.d_model, cfg.d_ff),
+                       k3=(rows // GROUP, cfg.d_model))
+
+    prefill = make_prefill(model)
+    group = TPGroup(GROUP, device)
+    want_shape = (PREFILL_BATCH, s_text, cfg.vocab_size)
+    with torch.no_grad():
+        dense = prefill(state, batch)
+        ops.reset_launch_counts()
+        with tp_group(group):
+            dma = prefill(state, batch)
+        _sync()
+    counts, routes = _check_launches(label, "DMA-path prefill", {
+        "chunked_matmul": per_path, "a2a_chunk_exchange": per_path})
+    print(f"[{label}] DMA-path prefill: launches {counts} by route {routes} "
+          f"(K1 and K3 expected {per_path} each: {mlp_layers} MLPs x 2 "
+          f"projections x {GROUP} steps; n_local {cfg.d_ff // GROUP}, K "
+          f"{cfg.d_model})")
+    for name, lg in (("dense", dense), ("DMA path", dma)):
+        if tuple(lg.shape) != want_shape or not torch.isfinite(lg).all():
+            raise AssertionError(f"[{label}] {name} logits "
+                                 f"{tuple(lg.shape)} not finite or not "
+                                 f"{want_shape}")
+    scale = dense.float().abs().max().item()
+    err = _max_err(dma, dense)
+    agree = (dma.argmax(-1) == dense.argmax(-1)).float().mean().item()
+    print(f"[{label}] DMA-path logits vs dense: max_abs_err {err:.4e} (max "
+          f"|logit| {scale:.4f}, ratio {err / scale:.3e}), argmax agreement "
+          f"{agree:.4f}")
+    if err > 5e-2 * scale:
+        raise AssertionError(f"[{label}] DMA-path logits differ from dense "
+                             f"by {err} (> 5% of {scale})")
+    del dense, dma
+
+    def in_group():
+        with tp_group(group):
+            prefill(state, batch)
+
+    n_tok = PREFILL_BATCH * PREFILL_SEQ
+    walls = {}
+    with torch.no_grad():
+        for name, fn in [("DMA path", in_group),
+                         ("dense", lambda: prefill(state, batch))] * 2:
+            ms = wall_ms(fn, reps=3)
+            walls.setdefault(name, []).append(ms)
+            print(f"[{label}] prefill {PREFILL_BATCH}x{PREFILL_SEQ}, {name}:"
+                  f" {ms:.2f} ms wall ({n_tok / ms * 1e3:.0f} positions/s)")
+        busy = {"DMA path": phase_trace(f"{cfg.name} DMA-path prefill",
+                                        in_group)["busy_ms"],
+                "dense": phase_trace(f"{cfg.name} dense prefill",
+                                     lambda: prefill(state, batch))[
+                                         "busy_ms"]}
+    work = _frontend_work(cfg, PREFILL_BATCH, s_text, s_prefix, s_enc)
+    embed_bytes = _nbytes(state["embed"])
+    moved = (n_bytes - embed_bytes + _nbytes(*batch.values())
+             + math.prod(want_shape) * 2)
+    bound, by = _bound(sum(work.values()), moved, torch.bfloat16)
+    print(f"[{label}] prefill bound {bound:.2f} ms by {by} "
+          f"({sum(work.values()) / 1e12:.2f} TFLOP: "
+          + ", ".join(f"{k} {v / 1e12:.3f}" for k, v in work.items())
+          + f"; {moved / 1e9:.2f} GB); best wall over the bound: DMA path "
+          f"{min(walls['DMA path']) / bound:.2f}x, dense "
+          f"{min(walls['dense']) / bound:.2f}x; device busy (profiled) DMA "
+          f"path {busy['DMA path']:.2f} ms, dense {busy['dense']:.2f} ms")
+
+    # The cached decode against the forward over the same tokens (and
+    # frames): an encoder-decoder's cross K/V from prefill_cross.
+    raw = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (DECODE_PROMPTS, DECODE_PROMPT_LEN))
+    toks = torch.as_tensor(raw, device=device)
+    frames = batch["enc_frames"][:DECODE_PROMPTS] if s_enc else None
+    with torch.no_grad():
+        fwd = {"tokens": toks}
+        if s_enc:
+            fwd["enc_frames"] = frames
+        full_lg, _ = model.forward(state, fwd)
+        cache = model.init_cache(DECODE_PROMPTS, DECODE_CACHE,
+                                 enc_len=s_enc, device=device)
+        if s_enc:
+            cache = model.prefill_cross(state, cache, frames)
+        steps = []
+        for pos in range(DECODE_PROMPT_LEN):
+            lg, cache = model.decode_step(state, cache, toks[:, pos:pos + 1],
+                                          pos)
+            steps.append(lg)
+        decoded = torch.cat(steps, dim=1)
+    scale = full_lg.float().abs().max().item()
+    err = _max_err(decoded, full_lg)
+    cross = (f", cross K/V of {s_enc} frames from prefill_cross"
+             if s_enc else ", on text")
+    print(f"[{label}] cached decode vs forward over {DECODE_PROMPTS}x"
+          f"{DECODE_PROMPT_LEN} prompt tokens{cross}: max_abs_err "
+          f"{err:.4e} (max |logit| {scale:.4f}, ratio {err / scale:.3e})")
+    if not torch.isfinite(decoded).all() or err > 5e-2 * scale:
+        raise AssertionError(f"[{label}] decode logits differ from the "
+                             f"forward by {err}")
+    del cache, decoded, full_lg
+
+    _, out, dt, n_steps, first = _answer_requests(
+        label, cfg, state, device, raw, DECODE_NEW, DECODE_CACHE,
+        enc_len=s_enc, frames=frames)
+    total = sum(len(r.out) for r in out)
+    per_step = dt * 1e3 / n_steps
+    # A step reads the decoder's weights once (the embedding: 4 rows) and
+    # its caches; its operations are those of DECODE_PROMPTS tokens.
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    dec_bytes = (_nbytes(*leaves(state["layers"]), *leaves(
+        state["final_norm"])) + _nbytes(state.get("unembed",
+                                                  state["embed"])))
+    cache_bytes = cfg.num_layers * DECODE_PROMPTS * (DECODE_CACHE + s_enc) \
+        * kv * hd * 2 * 2
+    moved = dec_bytes + cache_bytes + DECODE_PROMPTS * cfg.d_model * 2
+    ctx = (DECODE_PROMPT_LEN + DECODE_NEW) / 2
+    flops = (2 * DECODE_PROMPTS * dec_bytes / 2 + cfg.num_layers * 4
+             * DECODE_PROMPTS * (ctx + s_enc) * cfg.num_heads * hd)
+    bound, by = _bound(flops, moved, torch.bfloat16)
+    print(f"[{label}] DecodeEngine: {DECODE_PROMPTS} requests x {DECODE_NEW}"
+          f" new tokens (prompt {DECODE_PROMPT_LEN}, cache {DECODE_CACHE}"
+          f"{f', enc_len {s_enc}' if s_enc else ''}): {total} tokens in "
+          f"{dt:.3f}s, {total / dt:.1f} tok/s (first run {first:.3f}s); "
+          f"{n_steps} steps, {per_step:.2f} ms per step against a bound"
+          f" of {bound:.3f} ms by {by} ({moved / 1e9:.3f} GB), "
+          f"{per_step / bound:.1f}x; on {_card()}")
+    print(f"[{label}] req0: {[int(t) for t in out[0].prompt]} -> {out[0].out}")
+    del state, batch
+    print(f"[{label}] phase total {time.time() - t_phase:.1f}s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2862,13 +3393,21 @@ def drive(device) -> int:
     # [moe] needs the card's memory: TinyLlama's state goes first.
     del model, state
     moe_counts = phase_moe(device, timer)
+    moe_train_counts = phase_moe_train(device)
+    encdec_counts = phase_frontend(device, "encdec", ENCDEC_ARCH)
+    vlm_counts = phase_frontend(device, "vlm", VLM_ARCH, VLM_LAYERS)
     for k in kernels:
         k["moe_prefill_launches"] = moe_counts[k["name"]]
+        k["moe_train_step_launches"] = moe_train_counts[k["name"]]
+        k["encdec_prefill_launches"] = encdec_counts[k["name"]]
+        k["vlm_prefill_launches"] = vlm_counts[k["name"]]
 
     print(f"[done] every phase passed ({', '.join(PHASES)}) in "
           f"{time.time() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "routes",
-            "train_step_launches", "moe_prefill_launches", "max_abs_err",
+            "train_step_launches", "moe_prefill_launches",
+            "moe_train_step_launches", "encdec_prefill_launches",
+            "vlm_prefill_launches", "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

@@ -2,8 +2,11 @@
 
 The reference's params are ``repro.models.model.Model.init(...)`` mapped
 to numpy (``jax.tree.map(np.asarray, params)``): ``params["layers"][j]``
-holds pattern slot j with every leaf stacked over periods on axis 0.  The
-port's state keeps that tree, so the conversion is leaf for leaf; only
+holds pattern slot j with every leaf stacked over periods on axis 0 (an
+encoder-decoder's ``encoder`` stacked over its layers, with ``enc_norm``
+and each decoder layer's ``norm_cross`` / ``cross``; a VLM's
+``frontend_proj``).  The port's state keeps that tree, so the conversion
+is leaf for leaf; only
 the device changes, and each leaf takes the dtype the reference's
 ``Model.init`` gives it: the config's, except the leaves it keeps in fp32
 (the MoE router, :data:`repro_torch.models.moe.FP32_LEAVES`), as the

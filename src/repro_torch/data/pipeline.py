@@ -1,8 +1,10 @@
 """Synthetic deterministic data pipeline with host-side prefetch.
 
 Port of ``repro.data.pipeline``.  :class:`SyntheticLM` draws the
-reference's batches with the same ``np.random.default_rng((seed, step))``
-calls, so batch ``step`` is bit-identical in both packages: training is
+reference's batches (tokens and labels, and the stub frontends' patch
+embeddings or encoder frames) with the same
+``np.random.default_rng((seed, step))`` calls, so batch ``step`` is
+bit-identical in both packages: training is
 reproducible and restartable from a checkpoint without a data state.
 :class:`Prefetcher` keeps ``depth`` batches on the device, moved by its
 own thread (pinned host memory and ``non_blocking`` copies on a CUDA
@@ -40,8 +42,14 @@ class SyntheticLM:
         base = rng.integers(0, v, (b, 1))
         steps = rng.integers(1, 3, (b, s))  # 1-bit transitions: learnable fast
         toks = (base + np.cumsum(steps, axis=1)) % v
-        tokens = toks.astype(np.int32)
-        return {"tokens": tokens, "labels": tokens}
+        out = {"tokens": toks.astype(np.int32)}
+        out["labels"] = out["tokens"]
+        # The stub frontends' extras, drawn after the tokens in the specs'
+        # order, as the reference draws them.
+        for name, sp in self.specs.items():
+            if name not in ("tokens", "labels"):
+                out[name] = rng.standard_normal(sp.shape).astype(np.float32)
+        return out
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         step = 0

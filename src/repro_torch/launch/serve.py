@@ -4,8 +4,11 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --prompts 4 --new-tokens 16 [--device cpu]
 
-``--arch`` takes the dense and MoE families (``deepseek-v2-lite-16b``,
-``arctic-480b``); the others raise until their slice is ported.
+``--arch`` takes the dense, MoE (``deepseek-v2-lite-16b``,
+``arctic-480b``), VLM (``internvl2-76b``, served on text) and audio
+families; the hybrid and SSM families raise until their slice is ported.
+An encoder-decoder (``seamless-m4t-large-v2``) first runs its encoder
+over 16 zero frames (``prefill_cross``), as the reference's launcher does.
 
 Port of ``repro.launch.serve``: the same flags and the same ``.reduced()``
 model, plus ``--device`` (default ``cuda``; with no CUDA device the
@@ -87,6 +90,7 @@ def main(argv=None):
         )
     model = build_model(cfg)
     state = model.init(0, device=device)
+    enc_len = 16 if cfg.encdec else 0
     tier = None
     if args.adapt:
         from repro_torch.serve.adapt import AdaptConfig, AdaptiveTier
@@ -103,8 +107,13 @@ def main(argv=None):
         ).start()
     eng = DecodeEngine(
         cfg, state, batch_size=args.prompts, cache_len=args.cache_len,
-        device=device, adapt=tier,
+        enc_len=enc_len, device=device, adapt=tier,
     )
+    if cfg.encdec:
+        frames = torch.zeros((args.prompts, enc_len, cfg.d_model),
+                             device=device)
+        with torch.no_grad():
+            eng.cache = model.prefill_cross(state, eng.cache, frames)
     rng = np.random.default_rng(0)
     reqs = [
         Request(

@@ -1,12 +1,13 @@
 """Input specs of a training batch: shapes and dtypes, no data.
 
-Port of ``repro.launch.specs`` for the dense family: ``train_specs``
-describes what the data pipeline delivers for one train shape, as
-:class:`Spec` records in place of ``jax.ShapeDtypeStruct``.  The stub
-modality frontends (a VLM's ``prefix_embeds``, an encoder-decoder's
-``enc_frames``) and the non-dense families raise ``NotImplementedError``
-until their models are ported (ROADMAP A5, A7); ``decode_specs``,
-``input_specs`` and ``concrete_batch`` come with the tooling (ROADMAP A8).
+Port of ``repro.launch.specs``' ``train_specs``: what the data pipeline
+delivers for one train shape, as :class:`Spec` records in place of
+``jax.ShapeDtypeStruct``: {tokens, labels}, with ``prefix_embeds`` for a
+VLM and ``enc_frames`` for the audio encoder-decoder (the stubbed
+modality frontends).  The hybrid and SSM families raise
+``NotImplementedError`` until their models are ported (ROADMAP queue A,
+item 7); ``decode_specs``, ``input_specs`` and ``concrete_batch`` come
+with the tooling (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -38,23 +39,28 @@ def encoder_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
 
 
 def train_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
-    """{tokens, labels}: (global_batch, seq_len) int32 each."""
-    if cfg.family is not Family.DENSE or cfg.moe or cfg.mla or (
-        cfg.encdec is not None or cfg.frontend is not None
-    ):
-        item = (
-            "A11: MoE training" if cfg.family is Family.MOE or cfg.moe
-            else "queue A, item 7"
-        )
+    """{prefix_embeds (VLM), enc_frames (audio), tokens, labels}, in the
+    reference's order: the stub frontends' inputs in bf16, the tokens and
+    labels (global_batch, text length) int32.  A VLM's prefix takes
+    :func:`_frontend_len` of the sequence; the text the rest."""
+    if cfg.family in (Family.HYBRID, Family.SSM):
         raise NotImplementedError(
             f"{cfg.name}: training inputs of the {cfg.family.value} family "
-            f"are not ported yet (ROADMAP {item})"
+            "are not ported yet (ROADMAP queue A, item 7)"
         )
     b, s = shape.global_batch, shape.seq_len
-    return {
-        "tokens": Spec((b, s), torch.int32),
-        "labels": Spec((b, s), torch.int32),
-    }
+    specs: dict[str, Spec] = {}
+    if cfg.family is Family.VLM:
+        p = _frontend_len(cfg, s)
+        specs["prefix_embeds"] = Spec(
+            (b, p, cfg.frontend.embed_dim or cfg.d_model), torch.bfloat16)
+        s -= p
+    if cfg.encdec:
+        specs["enc_frames"] = Spec((b, encoder_len(cfg, shape), cfg.d_model),
+                                   torch.bfloat16)
+    specs["tokens"] = Spec((b, s), torch.int32)
+    specs["labels"] = Spec((b, s), torch.int32)
+    return specs
 
 
 __all__ = ["Spec", "encoder_len", "train_specs"]

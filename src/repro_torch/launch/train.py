@@ -5,7 +5,9 @@ Usage:
       --steps 200 [--overlap-mode ficco_auto] [--ckpt-dir DIR] [--device cpu]
 
 Port of ``repro.launch.train``: the same flags and the same ``.reduced()``
-model (``--full-size`` for the full one), plus ``--device`` (default
+model (``--full-size`` for the full one) of the dense, MoE
+(``deepseek-v2-lite-16b``, ``arctic-480b``), VLM and audio families,
+plus ``--device`` (default
 ``cuda``; with no CUDA device the launcher raises unless ``--device cpu``
 is given).  The reference's ``--dry-run`` delegates to its dry-run
 launcher, which comes with the tooling (ROADMAP A8).  As in the reference,

@@ -1,6 +1,6 @@
 """Shared neural layers: norms, RoPE, GQA attention, MLPs.
 
-Port of ``repro.models.layers`` (dense parts).  Layers are plain tensor
+Port of ``repro.models.layers``.  Layers are plain tensor
 functions over parameter dicts, with the reference's layouts: activations
 (B, S, d), attention heads (B, S, H, D), weights (in, out).  Norms, RoPE,
 attention scores and softmax compute in fp32 as the reference does, and
@@ -236,16 +236,28 @@ def attn_apply(
     rope_theta: float,
     positions: torch.Tensor,
     window: Optional[int] = None,
+    causal: bool = True,
+    kv_for_cross: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Prefill attention (causal self-attention).  x: (B, S, d)."""
+    """Training/prefill attention.  x: (B, S, d).
+
+    Self-attention with RoPE: causal in a decoder, bidirectional with
+    ``causal=False`` (the encoder's, as the reference's ``_layer_apply``
+    writes it).  With ``kv_for_cross`` (B, S_enc, d), the keys and values
+    come from the encoder's output: cross-attention, no RoPE, no mask.
+    """
     b, s, _ = x.shape
     h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    src = kv_for_cross if kv_for_cross is not None else x
     q = (x @ params["wq"]).view(b, s, h, hd)
-    k = (x @ params["wk"]).view(b, s, kv, hd)
-    v = (x @ params["wv"]).view(b, s, kv, hd)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
-    out = blockwise_attention(q, k, v, causal=True, window=window)
+    k = (src @ params["wk"]).view(b, src.shape[1], kv, hd)
+    v = (src @ params["wv"]).view(b, src.shape[1], kv, hd)
+    if kv_for_cross is None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+        out = blockwise_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = blockwise_attention(q, k, v, causal=False)
     return out.reshape(b, s, h * hd) @ params["wo"]
 
 

@@ -1,20 +1,28 @@
-"""Model assembly (dense and MoE families) — port of ``repro.models.model``.
+"""Model assembly (dense, MoE, VLM and audio families) — port of
+``repro.models.model``.
 
 A model is a stack of **periods**, the smallest repeating layer pattern
 (dense: one attention + MLP layer; MoE: ``every_k_layers`` layers, the
 last with an MoE FFN; attention is MLA where the config has one).  The
 state keeps the reference's parameter tree: ``state["layers"][j]`` holds
 pattern slot j with every leaf stacked over periods on dim 0, so
-:mod:`repro_torch.convert` maps the reference's params leaf for leaf.  The
-other families (hybrid, SSM, VLM, audio) raise ``NotImplementedError``
-until their slices land.
+:mod:`repro_torch.convert` maps the reference's params leaf for leaf.
+
+The audio family is an encoder-decoder: ``state["encoder"]`` holds the
+bidirectional encoder's layers stacked on dim 0 and ``enc_norm`` its final
+norm, and each decoder layer adds a cross-attention (``norm_cross``,
+``cross``) over the encoder's output.  The VLM family prepends the stub
+frontend's patch embeddings, projected by ``frontend_proj``, to the text.
+The hybrid and SSM families raise ``NotImplementedError`` until their
+slices land.
 
 Interface (used by serve/launch):
     model = build_model(config)
     state         = model.init(seed, device=...)
     logits, aux   = model.forward(state, batch)
     loss, parts   = model.loss(state, batch)
-    cache         = model.init_cache(batch, cache_len, device=...)
+    cache         = model.init_cache(batch, cache_len, enc_len=..., device=...)
+    cache         = model.prefill_cross(state, cache, enc_frames)  # enc-dec
     logits, cache = model.decode_step(state, cache, tokens, pos)
 """
 
@@ -42,9 +50,13 @@ class LayerSpec:
     ffn: str  # mlp | moe
 
 
+# The encoder's one layer kind: bidirectional attention and an MLP.
+_ENC_SPEC = LayerSpec("attn", "mlp")
+
+
 def layer_pattern(cfg: ModelConfig) -> list[LayerSpec]:
     """The repeating period of layer kinds for this architecture."""
-    if cfg.family not in (Family.DENSE, Family.MOE):
+    if cfg.family in (Family.HYBRID, Family.SSM):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family.value} family is not ported yet "
             "(ROADMAP queue A, item 7)"
@@ -111,7 +123,8 @@ def _put(stacked, tree, i: int) -> None:
         stacked[i].copy_(tree)
 
 
-def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, device):
+def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, device, *,
+                cross: bool = False):
     dt = _dtype(cfg)
     p: dict[str, Any] = {
         "norm1": layers.norm_init(cfg.d_model, cfg.norm, dt, device)
@@ -121,6 +134,9 @@ def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, device):
     else:
         p["attn"] = mla.mla_init(gen, cfg.d_model, cfg.num_heads, cfg.mla,
                                  dt, device)
+    if cross:
+        p["norm_cross"] = layers.norm_init(cfg.d_model, cfg.norm, dt, device)
+        p["cross"] = layers.attn_init(gen, _attn_dims(cfg), dt, device)
     p["norm2"] = layers.norm_init(cfg.d_model, cfg.norm, dt, device)
     if spec.ffn == "moe":
         p["ffn"] = moe.moe_init(gen, cfg.d_model, cfg.moe, dt, device)
@@ -129,18 +145,30 @@ def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, device):
     return p
 
 
-def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions):
-    """One layer.  Returns (x, aux): the MoE FFN's aux loss, or None."""
+def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions, *,
+                 enc_out=None, causal: bool = True):
+    """One layer.  Returns (x, aux): the MoE FFN's aux loss, or None.
+
+    ``causal=False`` is the encoder's bidirectional self-attention (no
+    window); ``enc_out`` adds the decoder's cross-attention over it.
+    """
     h = layers.apply_norm(p["norm1"], x, cfg.norm)
     if spec.mixer == "attn":
         y = layers.attn_apply(
             p["attn"], h, _attn_dims(cfg), rope_theta=cfg.rope_theta,
-            positions=positions, window=_window(cfg),
+            positions=positions, window=_window(cfg) if causal else None,
+            causal=causal,
         )
     else:
         y = mla.mla_apply(p["attn"], h, cfg.num_heads, cfg.mla,
                           positions=positions, window=_window(cfg))
     x = x + y
+    if enc_out is not None:
+        h = layers.apply_norm(p["norm_cross"], x, cfg.norm)
+        x = x + layers.attn_apply(
+            p["cross"], h, _attn_dims(cfg), rope_theta=cfg.rope_theta,
+            positions=positions, kv_for_cross=enc_out,
+        )
     h = layers.apply_norm(p["norm2"], x, cfg.norm)
     if spec.ffn == "moe":
         y, aux = moe.moe_apply(p["ffn"], h, cfg.moe)
@@ -148,24 +176,32 @@ def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions):
     return x + layers.mlp_apply(p["ffn"], h), None
 
 
-def _period_apply(period, pattern, cfg: ModelConfig, x, positions):
+def _period_apply(period, pattern, cfg: ModelConfig, x, positions,
+                  enc_out=None):
     """The layers of one period (period[j] holds slot j's parameters).
     Returns (x, the period's summed aux loss or None)."""
     aux = None
     for p, spec in zip(period, pattern):
-        x, a = _layer_apply(p, spec, cfg, x, positions)
+        x, a = _layer_apply(p, spec, cfg, x, positions, enc_out=enc_out)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
 
 
 def _remat_period(period, pattern, cfg: ModelConfig, x, positions,
-                  overlap, group):
+                  enc_out, overlap, group):
     """A period under recomputation.  The backward reruns it after the
     forward's overlap context and TP group have been left, so it enters
     the ones the forward ran in."""
     with overlap_context(overlap), tp_group(group):
-        return _period_apply(period, pattern, cfg, x, positions)
+        return _period_apply(period, pattern, cfg, x, positions, enc_out)
+
+
+def _remat_enc_layer(p, cfg: ModelConfig, x, positions, overlap, group):
+    """An encoder layer under recomputation (as :func:`_remat_period`)."""
+    with overlap_context(overlap), tp_group(group):
+        return _layer_apply(p, _ENC_SPEC, cfg, x, positions,
+                            causal=False)[0]
 
 
 # The matmul family of aten ops: what ``remat_policy="dots"`` saves, as the
@@ -227,6 +263,16 @@ def _layer_decode(p, spec: LayerSpec, cfg: ModelConfig, x, cache, pos: int):
         y, cache = mla.mla_decode(p["attn"], h, cache, pos, cfg.num_heads,
                                   cfg.mla)
     x = x + y
+    if "cross_k" in cache:  # the encoder-decoder's cross-attention
+        h = layers.apply_norm(p["norm_cross"], x, cfg.norm)
+        dims = _attn_dims(cfg)
+        b = x.shape[0]
+        q = (h @ p["cross"]["wq"]).view(b, 1, dims.num_heads, dims.head_dim)
+        out = layers.cache_attention(
+            q, cache["cross_k"], cache["cross_v"],
+            valid_len=cache["cross_k"].shape[1], ring=True,
+        )
+        x = x + out.reshape(b, 1, -1) @ p["cross"]["wo"]
     h = layers.apply_norm(p["norm2"], x, cfg.norm)
     if spec.ffn == "moe":
         y, _ = moe.moe_apply(p["ffn"], h, cfg.moe)
@@ -236,16 +282,13 @@ def _layer_decode(p, spec: LayerSpec, cfg: ModelConfig, x, cache, pos: int):
 
 
 class Model:
-    """Decoder LM (dense and MoE families)."""
+    """Decoder LM (dense, MoE and VLM families) with an optional encoder
+    (the audio encoder-decoder)."""
 
     def __init__(self, config: ModelConfig):
         self.config = config
         self.pattern = layer_pattern(config)
-        if config.encdec is not None or config.frontend is not None:
-            raise NotImplementedError(
-                f"{config.name}: encoder/frontend models are not ported yet "
-                "(ROADMAP queue A, item 7)"
-            )
+        self.is_encdec = config.encdec is not None
         if config.num_layers % len(self.pattern):
             raise ValueError(
                 f"{config.name}: {config.num_layers} layers not divisible "
@@ -275,30 +318,65 @@ class Model:
             ).to(dt),
             "final_norm": layers.norm_init(cfg.d_model, cfg.norm, dt, dev),
         }
-        stacked = None
-        for i in range(self.n_periods):
-            period = [_layer_init(gen, spec, cfg, dev)
-                      for spec in self.pattern]
-            if stacked is None:
-                stacked = _stacked_like(period, self.n_periods)
-            _put(stacked, period, i)
-            del period
-        state["layers"] = stacked
+        state["layers"] = _init_stack(
+            lambda: [_layer_init(gen, spec, cfg, dev, cross=self.is_encdec)
+                     for spec in self.pattern], self.n_periods)
         if not cfg.tie_embeddings:
             state["unembed"] = (
                 torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
                             device=dev) * std
             ).to(dt)
+        if self.is_encdec:
+            state["encoder"] = _init_stack(
+                lambda: _layer_init(gen, _ENC_SPEC, cfg, dev),
+                cfg.encdec.encoder_layers)
+            state["enc_norm"] = layers.norm_init(cfg.d_model, cfg.norm, dt,
+                                                 dev)
+        if cfg.frontend and cfg.frontend.embed_dim:
+            state["frontend_proj"] = layers.dense_init(
+                gen, cfg.frontend.embed_dim, cfg.d_model, dt, dev)
         return state
 
     # ---- forward ----------------------------------------------------------
+    def _encode(self, state, enc_frames):
+        """The encoder over (B, S_enc, d) frames -> its normed output.
+
+        Under ``remat`` each layer is recomputed in the backward, as the
+        reference's ``jax.checkpoint`` around its layer (which saves
+        nothing, whatever the config's policy)."""
+        cfg = self.config
+        x = enc_frames.to(_dtype(cfg))
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        remat = self._remat is not None and torch.is_grad_enabled()
+        ctx = (get_overlap(), active_group()) if remat else ()
+        for p in _unstack(state["encoder"], cfg.encdec.encoder_layers):
+            if remat:
+                x = tcp.checkpoint(
+                    _remat_enc_layer, p, cfg, x, positions, *ctx,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, _ = _layer_apply(p, _ENC_SPEC, cfg, x, positions,
+                                    causal=False)
+        return layers.apply_norm(state["enc_norm"], x, cfg.norm)
+
     def forward(self, state, batch: dict):
-        """batch keys: tokens (B, S).  Returns (logits, aux_loss): aux is
+        """batch keys: tokens (B, S); with the stub frontends also
+        prefix_embeds (B, P, embed_dim) (VLM) or enc_frames (B, S_enc, d)
+        (audio).  Returns (logits over the text tokens, aux_loss): aux is
         the MoE layers' summed load-balance and z losses (0 without)."""
         cfg = self.config
         tokens = batch["tokens"]
         x = state["embed"][tokens].to(_dtype(cfg))
-        b, s = tokens.shape
+        enc_out = (self._encode(state, batch["enc_frames"])
+                   if self.is_encdec else None)
+        prefix = cfg.frontend is not None and "prefix_embeds" in batch
+        if prefix:
+            pe = batch["prefix_embeds"].to(_dtype(cfg))
+            if "frontend_proj" in state:
+                pe = pe @ state["frontend_proj"]
+            x = torch.cat([pe, x], dim=1)
+        b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         slots = [_unstack(slot, self.n_periods) for slot in state["layers"]]
         remat = self._remat is not None and torch.is_grad_enabled()
@@ -312,13 +390,16 @@ class Model:
             if remat:
                 x, a = tcp.checkpoint(
                     _remat_period, period, self.pattern, cfg, x, positions,
-                    *ctx, use_reentrant=False, preserve_rng_state=False,
-                    **self._remat)
+                    enc_out, *ctx, use_reentrant=False,
+                    preserve_rng_state=False, **self._remat)
             else:
-                x, a = _period_apply(period, self.pattern, cfg, x, positions)
+                x, a = _period_apply(period, self.pattern, cfg, x, positions,
+                                     enc_out)
             if a is not None:
                 aux = aux + a
         x = layers.apply_norm(state["final_norm"], x, cfg.norm)
+        if prefix:
+            x = x[:, -tokens.shape[1]:]  # logits over the text segment
         return self._unembed(state, x), aux
 
     def _unembed(self, state, x):
@@ -350,15 +431,47 @@ class Model:
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ---- decode ------------------------------------------------------------
-    def init_cache(self, batch: int, cache_len: int, *, device=None):
+    def init_cache(self, batch: int, cache_len: int, *, enc_len: int = 0,
+                   device=None):
         """One cache per pattern slot, stacked over periods: attention
-        keeps K and V, MLA its latent and shared rope key."""
+        keeps K and V, MLA its latent and shared rope key, and an
+        encoder-decoder's cross-attention the encoder's ``enc_len`` keys
+        and values (``cross_k``, ``cross_v``; zeros until
+        :meth:`prefill_cross`)."""
+        cfg = self.config
         dev = resolve_device(device)
-        return [
-            _layer_init_cache(spec, self.config, batch, cache_len, dev,
+        caches = [
+            _layer_init_cache(spec, cfg, batch, cache_len, dev,
                               (self.n_periods,))
             for spec in self.pattern
         ]
+        if self.is_encdec:
+            shape = (self.n_periods, batch, enc_len, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            for c in caches:
+                c["cross_k"] = torch.zeros(shape, dtype=_dtype(cfg),
+                                           device=dev)
+                c["cross_v"] = torch.zeros(shape, dtype=_dtype(cfg),
+                                           device=dev)
+        return caches
+
+    def prefill_cross(self, state, cache, enc_frames):
+        """Encoder-decoder: run the encoder over (B, S_enc, d) frames and
+        put each decoder layer's cross K and V of its output into the
+        cache (replacing ``cross_k`` / ``cross_v``, as the reference's
+        returned cache does).  Returns the cache."""
+        cfg = self.config
+        enc_out = self._encode(state, enc_frames)
+        dims = _attn_dims(cfg)
+        b, s_enc, _ = enc_out.shape
+        shape = (b, s_enc, dims.num_kv_heads, dims.head_dim)
+        for p, c in zip(state["layers"], cache):
+            for name, key in (("cross_k", "wk"), ("cross_v", "wv")):
+                w = p["cross"][key]
+                c[name] = torch.stack([
+                    (enc_out @ w[i]).view(shape) for i in range(self.n_periods)
+                ]).to(_dtype(cfg))
+        return cache
 
     def decode_step(self, state, cache, tokens, pos: int):
         """tokens: (B, 1) int; pos: position. -> (logits, cache).
@@ -375,6 +488,22 @@ class Model:
                 )
         x = layers.apply_norm(state["final_norm"], x, cfg.norm)
         return self._unembed(state, x), cache
+
+
+def _init_stack(init_one, n: int):
+    """``n`` trees from ``init_one()``, their leaves stacked on a new dim 0.
+
+    Each stacked leaf is allocated once and filled tree by tree, so at no
+    time does the device hold more than the stack and one tree's weights.
+    """
+    stacked = None
+    for i in range(n):
+        tree = init_one()
+        if stacked is None:
+            stacked = _stacked_like(tree, n)
+        _put(stacked, tree, i)
+        del tree
+    return stacked
 
 
 def build_model(config: ModelConfig) -> Model:

@@ -6,8 +6,8 @@ active (``tp_group``) and the ``dma`` backend, its TP MLPs run the
 copy-engine uniform-fused-1D path (for an MoE model: its shared experts'
 and dense residual FFN's).  ``make_serve_step`` is ONE new token against
 the model's cache (K and V per attention layer, the latent and the shared
-rope key per MLA layer); :class:`DecodeEngine` adds the minimal batch
-loop.
+rope key per MLA layer, and an encoder-decoder's cross K and V);
+:class:`DecodeEngine` adds the minimal batch loop.
 ``DecodeEngine.run`` reports the reference's ``serve/run`` and
 ``serve/step`` spans and ``serve/steps`` and ``serve/tokens`` counters
 (:mod:`repro_torch.obs`); its ``adapt=`` hook streams each batch's
@@ -43,7 +43,9 @@ def make_serve_step(model: Model) -> Callable:
 
 
 def make_prefill(model: Model) -> Callable:
-    """(state, batch) -> logits (B, S, V)."""
+    """(state, batch) -> logits (B, S, V) over the text tokens; the batch
+    carries the stub frontends' ``prefix_embeds`` or ``enc_frames`` where
+    the model takes them."""
 
     def prefill(state, batch):
         with overlap_context(model.config.overlap):
@@ -76,6 +78,7 @@ class DecodeEngine:
         *,
         batch_size: int = 4,
         cache_len: int = 128,
+        enc_len: int = 0,
         device=None,
         adapt=None,
     ):
@@ -85,8 +88,10 @@ class DecodeEngine:
         self.state = state
         self.batch = batch_size
         self.cache_len = cache_len
+        # An encoder-decoder's cross K/V hold enc_len encoder positions,
+        # filled by ``model.prefill_cross`` before run().
         self.cache = self.model.init_cache(
-            batch_size, cache_len, device=self.device
+            batch_size, cache_len, enc_len=enc_len, device=self.device
         )
         self.step_fn = make_serve_step(self.model)
         # Online-adaptation tier (repro_torch.serve.adapt.AdaptiveTier):

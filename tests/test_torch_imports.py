@@ -145,6 +145,39 @@ def _adaptive_tier():
     AdaptiveTier()
 
 
+def _seamless():
+    from repro_torch.configs import get_config
+
+    return get_config("seamless-m4t-large-v2").reduced()
+
+
+def _init_cache_enc_len():
+    from repro_torch.models.model import build_model
+
+    build_model(_seamless()).init_cache(2, 16, enc_len=4)
+
+
+def _decode_engine_enc_len():
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import DecodeEngine
+
+    cfg = _seamless()
+    DecodeEngine(cfg, build_model(cfg).init(0, device="cpu"), enc_len=4)
+
+
+def _launch_serve_encdec():
+    from repro_torch.launch.serve import main
+
+    main(["--arch", "seamless-m4t-large-v2", "--prompts", "1",
+          "--new-tokens", "1"])
+
+
+def _launch_train_moe():
+    from repro_torch.launch.train import main
+
+    main(["--arch", "deepseek-v2-lite-16b", "--steps", "1"])
+
+
 ENTRY_POINTS = {
     "Model.init": _model_init,
     "Model.init_cache": _init_cache,
@@ -160,6 +193,10 @@ ENTRY_POINTS = {
     "get_engine(\"torch\")": _torch_engine,
     "fit_machine": _fit_machine,
     "AdaptiveTier": _adaptive_tier,
+    "Model.init_cache(enc_len=)": _init_cache_enc_len,
+    "DecodeEngine(enc_len=)": _decode_engine_enc_len,
+    "launch.serve (encoder-decoder)": _launch_serve_encdec,
+    "launch.train (MoE)": _launch_train_moe,
 }
 
 
@@ -233,4 +270,12 @@ def test_import_check_covers_the_serving_tier():
     mods = set(_port_modules())
     for name in ("serve.adapt", "obs.sentinel", "parallel.decode_attn",
                  "serve.engine", "launch.serve"):
+        assert f"repro_torch.{name}" in mods, name
+
+
+def test_import_check_covers_the_encdec_and_moe_training_paths():
+    mods = set(_port_modules())
+    for name in ("models.model", "models.layers", "models.moe",
+                 "launch.specs", "data.pipeline", "serve.engine",
+                 "launch.serve", "launch.train", "train.loop", "convert"):
         assert f"repro_torch.{name}" in mods, name

@@ -1,4 +1,5 @@
-"""The MoE family and latent attention against the reference, on the CPU.
+"""The MoE family and latent attention against the reference, on the CPU,
+serving and training.
 
 The expert-parallel dispatch (``repro_torch.overlap.moe``) over a group of
 4 logical ranks is held against the reference's ``serial_a2a_ffn`` and
@@ -8,7 +9,13 @@ at the reference's 1e-5; the variants are bit-identical to each other.
 MLA and the MoE FFN are held against the reference's layers in this
 process at 1e-5, and the reduced DeepSeek-V2-Lite and Arctic models
 (weights carried across by ``params_from_jax``) at the model tolerance
-2e-3.  All in fp32, inputs from numpy seeds.
+2e-3.  Training (ROADMAP A11): the reduced models' loss and every
+gradient leaf against ``jax.value_and_grad`` of the reference's
+``model.loss``, and two AdamW steps against its jitted train step (the
+subprocess's ``moe_grad`` entry), from one state carried across by
+``convert``; the 2D path on 4 ranks against dense; the router fp32 in a
+bf16 step; the launcher.  All in fp32 unless said, inputs from numpy
+seeds.
 """
 
 import dataclasses
@@ -30,9 +37,9 @@ from repro.serve.engine import DecodeEngine as JaxDecodeEngine
 from repro.serve.engine import Request as JaxRequest
 from repro_torch.configs import get_config
 from repro_torch.configs.base import OverlapConfig
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import opt_state_from_jax, params_from_jax
 from repro_torch.core.workload import StepProfile
-from repro_torch.kernels import dma_exchange
+from repro_torch.kernels import dma_exchange, ops
 from repro_torch.models import mla, moe
 from repro_torch.models.model import build_model
 from repro_torch.overlap import (
@@ -43,6 +50,13 @@ from repro_torch.overlap import (
 from repro_torch.parallel.collectives import all_to_all
 from repro_torch.parallel.sharding import TPGroup, tp_group
 from repro_torch.serve.engine import DecodeEngine, Request, make_prefill
+from repro_torch.train import optimizer as opt
+from repro_torch.train.loop import (
+    init_train_state,
+    loss_and_grads,
+    make_train_step,
+)
+from repro_torch.tree import leaves
 from repro_torch.tune.variants import default_variant
 
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)  # the reference's layer tolerance
@@ -59,6 +73,11 @@ def _start_reference(tmp_path_factory):
 @pytest.fixture(scope="module")
 def dispatch_reference(tmp_path_factory):
     return jax_reference.reference(tmp_path_factory)["moe"]
+
+
+@pytest.fixture(scope="module")
+def grad_reference(tmp_path_factory):
+    return jax_reference.reference(tmp_path_factory, models=True)["moe_grad"]
 
 
 def _t(tree):
@@ -408,7 +427,143 @@ def test_launch_serve_runs_moe_on_cpu(arch, capsys):
     assert "decoded 4 tokens" in out and "on cpu" in out
 
 
+# ---------------------------------------------------------------------------
+# Training (ROADMAP A11)
+# ---------------------------------------------------------------------------
+
+def _tokens_batch(cfg, seed, shape=(2, 32)):
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, shape))
+    return {"tokens": tokens, "labels": tokens}
+
+
+def test_2d_train_step_on_four_ranks_matches_dense(monkeypatch):
+    """On uniform-fused-2d the shared experts' up and gate projections run
+    K2 on 4 ranks (2 layers x 2 projections x 4 steps); the step's metrics
+    and new state equal the dense step's at the model tolerance (AdamW's
+    normalisation lifts a gradient's last-place difference where the
+    gradient is near zero)."""
+    base = get_config(DEEPSEEK).reduced()
+    cfg_2d = dataclasses.replace(base, overlap=OverlapConfig(
+        mode="uniform-fused-2d", backend="collective"))
+    folds = []
+    orig = ops.matmul_accumulate
+    monkeypatch.setattr(ops, "matmul_accumulate",
+                        lambda c, x, w: folds.append(1) or orig(c, x, w))
+    state = init_train_state(build_model(base), 0, device="cpu")
+    batch = _tokens_batch(base, 8)
+    ocfg = opt.OptimizerConfig(**jax_reference.OCFG)
+    want, want_m = make_train_step(build_model(base), ocfg)(state, batch)
+    assert folds == []
+    with tp_group(TPGroup(4, "cpu")):
+        got, got_m = make_train_step(build_model(cfg_2d), ocfg)(state, batch)
+    assert len(folds) == 16
+    for k in want_m:
+        torch.testing.assert_close(got_m[k], want_m[k], **MODEL_TOL)
+    for a, b in zip(leaves(got), leaves(want)):
+        torch.testing.assert_close(a, b, **MODEL_TOL)
+
+
+def test_bf16_step_keeps_the_router_fp32():
+    """In a bf16 model the router stays fp32 through a step, with fp32
+    moments like every leaf's, and moves; the experts stay bf16."""
+    cfg = dataclasses.replace(get_config(DEEPSEEK).reduced(),
+                              dtype="bfloat16")
+    state = init_train_state(build_model(cfg), 0, device="cpu")
+    new, m = make_train_step(build_model(cfg), opt.OptimizerConfig(
+        **jax_reference.OCFG))(state, _tokens_batch(cfg, 9))
+    ffn, old = new["params"]["layers"][0]["ffn"], state["params"]["layers"][0]
+    assert ffn["router"].dtype == torch.float32
+    assert ffn["w_up"].dtype == torch.bfloat16
+    assert not torch.equal(ffn["router"], old["ffn"]["router"])
+    assert {t.dtype for t in leaves(new["opt_state"]["m"])} == {torch.float32}
+    assert all(map(np.isfinite, (m["loss"].item(), m["grad_norm"].item())))
+
+
+def test_accumulated_step_means_the_aux_loss():
+    """accum_steps=2 gives the mean of the two microbatches' aux losses,
+    losses and gradients, as the reference's scan sums them."""
+    cfg = get_config(ARCTIC).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    batch = _tokens_batch(cfg, 10, (4, 16))
+    loss, parts, grads = loss_and_grads(model, params, batch, accum_steps=2)
+    halves = [loss_and_grads(model, params,
+                             {k: v[i:i + 2] for k, v in batch.items()})
+              for i in (0, 2)]
+    assert parts["aux"].item() > 0
+    for got, want in ((loss, sum(h[0] for h in halves) / 2),
+                      (parts["aux"], sum(h[1]["aux"] for h in halves) / 2)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    for g, g0, g1 in zip(leaves(grads), *(leaves(h[2]) for h in halves)):
+        torch.testing.assert_close(g, (g0 + g1) / 2, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch,mode", [(DEEPSEEK, "uniform-fused-2d"),
+                                       (ARCTIC, "gspmd_serial")])
+def test_launch_train_runs_moe_on_cpu(arch, mode, monkeypatch, capsys):
+    """The launcher trains the reduced MoE models; ``--overlap-mode
+    uniform-fused-2d`` applies inside a caller's ``tp_group``, as for the
+    dense family: K2 on the shared experts (2 layers x 2 x 4 steps)."""
+    from repro_torch.launch.train import main
+
+    folds = []
+    orig = ops.matmul_accumulate
+    monkeypatch.setattr(ops, "matmul_accumulate",
+                        lambda c, x, w: folds.append(1) or orig(c, x, w))
+    with tp_group(TPGroup(4, "cpu")):
+        main(["--arch", arch, "--steps", "1", "--seq-len", "16", "--batch",
+              "2", "--overlap-mode", mode, "--device", "cpu"])
+    assert len(folds) == (16 if mode == "uniform-fused-2d" else 0)
+    assert "done: loss" in capsys.readouterr().out
+
+
 # Last, so the tests above run while the JAX subprocess computes these.
+@pytest.mark.parametrize("arch", [DEEPSEEK, ARCTIC])
+def test_grad_step_matches_reference(arch, grad_reference):
+    """Loss, its parts and every gradient leaf against ``jax.value_and_grad``
+    of the reference's loss; the aux loss reaches the router."""
+    r = grad_reference[arch]
+    cfg = get_config(arch).reduced()
+    params = params_from_jax(r["params"], cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in r["batches"][0].items()}
+    loss, parts, grads = loss_and_grads(build_model(cfg), params, batch)
+    for got, want in ((loss, r["loss"]), (parts["ce"], r["ce"]),
+                      (parts["aux"], r["aux"])):
+        np.testing.assert_allclose(got.item(), want, **MODEL_TOL)
+    got = leaves(grads)
+    assert len(got) == len(r["grads"])
+    for g, w in zip(got, r["grads"]):
+        np.testing.assert_allclose(g.numpy(), w, **MODEL_TOL)
+    assert grads["layers"][0]["ffn"]["router"].abs().sum() > 0
+
+
+@pytest.mark.parametrize("arch", [DEEPSEEK, ARCTIC])
+def test_train_steps_match_reference(arch, grad_reference):
+    """Two AdamW steps of ``make_train_step`` against the reference's
+    jitted step, both from its initial state (``convert``): each step's
+    metrics and every leaf of the last state."""
+    r = grad_reference[arch]
+    cfg = get_config(arch).reduced()
+    zeros = jax.tree.map(np.zeros_like, r["params"])  # init_train_state's
+    state = {"params": params_from_jax(r["params"], cfg, device="cpu"),
+             "opt_state": opt_state_from_jax(
+                 {"m": zeros, "v": zeros, "step": np.int32(0)}, cfg,
+                 device="cpu")}
+    step = make_train_step(build_model(cfg),
+                           opt.OptimizerConfig(**jax_reference.OCFG))
+    for b, want in zip(r["batches"], r["metrics"]):
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        for k in ("loss", "ce", "aux", "lr", "grad_norm"):
+            np.testing.assert_allclose(m[k].item(), want[k], **MODEL_TOL,
+                                       err_msg=k)
+    want = jax.tree.leaves(r["state"])
+    got = leaves(state)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **MODEL_TOL)
+
+
 @pytest.mark.parametrize("name", jax_reference.MOE_CASES)
 def test_a2a_ffn_matches_reference_shard_map(name, dispatch_reference):
     got = _port_case(name, *_operands())

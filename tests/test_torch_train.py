@@ -210,14 +210,19 @@ def test_train_specs_refuse_families_not_ported():
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])
-def test_train_specs_name_moe_training_item(arch):
-    """The MoE family serves (A5) but does not train yet: the refusal
-    names A11, not the done A5."""
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP A11: MoE training\)") as err:
-        train_specs(get_config(arch).reduced(),
-                    ShapeConfig("t", 32, 4, "train"))
-    assert "item 5" not in str(err.value)
+def test_train_specs_of_the_moe_family(arch):
+    """The MoE family trains (ROADMAP A11): {tokens, labels}, int32, of
+    the reference's shapes."""
+    from repro.launch.specs import train_specs as jax_train_specs
+
+    got = train_specs(get_config(arch).reduced(),
+                      ShapeConfig("t", 32, 4, "train"))
+    want = jax_train_specs(jax_get_config(arch).reduced(),
+                           JaxShapeConfig("t", 32, 4, "train"))
+    assert list(got) == list(want) == ["tokens", "labels"]
+    for name, spec in got.items():
+        assert spec.shape == tuple(want[name].shape) == (4, 32)
+        assert spec.dtype == torch.int32 and want[name].dtype == jnp.int32
 
 
 # ---- loss and train steps -------------------------------------------------

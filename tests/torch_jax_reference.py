@@ -8,7 +8,7 @@ process before importing the reference, and changes nothing under
 failing as before.
 
 Run as a script (``python tests/torch_jax_reference.py OUT.pkl
-ERR.txt``) it evaluates, with ``JAX_PLATFORMS=cpu``:
+MODELS.pkl ERR.txt``) it evaluates, with ``JAX_PLATFORMS=cpu``:
 
   * ``dense``: the uniform grid (every raw output) of ``DENSE`` on the
     first ``N_GRID_MACHINES`` of ``machine_grid()``, and ``d sum(valid
@@ -28,7 +28,21 @@ ERR.txt``) it evaluates, with ``JAX_PLATFORMS=cpu``:
   * ``decode_attn``: ``shard_map_attn_decode`` on a mesh of
     ``DECODE_ATTN["g"]`` devices on the ``model`` axis, at each of
     ``DECODE_ATTN_POS``, on the operands :func:`decode_attn_operands`
-    makes.
+    makes;
+  * ``moe_grad``: for each of ``MOE_TRAIN["archs"]`` (reduced, fp32), the
+    params, ``jax.value_and_grad`` of ``model.loss`` on ``SyntheticLM``'s
+    batch 0, and ``MOE_TRAIN["steps"]`` steps of the jitted train step
+    (``OCFG``) from ``init_train_state``: each step's metrics and the
+    last step's state;
+  * ``encdec``: for each of ``ENCDEC["archs"]`` (reduced, fp32), the
+    params, batch 0, the forward's logits and aux, the loss and its
+    gradients, and ``ENCDEC["decode"]`` cached decode steps over the
+    batch's first tokens (an encoder-decoder's cross K/V filled by
+    ``prefill_cross`` from the batch's frames; a VLM's on text).
+
+The first eight entries go to ``OUT.pkl``; ``moe_grad`` and ``encdec``
+(the whole models, the slower half) follow in ``MODELS.pkl``, so a test
+that reads only the first never waits for the second.
 
 The script runs with ``MOE["g"]`` forced host devices
 (``--xla_force_host_platform_device_count``); the other entries run on
@@ -40,6 +54,7 @@ session's shared temporary directory), in the background: the port's
 own tests run meanwhile.  :func:`reference` waits for its pickle.
 """
 
+import atexit
 import fcntl
 import os
 import pickle
@@ -86,6 +101,14 @@ ADAPT_UNIFORM = tuple((4096 * (i + 1), 8192, 8192, 2) for i in range(8))
 # first, a middle and the last of the g time shards.
 DECODE_ATTN = dict(g=4, b=2, s=1024, h=8, kv=2, d=16, seed=31)
 DECODE_ATTN_POS = (5, 600, 1023)
+# Training the MoE family, and the encoder-decoder and VLM paths: the
+# reduced configs at seq x batch, SyntheticLM(seed); the optimizer of
+# tests/test_torch_train.py.
+MOE_TRAIN = dict(archs=("deepseek-v2-lite-16b", "arctic-480b"), seq=32,
+                 batch=2, steps=2, seed=0)
+OCFG = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
+ENCDEC = dict(archs=("seamless-m4t-large-v2", "internvl2-76b"), seq=32,
+              batch=2, decode=8, cache=16, seed=0)
 
 
 class FakeClock:
@@ -182,15 +205,23 @@ def moe_operands():
     return x, w_up, w_down
 
 
-def main(out_path: str, err_path: str) -> None:
-    """Write the results to ``out_path`` (atomically), or the traceback
-    to ``err_path``."""
+def _write(path: str, obj) -> None:
+    """Pickle ``obj`` to ``path`` atomically."""
+    tmp = path + ".partial"
+    with open(tmp, "wb") as fh:
+        pickle.dump(obj, fh)
+    os.replace(tmp, path)
+
+
+def main(out_path: str, models_path: str, err_path: str) -> None:
+    """Write the first entries to ``out_path`` and the models' to
+    ``models_path`` (each atomically), or the traceback to ``err_path``."""
     try:
-        out = _evaluate()
-        tmp = out_path + ".partial"
-        with open(tmp, "wb") as fh:
-            pickle.dump(out, fh)
-        os.replace(tmp, out_path)
+        _write(out_path, _evaluate())
+        _write(models_path, {
+            "moe_grad": {a: _moe_grad(a) for a in MOE_TRAIN["archs"]},
+            "encdec": {a: _encdec(a) for a in ENCDEC["archs"]},
+        })
     except BaseException:
         with open(err_path, "w") as fh:
             fh.write(traceback.format_exc())
@@ -267,6 +298,81 @@ def _evaluate() -> dict:
     return out
 
 
+def _numpy(tree):
+    import jax
+
+    return jax.tree.map(np.asarray, tree)
+
+
+def _moe_grad(arch: str) -> dict:
+    import jax
+
+    from repro.configs import get_config
+    from repro.configs.base import ShapeConfig
+    from repro.data.pipeline import SyntheticLM
+    from repro.models.model import build_model
+    from repro.train import optimizer
+    from repro.train.loop import init_train_state, make_train_step
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    data = SyntheticLM(cfg, ShapeConfig("t", MOE_TRAIN["seq"],
+                                        MOE_TRAIN["batch"], "train"),
+                       seed=MOE_TRAIN["seed"])
+    batches = [data.batch_at(i) for i in range(MOE_TRAIN["steps"])]
+    state = init_train_state(model, jax.random.PRNGKey(0))
+    (loss, parts), grads = jax.jit(jax.value_and_grad(
+        model.loss, has_aux=True))(state["params"], batches[0])
+    step = jax.jit(make_train_step(model,
+                                   optimizer.OptimizerConfig(**OCFG)))
+    metrics, s = [], state
+    for b in batches:
+        s, m = step(s, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"params": _numpy(state["params"]), "batches": batches,
+            "loss": float(loss), "ce": float(parts["ce"]),
+            "aux": float(parts["aux"]),
+            "grads": [np.asarray(g) for g in jax.tree.leaves(grads)],
+            "state": _numpy(s), "metrics": metrics}
+
+
+def _encdec(arch: str) -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.configs.base import ShapeConfig
+    from repro.data.pipeline import SyntheticLM
+    from repro.models.model import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    batch = SyntheticLM(cfg, ShapeConfig("t", ENCDEC["seq"], ENCDEC["batch"],
+                                         "train"),
+                        seed=ENCDEC["seed"]).batch_at(0)
+    logits, aux = jax.jit(model.forward)(params, batch)
+    (loss, parts), grads = jax.jit(jax.value_and_grad(
+        model.loss, has_aux=True))(params, batch)
+    enc_len = batch["enc_frames"].shape[1] if cfg.encdec else 0
+    cache = model.init_cache(ENCDEC["batch"], ENCDEC["cache"],
+                             enc_len=enc_len)
+    if cfg.encdec:
+        cache = jax.jit(model.prefill_cross)(params, cache,
+                                             batch["enc_frames"])
+    step = jax.jit(model.decode_step)
+    decode = []
+    for pos in range(ENCDEC["decode"]):
+        lg, cache = step(params, cache, batch["tokens"][:, pos:pos + 1],
+                         jnp.int32(pos))
+        decode.append(np.asarray(lg))
+    return {"params": _numpy(params), "batch": batch,
+            "logits": np.asarray(logits), "aux": float(aux),
+            "loss": float(loss), "ce": float(parts["ce"]),
+            "grads": [np.asarray(g) for g in jax.tree.leaves(grads)],
+            "decode": np.concatenate(decode, axis=1)}
+
+
 def _decode_attn() -> dict:
     import jax
     import jax.numpy as jnp
@@ -328,19 +434,27 @@ def _moe_dispatch() -> dict:
 _LAUNCHED: list = []  # the subprocess this worker started, to be reaped
 
 
+def _reap() -> None:
+    """At the worker's exit, wait for the subprocess it started: another
+    worker may still be waiting for its second pickle."""
+    for proc in _LAUNCHED:
+        proc.wait(timeout=600)
+
+
 def _paths(tmp_path_factory):
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent  # shared by every worker of the session
     stem = root / "torch_jax_reference"
-    return (stem.with_suffix(".pkl"), stem.with_suffix(".err"),
-            stem.with_suffix(".lock"), stem.with_suffix(".started"))
+    return (stem.with_suffix(".pkl"), root / "torch_jax_reference-models.pkl",
+            stem.with_suffix(".err"), stem.with_suffix(".lock"),
+            stem.with_suffix(".started"))
 
 
 def start(tmp_path_factory) -> None:
     """Launch the script in the background, unless a worker of this
     session already has."""
-    out, err, lock, started = _paths(tmp_path_factory)
+    out, models, err, lock, started = _paths(tmp_path_factory)
     with open(lock, "w") as fh:
         fcntl.flock(fh, fcntl.LOCK_EX)
         if started.exists():
@@ -353,28 +467,30 @@ def start(tmp_path_factory) -> None:
         env["XLA_FLAGS"] = (
             f"--xla_force_host_platform_device_count={MOE['g']}")
         _LAUNCHED.append(subprocess.Popen(
-            [sys.executable, __file__, str(out), str(err)], env=env,
-            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+            [sys.executable, __file__, str(out), str(models), str(err)],
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
         ))
+        atexit.register(_reap)
 
 
-def reference(tmp_path_factory, timeout: float = 600.0) -> dict:
-    """The script's results (see the module docstring); raises with the
-    script's traceback if it failed."""
+def reference(tmp_path_factory, timeout: float = 600.0, *,
+              models: bool = False) -> dict:
+    """The script's first entries, or with ``models`` its ``moe_grad`` and
+    ``encdec`` (see the module docstring); raises with the script's
+    traceback if it failed."""
     start(tmp_path_factory)
-    out, err, _, _ = _paths(tmp_path_factory)
+    out, models_out, err, _, _ = _paths(tmp_path_factory)
+    path = models_out if models else out
     deadline = time.monotonic() + timeout
-    while not out.exists():
+    while not path.exists():
         if err.exists():
             raise RuntimeError(err.read_text()[-8000:])
         if time.monotonic() > deadline:
-            raise TimeoutError(f"{out} not written within {timeout} s")
+            raise TimeoutError(f"{path} not written within {timeout} s")
         time.sleep(0.1)
-    for proc in _LAUNCHED:
-        proc.wait(timeout=60)
-    with open(out, "rb") as fh:
+    with open(path, "rb") as fh:
         return pickle.load(fh)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    main(sys.argv[1], sys.argv[2], sys.argv[3])
