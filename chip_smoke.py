@@ -105,14 +105,25 @@ Phases, each of which exits non-zero on failure:
      each path, every MoE leaf finite and nonzero, the step-1 loss (1 %)
      and gradient norm (5 %) against dense, the DMA backend refused under
      grad; step walls beside the bound, peak memory, one profiled step;
- 13. the encoder-decoder and VLM paths (``[encdec]``, ``[vlm]``):
-     SeamlessM4T-v2-large whole and InternVL2-76B at full width cut to 8 of
-     its 80 layers, a 4 x 512 prefill (Seamless: 512 encoder frames;
-     InternVL2: 256 projected patches + 256 text tokens) dense and on the
-     DMA path (K3 + K1 in every MLP, the encoder's too), the logits
-     against dense (5 %), walls and busy time beside the bound; the cached
-     decode (Seamless: cross K/V from ``prefill_cross``) against the
-     forward (5 %), and ``DecodeEngine`` per step beside its byte bound;
+ 13. the encoder-decoder and VLM paths (``[encdec]``, ``[vlm]``) and the
+     hybrid and SSM families (``[hybrid]``, ``[ssm]``), each through
+     ``phase_model``: SeamlessM4T-v2-large whole, InternVL2-76B at full
+     width cut to 8 of its 80 layers, Jamba-1.5-Large at full width cut
+     to 4 of its 72 layers (one period of (Mamba, MLP), (Mamba, MoE),
+     (attention, MLP), (Mamba, MoE)) and xLSTM-1.3B whole, their
+     parameters beside ``repro_torch.roofline``'s count; a 4 x 512
+     prefill (Seamless: 512 encoder frames; InternVL2: 256 projected
+     patches + 256 text tokens) dense and on the DMA path (K3 + K1 in
+     every MLP, the encoder's too) against dense (5 %), or, for xLSTM,
+     which has no FiCCO site, a short prompt under the DMA context that
+     launches no kernel and equals dense bit for bit; walls and the
+     profiled busy time and idle share beside the counters' prefill
+     bound; the cached decode (Seamless: cross K/V from
+     ``prefill_cross``) against the forward (5 %; xLSTM's in fp32 at full
+     depth and in bf16 on one mLSTM and one sLSTM layer), and one
+     ``DecodeEngine`` answering the same requests twice with the same
+     tokens (each run starts from the initial recurrent state), per step
+     beside its byte bound;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -152,7 +163,7 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # What [done] counts: every phase the script prints, in order.
 PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
           "autotune", "serve", "adapt", "train", "grid", "fit", "gate",
-          "moe", "moe-train", "encdec", "vlm")
+          "moe", "moe-train", "encdec", "vlm", "hybrid", "ssm")
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -818,13 +829,14 @@ def phase_design(measured, auto):
     return {s.value: r.total for s, r in results.items()}
 
 
-def _dma_launches(variant, n_sites):
-    """K1 and K3 launches of ``n_sites`` DMA-path projections at the main
+def _dma_launches(variant, n_sites, n_local=D_FF // GROUP):
+    """K1 and K3 launches of ``n_sites`` DMA-path projections of
+    ``n_local`` columns per rank (the main path's by default) at the main
     path's shard on ``variant``, by the composer's rule: one exchange per
     step (the variant's chunks, or one per rank where they do not cut the
     shard), and K1 per step only where the variant's M x N tile divides
     the step GEMM (else ``torch.matmul``)."""
-    m_s, n_local = PREFILL_BATCH * PREFILL_SEQ // GROUP, D_FF // GROUP
+    m_s = PREFILL_BATCH * PREFILL_SEQ // GROUP
     steps = variant.chunks if m_s % variant.chunks == 0 else GROUP
     rows = GROUP * (m_s // steps)
     blocked = (rows % variant.block_m == 0
@@ -1246,31 +1258,52 @@ def _kind(name: str) -> str:
     return "other"
 
 
+def _trace_events(prof) -> list:
+    """(name, start us, end us, on the device) of each event ``prof``
+    recorded, host and device, read straight from kineto's results:
+    building ``prof.events()``' ``FunctionEvent``s for a run of 10^5
+    launches takes minutes."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        start = ev.start_ns() / 1e3
+        out.append((ev.name(), start, start + ev.duration_ns() / 1e3,
+                    ev.device_type() == cuda))
+    return out
+
+
 def phase_trace(label, run):
-    """``run`` under torch.profiler: device time by kind, the device's idle
-    share over the window, how much of the copies' time ran under kernels
+    """``run`` under torch.profiler, host and device: device time by kind,
+    the device's idle share over the window (the first event to the last,
+    host or device), how much of the copies' time ran under kernels
     (chunked_gemm.cu's and any) and every device event's time summed by
-    :func:`_kind`.  Returns the numbers of kernel and memcpy events and
-    the device's busy ms; raises if the profiler saw no device event."""
+    :func:`_kind`.  Returns the numbers of kernel and memcpy events, the
+    device's busy ms and its idle share; raises if the profiler saw no
+    device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    kernels, k1, copies, window = [], [], [], []
-    for ev in prof.events():
-        start, end = ev.time_range.start, ev.time_range.end
+    t0 = time.perf_counter()
+    kernels, k1, copies, window, names, kinds = [], [], [], [], set(), {}
+    for name, start, end, on_device in _trace_events(prof):
         window += [start, end]
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if not on_device:
             continue
-        if "memcpy" in ev.name.lower():
+        n, us = kinds.get(_kind(name), (0, 0.0))
+        kinds[_kind(name)] = (n + 1, us + end - start)
+        if "memcpy" in name.lower():
             copies.append((start, end))
+            names.add(name)
         else:
             kernels.append((start, end))
-            if "chunked_gemm" in ev.name:
+            if "chunked_gemm" in name:
                 k1.append((start, end))
     if not kernels and not copies:
         raise AssertionError(f"[trace] {label}: torch.profiler recorded no "
@@ -1291,21 +1324,13 @@ def phase_trace(label, run):
           f"events {total(c_union):.2f} ms, of which "
           f"{_overlap(c_union, k1_union) / 1e3:.2f} ms under K1/K2 and "
           f"{_overlap(c_union, k_union) / 1e3:.2f} ms under any kernel")
-    names = sorted({ev.name for ev in prof.events()
-                    if ev.device_type == torch.autograd.DeviceType.CUDA
-                    and "memcpy" in ev.name.lower()})
-    print(f"[trace] copy event names: {names}")
-    kinds = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = kinds.get(_kind(ev.name), (0, 0.0))
-            kinds[_kind(ev.name)] = (
-                n + 1, us + ev.time_range.end - ev.time_range.start)
+    print(f"[trace] copy event names: {sorted(names)}")
     print(f"[trace] {label}: device time by kind: "
           + "; ".join(f"{kind} x{n} {us / 1e3:.2f} ms" for kind, (n, us)
-                      in sorted(kinds.items(), key=lambda kv: -kv[1][1])))
+                      in sorted(kinds.items(), key=lambda kv: -kv[1][1]))
+          + f" (read in {time.perf_counter() - t0:.1f}s)")
     return {"kernels": len(kernels), "copies": len(copies),
-            "busy_ms": busy_us / 1e3}
+            "busy_ms": busy_us / 1e3, "idle": 1 - busy_us / span}
 
 
 def phase_serve(device, cfg, model, state):
@@ -2624,8 +2649,10 @@ def _answer_requests(label, cfg, state, device, raw, new_tokens: int,
                      cache_len: int, *, enc_len: int = 0, frames=None):
     """``DecodeEngine`` answers one request per row of ``raw`` (prompts),
     ``new_tokens`` each; an encoder-decoder's cross K/V first filled from
-    ``frames`` by ``prefill_cross``.  The first run pays one-time set-up,
-    the second is timed (host clock, synchronised).  Raises unless every
+    ``frames`` by ``prefill_cross``.  The engine runs the requests twice:
+    the first run pays one-time set-up, the second is timed (host clock,
+    synchronised) and must give the first's tokens (ROADMAP R7: each run
+    starts from the recurrent layers' initial state).  Raises unless every
     request got its tokens.  Returns (engine, requests, seconds and decode
     steps of the timed run, seconds of the first)."""
     import numpy as np
@@ -2633,30 +2660,34 @@ def _answer_requests(label, cfg, state, device, raw, new_tokens: int,
 
     from repro_torch.serve.engine import DecodeEngine, Request
 
+    eng = DecodeEngine(cfg, state, batch_size=len(raw), cache_len=cache_len,
+                       enc_len=enc_len, device=device)
+    if frames is not None:
+        with torch.no_grad():
+            eng.cache = eng.model.prefill_cross(state, eng.cache, frames)
+    steps, step = [], eng.step_fn
+
+    def counted(*args):
+        steps.append(1)
+        return step(*args)
+
+    eng.step_fn = counted
+
     def run():
-        eng = DecodeEngine(cfg, state, batch_size=len(raw),
-                           cache_len=cache_len, enc_len=enc_len,
-                           device=device)
-        if frames is not None:
-            with torch.no_grad():
-                eng.cache = eng.model.prefill_cross(state, eng.cache, frames)
-        steps, step = [], eng.step_fn
-
-        def counted(*args):
-            steps.append(1)
-            return step(*args)
-
-        eng.step_fn = counted
+        steps.clear()
         reqs = [Request(p.astype(np.int32), max_new_tokens=new_tokens)
                 for p in raw]
         _sync()
         t0 = time.perf_counter()
         out = eng.run(reqs)
         _sync()
-        return eng, out, time.perf_counter() - t0, len(steps)
+        return out, time.perf_counter() - t0, len(steps)
 
-    first = run()[2]
-    eng, out, dt, n_steps = run()
+    out0, first, _ = run()
+    out, dt, n_steps = run()
+    if [r.out for r in out] != [r.out for r in out0]:
+        raise AssertionError(f"[{label}] a second run on one DecodeEngine "
+                             "gave other tokens than its first (R7)")
     if sum(len(r.out) for r in out) != len(raw) * new_tokens or not all(
         r.done and all(0 <= t < cfg.vocab_size for t in r.out) for r in out
     ):
@@ -2666,100 +2697,43 @@ def _answer_requests(label, cfg, state, device, raw, new_tokens: int,
 
 
 def phase_moe_decode(device, cfg, state, weight_bytes: int):
-    """[moe] (c) the MLA cache against the forward, and (d) DecodeEngine.
-
-    A decode step's 4 tokens never overflow an expert's capacity of 4; the
-    forward's 32 prompt tokens may, so (c) runs both at capacity factor
-    E / k, where nothing is dropped.  A decode step's GEMMs (4 rows) round
-    differently from the forward's (32), and near-tied router choices
-    flip: (c) prints the free-running decode and holds to 5 % the decode
-    that takes the forward's expert choices (:class:`_Routing`)."""
+    """[moe] (c) the MLA cache against the forward, on the forward's expert
+    choices (:func:`_decode_vs_forward`), and (d) DecodeEngine."""
     import numpy as np
     import torch
 
-    from repro_torch.configs.base import OverlapConfig
     from repro_torch.kernels import ops
-    from repro_torch.models.model import build_model
 
-    prompts, prompt_len, new_tokens, cache_len = 4, 8, 16, 128
-    no_drop = dataclasses.replace(
-        cfg, overlap=OverlapConfig(),
-        moe=dataclasses.replace(
-            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
-    model = build_model(no_drop)
-    raw = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                            (prompts, prompt_len))
-    toks = torch.as_tensor(raw, device=device)
-
-    def decode():
-        cache = model.init_cache(prompts, cache_len, device=device)
-        steps = []
-        for pos in range(prompt_len):
-            lg, cache = model.decode_step(state, cache, toks[:, pos:pos + 1],
-                                          pos)
-            steps.append(lg)
-        return torch.cat(steps, dim=1), cache
-
-    with torch.no_grad(), _Routing() as routing:
-        full, _ = model.forward(state, {"tokens": toks})
-        # The forward's choices for token (b, p) in layer l, in the order
-        # the decode steps ask for them: step p, layer l, rows b.
-        fwd = [c.view(prompts, prompt_len, -1) for c in routing.take()]
-        free, _ = decode()
-        calls, n, k = routing.take(), cfg.num_layers, cfg.moe.top_k
-        flipped = statistics.mean(
-            _choices_differ(f.reshape(-1, k),
-                            torch.stack(calls[i::n], 1).reshape(-1, k),
-                            cfg.moe.num_experts)
-            for i, f in enumerate(fwd))
-        routing.replay = iter([f[:, p] for p in range(prompt_len)
-                               for f in fwd])
-        decoded, cache = decode()
-        routing.replay = None
-    scale = full.float().abs().max().item()
-    cache_mib = _nbytes(*cache[0].values()) / 2 ** 20
-    per_token = (free.float() - full.float()).abs().amax(-1).flatten()
-    print(f"[moe] decode through the MLA cache ({sorted(cache[0])}, "
-          f"{cache_mib:.1f} MiB for {prompts}x{cache_len}) vs forward over "
-          f"{prompts}x{prompt_len} prompt tokens, capacity factor "
-          f"{no_drop.moe.capacity_factor:.3f} (max |logit| {scale:.4f}): "
-          f"free-running max_abs_err {per_token.max().item():.4e}, "
-          f"per-token median {per_token.median().item():.3e}, tokens above "
-          f"5%: {int((per_token > 5e-2 * scale).sum())} of "
-          f"{per_token.numel()}, expert choices that differ {flipped:.2e};"
-          f" on the forward's choices max_abs_err "
-          f"{_max_err(decoded, full):.4e}")
-    err = _max_err(decoded, full)
-    if not torch.isfinite(decoded).all() or err > 5e-2 * scale:
-        raise AssertionError(f"[moe] decode logits on the forward's routing "
-                             f"differ from the forward by {err}")
-    del cache, decoded, free, full
+    raw = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (DECODE_PROMPTS, DECODE_PROMPT_LEN))
+    _hold_decode("moe", *_decode_vs_forward(
+        "moe", cfg, state, torch.as_tensor(raw, device=device), device))
 
     ops.reset_launch_counts()
     eng, out, dt, n_steps, first = _answer_requests(
-        "moe", cfg, state, device, raw, new_tokens, cache_len)
+        "moe", cfg, state, device, raw, DECODE_NEW, DECODE_CACHE)
     total = sum(len(r.out) for r in out)
     per_step = dt * 1e3 / n_steps
     # One step reads every weight once (the embedding: 4 rows) and the
     # latent cache; its operations are those of 4 tokens.
-    cache_bytes = (cfg.num_layers * prompts * cache_len
+    cache_bytes = (cfg.num_layers * DECODE_PROMPTS * DECODE_CACHE
                    * (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim) * 2)
-    moved = weight_bytes + cache_bytes + prompts * cfg.d_model * 2
-    work = sum(_moe_work(cfg, prompts, 1,
-                         (prompt_len + new_tokens) / 2).values())
+    moved = weight_bytes + cache_bytes + DECODE_PROMPTS * cfg.d_model * 2
+    work = sum(_moe_work(cfg, DECODE_PROMPTS, 1,
+                         (DECODE_PROMPT_LEN + DECODE_NEW) / 2).values())
     bound, by = _bound(work, moved, torch.bfloat16)
-    print(f"[moe] DecodeEngine: {prompts} requests x {new_tokens} new tokens"
-          f" (prompt {prompt_len}, cache {cache_len}): {total} tokens in "
-          f"{dt:.3f}s, {total / dt:.1f} tok/s (first run {first:.3f}s); "
-          f"{n_steps} steps, {per_step:.2f} ms per step against a bound "
-          f"of {bound:.2f} ms by {by} ({moved / 1e9:.2f} GB, "
-          f"{work / 1e9:.1f} GFLOP), {per_step / bound:.2f}x; launches "
-          f"{ops.launch_counts()}")
+    print(f"[moe] DecodeEngine: {DECODE_PROMPTS} requests x {DECODE_NEW} new"
+          f" tokens (prompt {DECODE_PROMPT_LEN}, cache {DECODE_CACHE}): "
+          f"{total} tokens in {dt:.3f}s, {total / dt:.1f} tok/s (first run "
+          f"{first:.3f}s, the same tokens); {n_steps} steps, {per_step:.2f} "
+          f"ms per step against a bound of {bound:.2f} ms by {by} "
+          f"({moved / 1e9:.2f} GB, {work / 1e9:.1f} GFLOP), "
+          f"{per_step / bound:.2f}x; launches {ops.launch_counts()}")
     print(f"[moe] req0: {[int(t) for t in out[0].prompt]} -> {out[0].out}")
     last = torch.as_tensor([[r.out[-1]] for r in out], device=device)
     with torch.no_grad():
         phase_trace("DeepSeek decode step", lambda: eng.model.decode_step(
-            state, eng.cache, last, prompt_len + new_tokens - 1))
+            state, eng.cache, last, DECODE_PROMPT_LEN + DECODE_NEW - 1))
 
 
 def phase_moe_dispatch(device, timer, cfg):
@@ -3119,221 +3093,378 @@ def phase_moe_train(device):
     return train_counts
 
 
-def _frontend_work(cfg, batch: int, s_text: int, s_prefix: int = 0,
-                   s_enc: int = 0) -> dict:
-    """Operations of one forward of a dense-attention model with the stub
-    frontends, by part: the decoder over s_prefix + s_text positions per
-    row (causal attention to s/2 positions on average), the encoder's
-    bidirectional layers over s_enc frames and the decoder's
-    cross-attention to them, the projector of the patches, the
-    unembedding of the text."""
-    d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    hd = cfg.resolved_head_dim
-    s = s_prefix + s_text
-    t, t_enc = batch * s, batch * s_enc
-    proj = 2 * d * h * hd + 2 * d * kv * hd  # q and o, k and v
-    mlp = 3 * d * cfg.d_ff
-    n = cfg.num_layers
-    work = {
-        "decoder projections": n * 2 * t * proj,
-        "decoder MLPs": n * 2 * t * mlp,
-        "decoder attention": n * 4 * t * (s / 2) * h * hd,
-    }
-    if s_enc:
-        work["encoder"] = cfg.encdec.encoder_layers * (
-            2 * t_enc * (proj + mlp) + 4 * t_enc * s_enc * h * hd)
-        work["cross-attention"] = n * (2 * t * 2 * d * h * hd
-                                       + 2 * t_enc * 2 * d * kv * hd
-                                       + 4 * t * s_enc * h * hd)
-    if s_prefix and cfg.frontend.embed_dim:
-        work["projector"] = 2 * batch * s_prefix * cfg.frontend.embed_dim * d
-    work["unembedding"] = 2 * batch * s_text * d * cfg.vocab_size
-    return work
+# [hybrid]: Jamba-1.5-Large at full width, cut to HYBRID_LAYERS layers with
+# attention every HYBRID_ATTN_EVERY at HYBRID_ATTN_OFFSET, so one period
+# holds each of Jamba's layer kinds (one 8-layer period is 90.5 GB); [ssm]:
+# xLSTM-1.3B whole.  SSM_DMA_SEQ: the short prompt xLSTM runs under the
+# DMA overlap context.  A prefill slower than LONG_PREFILL_S (xLSTM's
+# eager time loops, ~10^6 launches) is timed once and profiled over its
+# first TRACE_SEQ positions: the profiler's events take ~20 us each to
+# read, and each position issues the same launches.
+HYBRID_ARCH, SSM_ARCH = "jamba-1.5-large-398b", "xlstm-1.3b"
+HYBRID_LAYERS, HYBRID_ATTN_EVERY, HYBRID_ATTN_OFFSET = 4, 4, 2
+SSM_DMA_SEQ = 16
+LONG_PREFILL_S, TRACE_SEQ = 2.0, 32
 
 
-def phase_frontend(device, label, arch, num_layers=None):
-    """[encdec] / [vlm]: a 4 x 512 prefill dense and on the DMA path (K3 +
-    K1 in every MLP, the encoder's too) through ``make_prefill``, the
-    logits against dense, walls beside the bound with one profiled run
-    each; the cached decode against the forward; ``DecodeEngine``.
-    Returns each kernel's launches in one DMA-path prefill."""
+def _first_layers(n: int):
+    return lambda cfg: dataclasses.replace(cfg, num_layers=n)
+
+
+def _hybrid_cut(cfg):
+    return dataclasses.replace(
+        cfg, num_layers=HYBRID_LAYERS, hybrid=dataclasses.replace(
+            cfg.hybrid, attn_every=HYBRID_ATTN_EVERY,
+            attn_offset=HYBRID_ATTN_OFFSET))
+
+
+def _ssm_short_cut(cfg):
+    """xLSTM at full width cut to one mLSTM and one sLSTM layer."""
+    return dataclasses.replace(cfg, num_layers=2, xlstm=dataclasses.replace(
+        cfg.xlstm, slstm_every=2, slstm_offset=1))
+
+
+def _recurrent_bytes(pattern, cache) -> int:
+    """Bytes of the recurrent layers' decode state in ``cache``, whose
+    slots follow ``pattern``."""
+    from repro_torch.models.model import RECURRENT
+
+    return sum(_nbytes(*c.values()) for spec, c in zip(pattern, cache)
+               if spec.mixer in RECURRENT)
+
+
+def _hold_decode(label, err, scale):
+    if err > 5e-2 * scale:
+        raise AssertionError(f"[{label}] decode logits differ from the "
+                             f"forward by {err} (> 5% of {scale})")
+
+
+def _decode_vs_forward(label, cfg, state, toks, device, frames=None):
+    """The cached decode over ``toks`` step by step against the forward
+    over them (an encoder-decoder's over ``frames`` too, its cross K/V
+    from ``prefill_cross``); prints both and returns (max abs error, max
+    |logit|).  An MoE model runs both at capacity factor E / k, where
+    nothing is dropped, and the decode takes the forward's expert choices
+    (:class:`_Routing`): a step's GEMMs round differently from the
+    forward's and near-tied choices flip, so the free-running decode and
+    the share of choices that differ are printed beside it.  Raises on a
+    logit that is not finite."""
+    import torch
+
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import leaves
+
+    check_cfg = dataclasses.replace(cfg, overlap=OverlapConfig())
+    if cfg.moe:
+        check_cfg = dataclasses.replace(check_cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    model = build_model(check_cfg)
+    prompts, prompt_len = toks.shape
+    enc_len = 0 if frames is None else frames.shape[1]
+
+    def decode():
+        cache = model.init_cache(prompts, DECODE_CACHE, enc_len=enc_len,
+                                 device=device)
+        if enc_len:
+            cache = model.prefill_cross(state, cache, frames)
+        steps = []
+        for pos in range(prompt_len):
+            lg, cache = model.decode_step(state, cache, toks[:, pos:pos + 1],
+                                          pos)
+            steps.append(lg)
+        return torch.cat(steps, dim=1), cache
+
+    batch = {"tokens": toks}
+    if enc_len:
+        batch["enc_frames"] = frames
+    with torch.no_grad(), _Routing() as routing:
+        full, _ = model.forward(state, batch)
+        # The forward's choices for token (b, p) in MoE layer l, in the
+        # order the decode steps ask for them: step p, layer l, rows b.
+        fwd = [c.view(prompts, prompt_len, -1) for c in routing.take()]
+        free, cache = decode()
+        decoded, free_err = free, ""
+        if fwd:
+            calls, k = routing.take(), cfg.moe.top_k
+            flipped = statistics.mean(
+                _choices_differ(f.reshape(-1, k),
+                                torch.stack(calls[i::len(fwd)], 1)
+                                .reshape(-1, k), cfg.moe.num_experts)
+                for i, f in enumerate(fwd))
+            free_err = (f"; free-running, on its own expert choices: "
+                        f"max_abs_err {_max_err(free, full):.4e}, expert "
+                        f"choices that differ {flipped:.2e}")
+            routing.replay = iter([f[:, p] for p in range(prompt_len)
+                                   for f in fwd])
+            decoded, cache = decode()
+            routing.replay = None
+    if not torch.isfinite(decoded).all():
+        raise AssertionError(f"[{label}] decode logits not finite")
+    scale = full.float().abs().max().item()
+    err = _max_err(decoded, full)
+    cross = f", cross K/V of {enc_len} frames" if enc_len else ""
+    print(f"[{label}] cached decode vs forward over {prompts}x{prompt_len} "
+          f"prompt tokens, {cfg.num_layers} layers in {cfg.dtype}{cross} "
+          f"(cache {_nbytes(*leaves(cache)) / 2 ** 20:.1f} MiB, recurrent "
+          f"state {_recurrent_bytes(model.pattern, cache) / 2 ** 20:.1f} "
+          f"MiB): max_abs_err {err:.4e} (max |logit| {scale:.4f}, ratio "
+          f"{err / scale:.3e}){free_err}")
+    return err, scale
+
+
+def _hold_ssm_decode(label, cfg, model, state, toks, device):
+    """xLSTM's random bf16 model amplifies a rounding through its 48
+    layers: on an H100 two bf16 forwards of one prompt whose GEMMs take
+    other shapes differ by half the largest logit, as do its decode and
+    forward (PERF.md §6).  Its decode is held instead (a) at full depth in
+    fp32, on a copy of the weights, and (b) in bf16 on a cut of one mLSTM
+    and one sLSTM layer at full width (seed 0), where the rounding has no
+    depth to grow in.  Beside them the bf16 forward against itself at
+    another length."""
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_map
+
+    with torch.no_grad():
+        longer = torch.cat([toks, toks], dim=1)
+        short, _ = model.forward(state, {"tokens": toks})
+        long_lg, _ = model.forward(state, {"tokens": longer})
+    drift = _max_err(short, long_lg[:, :toks.shape[1]])
+    print(f"[{label}] in {cfg.dtype}, the forward over {tuple(toks.shape)} "
+          f"against its own first {toks.shape[1]} positions over "
+          f"{tuple(longer.shape)}: max_abs_err {drift:.4e} (ratio "
+          f"{drift / short.float().abs().max().item():.3e}); held in fp32 "
+          "and on a short cut:")
+    del short, long_lg
+    wide = tree_map(lambda t: t.float(), state)
+    _hold_decode(label, *_decode_vs_forward(
+        label, dataclasses.replace(cfg, dtype="float32"), wide, toks,
+        device))
+    del wide
+    cut = _ssm_short_cut(cfg)
+    _hold_decode(label, *_decode_vs_forward(
+        label, cut, build_model(cut).init(0, device=device), toks, device))
+
+
+def phase_model(device, label, arch, cut=None):
+    """[encdec] / [vlm] / [hybrid] / [ssm]: a model of the registry at full
+    width (``cut`` to fewer layers where the card needs it), random from
+    seed 0.  (a) Its parameters against the port's counters, bytes, peak
+    memory; (b) a 4 x 512 prefill dense and on the DMA path (K1 + K3 in
+    every MLP, an encoder's too) through ``make_prefill``, the launches
+    asserted and the logits within 5 % of dense, or, for a model with no
+    FiCCO site (xLSTM), a short prompt under the DMA context that launches
+    nothing and equals dense bit for bit; (c) walls and one profiled run
+    per path beside the counters' prefill bound; (d) the cached decode
+    against the forward within 5 % (xLSTM: :func:`_hold_ssm_decode`); (e)
+    ``DecodeEngine`` per step beside its byte bound, two runs of one
+    engine giving the same tokens (ROADMAP R7).  Returns each kernel's
+    launches in one prefill of the main path."""
     import gc
 
     import numpy as np
     import torch
 
+    from repro_torch import roofline
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import OverlapConfig, ShapeConfig
+    from repro_torch.configs.base import Family, OverlapConfig, ShapeConfig
     from repro_torch.data.pipeline import SyntheticLM, to_device
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.parallel.sharding import TPGroup, tp_group
     from repro_torch.serve.engine import make_prefill
     from repro_torch.tree import leaves
+    from repro_torch.tune.registry import resolve_variant
 
     t_phase = time.time()
     gc.collect()
     torch.cuda.empty_cache()
     full = get_config(arch)
     cfg = dataclasses.replace(
-        full, num_layers=num_layers or full.num_layers,
+        cut(full) if cut else full,
         overlap=OverlapConfig(mode="ficco_auto", backend="dma"))
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     state = model.init(0, device=device)
     _sync()
+    t_init = time.time() - t0
     n_params = sum(t.numel() for t in leaves(state))
     n_bytes = _nbytes(*leaves(state))
-    cut = (f"cut to {cfg.num_layers} of its {full.num_layers} layers"
-           if cfg.num_layers != full.num_layers else "nothing cut")
+    fp32 = _nbytes(*(t for t in leaves(state) if t.dtype == torch.float32))
+    counted = roofline.count_params(cfg)
+    if counted != n_params:
+        raise AssertionError(f"[{label}] {n_params} parameters on the card, "
+                             f"{counted} by roofline.count_params")
+    kinds = ", ".join(f"({s.mixer}, {s.ffn})" for s in model.pattern)
+    what = (f"cut to {cfg.num_layers} of its {full.num_layers} layers"
+            if cfg.num_layers != full.num_layers else "whole")
     enc = (f", encoder {cfg.encdec.encoder_layers} layers"
            if cfg.encdec else "")
     front = (f", {cfg.frontend.prefix_tokens} prefix patches through the "
              f"{cfg.frontend.embed_dim} -> {cfg.d_model} projector"
              if cfg.frontend and cfg.frontend.embed_dim else "")
-    print(f"[{label}] {cfg.name} ({cut}): {cfg.num_layers} decoder layers"
-          f"{enc}, d {cfg.d_model}, {cfg.num_heads} heads / "
-          f"{cfg.num_kv_heads} kv, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"{cfg.norm}{front}; {n_params / 1e9:.3f}e9 parameters, "
-          f"{n_bytes / 1e9:.2f} GB {cfg.dtype}, random (seed 0) in "
-          f"{time.time() - t0:.1f}s")
+    print(f"[{label}] {cfg.name} ({what}; whole: "
+          f"{roofline.count_params(full) / 1e9:.3f}e9 parameters): "
+          f"{cfg.num_layers} layers of period [{kinds}]{enc}, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}{front}; "
+          f"{n_params / 1e9:.3f}e9 parameters (roofline.count_params: "
+          f"{counted / 1e9:.3f}e9), {n_bytes / 1e9:.2f} GB {cfg.dtype} of "
+          f"which {fp32 / 1e9:.2f} GB fp32 leaves, random (seed 0) in "
+          f"{t_init:.1f}s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     shape = ShapeConfig("smoke", PREFILL_SEQ, PREFILL_BATCH, "prefill")
-    batch = to_device(SyntheticLM(cfg, shape, seed=0).batch_at(0), device)
-    s_text = batch["tokens"].shape[1]
-    s_prefix = batch["prefix_embeds"].shape[1] if "prefix_embeds" in batch \
-        else 0
-    s_enc = batch["enc_frames"].shape[1] if "enc_frames" in batch else 0
-    print(f"[{label}] batch (SyntheticLM, seed 0): "
+    if cfg.family in (Family.HYBRID, Family.SSM):  # no SyntheticLM yet: A13
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ)), device=device)}
+    else:  # the stub frontends' frames and patches too
+        batch = to_device(SyntheticLM(cfg, shape, seed=0).batch_at(0),
+                          device)
+    print(f"[{label}] batch (seed 0): "
           + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()))
-    mlp_layers = cfg.num_layers + (cfg.encdec.encoder_layers
-                                   if cfg.encdec else 0)
-    per_path = mlp_layers * 2 * GROUP
-    rows = PREFILL_BATCH * PREFILL_SEQ // GROUP  # g * m_c
-    _hold_path_kernels(label, device, k1=(rows, cfg.d_model, cfg.d_ff),
-                       k3=(rows // GROUP, cfg.d_model))
-
+    want_shape = (PREFILL_BATCH, batch["tokens"].shape[1], cfg.vocab_size)
     prefill = make_prefill(model)
     group = TPGroup(GROUP, device)
-    want_shape = (PREFILL_BATCH, s_text, cfg.vocab_size)
-    with torch.no_grad():
-        dense = prefill(state, batch)
-        ops.reset_launch_counts()
+
+    def in_group(b=batch):
         with tp_group(group):
-            dma = prefill(state, batch)
+            return prefill(state, b)
+
+    # (b) Every MLP, an encoder's too, is a FiCCO site.
+    n_mlp = (sum(s.ffn == "mlp" for s in model.pattern) * model.n_periods
+             + (cfg.encdec.encoder_layers if cfg.encdec else 0))
+    n_local = cfg.d_ff // GROUP
+    expected = _dma_launches(resolve_variant("dma_exchange", group=GROUP),
+                             2 * n_mlp, n_local)
+    if n_mlp:
+        rows = PREFILL_BATCH * PREFILL_SEQ // GROUP  # g * m_c
+        _hold_path_kernels(label, device, k1=(rows, cfg.d_model, cfg.d_ff),
+                           k3=(rows // GROUP, cfg.d_model))
+        check = batch
+    else:  # no FiCCO site: a short prompt shows the context changes nothing
+        check = {"tokens": batch["tokens"][:, :SSM_DMA_SEQ]}
+    with torch.no_grad():
+        dense = prefill(state, check)
+        ops.reset_launch_counts()
+        dma = in_group(check)
         _sync()
-    counts, routes = _check_launches(label, "DMA-path prefill", {
-        "chunked_matmul": per_path, "a2a_chunk_exchange": per_path})
-    print(f"[{label}] DMA-path prefill: launches {counts} by route {routes} "
-          f"(K1 and K3 expected {per_path} each: {mlp_layers} MLPs x 2 "
-          f"projections x {GROUP} steps; n_local {cfg.d_ff // GROUP}, K "
-          f"{cfg.d_model})")
+    counts, routes = _check_launches(label, "DMA-path prefill", expected)
+    print(f"[{label}] DMA-path prefill {tuple(check['tokens'].shape)}: "
+          f"launches {counts} by route {routes} (expected {expected}: "
+          f"{n_mlp} MLPs x 2 projections x {GROUP} steps, n_local "
+          f"{n_local}, K {cfg.d_model}; no other mixer or FFN holds a FiCCO "
+          "site)")
     for name, lg in (("dense", dense), ("DMA path", dma)):
-        if tuple(lg.shape) != want_shape or not torch.isfinite(lg).all():
+        if not torch.isfinite(lg).all() or lg.shape[-1] != cfg.vocab_size:
             raise AssertionError(f"[{label}] {name} logits "
-                                 f"{tuple(lg.shape)} not finite or not "
-                                 f"{want_shape}")
+                                 f"{tuple(lg.shape)} not finite")
     scale = dense.float().abs().max().item()
     err = _max_err(dma, dense)
     agree = (dma.argmax(-1) == dense.argmax(-1)).float().mean().item()
     print(f"[{label}] DMA-path logits vs dense: max_abs_err {err:.4e} (max "
           f"|logit| {scale:.4f}, ratio {err / scale:.3e}), argmax agreement "
           f"{agree:.4f}")
-    if err > 5e-2 * scale:
+    if n_mlp and err > 5e-2 * scale:
         raise AssertionError(f"[{label}] DMA-path logits differ from dense "
                              f"by {err} (> 5% of {scale})")
+    if not n_mlp and not torch.equal(dma, dense):
+        raise AssertionError(f"[{label}] logits under the DMA context are "
+                             "not bit-equal to dense")
     del dense, dma
 
-    def in_group():
-        with tp_group(group):
-            prefill(state, batch)
-
+    # (c) Walls: two turns of 3 on each path, or the one run of a prefill
+    # that takes seconds; one profiled run each.
+    paths = [("dense", lambda b=batch: prefill(state, b))]
+    if n_mlp:
+        paths.insert(0, ("DMA path", in_group))
     n_tok = PREFILL_BATCH * PREFILL_SEQ
-    walls = {}
-    with torch.no_grad():
-        for name, fn in [("DMA path", in_group),
-                         ("dense", lambda: prefill(state, batch))] * 2:
-            ms = wall_ms(fn, reps=3)
-            walls.setdefault(name, []).append(ms)
-            print(f"[{label}] prefill {PREFILL_BATCH}x{PREFILL_SEQ}, {name}:"
-                  f" {ms:.2f} ms wall ({n_tok / ms * 1e3:.0f} positions/s)")
-        busy = {"DMA path": phase_trace(f"{cfg.name} DMA-path prefill",
-                                        in_group)["busy_ms"],
-                "dense": phase_trace(f"{cfg.name} dense prefill",
-                                     lambda: prefill(state, batch))[
-                                         "busy_ms"]}
-    work = _frontend_work(cfg, PREFILL_BATCH, s_text, s_prefix, s_enc)
-    embed_bytes = _nbytes(state["embed"])
-    moved = (n_bytes - embed_bytes + _nbytes(*batch.values())
-             + math.prod(want_shape) * 2)
-    bound, by = _bound(sum(work.values()), moved, torch.bfloat16)
-    print(f"[{label}] prefill bound {bound:.2f} ms by {by} "
-          f"({sum(work.values()) / 1e12:.2f} TFLOP: "
-          + ", ".join(f"{k} {v / 1e12:.3f}" for k, v in work.items())
-          + f"; {moved / 1e9:.2f} GB); best wall over the bound: DMA path "
-          f"{min(walls['DMA path']) / bound:.2f}x, dense "
-          f"{min(walls['dense']) / bound:.2f}x; device busy (profiled) DMA "
-          f"path {busy['DMA path']:.2f} ms, dense {busy['dense']:.2f} ms")
+    walls, traces = {}, {}
 
-    # The cached decode against the forward over the same tokens (and
-    # frames): an encoder-decoder's cross K/V from prefill_cross.
+    def report(name, ms):
+        walls.setdefault(name, []).append(ms)
+        print(f"[{label}] prefill {PREFILL_BATCH}x{PREFILL_SEQ}, {name}: "
+              f"{ms:.2f} ms wall ({n_tok / ms * 1e3:.0f} positions/s)")
+
+    with torch.no_grad():
+        _sync()
+        t0 = time.perf_counter()
+        lg = prefill(state, batch)
+        _sync()
+        first = time.perf_counter() - t0
+        if tuple(lg.shape) != want_shape or not torch.isfinite(lg).all():
+            raise AssertionError(f"[{label}] prefill logits "
+                                 f"{tuple(lg.shape)} not finite or not "
+                                 f"{want_shape}")
+        del lg
+        traced = batch
+        if first < LONG_PREFILL_S:
+            for name, fn in paths * 2:
+                report(name, wall_ms(fn, reps=3))
+        else:
+            report("dense", first * 1e3)
+            traced = {k: v[:, :TRACE_SEQ] for k, v in batch.items()}
+        for name, fn in paths:
+            traces[name] = phase_trace(
+                f"{cfg.name} {name} prefill "
+                f"{tuple(traced['tokens'].shape)}", lambda: fn(traced))
+    costs = roofline.step_costs(cfg, shape, "prefill")
+    bound, by = _bound(costs.flops, costs.bytes, torch.bfloat16)
+    print(f"[{label}] prefill bound {bound:.2f} ms by {by} (counters' "
+          f"step_costs: {costs.flops / 1e12:.2f} TFLOP, "
+          f"{costs.bytes / 1e9:.2f} GB); "
+          + "; ".join(f"{name}: best wall {min(walls[name]):.2f} ms = "
+                      f"{min(walls[name]) / bound:.2f}x the bound, device "
+                      f"busy {traces[name]['busy_ms']:.2f} ms and idle "
+                      f"share {traces[name]['idle']:.3f} over the profiled "
+                      f"{tuple(traced['tokens'].shape)} prefill"
+                      for name, _ in paths)
+          + f"; on {_card()}")
+
+    # (d) The cached decode against the forward over the same tokens (and
+    # frames).
     raw = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (DECODE_PROMPTS, DECODE_PROMPT_LEN))
     toks = torch.as_tensor(raw, device=device)
-    frames = batch["enc_frames"][:DECODE_PROMPTS] if s_enc else None
-    with torch.no_grad():
-        fwd = {"tokens": toks}
-        if s_enc:
-            fwd["enc_frames"] = frames
-        full_lg, _ = model.forward(state, fwd)
-        cache = model.init_cache(DECODE_PROMPTS, DECODE_CACHE,
-                                 enc_len=s_enc, device=device)
-        if s_enc:
-            cache = model.prefill_cross(state, cache, frames)
-        steps = []
-        for pos in range(DECODE_PROMPT_LEN):
-            lg, cache = model.decode_step(state, cache, toks[:, pos:pos + 1],
-                                          pos)
-            steps.append(lg)
-        decoded = torch.cat(steps, dim=1)
-    scale = full_lg.float().abs().max().item()
-    err = _max_err(decoded, full_lg)
-    cross = (f", cross K/V of {s_enc} frames from prefill_cross"
-             if s_enc else ", on text")
-    print(f"[{label}] cached decode vs forward over {DECODE_PROMPTS}x"
-          f"{DECODE_PROMPT_LEN} prompt tokens{cross}: max_abs_err "
-          f"{err:.4e} (max |logit| {scale:.4f}, ratio {err / scale:.3e})")
-    if not torch.isfinite(decoded).all() or err > 5e-2 * scale:
-        raise AssertionError(f"[{label}] decode logits differ from the "
-                             f"forward by {err}")
-    del cache, decoded, full_lg
+    frames = batch["enc_frames"][:DECODE_PROMPTS] if cfg.encdec else None
+    err, scale = _decode_vs_forward(label, cfg, state, toks, device, frames)
+    if cfg.family is Family.SSM:
+        _hold_ssm_decode(label, cfg, model, state, toks, device)
+    else:
+        _hold_decode(label, err, scale)
 
-    _, out, dt, n_steps, first = _answer_requests(
+    # (e) One engine answers the same requests twice; the second run is
+    # timed and must repeat the first's tokens.
+    s_enc = 0 if frames is None else frames.shape[1]
+    eng, out, dt, n_steps, first = _answer_requests(
         label, cfg, state, device, raw, DECODE_NEW, DECODE_CACHE,
         enc_len=s_enc, frames=frames)
     total = sum(len(r.out) for r in out)
     per_step = dt * 1e3 / n_steps
-    # A step reads the decoder's weights once (the embedding: 4 rows) and
-    # its caches; its operations are those of DECODE_PROMPTS tokens.
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    # A step reads the decoder's weights once (the embedding: 4 rows), its
+    # caches as they lie, and reads and writes the recurrent state.
     dec_bytes = (_nbytes(*leaves(state["layers"]), *leaves(
-        state["final_norm"])) + _nbytes(state.get("unembed",
-                                                  state["embed"])))
-    cache_bytes = cfg.num_layers * DECODE_PROMPTS * (DECODE_CACHE + s_enc) \
-        * kv * hd * 2 * 2
-    moved = dec_bytes + cache_bytes + DECODE_PROMPTS * cfg.d_model * 2
-    ctx = (DECODE_PROMPT_LEN + DECODE_NEW) / 2
-    flops = (2 * DECODE_PROMPTS * dec_bytes / 2 + cfg.num_layers * 4
-             * DECODE_PROMPTS * (ctx + s_enc) * cfg.num_heads * hd)
+        state["final_norm"])) + _nbytes(state.get("unembed", state["embed"])))
+    moved = (dec_bytes + _nbytes(*leaves(eng.cache))
+             + _recurrent_bytes(model.pattern, eng.cache)
+             + DECODE_PROMPTS * cfg.d_model * 2)
+    flops = roofline.forward_costs(
+        cfg, DECODE_PROMPTS, 1, ctx=DECODE_PROMPT_LEN + DECODE_NEW,
+        decode=True).flops
     bound, by = _bound(flops, moved, torch.bfloat16)
     print(f"[{label}] DecodeEngine: {DECODE_PROMPTS} requests x {DECODE_NEW}"
           f" new tokens (prompt {DECODE_PROMPT_LEN}, cache {DECODE_CACHE}"
           f"{f', enc_len {s_enc}' if s_enc else ''}): {total} tokens in "
-          f"{dt:.3f}s, {total / dt:.1f} tok/s (first run {first:.3f}s); "
-          f"{n_steps} steps, {per_step:.2f} ms per step against a bound"
-          f" of {bound:.3f} ms by {by} ({moved / 1e9:.3f} GB), "
+          f"{dt:.3f}s, {total / dt:.1f} tok/s (first run {first:.3f}s, the "
+          f"same tokens: R7 holds); {n_steps} steps, {per_step:.2f} ms per "
+          f"step against a bound of {bound:.3f} ms by {by} "
+          f"({moved / 1e9:.3f} GB; counters' param_bytes "
+          f"{roofline.param_bytes(cfg) / 1e9:.3f} GB at 2 bytes each), "
           f"{per_step / bound:.1f}x; on {_card()}")
     print(f"[{label}] req0: {[int(t) for t in out[0].prompt]} -> {out[0].out}")
-    del state, batch
+    del eng, state, batch
     print(f"[{label}] phase total {time.time() - t_phase:.1f}s")
     return counts
 
@@ -3394,20 +3525,26 @@ def drive(device) -> int:
     del model, state
     moe_counts = phase_moe(device, timer)
     moe_train_counts = phase_moe_train(device)
-    encdec_counts = phase_frontend(device, "encdec", ENCDEC_ARCH)
-    vlm_counts = phase_frontend(device, "vlm", VLM_ARCH, VLM_LAYERS)
+    encdec_counts = phase_model(device, "encdec", ENCDEC_ARCH)
+    vlm_counts = phase_model(device, "vlm", VLM_ARCH,
+                             _first_layers(VLM_LAYERS))
+    hybrid_counts = phase_model(device, "hybrid", HYBRID_ARCH, _hybrid_cut)
+    ssm_counts = phase_model(device, "ssm", SSM_ARCH)
     for k in kernels:
         k["moe_prefill_launches"] = moe_counts[k["name"]]
         k["moe_train_step_launches"] = moe_train_counts[k["name"]]
         k["encdec_prefill_launches"] = encdec_counts[k["name"]]
         k["vlm_prefill_launches"] = vlm_counts[k["name"]]
+        k["hybrid_prefill_launches"] = hybrid_counts[k["name"]]
+        k["ssm_prefill_launches"] = ssm_counts[k["name"]]
 
     print(f"[done] every phase passed ({', '.join(PHASES)}) in "
           f"{time.time() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "routes",
             "train_step_launches", "moe_prefill_launches",
             "moe_train_step_launches", "encdec_prefill_launches",
-            "vlm_prefill_launches", "max_abs_err",
+            "vlm_prefill_launches", "hybrid_prefill_launches",
+            "ssm_prefill_launches", "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

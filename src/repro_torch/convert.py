@@ -9,7 +9,8 @@ and each decoder layer's ``norm_cross`` / ``cross``; a VLM's
 is leaf for leaf; only
 the device changes, and each leaf takes the dtype the reference's
 ``Model.init`` gives it: the config's, except the leaves it keeps in fp32
-(the MoE router, :data:`repro_torch.models.moe.FP32_LEAVES`), as the
+(the MoE router; Mamba's ``a_log`` and ``d_skip``; the mLSTM's ``w_if``;
+the sLSTM's ``w_gates`` and ``r_gates``: :data:`FP32_LEAVES`), as the
 port's ``Model.init`` does.  This module imports neither JAX nor the
 reference: it takes numpy arrays.
 """
@@ -22,7 +23,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import _DTYPES, build_model
-from repro_torch.models.moe import FP32_LEAVES
+from repro_torch.models import mamba, moe, xlstm
+
+# Every leaf the reference keeps in fp32 whatever the model's dtype.
+FP32_LEAVES = moe.FP32_LEAVES | mamba.FP32_LEAVES | xlstm.FP32_LEAVES
 
 
 def _convert(tree, dtype, device):

@@ -4,9 +4,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --prompts 4 --new-tokens 16 [--device cpu]
 
-``--arch`` takes the dense, MoE (``deepseek-v2-lite-16b``,
-``arctic-480b``), VLM (``internvl2-76b``, served on text) and audio
-families; the hybrid and SSM families raise until their slice is ported.
+``--arch`` takes every family: dense, MoE (``deepseek-v2-lite-16b``,
+``arctic-480b``), VLM (``internvl2-76b``, served on text), audio, hybrid
+(``jamba-1.5-large-398b``) and SSM (``xlstm-1.3b``).
 An encoder-decoder (``seamless-m4t-large-v2``) first runs its encoder
 over 16 zero frames (``prefill_cross``), as the reference's launcher does.
 

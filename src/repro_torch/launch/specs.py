@@ -4,10 +4,11 @@ Port of ``repro.launch.specs``' ``train_specs``: what the data pipeline
 delivers for one train shape, as :class:`Spec` records in place of
 ``jax.ShapeDtypeStruct``: {tokens, labels}, with ``prefix_embeds`` for a
 VLM and ``enc_frames`` for the audio encoder-decoder (the stubbed
-modality frontends).  The hybrid and SSM families raise
-``NotImplementedError`` until their models are ported (ROADMAP queue A,
-item 7); ``decode_specs``, ``input_specs`` and ``concrete_batch`` come
-with the tooling (ROADMAP A8).
+modality frontends).  The hybrid and SSM families are ported for serving
+only: their training inputs raise ``NotImplementedError`` until their
+training is (ROADMAP queue A, item 13).  ``decode_specs``,
+``input_specs`` and ``concrete_batch`` come with the tooling (ROADMAP
+A8).
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ def train_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
     :func:`_frontend_len` of the sequence; the text the rest."""
     if cfg.family in (Family.HYBRID, Family.SSM):
         raise NotImplementedError(
-            f"{cfg.name}: training inputs of the {cfg.family.value} family "
-            "are not ported yet (ROADMAP queue A, item 7)"
+            f"{cfg.name}: training of the {cfg.family.value} family is not "
+            "ported yet (ROADMAP queue A, item 13)"
         )
     b, s = shape.global_batch, shape.seq_len
     specs: dict[str, Spec] = {}

@@ -29,6 +29,13 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
     return (w * std).to(dtype)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` = max(x, 0) + log1p(exp(
+    -|x|)), with no switch to the identity at large x (as
+    ``torch.nn.functional.softplus`` has)."""
+    return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""Model assembly (dense, MoE, VLM and audio families) — port of
-``repro.models.model``.
+"""Model assembly (all six families) — port of ``repro.models.model``.
 
 A model is a stack of **periods**, the smallest repeating layer pattern
 (dense: one attention + MLP layer; MoE: ``every_k_layers`` layers, the
-last with an MoE FFN; attention is MLA where the config has one).  The
+last with an MoE FFN; attention is MLA where the config has one; Jamba
+(hybrid): ``attn_every`` layers, one attention and the rest Mamba, MoE on
+every ``every_k_layers``-th; xLSTM (SSM): ``slstm_every`` layers, one
+sLSTM and the rest mLSTM, no FFN).  The
 state keeps the reference's parameter tree: ``state["layers"][j]`` holds
 pattern slot j with every leaf stacked over periods on dim 0, so
 :mod:`repro_torch.convert` maps the reference's params leaf for leaf.
@@ -13,8 +15,10 @@ bidirectional encoder's layers stacked on dim 0 and ``enc_norm`` its final
 norm, and each decoder layer adds a cross-attention (``norm_cross``,
 ``cross``) over the encoder's output.  The VLM family prepends the stub
 frontend's patch embeddings, projected by ``frontend_proj``, to the text.
-The hybrid and SSM families raise ``NotImplementedError`` until their
-slices land.
+A Mamba, mLSTM or sLSTM layer keeps its mixer under ``mixer``, and a
+layer whose FFN is ``none`` (every xLSTM layer) has no ``norm2`` and no
+``ffn``, as in the reference's tree.  Their decode caches hold recurrent
+state; :func:`reset_recurrent` returns it to the start.
 
 Interface (used by serve/launch):
     model = build_model(config)
@@ -36,7 +40,7 @@ import torch.utils.checkpoint as tcp
 
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, mla, moe
+from repro_torch.models import layers, mamba, mla, moe, xlstm
 from repro_torch.models.layers import AttnDims
 from repro_torch.parallel.context import get_overlap, overlap_context
 from repro_torch.parallel.sharding import active_group, tp_group
@@ -46,8 +50,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str  # attn | mla (mamba | mlstm | slstm wait for their slices)
-    ffn: str  # mlp | moe
+    mixer: str  # attn | mla | mamba | mlstm | slstm
+    ffn: str  # mlp | moe | none
 
 
 # The encoder's one layer kind: bidirectional attention and an MLP.
@@ -56,11 +60,22 @@ _ENC_SPEC = LayerSpec("attn", "mlp")
 
 def layer_pattern(cfg: ModelConfig) -> list[LayerSpec]:
     """The repeating period of layer kinds for this architecture."""
-    if cfg.family in (Family.HYBRID, Family.SSM):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family.value} family is not ported yet "
-            "(ROADMAP queue A, item 7)"
-        )
+    if cfg.family is Family.SSM:
+        x = cfg.xlstm
+        return [
+            LayerSpec("slstm" if i % x.slstm_every == x.slstm_offset
+                      else "mlstm", "none")
+            for i in range(x.slstm_every)
+        ]
+    if cfg.family is Family.HYBRID:
+        h = cfg.hybrid
+        k = cfg.moe.every_k_layers if cfg.moe else 0
+        return [
+            LayerSpec("attn" if i % h.attn_every == h.attn_offset
+                      else "mamba",
+                      "moe" if k and i % k == k - 1 else "mlp")
+            for i in range(h.attn_every)
+        ]
     mixer = "mla" if cfg.mla else "attn"
     if cfg.moe:
         period = cfg.moe.every_k_layers
@@ -131,12 +146,22 @@ def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, device, *,
     }
     if spec.mixer == "attn":
         p["attn"] = layers.attn_init(gen, _attn_dims(cfg), dt, device)
-    else:
+    elif spec.mixer == "mla":
         p["attn"] = mla.mla_init(gen, cfg.d_model, cfg.num_heads, cfg.mla,
                                  dt, device)
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba.mamba_init(gen, cfg.d_model, cfg.hybrid.mamba, dt,
+                                      device)
+    elif spec.mixer == "mlstm":
+        p["mixer"] = xlstm.mlstm_init(gen, cfg.d_model, cfg.num_heads,
+                                      cfg.xlstm, dt, device)
+    else:
+        p["mixer"] = xlstm.slstm_init(gen, cfg.d_model, cfg.xlstm, dt, device)
     if cross:
         p["norm_cross"] = layers.norm_init(cfg.d_model, cfg.norm, dt, device)
         p["cross"] = layers.attn_init(gen, _attn_dims(cfg), dt, device)
+    if spec.ffn == "none":
+        return p
     p["norm2"] = layers.norm_init(cfg.d_model, cfg.norm, dt, device)
     if spec.ffn == "moe":
         p["ffn"] = moe.moe_init(gen, cfg.d_model, cfg.moe, dt, device)
@@ -159,9 +184,15 @@ def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions, *,
             positions=positions, window=_window(cfg) if causal else None,
             causal=causal,
         )
-    else:
+    elif spec.mixer == "mla":
         y = mla.mla_apply(p["attn"], h, cfg.num_heads, cfg.mla,
                           positions=positions, window=_window(cfg))
+    elif spec.mixer == "mamba":
+        y = mamba.mamba_apply(p["mixer"], h, cfg.hybrid.mamba)
+    elif spec.mixer == "mlstm":
+        y = xlstm.mlstm_apply(p["mixer"], h, cfg.num_heads, cfg.xlstm)
+    else:
+        y = xlstm.slstm_apply(p["mixer"], h, cfg.xlstm)
     x = x + y
     if enc_out is not None:
         h = layers.apply_norm(p["norm_cross"], x, cfg.norm)
@@ -169,6 +200,8 @@ def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions, *,
             p["cross"], h, _attn_dims(cfg), rope_theta=cfg.rope_theta,
             positions=positions, kv_for_cross=enc_out,
         )
+    if spec.ffn == "none":
+        return x, None
     h = layers.apply_norm(p["norm2"], x, cfg.norm)
     if spec.ffn == "moe":
         y, aux = moe.moe_apply(p["ffn"], h, cfg.moe)
@@ -243,6 +276,15 @@ def _layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
     if spec.mixer == "mla":
         return mla.mla_init_cache(batch, cache_len, cfg.mla, dt, device,
                                   lead=lead)
+    if spec.mixer == "mamba":
+        return mamba.mamba_init_cache(batch, cfg.d_model, cfg.hybrid.mamba,
+                                      dt, device, lead=lead)
+    if spec.mixer == "mlstm":
+        return xlstm.mlstm_init_cache(batch, cfg.d_model, cfg.num_heads,
+                                      cfg.xlstm, device, lead=lead)
+    if spec.mixer == "slstm":
+        return xlstm.slstm_init_cache(batch, cfg.d_model, cfg.xlstm, device,
+                                      lead=lead)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     s = min(cache_len, cfg.sliding_window or cache_len)
     shape = (*lead, batch, s, kv, hd)
@@ -259,9 +301,16 @@ def _layer_decode(p, spec: LayerSpec, cfg: ModelConfig, x, cache, pos: int):
             p["attn"], h, cache, pos, _attn_dims(cfg),
             rope_theta=cfg.rope_theta, window=_window(cfg),
         )
-    else:
+    elif spec.mixer == "mla":
         y, cache = mla.mla_decode(p["attn"], h, cache, pos, cfg.num_heads,
                                   cfg.mla)
+    elif spec.mixer == "mamba":
+        y, cache = mamba.mamba_decode(p["mixer"], h, cache, cfg.hybrid.mamba)
+    elif spec.mixer == "mlstm":
+        y, cache = xlstm.mlstm_decode(p["mixer"], h, cache, cfg.num_heads,
+                                      cfg.xlstm)
+    else:
+        y, cache = xlstm.slstm_decode(p["mixer"], h, cache, cfg.xlstm)
     x = x + y
     if "cross_k" in cache:  # the encoder-decoder's cross-attention
         h = layers.apply_norm(p["norm_cross"], x, cfg.norm)
@@ -273,6 +322,8 @@ def _layer_decode(p, spec: LayerSpec, cfg: ModelConfig, x, cache, pos: int):
             valid_len=cache["cross_k"].shape[1], ring=True,
         )
         x = x + out.reshape(b, 1, -1) @ p["cross"]["wo"]
+    if spec.ffn == "none":
+        return x, cache
     h = layers.apply_norm(p["norm2"], x, cfg.norm)
     if spec.ffn == "moe":
         y, _ = moe.moe_apply(p["ffn"], h, cfg.moe)
@@ -281,9 +332,26 @@ def _layer_decode(p, spec: LayerSpec, cfg: ModelConfig, x, cache, pos: int):
     return x + y, cache
 
 
+# The recurrent mixers, whose decode state starts at zero in every leaf
+# but the running maxima ``m``.
+RECURRENT = frozenset({"mamba", "mlstm", "slstm"})
+
+
+def reset_recurrent(pattern, cache) -> None:
+    """Return the recurrent layers' decode state in ``cache`` (one dict
+    per pattern slot, as :meth:`Model.init_cache` makes it) to the start,
+    in place: Mamba's conv window and ssm state to zeros, the mLSTM's and
+    sLSTM's running maxima to -1e30 and their other state to zeros.  An
+    attention or MLA cache is left as it is."""
+    for spec, c in zip(pattern, cache):
+        if spec.mixer in RECURRENT:
+            for key, leaf in c.items():
+                leaf.fill_(xlstm.M_START if key == "m" else 0.0)
+
+
 class Model:
-    """Decoder LM (dense, MoE and VLM families) with an optional encoder
-    (the audio encoder-decoder)."""
+    """Decoder LM (every family) with an optional encoder (the audio
+    encoder-decoder)."""
 
     def __init__(self, config: ModelConfig):
         self.config = config
@@ -303,13 +371,17 @@ class Model:
 
         Each stacked leaf is allocated once and filled period by period,
         so at no time does the device hold more than the state and one
-        period's weights (with one leaf's fp32 draw).
+        period's weights (with one leaf's fp32 draw).  On the ``"meta"``
+        device it allocates and draws nothing: the leaves' shapes and
+        dtypes (:func:`repro_torch.roofline.count_params`).
         """
         cfg = self.config
         dev = resolve_device(device)
         dt = _dtype(cfg)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = None  # the meta device draws nothing: shapes only
+        if dev.type != "meta":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
         std = 0.02
         state: dict[str, Any] = {
             "embed": (
@@ -434,7 +506,9 @@ class Model:
     def init_cache(self, batch: int, cache_len: int, *, enc_len: int = 0,
                    device=None):
         """One cache per pattern slot, stacked over periods: attention
-        keeps K and V, MLA its latent and shared rope key, and an
+        keeps K and V, MLA its latent and shared rope key, a Mamba layer
+        its conv window and ssm state, an mLSTM or sLSTM layer its
+        recurrent state (``cache_len`` does not size these), and an
         encoder-decoder's cross-attention the encoder's ``enc_len`` keys
         and values (``cross_k``, ``cross_v``; zeros until
         :meth:`prefill_cross`)."""
@@ -495,7 +569,10 @@ def _init_stack(init_one, n: int):
 
     Each stacked leaf is allocated once and filled tree by tree, so at no
     time does the device hold more than the stack and one tree's weights.
+    One tree is its own stack: each leaf gains dim 0 as a view.
     """
+    if n == 1:
+        return _unsqueezed(init_one())
     stacked = None
     for i in range(n):
         tree = init_one()
@@ -504,6 +581,14 @@ def _init_stack(init_one, n: int):
         _put(stacked, tree, i)
         del tree
     return stacked
+
+
+def _unsqueezed(tree):
+    if isinstance(tree, dict):
+        return {k: _unsqueezed(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_unsqueezed(v) for v in tree]
+    return tree.unsqueeze(0)
 
 
 def build_model(config: ModelConfig) -> Model:

@@ -6,8 +6,13 @@ active (``tp_group``) and the ``dma`` backend, its TP MLPs run the
 copy-engine uniform-fused-1D path (for an MoE model: its shared experts'
 and dense residual FFN's).  ``make_serve_step`` is ONE new token against
 the model's cache (K and V per attention layer, the latent and the shared
-rope key per MLA layer, and an encoder-decoder's cross K and V);
-:class:`DecodeEngine` adds the minimal batch loop.
+rope key per MLA layer, the recurrent state of a Mamba, mLSTM or sLSTM
+layer, and an encoder-decoder's cross K and V); :class:`DecodeEngine`
+adds the minimal batch loop.  Each ``DecodeEngine.run`` starts from the
+recurrent layers' initial state, where the reference's engine carries
+the state one run leaves into the next (ROADMAP queue C, R7); an
+attention cache needs no reset, since each run rewrites its positions
+from 0 and masks the rest.
 ``DecodeEngine.run`` reports the reference's ``serve/run`` and
 ``serve/step`` spans and ``serve/steps`` and ``serve/tokens`` counters
 (:mod:`repro_torch.obs`); its ``adapt=`` hook streams each batch's
@@ -26,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model, build_model
+from repro_torch.models.model import Model, build_model, reset_recurrent
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
 from repro_torch.parallel.context import overlap_context
@@ -121,6 +126,7 @@ class DecodeEngine:
         ]
         max_prompt = max(len(r.prompt) for r in reqs)
         max_new = max((r.max_new_tokens for r in reqs), default=0)
+        reset_recurrent(self.model.pattern, self.cache)
         reg = _metrics.get_metrics()
         steps_c = reg.counter("serve/steps")
         tokens_c = reg.counter("serve/tokens")

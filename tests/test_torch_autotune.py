@@ -59,6 +59,10 @@ from repro_torch.overlap import api, schedules
 from repro_torch.parallel.sharding import shard_columns, shard_rows
 from repro_torch.tune import KernelVariant, registry
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 MACHINES = (MI300X, TPU_V5E, H100_SXM)
 
 

@@ -15,6 +15,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.chunked_gemm import accumulate_matmul, chunked_matmul
 from repro_torch.tune.variants import default_variant
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 SHAPES = [
     (128, 128, 128),
     (256, 128, 384),

@@ -17,6 +17,10 @@ from repro_torch.models.layers import cache_attention
 from repro_torch.parallel import decode_attn
 from repro_torch.parallel.sharding import TPGroup, tp_group
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 CFG = ref_driver.DECODE_ATTN
 
 

@@ -24,6 +24,10 @@ from repro_torch.kernels.dma_exchange import (
 )
 from repro_torch.tune.variants import KernelVariant, default_variant
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 _ROOT = Path(__file__).resolve().parents[1]
 G = 4
 # Per-rank shard of the composer: 4 chunks of 32 rows, so the step GEMM

@@ -34,6 +34,10 @@ from repro_torch.serve.engine import make_prefill
 from repro_torch.train.loop import loss_and_grads
 from repro_torch.tree import leaves, named_leaves
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)  # the reference's layer tolerance
 MODEL_TOL = dict(rtol=2e-3, atol=2e-3)  # its model-forward tolerance
 SEAMLESS, INTERNVL = jax_reference.ENCDEC["archs"]

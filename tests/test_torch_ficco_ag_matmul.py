@@ -25,6 +25,10 @@ from repro_torch.kernels.ficco_ag_matmul import _plan, ficco_ag_matmul_fused
 from repro_torch.overlap.schedules import run_schedule
 from repro_torch.tune.variants import default_variant
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 _ROOT = Path(__file__).resolve().parents[1]
 G = 4
 # Per-rank shard (m_s, K, n_local) and dtype: multidev_kernels_driver.py's.

@@ -36,6 +36,10 @@ from repro_torch.sweep import (
     synthetic_ragged_batch,
 )
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 RAW_FIELDS = ("total", "comm_busy", "compute_busy", "exposed", "steps",
               "valid", "serial_comm", "serial_gemm")
 RTOL = 1e-9

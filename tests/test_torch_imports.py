@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 _ROOT = Path(__file__).resolve().parents[1]
 _PKG = _ROOT / "src" / "repro_torch"
 
@@ -178,6 +182,19 @@ def _launch_train_moe():
     main(["--arch", "deepseek-v2-lite-16b", "--steps", "1"])
 
 
+def _init_cache_jamba():
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    build_model(get_config("jamba-1.5-large-398b").reduced()).init_cache(2, 16)
+
+
+def _launch_serve_xlstm():
+    from repro_torch.launch.serve import main
+
+    main(["--arch", "xlstm-1.3b", "--prompts", "1", "--new-tokens", "1"])
+
+
 ENTRY_POINTS = {
     "Model.init": _model_init,
     "Model.init_cache": _init_cache,
@@ -197,6 +214,8 @@ ENTRY_POINTS = {
     "DecodeEngine(enc_len=)": _decode_engine_enc_len,
     "launch.serve (encoder-decoder)": _launch_serve_encdec,
     "launch.train (MoE)": _launch_train_moe,
+    "Model.init_cache (hybrid)": _init_cache_jamba,
+    "launch.serve (SSM)": _launch_serve_xlstm,
 }
 
 
@@ -278,4 +297,11 @@ def test_import_check_covers_the_encdec_and_moe_training_paths():
     for name in ("models.model", "models.layers", "models.moe",
                  "launch.specs", "data.pipeline", "serve.engine",
                  "launch.serve", "launch.train", "train.loop", "convert"):
+        assert f"repro_torch.{name}" in mods, name
+
+
+def test_import_check_covers_the_recurrent_families_and_the_counters():
+    mods = set(_port_modules())
+    for name in ("models.mamba", "models.xlstm", "roofline",
+                 "roofline.counters", "roofline.analysis"):
         assert f"repro_torch.{name}" in mods, name

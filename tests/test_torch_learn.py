@@ -18,6 +18,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import torch_jax_reference as ref_driver
 from repro import learn as jlearn
@@ -71,6 +72,10 @@ from repro_torch.learn import (
 )
 from repro_torch.obs import metrics
 from repro_torch.sweep import synthetic_batch, synthetic_ragged_batch
+
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
 
 MACHINES = machine_grid()[:ref_driver.N_GRID_MACHINES]
 J_MACHINES = jworkload.machine_grid()

@@ -29,6 +29,10 @@ from repro_torch.models.model import build_model
 from repro_torch.parallel.sharding import TPGroup, tp_group
 from repro_torch.serve.engine import DecodeEngine, Request, make_prefill
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 # The reference's own tolerance for the DMA backend inside a model
 # (tests/multidev_driver.py::pallas_dma_backend_in_model), fp32 weights.
 TOL = dict(rtol=2e-3, atol=2e-3)

@@ -59,6 +59,10 @@ from repro_torch.train.loop import (
 from repro_torch.tree import leaves
 from repro_torch.tune.variants import default_variant
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)  # the reference's layer tolerance
 MODEL_TOL = dict(rtol=2e-3, atol=2e-3)  # its model-forward tolerance
 DEEPSEEK, ARCTIC = "deepseek-v2-lite-16b", "arctic-480b"

@@ -30,6 +30,10 @@ from repro_torch.overlap.api import ficco_linear, resolve_schedule
 from repro_torch.overlap.schedules import SCHEDULE_FNS, run_schedule
 from repro_torch.parallel.sharding import shard_columns, shard_rows
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 _ROOT = Path(__file__).resolve().parents[1]
 G = 4
 SHAPES = [(128, 64, 64), (256, 128, 128), (512, 256, 64)]  # (m, n, k)

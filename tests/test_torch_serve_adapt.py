@@ -53,6 +53,10 @@ from repro_torch.serve.adapt import (
 from repro_torch.serve.engine import DecodeEngine, Request
 from repro_torch.sweep.synth import drifting_request_stream
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 GEMM = GemmShape(16384, 16384, 32768, 2)
 
 

@@ -44,6 +44,10 @@ from repro_torch.tune import (
     variant_cost,
 )
 
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
 MACHINES = (MI300X, TPU_V5E, H100_SXM)
 GROUPS = (None, 4, 8)
 # Table I's GEMMs, and shapes that trip each of the pruner's rules

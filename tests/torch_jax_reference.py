@@ -38,11 +38,19 @@ MODELS.pkl ERR.txt``) it evaluates, with ``JAX_PLATFORMS=cpu``:
     params, batch 0, the forward's logits and aux, the loss and its
     gradients, and ``ENCDEC["decode"]`` cached decode steps over the
     batch's first tokens (an encoder-decoder's cross K/V filled by
-    ``prefill_cross`` from the batch's frames; a VLM's on text).
+    ``prefill_cross`` from the batch's frames; a VLM's on text);
+  * ``recurrent``: the same for each of ``RECURRENT["archs"]`` (the
+    hybrid and SSM families, reduced, fp32) without the gradients, plus
+    the tokens of ``DecodeEngine.run`` on :func:`recurrent_requests`,
+    twice on one engine (the second run shows ROADMAP R7); for each of
+    ``RECURRENT["bf16"]`` also the forward and decode in bf16 (``bf16``);
+  * ``counts``: ``count_params`` of every arch in the registry at full
+    width.
 
-The first eight entries go to ``OUT.pkl``; ``moe_grad`` and ``encdec``
-(the whole models, the slower half) follow in ``MODELS.pkl``, so a test
-that reads only the first never waits for the second.
+The first eight entries go to ``OUT.pkl``; ``moe_grad``, ``encdec``,
+``recurrent`` and ``counts`` (the whole models, the slower half) follow
+in ``MODELS.pkl``, so a test that reads only the first never waits for
+the second.
 
 The script runs with ``MOE["g"]`` forced host devices
 (``--xla_force_host_platform_device_count``); the other entries run on
@@ -109,6 +117,21 @@ MOE_TRAIN = dict(archs=("deepseek-v2-lite-16b", "arctic-480b"), seq=32,
 OCFG = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
 ENCDEC = dict(archs=("seamless-m4t-large-v2", "internvl2-76b"), seq=32,
               batch=2, decode=8, cache=16, seed=0)
+# Serving the hybrid and SSM families: as ENCDEC, and an engine of
+# `batch` requests of `prompt` tokens and `new` new ones; the `bf16` archs
+# also in bfloat16 (forward and decode).
+RECURRENT = dict(archs=("jamba-1.5-large-398b", "xlstm-1.3b"), seq=32,
+                 batch=2, decode=8, cache=16, seed=0, prompt=5, new=4,
+                 bf16=("xlstm-1.3b",))
+
+
+def recurrent_requests(request_cls, vocab: int) -> list:
+    """``RECURRENT["batch"]`` requests of ``request_cls`` (either
+    package's ``Request``) with seeded prompts of unequal lengths."""
+    rng = np.random.default_rng(RECURRENT["seed"])
+    return [request_cls(rng.integers(0, vocab, RECURRENT["prompt"] - i)
+                        .astype(np.int32), RECURRENT["new"])
+            for i in range(RECURRENT["batch"])]
 
 
 class FakeClock:
@@ -221,6 +244,8 @@ def main(out_path: str, models_path: str, err_path: str) -> None:
         _write(models_path, {
             "moe_grad": {a: _moe_grad(a) for a in MOE_TRAIN["archs"]},
             "encdec": {a: _encdec(a) for a in ENCDEC["archs"]},
+            "recurrent": {a: _recurrent(a) for a in RECURRENT["archs"]},
+            "counts": _counts(),
         })
     except BaseException:
         with open(err_path, "w") as fh:
@@ -373,6 +398,63 @@ def _encdec(arch: str) -> dict:
             "decode": np.concatenate(decode, axis=1)}
 
 
+def _recurrent(arch: str, dtype: str | None = None) -> dict:
+    """The reduced ``arch`` (in ``dtype``, else its own): its params,
+    batch, forward, loss and cached decode, and, in its own dtype, the
+    tokens of two ``DecodeEngine.run``s on one engine; in bf16 also
+    under ``"bf16"`` for each of ``RECURRENT["bf16"]``, its params as
+    fp32 (every bf16 value is one)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.configs.base import ShapeConfig
+    from repro.data.pipeline import SyntheticLM
+    from repro.models.model import build_model
+    from repro.serve.engine import DecodeEngine, Request
+
+    r = RECURRENT
+    cfg = get_config(arch).reduced()
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    batch = SyntheticLM(cfg, ShapeConfig("t", r["seq"], r["batch"], "train"),
+                        seed=r["seed"]).batch_at(0)
+    logits, aux = jax.jit(model.forward)(params, batch)
+    loss, parts = jax.jit(model.loss)(params, batch)
+    cache = model.init_cache(r["batch"], r["cache"])
+    step = jax.jit(model.decode_step)
+    decode = []
+    for pos in range(r["decode"]):
+        lg, cache = step(params, cache, batch["tokens"][:, pos:pos + 1],
+                         jnp.int32(pos))
+        decode.append(np.asarray(lg, np.float32))
+    out = {"params": jax.tree.map(lambda a: np.asarray(a, np.float32)
+                                  if dtype else np.asarray(a), params),
+           "batch": batch, "logits": np.asarray(logits, np.float32),
+           "aux": float(aux), "loss": float(loss), "ce": float(parts["ce"]),
+           "decode": np.concatenate(decode, axis=1)}
+    if dtype:
+        return out
+    engine = DecodeEngine(cfg, params, batch_size=r["batch"],
+                          cache_len=r["cache"])
+    out["engine_runs"] = [[req.out for req in engine.run(
+        recurrent_requests(Request, cfg.vocab_size))] for _ in range(2)]
+    if arch in r["bf16"]:
+        out["bf16"] = _recurrent(arch, "bfloat16")
+    return out
+
+
+def _counts() -> dict:
+    from repro.configs import ARCHS, get_config
+    from repro.roofline.analysis import count_params
+
+    return {a: count_params(get_config(a)) for a in sorted(ARCHS)}
+
+
 def _decode_attn() -> dict:
     import jax
     import jax.numpy as jnp
@@ -475,8 +557,9 @@ def start(tmp_path_factory) -> None:
 
 def reference(tmp_path_factory, timeout: float = 600.0, *,
               models: bool = False) -> dict:
-    """The script's first entries, or with ``models`` its ``moe_grad`` and
-    ``encdec`` (see the module docstring); raises with the script's
+    """The script's first entries, or with ``models`` its ``moe_grad``,
+    ``encdec``, ``recurrent`` and ``counts`` (see the module docstring);
+    raises with the script's
     traceback if it failed."""
     start(tmp_path_factory)
     out, models_out, err, _, _ = _paths(tmp_path_factory)
