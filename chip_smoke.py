@@ -98,13 +98,9 @@ Phases, each of which exits non-zero on failure:
      (``serial_a2a_ffn``, ``ficco_a2a_ffn``'s variants) against each
      other, each timed with CUDA events beside its bound;
  12. MoE training (``[moe-train]``): DeepSeek-V2-Lite-16B at full width,
-     cut to 2 of its 27 layers, train steps (4 x 512 ``SyntheticLM``
-     tokens, AdamW) on the uniform-fused-2D schedule (K2 on the shared
-     experts' up/gate projections, 32 launches per step with remat) and
-     dense, interleaved: two equal gradient computations bit for bit on
-     each path, every MoE leaf finite and nonzero, the step-1 loss (1 %)
-     and gradient norm (5 %) against dense, the DMA backend refused under
-     grad; step walls beside the bound, peak memory, one profiled step;
+     cut to 2 of its 27 layers, through ``phase_model_train`` as item 14
+     sets out (K2 on the shared experts' up/gate projections, 32 launches
+     per step with remat);
  13. the encoder-decoder and VLM paths (``[encdec]``, ``[vlm]``) and the
      hybrid and SSM families (``[hybrid]``, ``[ssm]``), each through
      ``phase_model``: SeamlessM4T-v2-large whole, InternVL2-76B at full
@@ -124,6 +120,21 @@ Phases, each of which exits non-zero on failure:
      ``DecodeEngine`` answering the same requests twice with the same
      tokens (each run starts from the initial recurrent state), per step
      beside its byte bound;
+ 14. training the hybrid and SSM families (``[hybrid-train]``,
+     ``[ssm-train]``), each through ``phase_model_train``:
+     Jamba-1.5-Large at full width cut to 2 layers, (Mamba, MLP) and
+     (attention, MLP) (one MoE layer is 9.66e9 parameters: no cut that
+     holds one trains on one card), 4 x 512 ``SyntheticLM`` tokens on the
+     uniform-fused-2D schedule (K2 in the MLPs: 16 launches a gradient
+     computation, 32 a step with remat) and dense; xLSTM-1.3B cut to its
+     first 8 layers (7 mLSTM, 1 sLSTM), 2 x 64 tokens, dense; AdamW, one
+     path's state on the card at a time: two equal gradient computations
+     bit for bit, every layer's gradient finite and nonzero and each in
+     its parameter's dtype, the 2D path's FiCCO-site leaves against
+     dense's per period, the DMA backend refused under grad, the 2D
+     step's loss (1 %) and gradient norm (5 %) against dense, the
+     collectives counted per step; walls beside ``roofline.analyze``'s
+     three terms, peak memory beside the prediction, one profiled step;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -163,7 +174,8 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # What [done] counts: every phase the script prints, in order.
 PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
           "autotune", "serve", "adapt", "train", "grid", "fit", "gate",
-          "moe", "moe-train", "encdec", "vlm", "hybrid", "ssm")
+          "moe", "moe-train", "encdec", "vlm", "hybrid", "ssm",
+          "hybrid-train", "ssm-train")
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -2804,11 +2816,6 @@ def phase_moe_dispatch(device, timer, cfg):
           f" GEMMs, not overlap)")
 
 
-# [moe-train]: DeepSeek-V2-Lite-16B at full width, cut to MOE_TRAIN_LAYERS of
-# its 27 layers: its parameters, gradients and AdamW's fp32 moments for two
-# paths at once must fit the card.  One warm-up step and MOE_TRAIN_STEPS
-# timed steps on each path, interleaved.
-MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
 # [encdec]: SeamlessM4T-v2-large whole; [vlm]: InternVL2-76B at full width,
 # cut to VLM_LAYERS of its 80 layers.  Each prefill is PREFILL_BATCH x
 # PREFILL_SEQ positions (InternVL2's: 256 patches and 256 text tokens);
@@ -2880,217 +2887,6 @@ def _hold_path_kernels(label, device, *, k1=None, k2=None, k3=None):
                     "1e-4)")
     print(f"[{label}] the path's kernels against their plain versions at "
           "its shapes: " + "; ".join(held))
-
-
-def phase_moe_train(device):
-    """DeepSeek-V2-Lite-16B train steps at full width (2 of 27 layers) on
-    the 2D schedule and dense: two equal gradient computations bit for
-    bit, the MoE leaves finite and nonzero, the step-1 loss and gradient
-    norm against dense, K2's launches per step, walls beside the bound,
-    one profiled step.  Returns each kernel's launches in the last timed
-    2D step."""
-    import gc
-
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import OverlapConfig, ShapeConfig
-    from repro_torch.data.pipeline import SyntheticLM, to_device
-    from repro_torch.kernels import ops
-    from repro_torch.models.model import build_model
-    from repro_torch.parallel.sharding import TPGroup, tp_group
-    from repro_torch.train.loop import loss_and_grads, make_train_step
-    from repro_torch.train.optimizer import OptimizerConfig, init_state
-    from repro_torch.tree import leaves, named_leaves
-
-    t_phase = time.time()
-    gc.collect()
-    torch.cuda.empty_cache()
-    full = get_config(MOE_ARCH)
-    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS)
-
-    def model_for(**overlap):
-        return build_model(dataclasses.replace(
-            cfg, overlap=OverlapConfig(**overlap)))
-
-    model_2d = model_for(mode="uniform-fused-2d", backend="collective")
-    dense = model_for()
-    torch.cuda.reset_peak_memory_stats(device)
-    params = dense.init(0, device=device)
-    n_params = sum(t.numel() for t in leaves(params))
-    n_bytes = _nbytes(*leaves(params))
-    e = cfg.moe
-    print(f"[moe-train] {cfg.name} at full width (d {cfg.d_model}, "
-          f"{cfg.num_heads} heads, MLA, {e.num_experts} experts top-"
-          f"{e.top_k} + {e.num_shared_experts} shared, vocab "
-          f"{cfg.vocab_size}), cut to {cfg.num_layers} of its "
-          f"{full.num_layers} layers: {n_params / 1e9:.3f}e9 parameters, "
-          f"{n_bytes / 1e9:.2f} GB {cfg.dtype}; remat {cfg.remat} (policy "
-          f"{cfg.remat_policy!r}); {TRAIN_BATCH}x{TRAIN_SEQ} SyntheticLM "
-          "tokens (seed 0), AdamW")
-    group = TPGroup(GROUP, device)
-    data = SyntheticLM(cfg, ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH,
-                                        "train"), seed=0)
-    batches = [to_device(data.batch_at(i), device)
-               for i in range(1 + MOE_TRAIN_STEPS)]
-
-    # (a) Two equal gradient computations on each path, bit for bit: a
-    # flipped rounding would move expert choices from step 2 on.
-    grads = {}
-    for label, model, grp in (("dense", dense, None),
-                              ("2D path", model_2d, group)):
-        runs = []
-        for _ in range(2):
-            with tp_group(grp):
-                _, _, g = loss_and_grads(model, params, batches[0])
-            runs.append(dict(named_leaves(g)))
-        _sync()
-        differ = [n for n in runs[0] if not torch.equal(runs[0][n],
-                                                        runs[1][n])]
-        print(f"[moe-train] {label}: two equal gradient computations, "
-              f"{len(runs[0]) - len(differ)} of {len(runs[0])} leaves "
-              f"bit-equal" + (f"; differ: {differ}" if differ else ""))
-        if [n for n in differ if "/ffn/" in n]:
-            raise AssertionError(f"[moe-train] {label}: the MoE leaves' "
-                                 f"gradients differ run to run: {differ}")
-        grads[label] = runs[0]
-        del runs
-    moe_leaves = [n for n in grads["dense"] if "/ffn/" in n]
-    worst = 0.0
-    for label, g in grads.items():
-        for name in moe_leaves:
-            for layer in range(cfg.num_layers):
-                t = g[name][layer]
-                if not torch.isfinite(t).all() or not t.abs().max().item():
-                    raise AssertionError(f"[moe-train] {label} {name} layer "
-                                         f"{layer}: not finite or zero")
-    for name in moe_leaves:
-        if name.endswith(("shared/w_up", "shared/w_gate")):
-            for layer in range(cfg.num_layers):
-                got = grads["2D path"][name][layer].float()
-                want = grads["dense"][name][layer].float()
-                scale = want.abs().max().item()
-                err = (got - want).abs().max().item()
-                worst = max(worst, err / scale)
-                if err > 5e-2 * scale:
-                    raise AssertionError(
-                        f"[moe-train] {name} layer {layer}: 2D-path "
-                        f"gradient differs from dense by {err:.3e} (max "
-                        f"|grad| {scale:.3e})")
-    print(f"[moe-train] all {len(moe_leaves)} MoE leaves ("
-          + ", ".join(n.split("/ffn/")[1] for n in moe_leaves)
-          + f") finite and nonzero in every layer on both paths; the shared"
-          f" experts' w_up / w_gate, 2D path vs dense, max |diff| / max "
-          f"|grad| per layer {worst:.3e} (limit 5e-2)")
-    del grads
-
-    try:
-        with tp_group(group):
-            loss_and_grads(model_for(mode="uniform-fused-1d", backend="dma"),
-                           params, batches[0])
-    except RuntimeError as err:
-        if "reverse-mode" not in str(err):
-            raise
-        print(f"[moe-train] DMA backend under grad raises: {err}")
-    else:
-        raise AssertionError("[moe-train] the DMA backend did not refuse to "
-                             "be differentiated")
-
-    # (b) Train steps, interleaved.  K2 runs per layer, per shared-expert
-    # up and gate projection, per step of the 2D schedule; the backward
-    # recomputes every period's forward (remat), so twice.
-    ocfg = OptimizerConfig(warmup_steps=2)
-    per_step = cfg.num_layers * 2 * GROUP * (2 if cfg.remat else 1)
-    paths = {"2D path": (make_train_step(model_2d, ocfg), group,
-                         {"accumulate_matmul": per_step}),
-             "dense": (make_train_step(dense, ocfg), None, {})}
-    _hold_path_kernels("moe-train", device, k2=(
-        TRAIN_BATCH * TRAIN_SEQ, cfg.d_model,
-        e.d_ff_expert * e.num_shared_experts))
-    states = dict.fromkeys(paths, {"params": params,
-                                   "opt_state": init_state(params)})
-    walls = {label: [] for label in paths}
-    metrics = {label: [] for label in paths}
-    for i, batch in enumerate(batches):
-        for label, (step, grp, expected) in paths.items():
-            _sync()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            with tp_group(grp):
-                states[label], m = step(states[label], batch)
-            _sync()
-            walls[label].append((time.perf_counter() - t0) * 1e3)
-            counts, routes = _check_launches("moe-train",
-                                             f"{label} step {i + 1}",
-                                             expected)
-            if label == "2D path":
-                train_counts, train_routes = counts, routes
-            metrics[label].append({k: float(v) for k, v in m.items()})
-            if not all(map(math.isfinite, metrics[label][-1].values())):
-                raise AssertionError(f"[moe-train] {label} step {i + 1}: "
-                                     f"metrics {metrics[label][-1]}")
-    first_2d, first_dense = metrics["2D path"][0], metrics["dense"][0]
-    for key, limit in (("loss", 1e-2), ("grad_norm", 5e-2)):
-        diff = abs(first_2d[key] - first_dense[key])
-        print(f"[moe-train] step 1 {key}: 2D path {first_2d[key]:.6f}, "
-              f"dense {first_dense[key]:.6f} (relative diff "
-              f"{diff / abs(first_dense[key]):.3e}, limit {limit})")
-        if diff > limit * abs(first_dense[key]):
-            raise AssertionError(f"[moe-train] step 1 {key} of the 2D path "
-                                 "differs from dense")
-    tokens_n = TRAIN_BATCH * TRAIN_SEQ
-    for label in paths:
-        timed = walls[label][1:]
-        med = statistics.median(timed)
-        print(f"[moe-train] {label}: step wall median {med:.2f} ms over "
-              f"{len(timed)} steps (min {min(timed):.2f}, max "
-              f"{max(timed):.2f}; warm-up {walls[label][0]:.2f}), "
-              f"{tokens_n / med * 1e3:.0f} tok/s; loss "
-              + " -> ".join(f"{m['loss']:.4f}" for m in metrics[label])
-              + " (aux " + ", ".join(f"{m['aux']:.4f}"
-                                     for m in metrics[label]) + ")")
-    print(f"[moe-train] launches in the last timed 2D step: {train_counts} "
-          f"by route {train_routes} (K2: {cfg.num_layers} layers x 2 shared-"
-          f"expert projections x {GROUP} steps x 2, the forward and its "
-          f"recomputation; n_local {e.d_ff_expert * e.num_shared_experts // GROUP}"
-          f", which 128 does not divide: wgmma with masked edges); peak "
-          f"memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
-
-    def one_2d_step():
-        with tp_group(group):
-            paths["2D path"][0](states["2D path"], batches[0])
-
-    busy = phase_trace("DeepSeek 2D-path train step", one_2d_step)["busy_ms"]
-    wall = statistics.median(walls["2D path"][1:])
-    # The bound: the forward's operations three times over (forward and
-    # backward; the recomputation not counted), the routed experts at
-    # capacity; the bytes that must move are the parameters and AdamW's
-    # moments, each read once and written once.
-    fwd = _moe_work(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ / 2)
-    ops_n = 3 * sum(fwd.values())
-    moments = leaves(states["2D path"]["opt_state"]["m"])
-    moved = 2 * n_bytes + 2 * 2 * _nbytes(*moments)
-    bound, by = _bound(ops_n, moved, torch.bfloat16)
-    # The parameters a token reaches: MLA, the shared experts, the router
-    # and the unembedding (from the forward's parts), and top-k routed
-    # experts.
-    active = sum(fwd[k] for k in ("MLA projections", "shared experts",
-                                  "router", "unembedding")) / (2 * tokens_n)
-    active += cfg.num_layers * 3 * e.top_k * cfg.d_model * e.d_ff_expert
-    print(f"[moe-train] bound {bound:.2f} ms by {by}: {ops_n / 1e12:.2f} "
-          f"TFLOP (3 x the forward's {sum(fwd.values()) / 1e12:.3f}: "
-          + ", ".join(f"{k} {v / 1e12:.3f}" for k, v in fwd.items())
-          + f"; 6 x {active / 1e6:.0f}e6 active parameters x {tokens_n} "
-          f"tokens = {6 * active * tokens_n / 1e12:.2f}), "
-          f"{ops_n / PEAK_BF16_FLOPS * 1e3:.2f} ms at the bf16 peak; "
-          f"{moved / 1e9:.2f} GB (parameters and fp32 moments read and "
-          f"written), {moved / PEAK_BYTES * 1e3:.2f} ms; the 2D step's wall "
-          f"median {wall:.2f} ms is {wall / bound:.1f}x the bound; device "
-          f"busy {busy:.2f} ms (profiled) over it: idle share "
-          f"{1 - busy / wall:.3f}; on {_card()}")
-    del states, params
-    print(f"[moe-train] phase total {time.time() - t_phase:.1f}s")
-    return train_counts
 
 
 # [hybrid]: Jamba-1.5-Large at full width, cut to HYBRID_LAYERS layers with
@@ -3317,12 +3113,8 @@ def phase_model(device, label, arch, cut=None):
           f"{t_init:.1f}s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     shape = ShapeConfig("smoke", PREFILL_SEQ, PREFILL_BATCH, "prefill")
-    if cfg.family in (Family.HYBRID, Family.SSM):  # no SyntheticLM yet: A13
-        batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ)), device=device)}
-    else:  # the stub frontends' frames and patches too
-        batch = to_device(SyntheticLM(cfg, shape, seed=0).batch_at(0),
-                          device)
+    # The tokens, and the stub frontends' frames and patches.
+    batch = to_device(SyntheticLM(cfg, shape, seed=0).batch_at(0), device)
     print(f"[{label}] batch (seed 0): "
           + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()))
     want_shape = (PREFILL_BATCH, batch["tokens"].shape[1], cfg.vocab_size)
@@ -3469,6 +3261,364 @@ def phase_model(device, label, arch, cut=None):
     return counts
 
 
+# [moe-train]: DeepSeek-V2-Lite-16B at full width, cut to MOE_TRAIN_LAYERS
+# of its 27 layers, at TRAIN_BATCH x TRAIN_SEQ tokens.  [hybrid-train]:
+# Jamba-1.5-Large at full width cut to HYBRID_TRAIN_LAYERS layers,
+# attention every second layer at offset 1 and the MoE every fourth, so the
+# cut is [(Mamba, MLP), (attention, MLP)]: one of Jamba's MoE layers alone
+# is 16 x 3 x 8192 x 24576 = 9.66e9 parameters, more than 110 GB of AdamW
+# state, so no full-width cut that holds one trains on one card
+# ([moe-train] holds the MoE backward).  [ssm-train]: xLSTM-1.3B at full
+# width cut to its first period, SSM_TRAIN_LAYERS layers (7 mLSTM, 1
+# sLSTM), at SSM_TRAIN_BATCH x SSM_TRAIN_SEQ tokens: eager autograd keeps
+# two (B, H, hd, hd) fp32 tensors per mLSTM step (16 MB a batch row at hd
+# 1024), as the reference's lax.scan does.  One warm-up step and
+# MODEL_TRAIN_STEPS timed steps per path, one path's state at a time.
+# SITE_GRAD_LIMIT: the 2D path's FiCCO-site gradients against dense's, the
+# largest |2D - dense| / |dense| (norms over one leaf of one period), about
+# twice what an H100 gave (1.98e-2 for DeepSeek, 7.55e-3 for Jamba).
+MOE_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 2, 2
+SSM_TRAIN_LAYERS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 8, 2, 64
+MODEL_TRAIN_STEPS = 3
+SITE_GRAD_LIMIT = {"deepseek-v2-lite-16b": 4e-2,
+                   "jamba-1.5-large-398b": 1.5e-2}
+
+
+def _hybrid_train_cut(cfg):
+    return dataclasses.replace(
+        cfg, num_layers=HYBRID_TRAIN_LAYERS,
+        hybrid=dataclasses.replace(cfg.hybrid, attn_every=2, attn_offset=1),
+        moe=dataclasses.replace(cfg.moe, every_k_layers=4))
+
+
+def _scan_residuals(cfg, pattern, n_periods, batch, seq) -> tuple:
+    """(bytes, how): what eager autograd keeps for the recurrent scans'
+    backward.  A Mamba step saves exp(dt A) and the state it multiplies,
+    (B, D_inner, N) fp32 each; an mLSTM step the state it decays and the
+    fp32 outer product k v^T, (B, H, hd, hd) each; an sLSTM step a few
+    (B, D_inner) vectors (counted as 8)."""
+    from repro_torch.models.mamba import mamba_dims
+
+    per_step, how = 0, []
+    for spec in pattern:
+        if spec.mixer == "mamba":
+            d_inner, _ = mamba_dims(cfg.d_model, cfg.hybrid.mamba)
+            b = 2 * batch * d_inner * cfg.hybrid.mamba.d_state * 4
+            how.append(f"Mamba 2 x {batch}x{d_inner}x"
+                       f"{cfg.hybrid.mamba.d_state} fp32")
+        elif spec.mixer == "mlstm":
+            hd = int(cfg.xlstm.proj_factor * cfg.d_model) // cfg.num_heads
+            b = 2 * batch * cfg.num_heads * hd * hd * 4
+            how.append(f"mLSTM 2 x {batch}x{cfg.num_heads}x{hd}x{hd} fp32")
+        elif spec.mixer == "slstm":
+            b = 8 * batch * int(cfg.xlstm.proj_factor * cfg.d_model) * 4
+            how.append("sLSTM 8 vectors")
+        else:
+            continue
+        per_step += b * n_periods
+    return per_step * seq, ", ".join(sorted(set(how)))
+
+
+def _ficco_sites(cfg, pattern) -> dict:
+    """{prefix of the leaves: K2's N} for each layer of the period whose
+    FFN the 2D schedule runs: an MLP, or an MoE layer's shared experts."""
+    e = cfg.moe
+    sites = {}
+    for i, spec in enumerate(pattern):
+        if spec.ffn == "mlp":
+            sites[f"layers/{i}/ffn/"] = cfg.d_ff
+        elif spec.ffn == "moe" and e.num_shared_experts:
+            sites[f"layers/{i}/ffn/shared/"] = (e.d_ff_expert
+                                                * e.num_shared_experts)
+    return sites
+
+
+def phase_model_train(device, label, arch, cut, batch_n, seq):
+    """[moe-train] / [hybrid-train] / [ssm-train]: train steps of a model
+    at full width, cut to a few layers, random from seed 0, on
+    ``SyntheticLM`` batches: on uniform-fused-2d over GROUP ranks where it
+    has a FiCCO site (K2 folds each step of the schedule), and dense.
+    (a) Two equal gradient computations per path without remat bit for
+    bit, every layer's leaf finite and nonzero in each period, each
+    gradient in its parameter's dtype, K2's launches; the 2D path's
+    FiCCO-site leaves against dense's per period; the DMA backend refuses
+    to be differentiated; (b) steps with the config's remat, each path's
+    state alone on the card: K2's launches and the collectives counted per
+    step, the step-1 loss (1 %) and gradient norm (5 %) against dense;
+    (c) the wall per step beside ``roofline.analyze``'s three terms, peak
+    memory beside the prediction, one profiled step.  Returns each
+    kernel's launches in the last timed step of the first path."""
+    import gc
+
+    import torch
+
+    from repro_torch import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OverlapConfig, ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.collectives import counting
+    from repro_torch.parallel.sharding import TPGroup, tp_group
+    from repro_torch.train.loop import loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.tree import leaves, named_leaves
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(arch)
+    cfg = cut(full)
+    dense = build_model(cfg)
+    sites = _ficco_sites(cfg, dense.pattern)
+    n_sites = len(sites) * dense.n_periods
+    group = TPGroup(GROUP, device)
+    paths = {}
+    if sites:
+        paths["2D path"] = (dataclasses.replace(cfg, overlap=OverlapConfig(
+            mode="uniform-fused-2d", backend="collective")), group)
+    paths["dense"] = (cfg, None)
+    torch.cuda.reset_peak_memory_stats(device)
+    params = dense.init(0, device=device)
+    n_params = sum(t.numel() for t in leaves(params))
+    p_bytes = _nbytes(*leaves(params))
+    fp32 = [n for n, t in named_leaves(params) if t.dtype == torch.float32]
+    counted = roofline.count_params(cfg)
+    if counted != n_params:
+        raise AssertionError(f"[{label}] {n_params} parameters on the card, "
+                             f"{counted} by roofline.count_params")
+    kinds = ", ".join(f"({s.mixer}, {s.ffn})" for s in dense.pattern)
+    shape = ShapeConfig("smoke", seq, batch_n, "train")
+    print(f"[{label}] {cfg.name} at full width (d {cfg.d_model}, "
+          f"{cfg.num_heads} / {cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}; whole: {full.num_layers} layers, "
+          f"{roofline.count_params(full) / 1e9:.3f}e9 parameters), cut to "
+          f"{cfg.num_layers} layers of period [{kinds}]: {n_params / 1e9:.3f}"
+          f"e9 parameters (roofline.count_params: {counted / 1e9:.3f}e9), "
+          f"{p_bytes / 1e9:.2f} GB {cfg.dtype} with fp32 leaves "
+          + (", ".join(sorted({n.rsplit('/', 1)[-1] for n in fp32}))
+             or "none")
+          + f"; remat {cfg.remat} (policy {cfg.remat_policy!r}); "
+          f"{batch_n}x{seq} SyntheticLM tokens (seed 0), AdamW with fp32 "
+          f"moments; paths: {', '.join(paths)}")
+    if full.moe and not cfg.moe.every_k_layers <= cfg.num_layers:
+        e = full.moe
+        print(f"[{label}] the cut holds no MoE layer: one is {e.num_experts}"
+              f" x 3 x {full.d_model} x {e.d_ff_expert} = "
+              f"{e.num_experts * 3 * full.d_model * e.d_ff_expert / 1e9:.2f}"
+              "e9 parameters, more than 110 GB with its AdamW state")
+    # The prediction: the step holds the parameters, the moments, the
+    # gradients and the scans' residuals; the update (out of place) holds
+    # the old and new parameters and moments with the gradients, and four
+    # fp32 temporaries of the largest leaf.  Each path starts
+    # from weights drawn anew from the seed: no path keeps another's.
+    moments = 2 * 4 * n_params
+    resid, how = _scan_residuals(cfg, dense.pattern, dense.n_periods,
+                                 batch_n, seq)
+    logits = batch_n * seq * cfg.vocab_size * (2 + 4 + 4)
+    temps = 4 * 4 * max(t.numel() for t in leaves(params))
+    backward = p_bytes + moments + p_bytes + resid + logits
+    update = 2 * (p_bytes + moments) + p_bytes + temps
+    predicted = max(backward, update)
+    print(f"[{label}] predicted peak memory {predicted / 1e9:.2f} GB: the "
+          f"backward {backward / 1e9:.2f} GB (parameters "
+          f"{p_bytes / 1e9:.2f} GB, moments {moments / 1e9:.2f}, gradients "
+          f"{p_bytes / 1e9:.2f}, the scans' residuals {resid / 1e9:.2f}"
+          + (f" ({how} a step, {seq} steps)" if resid else "")
+          + f", logits {logits / 1e9:.2f}), the update {update / 1e9:.2f} "
+          f"GB (old and new state, gradients, temporaries "
+          f"{temps / 1e9:.2f})")
+    sums = [float(t.float().sum()) for t in leaves(params)]
+    data = SyntheticLM(cfg, shape, seed=0)
+    batches = [to_device(data.batch_at(i), device)
+               for i in range(1 + MODEL_TRAIN_STEPS)]
+    site_launches = ({"accumulate_matmul": n_sites * 2 * GROUP} if sites
+                     else {})
+    if sites:
+        _hold_path_kernels(label, device, k2=(
+            batch_n * seq, cfg.d_model, next(iter(sites.values()))))
+    failures = []
+
+    # (a) Two equal gradient computations per path without remat, bit for
+    # bit; K2 folds each projection of each FiCCO site once a computation.
+    layer_leaves = [n for n, _ in named_leaves(params)
+                    if n.startswith("layers/")]
+    parts = {}  # "attn", "mixer", "ffn", "norm1", ...: their leaves' names
+    for n in layer_leaves:
+        part, leaf = n.split("/", 3)[2:]
+        parts.setdefault(part, set()).add(leaf)
+    site_leaves = [n for n in layer_leaves if n.startswith(tuple(sites))]
+    site_grads = {}
+    for name, (pcfg, grp) in paths.items():
+        model = build_model(dataclasses.replace(pcfg, remat=False))
+        runs = []
+        for _ in range(2):
+            ops.reset_launch_counts()
+            with tp_group(grp):
+                loss, _, g = loss_and_grads(model, params, batches[0])
+            _sync()
+            _check_launches(label, f"{name} gradient computation",
+                            site_launches if grp else {})
+            runs.append(dict(named_leaves(g)))
+        differ = [n for n in runs[0]
+                  if not torch.equal(runs[0][n], runs[1][n])]
+        if differ:
+            failures.append(f"{name}: gradients differ run to run: {differ}")
+        for n, p in named_leaves(params):
+            g = runs[0][n]
+            if g.dtype != p.dtype:
+                failures.append(f"{name} {n}: gradient {g.dtype}, parameter "
+                                f"{p.dtype}")
+        for n in layer_leaves:
+            t = runs[0][n]
+            for i in range(dense.n_periods):
+                if not torch.isfinite(t[i]).all() or not t[i].abs().max():
+                    failures.append(f"{name} {n} period {i}: not finite or "
+                                    "zero")
+        norm = math.sqrt(sum(float(t.float().square().sum())
+                             for t in runs[0].values()))
+        print(f"[{label}] {name}, remat off: two equal gradient computations"
+              f", {len(runs[0]) - len(differ)} of {len(runs[0])} leaves "
+              f"bit-equal; loss {loss.item():.6f}, gradient norm "
+              f"{norm:.6f}; all {len(layer_leaves)} layer leaves ("
+              + "; ".join(f"{part}: {', '.join(sorted(names))}"
+                          for part, names in sorted(parts.items()))
+              + f") finite and nonzero in every period, each gradient in its"
+              f" parameter's dtype (fp32: {len(fp32)} leaves); launches "
+              f"{dict(ops.launch_counts())}")
+        site_grads[name] = {n: runs[0][n] for n in site_leaves}
+        del runs, g
+    if sites:
+        worst, where = 0.0, None
+        for n in site_leaves:
+            for i in range(dense.n_periods):
+                want = site_grads["dense"][n][i].float()
+                got = site_grads["2D path"][n][i].float()
+                gap = float((got - want).norm() / want.norm())
+                if gap > worst:
+                    worst, where = gap, f"{n} period {i}"
+        print(f"[{label}] the 2D path's {len(site_leaves)} FiCCO-site leaves"
+              f" against dense's, per period: worst |2D - dense| / |dense| "
+              f"{worst:.3e} ({where}; limit {SITE_GRAD_LIMIT[arch]})")
+        if not worst <= SITE_GRAD_LIMIT[arch]:
+            failures.append(f"the 2D path's {where} gradient is "
+                            f"{worst:.3e} off dense's")
+        try:
+            with tp_group(group):
+                loss_and_grads(build_model(dataclasses.replace(
+                    cfg, remat=False, overlap=OverlapConfig(
+                        mode="uniform-fused-1d", backend="dma"))),
+                    params, batches[0])
+        except RuntimeError as err:
+            if "reverse-mode" not in str(err):
+                raise
+            print(f"[{label}] DMA backend under grad raises: {err}")
+        else:
+            failures.append("the DMA backend did not refuse to be "
+                            "differentiated")
+    del site_grads
+
+    # (b) Train steps with the config's remat, one path's state at a time.
+    ocfg = OptimizerConfig(warmup_steps=2)
+    tokens_n = batch_n * seq
+    walls, metrics, colls, peaks, first_counts = {}, {}, {}, {}, None
+    costs = roofline.step_costs(cfg, shape, "train")
+    flops6 = roofline.model_flops_for(cfg, shape, "train")
+    for i_path, (name, (pcfg, grp)) in enumerate(paths.items()):
+        if i_path:  # the same weights, drawn anew from the seed
+            params = dense.init(0, device=device)
+            if [float(t.float().sum()) for t in leaves(params)] != sums:
+                raise AssertionError(f"[{label}] seed 0 drew other weights "
+                                     "the second time")
+        step = make_train_step(build_model(pcfg), ocfg)
+        state = {"params": params, "opt_state": init_state(params)}
+        del params
+        expected = ({"accumulate_matmul": n_sites * 2 * GROUP
+                     * (2 if pcfg.remat else 1)} if grp else {})
+        walls[name], metrics[name] = [], []
+        for i, batch in enumerate(batches):
+            _sync()
+            if i == len(batches) - 1:
+                torch.cuda.reset_peak_memory_stats(device)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with tp_group(grp), counting() as stats:
+                state, m = step(state, batch)
+            _sync()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            counts, routes = _check_launches(label, f"{name} step {i + 1}",
+                                             expected)
+            metrics[name].append({k: float(v) for k, v in m.items()})
+            if not all(map(math.isfinite, metrics[name][-1].values())):
+                failures.append(f"{name} step {i + 1}: metrics "
+                                f"{metrics[name][-1]}")
+            colls[name] = stats
+        peaks[name] = torch.cuda.max_memory_allocated(device)
+        if first_counts is None:
+            first_counts, first_routes = counts, routes
+
+        if i_path == 0:  # one profiled step, on the last step's state
+            with tp_group(grp):
+                trace = phase_trace(f"{cfg.name} {name} train step",
+                                    lambda: step(state, batches[0]))
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        want_calls = n_sites * 2 * GROUP if grp else 0
+        got_calls = sum(colls[name].count_by_kind.values())
+        if got_calls != want_calls:
+            failures.append(f"{name}: {colls[name].count_by_kind} "
+                            f"collectives counted per step, expected "
+                            f"{want_calls} all-gathers")
+    if len(paths) > 1:
+        a, b = metrics["2D path"][0], metrics["dense"][0]
+        for key, limit in (("loss", 1e-2), ("grad_norm", 5e-2)):
+            diff = abs(a[key] - b[key])
+            print(f"[{label}] step 1 {key}: 2D path {a[key]:.6f}, dense "
+                  f"{b[key]:.6f} (relative diff {diff / abs(b[key]):.3e}, "
+                  f"limit {limit})")
+            if diff > limit * abs(b[key]):
+                failures.append(f"step 1 {key} of the 2D path differs from "
+                                "dense")
+    for name in paths:
+        timed = walls[name][1:]
+        med = statistics.median(timed)
+        r = roofline.analyze(
+            arch=cfg.name, shape=f"{batch_n}x{seq}", mesh_name=(
+                f"TPGroup({GROUP}) on one card" if paths[name][1]
+                else "one card"), chips=1, costs=costs,
+            collectives=colls[name], model_flops=flops6,
+            bytes_per_device=peaks[name])
+        t_max = max(r.t_compute, r.t_memory, r.t_collective) * 1e3
+        print(f"[{label}] {name}: step wall median {med:.2f} ms over "
+              f"{len(timed)} steps (min {min(timed):.2f}, max "
+              f"{max(timed):.2f}; warm-up {walls[name][0]:.2f}), "
+              f"{tokens_n / med * 1e3:.0f} tok/s; loss "
+              + " -> ".join(f"{m['loss']:.4f}" for m in metrics[name])
+              + f"; analyze(): t_compute {r.t_compute * 1e3:.2f} ms, "
+              f"t_memory {r.t_memory * 1e3:.2f} ms, t_collective "
+              f"{r.t_collective * 1e3:.3f} ms ({r.collectives} in "
+              f"{r.collective_counts} calls a step, per-rank bytes; on one "
+              f"card the exchange is a device copy), dominant {r.dominant}, "
+              f"useful_flops_ratio {r.useful_flops_ratio:.3f}; the wall is "
+              f"{med / t_max:.1f}x the largest term; peak over the last step"
+              f" {r.bytes_per_device / 1e9:.2f} GB")
+    print(f"[{label}] launches in the last timed {next(iter(paths))} step: "
+          f"{first_counts} by route {first_routes}"
+          + (f" (K2: {n_sites} FiCCO sites x 2 projections x {GROUP} steps"
+             + (" x 2, the forward and its recomputation" if cfg.remat
+                else "") + ")" if sites else " (no FiCCO site)")
+          + f"; phase peak memory "
+          f"{max(peaks.values()) / 1e9:.2f} GB against the predicted "
+          f"{predicted / 1e9:.2f} GB; profiled step: device busy "
+          f"{trace['busy_ms']:.2f} ms, idle share {trace['idle']:.3f}; on "
+          f"{_card()}")
+    if failures:
+        raise AssertionError(f"[{label}] " + "; ".join(failures))
+    print(f"[{label}] phase total {time.time() - t_phase:.1f}s")
+    return first_counts
+
+
 def main() -> int:
     import torch
 
@@ -3524,12 +3674,20 @@ def drive(device) -> int:
     # [moe] needs the card's memory: TinyLlama's state goes first.
     del model, state
     moe_counts = phase_moe(device, timer)
-    moe_train_counts = phase_moe_train(device)
+    moe_train_counts = phase_model_train(
+        device, "moe-train", MOE_ARCH, _first_layers(MOE_TRAIN_LAYERS),
+        TRAIN_BATCH, TRAIN_SEQ)
     encdec_counts = phase_model(device, "encdec", ENCDEC_ARCH)
     vlm_counts = phase_model(device, "vlm", VLM_ARCH,
                              _first_layers(VLM_LAYERS))
     hybrid_counts = phase_model(device, "hybrid", HYBRID_ARCH, _hybrid_cut)
     ssm_counts = phase_model(device, "ssm", SSM_ARCH)
+    hybrid_train_counts = phase_model_train(
+        device, "hybrid-train", HYBRID_ARCH, _hybrid_train_cut, TRAIN_BATCH,
+        TRAIN_SEQ)
+    ssm_train_counts = phase_model_train(
+        device, "ssm-train", SSM_ARCH, _first_layers(SSM_TRAIN_LAYERS),
+        SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
     for k in kernels:
         k["moe_prefill_launches"] = moe_counts[k["name"]]
         k["moe_train_step_launches"] = moe_train_counts[k["name"]]
@@ -3537,6 +3695,8 @@ def drive(device) -> int:
         k["vlm_prefill_launches"] = vlm_counts[k["name"]]
         k["hybrid_prefill_launches"] = hybrid_counts[k["name"]]
         k["ssm_prefill_launches"] = ssm_counts[k["name"]]
+        k["hybrid_train_step_launches"] = hybrid_train_counts[k["name"]]
+        k["ssm_train_step_launches"] = ssm_train_counts[k["name"]]
 
     print(f"[done] every phase passed ({', '.join(PHASES)}) in "
           f"{time.time() - t_start:.1f}s")
@@ -3544,7 +3704,8 @@ def drive(device) -> int:
             "train_step_launches", "moe_prefill_launches",
             "moe_train_step_launches", "encdec_prefill_launches",
             "vlm_prefill_launches", "hybrid_prefill_launches",
-            "ssm_prefill_launches", "max_abs_err",
+            "ssm_prefill_launches", "hybrid_train_step_launches",
+            "ssm_train_step_launches", "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

@@ -5,15 +5,15 @@ Usage:
       --steps 200 [--overlap-mode ficco_auto] [--ckpt-dir DIR] [--device cpu]
 
 Port of ``repro.launch.train``: the same flags and the same ``.reduced()``
-model (``--full-size`` for the full one) of the dense, MoE
-(``deepseek-v2-lite-16b``, ``arctic-480b``), VLM and audio families,
-plus ``--device`` (default
-``cuda``; with no CUDA device the launcher raises unless ``--device cpu``
-is given).  The reference's ``--dry-run`` delegates to its dry-run
-launcher, which comes with the tooling (ROADMAP A8).  As in the reference,
-the loop runs outside any tensor-parallel group, so ``--overlap-mode``
-takes effect only for a caller that wraps :func:`~repro_torch.train.loop.train`
-in ``tp_group(TPGroup(g))``.
+model (``--full-size`` for the full one) of every family: dense, MoE
+(``deepseek-v2-lite-16b``, ``arctic-480b``), VLM, audio, hybrid
+(``jamba-1.5-large-398b``) and SSM (``xlstm-1.3b``), plus ``--device``
+(default ``cuda``; with no CUDA device the launcher raises unless
+``--device cpu`` is given).  The reference's ``--dry-run`` delegates to
+its dry-run launcher, which comes with the tooling (ROADMAP A8).  As in
+the reference, the loop runs outside any tensor-parallel group, so
+``--overlap-mode`` takes effect only for a caller that wraps
+:func:`~repro_torch.train.loop.train` in ``tp_group(TPGroup(g))``.
 """
 
 from __future__ import annotations

@@ -78,6 +78,15 @@ def _ssm_params(params, u, cfg: MambaConfig, dt_rank: int):
     return dt, a, b_mat.float(), c_mat.float()
 
 
+def _scan_step(h, a, dt_t, dtu_t, b_t, c_t):
+    """One step of the selective scan, out of place: h_t = exp(dt_t * A)
+    h + (dt_t * u_t) B_t, y_t = h_t C_t.  h (B, D, N); a (D, N); dt_t and
+    dtu_t (B, D); b_t and c_t (B, N).  Returns (h_t, y_t)."""
+    da = torch.exp(dt_t[..., None] * a)  # (B, D, N)
+    h = da * h + dtu_t[..., None] * b_t[:, None, :]
+    return h, torch.einsum("bdn,bn->bd", h, c_t)
+
+
 def mamba_apply(params, x: torch.Tensor, cfg: MambaConfig) -> torch.Tensor:
     """x: (B, S, d_model) -> (B, S, d_model)."""
     b, s, d_model = x.shape
@@ -92,9 +101,9 @@ def mamba_apply(params, x: torch.Tensor, cfg: MambaConfig) -> torch.Tensor:
                     device=x.device)
     ys = []
     for t in range(s):
-        da = torch.exp(dt[:, t, :, None] * a)  # (B, D, N)
-        h = da * h + dtu[:, t, :, None] * b_mat[:, t, None, :]
-        ys.append(torch.einsum("bdn,bn->bd", h, c_mat[:, t]))
+        h, y_t = _scan_step(h, a, dt[:, t], dtu[:, t], b_mat[:, t],
+                            c_mat[:, t])
+        ys.append(y_t)
     y = torch.stack(ys, dim=1) + uf * params["d_skip"]
     y = y.to(x.dtype) * torch.nn.functional.silu(z)
     return y @ params["w_out"]
@@ -124,9 +133,8 @@ def mamba_decode(params, x: torch.Tensor, cache: dict, cfg: MambaConfig):
     dt, a, b_mat, c_mat = _ssm_params(params, u, cfg, dt_rank)
     u_t, dt_t = u[:, 0].float(), dt[:, 0]
     b_t, c_t = b_mat[:, 0], c_mat[:, 0]
-    da = torch.exp(dt_t[..., None] * a)
-    h = da * cache["h"] + (dt_t * u_t)[..., None] * b_t[:, None, :]
-    y = torch.einsum("bdn,bn->bd", h, c_t) + u_t * params["d_skip"]
+    h, y = _scan_step(cache["h"], a, dt_t, dt_t * u_t, b_t, c_t)
+    y = y + u_t * params["d_skip"]
     y = y[:, None, :].to(x.dtype) * torch.nn.functional.silu(z)
     cache["conv"].copy_(conv_state)
     cache["h"].copy_(h)

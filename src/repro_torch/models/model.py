@@ -225,7 +225,9 @@ def _remat_period(period, pattern, cfg: ModelConfig, x, positions,
                   enc_out, overlap, group):
     """A period under recomputation.  The backward reruns it after the
     forward's overlap context and TP group have been left, so it enters
-    the ones the forward ran in."""
+    the ones the forward ran in.  A recurrent mixer builds its state from
+    zero in every call, so the rerun reproduces the forward bit for
+    bit."""
     with overlap_context(overlap), tp_group(group):
         return _period_apply(period, pattern, cfg, x, positions, enc_out)
 
@@ -342,7 +344,8 @@ def reset_recurrent(pattern, cache) -> None:
     per pattern slot, as :meth:`Model.init_cache` makes it) to the start,
     in place: Mamba's conv window and ssm state to zeros, the mLSTM's and
     sLSTM's running maxima to -1e30 and their other state to zeros.  An
-    attention or MLA cache is left as it is."""
+    attention or MLA cache is left as it is.  For serving only: a forward
+    under grad builds each mixer's state afresh and never reads a cache."""
     for spec, c in zip(pattern, cache):
         if spec.mixer in RECURRENT:
             for key, leaf in c.items():

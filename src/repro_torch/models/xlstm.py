@@ -12,7 +12,11 @@ exponential gating (a per-head running maximum ``m``, -1e30 at the start,
 so the first step's forget term is 0); it is never expanded over time.
 The sLSTM's input projection ``u @ w_gates`` does not depend on the
 state, so it runs once over the whole sequence ahead of the loop; the
-recurrent ``h @ r_gates`` runs per step.
+recurrent ``h @ r_gates`` runs per step.  Each step returns its new state
+out of place and the loops rebind it, so autograd differentiates them
+(every step's residuals are kept, as the reference's ``lax.scan`` keeps
+them); the decode writes the new state into its cache with one ``copy_``
+per leaf.
 
 The casts are the reference's: ``w_if``, ``w_gates`` and ``r_gates`` are
 fp32 leaves (:data:`FP32_LEAVES`), and where the reference multiplies a
@@ -77,20 +81,23 @@ def _mlstm_qkv(params, u, num_heads: int):
     return q, k, v
 
 
-def _mlstm_step(c, n, m, q_t, k_t, v_t, li_t, lf_t):
-    """One step of the matrix memory; c, n and m are updated in place.
-    Returns h_t (B, H, hd) fp32."""
+def _mlstm_step(state: dict, q_t, k_t, v_t, li_t, lf_t):
+    """One step of the matrix memory, out of place.  ``state`` holds c
+    (B, H, hd, hd), n (B, H, hd) and m (B, H).  Returns (h_t (B, H, hd),
+    the new state).  The step's products are taken in the state's dtype
+    (fp32 in a model), as the reference casts them."""
+    c, m = state["c"], state["m"]
     m_new = torch.maximum(lf_t + m, li_t)
     i_g = torch.exp(li_t - m_new)  # (B, H)
     f_g = torch.exp(lf_t + m - m_new)
-    kv = (k_t[..., :, None] * v_t[..., None, :]).float()
-    c.mul_(f_g[..., None, None]).add_(i_g[..., None, None] * kv)
-    n.mul_(f_g[..., None]).add_(i_g[..., None] * k_t.float())
-    m.copy_(m_new)
-    qf = q_t.float()
+    kv = (k_t[..., :, None] * v_t[..., None, :]).to(c.dtype)
+    c = f_g[..., None, None] * c + i_g[..., None, None] * kv
+    n = f_g[..., None] * state["n"] + i_g[..., None] * k_t.to(c.dtype)
+    qf = q_t.to(c.dtype)
     num = torch.einsum("bhd,bhde->bhe", qf, c)
     den = torch.einsum("bhd,bhd->bh", qf, n).abs()
-    return num / torch.maximum(den, torch.exp(-m_new))[..., None]
+    h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
+    return h, {"c": c, "n": n, "m": m_new}
 
 
 def mlstm_apply(params, x: torch.Tensor, num_heads: int,
@@ -101,9 +108,11 @@ def mlstm_apply(params, x: torch.Tensor, num_heads: int,
     q, k, v = _mlstm_qkv(params, u, num_heads)
     log_i, log_f = _mlstm_gates(params, u)  # (B, S, H)
     state = mlstm_init_cache(b, d_model, num_heads, cfg, x.device)
-    c, n, m = state["c"], state["n"], state["m"]
-    hs = [_mlstm_step(c, n, m, q[:, t], k[:, t], v[:, t], log_i[:, t],
-                      log_f[:, t]) for t in range(s)]
+    hs = []
+    for t in range(s):  # rebinds the state: nothing autograd saved is written
+        h_t, state = _mlstm_step(state, q[:, t], k[:, t], v[:, t],
+                                 log_i[:, t], log_f[:, t])
+        hs.append(h_t)
     h = torch.stack(hs, dim=1).reshape(b, s, d_inner).to(x.dtype)
     h = h + u * params["skip_scale"]
     return (h * F.silu(z)) @ params["w_out"]
@@ -125,16 +134,19 @@ def mlstm_init_cache(batch: int, d_model: int, num_heads: int,
 
 def mlstm_decode(params, x: torch.Tensor, cache: dict, num_heads: int,
                  cfg: XLSTMConfig):
-    """x: (B, 1, d_model).  The cache is updated in place (the reference
-    returns a new one); the same dict is returned."""
+    """x: (B, 1, d_model).  The cache is updated in place, one ``copy_``
+    per leaf (the reference returns a new one); the same dict is
+    returned."""
     b, _, d_model = x.shape
     d_inner = _d_inner(d_model, cfg)
     u, z = (x @ params["w_up"]).chunk(2, dim=-1)
     q, k, v = _mlstm_qkv(params, u, num_heads)
     log_i, log_f = _mlstm_gates(params, u)
-    h = _mlstm_step(cache["c"], cache["n"], cache["m"], q[:, 0], k[:, 0],
-                    v[:, 0], log_i[:, 0], log_f[:, 0]).to(x.dtype)
-    h = h.reshape(b, 1, d_inner) + u * params["skip_scale"]
+    h, new = _mlstm_step(cache, q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
+                         log_f[:, 0])
+    for key, val in new.items():
+        cache[key].copy_(val)
+    h = h.to(x.dtype).reshape(b, 1, d_inner) + u * params["skip_scale"]
     return (h * F.silu(z)) @ params["w_out"], cache
 
 
@@ -154,10 +166,11 @@ def slstm_init(gen, d_model: int, cfg: XLSTMConfig, dtype, device):
     }
 
 
-def _slstm_cell(params, g_in, state: dict) -> torch.Tensor:
-    """One sLSTM step with stabilised exponential gating.  ``g_in`` is the
-    step's input term ``u_t @ w_gates`` (B, 4D) fp32; ``state``'s c, n, h
-    and m (B, D) fp32 are updated in place.  Returns h."""
+def _slstm_cell(params, g_in, state: dict):
+    """One sLSTM step with stabilised exponential gating, out of place.
+    ``g_in`` is the step's input term ``u_t @ w_gates`` (B, 4D) fp32;
+    ``state`` holds c, n, h and m (B, D) fp32.  Returns (h, the new
+    state)."""
     pre = g_in + state["h"] @ params["r_gates"]
     z_p, i_p, f_p, o_p = pre.chunk(4, dim=-1)
     log_f = -layers.softplus(-f_p)
@@ -167,10 +180,10 @@ def _slstm_cell(params, g_in, state: dict) -> torch.Tensor:
     f_g = torch.exp(log_f + m - m_new)
     c = f_g * state["c"] + i_g * torch.tanh(z_p)
     n = f_g * state["n"] + i_g
-    h = torch.sigmoid(o_p) * c / torch.clamp_min(n, 1e-6)
-    for key, val in (("c", c), ("n", n), ("h", h), ("m", m_new)):
-        state[key].copy_(val)
-    return h
+    # jnp.maximum's op: a tie passes half the gradient to each side.
+    floor = torch.tensor(1e-6, dtype=n.dtype, device=n.device)
+    h = torch.sigmoid(o_p) * c / torch.maximum(n, floor)
+    return h, {"c": c, "n": n, "h": h, "m": m_new}
 
 
 def slstm_apply(params, x: torch.Tensor, cfg: XLSTMConfig) -> torch.Tensor:
@@ -178,7 +191,10 @@ def slstm_apply(params, x: torch.Tensor, cfg: XLSTMConfig) -> torch.Tensor:
     u = x @ params["w_up"]
     g_in = u.float() @ params["w_gates"]  # (B, S, 4D): no state in it
     state = slstm_init_cache(b, d_model, cfg, x.device)
-    hs = [_slstm_cell(params, g_in[:, t], state) for t in range(s)]
+    hs = []
+    for t in range(s):  # rebinds the state: nothing autograd saved is written
+        h, state = _slstm_cell(params, g_in[:, t], state)
+        hs.append(h)
     return torch.stack(hs, dim=1).to(x.dtype) @ params["w_out"]
 
 
@@ -197,10 +213,13 @@ def slstm_init_cache(batch: int, d_model: int, cfg: XLSTMConfig, device, *,
 
 
 def slstm_decode(params, x: torch.Tensor, cache: dict, cfg: XLSTMConfig):
-    """x: (B, 1, d_model).  The cache is updated in place (the reference
-    returns a new one); the same dict is returned."""
+    """x: (B, 1, d_model).  The cache is updated in place, one ``copy_``
+    per leaf (the reference returns a new one); the same dict is
+    returned."""
     u = x @ params["w_up"]
-    h = _slstm_cell(params, u[:, 0].float() @ params["w_gates"], cache)
+    h, new = _slstm_cell(params, u[:, 0].float() @ params["w_gates"], cache)
+    for key, val in new.items():
+        cache[key].copy_(val)
     return h[:, None, :].to(x.dtype) @ params["w_out"], cache
 
 

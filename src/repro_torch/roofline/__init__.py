@@ -1,14 +1,17 @@
 """Analytic roofline counters: the work a step must do.
 
-Port of the reference's ``repro.roofline`` counters
-(:mod:`repro_torch.roofline.counters`) and parameter counts
-(:mod:`repro_torch.roofline.analysis`).  ``chip_smoke.py`` divides their
-FLOPs and bytes by the card's peaks for the bounds it prints beside its
-measured times.
+Port of the reference's ``repro.roofline``: the counters
+(:mod:`repro_torch.roofline.counters`), and the parameter counts and the
+three-term :class:`Roofline` (:mod:`repro_torch.roofline.analysis`).
+``chip_smoke.py`` divides their FLOPs and bytes by the card's peaks for
+the bounds it prints beside its measured times.
 """
 
 from repro_torch.roofline.analysis import (
+    CollectiveStats,
+    Roofline,
     active_params,
+    analyze,
     count_params,
     model_flops_for,
 )
@@ -21,5 +24,6 @@ from repro_torch.roofline.counters import (
 
 __all__ = [
     "Costs", "forward_costs", "param_bytes", "step_costs", "count_params",
-    "active_params", "model_flops_for",
+    "active_params", "model_flops_for", "CollectiveStats", "Roofline",
+    "analyze",
 ]

@@ -94,10 +94,17 @@ def apply_updates(params, grads, state, cfg: OptimizerConfig):
         g = g.float() * scale
         m = (cfg.b1 * m.float() + (1 - cfg.b1) * g).to(mdt)
         v = (cfg.b2 * v.float() + (1 - cfg.b2) * g * g).to(mdt)
-        mh = m.float() / bc1
-        vh = v.float() / bc2
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
+        del g
+        # p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p), each step in
+        # place on a temporary made here (never on a leaf: ``.float()`` of
+        # an fp32 leaf is the leaf), so the largest leaf's update holds
+        # four fp32 temporaries at a time, not seven; the values are the
+        # same bit for bit.
+        den = (v.float() / bc2).sqrt_().add_(cfg.eps)
+        delta = (m.float() / bc1).div_(den)
+        del den
+        delta.add_(cfg.weight_decay * p.float())
+        return (p.float() - delta.mul_(lr)).to(p.dtype), m, v
 
     new = [upd(*leaf) for leaf in zip(leaves(params), leaves(grads),
                                       leaves(state["m"]), leaves(state["v"]))]

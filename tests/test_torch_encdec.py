@@ -52,7 +52,7 @@ def _start_reference(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def encdec_reference(tmp_path_factory):
-    return jax_reference.reference(tmp_path_factory, models=True)["encdec"]
+    return jax_reference.reference(tmp_path_factory, entry="encdec")
 
 
 def _shape():

@@ -81,7 +81,7 @@ def dispatch_reference(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def grad_reference(tmp_path_factory):
-    return jax_reference.reference(tmp_path_factory, models=True)["moe_grad"]
+    return jax_reference.reference(tmp_path_factory, entry="moe_grad")
 
 
 def _t(tree):

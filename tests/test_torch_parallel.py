@@ -131,12 +131,36 @@ def test_schedules_not_ported_raise_with_roadmap_item(overlap):
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b"])
 def test_other_families_raise_with_roadmap_item(arch):
-    """Every family builds for serving; training the hybrid and SSM
-    families waits for ROADMAP A13."""
+    """Every family builds, and since ROADMAP A13 the hybrid and SSM
+    families train under a TP group too: one AdamW step on
+    uniform-fused-2d over 4 ranks, on a ``SyntheticLM`` batch of
+    ``train_specs``' shapes, gives dense's metrics and parameters (xLSTM,
+    which has no FiCCO site, bit for bit; Jamba, whose MLPs fold through
+    K2's plain version, at the model tolerance)."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.tree import leaves
+
     cfg = get_config(arch).reduced()
-    assert build_model(cfg).pattern
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 13"):
-        train_specs(cfg, ShapeConfig("t", 32, 4, "train"))
+    shape = ShapeConfig("t", 16, 2, "train")
+    batch = to_device(SyntheticLM(cfg, shape, seed=3).batch_at(1), "cpu")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in batch.items()} == {
+        k: (s.shape, s.dtype) for k, s in train_specs(cfg, shape).items()}
+    dense = build_model(cfg)
+    state = init_train_state(dense, 0, device="cpu")
+    ocfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
+    want, want_m = make_train_step(dense, ocfg)(state, batch)
+    cfg_2d = dataclasses.replace(cfg, overlap=OverlapConfig(
+        mode="uniform-fused-2d", backend="collective"))
+    with tp_group(TPGroup(4, "cpu")):
+        got, got_m = make_train_step(build_model(cfg_2d), ocfg)(state, batch)
+    tol = (dict(rtol=0, atol=0) if arch == "xlstm-1.3b"
+           else dict(rtol=2e-3, atol=2e-3))
+    for key in want_m:
+        torch.testing.assert_close(got_m[key], want_m[key], **tol, msg=key)
+    for g, w in zip(leaves(got["params"]), leaves(want["params"])):
+        torch.testing.assert_close(g, w, **tol)
 
 
 @pytest.mark.parametrize("cache_len,group,sharded", [

@@ -70,7 +70,7 @@ def _start_reference(tmp_path_factory):
 @pytest.fixture(scope="module")
 def recurrent_reference(tmp_path_factory):
     return jax_reference.reference(tmp_path_factory,
-                                   models=True)["recurrent"]
+                                   entry="recurrent")
 
 
 # ---------------------------------------------------------------------------

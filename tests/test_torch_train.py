@@ -208,11 +208,25 @@ def test_frontend_and_encoder_lengths_match_reference(arch):
 
 
 def test_train_specs_refuse_families_not_ported():
+    """No family is refused since ROADMAP A13: the hybrid and SSM
+    families' specs and ``SyntheticLM`` batches are the reference's."""
+    from repro.launch.specs import train_specs as jax_train_specs
+
     for arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A, item 13"):
-            train_specs(get_config(arch).reduced(),
-                        ShapeConfig("t", 32, 4, "train"))
+        cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+        shape = ShapeConfig("t", 32, 4, "train")
+        jshape = JaxShapeConfig("t", 32, 4, "train")
+        got, want = train_specs(cfg, shape), jax_train_specs(jcfg, jshape)
+        assert list(got) == list(want) == ["tokens", "labels"]
+        for name, spec in got.items():
+            assert spec.shape == tuple(want[name].shape)
+            assert spec.dtype == torch.int32 and want[name].dtype == jnp.int32
+        for step in (0, 5):
+            b = SyntheticLM(cfg, shape).batch_at(step)
+            jb = JaxSyntheticLM(jcfg, jshape).batch_at(step)
+            assert list(b) == list(jb)
+            for name in b:
+                np.testing.assert_array_equal(b[name], jb[name])
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])

@@ -7,8 +7,8 @@ process before importing the reference, and changes nothing under
 ``src/repro``: the reference's own tests run without the alias and go on
 failing as before.
 
-Run as a script (``python tests/torch_jax_reference.py OUT.pkl
-MODELS.pkl ERR.txt``) it evaluates, with ``JAX_PLATFORMS=cpu``:
+Run as a script (``python tests/torch_jax_reference.py ERR.txt
+FIRST.pkl`` and one more pickle for each of ``LATER``) it evaluates, with ``JAX_PLATFORMS=cpu``:
 
   * ``dense``: the uniform grid (every raw output) of ``DENSE`` on the
     first ``N_GRID_MACHINES`` of ``machine_grid()``, and ``d sum(valid
@@ -45,12 +45,18 @@ MODELS.pkl ERR.txt``) it evaluates, with ``JAX_PLATFORMS=cpu``:
     twice on one engine (the second run shows ROADMAP R7); for each of
     ``RECURRENT["bf16"]`` also the forward and decode in bf16 (``bf16``);
   * ``counts``: ``count_params`` of every arch in the registry at full
-    width.
+    width;
+  * ``recurrent_grad``: ``moe_grad``'s entry for each of
+    ``RECURRENT_TRAIN["archs"]`` (the hybrid and SSM families);
+  * ``collectives``: ``parse_collectives`` of the compiled forward of each
+    of the six schedules (``SCHEDULE_FNS``) under ``shard_map`` on
+    ``COLLECTIVES["g"]`` devices, at :func:`schedule_operands`' shapes,
+    and of ``serial_a2a_ffn`` on :func:`moe_operands`' (``"serial_a2a"``):
+    (bytes by kind, count by kind).
 
-The first eight entries go to ``OUT.pkl``; ``moe_grad``, ``encdec``,
-``recurrent`` and ``counts`` (the whole models, the slower half) follow
-in ``MODELS.pkl``, so a test that reads only the first never waits for
-the second.
+The first eight entries go to ``FIRST.pkl``; the later ones (the whole
+models, the slower half) follow, each in a pickle of its own, in
+``LATER``'s order, so a test waits only for what it reads.
 
 The script runs with ``MOE["g"]`` forced host devices
 (``--xla_force_host_platform_device_count``); the other entries run on
@@ -123,6 +129,26 @@ ENCDEC = dict(archs=("seamless-m4t-large-v2", "internvl2-76b"), seq=32,
 RECURRENT = dict(archs=("jamba-1.5-large-398b", "xlstm-1.3b"), seq=32,
                  batch=2, decode=8, cache=16, seed=0, prompt=5, new=4,
                  bf16=("xlstm-1.3b",))
+# Training the hybrid and SSM families: as MOE_TRAIN.
+RECURRENT_TRAIN = dict(MOE_TRAIN, archs=RECURRENT["archs"])
+# The schedules' collectives: g ranks of m_s rows, K columns, n_local
+# output columns each (row chunks of m_s / g, K slices of K / g).
+COLLECTIVES = dict(g=4, m_s=16, k=32, n_local=8, seed=41)
+# The entries after the first eight, in the order the script writes them:
+# the quickest first (1.4-11 s each alone, moe_grad 22 s), since each
+# holds a pytest-xdist worker that waits for it.
+LATER = ("counts", "collectives", "recurrent_grad", "encdec", "recurrent",
+         "moe_grad")
+
+
+def schedule_operands():
+    """x (g, m_s, K) and w (g, K, n_local) fp32, rank r's block at [r]:
+    the reference's shard_map blocks of (g * m_s, K) and (K, g *
+    n_local)."""
+    g, m_s, k, n = (COLLECTIVES[key] for key in ("g", "m_s", "k", "n_local"))
+    rng = np.random.default_rng(COLLECTIVES["seed"])
+    return (rng.standard_normal((g, m_s, k)).astype(np.float32),
+            rng.standard_normal((g, k, n)).astype(np.float32))
 
 
 def recurrent_requests(request_cls, vocab: int) -> list:
@@ -236,17 +262,23 @@ def _write(path: str, obj) -> None:
     os.replace(tmp, path)
 
 
-def main(out_path: str, models_path: str, err_path: str) -> None:
-    """Write the first entries to ``out_path`` and the models' to
-    ``models_path`` (each atomically), or the traceback to ``err_path``."""
+def main(err_path: str, first_path: str, *later_paths: str) -> None:
+    """Write the first entries to ``first_path`` and each of ``LATER`` to
+    its own of ``later_paths`` (each atomically), or the traceback to
+    ``err_path``."""
+    later = {
+        "counts": _counts,
+        "collectives": _collectives,
+        "recurrent_grad": lambda: {a: _grad(a, RECURRENT_TRAIN)
+                                   for a in RECURRENT_TRAIN["archs"]},
+        "encdec": lambda: {a: _encdec(a) for a in ENCDEC["archs"]},
+        "recurrent": lambda: {a: _recurrent(a) for a in RECURRENT["archs"]},
+        "moe_grad": lambda: {a: _grad(a) for a in MOE_TRAIN["archs"]},
+    }
     try:
-        _write(out_path, _evaluate())
-        _write(models_path, {
-            "moe_grad": {a: _moe_grad(a) for a in MOE_TRAIN["archs"]},
-            "encdec": {a: _encdec(a) for a in ENCDEC["archs"]},
-            "recurrent": {a: _recurrent(a) for a in RECURRENT["archs"]},
-            "counts": _counts(),
-        })
+        _write(first_path, _evaluate())
+        for name, path in zip(LATER, later_paths, strict=True):
+            _write(path, later[name]())
     except BaseException:
         with open(err_path, "w") as fh:
             fh.write(traceback.format_exc())
@@ -329,7 +361,10 @@ def _numpy(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _moe_grad(arch: str) -> dict:
+def _grad(arch: str, spec: dict = MOE_TRAIN) -> dict:
+    """The reduced ``arch`` in fp32: params, ``spec["steps"]`` batches of
+    ``SyntheticLM``, the loss and gradients at batch 0, and the train
+    steps' metrics and last state."""
     import jax
 
     from repro.configs import get_config
@@ -341,10 +376,9 @@ def _moe_grad(arch: str) -> dict:
 
     cfg = get_config(arch).reduced()
     model = build_model(cfg)
-    data = SyntheticLM(cfg, ShapeConfig("t", MOE_TRAIN["seq"],
-                                        MOE_TRAIN["batch"], "train"),
-                       seed=MOE_TRAIN["seed"])
-    batches = [data.batch_at(i) for i in range(MOE_TRAIN["steps"])]
+    data = SyntheticLM(cfg, ShapeConfig("t", spec["seq"], spec["batch"],
+                                        "train"), seed=spec["seed"])
+    batches = [data.batch_at(i) for i in range(spec["steps"])]
     state = init_train_state(model, jax.random.PRNGKey(0))
     (loss, parts), grads = jax.jit(jax.value_and_grad(
         model.loss, has_aux=True))(state["params"], batches[0])
@@ -455,6 +489,41 @@ def _counts() -> dict:
     return {a: count_params(get_config(a)) for a in sorted(ARCHS)}
 
 
+def _collectives() -> dict:
+    import functools
+
+    import jax
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from repro.compat import shard_map
+    from repro.overlap.moe import serial_a2a_ffn
+    from repro.overlap.schedules import SCHEDULE_FNS
+    from repro.roofline.analysis import parse_collectives
+
+    g = COLLECTIVES["g"]
+    mesh = Mesh(np.array(jax.devices()[:g]), ("model",))
+
+    def count(fn, in_specs, out_specs, *args):
+        run = jax.jit(shard_map(
+            functools.partial(fn, axis_name="model"), mesh=mesh,
+            in_specs=in_specs, out_specs=out_specs, check_vma=False))
+        stats = parse_collectives(run.lower(*args).compile().as_text())
+        return stats.bytes_by_kind, stats.count_by_kind
+
+    x, w = schedule_operands()
+    x_full = x.reshape(-1, x.shape[-1])  # (g * m_s, K)
+    w_full = np.concatenate(list(w), axis=1)  # (K, g * n_local)
+    rows, cols = P("model", None), P(None, "model")
+    out = {s.value: count(fn, (rows, cols), cols, x_full, w_full)
+           for s, fn in SCHEDULE_FNS.items()}
+    spec = P("model", None, None)
+    out["serial_a2a"] = count(
+        serial_a2a_ffn, (spec, spec, spec), spec,
+        *[a.reshape(-1, *a.shape[2:]) for a in moe_operands()])
+    return out
+
+
 def _decode_attn() -> dict:
     import jax
     import jax.numpy as jnp
@@ -518,7 +587,7 @@ _LAUNCHED: list = []  # the subprocess this worker started, to be reaped
 
 def _reap() -> None:
     """At the worker's exit, wait for the subprocess it started: another
-    worker may still be waiting for its second pickle."""
+    worker may still be waiting for a later pickle."""
     for proc in _LAUNCHED:
         proc.wait(timeout=600)
 
@@ -528,15 +597,16 @@ def _paths(tmp_path_factory):
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent  # shared by every worker of the session
     stem = root / "torch_jax_reference"
-    return (stem.with_suffix(".pkl"), root / "torch_jax_reference-models.pkl",
-            stem.with_suffix(".err"), stem.with_suffix(".lock"),
+    pickles = {part: root / f"torch_jax_reference-{part}.pkl"
+               for part in ("first", *LATER)}
+    return (pickles, stem.with_suffix(".err"), stem.with_suffix(".lock"),
             stem.with_suffix(".started"))
 
 
 def start(tmp_path_factory) -> None:
     """Launch the script in the background, unless a worker of this
     session already has."""
-    out, models, err, lock, started = _paths(tmp_path_factory)
+    pickles, err, lock, started = _paths(tmp_path_factory)
     with open(lock, "w") as fh:
         fcntl.flock(fh, fcntl.LOCK_EX)
         if started.exists():
@@ -549,21 +619,21 @@ def start(tmp_path_factory) -> None:
         env["XLA_FLAGS"] = (
             f"--xla_force_host_platform_device_count={MOE['g']}")
         _LAUNCHED.append(subprocess.Popen(
-            [sys.executable, __file__, str(out), str(models), str(err)],
+            [sys.executable, __file__, str(err),
+             *map(str, pickles.values())],
             env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
         ))
         atexit.register(_reap)
 
 
 def reference(tmp_path_factory, timeout: float = 600.0, *,
-              models: bool = False) -> dict:
-    """The script's first entries, or with ``models`` its ``moe_grad``,
-    ``encdec``, ``recurrent`` and ``counts`` (see the module docstring);
-    raises with the script's
+              entry: str = "first"):
+    """The script's first entries (a dict), or the value of ``entry``,
+    one of ``LATER`` (see the module docstring); raises with the script's
     traceback if it failed."""
     start(tmp_path_factory)
-    out, models_out, err, _, _ = _paths(tmp_path_factory)
-    path = models_out if models else out
+    pickles, err, _, _ = _paths(tmp_path_factory)
+    path = pickles[entry]
     deadline = time.monotonic() + timeout
     while not path.exists():
         if err.exists():
@@ -576,4 +646,4 @@ def reference(tmp_path_factory, timeout: float = 600.0, *,
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2], sys.argv[3])
+    main(*sys.argv[1:])
