@@ -174,7 +174,7 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # What [done] counts: every phase the script prints, in order.
 PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
           "autotune", "serve", "adapt", "train", "grid", "fit", "gate",
-          "moe", "moe-train", "encdec", "vlm", "hybrid", "ssm",
+          "sweep", "moe", "moe-train", "encdec", "vlm", "hybrid", "ssm",
           "hybrid-train", "ssm-train")
 
 
@@ -2400,6 +2400,291 @@ def phase_learn(device):
     return fit
 
 
+# [sweep]: the card-resident design-space sweep at the reference's scale
+# ("a 1e8-lane sweep on the device"): synthesis held against the numpy
+# host twins, the mixed engine against the "torch" engine, the fused
+# sweep against the host pipeline, then 1e8 scenarios x machine_grid() in
+# float32 in SWEEP_SHARDS shards (4e6 lanes each keep the (M, L, S)
+# outputs near 1.2 GB apiece).
+SWEEP_SYNTH, SWEEP_SYNTH_RAGGED = 10_000_000, 1_000_000
+SWEEP_ENGINE, SWEEP_HOST, SWEEP_RUNNER = 100_000, 1_000_000, 200_000
+SWEEP_FULL, SWEEP_SHARDS = 100_000_000, 25
+SWEEP_CLI = 1_000_000
+SWEEP_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
+SWEEP_ATOL = {"float32": 0.0, "bfloat16": 1e-4}
+GRID_FIELDS = ("total", "comm_busy", "compute_busy", "exposed", "steps",
+               "valid", "serial_comm", "serial_gemm")
+
+
+def _same_grid(label, got, want):
+    import numpy as np
+
+    for f in GRID_FIELDS:
+        if not np.array_equal(getattr(got, f), getattr(want, f),
+                              equal_nan=f not in ("steps", "valid")):
+            raise AssertionError(f"[sweep] {label}: {f} differs")
+
+
+def _same_stats(label, got, want):
+    import numpy as np
+
+    if not (np.array_equal(got.hist, want.hist)
+            and got.best_counts == want.best_counts
+            and got.n_points == want.n_points):
+        raise AssertionError(
+            f"[sweep] {label}: statistics differ ({got.n_points} vs "
+            f"{want.n_points} points, best {got.best_counts} vs "
+            f"{want.best_counts}, {int((got.hist != want.hist).sum())} "
+            "histogram cells)")
+
+
+def phase_sweep(device):
+    """The card-resident sweep (``repro_torch.sweep.device``): (a) on-card
+    synthesis against the numpy host twins, (b) the ``"mixed"`` engine
+    against the ``"torch"`` engine with its dispatch under the sync
+    debug mode's "error", (c) the fused float64 sweep against the host
+    pipeline, (d) the fused float32 sweep at SWEEP_FULL scenarios with
+    and without ``overlap_dispatch``, one shard profiled, (e) the runner's
+    ``device_parallel`` and two-phase mixed shards against eager runs,
+    (f) ``device_merge_stats`` against the host fold, (g) the sweep and
+    merge command lines."""
+    import functools
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import MixedEngine, TorchEngine
+    from repro_torch.core.workload import machine_grid
+    from repro_torch.learn.stats import GateStats, sweep_stats
+    from repro_torch.sweep import (
+        device_batch,
+        device_merge_stats,
+        device_ragged_batch,
+        host_batch,
+        host_ragged_batch,
+        sweep_device_stats,
+        sweep_grid,
+        synthetic_batch,
+    )
+    from repro_torch.sweep import device as sweep_dev
+
+    card = _card()
+    t_phase = time.time()
+    machines = machine_grid()
+    M = len(machines)
+
+    # (a) synthesis: integers and masks exact, fractions within 1e-14.
+    def synth(n, ragged):
+        lane = sweep_dev._lanes(n, 0, device)
+        out = sweep_dev._synth_uniform(lane, 11, (2, 1))
+        return out + ((sweep_dev._synth_frac(lane, 11, 8, 0.7),)
+                      if ragged else ())
+
+    for n, ragged in ((SWEEP_SYNTH, False), (SWEEP_SYNTH_RAGGED, True)):
+        synth(n, ragged)  # the allocator's first growth is not timed
+        _, t_card = _timed(lambda: synth(n, ragged))
+        if ragged:
+            got = device_ragged_batch(n, seed=11, device=device)
+            want, t_host = _timed(lambda: host_ragged_batch(n, seed=11))
+        else:
+            got = device_batch(n, seed=11, device=device)
+            want, t_host = _timed(lambda: host_batch(n, seed=11))
+        for f in ("m", "n", "k", "dtype_bytes"):
+            differ = int((getattr(got, f) != getattr(want, f)).sum())
+            if differ:
+                raise AssertionError(f"[sweep] synthesis: {f} differs at "
+                                     f"{differ} lanes")
+        extra = ""
+        if ragged:
+            if not np.array_equal(got.frac == 0.0, want.frac == 0.0):
+                raise AssertionError("[sweep] synthesis: zero masks differ")
+            gap = np.abs(got.frac - want.frac).max(axis=1)
+            far = int((gap > 1e-14).sum())
+            extra = (f"; zero masks equal; largest fraction gap "
+                     f"{gap.max():.3e}, {far} lanes beyond 1e-14, "
+                     f"{float((got.frac == want.frac).mean()):.4f} of "
+                     "fractions bit-equal")
+            if far:
+                raise AssertionError(f"[sweep] synthesis: {far} lanes' "
+                                     "fractions beyond 1e-14")
+        print(f"[sweep] (a) {'ragged (8 steps)' if ragged else 'uniform'} "
+              f"synthesis of {n} lanes: integers equal at every lane{extra};"
+              f" {n / t_card:.4g} lanes/s on the card ({t_card * 1e3:.1f} "
+              f"ms, left there), {n / t_host:.4g} lanes/s for the numpy "
+              f"twin on the host ({t_host:.2f} s) [{card}]")
+
+    # (b) the mixed engine: float64 bit-equal to "torch", reduced
+    # precision within the reference's tolerances; dispatch queues
+    # without a synchronisation.
+    batch = synthetic_batch(SWEEP_ENGINE, seed=0)
+    on_card = TorchEngine(device)
+    on_card.evaluate(synthetic_batch(1000, seed=5), machines)
+    want, t_want = _timed(lambda: on_card.evaluate(batch, machines))
+    points = SWEEP_ENGINE * M
+    for dtype in ("float64", "float32", "bfloat16"):
+        eng = MixedEngine(dtype, device=device)
+        eng.evaluate(synthetic_batch(1000, seed=5), machines)
+        _sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            finalize = eng.dispatch(batch, machines)
+            t_issue = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = finalize()
+        t_all = time.perf_counter() - t0
+        if dtype == "float64":
+            _same_grid("mixed float64 vs torch", got, want)
+            what = "bit-equal to the torch engine's grid"
+        else:
+            if not np.array_equal(got.valid, want.valid):
+                raise AssertionError(f"[sweep] mixed {dtype}: valid differs")
+            a, b = got.total[got.valid], want.total[want.valid]
+            rel = float((np.abs(a - b) / np.abs(b)).max())
+            if not np.allclose(a, b, rtol=SWEEP_RTOL[dtype],
+                               atol=SWEEP_ATOL[dtype]):
+                raise AssertionError(f"[sweep] mixed {dtype}: totals beyond "
+                                     f"rtol {SWEEP_RTOL[dtype]}")
+            what = (f"valid masks equal, largest relative gap of totals "
+                    f"{rel:.3e} (rtol {SWEEP_RTOL[dtype]:g}, atol "
+                    f"{SWEEP_ATOL[dtype]:g})")
+        print(f"[sweep] (b) MixedEngine({dtype}) on {SWEEP_ENGINE} scenarios "
+              f"x {M} machines: {what}; dispatch queued in "
+              f"{t_issue * 1e3:.1f} ms with no synchronisation (sync debug "
+              f"mode \"error\"), {t_all * 1e3:.1f} ms with the grid on the "
+              f"host ({points / t_all:.4g} points/s; the torch engine "
+              f"{points / t_want:.4g}) [{card}]")
+
+    # (c) the fused float64 sweep against the host pipeline on the same
+    # lanes: the torch engine's grids folded by GateStats on the host.
+    fused, t_fused = _timed(lambda: sweep_device_stats(
+        SWEEP_HOST, machines, seed=3, dtype="float64", num_shards=4,
+        device=device)[0])
+    host, t_hostp = _timed(lambda: sweep_stats(
+        host_batch(SWEEP_HOST, seed=3), machines, engine=on_card,
+        num_shards=10)[0])
+    _same_stats("fused float64 vs host pipeline", fused, host)
+    print(f"[sweep] (c) fused float64 sweep of {SWEEP_HOST} lanes x {M} "
+          f"machines on the card ({t_fused:.2f} s) vs sweep_stats on the "
+          f"torch engine + GateStats on the host ({t_hostp:.2f} s): "
+          f"histogram ({int((host.hist != 0).sum())} cells hit) and "
+          f"best_counts {fused.best_counts} equal [{card}]")
+
+    # (d) the fused float32 sweep at full size, with and without the
+    # double-buffered dispatch (in turns), one shard profiled.
+    sweep_device_stats(100_000, machines, dtype="float32", device=device)
+    runs = {}
+    for overlap in (True, False):
+        torch.cuda.reset_peak_memory_stats(device)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                (stats, res), wall = _timed(lambda: sweep_device_stats(
+                    SWEEP_FULL, machines, dtype="float32",
+                    num_shards=SWEEP_SHARDS, overlap_dispatch=overlap,
+                    device=device))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        runs.setdefault(overlap, []).append((stats, res, wall))
+        print(f"[sweep] (d) fused float32 sweep, {SWEEP_FULL} scenarios x "
+              f"{M} machines in {SWEEP_SHARDS} shards, overlap_dispatch="
+              f"{overlap}: {wall:.2f} s wall, {SWEEP_FULL / wall:.4g} "
+              f"scenarios/s, {SWEEP_FULL * M / wall:.4g} points/s; shard "
+              f"seconds p50 "
+              f"{statistics.median(s.seconds for s in res.summaries):.3f}; "
+              f"peak memory {peak:.2f} GB; {syncs} synchronising calls "
+              f"flagged by the sync debug mode [{card}]")
+    base = runs[True][0]
+    for stats, res, _ in runs[False]:
+        _same_stats("overlap_dispatch on vs off", stats, base[0])
+        if ([s.best_counts for s in res.summaries]
+                != [s.best_counts for s in base[1].summaries]):
+            raise AssertionError("[sweep] per-shard best_counts differ")
+    st = base[0]
+    print(f"[sweep] (d) the two runs' statistics identical: "
+          f"{st.n_points} points, best_counts {st.best_counts}, "
+          f"{int((st.hist != 0).sum())} histogram cells hit [{card}]")
+    shard = SWEEP_FULL // SWEEP_SHARDS
+    tr = phase_trace(f"sweep shard ({shard} lanes x {M} machines, float32)",
+                     lambda: sweep_device_stats(shard, machines,
+                                                dtype="float32",
+                                                device=device))
+    print(f"[sweep] (d) one profiled shard: device busy "
+          f"{tr['busy_ms']:.2f} ms, idle share {tr['idle']:.3f}, "
+          f"{tr['kernels']} kernels [{card}]")
+
+    # (e) the runner: device_parallel over the visible cards and the
+    # mixed engine's two-phase shards, each against its eager run.
+    rb = synthetic_batch(SWEEP_RUNNER, seed=4)
+    eager, t_eager = _timed(lambda: sweep_grid(rb, machines, engine=on_card,
+                                               num_shards=4))
+    dpar, t_dpar = _timed(lambda: sweep_grid(rb, machines,
+                                             device_parallel=True,
+                                             num_shards=4))
+    _same_grid("device_parallel vs eager", dpar.grid, eager.grid)
+    eng32 = MixedEngine("float32", device=device)
+    runs_e = {}
+    for overlap in (False, True):
+        runs_e[overlap] = _timed(lambda: sweep_grid(
+            rb, machines, engine=eng32, num_shards=8,
+            overlap_dispatch=overlap))
+    _same_grid("mixed float32 two-phase vs eager", runs_e[True][0].grid,
+               runs_e[False][0].grid)
+    print(f"[sweep] (e) sweep_grid over {SWEEP_RUNNER} scenarios: "
+          f"device_parallel on {torch.cuda.device_count()} card(s) "
+          f"{t_dpar:.2f} s bit-equal to the eager torch engine "
+          f"{t_eager:.2f} s; MixedEngine(float32) in 8 shards, "
+          f"overlap_dispatch {runs_e[True][1]:.2f} s vs eager "
+          f"{runs_e[False][1]:.2f} s, grids identical [{card}]")
+
+    # (f) the merge on the card against the host fold.
+    parts = [sweep_device_stats(20_000, machines, seed=40 + i,
+                                ragged=i == 1, device=device)[0]
+             for i in range(3)]
+    merged = device_merge_stats(parts, device=device)
+    fold = functools.reduce(GateStats.merge, parts)
+    _same_stats("device_merge_stats vs host fold", merged, fold)
+    if not np.array_equal(merged.moments, fold.moments):
+        raise AssertionError("[sweep] merged moments differ")
+    print(f"[sweep] (f) device_merge_stats of 3 statistics "
+          f"({merged.n_points} points) identical to the host fold "
+          f"[{card}]")
+
+    # (g) the command lines: a sweep on the mixed engine, then its merge.
+    with tempfile.TemporaryDirectory(prefix="sweep-") as tmp:
+        out = os.path.join(tmp, "sweep.jsonl")
+        env = dict(os.environ, PYTHONPATH=SRC)
+        for args in (
+                ["repro_torch.scripts.sweep", "--scenarios", str(SWEEP_CLI),
+                 "--shards", "8", "--backend", "mixed", "--dtype",
+                 "float32", "--synth-device", "--overlap-dispatch",
+                 "--device", str(device), "--out", out],
+                ["repro_torch.scripts.merge_sweep", out, "--strict",
+                 "--out", os.path.join(tmp, "merged.json")]):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *args],
+                                  capture_output=True, text=True,
+                                  timeout=300, env=env)
+            if proc.returncode != 0:
+                raise AssertionError(f"[sweep] {args[0]} exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            last = proc.stderr.strip().splitlines()[-1]
+            print(f"[sweep] (g) python -m {args[0]}: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s; {last} [{card}]")
+        with open(os.path.join(tmp, "merged.json")) as f:
+            summary = json.load(f)
+        if not (summary["complete"] and summary["n_scenarios"] == SWEEP_CLI
+                and summary["dtype"] == "float32"):
+            raise AssertionError(f"[sweep] merged summary {summary}")
+    print(f"[sweep] phase total {time.time() - t_phase:.1f}s")
+
+
 # [moe]: DeepSeek-V2-Lite-16B whole, and the expert-parallel dispatch at
 # its MoE layer: GROUP ranks of PREFILL_SEQ tokens each route top-6 of 64
 # experts at capacity factor 1.25, so 512 * 6 * 1.25 / 64 = 60 rows per
@@ -3671,6 +3956,7 @@ def drive(device) -> int:
         k["train_step_launches"] = train_counts[k["name"]]
     phase_grid(device)
     phase_learn(device)
+    phase_sweep(device)
     # [moe] needs the card's memory: TinyLlama's state goes first.
     del model, state
     moe_counts = phase_moe(device, timer)

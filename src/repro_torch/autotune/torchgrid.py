@@ -91,33 +91,47 @@ class MachineArrays(NamedTuple):
     mt_ref: torch.Tensor
 
 
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` (on the host) on ``device`` without waiting for the card.
+
+    A plain host-to-card copy from pageable memory synchronises the
+    stream; through pinned memory and ``non_blocking`` it is one more
+    queued operation, so a dispatch that packs its operands never waits
+    for the work queued before it.
+    """
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def machine_arrays(machines, *, dtype=None, device=None) -> MachineArrays:
     """Pack MachineSpecs (plus their host-calibrated coefficients).
 
     ``dtype`` sets the float leaves' dtype (default float64) — the
     kernels below derive their compute dtype from the machine leaves.
     Integer/bool leaves are dtype-invariant.  ``device`` defaults to the
-    card.
+    card; the leaves reach it without a synchronisation (:func:`to_device`).
     """
     ms = tuple(machines)
     dev = resolve_device(device)
     fdt = _F if dtype is None else dtype
 
+    def leaf(values, dt):
+        return to_device(torch.tensor(values, dtype=dt), dev)
+
     def fa(get):  # float leaf
-        return torch.tensor([get(m) for m in ms], dtype=fdt, device=dev)
+        return leaf([get(m) for m in ms], fdt)
 
     def ia(get):  # int leaf
-        return torch.tensor([get(m) for m in ms], dtype=_I, device=dev)
+        return leaf([get(m) for m in ms], _I)
 
     return MachineArrays(
         peak_flops=fa(lambda m: m.peak_flops),
         hbm_bw=fa(lambda m: m.hbm_bw),
         link_bw=fa(lambda m: m.link_bw),
         group=ia(lambda m: m.group),
-        is_mesh=torch.tensor(
-            [m.topology is Topology.FULL_MESH for m in ms],
-            dtype=torch.bool, device=dev,
-        ),
+        is_mesh=leaf([m.topology is Topology.FULL_MESH for m in ms],
+                     torch.bool),
         p2p_links=ia(lambda m: m.p2p_links),
         a2a_links=ia(lambda m: m.a2a_links),
         kernel_latency=fa(lambda m: m.kernel_latency),
@@ -140,7 +154,8 @@ def scenario_arrays(scenarios, *, device=None) -> tuple[torch.Tensor, ...]:
     sb = _as_batch(scenarios)
     dev = resolve_device(device)
     return tuple(
-        torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+        to_device(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)),
+                  dev)
         for a in (sb.m, sb.n, sb.k, sb.dtype_bytes)
     )
 
@@ -378,11 +393,20 @@ def pipeline_closed(comm_steps, compute_steps, deps, comm_active,
     """
 
     def count(active):
-        tot = None
+        # Python bools add as constants: a host value turned into a
+        # device tensor would synchronise the stream.  Small integers
+        # sum exactly in any order.
+        tot, const = None, 0.0
         for a in active:
-            v = torch.as_tensor(a, device=compute_steps[0].device).to(_F)
-            tot = v if tot is None else tot + v
-        return tot
+            if isinstance(a, torch.Tensor):
+                v = a.to(_F)
+                tot = v if tot is None else tot + v
+            else:
+                const += float(a)
+        if tot is None:
+            return torch.full((), const, dtype=_F,
+                              device=compute_steps[0].device)
+        return tot + const if const else tot
 
     if comm_steps:
         n_c = count(comm_active)
@@ -823,9 +847,10 @@ def evaluate_ragged_grid_raw(
     rb = _as_ragged_batch(scenarios)
     mp, g_max, dev = _resolve(machines_or_arrays, g_max, device)
     m, n, k, b = scenario_arrays(rb, device=dev)
-    frac = torch.as_tensor(np.asarray(rb.frac), device=dev).to(
-        mp.peak_flops.dtype
-    )
+    frac = to_device(
+        torch.from_numpy(np.ascontiguousarray(rb.frac, dtype=np.float64)),
+        dev,
+    ).to(mp.peak_flops.dtype)
     return _eval_machines_ragged(
         m, n, k, b, frac, mp, g_max, tuple(schedules), dma, dma_into_place,
     )
@@ -833,6 +858,29 @@ def evaluate_ragged_grid_raw(
 
 def _to_host(raw):
     return tuple(a.detach().cpu().numpy() for a in raw)
+
+
+def to_host_async(raw):
+    """Start copying device tensors to the host; returns a thunk.
+
+    On the card the copies are queued into pinned memory behind the
+    work that produces them and an event marks their end: nothing waits
+    until the thunk is called, which then waits for that event only (the
+    work queued after it keeps running).  On the CPU the thunk returns
+    the arrays at once.
+    """
+    raw = tuple(a.detach() for a in raw)
+    if not raw or raw[0].device.type != "cuda":
+        return lambda: tuple(a.cpu().numpy() for a in raw)
+    host = tuple(a.to("cpu", non_blocking=True) for a in raw)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return tuple(a.numpy() for a in host)
+
+    return wait
 
 
 def evaluate_ragged_grid(
@@ -1142,6 +1190,8 @@ __all__ = [
     "MachineArrays",
     "machine_arrays",
     "scenario_arrays",
+    "to_device",
+    "to_host_async",
     "evaluate_grid",
     "evaluate_grid_raw",
     "evaluate_ragged_grid",

@@ -25,9 +25,11 @@ themselves in a process-wide registry, so everything downstream
     from repro_torch.core.engine import get_engine
     grid = get_engine("torch").evaluate(scenarios, machines)
 
-The reference's ``"jax"`` and ``"mixed"`` names are not registered:
-``get_engine("jax")`` raises the unknown-backend error, which lists the
-registered engines, and the mixed-precision engine is ROADMAP A8.
+A fourth on the same protocol, :class:`MixedEngine` (``"mixed"``), runs
+the torch engine's math with the machine leaves at float32 or bfloat16
+for sweep throughput (``repro_torch.sweep.device``).  The reference's ``"jax"``
+name is not registered: ``get_engine("jax")`` raises the unknown-backend
+error, which lists the registered engines.
 
 :class:`GridResult` — the one canonical dense result table — also lives
 here; ``repro_torch.core.batch`` re-exports it.
@@ -440,6 +442,88 @@ class TorchEngine:
             )
 
 
+class MixedEngine:
+    """Mixed-precision engine on the card (``repro_torch.sweep.device``).
+
+    The :class:`TorchEngine`'s tensor math with the
+    :class:`~repro_torch.autotune.torchgrid.MachineArrays` float leaves
+    packed at ``dtype`` (float32 by default, bfloat16 on request), so the
+    grid evaluates at reduced precision; float64 is confined to the
+    pipeline's accumulator and the output container.  Built for sweep
+    throughput (1e8-lane gate-training sweeps), not reference numerics:
+    grids agree with the float64 engines only to the evaluation dtype's
+    precision (``tests/test_torch_sweep_device.py`` pins the
+    tolerances), and ``dtype="float64"`` is bit-identical to
+    ``"torch"``.
+
+    Capability flags: ``differentiable`` is False (gradients through
+    bf16/f32 are calibration-grade noise; calibration keeps the
+    ``"torch"`` engine); ``jit`` is False, as on :class:`TorchEngine`,
+    since there is no compiler (the reference's flag is True); and
+    ``trace_safe`` is False.  ``device`` defaults to the card.
+    """
+
+    name = "mixed"
+    supports_ragged = True
+    jit = False
+    differentiable = False
+    trace_safe = False
+
+    def __init__(self, dtype: str = "float32", *, device=None):
+        if dtype not in ("float64", "float32", "bfloat16"):
+            raise ValueError(
+                f"MixedEngine dtype must be float64|float32|bfloat16, "
+                f"got {dtype!r}"
+            )
+        self.dtype = dtype
+        self.device = device
+
+    def evaluate(
+        self,
+        scenarios,
+        machines,
+        *,
+        dma: bool = True,
+        dma_into_place: bool = False,
+        schedules: tuple[Schedule, ...] | None = None,
+    ) -> GridResult:
+        from repro_torch.sweep import device as _device
+
+        with _observe_evaluate(self.name, scenarios):
+            return _device.evaluate_mixed_grid(
+                scenarios, machines, dtype=self.dtype,
+                dma=dma, dma_into_place=dma_into_place,
+                schedules=GRID_SCHEDULES if schedules is None else schedules,
+                device=self.device,
+            )
+
+    def dispatch(
+        self,
+        scenarios,
+        machines,
+        *,
+        dma: bool = True,
+        dma_into_place: bool = False,
+        schedules: tuple[Schedule, ...] | None = None,
+    ):
+        """Queue an evaluation on the card; returns ``finalize()``.
+
+        Nothing synchronises before the returned zero-argument callable
+        is called; it waits for this evaluation's copies back and
+        assembles the :class:`GridResult`.  This is the two-phase form
+        ``repro_torch.sweep.runner``'s double-buffered shard loop uses to
+        keep shard k+1 running while shard k materialises.
+        """
+        from repro_torch.sweep import device as _device
+
+        return _device.dispatch_mixed_grid(
+            scenarios, machines, dtype=self.dtype,
+            dma=dma, dma_into_place=dma_into_place,
+            schedules=GRID_SCHEDULES if schedules is None else schedules,
+            device=self.device,
+        )
+
+
 # ---------------------------------------------------------------------------
 # Registry.
 # ---------------------------------------------------------------------------
@@ -504,6 +588,7 @@ def get_engine(backend) -> Engine:
 register_engine("scalar", ScalarEngine)
 register_engine("numpy", NumpyEngine)
 register_engine("torch", TorchEngine)
+register_engine("mixed", MixedEngine)
 
 
 # ---------------------------------------------------------------------------
@@ -560,6 +645,7 @@ __all__ = [
     "ScalarEngine",
     "NumpyEngine",
     "TorchEngine",
+    "MixedEngine",
     "register_engine",
     "engine_names",
     "get_engine",

@@ -316,7 +316,8 @@ def sweep_stats(
     (overriding ``backend``) — the fit-then-retrain path hands a
     :class:`~repro_torch.learn.fit.FittedEngine` here so the gate trains
     against the calibrated machine model instead of registry defaults.
-    ``device_parallel=True`` is ROADMAP A8 and raises (``sweep_grid``).
+    ``device_parallel=True`` splits each shard over the visible cards
+    (``sweep_grid``).
     """
     from repro_torch.sweep import sweep_grid
 

@@ -17,9 +17,12 @@ The three-line sharded sweep::
                      num_shards=16, mode="reduce")
     print(res.summary())
 
-The reference's device-resident pieces (``repro.sweep.device``: on-device
-synthesis, the mixed-precision engine, ``sweep_grid(device_parallel=True)``)
-are ROADMAP A8.
+The card-resident pieces (:mod:`repro_torch.sweep.device`: counter-based
+synthesis, the mixed-precision engine's backend, the fused
+synthesis + grid + statistics sweep) are exported lazily below, and the
+command lines are ``python -m repro_torch.scripts.sweep`` (per-shard JSON
+streaming, multi-host owner mapping, device-parallel evaluation) and
+``python -m repro_torch.scripts.merge_sweep``.
 """
 
 from repro_torch.sweep.plan import (
@@ -45,6 +48,34 @@ from repro_torch.sweep.synth import (
     synthetic_ragged_batch,
 )
 
+# The card-resident pieces (repro_torch.sweep.device) are exported lazily
+# (PEP 562), as the reference's are: importing the package stays cheap.
+_DEVICE_EXPORTS = (
+    "host_batch",
+    "host_ragged_batch",
+    "device_batch",
+    "device_ragged_batch",
+    "evaluate_mixed_grid",
+    "dispatch_mixed_grid",
+    "sweep_device_stats",
+    "device_merge_stats",
+)
+
+
+def __getattr__(name):
+    if name in _DEVICE_EXPORTS:
+        from repro_torch.sweep import device
+
+        return getattr(device, name)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}"
+    )
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_DEVICE_EXPORTS))
+
+
 __all__ = [
     "ShardPlan",
     "plan_shards",
@@ -62,4 +93,5 @@ __all__ = [
     "synthetic_ragged_batch",
     "ServeRequest",
     "drifting_request_stream",
+    *_DEVICE_EXPORTS,
 ]

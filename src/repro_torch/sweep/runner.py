@@ -13,9 +13,9 @@ never hold the full ``(L, S, M)`` table in memory).
 Shards are owned round-robin by ``host_index`` out of ``host_count``
 identical processes; every host derives the same plan and evaluates only
 its shards (operands regenerate locally, e.g. ``repro_torch.sweep.synth``),
-streaming summaries for an aggregator.  The reference's third level,
-``device_parallel=True`` (each shard SPMD over the local devices), is
-ROADMAP A8 and raises here.
+streaming summaries for an aggregator.  The third level,
+``device_parallel=True``, splits each owned shard over the visible
+cards.
 
 Uniform and ragged batches shard identically — a ``RaggedBatch``'s
 padded fraction matrix is row-sliced with the scenario axis, so
@@ -28,6 +28,7 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.core.batch import RaggedBatch, ScenarioBatch
 from repro_torch.core.engine import (
@@ -254,6 +255,65 @@ def merge_summaries(summaries) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Device-parallel evaluation (contiguous pieces over the cards).
+# ---------------------------------------------------------------------------
+
+
+def _device_sharded_grid(
+    sb: ScenarioBatch,
+    machines,
+    *,
+    dma: bool,
+    dma_into_place: bool,
+    schedules,
+    devices,
+) -> GridResult:
+    """One batch over ``devices``: contiguous pieces, one per device.
+
+    Each piece runs the ``"torch"`` engine's tensor math on its device
+    (all of them queued before any is read back, so the cards run
+    together) and the pieces concatenate along the scenario axis in
+    order.  The math is elementwise over scenarios, so the grid is
+    bit-identical to the unsharded ``"torch"`` evaluation; unlike the
+    reference's ``pmap`` nothing needs equal pieces, so nothing is
+    padded.
+    """
+    from repro_torch.autotune import torchgrid
+
+    machines = tuple(machines)
+    schedules = tuple(schedules)
+    S = len(sb)
+    if S == 0:
+        raise ValueError("cannot device-shard an empty batch")
+    ragged = isinstance(sb, RaggedBatch)
+    g_max = max(m.group for m in machines)
+    waits = []
+    for (start, stop), dev in zip(plan_shards(S, len(devices)).bounds,
+                                  devices):
+        if start == stop:
+            continue
+        mp = torchgrid.machine_arrays(machines, device=dev)
+        piece = _slice_batch(sb, start, stop)
+        evaluate = (torchgrid.evaluate_ragged_grid_raw if ragged
+                    else torchgrid.evaluate_grid_raw)
+        waits.append(torchgrid.to_host_async(evaluate(
+            piece, mp, dma=dma, dma_into_place=dma_into_place,
+            schedules=schedules, g_max=g_max,
+        )))
+    parts = [wait() for wait in waits]
+    # Machine-major raw fields: (M, L, S) x 4, steps (M, L), valid
+    # (M, L, S), serial comm and GEMM (M, S).
+    raw = tuple(
+        parts[0][i] if i == 4
+        else np.concatenate([p[i] for p in parts], axis=-1)
+        for i in range(8)
+    )
+    return GridResult.from_machine_major(
+        raw, schedules=schedules, scenarios=sb, machines=machines, dma=dma
+    )
+
+
+# ---------------------------------------------------------------------------
 # The sweep driver.
 # ---------------------------------------------------------------------------
 
@@ -294,8 +354,10 @@ def sweep_grid(
     host_index: int = 0,
     host_count: int = 1,
     device_parallel: bool = False,
+    devices=None,
     on_shard=None,
     on_shard_grid=None,
+    overlap_dispatch: bool = False,
 ) -> SweepResult:
     """Sharded design-space sweep over the scenario axis.
 
@@ -310,8 +372,8 @@ def sweep_grid(
     a single host owns everything); ``mode="reduce"`` keeps only
     :class:`ShardSummary` per shard — the memory-bounded form for
     1e6-1e7-point sweeps.  ``on_shard`` (if given) is called with each
-    summary as soon as its shard finishes — the streaming hook a
-    driver uses to emit JSON lines.
+    summary as soon as its shard finishes — the streaming hook
+    ``python -m repro_torch.scripts.sweep`` uses to emit JSON lines.
 
     ``on_shard_grid`` (if given) is called with ``(grid, summary)``
     while the shard's GridResult is still alive — i.e. *before* reduce
@@ -321,12 +383,22 @@ def sweep_grid(
     memory-bounded without gathering a grid.  Empty shards skip both
     hooks' grid work (the summary hook still fires).
 
-    Shards run through the engine named by ``backend`` / passed as
-    ``engine``, one after the other.  ``device_parallel=True`` (the
-    reference's SPMD split of each shard over the local devices) is
-    ROADMAP A8 and raises ``NotImplementedError``; so is the reference's
-    ``overlap_dispatch`` (double-buffered shards on the mixed engine's
-    two-phase ``dispatch``), which the port does not take.
+    ``device_parallel=True`` splits each owned shard into contiguous
+    pieces over ``devices`` (torch devices; default every visible CUDA
+    device) and evaluates each piece with the ``"torch"`` engine's math
+    on its device, bit-identical to the unsharded ``"torch"`` grid;
+    otherwise shards run through the engine named by ``backend`` /
+    passed as ``engine``.
+
+    ``overlap_dispatch=True`` double-buffers shards on engines exposing
+    a two-phase ``dispatch()`` (the ``"mixed"`` engine): shard ``k+1``
+    is queued on the card before shard ``k`` finalizes, the same
+    overlap discipline ``ficco_ag_matmul`` applies to DMA egress.
+    Per-shard ``seconds`` then overlap wall-clock.  Engines without
+    ``dispatch`` fall back to eager evaluation — results are identical
+    either way (summary order and all hook orderings are preserved),
+    and the flag defaults off so every pre-existing path keeps its
+    bit-identity contract trivially.  Ignored under ``device_parallel``.
     """
     if mode not in ("gather", "reduce"):
         raise ValueError(f"mode must be 'gather'|'reduce', got {mode!r}")
@@ -339,14 +411,27 @@ def sweep_grid(
     schedules = (
         GRID_SCHEDULES if schedules is None else tuple(schedules)
     )
+    dispatch_shard = None
     if device_parallel:
-        raise NotImplementedError(
-            "device_parallel=True (each shard SPMD over the local devices, "
-            "with repro_torch.sweep.device and the mixed engine) is "
-            "ROADMAP A8; run the shards through an engine (backend=\"torch\" "
-            "evaluates on the card)"
+        if devices is None:
+            from repro_torch.device import resolve_device
+
+            resolve_device(None)  # raises without a card
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        devices = [torch.device(d) for d in devices]
+        eval_shard = lambda piece: _device_sharded_grid(  # noqa: E731
+            piece, machines, dma=dma, dma_into_place=dma_into_place,
+            schedules=schedules, devices=devices,
         )
-    eng = engine if engine is not None else get_engine(backend)
+    else:
+        eng = engine if engine is not None else get_engine(backend)
+        eval_shard = lambda piece: eng.evaluate(  # noqa: E731
+            piece, machines, dma=dma, dma_into_place=dma_into_place,
+            schedules=schedules,
+        )
+        dispatch_shard = getattr(eng, "dispatch", None)
+    two_phase = overlap_dispatch and dispatch_shard is not None
 
     plan = plan_shards(
         len(sb), num_shards if num_shards is not None else host_count
@@ -357,13 +442,42 @@ def sweep_grid(
 
     reg = _metrics.get_metrics()
 
+    def _complete(entry):
+        shard, start, stop, t0, finalize = entry
+        # Under two-phase dispatch this span is where the queued work is
+        # waited for: in a trace, shard k+1's sweep/dispatch span opens
+        # before shard k's sweep/compute closes.
+        with _trace.span("sweep/compute", "sweep", shard=shard):
+            grid = finalize()
+        dt = time.perf_counter() - t0
+        summ = summarize_shard(grid, shard, start, stop, dt)
+        reg.counter("sweep/shards").inc()
+        reg.counter("sweep/scenarios").inc(summ.n_scenarios)
+        reg.histogram("sweep/shard_seconds").observe(dt)
+        with _trace.span(
+            "sweep/reduce", "sweep", shard=shard,
+            n_scenarios=summ.n_scenarios, seconds=dt,
+        ):
+            if on_shard_grid is not None:
+                on_shard_grid(grid, summ)
+            if mode == "gather":
+                parts.append(grid)
+            summaries.append(summ)
+            if on_shard is not None:
+                on_shard(summ)
+
+    pending = None
     with _trace.span(
         "sweep/run", "sweep", mode=mode, n_owned=len(owned),
-        n_scenarios=len(sb), host_index=host_index, host_count=host_count,
+        n_scenarios=len(sb), two_phase=two_phase,
+        host_index=host_index, host_count=host_count,
     ):
         for shard in owned:
             start, stop = plan.bounds[shard]
             if start == stop:  # degenerate empty shard (more shards than S)
+                if pending is not None:  # keep summaries in shard order
+                    _complete(pending)
+                    pending = None
                 summ = ShardSummary(
                     shard, start, stop, 0, 0, 0.0, 0.0, {}, 0.0, 0.0
                 )
@@ -373,28 +487,29 @@ def sweep_grid(
                 continue
             piece = _slice_batch(sb, start, stop)
             t0 = time.perf_counter()
-            with _trace.span("sweep/compute", "sweep", shard=shard,
-                             start=start, stop=stop):
-                grid = eng.evaluate(
-                    piece, machines, dma=dma,
-                    dma_into_place=dma_into_place, schedules=schedules,
-                )
-            dt = time.perf_counter() - t0
-            summ = summarize_shard(grid, shard, start, stop, dt)
-            reg.counter("sweep/shards").inc()
-            reg.counter("sweep/scenarios").inc(summ.n_scenarios)
-            reg.histogram("sweep/shard_seconds").observe(dt)
             with _trace.span(
-                "sweep/reduce", "sweep", shard=shard,
-                n_scenarios=summ.n_scenarios, seconds=dt,
+                "sweep/dispatch", "sweep", shard=shard,
+                start=start, stop=stop, two_phase=two_phase,
             ):
-                if on_shard_grid is not None:
-                    on_shard_grid(grid, summ)
-                if mode == "gather":
-                    parts.append(grid)
-                summaries.append(summ)
-                if on_shard is not None:
-                    on_shard(summ)
+                if two_phase:
+                    finalize = dispatch_shard(
+                        piece, machines, dma=dma,
+                        dma_into_place=dma_into_place,
+                        schedules=schedules,
+                    )
+                else:
+                    grid_now = eval_shard(piece)
+                    finalize = lambda g=grid_now: g  # noqa: E731
+            entry = (shard, start, stop, t0, finalize)
+            if pending is not None:
+                _complete(pending)
+                pending = None
+            if two_phase:
+                pending = entry  # shard k+1 is queued before k finalizes
+            else:
+                _complete(entry)
+        if pending is not None:
+            _complete(pending)
     grid = None
     if mode == "gather":
         if parts:

@@ -297,9 +297,9 @@ def test_port_engines_agree_bit_for_bit():
 def test_engine_registry_and_unknown_backend():
     # "measured" registers when repro_torch.learn is imported.
     assert set(engine.engine_names()) - {"measured"} == {
-        "numpy", "scalar", "torch"}
+        "mixed", "numpy", "scalar", "torch"}
     with pytest.raises(ValueError, match="registered engines: (measured, )?"
-                                         "numpy, scalar, torch"):
+                                         "mixed, numpy, scalar, torch"):
         engine.get_engine("jax")
     with pytest.raises(ValueError, match="already registered"):
         engine.register_engine("numpy", engine.NumpyEngine)

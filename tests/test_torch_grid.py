@@ -172,12 +172,6 @@ def test_sweep_plan_owner_mapping_tiles_the_axis():
     assert sum(plan.sizes) == 103
 
 
-def test_device_parallel_sweep_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        sweep_grid(synthetic_batch(10), MACHINES[:1], engine=CPU,
-                   device_parallel=True)
-
-
 # ---- against the reference's jaxgrid (the session's JAX subprocess) ----
 
 @pytest.mark.parametrize("field", RAW_FIELDS)

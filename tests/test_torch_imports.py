@@ -195,6 +195,33 @@ def _launch_serve_xlstm():
     main(["--arch", "xlstm-1.3b", "--prompts", "1", "--new-tokens", "1"])
 
 
+def _mixed_engine():
+    from repro_torch.core.engine import MixedEngine
+    from repro_torch.core.machine import H100_SXM
+    from repro_torch.core.workload import TABLE_I
+
+    MixedEngine().evaluate(TABLE_I, [H100_SXM])
+
+
+def _sweep_device_stats():
+    from repro_torch.core.workload import machine_grid
+    from repro_torch.sweep import sweep_device_stats
+
+    sweep_device_stats(8, machine_grid(groups=(8,)))
+
+
+def _device_batch():
+    from repro_torch.sweep import device_batch
+
+    device_batch(8)
+
+
+def _sweep_cli():
+    from repro_torch.scripts.sweep import main
+
+    main(["--scenarios", "8"])
+
+
 ENTRY_POINTS = {
     "Model.init": _model_init,
     "Model.init_cache": _init_cache,
@@ -216,6 +243,10 @@ ENTRY_POINTS = {
     "launch.train (MoE)": _launch_train_moe,
     "Model.init_cache (hybrid)": _init_cache_jamba,
     "launch.serve (SSM)": _launch_serve_xlstm,
+    "MixedEngine().evaluate": _mixed_engine,
+    "sweep_device_stats": _sweep_device_stats,
+    "device_batch": _device_batch,
+    "scripts.sweep": _sweep_cli,
 }
 
 
@@ -273,9 +304,9 @@ def test_import_check_covers_the_grid_engine_sweep_and_learn():
     mods = set(_port_modules())
     for name in ("autotune.torchgrid", "sweep", "sweep.plan", "sweep.synth",
                  "sweep.runner", "learn", "learn.features", "learn.stats",
-                 "learn.gate", "learn.fit", "learn.measured"):
+                 "learn.gate", "learn.fit", "learn.measured", "sweep.device",
+                 "scripts", "scripts.sweep", "scripts.merge_sweep"):
         assert f"repro_torch.{name}" in mods, name
-    assert "repro_torch.sweep.device" not in mods
 
 
 def test_import_check_covers_the_moe_path():
