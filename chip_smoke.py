@@ -83,7 +83,15 @@ Phases, each of which exits non-zero on failure:
      accuracy thresholds on its held-out grids, installed with
      ``Autotuner.set_gate`` and read back from a pick's decision record,
      and the ``"measured"`` engine's shortlist ranking from [fit]'s
-     records;
+     records; then the card-resident design-space sweep (``[sweep]``,
+     1e8 scenarios) and the dry-run (``[dryrun]``, no kernel): every
+     arch x shape through ``repro_torch.launch.dryrun`` on the 16x16 and
+     2x16x16 meshes (host seconds, each pair's bytes per device and
+     three roofline terms), one device's shard of the largest training
+     state (params, moments, step and batch) allocated on the card at its
+     shard shapes with the allocator's growth held to the dry-run's
+     argument bytes (512 B a leaf), and the dry-run and hillclimb command
+     lines;
  11. the MoE family (``[moe]``), once TinyLlama's state is freed:
      DeepSeek-V2-Lite-16B whole at full width (27 MoE layers of 64 experts
      top-6 and 2 shared, MLA), its parameter bytes and memory; a 4 x 512
@@ -174,8 +182,8 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # What [done] counts: every phase the script prints, in order.
 PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
           "autotune", "serve", "adapt", "train", "grid", "fit", "gate",
-          "sweep", "moe", "moe-train", "encdec", "vlm", "hybrid", "ssm",
-          "hybrid-train", "ssm-train")
+          "sweep", "dryrun", "moe", "moe-train", "encdec", "vlm", "hybrid",
+          "ssm", "hybrid-train", "ssm-train")
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -2685,6 +2693,152 @@ def phase_sweep(device):
     print(f"[sweep] phase total {time.time() - t_phase:.1f}s")
 
 
+# [dryrun]: the caching allocator rounds each block up to a multiple of
+# 512 bytes.  It also hands out a whole large segment when what would be
+# left of it is 1 MB or less, unless its segments are expandable; so
+# (b) allocates with expandable segments, and sets them back after.
+ALLOC_ROUND = 512
+
+
+def phase_dryrun(device):
+    """The dry-run (``repro_torch.launch.dryrun``), host arithmetic on
+    meta tensors: (a) every arch x shape on the production meshes, each
+    ``ok``; (b) one device's shard of every argument leaf of the largest
+    training state allocated on the card, the allocator's growth held to
+    the dry-run's argument bytes; (c) the dry-run and hillclimb command
+    lines, each exiting 0."""
+    import warnings
+
+    import torch
+
+    from repro_torch.configs import ARCHS, SHAPES, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
+
+    t_phase = time.time()
+    card = _card()
+    results = {}
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        t0 = time.perf_counter()
+        for arch in sorted(ARCHS):
+            for shape in SHAPES:
+                r = dryrun.dryrun_one(arch, shape, multi_pod=multi_pod,
+                                      extrapolate=False, verbose=False)
+                if not r.get("ok"):
+                    raise AssertionError(f"[dryrun] {arch} x {shape} on "
+                                         f"{mesh.name}: {r}")
+                results[arch, shape, mesh.name] = r
+        print(f"[dryrun] (a) {len(ARCHS) * len(SHAPES)} pairs on "
+              f"{mesh.name} ({mesh.size} devices) ok in "
+              f"{time.perf_counter() - t0:.2f} s of host")
+    for (arch, shape, mesh_name), r in results.items():
+        counts = " ".join(f"{k}:{v}" for k, v in
+                          sorted(r["collective_counts"].items()))
+        print(f"[dryrun]   {arch:22s} {shape:12s} {mesh_name:8s} "
+              f"{r['bytes_per_device'] / 1e9:9.3f} GB/device, compute "
+              f"{r['t_compute'] * 1e3:10.3f} ms, memory "
+              f"{r['t_memory'] * 1e3:9.3f} ms, collective "
+              f"{r['t_collective'] * 1e3:8.3f} ms ({counts})")
+    # The count at the shapes of the reference's compiled steps (the
+    # reduced configs at seq 64, batch 8 on (data 2, model 2)), which
+    # PERF.md sets beside what GSPMD inserted there.
+    small = Mesh(("data", "model"), (2, 2))
+    for arch in ("tinyllama-1.1b", "xlstm-1.3b"):
+        for kind in ("prefill", "train"):
+            cfg = get_config(arch).reduced()
+            shape = ShapeConfig("t", 64, 8, kind)
+            args = dryrun.step_arguments(cfg, shape, small)
+            coll = dryrun.step_collectives(cfg, shape, small, args)
+            kinds = ", ".join(
+                f"{k} {coll.bytes_by_kind[k]:.0f} B in "
+                f"{coll.count_by_kind[k]}" for k in sorted(coll.count_by_kind))
+            print(f"[dryrun] (a) reduced {arch} {kind} at (2, 2), seq 64, "
+                  f"batch 8: arguments {dryrun.per_device_bytes(args, small)}"
+                  f" B; {kinds}")
+
+    # (b) the largest training state's per-device shard on the card.
+    mesh = make_production_mesh()
+    arch, shape = max(
+        ((a, s) for a, s, m in results
+         if m == mesh.name and SHAPES[s].kind == "train"),
+        key=lambda k: results[k[0], k[1], mesh.name]["argument_bytes"])
+    predicted = results[arch, shape, mesh.name]["argument_bytes"]
+    cfg = dryrun.prepared_config(arch, SHAPES[shape], "gspmd_serial")
+    args = dryrun.step_arguments(cfg, SHAPES[shape], mesh)
+    shards = dryrun.shard_leaves(args, mesh)
+    if dryrun.per_device_bytes(args, mesh) != predicted:
+        raise AssertionError("[dryrun] (b) step_arguments disagree with "
+                             "dryrun_one")
+
+    def requested():
+        return torch.cuda.memory_stats(device).get(
+            "requested_bytes.all.current")
+
+    def expandable(on: bool):
+        with warnings.catch_warnings():  # deprecated in torch 2.11
+            warnings.simplefilter("ignore", FutureWarning)
+            torch.cuda.memory._set_allocator_settings(
+                f"expandable_segments:{on}")
+
+    _sync()
+    torch.cuda.empty_cache()
+    expandable(True)
+    try:
+        before, asked = torch.cuda.memory_allocated(device), requested()
+        bufs = [torch.zeros(s, dtype=dt, device=device) for s, dt in shards]
+        _sync()
+        grown = torch.cuda.memory_allocated(device) - before
+        if asked is not None:
+            asked = requested() - asked
+        del bufs
+        torch.cuda.empty_cache()
+    finally:
+        expandable(False)
+    slack = ALLOC_ROUND * len(shards)
+    print(f"[dryrun] (b) {arch} x {shape} on {mesh.name}: one device's "
+          f"{len(shards)} argument leaves (params, m, v, step, batch) "
+          f"allocated on the card: memory_allocated grew {grown} B against "
+          f"the dry-run's {predicted} B ({grown / 1e9:.3f} GB; difference "
+          f"{grown - predicted} B, allowed 0..{slack}); requested bytes "
+          f"grew {asked} B [{card}]")
+    if not predicted <= grown <= predicted + slack:
+        raise AssertionError(f"[dryrun] (b) allocated {grown} B for "
+                             f"{predicted} B predicted")
+    if asked is not None and asked != predicted:
+        raise AssertionError(f"[dryrun] (b) requested {asked} B for "
+                             f"{predicted} B predicted")
+
+    # (c) the command lines.
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        out = os.path.join(tmp, "dryrun.json")
+        env = dict(os.environ, PYTHONPATH=SRC)
+        for args in (
+                ["repro_torch.launch.dryrun", "--arch", "tinyllama-1.1b",
+                 "--shape", "train_4k", "--json", out],
+                ["repro_torch.scripts.hillclimb", "--pair", "yi_decode"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *args],
+                                  capture_output=True, text=True,
+                                  timeout=300, env=env)
+            if proc.returncode != 0:
+                raise AssertionError(f"[dryrun] {args[0]} exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            last = proc.stdout.strip().splitlines()[-1]
+            print(f"[dryrun] (c) python -m {' '.join(args[:3])}: exit 0 "
+                  f"in {time.perf_counter() - t0:.1f} s; {last.strip()}")
+        with open(out) as f:
+            rows = json.load(f)
+        want = results["tinyllama-1.1b", "train_4k", mesh.name]
+        if not (len(rows) == 1 and rows[0]["ok"]
+                and rows[0]["bytes_per_device"] == want["bytes_per_device"]):
+            raise AssertionError(f"[dryrun] (c) the command line's JSON "
+                                 f"{rows}")
+    print(f"[dryrun] phase total {time.time() - t_phase:.1f}s")
+
+
 # [moe]: DeepSeek-V2-Lite-16B whole, and the expert-parallel dispatch at
 # its MoE layer: GROUP ranks of PREFILL_SEQ tokens each route top-6 of 64
 # experts at capacity factor 1.25, so 512 * 6 * 1.25 / 64 = 60 rows per
@@ -3957,6 +4111,7 @@ def drive(device) -> int:
     phase_grid(device)
     phase_learn(device)
     phase_sweep(device)
+    phase_dryrun(device)
     # [moe] needs the card's memory: TinyLlama's state goes first.
     del model, state
     moe_counts = phase_moe(device, timer)

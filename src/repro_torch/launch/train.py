@@ -9,9 +9,10 @@ model (``--full-size`` for the full one) of every family: dense, MoE
 (``deepseek-v2-lite-16b``, ``arctic-480b``), VLM, audio, hybrid
 (``jamba-1.5-large-398b``) and SSM (``xlstm-1.3b``), plus ``--device``
 (default ``cuda``; with no CUDA device the launcher raises unless
-``--device cpu`` is given).  The reference's ``--dry-run`` delegates to
-its dry-run launcher, which comes with the tooling (ROADMAP A8).  As in
-the reference, the loop runs outside any tensor-parallel group, so
+``--device cpu`` is given).  The reference's docstring names a
+``--dry-run`` mode that its argument parser does not have; the dry-run is
+``python -m repro_torch.launch.dryrun`` (:mod:`repro_torch.launch.dryrun`).
+As in the reference, the loop runs outside any tensor-parallel group, so
 ``--overlap-mode`` takes effect only for a caller that wraps
 :func:`~repro_torch.train.loop.train` in ``tp_group(TPGroup(g))``.
 """

@@ -19,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import MODEL_AXIS, P
+
 _NEG_INF = -1e30
 
 
@@ -235,6 +237,16 @@ def attn_init(gen, dims: AttnDims, dtype, device):
     }
 
 
+def attn_param_specs():
+    """Column-parallel Q/K/V and a row-parallel output projection."""
+    return {
+        "wq": P(None, MODEL_AXIS),
+        "wk": P(None, MODEL_AXIS),
+        "wv": P(None, MODEL_AXIS),
+        "wo": P(MODEL_AXIS, None),
+    }
+
+
 def attn_apply(
     params,
     x: torch.Tensor,
@@ -324,6 +336,13 @@ def mlp_init(gen, d: int, ff: int, dtype, device, *, gated: bool = True):
     }
     if gated:
         p["w_gate"] = dense_init(gen, d, ff, dtype, device)
+    return p
+
+
+def mlp_param_specs(*, gated: bool = True):
+    p = {"w_up": P(None, MODEL_AXIS), "w_down": P(MODEL_AXIS, None)}
+    if gated:
+        p["w_gate"] = P(None, MODEL_AXIS)
     return p
 
 

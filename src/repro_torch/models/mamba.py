@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import MambaConfig
 from repro_torch.models import layers
+from repro_torch.parallel.sharding import MODEL_AXIS, P
 
 # The leaves the reference keeps in fp32 whatever the model's dtype.
 FP32_LEAVES = frozenset({"a_log", "d_skip"})
@@ -52,6 +53,21 @@ def mamba_init(gen, d_model: int, cfg: MambaConfig, dtype, device):
         "w_out": layers.dense_init(gen, d_inner, d_model, dtype, device),
     }
 
+
+
+def mamba_param_specs():
+    """d_inner over the model axis in every leaf that has it."""
+    return {
+        "w_in": P(None, MODEL_AXIS),
+        "conv_w": P(None, MODEL_AXIS),
+        "conv_b": P(MODEL_AXIS),
+        "w_x": P(MODEL_AXIS, None),
+        "w_dt": P(None, MODEL_AXIS),
+        "dt_bias": P(MODEL_AXIS),
+        "a_log": P(MODEL_AXIS, None),
+        "d_skip": P(MODEL_AXIS),
+        "w_out": P(MODEL_AXIS, None),
+    }
 
 def _causal_conv(x, conv_w, conv_b, state=None):
     """Depthwise causal conv.  x: (B, S, D); conv_w: (K, D); ``state``
@@ -141,5 +157,6 @@ def mamba_decode(params, x: torch.Tensor, cache: dict, cfg: MambaConfig):
     return y @ params["w_out"], cache
 
 
-__all__ = ["FP32_LEAVES", "mamba_dims", "mamba_init", "mamba_apply",
+__all__ = ["FP32_LEAVES", "mamba_dims", "mamba_init",
+           "mamba_param_specs", "mamba_apply",
            "mamba_init_cache", "mamba_decode"]

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.models import layers
+from repro_torch.parallel.sharding import MODEL_AXIS, P
 from repro_torch.models.layers import (
     apply_rope,
     blockwise_attention,
@@ -45,6 +46,19 @@ def mla_init(gen, d_model: int, num_heads: int, cfg: MLAConfig, dtype,
         "wo": dense(num_heads * cfg.v_head_dim, d_model),
     }
 
+
+
+def mla_param_specs():
+    """Heads over the model axis; the shared latent and rope-key
+    down-projections replicated."""
+    return {
+        "wq": P(None, MODEL_AXIS),
+        "w_dkv": P(None, None),
+        "w_kr": P(None, None),
+        "w_uk": P(None, MODEL_AXIS),
+        "w_uv": P(None, MODEL_AXIS),
+        "wo": P(MODEL_AXIS, None),
+    }
 
 def _project(params, x, num_heads: int, cfg: MLAConfig, positions):
     b, s, _ = x.shape
@@ -108,4 +122,5 @@ def mla_decode(params, x: torch.Tensor, cache: dict, pos: int,
     return out.reshape(b, 1, num_heads * cfg.v_head_dim) @ params["wo"], cache
 
 
-__all__ = ["mla_init", "mla_apply", "mla_init_cache", "mla_decode"]
+__all__ = ["mla_init", "mla_param_specs", "mla_apply", "mla_init_cache",
+           "mla_decode"]

@@ -23,6 +23,7 @@ state; :func:`reset_recurrent` returns it to the start.
 Interface (used by serve/launch):
     model = build_model(config)
     state         = model.init(seed, device=...)
+    specs         = model.param_specs()          # a tree of P like state's
     logits, aux   = model.forward(state, batch)
     loss, parts   = model.loss(state, batch)
     cache         = model.init_cache(batch, cache_len, enc_len=..., device=...)
@@ -43,7 +44,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers, mamba, mla, moe, xlstm
 from repro_torch.models.layers import AttnDims
 from repro_torch.parallel.context import get_overlap, overlap_context
-from repro_torch.parallel.sharding import active_group, tp_group
+from repro_torch.parallel.sharding import (
+    MODEL_AXIS,
+    P,
+    active_group,
+    map_specs,
+    tp_group,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -168,6 +175,44 @@ def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, device, *,
     else:
         p["ffn"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device)
     return p
+
+
+def _layer_specs(spec: LayerSpec, cfg: ModelConfig, *, cross: bool = False):
+    """One layer's partition specs, keyed as :func:`_layer_init`'s tree."""
+    s: dict[str, Any] = {"norm1": _norm_spec(cfg)}
+    if spec.mixer == "attn":
+        s["attn"] = layers.attn_param_specs()
+    elif spec.mixer == "mla":
+        s["attn"] = mla.mla_param_specs()
+    elif spec.mixer == "mamba":
+        s["mixer"] = mamba.mamba_param_specs()
+    elif spec.mixer == "mlstm":
+        s["mixer"] = xlstm.mlstm_param_specs()
+    else:
+        s["mixer"] = xlstm.slstm_param_specs()
+    if cross:
+        s["norm_cross"] = _norm_spec(cfg)
+        s["cross"] = layers.attn_param_specs()
+    if spec.ffn == "none":
+        return s
+    s["norm2"] = _norm_spec(cfg)
+    s["ffn"] = (moe.moe_param_specs(cfg.moe) if spec.ffn == "moe"
+                else layers.mlp_param_specs())
+    return s
+
+
+def _norm_spec(cfg: ModelConfig):
+    if cfg.norm == "rmsnorm":
+        return {"scale": P(None)}
+    if cfg.norm == "layernorm":
+        return {"scale": P(None), "bias": P(None)}
+    return {}
+
+
+def _stacked_specs(specs):
+    """Every leaf's spec with the periods (or encoder layers) dim in
+    front, replicated."""
+    return map_specs(lambda sp: P(None, *sp), specs)
 
 
 def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions, *,
@@ -411,6 +456,31 @@ class Model:
             state["frontend_proj"] = layers.dense_init(
                 gen, cfg.frontend.embed_dim, cfg.d_model, dt, dev)
         return state
+
+    # ---- sharding specs ---------------------------------------------------
+    def param_specs(self) -> dict:
+        """The partition spec of every leaf of :meth:`init`'s state, as the
+        reference's ``Model.param_specs``: the vocabulary of ``embed`` and
+        ``unembed`` and each mixer's and FFN's heads, inner width or
+        experts over ``model``; fixed for a mesh by
+        :func:`repro_torch.parallel.sharding.fix_param_specs`."""
+        cfg = self.config
+        specs: dict[str, Any] = {
+            "embed": P(MODEL_AXIS, None),
+            "final_norm": _norm_spec(cfg),
+            "layers": _stacked_specs([
+                _layer_specs(s, cfg, cross=self.is_encdec)
+                for s in self.pattern
+            ]),
+        }
+        if not cfg.tie_embeddings:
+            specs["unembed"] = P(None, MODEL_AXIS)
+        if self.is_encdec:
+            specs["encoder"] = _stacked_specs(_layer_specs(_ENC_SPEC, cfg))
+            specs["enc_norm"] = _norm_spec(cfg)
+        if cfg.frontend and cfg.frontend.embed_dim:
+            specs["frontend_proj"] = P(None, None)
+        return specs
 
     # ---- forward ----------------------------------------------------------
     def _encode(self, state, enc_frames):

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import layers
+from repro_torch.parallel.sharding import MODEL_AXIS, P
 
 # The leaves the reference keeps in fp32 whatever the model's dtype: the
 # router, whose logits are routed on in fp32.
@@ -49,6 +50,22 @@ def moe_init(gen, d_model: int, cfg: MoEConfig, dtype, device):
         )
     return p
 
+
+
+def moe_param_specs(cfg: MoEConfig):
+    """Experts over the model axis (expert parallel); the router
+    replicated; the shared experts and the dense residual as MLPs."""
+    p = {
+        "router": P(None, None),
+        "w_gate": P(MODEL_AXIS, None, None),
+        "w_up": P(MODEL_AXIS, None, None),
+        "w_down": P(MODEL_AXIS, None, None),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = layers.mlp_param_specs()
+    if cfg.dense_residual_ff:
+        p["dense_residual"] = layers.mlp_param_specs()
+    return p
 
 def _expert_init(gen, e, d_in, d_out, dtype, device):
     w = torch.randn((e, d_in, d_out), generator=gen, device=device)
@@ -133,4 +150,5 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
     return out, lb_loss + z_loss
 
 
-__all__ = ["FP32_LEAVES", "moe_init", "route", "moe_apply"]
+__all__ = ["FP32_LEAVES", "moe_init", "moe_param_specs", "route",
+           "moe_apply"]

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import XLSTMConfig
 from repro_torch.models import layers
+from repro_torch.parallel.sharding import MODEL_AXIS, P
 
 # The leaves the reference keeps in fp32 whatever the model's dtype.
 FP32_LEAVES = frozenset({"w_if", "w_gates", "r_gates"})
@@ -64,6 +65,18 @@ def mlstm_init(gen, d_model: int, num_heads: int, cfg: XLSTMConfig, dtype,
         "skip_scale": torch.ones((d_inner,), dtype=dtype, device=device),
     }
 
+
+
+def mlstm_param_specs():
+    return {
+        "w_up": P(None, MODEL_AXIS),
+        "wq": P(None, MODEL_AXIS),
+        "wk": P(None, MODEL_AXIS),
+        "wv": P(None, MODEL_AXIS),
+        "w_if": P(None, None),
+        "w_out": P(MODEL_AXIS, None),
+        "skip_scale": P(MODEL_AXIS),
+    }
 
 def _mlstm_gates(params, u):
     """log i and log sigmoid(f), (B, S, H) each, fp32."""
@@ -166,6 +179,15 @@ def slstm_init(gen, d_model: int, cfg: XLSTMConfig, dtype, device):
     }
 
 
+
+def slstm_param_specs():
+    return {
+        "w_up": P(None, MODEL_AXIS),
+        "w_gates": P(MODEL_AXIS, None),
+        "r_gates": P(None, None),
+        "w_out": P(MODEL_AXIS, None),
+    }
+
 def _slstm_cell(params, g_in, state: dict):
     """One sLSTM step with stabilised exponential gating, out of place.
     ``g_in`` is the step's input term ``u_t @ w_gates`` (B, 4D) fp32;
@@ -224,7 +246,7 @@ def slstm_decode(params, x: torch.Tensor, cache: dict, cfg: XLSTMConfig):
 
 
 __all__ = [
-    "FP32_LEAVES", "mlstm_init", "mlstm_apply", "mlstm_init_cache",
-    "mlstm_decode", "slstm_init", "slstm_apply", "slstm_init_cache",
-    "slstm_decode",
+    "FP32_LEAVES", "mlstm_init", "mlstm_param_specs", "mlstm_apply",
+    "mlstm_init_cache", "mlstm_decode", "slstm_init", "slstm_param_specs",
+    "slstm_apply", "slstm_init_cache", "slstm_decode",
 ]

@@ -140,13 +140,19 @@ def analyze(
 
 
 @functools.lru_cache(maxsize=None)
+def meta_state(cfg) -> dict:
+    """``cfg``'s model state on the ``"meta"`` device: every leaf's shape
+    and dtype, nothing allocated.  Cached per config (the configs are
+    frozen and hash by value, so a changed copy is a new entry): a
+    full-width meta init of 80 layers takes a second or two.  Shared by
+    every caller, so read it and never write to it."""
+    return build_model(cfg).init(0, device="meta")
+
+
 def count_params(cfg) -> float:
     """Total parameter count of ``cfg``'s model (every leaf, fp32 ones
-    included), summed as floats in the reference's leaf order.  Cached
-    per config: the configs are frozen, and a full-width meta init of
-    80 layers takes a second or two."""
-    state = build_model(cfg).init(0, device="meta")
-    return sum(float(math.prod(t.shape)) for t in leaves(state))
+    included), summed as floats in the reference's leaf order."""
+    return sum(float(math.prod(t.shape)) for t in leaves(meta_state(cfg)))
 
 
 def active_params(cfg) -> float:
@@ -178,4 +184,5 @@ def model_flops_for(cfg, shape_cfg, kind: str) -> float:
 
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "LINK_BW", "CollectiveStats", "Roofline",
-           "analyze", "count_params", "active_params", "model_flops_for"]
+           "analyze", "meta_state", "count_params", "active_params",
+           "model_flops_for"]

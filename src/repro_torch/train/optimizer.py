@@ -6,8 +6,8 @@ the nested dicts of tensors that the model state uses
 parameter back to its own dtype, with the reference's bias-correction
 order.  ``step`` is a 0-dim int32 tensor on the parameters' device, and
 ``lr`` and ``grad_norm`` stay 0-dim device tensors, so a step never waits
-on the host.  The reference's ``state_specs`` (the moments' sharding) has
-no counterpart until the port shards its state (ROADMAP A9).
+on the host.  :func:`state_specs` shards the moments like the parameters
+(the dry-run's optimizer state, :mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.parallel.sharding import P
 from repro_torch.tree import leaves, tree_map, unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -66,6 +67,12 @@ def init_state(params, moment_dtype: str = "float32") -> dict[str, Any]:
         "v": tree_map(zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def state_specs(param_specs) -> dict[str, Any]:
+    """The optimizer state's partition specs: ``m`` and ``v`` as the
+    parameters', ``step`` replicated."""
+    return {"m": param_specs, "v": param_specs, "step": P()}
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -120,6 +127,7 @@ __all__ = [
     "OptimizerConfig",
     "lr_at",
     "init_state",
+    "state_specs",
     "global_norm",
     "apply_updates",
 ]

@@ -222,6 +222,12 @@ def _sweep_cli():
     main(["--scenarios", "8"])
 
 
+def _host_mesh():
+    from repro_torch.launch.mesh import make_host_mesh
+
+    make_host_mesh()
+
+
 ENTRY_POINTS = {
     "Model.init": _model_init,
     "Model.init_cache": _init_cache,
@@ -247,6 +253,7 @@ ENTRY_POINTS = {
     "sweep_device_stats": _sweep_device_stats,
     "device_batch": _device_batch,
     "scripts.sweep": _sweep_cli,
+    "make_host_mesh": _host_mesh,
 }
 
 
@@ -335,4 +342,11 @@ def test_import_check_covers_the_recurrent_families_and_the_counters():
     mods = set(_port_modules())
     for name in ("models.mamba", "models.xlstm", "roofline",
                  "roofline.counters", "roofline.analysis"):
+        assert f"repro_torch.{name}" in mods, name
+
+
+def test_import_check_covers_the_dry_run():
+    mods = set(_port_modules())
+    for name in ("parallel.sharding", "launch.mesh", "launch.dryrun",
+                 "scripts.hillclimb", "train.optimizer"):
         assert f"repro_torch.{name}" in mods, name

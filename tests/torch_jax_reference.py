@@ -52,6 +52,15 @@ FIRST.pkl`` and one more pickle for each of ``LATER``) it evaluates, with ``JAX_
     of the six schedules (``SCHEDULE_FNS``) under ``shard_map`` on
     ``COLLECTIVES["g"]`` devices, at :func:`schedule_operands`' shapes,
     and of ``serial_a2a_ffn`` on :func:`moe_operands`' (``"serial_a2a"``):
+    (bytes by kind, count by kind);
+  * ``dryrun``: the dry-run's specs, each tree as ``{path: tuple(spec)}``
+    (:func:`spec_paths`): every arch's ``param_specs()``, and on each of
+    ``DRYRUN["meshes"]`` (stand-ins with a ``shape``) its
+    ``fix_param_specs`` and the ``cache_specs`` of each of
+    ``DRYRUN["caches"]`` through ``prepared_config``; and for each of
+    ``DRYRUN["compiled"]`` (reduced) and each step kind at ``DRYRUN``'s
+    seq and batch on the forced devices as (data 2, model 2), the
+    compiled step's ``argument_size_in_bytes`` and ``parse_collectives``
     (bytes by kind, count by kind).
 
 The first eight entries go to ``FIRST.pkl``; the later ones (the whole
@@ -134,11 +143,26 @@ RECURRENT_TRAIN = dict(MOE_TRAIN, archs=RECURRENT["archs"])
 # The schedules' collectives: g ranks of m_s rows, K columns, n_local
 # output columns each (row chunks of m_s / g, K slices of K / g).
 COLLECTIVES = dict(g=4, m_s=16, k=32, n_local=8, seed=41)
-# The entries after the first eight, in the order the script writes them:
-# the quickest first (1.4-11 s each alone, moe_grad 22 s), since each
-# holds a pytest-xdist worker that waits for it.
+# The dry-run's spec stand-ins and compiled steps.
+DRYRUN = dict(meshes=({"data": 16, "model": 16},
+                      {"pod": 2, "data": 16, "model": 16},
+                      {"data": 2, "model": 2}),
+              caches=("decode_32k", "long_500k"),
+              compiled=("tinyllama-1.1b", "xlstm-1.3b"),
+              kinds=("prefill", "train"), seq=64, batch=8)
+# The entries after the first eight, in the order the script writes them,
+# each holding a pytest-xdist worker that waits for it (seconds alone, on
+# one run: counts 5.8, collectives 1.2, recurrent_grad 18.3, encdec 9.7,
+# recurrent 8.9, dryrun 15.8, moe_grad 17.1).
 LATER = ("counts", "collectives", "recurrent_grad", "encdec", "recurrent",
-         "moe_grad")
+         "dryrun", "moe_grad")
+
+
+def spec_paths(flat) -> dict:
+    """``{path: spec entries}`` from ``(path, spec)`` pairs, each path a
+    sequence of dict keys and list positions, joined by "/"."""
+    return {"/".join(str(k) for k in path): tuple(spec)
+            for path, spec in flat}
 
 
 def schedule_operands():
@@ -273,6 +297,7 @@ def main(err_path: str, first_path: str, *later_paths: str) -> None:
                                    for a in RECURRENT_TRAIN["archs"]},
         "encdec": lambda: {a: _encdec(a) for a in ENCDEC["archs"]},
         "recurrent": lambda: {a: _recurrent(a) for a in RECURRENT["archs"]},
+        "dryrun": _dryrun,
         "moe_grad": lambda: {a: _grad(a) for a in MOE_TRAIN["archs"]},
     }
     try:
@@ -521,6 +546,65 @@ def _collectives() -> dict:
     out["serial_a2a"] = count(
         serial_a2a_ffn, (spec, spec, spec), spec,
         *[a.reshape(-1, *a.shape[2:]) for a in moe_operands()])
+    return out
+
+
+def _dryrun() -> dict:
+    import types
+
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    jax.devices()  # the backend is up before repro.launch.dryrun sets
+    # XLA_FLAGS for 512 devices at import
+    from repro.compat import set_mesh
+    from repro.configs import ARCHS, SHAPES, get_config
+    from repro.configs.base import ShapeConfig
+    from repro.launch import dryrun
+    from repro.launch import specs as specmod
+    from repro.models.model import build_model
+    from repro.parallel.context import overlap_context
+    from repro.parallel.sharding import cache_specs, fix_param_specs
+    from repro.roofline.analysis import parse_collectives
+
+    def paths(tree):
+        flat, _ = jax.tree_util.tree_flatten_with_path(
+            tree, is_leaf=lambda x: isinstance(x, P))
+        return spec_paths(
+            ([getattr(k, "key", getattr(k, "idx", None)) for k in path], sp)
+            for path, sp in flat)
+
+    meshes = [types.SimpleNamespace(shape=m) for m in DRYRUN["meshes"]]
+    out = {"param_specs": {}, "fixed": {}, "cache": {}, "compiled": {}}
+    for arch in sorted(ARCHS):
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        specs = model.param_specs()
+        shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0)))
+        out["param_specs"][arch] = paths(specs)
+        for i, mesh in enumerate(meshes):
+            out["fixed"][arch, i] = paths(fix_param_specs(specs, shapes,
+                                                          mesh))
+        for name in DRYRUN["caches"]:
+            shape = SHAPES[name]
+            pcfg = dryrun.prepared_config(arch, shape, "gspmd_serial")
+            cache = specmod.decode_specs(pcfg, shape)["cache"]
+            for i, mesh in enumerate(meshes):
+                out["cache"][arch, name, i] = paths(cache_specs(cache, mesh))
+    mesh = jax.make_mesh((2, 2), ("data", "model"))
+    for arch in DRYRUN["compiled"]:
+        cfg = get_config(arch).reduced()
+        for kind in DRYRUN["kinds"]:
+            shape = ShapeConfig("t", DRYRUN["seq"], DRYRUN["batch"], kind)
+            jitted, args, _ = dryrun._build_jitted(cfg, shape, mesh)
+            with set_mesh(mesh):
+                with overlap_context(cfg.overlap):
+                    lowered = jitted.lower(*args)
+                compiled = lowered.compile()
+            stats = parse_collectives(compiled.as_text())
+            out["compiled"][arch, kind] = (
+                compiled.memory_analysis().argument_size_in_bytes,
+                stats.bytes_by_kind, stats.count_by_kind)
     return out
 
 
