@@ -143,6 +143,22 @@ Phases, each of which exits non-zero on failure:
      step's loss (1 %) and gradient norm (5 %) against dense, the
      collectives counted per step; walls beside ``roofline.analyze``'s
      three terms, peak memory beside the prediction, one profiled step;
+ 15. the command lines and the examples, run after the dry-run while
+     TinyLlama's weights are on the card (``[obs-cli]``, ``[examples]``):
+     on each of two hosts (``REPRO_HOST_INDEX`` 0 and 1) the full-width
+     4 x 512 prefill on the DMA path (K1 + K3, counted) and under
+     ``ficco_autotune`` with the tracer, the metrics, the audit log and
+     the signature stream on; ``repro_torch.scripts.trace`` validates
+     every export by its kind, summarizes them and replays the audit log
+     (every decision reproduced), ``obs_merge`` unions the hosts' metrics
+     (counters equal to the sums) and traces, ``trace timeline`` renders
+     the projection on the H100 model, ``clear_autotune_cache`` (``-n``,
+     then not) clears a copy of the cache directory, one command runs as
+     a ``python -m`` process; then ``examples/torch_*.py`` in process on
+     the card: the quickstart (``auto`` and ``autotune``), the
+     design-space walk on ``"numpy"``, ``"torch"`` (its grid held to
+     numpy's) and ``"mixed"``, serve_batched and train_tinyllama's 200
+     steps, each one's own assertions holding;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -183,7 +199,7 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
           "autotune", "serve", "adapt", "train", "grid", "fit", "gate",
           "sweep", "dryrun", "moe", "moe-train", "encdec", "vlm", "hybrid",
-          "ssm", "hybrid-train", "ssm-train")
+          "ssm", "hybrid-train", "ssm-train", "obs-cli", "examples")
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -2839,6 +2855,373 @@ def phase_dryrun(device):
     print(f"[dryrun] phase total {time.time() - t_phase:.1f}s")
 
 
+# [obs-cli]: the observability command lines over the exports of
+# full-width TinyLlama-1.1B prefills on two hosts (REPRO_HOST_INDEX 0, 1).
+OBS_HOSTS = (0, 1)
+
+
+def _cli(label, module, argv, expect=0):
+    """``module.main(argv)`` in this process, its output captured; raises
+    unless it exits ``expect``.  Prints its host seconds and last line;
+    returns (stdout, stderr)."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = module.main(list(argv))
+    took = time.perf_counter() - t0
+    if code != expect:
+        raise AssertionError(f"[obs-cli] {label}: exit {code}, expected "
+                             f"{expect}: {err.getvalue()[-2000:]}")
+    text = (out.getvalue() or err.getvalue()).strip().splitlines()
+    print(f"[obs-cli] {label}: exit {code} in {took:.3f} s host; "
+          f"{text[-1].strip() if text else ''}")
+    return out.getvalue(), err.getvalue()
+
+
+def phase_obs_cli(device, cfg, state):
+    """The command lines ``repro_torch.scripts.{trace, obs_merge,
+    clear_autotune_cache}`` over what the full-width prefills export, in a
+    cache directory of its own.  For each of two hosts (``REPRO_HOST_INDEX``
+    0 and 1, a fresh tuner each, as two processes would have), the tracer,
+    the metrics registry, the audit log and the signature stream on, two
+    4 x 512 prefills on the group of 4: the DMA path (K1 + K3) and
+    ``ficco_autotune`` (the tuner decides every up/gate projection).  Then
+    every export validated by its kind, the summaries, the audit log's
+    offline replay (every decision reproduced), the two hosts' metrics and
+    traces merged (counters equal to the sums, the merged trace's events
+    as ``merge_traces`` yields them), an H100 timeline, and the cache
+    cleared on a copy of the directory; one command as a ``python -m``
+    process.  Returns the launches of the four prefills by kernel."""
+    import shutil
+
+    import torch
+
+    from repro_torch.autotune import reset_tuner
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import audit, metrics, signature
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.parallel.sharding import TPGroup, tp_group
+    from repro_torch.scripts import clear_autotune_cache, obs_merge
+    from repro_torch.scripts import trace as trace_cli
+    from repro_torch.serve.engine import make_prefill
+    from repro_torch.tune import registry
+
+    t_phase = time.time()
+    card = _card()
+    saved = {k: os.environ.get(k) for k in
+             ("REPRO_AUTOTUNE_CACHE_DIR", "REPRO_HOST_INDEX")}
+    tmp = tempfile.mkdtemp(prefix="obs-cli-")
+    cache_dir = os.path.join(tmp, "cache")
+    os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = cache_dir
+    reset_tuner()
+    registry.reset_variants()
+
+    def prefill_on(**overlap):
+        return make_prefill(build_model(dataclasses.replace(
+            cfg, overlap=OverlapConfig(**overlap))))
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (PREFILL_BATCH, PREFILL_SEQ),
+                                     generator=gen, device=device)}
+    group = TPGroup(GROUP, device)
+    sites = cfg.num_layers * 2
+    runs = {"DMA path": prefill_on(mode="uniform-fused-1d", backend="dma"),
+            "ficco_autotune": prefill_on(mode="ficco_autotune",
+                                         backend="collective")}
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    files = {}
+
+    def decisions():
+        path = audit.default_audit_path()
+        return audit.read_audit(path) if os.path.exists(path) else []
+
+    try:
+        with torch.no_grad():
+            dense = prefill_on(mode="gspmd_serial")(state, batch)
+            _sync()
+            scale = dense.float().abs().max().item()
+            audit.enable_audit()
+            for host in OBS_HOSTS:
+                os.environ["REPRO_HOST_INDEX"] = str(host)
+                reset_tuner()
+                metrics.reset_metrics()
+                paths = {kind: os.path.join(tmp, f"host{host}.{kind}")
+                         for kind in ("trace", "metrics", "signature")}
+                obs_trace.enable(paths["trace"])
+                signature.enable_signatures(paths["signature"])
+                for label, run in runs.items():
+                    before = len(decisions())
+                    ops.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    with tp_group(group):
+                        logits = run(state, batch)
+                    _sync()
+                    wall = (time.perf_counter() - t0) * 1e3
+                    new = decisions()[before:]
+                    if label == "DMA path":
+                        variant = registry.resolve_variant("dma_exchange",
+                                                           group=GROUP)
+                        want = _dma_launches(variant, sites)
+                        if new:
+                            raise AssertionError(f"[obs-cli] {label}: "
+                                                 f"{len(new)} decisions")
+                    else:
+                        picked = {r["schedule"] for r in new}
+                        if len(new) != sites or len(picked) != 1:
+                            raise AssertionError(
+                                f"[obs-cli] {label}: {len(new)} decisions "
+                                f"for {sites} sites, schedules {picked}")
+                        want = ({"accumulate_matmul": sites * GROUP}
+                                if picked == {"uniform-fused-2d"} else {})
+                    counts, routes = _check_launches(
+                        "obs-cli", f"host {host} {label}", want)
+                    for name, n in counts.items():
+                        total[name] += n
+                    err = _max_err(logits, dense)
+                    print(f"[obs-cli] host {host} {label} prefill: "
+                          f"{wall:.2f} ms wall with every export on; "
+                          f"launches {counts}; {len(new)} decisions "
+                          f"{sorted({(r['schedule'], r['source']) for r in new})}"
+                          f"; logits vs dense max_abs_err {err:.4e} (max "
+                          f"|logit| {scale:.4f})")
+                    if not torch.isfinite(logits).all() or err > 5e-2 * scale:
+                        raise AssertionError(f"[obs-cli] host {host} {label}:"
+                                             f" logits differ from dense by "
+                                             f"{err}")
+                obs_trace.disable()
+                signature.disable_signatures()
+                metrics.get_metrics().export_jsonl(paths["metrics"],
+                                                   reservoir=True)
+                files[host] = paths
+            audit.disable_audit()
+        for name in ("chunked_matmul", "a2a_chunk_exchange"):
+            if not total[name]:
+                raise AssertionError(f"[obs-cli] {name} never launched")
+        print(f"[obs-cli] launches over the {2 * len(OBS_HOSTS)} prefills "
+              f"by kernel: {total}")
+        _obs_commands(files, tmp, cache_dir, trace_cli, obs_merge,
+                      clear_autotune_cache)
+    finally:
+        obs_trace.disable()
+        signature.disable_signatures()
+        audit.disable_audit()
+        metrics.reset_metrics()
+        registry.reset_variants()
+        reset_tuner()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[obs-cli] phase total {time.time() - t_phase:.1f}s [{card}]")
+    return total
+
+
+def _obs_commands(files, tmp, cache_dir, trace_cli, obs_merge,
+                  clear_autotune_cache):
+    """[obs-cli]'s command lines over the two hosts' ``files``."""
+    import shutil
+
+    from repro_torch.obs import audit
+    from repro_torch.obs import trace as obs_trace
+
+    audit_path = audit.default_audit_path()
+    records = audit.read_audit(audit_path)
+    events = {}
+    for host in OBS_HOSTS:
+        for kind in ("trace", "metrics", "signature"):
+            _cli(f"trace validate --kind {kind} (host {host})", trace_cli,
+                 ["validate", files[host][kind], "--kind", kind])
+        with open(files[host]["trace"]) as f:
+            events[host] = json.load(f)
+        _cli(f"trace metrics (host {host})", trace_cli,
+             ["metrics", files[host]["metrics"]])
+        out, _ = _cli(f"trace signature (host {host})", trace_cli,
+                      ["signature", files[host]["signature"]])
+        print(f"[obs-cli]   {out.splitlines()[0]}")
+    print(f"[obs-cli] {sum(len(t['traceEvents']) for t in events.values())} "
+          f"trace events, {len(records)} decisions in {audit_path}")
+    _cli("trace validate --kind audit", trace_cli,
+         ["validate", audit_path, "--kind", "audit"])
+
+    # The replay, from the default path beside the cache.
+    out, _ = _cli("trace audit --replay", trace_cli, ["audit", "--replay"])
+    lines = out.splitlines()
+    res = json.loads("\n".join(lines[len(records):]))
+    print(f"[obs-cli]   replay: total {res['total']}, replayed "
+          f"{res['replayed']}, matched {res['matched']}, skipped "
+          f"{len(res['skipped'])}, ok {res['ok']}")
+    if not (res["ok"] and res["matched"] == res["replayed"] == len(records)):
+        raise AssertionError(f"[obs-cli] replay {res}")
+
+    merged_path = os.path.join(tmp, "merged.json")
+    _cli("obs_merge metrics", obs_merge,
+         ["metrics", *(files[h]["metrics"] for h in OBS_HOSTS),
+          "--out", merged_path])
+    with open(merged_path) as f:
+        merged = json.load(f)
+    snaps = []
+    for host in OBS_HOSTS:
+        with open(files[host]["metrics"]) as f:
+            snaps.append(json.loads(f.read().splitlines()[-1]))
+    sums = {k: sum(s["counters"].get(k, 0) for s in snaps)
+            for k in set().union(*(s["counters"] for s in snaps))}
+    if merged["counters"] != sums or merged["hosts"] != len(OBS_HOSTS):
+        raise AssertionError(f"[obs-cli] merged counters {merged['counters']}"
+                             f" != the hosts' sums {sums}")
+    print(f"[obs-cli]   merged {merged['hosts']} hosts: "
+          f"{len(merged['counters'])} counters, each the hosts' sum "
+          f"(tuner/decisions {merged['counters'].get('tuner/decisions')}, "
+          f"overlap/resolve.autotune "
+          f"{merged['counters'].get('overlap/resolve.autotune')})")
+    _cli("trace validate --kind merged", trace_cli,
+         ["validate", merged_path, "--kind", "merged"])
+
+    merged_trace = os.path.join(tmp, "merged.trace.json")
+    _cli("obs_merge traces", obs_merge,
+         ["traces", *(files[h]["trace"] for h in OBS_HOSTS),
+          "--out", merged_trace])
+    with open(merged_trace) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    want = len(obs_trace.merge_traces(
+        [events[h] for h in OBS_HOSTS])["traceEvents"])
+    if n_events != want:
+        raise AssertionError(f"[obs-cli] merged trace: {n_events} events, "
+                             f"merge_traces gives {want}")
+    _cli("trace validate (merged trace)", trace_cli,
+         ["validate", merged_trace, "--kind", "trace"])
+
+    out, _ = _cli("trace timeline --machine h100-sxm-8", trace_cli,
+                  ["timeline", "--machine", "h100-sxm-8", "--gemm",
+                   str(PREFILL_BATCH * PREFILL_SEQ), str(D_FF), str(D_MODEL),
+                   "--out", os.path.join(tmp, "timeline.json")])
+    for line in out.splitlines()[:-1]:
+        print(f"[obs-cli]   {line.strip()} (model)")
+
+    # The cache cleared on a copy: later phases read the directory.
+    copy = os.path.join(tmp, "cache-copy")
+    shutil.copytree(cache_dir, copy)
+    store = os.path.join(copy, "autotune-torch-v2.json")
+    kept = sorted(n for n in os.listdir(copy) if n != "autotune-torch-v2.json")
+    _cli("clear_autotune_cache -n", clear_autotune_cache,
+         ["--dir", copy, "-n"])
+    if not os.path.exists(store):
+        raise AssertionError("[obs-cli] -n removed the store")
+    _cli("clear_autotune_cache", clear_autotune_cache, ["--dir", copy])
+    if os.path.exists(store) or sorted(os.listdir(copy)) != kept:
+        raise AssertionError(f"[obs-cli] clear left {os.listdir(copy)}, "
+                             f"expected {kept}")
+    if not os.path.exists(os.path.join(cache_dir, "autotune-torch-v2.json")):
+        raise AssertionError("[obs-cli] the live store was touched")
+
+    # One command as its own process.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.scripts.trace", "validate",
+         merged_path, "--kind", "merged"],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=SRC))
+    if proc.returncode != 0:
+        raise AssertionError(f"[obs-cli] python -m repro_torch.scripts.trace "
+                             f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"[obs-cli] python -m repro_torch.scripts.trace validate --kind "
+          f"merged: exit 0 in {time.perf_counter() - t0:.1f} s; "
+          f"{proc.stdout.strip()}")
+
+
+def _run_example(name, argv):
+    """``examples/torch_<name>.py``'s ``main(argv)`` in this process, its
+    output captured; returns (its result, its stdout, host seconds)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}",
+        os.path.join(ROOT, "examples", f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = mod.main(list(argv))
+    _sync()
+    return res, out.getvalue(), time.perf_counter() - t0
+
+
+def phase_examples(device):
+    """The four examples on the card, in process, in a cache directory of
+    their own; each one's own assertions hold.  explore_design_space on
+    ``"torch"`` prints the rankings the host's ``"numpy"`` engine prints."""
+    import re
+
+    from repro_torch.autotune import reset_tuner
+
+    t_phase = time.time()
+    card = _card()
+    dev = ["--device", str(device)]
+    outer = os.environ["REPRO_AUTOTUNE_CACHE_DIR"]
+    with tempfile.TemporaryDirectory(prefix="examples-") as cache_dir:
+        os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = cache_dir
+        reset_tuner()
+        try:
+            for schedule in ("auto", "autotune"):
+                out, text, took = _run_example(
+                    "quickstart", ["--schedule", schedule, *dev])
+                lines = text.splitlines()
+                print(f"[examples] quickstart --schedule {schedule}: "
+                      f"{took:.2f} s wall; {lines[1]}; {lines[-1]}")
+                if out.device.type != device.type:
+                    raise AssertionError(f"[examples] quickstart on "
+                                         f"{out.device}")
+            grids, rankings = {}, {}
+            for backend in ("numpy", "torch", "mixed"):
+                ex, text, took = _run_example(
+                    "explore_design_space", ["--backend", backend, *dev])
+                lines = text.strip().splitlines()
+                print(f"[examples] explore_design_space --backend {backend}:"
+                      f" {took:.2f} s wall; {lines[-2].strip('= ')}; "
+                      f"{lines[-1]}")
+                grids[backend] = ex.grid
+                rankings[backend] = [
+                    re.sub(r" in \d+ ms =====", "", line).replace(
+                        f"({backend})", "()") for line in lines]
+            worst, untied = _grid_check("examples", grids["torch"],
+                                        grids["numpy"])
+            same = sum(a == b for a, b in zip(rankings["torch"],
+                                              rankings["numpy"]))
+            print(f"[examples] explore_design_space: the torch engine's "
+                  f"batched grid within {worst:.3e} of numpy's, the same "
+                  f"best schedule at {untied} untied points; "
+                  f"{same}/{len(rankings['numpy'])} printed lines equal")
+            reqs, text, took = _run_example("serve_batched", dev)
+            tokens = sum(len(r.out) for r in reqs)
+            print(f"[examples] serve_batched: {took:.2f} s wall; "
+                  f"{text.splitlines()[0]}; req0 -> {reqs[0].out}")
+            if tokens != 48:
+                raise AssertionError(f"[examples] serve_batched {tokens} "
+                                     "tokens")
+            res, text, took = _run_example("train_tinyllama", dev)
+            hist = res["history"]
+            print(f"[examples] train_tinyllama: {took:.2f} s wall for "
+                  f"{hist[-1]['step'] + 1} steps; loss {hist[0]['loss']:.4f}"
+                  f" -> {hist[-1]['loss']:.4f}; "
+                  + "; ".join(line for line in text.splitlines()
+                              if line.startswith(("restored", "req"))))
+        finally:
+            reset_tuner()
+            os.environ["REPRO_AUTOTUNE_CACHE_DIR"] = outer
+    print(f"[examples] phase total {time.time() - t_phase:.1f}s [{card}]")
+
+
 # [moe]: DeepSeek-V2-Lite-16B whole, and the expert-parallel dispatch at
 # its MoE layer: GROUP ranks of PREFILL_SEQ tokens each route top-6 of 64
 # experts at capacity factor 1.25, so 512 * 6 * 1.25 / 64 = 60 rows per
@@ -4112,6 +4495,10 @@ def drive(device) -> int:
     phase_learn(device)
     phase_sweep(device)
     phase_dryrun(device)
+    obs_counts = phase_obs_cli(device, cfg, state)
+    phase_examples(device)
+    for k in kernels:
+        k["obs_cli_prefill_launches"] = obs_counts[k["name"]]
     # [moe] needs the card's memory: TinyLlama's state goes first.
     del model, state
     moe_counts = phase_moe(device, timer)
@@ -4146,7 +4533,8 @@ def drive(device) -> int:
             "moe_train_step_launches", "encdec_prefill_launches",
             "vlm_prefill_launches", "hybrid_prefill_launches",
             "ssm_prefill_launches", "hybrid_train_step_launches",
-            "ssm_train_step_launches", "max_abs_err",
+            "ssm_train_step_launches", "obs_cli_prefill_launches",
+            "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

@@ -48,6 +48,30 @@ def test_port_imports_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def _port_examples():
+    return sorted(str(p) for p in (_ROOT / "examples").glob("torch_*.py"))
+
+
+def test_examples_import_no_jax_and_no_reference():
+    code = (
+        "import importlib.util, sys\n"
+        f"for path in {_port_examples()!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(_ROOT / "src")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert len(_port_examples()) == 4
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def _tiny():
     from repro_torch.configs import get_config
 
@@ -228,6 +252,18 @@ def _host_mesh():
     make_host_mesh()
 
 
+def _example(name):
+    def run():
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            name, _ROOT / "examples" / f"torch_{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mod.main([])
+    return run
+
+
 ENTRY_POINTS = {
     "Model.init": _model_init,
     "Model.init_cache": _init_cache,
@@ -254,6 +290,10 @@ ENTRY_POINTS = {
     "device_batch": _device_batch,
     "scripts.sweep": _sweep_cli,
     "make_host_mesh": _host_mesh,
+    "examples/torch_quickstart": _example("quickstart"),
+    "examples/torch_explore_design_space": _example("explore_design_space"),
+    "examples/torch_serve_batched": _example("serve_batched"),
+    "examples/torch_train_tinyllama": _example("train_tinyllama"),
 }
 
 
@@ -349,4 +389,12 @@ def test_import_check_covers_the_dry_run():
     mods = set(_port_modules())
     for name in ("parallel.sharding", "launch.mesh", "launch.dryrun",
                  "scripts.hillclimb", "train.optimizer"):
+        assert f"repro_torch.{name}" in mods, name
+
+
+def test_import_check_covers_the_command_lines():
+    mods = set(_port_modules())
+    for name in ("scripts", "scripts.trace", "scripts.obs_merge",
+                 "scripts.clear_autotune_cache", "scripts.sweep",
+                 "scripts.merge_sweep", "scripts.hillclimb"):
         assert f"repro_torch.{name}" in mods, name

@@ -61,7 +61,10 @@ FIRST.pkl`` and one more pickle for each of ``LATER``) it evaluates, with ``JAX_
     ``DRYRUN["compiled"]`` (reduced) and each step kind at ``DRYRUN``'s
     seq and batch on the forced devices as (data 2, model 2), the
     compiled step's ``argument_size_in_bytes`` and ``parse_collectives``
-    (bytes by kind, count by kind).
+    (bytes by kind, count by kind);
+  * ``examples``: the reference's ``examples/serve_batched.py`` run as it
+    stands (``runpy``, its output swallowed): its params
+    (``PRNGKey(0)``) and each request's tokens.
 
 The first eight entries go to ``FIRST.pkl``; the later ones (the whole
 models, the slower half) follow, each in a pickle of its own, in
@@ -152,10 +155,10 @@ DRYRUN = dict(meshes=({"data": 16, "model": 16},
               kinds=("prefill", "train"), seq=64, batch=8)
 # The entries after the first eight, in the order the script writes them,
 # each holding a pytest-xdist worker that waits for it (seconds alone, on
-# one run: counts 5.8, collectives 1.2, recurrent_grad 18.3, encdec 9.7,
-# recurrent 8.9, dryrun 15.8, moe_grad 17.1).
-LATER = ("counts", "collectives", "recurrent_grad", "encdec", "recurrent",
-         "dryrun", "moe_grad")
+# one run: counts 5.8, collectives 1.2, examples 5.6, recurrent_grad 18.3,
+# encdec 9.7, recurrent 8.9, dryrun 15.8, moe_grad 17.1).
+LATER = ("counts", "collectives", "examples", "recurrent_grad", "encdec",
+         "recurrent", "dryrun", "moe_grad")
 
 
 def spec_paths(flat) -> dict:
@@ -293,6 +296,7 @@ def main(err_path: str, first_path: str, *later_paths: str) -> None:
     later = {
         "counts": _counts,
         "collectives": _collectives,
+        "examples": _examples,
         "recurrent_grad": lambda: {a: _grad(a, RECURRENT_TRAIN)
                                    for a in RECURRENT_TRAIN["archs"]},
         "encdec": lambda: {a: _encdec(a) for a in ENCDEC["archs"]},
@@ -512,6 +516,22 @@ def _counts() -> dict:
     from repro.roofline.analysis import count_params
 
     return {a: count_params(get_config(a)) for a in sorted(ARCHS)}
+
+
+def _examples() -> dict:
+    import contextlib
+    import io
+    import runpy
+
+    import jax
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        ns = runpy.run_path(str(ROOT / "examples" / "serve_batched.py"),
+                            run_name="__main__")
+    return {"serve_batched": {
+        "params": jax.tree.map(np.asarray, ns["params"]),
+        "tokens": [list(map(int, r.out)) for r in ns["out"]],
+    }}
 
 
 def _collectives() -> dict:
