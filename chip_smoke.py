@@ -159,6 +159,19 @@ Phases, each of which exits non-zero on failure:
      design-space walk on ``"numpy"``, ``"torch"`` (its grid held to
      numpy's) and ``"mixed"``, serve_batched and train_tinyllama's 200
      steps, each one's own assertions holding;
+ 16. the tensor-parallel group over processes (``[group]``, ROADMAP A9
+     step 1), last, with the card's memory free of the models: 4 rank
+     processes on the one card through ``repro_torch.launch.group.spawn``
+     at TinyLlama-1.1B's up projection (4 x 512 tokens: m_s 512, K 2048,
+     N 5632, bf16), default variants: (a) one K3 call per rank, its step
+     buffer bit-equal to the all-gather of the chunks; (b) 50 K3 + K1
+     composer calls and (c) 50 K4 calls in a row per rank, no host
+     barrier, each bit-equal to the logical ``TPGroup(4)``'s slot for that
+     rank, and that slot and every call held to ``ag_matmul_ref`` on the
+     same inputs at the bf16 tolerance; launches per call by kernel and route asserted on every rank;
+     each rank's device ms per call and wall, the logical group's beside
+     them, labelled as time-sliced contexts (nothing of NVLink); a rank's
+     failure or the launcher's timeout fails the phase;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -199,7 +212,8 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
           "autotune", "serve", "adapt", "train", "grid", "fit", "gate",
           "sweep", "dryrun", "moe", "moe-train", "encdec", "vlm", "hybrid",
-          "ssm", "hybrid-train", "ssm-train", "obs-cli", "examples")
+          "ssm", "hybrid-train", "ssm-train", "obs-cli", "examples",
+          "group")
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -337,7 +351,7 @@ def phase_build():
     print(_card())
     t0 = time.time()
     paths = _build.build()
-    print(f"[build] {len(paths)} kernels built in {time.time() - t0:.1f}s "
+    print(f"[build] {len(paths)} sources built in {time.time() - t0:.1f}s "
           f"into {_build.BUILD_DIR}")
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
@@ -4441,6 +4455,224 @@ def phase_model_train(device, label, arch, cut, batch_n, seq):
     return first_counts
 
 
+# [group]: the tensor-parallel group over processes (ROADMAP A9, step 1).
+# GROUP rank processes on one card run K3 (+ K1) and K4 across processes
+# at TinyLlama-1.1B's up projection (4 x 512 tokens), GROUP_CALLS calls in
+# a row each, against the logical TPGroup's slot for the same variant.
+GROUP_CALLS = 50
+GROUP_SEED = 61
+GROUP_TIMEOUT = 420.0
+
+
+def _group_rank(group, seed: int, m_s: int, k: int, n: int,
+                calls: int) -> dict:
+    """One rank of ``[group]``, in a process of its own (run by
+    ``repro_torch.launch.group.spawn``): (a) one K3 call into the group's
+    ring against the all-gather of the chunks, (b) ``calls`` K3 + K1
+    composer calls and (c) ``calls`` K4 calls, each against the logical
+    group's slot for this rank (bit for bit) and the plain version
+    ``ag_matmul_ref`` on the same inputs, with their launches, device ms per call on
+    the compute stream (CUDA events) and host wall per call; rank 0 also
+    times the logical group's calls while the others wait on the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dma_exchange import (
+        STEP_BUFFERS, a2a_chunk_exchange, ficco_uniform_fused_1d_dma)
+    from repro_torch.kernels.ficco_ag_matmul import ficco_ag_matmul_fused
+    from repro_torch.parallel.sharding import TPGroup, shard_columns
+    from repro_torch.tune.variants import default_variant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, g, r = group.device, group.size, group.rank
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((g * m_s, k), np.float32)).to(
+        dev, torch.bfloat16).view(g, m_s, k)
+    w = torch.from_numpy((rng.standard_normal((k, g * n), np.float32)
+                          * k ** -0.5)).to(dev, torch.bfloat16)
+    w = shard_columns(w, g)  # (g, K, n) view, as the logical group takes it
+    x_r, w_r = x[r].contiguous(), w[r].contiguous()
+    v3 = default_variant("dma_exchange", group=g)
+    v4 = default_variant("ficco_ag_matmul", group=g)
+    logical = TPGroup(g, dev)
+    want3 = ficco_uniform_fused_1d_dma(
+        x, w, variant=v3, copy_streams=logical.copy_streams)[r].clone()
+    want4 = ficco_ag_matmul_fused(x, w, variant=v4)[r].clone()
+    # The plain version of both, on the same inputs: all-gather, one GEMM.
+    plain = ref.ag_matmul_ref(x, w)[r]
+    tol = TOL["bfloat16"]
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    out = {"rank": r}
+
+    # (a) One K3 call: chunk 0 of this rank into slot r of every ring.
+    steps = int(v3.chunks)
+    m_c = m_s // steps
+    ring = group.peers.ring((m_c, k), x.dtype, STEP_BUFFERS)
+    chunk = x_r.view(steps, m_c, k)[0]
+    ops.reset_launch_counts()
+    if cuda:
+        compute = torch.cuda.current_stream(dev)
+        copy, *side = group.copy_streams
+        copy.wait_stream(compute)
+        with torch.cuda.stream(copy):
+            step = a2a_chunk_exchange(chunk, out=ring, streams=side)
+        ring.wait(step, compute)
+    else:
+        step = a2a_chunk_exchange(chunk, out=ring)
+    gathered = ring.slot(step).clone()
+    if cuda:
+        ring.release(step, compute)
+    sync()
+    out["a"] = dict(equal=bool(torch.equal(gathered, x[:, :m_c])),
+                    launches=ops.launch_counts(), routes=ops.route_counts())
+
+    def run(fn, want):
+        ops.reset_launch_counts()
+        sync()
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        got = [fn() for _ in range(calls)]  # no host barrier in between
+        if cuda:
+            end.record()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+        launches, routes = ops.launch_counts(), ops.route_counts()
+        equal = [bool(torch.equal(o, want)) for o in got]
+        err = max(_max_err(o, want) for o in got)
+        # Every call against the plain version at [kernels]' bf16
+        # tolerance, and the logical slot (want) too.
+        close = [bool(torch.allclose(o.float(), plain.float(), rtol=tol,
+                                     atol=tol)) for o in (want, *got)]
+        plain_err = max(_max_err(o, plain) for o in (want, *got))
+        return dict(equal=equal, max_abs_err=err, launches=launches,
+                    routes=routes, wall_ms=wall, plain_close=close,
+                    plain_err=plain_err,
+                    ms=start.elapsed_time(end) / calls if cuda else None)
+
+    # (b) the K3 + K1 composer, (c) K4: every call across processes.
+    out["b"] = run(lambda: ficco_uniform_fused_1d_dma(
+        x_r, w_r, variant=v3, copy_streams=group.copy_streams,
+        peers=group.peers), want3)
+    out["c"] = run(lambda: ficco_ag_matmul_fused(
+        x_r, w_r, variant=v4, peers=group.peers), want4)
+
+    # The logical group's calls, timed by rank 0 alone.
+    group.barrier()
+    if r == 0:
+        out["logical_b"] = run(lambda: ficco_uniform_fused_1d_dma(
+            x, w, variant=v3, copy_streams=logical.copy_streams)[0], want3)
+        out["logical_c"] = run(lambda: ficco_ag_matmul_fused(
+            x, w, variant=v4)[0], want4)
+    group.barrier()
+    return out
+
+
+def phase_group(device) -> dict:
+    """``[group]``: GROUP rank processes on ``device`` through
+    ``repro_torch.launch.group.spawn``; every rank's K3 step buffer and its
+    composer and K4 outputs bit-equal to the logical group's and close to
+    the plain version's, the launches per call by kernel and route, the
+    times.  Returns each kernel's launches per rank."""
+    import torch
+
+    from repro_torch.launch.group import spawn
+
+    m_s, n = PREFILL_BATCH * PREFILL_SEQ // GROUP, D_FF // GROUP
+    steps = GROUP  # the default variant's chunk count
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    results = spawn(_group_rank, GROUP, device=str(device),
+                    args=(GROUP_SEED, m_s, D_MODEL, n, GROUP_CALLS),
+                    timeout=GROUP_TIMEOUT)
+    wall = time.time() - t0
+    want = {
+        "a": ({"a2a_chunk_exchange": 1}, {"a2a_chunk_exchange":
+                                          {"pairs": 1}}),
+        "b": ({"a2a_chunk_exchange": steps * GROUP_CALLS,
+               "chunked_matmul": steps * GROUP_CALLS},
+              {"a2a_chunk_exchange": {"pairs": steps * GROUP_CALLS},
+               "chunked_matmul": {"wgmma": steps * GROUP_CALLS}}),
+        "c": ({"ficco_ag_matmul_fused": GROUP_CALLS},
+              {"ficco_ag_matmul_fused": {"wgmma": GROUP_CALLS}}),
+    }
+    for res in results:
+        rank = res["rank"]
+        for part, (launches, routes) in want.items():
+            got = res[part]
+            full = {name: launches.get(name, 0) for name in got["launches"]}
+            if got["launches"] != full:
+                raise AssertionError(f"[group] rank {rank} ({part}): "
+                                     f"launches {got['launches']}, expected "
+                                     f"{full}")
+            for name, by in routes.items():
+                nonzero = {k: c for k, c in got["routes"][name].items() if c}
+                if nonzero != by:
+                    raise AssertionError(f"[group] rank {rank} ({part}): "
+                                         f"{name} routes {nonzero}, "
+                                         f"expected {by}")
+        if not res["a"]["equal"]:
+            raise AssertionError(f"[group] rank {rank}: K3's step buffer is "
+                                 "not the all-gather of the chunks")
+        for part, what in (("b", "K3 + K1 composer"), ("c", "K4")):
+            bad = [i for i, ok in enumerate(res[part]["equal"]) if not ok]
+            if bad:
+                raise AssertionError(
+                    f"[group] rank {rank}: {what} calls {bad} differ from the "
+                    f"logical group's slot {rank} (max_abs_err "
+                    f"{res[part]['max_abs_err']:.3e})")
+            far = [i for i, ok in enumerate(res[part]["plain_close"])
+                   if not ok]
+            if far:
+                raise AssertionError(
+                    f"[group] rank {rank}: {what}: outputs {far} (0: the "
+                    f"logical slot, i: call i) differ from ag_matmul_ref at "
+                    f"rtol = atol = {TOL['bfloat16']} (max_abs_err "
+                    f"{res[part]['plain_err']:.3e})")
+    print(f"[group] {GROUP} rank processes on {device} "
+          f"(repro_torch.launch.group.spawn, {wall:.1f} s with start-up): "
+          f"TinyLlama-1.1B's up projection, m_s {m_s}, K {D_MODEL}, N "
+          f"{D_FF} (n_local {n}), bf16, the default variants")
+    print(f"[group] (a) one K3 call per rank (pairs route, 1 local copy + "
+          f"{GROUP - 1} pushes over CUDA IPC): every rank's step buffer "
+          "equals the all-gather of the chunks bit for bit")
+    for part, what, per_call in (
+            ("b", "K3 + K1 composer", f"K3 pairs {steps}, K1 wgmma {steps}"),
+            ("c", "K4", "K4 wgmma 1")):
+        ms = ", ".join(f"{res[part]['ms']:.4f}" for res in results)
+        walls = ", ".join(f"{res[part]['wall_ms']:.3f}" for res in results)
+        logical = results[0][f"logical_{part}"]
+        plain_err = max(res[part]["plain_err"] for res in results)
+        print(f"[group] ({part}) {what}: {GROUP_CALLS} calls in a row per "
+              f"rank, no host barrier; every call bit-equal to the logical "
+              f"TPGroup({GROUP})'s slot, and it and every call within rtol = "
+              f"atol = {TOL['bfloat16']} of ag_matmul_ref on the same inputs "
+              f"(max_abs_err {plain_err:.3e}); launches per call {per_call} on "
+              f"every rank; device ms per call by rank [{ms}], wall ms per "
+              f"call [{walls}]; the logical group (all {GROUP} ranks in one "
+              f"process) {logical['ms']:.4f} ms, wall {logical['wall_ms']:.3f}"
+              " ms")
+    print(f"[group] the {GROUP} ranks are {GROUP} time-sliced contexts on one "
+          "card (no MPS): their times say nothing of NVLink.  Not run: the "
+          "plain collectives (NCCL refuses two ranks on one card), hence "
+          "the collective backend and the model path across processes; "
+          "they wait for ROADMAP A9, step 2")
+    return {
+        "a2a_chunk_exchange": [res["b"]["launches"]["a2a_chunk_exchange"]
+                               for res in results],
+        "chunked_matmul": [res["b"]["launches"]["chunked_matmul"]
+                           for res in results],
+        "accumulate_matmul": [0] * GROUP,
+        "ficco_ag_matmul_fused": [res["c"]["launches"]["ficco_ag_matmul_fused"]
+                                  for res in results],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -4516,7 +4748,10 @@ def drive(device) -> int:
     ssm_train_counts = phase_model_train(
         device, "ssm-train", SSM_ARCH, _first_layers(SSM_TRAIN_LAYERS),
         SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
+    # [group] once the card's memory is free of the models.
+    group_counts = phase_group(device)
     for k in kernels:
+        k["group_rank_launches"] = group_counts[k["name"]]
         k["moe_prefill_launches"] = moe_counts[k["name"]]
         k["moe_train_step_launches"] = moe_train_counts[k["name"]]
         k["encdec_prefill_launches"] = encdec_counts[k["name"]]
@@ -4534,7 +4769,7 @@ def drive(device) -> int:
             "vlm_prefill_launches", "hybrid_prefill_launches",
             "ssm_prefill_launches", "hybrid_train_step_launches",
             "ssm_train_step_launches", "obs_cli_prefill_launches",
-            "max_abs_err",
+            "group_rank_launches", "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

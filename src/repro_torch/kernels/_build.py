@@ -22,7 +22,9 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("chunked_gemm", "dma_exchange", "ficco_ag_matmul")
+SOURCES = (
+    "chunked_gemm", "dma_exchange", "ficco_ag_matmul", "peer_memory",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

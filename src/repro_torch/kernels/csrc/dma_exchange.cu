@@ -41,8 +41,29 @@
 // streams[0] after the call sees every copy done.  `reverse` orders the
 // receivers (0, g-1, ..., 1 instead of 0, 1, ..., g-1); every copy writes
 // distinct bytes, so order changes when bytes move, never the result.
+//
+// Across processes (a group whose ranks are processes, one card each or
+// sharing one): one call is rank `me`'s half of _exchange_kernel, its
+// local copy and its g-1 pushes (dma_exchange_push), each on its own
+// stream as above, into step buffers that every rank exported and its
+// peers mapped (peer_memory.cu).  The TPU kernel's send and receive
+// semaphores become 32-bit counters in the same memory, driven by stream
+// memory operations (stream_flags.cuh), so no host waits and no SM spins:
+//  * ready: after its copy into receiver p's slot, the sender writes the
+//    step's counter into p's ready flag for it, on the copy's stream (the
+//    write lands after the copy).  The receiver's compute stream waits
+//    until all g flags reach the counter before its step GEMM.
+//  * release: after the GEMM, the receiver writes the step's counter into
+//    each sender's release flag for it.  A sender waits on its release
+//    flag before it overwrites that slot two steps later (depth-2 ring).
+//    Counters rise across calls, so nothing waits on the host between
+//    steps or calls.
+// Driver errors come back negated (-CUresult), the runtime's as they are
+// (cudaError_t); dma_exchange_strerror reads both.
 
 #include <cuda_runtime.h>
+
+#include "stream_flags.cuh"
 
 namespace {
 
@@ -60,17 +81,15 @@ inline int receiver(int j, int g, int reverse) {
   return reverse ? (g - j) % g : j;
 }
 
-// Forks streams[1..n) from streams[0], calls `issue(stream_of)`, where
-// stream_of(r) is the stream of receiver r (stream j % n for the receiver
-// in place j of the issue order), and joins the streams back into
-// streams[0].
+// Forks streams[1..n) from streams[0], calls `issue(stream_at)`, where
+// stream_at(j) is the stream of the receiver in place j of the issue order
+// (stream j % n), and joins the streams back into streams[0].
 template <typename Issue>
-cudaError_t fan_out(int g, int reverse, void* const* streams, int n,
-                    Issue issue) {
+int fan_out(void* const* streams, int n, Issue issue) {
   if (n < 1 || n > MAX_STREAMS) return cudaErrorInvalidValue;
   auto stream = [&](int i) { return static_cast<cudaStream_t>(streams[i]); };
   cudaEvent_t* ev = nullptr;
-  cudaError_t err;
+  cudaError_t err = cudaSuccess;
   if (n > 1) {
     int dev;
     err = cudaGetDevice(&dev);
@@ -88,13 +107,13 @@ cudaError_t fan_out(int g, int reverse, void* const* streams, int n,
       err = cudaStreamWaitEvent(stream(i), ev[0], 0);
     if (err != cudaSuccess) return err;
   }
-  err = issue([&](int r) { return stream(receiver(r, g, reverse) % n); });
+  const int issued = issue([&](int j) { return stream(j % n); });
   for (int i = 1; i < n; ++i) {
     cudaError_t e = cudaEventRecord(ev[i], stream(i));
     if (e == cudaSuccess) e = cudaStreamWaitEvent(stream(0), ev[i], 0);
     if (err == cudaSuccess) err = e;
   }
-  return err;
+  return issued != 0 ? issued : err;
 }
 
 }  // namespace
@@ -111,15 +130,15 @@ extern "C" int dma_exchange_strided(
     return cudaErrorInvalidValue;
   const char* s = static_cast<const char*>(src);
   char* d = static_cast<char*>(dst);
-  return fan_out(g, reverse, streams, n_streams, [&](auto stream_of) {
+  return fan_out(streams, n_streams, [&](auto stream_at) {
     for (int j = 0; j < g; ++j) {
       const int r = receiver(j, g, reverse);
       const cudaError_t err =
           cudaMemcpy2DAsync(d + r * dst_rank, dst_slot, s, src_rank, width,
-                            g, cudaMemcpyDeviceToDevice, stream_of(r));
-      if (err != cudaSuccess) return err;
+                            g, cudaMemcpyDeviceToDevice, stream_at(j));
+      if (err != cudaSuccess) return static_cast<int>(err);
     }
-    return cudaSuccess;
+    return 0;
   });
 }
 
@@ -130,17 +149,50 @@ extern "C" int dma_exchange_pairs(
     void* const* src, void* const* dst, long long width, int g, int reverse,
     void* const* streams, int n_streams) {
   if (g < 1 || width < 1) return cudaErrorInvalidValue;
-  return fan_out(g, reverse, streams, n_streams, [&](auto stream_of) {
+  return fan_out(streams, n_streams, [&](auto stream_at) {
     for (int me = 0; me < g; ++me) {
       for (int i = 0; i < g; ++i) {  // i = 0: the local slot
         const int peer = (me + (reverse ? g - i : i)) % g;
-        const cudaError_t err =
-            cudaMemcpyAsync(dst[peer * g + me], src[me], width,
-                            cudaMemcpyDeviceToDevice, stream_of(peer));
-        if (err != cudaSuccess) return err;
+        const cudaError_t err = cudaMemcpyAsync(
+            dst[peer * g + me], src[me], width, cudaMemcpyDeviceToDevice,
+            stream_at(receiver(peer, g, reverse)));
+        if (err != cudaSuccess) return static_cast<int>(err);
       }
     }
-    return cudaSuccess;
+    return 0;
+  });
+}
+
+// Rank `me`'s half of one step across processes.  src: its (contiguous)
+// chunk of `width` bytes; dst[p]: slot `me` of rank p's step buffer
+// (dst[me] its own, the others mapped from p's exported memory);
+// ready[p]: p's ready flag for `me`, set to ready_value after the copy;
+// release[p]: `me`'s release flag for receiver p, which must reach
+// release_value before the copy overwrites p's slot (0: no wait, the
+// ring's first two steps).  Issue order as the pairs route's sender `me`:
+// the local slot, then peers me+i (me+g-i when `reverse`); the copy to
+// the receiver in place i, its wait and its flag on stream i % n_streams.
+extern "C" int dma_exchange_push(
+    const void* src, void* const* dst, long long width, int g, int me,
+    int reverse, void* const* ready, unsigned ready_value,
+    void* const* release, unsigned release_value, void* const* streams,
+    int n_streams) {
+  if (g < 1 || me < 0 || me >= g || width < 1) return cudaErrorInvalidValue;
+  return fan_out(streams, n_streams, [&](auto stream_at) {
+    for (int i = 0; i < g; ++i) {
+      const int peer = (me + (reverse ? g - i : i)) % g;
+      const cudaStream_t s = stream_at(i);
+      int err = release_value
+                    ? stream_flags::wait_flag(s, release[peer], release_value)
+                    : 0;
+      if (err) return err;
+      err = static_cast<int>(cudaMemcpyAsync(
+          dst[peer], src, width, cudaMemcpyDeviceToDevice, s));
+      if (err) return err;
+      err = stream_flags::write_flag(s, ready[peer], ready_value);
+      if (err) return err;
+    }
+    return 0;
   });
 }
 
@@ -152,5 +204,5 @@ extern "C" int dma_copy_engines(int* n) {
 }
 
 extern "C" const char* dma_exchange_strerror(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return stream_flags::flag_strerror(err);
 }

@@ -12,13 +12,18 @@
 // tile's A rows are loaded straight from the owning rank's shard, through
 // one tensor map per rank (wgmma route) or a per-rank pointer table (wmma
 // and simt routes); on one card these hold the logical ranks' shards,
-// across cards they would hold peer-mapped ones.  Every output row is
-// stored straight into its final row d*m_s + s*m_c + i.  The variant's
-// chunk count and dispatch order set only the order in which tiles are
-// taken up, earlier pipeline positions first.  On one card there are no
-// slot buffers to rotate: buffer_depth is checked and moves nothing; the
-// push / slot / release-flag protocol of the TPU kernel comes with groups
-// over several cards.
+// across processes the peers' shards mapped by CUDA IPC.  Every output
+// row is stored straight into its final row d*m_s + s*m_c + i.  The
+// variant's chunk count and dispatch order set only the order in which
+// tiles are taken up, earlier pipeline positions first.  A launch computes
+// the blocks of `outs` destination ranks: all g of a logical group on one
+// card, or one, its own, for a rank of a group of processes.  With peer
+// reads there are no slot buffers to rotate: buffer_depth is checked and
+// moves nothing.  Across processes the TPU kernel's push / slot /
+// release-flag protocol becomes counters around the launch (the Python
+// wrapper's): ready counters order it after every peer's shard is written,
+// release counters keep a rank from overwriting its shard while a peer's
+// launch still reads it.
 //
 // What bounds it on an H100: at the path shape (4 ranks, m_s 512, K 2048,
 // n_local 1408, bf16) a launch does 47.2 GFLOP over 54 MB read once and
@@ -143,14 +148,14 @@ __global__ void __launch_bounds__(tc::THREADS) ag_matmul_tc_kernel(
 template <int BN>
 struct AgProblem {
   static constexpr bool ACCUMULATE = false;
-  CUtensorMap w_map;                   // (N, K, g)
+  CUtensorMap w_map;                   // (N, K, outs)
   CUtensorMap o_map;                   // (N, m_s, d, r): row d*m_s + i
   CUtensorMap x_map[MAX_WGMMA_RANKS];  // rank d's (K, m_s)
-  int g, k, mt, nt, tiles, reverse;    // mt even
+  int g, outs, k, mt, nt, tiles, reverse;  // mt even
   __device__ __forceinline__ gemm_wgmma::Tile tile(int t) const {
-    const int per_pair = g * g * nt, pair = t / 2;
+    const int per_pair = g * outs * nt, pair = t / 2;
     const int jq = pair / per_pair, rem = pair % per_pair;
-    const int d = rem / (g * nt), r = (rem / nt) % g;
+    const int d = rem / (outs * nt), r = (rem / nt) % outs;
     const int n0 = (rem % nt) * BN;
     const int j = 2 * (reverse ? mt / 2 - 1 - jq : jq) + t % 2;
     const int m0 = j * gemm_wgmma::BM;
@@ -165,8 +170,9 @@ __global__ void __launch_bounds__(gemm_wgmma::THREADS, 1)
 }
 
 template <int BN>
-int launch_wgmma_bn(const void* const* x, int g, const void* w, void* out,
-                    int m_s, int n, int k, int reverse, long long x_row,
+int launch_wgmma_bn(const void* const* x, int g, int outs, const void* w,
+                    void* out, int m_s, int n, int k, int reverse,
+                    long long x_row,
                     long long w_rank, long long w_row, long long o_rank,
                     long long o_row, cudaStream_t s) {
   using namespace gemm_wgmma;
@@ -180,18 +186,19 @@ int launch_wgmma_bn(const void* const* x, int g, const void* w, void* out,
   }
   // The output viewed as (N, m_s, d, r), so a tile's store is clipped at
   // the end of source rank d's rows.
-  const long long o_dims[4] = {n, m_s, g, g};
+  const long long o_dims[4] = {n, m_s, g, outs};
   const long long o_strides[3] = {o_row, m_s * o_row, o_rank};
   const int o_box[4] = {BOX_N, 64, 1, 1};
-  cudaError_t err = encode_weight(&p.w_map, w, g, n, k, w_rank, w_row);
+  cudaError_t err = encode_weight(&p.w_map, w, outs, n, k, w_rank, w_row);
   if (err == cudaSuccess)
     err = encode(&p.o_map, out, 4, o_dims, o_strides, o_box);
   if (err != cudaSuccess) return err;
   p.g = g;
+  p.outs = outs;
   p.k = k;
   p.mt = (m_s + 2 * BM - 1) / (2 * BM) * 2;
   p.nt = (n + BN - 1) / BN;
-  const long long tiles = static_cast<long long>(p.mt) * g * g * p.nt;
+  const long long tiles = static_cast<long long>(p.mt) * g * outs * p.nt;
   if (tiles > (1LL << 30)) return cudaErrorInvalidConfiguration;
   p.tiles = static_cast<int>(tiles);
   p.reverse = reverse;
@@ -199,8 +206,9 @@ int launch_wgmma_bn(const void* const* x, int g, const void* w, void* out,
 }
 
 // The wgmma route, at gemm_wgmma::pick_bn's tile width.
-int launch_wgmma(const void* const* x, int g, const void* w, void* out,
-                 int m_s, int n, int k, int reverse, long long x_row,
+int launch_wgmma(const void* const* x, int g, int outs, const void* w,
+                 void* out, int m_s, int n, int k, int reverse,
+                 long long x_row,
                  long long w_rank, long long w_row, long long o_rank,
                  long long o_row, cudaStream_t s) {
   bool ok = g <= MAX_WGMMA_RANKS && aligned16(w) && aligned16(out) &&
@@ -212,41 +220,44 @@ int launch_wgmma(const void* const* x, int g, const void* w, void* out,
   const cudaError_t err = gemm_wgmma::sm_count(&sms);
   if (err != cudaSuccess) return err;
   const long long rows =
-      static_cast<long long>(g) * g *
+      static_cast<long long>(g) * outs *
       ((m_s + 2 * gemm_wgmma::BM - 1) / (2 * gemm_wgmma::BM) * 2);
   if (gemm_wgmma::pick_bn(rows, n, sms) == 192)
-    return launch_wgmma_bn<192>(x, g, w, out, m_s, n, k, reverse, x_row,
-                                w_rank, w_row, o_rank, o_row, s);
-  return launch_wgmma_bn<128>(x, g, w, out, m_s, n, k, reverse, x_row,
-                              w_rank, w_row, o_rank, o_row, s);
+    return launch_wgmma_bn<192>(x, g, outs, w, out, m_s, n, k, reverse,
+                                x_row, w_rank, w_row, o_rank, o_row, s);
+  return launch_wgmma_bn<128>(x, g, outs, w, out, m_s, n, k, reverse,
+                              x_row, w_rank, w_row, o_rank, o_row, s);
 }
 
 }  // namespace
 
 // x: g pointers, rank d's (m_s, K) shard at x[d] with row stride x_row.
-// w: (g, K, n) with rank stride w_rank and row stride w_row; out: (g,
-// g*m_s, n) with rank stride o_rank and row stride o_row.  The shard is cut
-// into `steps` chunks of m_s / steps rows, dispatched in reverse order when
-// `reverse`.  depth: the TPU kernel's step-buffer slots (2..steps, or 2 for
-// a single step); checked, and unused on one card.  dtype: 0 = float32,
-// 1 = bfloat16.  route: 0 = simt, 1 = wmma (the tc tile), 2 = wgmma; f32
-// takes only simt.  Returns a cudaError_t; cudaErrorInvalidValue when the
+// outs: the destination ranks computed, g (a logical group's every
+// block) or 1 (one rank's own, across processes).  w: (outs, K, n) with
+// rank stride w_rank and row stride w_row; out: (outs, g*m_s, n) with rank
+// stride o_rank and row stride o_row.  The shard is cut into `steps`
+// chunks of m_s / steps rows, dispatched in reverse order when `reverse`.
+// depth: the TPU kernel's step-buffer slots (2..steps, or 2 for a single
+// step); checked, and unused (peer reads need no ring).  dtype: 0 =
+// float32, 1 = bfloat16.  route: 0 = simt, 1 = wmma (the tc tile), 2 =
+// wgmma; f32 takes only simt.  Returns a cudaError_t; cudaErrorInvalidValue when the
 // route cannot take the operands.
 extern "C" int ficco_ag_matmul(
-    const void* const* x, int g, const void* w, void* out, int dtype,
-    int route, int m_s, int n, int k, int steps, int depth,
+    const void* const* x, int g, int outs, const void* w, void* out,
+    int dtype, int route, int m_s, int n, int k, int steps, int depth,
     int reverse,
     long long x_row, long long w_rank, long long w_row,
     long long o_rank, long long o_row, void* stream) {
-  if (g < 1 || g > MAX_RANKS || m_s < 1 || n < 1 || k < 1 || steps < 1 ||
+  if (g < 1 || g > MAX_RANKS || outs < 1 || outs > g || m_s < 1 || n < 1 ||
+      k < 1 || steps < 1 ||
       m_s % steps || depth < 2 || (steps > 1 && depth > steps) ||
       route < 0 || route > 2 || (dtype == 0 && route != 0) ||
       (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 2)
-    return launch_wgmma(x, g, w, out, m_s, n, k, reverse, x_row, w_rank,
-                        w_row, o_rank, o_row, s);
+    return launch_wgmma(x, g, outs, w, out, m_s, n, k, reverse, x_row,
+                        w_rank, w_row, o_rank, o_row, s);
   RankTable table = {};
   bool x_aligned = x_row % 8 == 0;
   for (int d = 0; d < g; ++d) {
@@ -261,7 +272,7 @@ extern "C" int ficco_ag_matmul(
     const int tiles = (rows + tc::BM - 1) / tc::BM;
     if (static_cast<long long>(tiles) * steps > 65535)
       return cudaErrorInvalidConfiguration;
-    const dim3 grid(n / tc::BN, tiles * steps, g);
+    const dim3 grid(n / tc::BN, tiles * steps, outs);
     // Full tiles skip the row checks; the arithmetic is the same either
     // way, so variants that differ in chunk count stay bit-identical.
     auto kernel = rows % tc::BM ? ag_matmul_tc_kernel<true>
@@ -275,7 +286,7 @@ extern "C" int ficco_ag_matmul(
   const int tiles = (rows + simt::BM - 1) / simt::BM;
   if (static_cast<long long>(tiles) * steps > 65535)
     return cudaErrorInvalidConfiguration;
-  const dim3 grid((n + simt::BN - 1) / simt::BN, tiles * steps, g);
+  const dim3 grid((n + simt::BN - 1) / simt::BN, tiles * steps, outs);
   if (dtype == 0) {
     ag_matmul_simt_kernel<float><<<grid, simt::THREADS, 0, s>>>(
         table, static_cast<const float*>(w), static_cast<float*>(out), g,

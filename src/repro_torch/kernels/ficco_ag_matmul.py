@@ -13,9 +13,19 @@ The :class:`repro_torch.tune.KernelVariant` keeps the reference's meaning:
 per rank when it does not divide the shard), ``dispatch_order`` orders the
 steps' tiles, and every variant gives the same bits.  ``buffer_depth`` is
 checked and clamped as the reference clamps it, but moves nothing here:
-on one card the ranks' shards are all in device memory, so there is no
-step-buffer ring to rotate.  The ring, with its push and release-flag
-protocol, comes with groups over several cards (ROADMAP A9).
+the kernel reads every rank's shard where it lies, so there is no
+step-buffer ring to rotate.
+
+Across processes (``peers=``, a :class:`~repro_torch.kernels.peer_memory.
+PeerMemory`), rank r's launch computes only its own column block,
+``all_gather(x) @ w_r``, its tensor maps pointing at the ranks' shards in
+memory the ranks export (:class:`~repro_torch.kernels.peer_memory.
+PeerShards`); the caller's x is copied into its own slot there first.
+Counters in that memory take the place of the reference's push and
+release flags: ready counters order the launch after every peer's shard
+is written, release counters keep a rank from overwriting its shard
+while a peer's launch still reads it.  On the CPU the plain version
+takes the gloo all-gather of the shards.
 
 The wrapper picks the route by :func:`route`, from the operands alone and
 never from the variant, and the C side launches it or refuses the
@@ -36,6 +46,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.chunked_gemm import ROUTES, aligned16, refuse_grad
+from repro_torch.kernels.peer_memory import PeerMemory
 from repro_torch.kernels.ref import ag_matmul_ref
 from repro_torch.tune.registry import resolve_variant
 
@@ -55,8 +66,11 @@ def route(x: torch.Tensor, w: torch.Tensor) -> str:
     with a 128-multiple width and 32-multiple K; ``"simt"`` otherwise.
     """
     g, _, k = x.shape
-    n = w.shape[-1]
-    if x.dtype != torch.bfloat16 or not (aligned16(x) and aligned16(w)):
+    return _route(x.dtype, aligned16(x) and aligned16(w), g, k, w.shape[-1])
+
+
+def _route(dtype, aligned: bool, g: int, k: int, n: int) -> str:
+    if dtype != torch.bfloat16 or not aligned:
         return "simt"
     if g <= MAX_WGMMA_RANKS and n % 8 == 0:
         return "wgmma"
@@ -70,7 +84,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ficco_ag_matmul")
     lib.ficco_ag_matmul.restype = ctypes.c_int
     lib.ficco_ag_matmul.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p]
         + [ctypes.c_int] * 8
         + [ctypes.c_longlong] * 5
         + [ctypes.c_void_p]
@@ -78,8 +93,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x, w, out, steps: int, depth: int, reverse: bool) -> None:
-    """One launch, on ``route(x, w)``."""
+def _check_operands(x, w) -> None:
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(
             f"ficco_ag_matmul_fused takes float32 or bfloat16 operands of "
@@ -89,26 +103,68 @@ def _launch(x, w, out, steps: int, depth: int, reverse: bool) -> None:
         raise ValueError(f"operands on {x.device} and {w.device}")
     if x.stride(-1) != 1 or w.stride(-1) != 1:
         raise ValueError("ficco_ag_matmul_fused needs a contiguous last dim")
-    g, m_s, k = x.shape
+
+
+def _call(shards, x_row: int, m_s: int, w, out, steps: int, depth: int,
+          reverse: bool, name: str) -> None:
+    """One launch over the g shards at ``shards`` (addresses) into the
+    blocks of ``w.shape[0]`` destination ranks, on route ``name``."""
+    g, (outs, k, n) = len(shards), w.shape
     if g > _MAX_RANKS:
         raise ValueError(f"group of {g} ranks; the kernel takes up to "
                          f"{_MAX_RANKS}")
-    esize = x.element_size()
-    table = (ctypes.c_void_p * g)(*[
-        x.data_ptr() + r * x.stride(0) * esize for r in range(g)
-    ])
-    name = route(x, w)
     lib = _lib()
     err = lib.ficco_ag_matmul(
-        table, g, w.data_ptr(), out.data_ptr(), _DTYPES[x.dtype],
-        ROUTES.index(name), m_s, w.shape[-1], k, steps, depth,
-        int(reverse),
-        x.stride(1), w.stride(0), w.stride(1), out.stride(0), out.stride(1),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        (ctypes.c_void_p * g)(*shards), g, outs, w.data_ptr(),
+        out.data_ptr(), _DTYPES[w.dtype], ROUTES.index(name), m_s, n, k,
+        steps, depth, int(reverse),
+        x_row, w.stride(0), w.stride(1), out.stride(0), out.stride(1),
+        torch.cuda.current_stream(w.device).cuda_stream,
     )
     _build.check(lib, "ficco_ag_matmul", err)
     ficco_ag_matmul_fused.launches += 1
     ficco_ag_matmul_fused.routes[name] += 1
+
+
+def _launch(x, w, out, steps: int, depth: int, reverse: bool) -> None:
+    """One launch of every rank's block, on ``route(x, w)``."""
+    _check_operands(x, w)
+    g, m_s, _ = x.shape
+    esize = x.element_size()
+    shards = [x.data_ptr() + r * x.stride(0) * esize for r in range(g)]
+    _call(shards, x.stride(1), m_s, w, out, steps, depth, reverse,
+          route(x, w))
+
+
+def _across(x, w, variant, peers: PeerMemory) -> torch.Tensor:
+    """Rank r's block of :func:`ficco_ag_matmul_fused` over a group of
+    processes: x (m_s, K), w (K, n_local) -> (g * m_s, n_local)."""
+    g = peers.size
+    if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
+        raise ValueError(f"shards {tuple(x.shape)} and {tuple(w.shape)}")
+    m_s, k = x.shape
+    n_local = w.shape[-1]
+    if variant is None:
+        variant = resolve_variant("ficco_ag_matmul", group=g)
+    steps, depth, reverse = _plan(variant, g, m_s)
+    if x.device.type == "cpu":
+        full = torch.empty((g, m_s, k), dtype=x.dtype, device=x.device)
+        peers.all_gather(x, full)
+        return ag_matmul_ref(full, w.unsqueeze(0))[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"ficco_ag_matmul_fused runs on cuda or cpu, not "
+                         f"{x.device}")
+    _check_operands(x, w)
+    shards = peers.shards((m_s, k), x.dtype)
+    stream = torch.cuda.current_stream(x.device)
+    out = torch.empty((g * m_s, n_local), dtype=x.dtype, device=x.device)
+    t = shards.put(x, stream)
+    name = _route(x.dtype, aligned16(shards.shard) and aligned16(w), g, k,
+                  n_local)
+    _call(shards.addresses, k, m_s, w.unsqueeze(0), out.unsqueeze(0), steps,
+          depth, reverse, name)
+    shards.done(t, stream)
+    return out
 
 
 def _plan(variant, g: int, m_s: int) -> tuple[int, int, bool]:
@@ -127,6 +183,7 @@ def ficco_ag_matmul_fused(
     w: torch.Tensor,
     *,
     variant=None,
+    peers: PeerMemory | None = None,
 ) -> torch.Tensor:
     """all_gather(x) @ w on every rank, in one launch.
 
@@ -136,9 +193,14 @@ def ficco_ag_matmul_fused(
     default from :mod:`repro_torch.tune.registry`.  Operands that need a
     gradient are refused
     (:func:`~repro_torch.kernels.chunked_gemm.refuse_grad`): the reference
-    kernel has no reverse-mode rule.
+    kernel has no reverse-mode rule.  With ``peers`` (a
+    :class:`~repro_torch.kernels.peer_memory.PeerMemory`, one rank of a
+    group of processes), x is this rank's (m_s, K) shard and w its (K,
+    n_local) shard -> its (g * m_s, n_local) block.
     """
     refuse_grad("ficco_ag_matmul_fused (K4)", x, w)
+    if peers is not None:
+        return _across(x, w, variant, peers)
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"shards {tuple(x.shape)} and {tuple(w.shape)}")
     g, m_s, k = x.shape

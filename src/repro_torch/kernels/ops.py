@@ -46,8 +46,11 @@ def chunk_exchange(chunks, *, reverse=False):
 
 def ag_matmul_dma(x, w, *, group):
     """uniform-fused-1D with the exchange on ``group``'s copy streams;
-    refuses operands that need a gradient."""
-    return ficco_uniform_fused_1d_dma(x, w, copy_streams=group.copy_streams)
+    refuses operands that need a gradient.  A group whose ranks are
+    processes (its ``peers`` set) takes this rank's shards and crosses
+    them."""
+    return ficco_uniform_fused_1d_dma(x, w, copy_streams=group.copy_streams,
+                                      peers=group.peers)
 
 
 def ag_matmul_fused(x, w, *, variant=None):

@@ -351,10 +351,21 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     AG->GEMM pair: with an overlap context and a TP group active they run
     a FiCCO schedule (repro_torch.parallel.tp); otherwise dense.  The down
     projection stays a plain product (the paper omits reduction-fused
-    scenarios: DMA engines lack arithmetic, §IV-B2)."""
+    scenarios: DMA engines lack arithmetic, §IV-B2).
+
+    Under a group of processes (a ``RankGroup``) the params hold this
+    rank's blocks (``repro_torch.parallel.sharding.shard_mlp_params``):
+    the rank computes ``silu(x @ w_gate_r) * (x @ w_up_r) @ w_down_r`` and
+    the group's ``all_reduce`` sums the partial products, as GSPMD does
+    for the reference's ``constrain``ed down projection."""
     from repro_torch.parallel.context import get_overlap
+    from repro_torch.parallel.group import RankGroup
+    from repro_torch.parallel.sharding import active_group
 
     ov = get_overlap()
+    group = active_group()
+    if isinstance(group, RankGroup):
+        return _mlp_apply_rank(params, x, ov, group)
     if ov is not None and ov.mode != "gspmd_serial":
         from repro_torch.parallel import tp
 
@@ -373,3 +384,22 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
     return h @ params["w_down"]
+
+
+def _mlp_apply_rank(params, x, ov, group) -> torch.Tensor:
+    """:func:`mlp_apply` on one rank of a group of processes."""
+    from repro_torch.parallel import tp
+    from repro_torch.parallel.collectives import all_reduce
+
+    def up(w):
+        if (ov is not None and ov.mode != "gspmd_serial"
+                and tp.overlap_applicable(x, w)):
+            return tp.tp_ficco_linear(x, w, ov)
+        return x @ w
+
+    h = up(params["w_up"])
+    if "w_gate" in params:
+        h = F.silu(up(params["w_gate"])) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return all_reduce(h @ params["w_down"], group=group)

@@ -29,7 +29,10 @@ from repro_torch.core.schedule_types import Schedule
 from repro_torch.core.workload import GemmShape
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
+from repro_torch.overlap.rank_schedules import run_rank_schedule
 from repro_torch.overlap.schedules import SCHEDULE_FNS, run_schedule
+from repro_torch.parallel.group import RankGroup
+from repro_torch.parallel.sharding import active_group
 
 ScheduleLike = Union[Schedule, str]
 
@@ -113,9 +116,20 @@ def ficco_linear(
     Returns:
       (g, M, N/g): on every rank, the full gathered-M rows times that
       rank's weight columns.
+
+    When the active group is a :class:`RankGroup`, x is this rank's (M/g,
+    K) shard and w its (K, N/g) shard, and the call returns this rank's
+    (M, N/g) block: the schedule runs per rank
+    (:mod:`repro_torch.overlap.rank_schedules`), resolved as above from
+    the same global shape, so every rank takes the same one.
     """
-    g, m_s, k = x.shape
-    n_local = w.shape[-1]
+    group = active_group()
+    if isinstance(group, RankGroup):
+        g = group.size
+        (m_s, k), n_local = x.shape, w.shape[-1]
+    else:
+        g, m_s, k = x.shape
+        n_local = w.shape[-1]
     sched = resolve_schedule(
         schedule,
         m=m_s * g,
@@ -127,6 +141,8 @@ def ficco_linear(
     )
     if not _divisible(m_s, k, g, sched):
         sched = Schedule.SERIAL  # shape can't be chunked one level deeper
+    if isinstance(group, RankGroup):
+        return run_rank_schedule(sched, x, w, group)
     return run_schedule(sched, x, w)
 
 

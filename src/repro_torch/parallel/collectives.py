@@ -1,13 +1,17 @@
-"""Collectives of a logical tensor-parallel group, over the stacked rank dim.
+"""Collectives of a tensor-parallel group: over the stacked rank dim of a
+logical group, or across the processes of a :class:`RankGroup`.
 
 The reference's schedules call ``lax.all_gather``, ``lax.ppermute`` and
 ``lax.all_to_all`` inside ``shard_map``; XLA lowers them to transfers
 between devices.  A :class:`~repro_torch.parallel.sharding.TPGroup` holds
-its ranks on one
-device, stacked on dim 0, so each collective here materialises every
-rank's copy of the result: the bytes move as the collective would move
-them, and no rank reads another rank's slot afterwards.  With a group over
-several cards these bodies become NCCL calls (ROADMAP A9).
+its ranks on one device, stacked on dim 0, so each collective here
+materialises every rank's copy of the result: the bytes move as the
+collective would move them, and no rank reads another rank's slot
+afterwards.  Given ``group=`` a :class:`RankGroup`, each takes this
+rank's own block, with no leading rank dim, and runs as a
+``torch.distributed`` call on the group's plain process group (gloo on
+the CPU, NCCL with a card per rank; ranks sharing a card raise, ROADMAP
+A9): the per-rank form of a ``shard_map`` body's collective.
 
 :func:`counting` records what the collectives move, as the reference's
 ``roofline.analysis.parse_collectives`` reads it from a compiled per-device
@@ -20,6 +24,9 @@ import contextlib
 import dataclasses
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.group import RankGroup
 
 
 @dataclasses.dataclass
@@ -43,9 +50,10 @@ def counting():
     """Count the collectives called inside the block; yields the
     :class:`CollectiveStats` they add to.
 
-    Each :func:`all_gather`, :func:`all_to_all` and :func:`ppermute` call
-    adds its per-rank output bytes (the stacked output's over the group
-    size) under the reference's HLO kind.  Two things are not counted:
+    Each :func:`all_gather`, :func:`all_to_all`, :func:`ppermute` and
+    :func:`all_reduce` call adds its per-rank output bytes (a stacked
+    output's over the group size; a :class:`RankGroup` rank's own) under
+    the reference's HLO kind.  Two things are not counted:
     a collective the autograd engine runs in a backward (the
     recomputation of a ``remat`` period included), and K3's and K4's
     exchanges, which are Pallas DMAs in the reference and no HLO
@@ -60,22 +68,44 @@ def counting():
         _ACTIVE = outer
 
 
-def _record(kind: str, out: torch.Tensor) -> torch.Tensor:
+def _record(kind: str, out: torch.Tensor, ranks: int | None = None
+            ) -> torch.Tensor:
+    """Count ``out`` under ``kind``: its bytes over ``ranks`` (by default
+    its leading, stacked rank dim)."""
     stats = _ACTIVE
     if stats is not None and torch._C._current_graph_task_id() == -1:
-        nbytes = float(out.numel() // out.shape[0] * out.element_size())
+        ranks = out.shape[0] if ranks is None else ranks
+        nbytes = float(out.numel() // ranks * out.element_size())
         stats.bytes_by_kind[kind] = stats.bytes_by_kind.get(kind, 0.0) + nbytes
         stats.count_by_kind[kind] = stats.count_by_kind.get(kind, 0) + 1
     return out
 
 
-def all_gather(x: torch.Tensor, *, tiled: bool = False) -> torch.Tensor:
+def _plain(group: RankGroup):
+    if not isinstance(group, RankGroup):
+        raise TypeError(f"group= takes a RankGroup, not {group!r}; a logical "
+                        "TPGroup's collectives take the stacked ranks")
+    return group.plain
+
+
+def all_gather(x: torch.Tensor, *, tiled: bool = False,
+               group: RankGroup | None = None) -> torch.Tensor:
     """``lax.all_gather(x, axis=0[, tiled])`` on every rank.
 
     x: (g, m, ...), rank r's block at [r].  Untiled -> (g, g, m, ...),
     out[r, s] = x[s]; tiled -> (g, g * m, ...), the blocks concatenated
-    in rank order on every rank.
+    in rank order on every rank.  With ``group``: x is this rank's (m,
+    ...) block -> (g, m, ...), or (g * m, ...) tiled.
     """
+    if group is not None:
+        pg = _plain(group)
+        out = torch.empty((group.size, *x.shape), dtype=x.dtype,
+                          device=x.device)
+        # The concatenated form, which gloo takes as well as NCCL.
+        dist.all_gather_into_tensor(out.flatten(0, 1), x.contiguous(),
+                                    group=pg)
+        _record("all-gather", out, ranks=1)
+        return out.flatten(0, 1) if tiled else out
     g = x.shape[0]
     out = _record("all-gather", x.unsqueeze(0).expand(g, *x.shape)
                   .contiguous())
@@ -84,25 +114,63 @@ def all_gather(x: torch.Tensor, *, tiled: bool = False) -> torch.Tensor:
     return out
 
 
-def all_to_all(x: torch.Tensor) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, *, group: RankGroup | None = None
+               ) -> torch.Tensor:
     """``lax.all_to_all(x, split_axis=0, concat_axis=0)`` on every rank.
 
     x: (g, g, ...), rank r's block s at [r, s] -> (g, g, ...): rank r's
-    block s lands in rank s's slot r, out[s, r] = x[r, s], a copy.
+    block s lands in rank s's slot r, out[s, r] = x[r, s], a copy.  With
+    ``group``: x is this rank's (g, ...) blocks -> (g, ...), out[s] rank
+    s's block for this rank.
     """
+    if group is not None:
+        pg = _plain(group)
+        if x.shape[0] != group.size:
+            raise ValueError(f"all_to_all of {tuple(x.shape)}: dim 0 must "
+                             "be the group size")
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, x.contiguous(), group=pg)
+        return _record("all-to-all", out, ranks=1)
     if x.shape[1] != x.shape[0]:
         raise ValueError(f"all_to_all of {tuple(x.shape)}: dim 1 must be "
                          "the group size")
     return _record("all-to-all", x.transpose(0, 1).contiguous())
 
 
-def ppermute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+def ppermute(x: torch.Tensor, shift: int = 1, *,
+             group: RankGroup | None = None) -> torch.Tensor:
     """``lax.ppermute`` with ``perm = [(i, (i + shift) % g)]``: rank r
-    receives rank (r - shift)'s block.  x: (g, ...) -> (g, ...), a copy."""
+    receives rank (r - shift)'s block.  x: (g, ...) -> (g, ...), a copy.
+    With ``group``: x is this rank's block, sent to rank r + shift while
+    rank r - shift's is received (one ``batch_isend_irecv``)."""
+    if group is not None:
+        pg = _plain(group)
+        g, r = group.size, group.rank
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        if shift % g == 0:
+            out.copy_(x)
+        else:
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, (r + shift) % g, pg),
+                dist.P2POp(dist.irecv, out, (r - shift) % g, pg),
+            ])
+            for req in reqs:
+                req.wait()
+        return _record("collective-permute", out, ranks=1)
     g = x.shape[0]
     src = (torch.arange(g, device=x.device) - shift) % g
     return _record("collective-permute", x[src])
 
 
+def all_reduce(x: torch.Tensor, *, group: RankGroup) -> torch.Tensor:
+    """``lax.psum`` over a :class:`RankGroup`: the sum of every rank's
+    ``x``, the same bits on every rank (a copy; ``x`` is unchanged)."""
+    pg = _plain(group)
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=pg)
+    return _record("all-reduce", out, ranks=1)
+
+
 __all__ = ["CollectiveStats", "counting", "all_gather", "all_to_all",
-           "ppermute"]
+           "ppermute", "all_reduce"]

@@ -27,7 +27,8 @@ over that rank dim, as :mod:`repro_torch.parallel.collectives` does it.
 The reference computes with ``jnp`` einsums and XLA collectives, not
 Pallas, so plain PyTorch ops are its faithful port.  The group has no
 batch axis (the reference's ``BATCH_AXES``), so the batch always
-divides.
+divides.  Under a group of processes (a ``RankGroup``) it does not apply:
+its per-rank form waits for ROADMAP A9, step 2.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import math
 
 import torch
 
-from repro_torch.parallel.sharding import active_group
+from repro_torch.parallel.sharding import TPGroup, active_group
 
 _NEG_INF = -1e30
 
@@ -45,7 +46,7 @@ def applicable(k_cache: torch.Tensor, window) -> bool:
     """The reference's guard: a group of more than one rank, no sliding
     window, the cache length a multiple of the group and at least 1024."""
     group = active_group()
-    if group is None:
+    if not isinstance(group, TPGroup):  # none, or a group of processes
         return False
     g = group.size
     return (

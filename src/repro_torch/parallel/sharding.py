@@ -21,8 +21,11 @@ of axis name to size (:class:`repro_torch.launch.mesh.Mesh`).  The tree
 versions call :func:`fix_param_spec` and :func:`cache_leaf_spec` through
 this module's globals, so a variant can replace them here
 (``repro_torch.scripts.hillclimb``).  The reference's ``constrain`` and
-``_active_mesh`` have no counterpart: the port's model runs on one device
-and there is no partitioner to constrain (ROADMAP A9).
+``_active_mesh`` have no counterpart: there is no partitioner to
+constrain.  A group whose ranks are processes
+(:class:`~repro_torch.parallel.group.RankGroup`) holds each rank's blocks
+in its own process instead; :func:`shard_mlp_params` cuts a model's MLP
+weights to one rank's blocks (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -43,22 +46,17 @@ _STATE = threading.local()
 COPY_STREAMS = 3
 
 
-class TPGroup:
-    """``size`` logical tensor-parallel ranks held on one device.
+class CopyStreams:
+    """A group's copy streams, for a class with ``size`` and ``device``.
 
     On CUDA the group owns the copy streams that the chunk exchange runs
     on, apart from the compute stream that runs the step GEMMs:
-    ``COPY_STREAMS`` of them, at most one per rank.  The exchange is
-    issued on the first and spread over the others, which are forked from
-    it and joined back.
+    ``COPY_STREAMS`` of them, at most one per rank, made at first use.
+    The exchange is issued on the first and spread over the others, which
+    are forked from it and joined back.
     """
 
-    def __init__(self, size: int, device=None):
-        if size < 1:
-            raise ValueError(f"group size must be >= 1, got {size}")
-        self.size = int(size)
-        self.device = resolve_device(device)
-        self._copy_streams = ()
+    _copy_streams: tuple = ()
 
     @property
     def copy_streams(self) -> tuple:
@@ -77,6 +75,19 @@ class TPGroup:
         """The first copy stream (CUDA only; ``None`` on the CPU)."""
         streams = self.copy_streams
         return streams[0] if streams else None
+
+
+class TPGroup(CopyStreams):
+    """``size`` logical tensor-parallel ranks held on one device, with
+    the copy streams of :class:`CopyStreams`."""
+
+    peers = None  # its ranks share one process: no memory to export
+
+    def __init__(self, size: int, device=None):
+        if size < 1:
+            raise ValueError(f"group size must be >= 1, got {size}")
+        self.size = int(size)
+        self.device = resolve_device(device)
 
     def __repr__(self) -> str:
         return f"TPGroup(size={self.size}, device={str(self.device)!r})"
@@ -110,6 +121,36 @@ def shard_columns(w: torch.Tensor, g: int) -> torch.Tensor:
     if n % g:
         raise ValueError(f"dim 1 of {tuple(w.shape)} not divisible by {g}")
     return w.view(k, g, n // g).permute(1, 0, 2)
+
+
+_MLP_KEYS = {"w_up", "w_down", "w_gate"}
+
+
+def shard_mlp_params(tree, rank: int, size: int):
+    """Rank ``rank``'s copy of a model's state for a group of ``size``
+    processes: every MLP's ``w_up`` and ``w_gate`` cut to their column
+    block r (``P(None, "model")``) and ``w_down`` to its row block r
+    (``P("model", None)``), on their last two dims (a period-stacked leaf
+    keeps its leading dims); every other leaf, the MoE experts' included,
+    as it is.  The blocks are copies, so the full weights can be freed.
+    An MLP is a dict of ``w_up``, ``w_down`` and optionally ``w_gate``."""
+    def block(t: torch.Tensor, dim: int) -> torch.Tensor:
+        n = t.shape[dim]
+        if n % size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} not divisible "
+                             f"by {size}")
+        b = n // size
+        return t.narrow(dim, rank * b, b).clone(
+            memory_format=torch.contiguous_format)
+
+    if isinstance(tree, dict):
+        if {"w_up", "w_down"} <= set(tree) <= _MLP_KEYS:
+            return {k: block(v, -2 if k == "w_down" else -1)
+                    for k, v in tree.items()}
+        return {k: shard_mlp_params(v, rank, size) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [shard_mlp_params(v, rank, size) for v in tree]
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -307,9 +348,11 @@ __all__ = [
     "cache_specs",
     "shard_shape",
     "COPY_STREAMS",
+    "CopyStreams",
     "TPGroup",
     "active_group",
     "tp_group",
     "shard_rows",
     "shard_columns",
+    "shard_mlp_params",
 ]

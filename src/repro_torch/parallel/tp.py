@@ -9,6 +9,11 @@ AG->GEMM runs as a FiCCO schedule.  Backend ``"dma"`` with schedule
 step GEMM (:func:`repro_torch.kernels.ops.ag_matmul_dma`); every other
 mode goes through :func:`repro_torch.overlap.api.ficco_linear`, deciding
 for :data:`~repro_torch.core.machine.H100_SXM`.
+
+On a :class:`~repro_torch.parallel.group.RankGroup` the same function is
+one rank's ``shard_map`` body: the weight is this rank's column block
+already, and the rank cuts its own sequence block out of the replicated
+activation and returns its column block of the output.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from repro_torch.core.machine import H100_SXM
 from repro_torch.core.schedule_types import Schedule
 from repro_torch.kernels.ops import ag_matmul_dma
 from repro_torch.overlap.api import ficco_linear
+from repro_torch.parallel.group import RankGroup
 from repro_torch.parallel.sharding import active_group, shard_columns
 
 
@@ -37,6 +43,8 @@ def overlap_applicable(x: torch.Tensor, w: torch.Tensor) -> bool:
         return False
     g = group.size
     b, s, d = x.shape
+    if isinstance(group, RankGroup):  # w: this rank's column block
+        return s % g == 0
     return s % g == 0 and w.shape[1] % g == 0
 
 
@@ -59,13 +67,13 @@ def tp_ficco_linear(
     b, s, d = x.shape
     f = w.shape[1]
     schedule = _mode_to_schedule(overlap.mode)
+    dma = overlap.backend == "dma" and schedule in (
+        "auto", Schedule.UNIFORM_FUSED_1D.value)
+    if isinstance(group, RankGroup):
+        return _rank_linear(x, w, schedule, dma, group)
     # (B, S, D) -> (g, S/g * B, D): rank-major, then seq-major rows.
     rows = x.view(b, g, s // g, d).permute(1, 2, 0, 3).reshape(g, -1, d)
-    if (
-        overlap.backend == "dma"
-        and schedule in ("auto", Schedule.UNIFORM_FUSED_1D.value)
-        and rows.shape[1] % g == 0
-    ):
+    if dma and rows.shape[1] % g == 0:
         out = ag_matmul_dma(rows, shard_columns(w, g), group=group)
     else:
         out = ficco_linear(
@@ -73,6 +81,22 @@ def tp_ficco_linear(
         )
     # (g, S * B, F/g) -> (B, S, g, F/g) -> (B, S, F)
     return out.view(g, s, b, f // g).permute(2, 1, 0, 3).reshape(b, s, f)
+
+
+def _rank_linear(x, w, schedule, dma: bool, group: RankGroup):
+    """x: (B, S, D), replicated; w: (D, F/g), this rank's columns ->
+    (B, S, F/g), this rank's column block (the reference's ``body``)."""
+    g, r = group.size, group.rank
+    b, s, d = x.shape
+    s_loc = s // g
+    # This rank's sequence block, rows seq-major ((S/g) * B rows).
+    rows = x[:, r * s_loc:(r + 1) * s_loc].transpose(0, 1).reshape(-1, d)
+    if dma and rows.shape[0] % g == 0:
+        out = ag_matmul_dma(rows, w, group=group)
+    else:
+        out = ficco_linear(rows, w, schedule=schedule, machine=H100_SXM)
+    # (S * B, F/g) -> (B, S, F/g)
+    return out.view(s, b, w.shape[1]).transpose(0, 1)
 
 
 __all__ = ["overlap_applicable", "tp_ficco_linear"]

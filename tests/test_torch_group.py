@@ -1,0 +1,252 @@
+"""The tensor-parallel group over processes (``RankGroup``) against the
+reference's ``shard_map`` bodies and the port's stacked group.
+
+One spawn of 4 gloo ranks (``repro_torch.launch.group.spawn``) runs every
+case of the module inside the ranks (``tests/torch_group_ranks.py``, which
+imports no JAX) and pickles the results back:
+
+  * the six per-rank schedules through ``ficco_linear``, in float32 and
+    bfloat16, against the reference's ``shard_map`` outputs (the shared
+    JAX subprocess's ``collectives`` entry) at 1e-5 and 2e-2, the
+    tolerances of ``tests/multidev_driver.py``; each rank's
+    ``counting()`` against that entry's ``parse_collectives`` bytes and
+    calls by kind;
+  * the per-rank collectives against their stacked forms;
+  * the K3 + K1 composer and K4 per rank, on their plain versions (gloo's
+    all-gather for the exchange), against the stacked port at 1e-5, two
+    calls each through the same ring and shards;
+  * the reduced TinyLlama prefill across the 4 ranks in
+    ``uniform-fused-1d`` on the collective backend and on the DMA
+    backend, against the reference's single-device forward in this
+    process at 2e-3 (``tests/test_torch_model.py``'s tolerance; R4 rules
+    out the reference's sharded forward), every rank's logits bit-equal.
+
+Besides: the launcher raises, and leaves no rank running, when one rank
+raises; ranks that share a CUDA device refuse plain collectives (decided
+on device objects: there is no card here).
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch_group_ranks
+import torch_jax_reference as jax_reference
+
+from repro.configs import get_config as jax_get_config
+from repro.models.model import build_model as jax_build_model
+from repro_torch.core.schedule_types import Schedule
+from repro_torch.kernels.dma_exchange import ficco_uniform_fused_1d_dma
+from repro_torch.kernels.ficco_ag_matmul import ficco_ag_matmul_fused
+from repro_torch.launch.group import spawn
+from repro_torch.parallel import collectives
+from repro_torch.parallel.group import RankGroup, plain_backend
+from repro_torch.parallel.sharding import shard_mlp_params
+from repro_torch.tune.variants import KernelVariant
+
+# The pytest-xdist workers share the host's cores: one intra-op thread
+# each, or the small tensors here spend their time oversubscribing them.
+torch.set_num_threads(1)
+
+G = 4
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
+ARCH = "tinyllama-1.1b"
+# The composer's and K4's shards: m_s 256 rows of K 64 into n_local 128,
+# so the default variant's (256, 64) @ (64, 128) step takes K1's tile.
+COMPOSER = dict(m_s=256, k=64, n_local=128, seed=51)
+VARIANTS = (
+    dict(chunks=4, block_m=128, block_n=128, block_k=128),
+    dict(chunks=2, block_m=128, block_n=128, block_k=128, buffer_depth=2,
+         dispatch_order="reverse"),
+)
+PREFILL_MODES = (("uniform-fused-1d", "collective"),
+                 ("uniform-fused-1d", "dma"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _start_reference(tmp_path_factory):
+    """The JAX subprocess runs while the ranks run."""
+    jax_reference.start(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def model_reference():
+    cfg = jax_get_config(ARCH).reduced()
+    model = jax_build_model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 512)).astype(np.int32)
+    logits, _ = jax.jit(model.forward)(params, {"tokens": tokens})
+    return dict(numpy_params=jax.tree.map(np.asarray, params), tokens=tokens,
+                logits=np.asarray(logits, np.float32))
+
+
+def _composer_operands():
+    rng = np.random.default_rng(COMPOSER["seed"])
+    x = rng.standard_normal((G, COMPOSER["m_s"], COMPOSER["k"]))
+    w = rng.standard_normal((G, COMPOSER["k"], COMPOSER["n_local"]))
+    return x.astype(np.float32), w.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def ranks(model_reference, tmp_path_factory):
+    """Every rank's results of :func:`torch_group_ranks.run_all`."""
+    cases = {
+        "schedules": jax_reference.schedule_operands(),
+        "collectives": np.random.default_rng(52).standard_normal(
+            (G, G, 3, 5)).astype(np.float32),
+        "composers": (*_composer_operands(), VARIANTS),
+        "prefill_modes": PREFILL_MODES,
+        "params": model_reference["numpy_params"],
+        "tokens": model_reference["tokens"],
+    }
+    with pytest.MonkeyPatch.context() as mp:
+        # The ranks resolve no promoted variant from the home directory.
+        mp.setenv("REPRO_AUTOTUNE_CACHE_DIR",
+                  str(tmp_path_factory.mktemp("group_autotune")))
+        return spawn(torch_group_ranks.run_all, G, device="cpu",
+                     args=(cases,), timeout=240)
+
+
+@pytest.fixture(scope="module")
+def reference_collectives(tmp_path_factory):
+    return jax_reference.reference(tmp_path_factory, entry="collectives")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sched", [s.value for s in Schedule])
+def test_rank_schedule_matches_shard_map(ranks, reference_collectives,
+                                         sched, dtype):
+    want = reference_collectives["outputs"][dtype][sched]
+    n = want.shape[1] // G
+    for r, res in enumerate(ranks):
+        got = res["schedules"][dtype, sched][0]
+        np.testing.assert_allclose(got, want[:, r * n:(r + 1) * n],
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("sched", [s.value for s in Schedule])
+def test_rank_counting_matches_parse_collectives(ranks,
+                                                 reference_collectives,
+                                                 sched):
+    want_bytes, want_counts = reference_collectives[sched]
+    for res in ranks:
+        _, got_bytes, got_counts = res["schedules"]["float32", sched]
+        assert got_bytes == want_bytes
+        assert got_counts == want_counts
+
+
+def test_rank_collectives_match_stacked(ranks):
+    x = torch.from_numpy(np.random.default_rng(52).standard_normal(
+        (G, G, 3, 5)).astype(np.float32))
+    want = {
+        "all_gather": collectives.all_gather(x),
+        "all_gather_tiled": collectives.all_gather(x, tiled=True),
+        "all_to_all": collectives.all_to_all(x),
+        "ppermute": collectives.ppermute(x, 1),
+        "ppermute_back": collectives.ppermute(x, -1),
+    }
+    total = x.sum(0)
+    for r, res in enumerate(ranks):
+        got = res["collectives"]
+        for name, stacked in want.items():
+            np.testing.assert_array_equal(got[name], stacked[r].numpy(),
+                                          err_msg=name)
+        np.testing.assert_allclose(got["all_reduce"], total.numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(got["all_reduce"],
+                                      ranks[0]["collectives"]["all_reduce"])
+
+
+@pytest.mark.parametrize("kernel", ["dma_exchange", "ficco_ag_matmul"])
+@pytest.mark.parametrize("spec", VARIANTS,
+                         ids=["default", "chunks2_reverse"])
+def test_composer_and_k4_per_rank_match_stacked(ranks, kernel, spec):
+    x, w = (torch.from_numpy(a) for a in _composer_operands())
+    variant = KernelVariant(kernel=kernel, **spec)
+    fn = (ficco_uniform_fused_1d_dma if kernel == "dma_exchange"
+          else ficco_ag_matmul_fused)
+    want = fn(x, w, variant=variant)  # (g, g * m_s, n_local), stacked
+    key = (kernel, tuple(sorted(spec.items())))
+    for r, res in enumerate(ranks):
+        for call in res["composers"][key]:
+            np.testing.assert_allclose(call, want[r].numpy(), rtol=1e-5,
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("mode,backend", PREFILL_MODES)
+def test_prefill_across_ranks_matches_reference(ranks, model_reference,
+                                                mode, backend):
+    logits = [res["prefill", mode, backend] for res in ranks]
+    np.testing.assert_allclose(logits[0], model_reference["logits"],
+                               **MODEL_TOL)
+    for other in logits[1:]:
+        np.testing.assert_array_equal(other, logits[0])
+
+
+def test_launcher_raises_when_a_rank_raises():
+    with pytest.raises(RuntimeError, match="rank 1 of 2 raised") as err:
+        spawn(torch_group_ranks.raise_on, 2, device="cpu", args=(1,),
+              timeout=60)
+    assert "fails on purpose" in str(err.value)
+
+
+def test_ranks_sharing_a_card_refuse_plain_collectives():
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="ROADMAP A9"):
+        plain_backend([card] * G)
+    with pytest.raises(RuntimeError, match="ROADMAP A9"):
+        plain_backend([card, torch.device("cuda", 1), card])
+    assert plain_backend([torch.device("cuda", r) for r in range(G)]) \
+        == "nccl"
+    assert plain_backend([card, card], hosts=["a", "b"]) == "nccl"
+    assert plain_backend([cpu] * G) == "gloo"
+    with pytest.raises(ValueError):
+        plain_backend([cpu, card])
+
+
+def test_collective_refuses_a_logical_group():
+    from repro_torch.parallel.sharding import TPGroup
+
+    with pytest.raises(TypeError, match="RankGroup"):
+        collectives.all_reduce(torch.ones(2), group=TPGroup(2, "cpu"))
+
+
+def test_shard_mlp_params_keeps_rank_blocks():
+    gen = torch.Generator().manual_seed(0)
+    mlp = {"w_up": torch.randn(3, 8, 16, generator=gen),
+           "w_gate": torch.randn(3, 8, 16, generator=gen),
+           "w_down": torch.randn(3, 16, 8, generator=gen)}
+    moe = {"router": torch.randn(8, 4, generator=gen),
+           "w_up": torch.randn(4, 8, 6, generator=gen),
+           "w_down": torch.randn(4, 6, 8, generator=gen),
+           "shared": dict(mlp)}
+    state = {"embed": torch.randn(5, 8, generator=gen),
+             "layers": [{"ffn": mlp}, {"ffn": moe}]}
+    got = shard_mlp_params(state, 1, G)
+    assert got["embed"] is state["embed"]
+    ffn = got["layers"][0]["ffn"]
+    assert torch.equal(ffn["w_up"], mlp["w_up"][..., 4:8])
+    assert torch.equal(ffn["w_gate"], mlp["w_gate"][..., 4:8])
+    assert torch.equal(ffn["w_down"], mlp["w_down"][:, 4:8])
+    assert ffn["w_up"].is_contiguous()
+    assert got["layers"][1]["ffn"]["w_up"] is moe["w_up"]  # experts kept
+    assert torch.equal(got["layers"][1]["ffn"]["shared"]["w_down"],
+                       mlp["w_down"][:, 4:8])
+
+
+def test_missing_stream_memory_operations_raise():
+    """The driver's and the runtime's "not supported" (as the CUDA source
+    returns them) name the missing capability; nothing falls back."""
+    from repro_torch.kernels import peer_memory
+
+    for err in (-801, 801):
+        with pytest.raises(RuntimeError, match="stream memory operations"):
+            peer_memory.check(err)
+
+
+def test_rank_group_needs_a_device_or_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        RankGroup(0, 1, addr="127.0.0.1", port=1)

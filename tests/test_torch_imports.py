@@ -398,3 +398,11 @@ def test_import_check_covers_the_command_lines():
                  "scripts.clear_autotune_cache", "scripts.sweep",
                  "scripts.merge_sweep", "scripts.hillclimb"):
         assert f"repro_torch.{name}" in mods, name
+
+
+def test_import_check_covers_the_rank_group():
+    mods = set(_port_modules())
+    for name in ("parallel.group", "kernels.peer_memory",
+                 "parallel.collectives", "launch.group",
+                 "overlap.rank_schedules"):
+        assert f"repro_torch.{name}" in mods, name

@@ -52,7 +52,9 @@ FIRST.pkl`` and one more pickle for each of ``LATER``) it evaluates, with ``JAX_
     of the six schedules (``SCHEDULE_FNS``) under ``shard_map`` on
     ``COLLECTIVES["g"]`` devices, at :func:`schedule_operands`' shapes,
     and of ``serial_a2a_ffn`` on :func:`moe_operands`' (``"serial_a2a"``):
-    (bytes by kind, count by kind);
+    (bytes by kind, count by kind); and under ``"outputs"`` each
+    schedule's output on those operands in float32 and in bfloat16 (as
+    float32 numpy, by dtype name, then schedule);
   * ``dryrun``: the dry-run's specs, each tree as ``{path: tuple(spec)}``
     (:func:`spec_paths`): every arch's ``param_specs()``, and on each of
     ``DRYRUN["meshes"]`` (stand-ins with a ``shape``) its
@@ -68,7 +70,8 @@ FIRST.pkl`` and one more pickle for each of ``LATER``) it evaluates, with ``JAX_
 
 The first eight entries go to ``FIRST.pkl``; the later ones (the whole
 models, the slower half) follow, each in a pickle of its own, in
-``LATER``'s order, so a test waits only for what it reads.
+``LATER``'s order, so a test waits only for what it reads; except
+``collectives``, a few seconds, which is written before all the others.
 
 The script runs with ``MOE["g"]`` forced host devices
 (``--xla_force_host_platform_device_count``); the other entries run on
@@ -153,10 +156,12 @@ DRYRUN = dict(meshes=({"data": 16, "model": 16},
               caches=("decode_32k", "long_500k"),
               compiled=("tinyllama-1.1b", "xlstm-1.3b"),
               kinds=("prefill", "train"), seq=64, batch=8)
-# The entries after the first eight, in the order the script writes them,
-# each holding a pytest-xdist worker that waits for it (seconds alone, on
-# one run: counts 5.8, collectives 1.2, examples 5.6, recurrent_grad 18.3,
-# encdec 9.7, recurrent 8.9, dryrun 15.8, moe_grad 17.1).
+# The entries after the first eight, each in a pickle of its own, in the
+# order the script writes them after the first eight (``collectives``
+# goes before those), each holding a pytest-xdist worker that waits for
+# it (seconds alone, on one run: counts 5.8, collectives 1.2, examples
+# 5.6, recurrent_grad 18.3, encdec 9.7, recurrent 8.9, dryrun 15.8,
+# moe_grad 17.1).
 LATER = ("counts", "collectives", "examples", "recurrent_grad", "encdec",
          "recurrent", "dryrun", "moe_grad")
 
@@ -304,10 +309,12 @@ def main(err_path: str, first_path: str, *later_paths: str) -> None:
         "dryrun": _dryrun,
         "moe_grad": lambda: {a: _grad(a) for a in MOE_TRAIN["archs"]},
     }
+    paths = dict(zip(LATER, later_paths, strict=True))
     try:
+        _write(paths["collectives"], later.pop("collectives")())
         _write(first_path, _evaluate())
-        for name, path in zip(LATER, later_paths, strict=True):
-            _write(path, later[name]())
+        for name, make in later.items():
+            _write(paths[name], make())
     except BaseException:
         with open(err_path, "w") as fh:
             fh.write(traceback.format_exc())
@@ -562,6 +569,15 @@ def _collectives() -> dict:
     rows, cols = P("model", None), P(None, "model")
     out = {s.value: count(fn, (rows, cols), cols, x_full, w_full)
            for s, fn in SCHEDULE_FNS.items()}
+    out["outputs"] = {}
+    for dtype in ("float32", "bfloat16"):
+        xd, wd = (jax.numpy.asarray(a, dtype) for a in (x_full, w_full))
+        out["outputs"][dtype] = {
+            s.value: np.asarray(jax.jit(shard_map(
+                functools.partial(fn, axis_name="model"), mesh=mesh,
+                in_specs=(rows, cols), out_specs=cols, check_vma=False,
+            ))(xd, wd), np.float32)
+            for s, fn in SCHEDULE_FNS.items()}
     spec = P("model", None, None)
     out["serial_a2a"] = count(
         serial_a2a_ffn, (spec, spec, spec), spec,
