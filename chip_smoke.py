@@ -172,6 +172,23 @@ Phases, each of which exits non-zero on failure:
      each rank's device ms per call and wall, the logical group's beside
      them, labelled as time-sliced contexts (nothing of NVLink); a rank's
      failure or the launcher's timeout fails the phase;
+ 17. the group with a card per rank (``[cards]``, ROADMAP A9 step 2),
+     where the machine has 4 cards (on fewer it prints that it did not
+     run, and ``[done]`` says so): 4 rank processes on ``cuda:0``-``3``,
+     each building TinyLlama-1.1B from seed 0 on its own card and holding
+     every part against the logical ``TPGroup(4)`` on that card: (a) the
+     plain collectives on NCCL (copies and ``pmax`` bit-equal, the sum
+     within 1e-5); (b) the six schedules per rank at the up projection
+     (bf16 tolerance); (c) K3 alone, the K3 + K1 composer and K4 over
+     NVLink, 50 calls each in a row cycling 3 inputs, every call bit-equal
+     to the logical slot, launches per call asserted, NVLink bytes and
+     rate; (d) the full-width 4 x 512 prefill per rank on the collective
+     backend and the DMA path (K1 = K3 = 176 per rank), logits equal on
+     every rank and within 5 % of dense, walls, busy and idle share; (e) a
+     ``DecodeEngine`` per rank with ``decode_attn="shard_map"`` at a
+     cache of 2048 (4 requests x 16 new tokens): the same tokens on every
+     rank and on a second run, each step's logits within 5 % of the
+     one-card logical engine's fed the same tokens, ms per step;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -213,7 +230,7 @@ PHASES = ("build", "kernels", "schedules", "design", "prefill", "fused",
           "autotune", "serve", "adapt", "train", "grid", "fit", "gate",
           "sweep", "dryrun", "moe", "moe-train", "encdec", "vlm", "hybrid",
           "ssm", "hybrid-train", "ssm-train", "obs-cli", "examples",
-          "group")
+          "group", "cards")
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -335,14 +352,19 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def _card() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
+def _cards_smi() -> list[str]:
+    """Every card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    return smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()
+
+
+def _card() -> str:
+    """The first card's name and power limit, as nvidia-smi prints them."""
+    return _cards_smi()[0]
 
 
 def phase_build():
@@ -4458,22 +4480,47 @@ def phase_model_train(device, label, arch, cut, batch_n, seq):
 # [group]: the tensor-parallel group over processes (ROADMAP A9, step 1).
 # GROUP rank processes on one card run K3 (+ K1) and K4 across processes
 # at TinyLlama-1.1B's up projection (4 x 512 tokens), GROUP_CALLS calls in
-# a row each, against the logical TPGroup's slot for the same variant.
+# a row each, cycling GROUP_INPUTS inputs so that a stale read shows,
+# against the logical TPGroup's slot for the same variant.
 GROUP_CALLS = 50
+GROUP_INPUTS = 3
 GROUP_SEED = 61
 GROUP_TIMEOUT = 420.0
 
 
-def _group_rank(group, seed: int, m_s: int, k: int, n: int,
-                calls: int) -> dict:
-    """One rank of ``[group]``, in a process of its own (run by
-    ``repro_torch.launch.group.spawn``): (a) one K3 call into the group's
-    ring against the all-gather of the chunks, (b) ``calls`` K3 + K1
-    composer calls and (c) ``calls`` K4 calls, each against the logical
-    group's slot for this rank (bit for bit) and the plain version
-    ``ag_matmul_ref`` on the same inputs, with their launches, device ms per call on
-    the compute stream (CUDA events) and host wall per call; rank 0 also
-    times the logical group's calls while the others wait on the host."""
+def _events_ms(fn, calls: int, cuda: bool) -> float | None:
+    """Device ms per call of ``calls`` calls of ``fn`` in a row on the
+    current stream (CUDA events; the host's issue included where it is
+    the slower), after one call; None on the CPU."""
+    import torch
+
+    fn()
+    if not cuda:
+        return None
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _group_rank(group, seed: int, m_s: int, k: int, n: int, calls: int,
+                inputs: int, trace_copies: bool) -> dict:
+    """One rank of ``[group]`` (and part (c) of ``[cards]``), in a process
+    of its own (run by ``repro_torch.launch.group.spawn``): ``calls``
+    calls in a row of each, no host barrier, input ``i % inputs`` at call
+    i.  (a) K3 exchanges into the group's ring, each against the
+    all-gather of the chunks; (b) the K3 + K1 composer and (c) K4, each
+    call against the logical group's slot for this rank (bit for bit)
+    and, with that slot, against the plain version ``ag_matmul_ref`` on
+    the same inputs.  Their launches, device ms per call on the compute
+    stream (CUDA events) and host wall per call; with ``trace_copies``,
+    K3's copies' own times from a device trace.  Rank 0 also times the
+    logical group's calls while the others wait on the host."""
     import numpy as np
     import torch
 
@@ -4488,48 +4535,76 @@ def _group_rank(group, seed: int, m_s: int, k: int, n: int,
     dev, g, r = group.device, group.size, group.rank
     cuda = dev.type == "cuda"
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal((g * m_s, k), np.float32)).to(
-        dev, torch.bfloat16).view(g, m_s, k)
+    xs = [torch.from_numpy(rng.standard_normal((g * m_s, k), np.float32)).to(
+        dev, torch.bfloat16).view(g, m_s, k) for _ in range(inputs)]
     w = torch.from_numpy((rng.standard_normal((k, g * n), np.float32)
                           * k ** -0.5)).to(dev, torch.bfloat16)
     w = shard_columns(w, g)  # (g, K, n) view, as the logical group takes it
-    x_r, w_r = x[r].contiguous(), w[r].contiguous()
+    xs_r, w_r = [x[r].contiguous() for x in xs], w[r].contiguous()
     v3 = default_variant("dma_exchange", group=g)
     v4 = default_variant("ficco_ag_matmul", group=g)
     logical = TPGroup(g, dev)
-    want3 = ficco_uniform_fused_1d_dma(
+    want3 = [ficco_uniform_fused_1d_dma(
         x, w, variant=v3, copy_streams=logical.copy_streams)[r].clone()
-    want4 = ficco_ag_matmul_fused(x, w, variant=v4)[r].clone()
+        for x in xs]
+    want4 = [ficco_ag_matmul_fused(x, w, variant=v4)[r].clone() for x in xs]
     # The plain version of both, on the same inputs: all-gather, one GEMM.
-    plain = ref.ag_matmul_ref(x, w)[r]
+    plain = [ref.ag_matmul_ref(x, w)[r] for x in xs]
     tol = TOL["bfloat16"]
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     sync()
-    out = {"rank": r}
+    out = {"rank": r, "cuda": cuda}
 
-    # (a) One K3 call: chunk 0 of this rank into slot r of every ring.
+    # (a) K3: chunk 0 of this rank's input into slot r of every ring.
     steps = int(v3.chunks)
     m_c = m_s // steps
-    ring = group.peers.ring((m_c, k), x.dtype, STEP_BUFFERS)
-    chunk = x_r.view(steps, m_c, k)[0]
-    ops.reset_launch_counts()
-    if cuda:
-        compute = torch.cuda.current_stream(dev)
-        copy, *side = group.copy_streams
-        copy.wait_stream(compute)
-        with torch.cuda.stream(copy):
-            step = a2a_chunk_exchange(chunk, out=ring, streams=side)
-        ring.wait(step, compute)
-    else:
-        step = a2a_chunk_exchange(chunk, out=ring)
-    gathered = ring.slot(step).clone()
-    if cuda:
-        ring.release(step, compute)
-    sync()
-    out["a"] = dict(equal=bool(torch.equal(gathered, x[:, :m_c])),
-                    launches=ops.launch_counts(), routes=ops.route_counts())
+    ring = group.peers.ring((m_c, k), torch.bfloat16, STEP_BUFFERS)
+    chunks = [x_r.view(steps, m_c, k)[0] for x_r in xs_r]
+    compute = torch.cuda.current_stream(dev) if cuda else None
 
-    def run(fn, want):
+    def exchange(i: int, keep: bool):
+        if cuda:
+            copy, *side = group.copy_streams
+            copy.wait_stream(compute)
+            with torch.cuda.stream(copy):
+                step = a2a_chunk_exchange(chunks[i % inputs], out=ring,
+                                          streams=side)
+            ring.wait(step, compute)
+        else:
+            step = a2a_chunk_exchange(chunks[i % inputs], out=ring)
+        got = ring.slot(step).clone() if keep else None
+        if cuda:
+            ring.release(step, compute)
+        return got
+
+    ops.reset_launch_counts()
+    gathered = [exchange(i, True) for i in range(calls)]
+    sync()
+    k3 = dict(equal=[bool(torch.equal(got, xs[i % inputs][:, :m_c]))
+                     for i, got in enumerate(gathered)],
+              launches=ops.launch_counts(), routes=ops.route_counts(),
+              bytes=(g - 1) * m_c * k * 2)  # pushed by this rank per call
+    del gathered
+    k3["ms"] = _events_ms(lambda: [exchange(i, False)
+                                   for i in range(calls)], 1, cuda)
+    if k3["ms"] is not None:
+        k3["ms"] /= calls
+    if cuda and trace_copies:  # each copy's own time, from the trace
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                exchange(i, False)
+            sync()
+        k3["copies"] = {}
+        for name, start, end, on_device in _trace_events(prof):
+            if on_device and "memcpy" in name.lower():
+                count, us = k3["copies"].get(name, (0, 0.0))
+                k3["copies"][name] = (count + 1, us + end - start)
+    out["k3"] = k3
+
+    def run(fn):
         ops.reset_launch_counts()
         sync()
         if cuda:
@@ -4537,140 +4612,605 @@ def _group_rank(group, seed: int, m_s: int, k: int, n: int,
             end = torch.cuda.Event(enable_timing=True)
             start.record()
         t0 = time.perf_counter()
-        got = [fn() for _ in range(calls)]  # no host barrier in between
+        got = [fn(i % inputs) for i in range(calls)]
         if cuda:
             end.record()
         sync()
         wall = (time.perf_counter() - t0) * 1e3 / calls
-        launches, routes = ops.launch_counts(), ops.route_counts()
-        equal = [bool(torch.equal(o, want)) for o in got]
-        err = max(_max_err(o, want) for o in got)
-        # Every call against the plain version at [kernels]' bf16
-        # tolerance, and the logical slot (want) too.
-        close = [bool(torch.allclose(o.float(), plain.float(), rtol=tol,
-                                     atol=tol)) for o in (want, *got)]
-        plain_err = max(_max_err(o, plain) for o in (want, *got))
-        return dict(equal=equal, max_abs_err=err, launches=launches,
-                    routes=routes, wall_ms=wall, plain_close=close,
-                    plain_err=plain_err,
-                    ms=start.elapsed_time(end) / calls if cuda else None)
+        return got, dict(cuda=cuda, launches=ops.launch_counts(),
+                         routes=ops.route_counts(), wall_ms=wall,
+                         ms=start.elapsed_time(end) / calls if cuda else None)
+
+    def check(got, res, wants):
+        # Every call bit for bit against the logical slot; the slots and
+        # every call against the plain version at [kernels]' bf16
+        # tolerance.
+        res["equal"] = [bool(torch.equal(o, wants[i % inputs]))
+                        for i, o in enumerate(got)]
+        res["max_abs_err"] = max(_max_err(o, wants[i % inputs])
+                                 for i, o in enumerate(got))
+        pairs = [*zip(wants, plain),
+                 *((o, plain[i % inputs]) for i, o in enumerate(got))]
+        res["plain_close"] = [bool(torch.allclose(
+            o.float(), p.float(), rtol=tol, atol=tol)) for o, p in pairs]
+        res["plain_err"] = max(_max_err(o, p) for o, p in pairs)
+        return res
 
     # (b) the K3 + K1 composer, (c) K4: every call across processes.
-    out["b"] = run(lambda: ficco_uniform_fused_1d_dma(
-        x_r, w_r, variant=v3, copy_streams=group.copy_streams,
-        peers=group.peers), want3)
-    out["c"] = run(lambda: ficco_ag_matmul_fused(
-        x_r, w_r, variant=v4, peers=group.peers), want4)
+    out["composer"] = check(*run(lambda i: ficco_uniform_fused_1d_dma(
+        xs_r[i], w_r, variant=v3, copy_streams=group.copy_streams,
+        peers=group.peers)), want3)
+    out["k4"] = check(*run(lambda i: ficco_ag_matmul_fused(
+        xs_r[i], w_r, variant=v4, peers=group.peers)), want4)
 
     # The logical group's calls, timed by rank 0 alone.
     group.barrier()
     if r == 0:
-        out["logical_b"] = run(lambda: ficco_uniform_fused_1d_dma(
-            x, w, variant=v3, copy_streams=logical.copy_streams)[0], want3)
-        out["logical_c"] = run(lambda: ficco_ag_matmul_fused(
-            x, w, variant=v4)[0], want4)
+        out["logical_composer"] = run(lambda i: ficco_uniform_fused_1d_dma(
+            xs[i], w, variant=v3, copy_streams=logical.copy_streams))[1]
+        out["logical_k4"] = run(lambda i: ficco_ag_matmul_fused(
+            xs[i], w, variant=v4))[1]
     group.barrier()
     return out
 
 
-def phase_group(device) -> dict:
-    """``[group]``: GROUP rank processes on ``device`` through
-    ``repro_torch.launch.group.spawn``; every rank's K3 step buffer and its
-    composer and K4 outputs bit-equal to the logical group's and close to
-    the plain version's, the launches per call by kernel and route, the
-    times.  Returns each kernel's launches per rank."""
-    import torch
+def _rank_launches(what: str, res: dict, launches: dict,
+                   routes: dict | None = None) -> None:
+    """Raise unless ``res``'s nonzero launches and routes are those
+    given; on the CPU (a rehearsal on the plain versions) none."""
+    got = {name: c for name, c in res["launches"].items() if c}
+    want = launches if res["cuda"] else {}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    for name, by in (routes or {}).items():
+        nonzero = {k: c for k, c in res["routes"][name].items() if c}
+        if res["cuda"] and nonzero != by:
+            raise AssertionError(f"{what}: {name} routes {nonzero}, "
+                                 f"expected {by}")
 
-    from repro_torch.launch.group import spawn
 
-    m_s, n = PREFILL_BATCH * PREFILL_SEQ // GROUP, D_FF // GROUP
+def _per_rank(results, fn, fmt="{:.4f}") -> str:
+    vals = [fn(res) for res in results]
+    return "[" + ", ".join("-" if v is None else fmt.format(v)
+                           for v in vals) + "]"
+
+
+def _group_report(label: str, results: list, calls: int, inputs: int,
+                  link: str) -> None:
+    """Check every rank's results of :func:`_group_rank` and print them,
+    each line after ``label``; ``link`` names what K3's pushes cross."""
     steps = GROUP  # the default variant's chunk count
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    results = spawn(_group_rank, GROUP, device=str(device),
-                    args=(GROUP_SEED, m_s, D_MODEL, n, GROUP_CALLS),
-                    timeout=GROUP_TIMEOUT)
-    wall = time.time() - t0
-    want = {
-        "a": ({"a2a_chunk_exchange": 1}, {"a2a_chunk_exchange":
-                                          {"pairs": 1}}),
-        "b": ({"a2a_chunk_exchange": steps * GROUP_CALLS,
-               "chunked_matmul": steps * GROUP_CALLS},
-              {"a2a_chunk_exchange": {"pairs": steps * GROUP_CALLS},
-               "chunked_matmul": {"wgmma": steps * GROUP_CALLS}}),
-        "c": ({"ficco_ag_matmul_fused": GROUP_CALLS},
-              {"ficco_ag_matmul_fused": {"wgmma": GROUP_CALLS}}),
-    }
     for res in results:
         rank = res["rank"]
-        for part, (launches, routes) in want.items():
-            got = res[part]
-            full = {name: launches.get(name, 0) for name in got["launches"]}
-            if got["launches"] != full:
-                raise AssertionError(f"[group] rank {rank} ({part}): "
-                                     f"launches {got['launches']}, expected "
-                                     f"{full}")
-            for name, by in routes.items():
-                nonzero = {k: c for k, c in got["routes"][name].items() if c}
-                if nonzero != by:
-                    raise AssertionError(f"[group] rank {rank} ({part}): "
-                                         f"{name} routes {nonzero}, "
-                                         f"expected {by}")
-        if not res["a"]["equal"]:
-            raise AssertionError(f"[group] rank {rank}: K3's step buffer is "
-                                 "not the all-gather of the chunks")
-        for part, what in (("b", "K3 + K1 composer"), ("c", "K4")):
+        bad = [i for i, ok in enumerate(res["k3"]["equal"]) if not ok]
+        if bad:
+            raise AssertionError(f"{label} rank {rank}: K3 calls {bad}: "
+                                 "the step buffer is not the all-gather of "
+                                 "the chunks")
+        _rank_launches(f"{label} rank {rank} K3",
+                       res["k3"] | {"cuda": res["cuda"]},
+                       {"a2a_chunk_exchange": calls},
+                       {"a2a_chunk_exchange": {"pairs": calls}})
+        _rank_launches(f"{label} rank {rank} composer",
+                       res["composer"],
+                       {"a2a_chunk_exchange": steps * calls,
+                        "chunked_matmul": steps * calls},
+                       {"a2a_chunk_exchange": {"pairs": steps * calls},
+                        "chunked_matmul": {"wgmma": steps * calls}})
+        _rank_launches(f"{label} rank {rank} K4", res["k4"],
+                       {"ficco_ag_matmul_fused": calls},
+                       {"ficco_ag_matmul_fused": {"wgmma": calls}})
+        for part, what in (("composer", "K3 + K1 composer"), ("k4", "K4")):
             bad = [i for i, ok in enumerate(res[part]["equal"]) if not ok]
             if bad:
                 raise AssertionError(
-                    f"[group] rank {rank}: {what} calls {bad} differ from the "
-                    f"logical group's slot {rank} (max_abs_err "
+                    f"{label} rank {rank}: {what} calls {bad} differ from "
+                    f"the logical group's slot {rank} (max_abs_err "
                     f"{res[part]['max_abs_err']:.3e})")
             far = [i for i, ok in enumerate(res[part]["plain_close"])
                    if not ok]
             if far:
                 raise AssertionError(
-                    f"[group] rank {rank}: {what}: outputs {far} (0: the "
-                    f"logical slot, i: call i) differ from ag_matmul_ref at "
-                    f"rtol = atol = {TOL['bfloat16']} (max_abs_err "
+                    f"{label} rank {rank}: {what}: outputs {far} (the "
+                    f"logical slot for each of the {inputs} inputs, then "
+                    "the calls) differ from ag_matmul_ref at rtol = atol = "
+                    f"{TOL['bfloat16']} (max_abs_err "
                     f"{res[part]['plain_err']:.3e})")
-    print(f"[group] {GROUP} rank processes on {device} "
-          f"(repro_torch.launch.group.spawn, {wall:.1f} s with start-up): "
-          f"TinyLlama-1.1B's up projection, m_s {m_s}, K {D_MODEL}, N "
-          f"{D_FF} (n_local {n}), bf16, the default variants")
-    print(f"[group] (a) one K3 call per rank (pairs route, 1 local copy + "
-          f"{GROUP - 1} pushes over CUDA IPC): every rank's step buffer "
-          "equals the all-gather of the chunks bit for bit")
+    k3 = results[0]["k3"]
+    chunk = k3["bytes"] / (GROUP - 1)
+    rate = _per_rank(results, lambda s: None if s["k3"]["ms"] is None
+                     else s["k3"]["bytes"] / s["k3"]["ms"] / 1e6, "{:.1f}")
+    print(f"{label} K3 alone: {calls} exchanges per rank (pairs: a "
+          f"local copy and {GROUP - 1} pushes over {link} of "
+          f"{chunk / 2 ** 20:.2f} MiB each, inputs cycling over {inputs}), "
+          "every step buffer bit-equal to the all-gather of the chunks; ms "
+          f"per exchange {_per_rank(results, lambda s: s['k3']['ms'])}: "
+          f"pushed {k3['bytes'] / 2 ** 20:.2f} MiB per call, {rate} GB/s "
+          "out of each rank")
+    for name, (count, _) in sorted(k3.get("copies", {}).items()):
+        mean = _per_rank(results, lambda s, n=name: s["k3"]["copies"][n][1]
+                         / s["k3"]["copies"][n][0], "{:.2f}")
+        rate = _per_rank(results, lambda s, n=name: chunk
+                         * s["k3"]["copies"][n][0]
+                         / s["k3"]["copies"][n][1] / 1e3, "{:.1f}")
+        print(f"{label} K3's copies in a trace of {calls} exchanges: "
+              f"{name} x{count / calls:g} per exchange, us each {mean}, "
+              f"{rate} GB/s at {chunk / 2 ** 20:.2f} MiB")
     for part, what, per_call in (
-            ("b", "K3 + K1 composer", f"K3 pairs {steps}, K1 wgmma {steps}"),
-            ("c", "K4", "K4 wgmma 1")):
-        ms = ", ".join(f"{res[part]['ms']:.4f}" for res in results)
-        walls = ", ".join(f"{res[part]['wall_ms']:.3f}" for res in results)
+            ("composer", "K3 + K1 composer",
+             f"K3 pairs {steps}, K1 wgmma {steps}"),
+            ("k4", "K4", "K4 wgmma 1")):
         logical = results[0][f"logical_{part}"]
+        logical_ms = "-" if logical["ms"] is None else f"{logical['ms']:.4f}"
         plain_err = max(res[part]["plain_err"] for res in results)
-        print(f"[group] ({part}) {what}: {GROUP_CALLS} calls in a row per "
-              f"rank, no host barrier; every call bit-equal to the logical "
-              f"TPGroup({GROUP})'s slot, and it and every call within rtol = "
-              f"atol = {TOL['bfloat16']} of ag_matmul_ref on the same inputs "
-              f"(max_abs_err {plain_err:.3e}); launches per call {per_call} on "
-              f"every rank; device ms per call by rank [{ms}], wall ms per "
-              f"call [{walls}]; the logical group (all {GROUP} ranks in one "
-              f"process) {logical['ms']:.4f} ms, wall {logical['wall_ms']:.3f}"
-              " ms")
+        print(f"{label} {what}: {calls} calls in a row per rank, no host "
+              f"barrier, inputs cycling over {inputs}; every call bit-equal "
+              f"to the logical TPGroup({GROUP})'s slot, and it and every "
+              f"call within rtol = atol = {TOL['bfloat16']} of "
+              f"ag_matmul_ref on the same inputs (max_abs_err "
+              f"{plain_err:.3e}); launches per call {per_call} on every "
+              "rank; device ms per call "
+              f"{_per_rank(results, lambda s, p=part: s[p]['ms'])}, wall ms "
+              "per call "
+              f"{_per_rank(results, lambda s, p=part: s[p]['wall_ms'], '{:.3f}')}"
+              f"; the logical group (all {GROUP} ranks in rank 0's process) "
+              f"{logical_ms} ms, wall {logical['wall_ms']:.3f} ms")
+
+
+def phase_group(device) -> dict:
+    """``[group]``: GROUP rank processes on ``device`` through
+    ``repro_torch.launch.group.spawn`` (:func:`_group_rank`), checked and
+    printed by :func:`_group_report`.  Returns each kernel's launches per
+    rank."""
+    import torch
+
+    from repro_torch.launch.group import spawn
+
+    m_s, n = PREFILL_BATCH * PREFILL_SEQ // GROUP, D_FF // GROUP
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    results = spawn(_group_rank, GROUP, device=str(device),
+                    args=(GROUP_SEED, m_s, D_MODEL, n, GROUP_CALLS,
+                          GROUP_INPUTS, False),
+                    timeout=GROUP_TIMEOUT)
+    print(f"[group] {GROUP} rank processes on {device} "
+          f"(repro_torch.launch.group.spawn, {time.time() - t0:.1f} s with "
+          f"start-up): TinyLlama-1.1B's up projection, m_s {m_s}, K "
+          f"{D_MODEL}, N {D_FF} (n_local {n}), bf16, the default variants")
+    _group_report("[group]", results, GROUP_CALLS, GROUP_INPUTS, "CUDA IPC")
     print(f"[group] the {GROUP} ranks are {GROUP} time-sliced contexts on one "
           "card (no MPS): their times say nothing of NVLink.  Not run: the "
           "plain collectives (NCCL refuses two ranks on one card), hence "
           "the collective backend and the model path across processes; "
-          "they wait for ROADMAP A9, step 2")
+          "[cards] runs them with a card per rank")
     return {
-        "a2a_chunk_exchange": [res["b"]["launches"]["a2a_chunk_exchange"]
-                               for res in results],
-        "chunked_matmul": [res["b"]["launches"]["chunked_matmul"]
+        "a2a_chunk_exchange": [res["composer"]["launches"][
+            "a2a_chunk_exchange"] for res in results],
+        "chunked_matmul": [res["composer"]["launches"]["chunked_matmul"]
                            for res in results],
         "accumulate_matmul": [0] * GROUP,
-        "ficco_ag_matmul_fused": [res["c"]["launches"]["ficco_ag_matmul_fused"]
-                                  for res in results],
+        "ficco_ag_matmul_fused": [res["k4"]["launches"][
+            "ficco_ag_matmul_fused"] for res in results],
     }
+
+
+# [cards]: the tensor-parallel group with a card per rank (ROADMAP A9
+# step 2, part 1).  GROUP rank processes on cuda:0..GROUP-1, each building
+# TinyLlama-1.1B itself from seed 0: (a) the plain collectives on NCCL,
+# (b) the six schedules per rank, (c) [group]'s K3, composer and K4 calls
+# (_group_rank) over NVLink, CARDS["calls"] calls in a row, cycling
+# CARDS["inputs"] inputs, (d) the full-width prefill per rank, (e) a
+# DecodeEngine per rank with the per-rank decode attention.
+CARDS = dict(batch=PREFILL_BATCH, seq=PREFILL_SEQ, calls=50, inputs=3,
+             reps=10, prompt=8, new=16, cache=2048)
+CARDS_SEED = 62
+CARDS_TIMEOUT = 600.0
+# The NVLink rate of one H100 SXM, each way (NVIDIA data sheet: 900 GB/s
+# in all to the other cards of its host).
+NVLINK_BYTES = 450e9
+
+
+def _cards_collectives(group, x, y, reps: int, cuda: bool) -> dict:
+    """(a): each per-rank collective against the logical group's result
+    for this rank; x (g, m_s, K) bf16 is copied, y (g, m, n) fp32 summed
+    and maxed.  Copies must be bit-equal, the sum within 1e-5 relative."""
+    import torch
+
+    from repro_torch.parallel import collectives as col
+
+    g, r = group.size, group.rank
+    x_r, y_r = x[r].contiguous(), y[r].contiguous()
+    m_c = x.shape[1] // g
+    cases = {
+        "all_gather": (lambda: col.all_gather(x_r, group=group),
+                       col.all_gather(x)[r]),
+        "all_gather_tiled": (lambda: col.all_gather(x_r, tiled=True,
+                                                    group=group),
+                             col.all_gather(x, tiled=True)[r]),
+        "all_to_all": (lambda: col.all_to_all(x_r.view(g, m_c, -1),
+                                              group=group),
+                       col.all_to_all(x.view(g, g, m_c, -1))[r]),
+        "ppermute": (lambda: col.ppermute(x_r, 1, group=group),
+                     col.ppermute(x, 1)[r]),
+        "all_reduce": (lambda: col.all_reduce(y_r, group=group), y.sum(0)),
+        "pmax": (lambda: col.pmax(y_r, group=group), y.amax(0)),
+    }
+    out = {}
+    for name, (fn, want) in cases.items():
+        got = fn()
+        nbytes = got.numel() * got.element_size()
+        if name == "all_reduce":
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            ok = err <= 1e-5
+        else:
+            err = _max_err(got, want)
+            ok = bool(torch.equal(got, want))
+        out[name] = dict(ok=ok, err=err, bytes=nbytes,
+                         ms=_events_ms(fn, reps, cuda))
+    return out
+
+
+def _cards_rank(group, seed: int, cfg, size: dict) -> dict:
+    """One rank of ``[cards]``, in a process of its own on its own card
+    (run by ``repro_torch.launch.group.spawn``): parts (a)-(e) of
+    :func:`phase_cards` for model ``cfg`` at the sizes ``size`` (as
+    :data:`CARDS`), each against the logical ``TPGroup`` computed on this
+    rank's card, and (b) and (c) against the plain version too; returns
+    what :func:`_cards_report` checks and prints.  On the CPU (a
+    rehearsal: gloo and the plain versions) the times are None."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.core.schedule_types import Schedule
+    from repro_torch.kernels import ops, peer_memory, ref
+    from repro_torch.models.model import build_model
+    from repro_torch.overlap.api import ficco_linear
+    from repro_torch.parallel.collectives import counting
+    from repro_torch.parallel.sharding import (TPGroup, shard_columns,
+                                               shard_mlp_params, tp_group)
+    from repro_torch.serve.engine import DecodeEngine, Request, make_prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, g, r = group.device, group.size, group.rank
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    logical = TPGroup(g, dev)
+    out = {"rank": r, "cuda": cuda, "device": str(dev)}
+    if cuda:
+        out["name"] = torch.cuda.get_device_name(dev)
+        out["flush"] = peer_memory.can_flush_remote_writes(dev)
+        out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+
+    calls, reps, n_in = size["calls"], size["reps"], size["inputs"]
+    d, f = cfg.d_model, cfg.d_ff
+    m_s = size["batch"] * size["seq"] // g
+    randn = _randn_fn(dev, seed)
+    x = randn(g, m_s, d, dtype=torch.bfloat16)
+    w = shard_columns(randn(d, f, dtype=torch.bfloat16, scale=d ** -0.5), g)
+    x_r, w_r = x[r].contiguous(), w[r].contiguous()
+    tol = TOL["bfloat16"]
+
+    # (a) the plain collectives, at the projection's shapes.
+    y = randn(g, g * m_s, d, dtype=torch.float32)
+    out["a"] = _cards_collectives(group, x, y, reps, cuda)
+    del y
+
+    # (b) the six schedules per rank through ficco_linear, against the
+    # logical slot and the plain version.
+    plain = ref.ag_matmul_ref(x, w)[r]
+    out["b"] = {}
+    for sched in Schedule:
+        with tp_group(None):
+            want = ficco_linear(x, w, schedule=sched)[r]
+            ms_logical = _events_ms(
+                lambda s=sched: ficco_linear(x, w, schedule=s), reps, cuda)
+        got = ficco_linear(x_r, w_r, schedule=sched)
+        ms = _events_ms(lambda s=sched: ficco_linear(x_r, w_r, schedule=s),
+                        reps, cuda)
+        out["b"][sched.value] = dict(
+            ok=bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                   atol=tol)),
+            plain_ok=all(bool(torch.allclose(o.float(), plain.float(),
+                                             rtol=tol, atol=tol))
+                         for o in (want, got)),
+            err=_max_err(got, want),
+            plain_err=max(_max_err(o, plain) for o in (want, got)),
+            ms=ms, logical_ms=ms_logical)
+    del x, w, x_r, w_r, plain, got, want
+    sync()
+
+    # (c) [group]'s K3, composer and K4 calls, each across the cards.
+    out["c"] = _group_rank(group, seed, m_s, d, f // g, calls, n_in, True)
+
+    # (d) the prefill per rank: each rank's weights from seed 0 on its
+    # own card; the dense forward (no group) on the full weights, then
+    # this rank's MLP blocks on the collective backend and the DMA path.
+    t0 = time.time()
+    model = build_model(cfg)
+    state = model.init(0, device=dev)
+    sync()
+    out["init_s"] = time.time() - t0
+    rank_state = shard_mlp_params(state, r, g)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (size["batch"], size["seq"]),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens}
+    out["d"] = {}
+    with torch.no_grad():
+        with tp_group(None):
+            dense = make_prefill(model)(state, batch)
+        sync()
+        scale = dense.float().abs().max().item()
+        for backend in ("collective", "dma"):
+            bcfg = dataclasses.replace(cfg, overlap=OverlapConfig(
+                mode="uniform-fused-1d", backend=backend))
+            prefill = make_prefill(build_model(bcfg))
+            ops.reset_launch_counts()
+            with counting() as stats:
+                logits = prefill(rank_state, batch)
+            sync()
+            res = dict(launches=ops.launch_counts(),
+                       routes=ops.route_counts(),
+                       collectives=dict(stats.count_by_kind),
+                       collective_bytes=dict(stats.bytes_by_kind),
+                       err=_max_err(logits, dense), scale=scale,
+                       finite=bool(torch.isfinite(logits).all()),
+                       shape=tuple(logits.shape))
+            first = logits.clone()
+            dist.broadcast(first, src=0, group=group.plain)
+            res["same_as_rank0"] = bool(torch.equal(first, logits))
+            del first, logits
+            if cuda:
+                res["wall_ms"] = [wall_ms(lambda: prefill(rank_state, batch))
+                                  for _ in range(2)]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res["trace"] = phase_trace(
+                        f"rank {r} {backend}",
+                        lambda: prefill(rank_state, batch))
+            out["d"][backend] = res
+        if cuda:
+            with tp_group(None):
+                out["d"]["dense_wall_ms"] = wall_ms(
+                    lambda: make_prefill(model)(state, batch))
+    del dense
+
+    # (e) a DecodeEngine per rank, with the per-rank decode attention,
+    # against the one-card logical engine fed the same tokens.
+    scfg = dataclasses.replace(cfg, overlap=OverlapConfig(
+        decode_attn="shard_map"))
+    b = size["batch"]
+    raw = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, size["prompt"]))
+
+    def answer(eng):
+        fed, logits = [], []
+        real = eng.step_fn
+
+        def step(st, cache, tok, pos):
+            lg, cache = real(st, cache, tok, pos)
+            fed.append((tok.clone(), pos))
+            logits.append(lg.float())
+            return lg, cache
+
+        eng.step_fn = step
+        reqs = [Request(raw[i].astype(np.int32),
+                        max_new_tokens=size["new"]) for i in range(b)]
+        sync()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        eng.step_fn = real
+        return ([list(q.out) for q in reqs], fed, logits,
+                wall / max(len(fed), 1))
+
+    with torch.no_grad():
+        eng = DecodeEngine(scfg, rank_state, batch_size=b,
+                           cache_len=size["cache"], device=dev)
+        slice_len = eng.cache[0]["k"].shape[-3]
+        toks1, _, _, first_ms = answer(eng)
+        ops.reset_launch_counts()
+        toks, fed, logits, step_ms = answer(eng)  # R7: from the start again
+        launches = ops.launch_counts()
+        with tp_group(logical):
+            ref = DecodeEngine(scfg, state, batch_size=b,
+                               cache_len=size["cache"], device=dev)
+            ref_toks, _, _, ref_ms = answer(ref)
+            ref_cache = ref.model.init_cache(b, size["cache"], device=dev)
+            errs, scale = [], 0.0
+            for (tok, pos), lg in zip(fed, logits):
+                want, ref_cache = ref.step_fn(state, ref_cache, tok, pos)
+                scale = max(scale, want.float().abs().max().item())
+                errs.append(_max_err(lg, want))
+    out["e"] = dict(tokens=toks, repeat_equal=toks == toks1, slice=slice_len,
+                    steps=len(fed), ms=step_ms, first_ms=first_ms,
+                    ref_ms=ref_ms, ref_tokens=ref_toks, err=max(errs),
+                    scale=scale, launches=launches,
+                    finite=all(bool(torch.isfinite(lg).all())
+                               for lg in logits))
+    sync()
+    return out
+
+
+def phase_cards() -> dict | None:
+    """``[cards]``: GROUP rank processes, one card each, through
+    ``repro_torch.launch.group.spawn`` (:func:`_cards_rank`) on
+    TinyLlama-1.1B at full width and the sizes of :data:`CARDS`, checked
+    and printed by :func:`_cards_report`.  Returns each kernel's launches
+    per rank in one DMA-path prefill, or None (and prints why) with fewer
+    than GROUP cards."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.group import spawn
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < GROUP:
+        print(f"[cards] not run: {n_cards} card(s); it needs {GROUP} cards "
+              "of one host")
+        return None
+    for r, line in enumerate(_cards_smi()[:GROUP]):
+        print(f"[cards] cuda:{r}: {line}")
+    cfg = get_config("tinyllama-1.1b")
+    t0 = time.time()
+    results = spawn(_cards_rank, GROUP, device=[f"cuda:{r}"
+                                                for r in range(GROUP)],
+                    args=(CARDS_SEED, cfg, CARDS), timeout=CARDS_TIMEOUT)
+    return _cards_report(results, time.time() - t0, cfg, CARDS)
+
+
+def _cards_report(results, wall: float, cfg, size: dict) -> dict:
+    """Check every rank's results of :func:`_cards_rank` and print them."""
+    g, b = GROUP, size["batch"]
+    m_s = b * size["seq"] // g
+    cuda = results[0]["cuda"]
+    steps, calls = g, size["calls"]
+    per_prefill = cfg.num_layers * 2 * steps
+
+    def fail(msg):
+        raise AssertionError(f"[cards] {msg}")
+
+    for res in results:
+        rank = res["rank"]
+        for name, c in res["a"].items():
+            if not c["ok"]:
+                fail(f"rank {rank} (a) {name} differs from the logical "
+                     f"group's (err {c['err']:.3e})")
+        for name, c in res["b"].items():
+            if not c["ok"]:
+                fail(f"rank {rank} (b) {name} not within {TOL['bfloat16']} "
+                     f"of the logical slot (max_abs_err {c['err']:.3e})")
+            if not c["plain_ok"]:
+                fail(f"rank {rank} (b) {name} or its logical slot not within "
+                     f"{TOL['bfloat16']} of ag_matmul_ref (max_abs_err "
+                     f"{c['plain_err']:.3e})")
+        for backend, launches, routes in (
+                ("collective", {}, {}),
+                ("dma", {"a2a_chunk_exchange": per_prefill,
+                         "chunked_matmul": per_prefill},
+                 {"a2a_chunk_exchange": {"pairs": per_prefill},
+                  "chunked_matmul": {"wgmma": per_prefill}})):
+            d = res["d"][backend]
+            _rank_launches(f"[cards] rank {rank} (d) {backend} prefill",
+                           d | {"cuda": cuda}, launches, routes)
+            shape = (b, size["seq"], cfg.vocab_size)
+            if not d["finite"] or d["shape"] != shape:
+                fail(f"rank {rank} (d) {backend}: logits {d['shape']} not "
+                     f"finite or not {shape}")
+            if not d["same_as_rank0"]:
+                fail(f"rank {rank} (d) {backend}: logits differ from rank "
+                     "0's")
+            if d["err"] > 5e-2 * d["scale"]:
+                fail(f"rank {rank} (d) {backend}: logits differ from dense "
+                     f"by {d['err']} (> 5% of {d['scale']})")
+        e = res["e"]
+        if e["tokens"] != results[0]["e"]["tokens"]:
+            fail(f"rank {rank} (e): tokens differ from rank 0's")
+        if not e["repeat_equal"]:
+            fail(f"rank {rank} (e): a second run gave other tokens (R7)")
+        if not e["finite"] or e["err"] > 5e-2 * e["scale"]:
+            fail(f"rank {rank} (e): step logits differ from the logical "
+                 f"engine's by {e['err']} (> 5% of {e['scale']})")
+        _rank_launches(f"[cards] rank {rank} (e) decode", e | {"cuda": cuda},
+                       {})
+
+    def per_rank(fn, fmt="{:.4f}"):
+        return _per_rank(results, fn, fmt)
+
+    r0 = results[0]
+    print(f"[cards] {g} rank processes, one card each "
+          f"({', '.join(res['device'] for res in results)}; "
+          f"{wall:.1f} s with start-up); NCCL {r0.get('nccl', '-')}; "
+          f"CU_DEVICE_ATTRIBUTE_CAN_FLUSH_REMOTE_WRITES "
+          f"{per_rank(lambda s: s.get('flush'), '{}')}; the counters' waits "
+          "carry no CU_STREAM_WAIT_VALUE_FLUSH")
+    print(f"[cards] (a) plain collectives on the plain group at the "
+          f"projection's shapes (bf16 ({m_s}, {cfg.d_model}) copies, fp32 "
+          f"({g * m_s}, {cfg.d_model}) sums), against the logical "
+          f"TPGroup({g}): copies and pmax bit-equal, all_reduce within 1e-5"
+          " relative, on every rank; ms per call by rank (events over "
+          f"{size['reps']} calls):")
+    for name, c in r0["a"].items():
+        rate = per_rank(lambda s, n=name: None if s["a"][n]["ms"] is None
+                        else s["a"][n]["bytes"] / s["a"][n]["ms"] / 1e6,
+                        "{:.1f}")
+        print(f"[cards]     {name}: out {c['bytes'] / 2 ** 20:.2f} MiB, "
+              f"err {max(s['a'][name]['err'] for s in results):.2e}, ms "
+              f"{per_rank(lambda s, n=name: s['a'][n]['ms'])}, output GB/s "
+              f"{rate}")
+    print(f"[cards] (b) the six schedules per rank through ficco_linear "
+          f"(m_s {m_s}, K {cfg.d_model}, N {cfg.d_ff}, bf16), each within "
+          f"{TOL['bfloat16']} of the logical slot and, with it, of "
+          "ag_matmul_ref on every rank; device ms "
+          f"per call by rank (events over {size['reps']} calls in a row) | "
+          "the logical group on one card:")
+    for name in r0["b"]:
+        print(f"[cards]     {name}: max_abs_err "
+              f"{max(s['b'][name]['err'] for s in results):.3e} (vs "
+              f"ag_matmul_ref "
+              f"{max(s['b'][name]['plain_err'] for s in results):.3e}), ms "
+              f"{per_rank(lambda s, n=name: s['b'][n]['ms'])} | "
+              f"{per_rank(lambda s, n=name: s['b'][n]['logical_ms'])}")
+    _group_report("[cards] (c)", [res["c"] for res in results], calls,
+                  size["inputs"], "NVLink")
+    if cuda:
+        k3 = r0["c"]["k3"]
+        nvlink = k3["bytes"] * steps
+        print(f"[cards] (c) K3 alone: "
+              f"{per_rank(lambda s: s['c']['k3']['bytes'] / s['c']['k3']['ms'] / 1e6, '{:.1f}')}"
+              f" GB/s out of each card, beside the data sheet's "
+              f"{NVLINK_BYTES / 1e9:.0f} GB/s each way; the composer pushes "
+              f"{nvlink / 2 ** 20:.2f} MiB per call and rank over NVLink: "
+              f"{per_rank(lambda s: nvlink / s['c']['composer']['ms'] / 1e6, '{:.1f}')}"
+              f" GB/s implied by its call time; its NVLink bound "
+              f"{nvlink / NVLINK_BYTES * 1e3:.4f} ms")
+    for backend in ("collective", "dma"):
+        d = r0["d"][backend]
+        print(f"[cards] (d) {cfg.name} prefill, {cfg.num_layers} layers, "
+              f"{b} x {size['seq']}, {backend} backend: logits "
+              f"equal on every rank, max_abs_err vs dense {d['err']:.4e} of "
+              f"max |logit| {d['scale']:.4f} ({d['err'] / d['scale']:.2e}); "
+              f"launches per rank {d['launches']}; collectives per rank "
+              f"{d['collectives']}")
+        if cuda:
+            print(f"[cards]     wall ms (median of 5, twice) "
+                  f"{per_rank(lambda s, b=backend: s['d'][b]['wall_ms'][0], '{:.2f}')}"
+                  f" / "
+                  f"{per_rank(lambda s, b=backend: s['d'][b]['wall_ms'][1], '{:.2f}')};"
+                  f" device busy ms "
+                  f"{per_rank(lambda s, b=backend: s['d'][b]['trace']['busy_ms'], '{:.2f}')}"
+                  f", idle share "
+                  f"{per_rank(lambda s, b=backend: s['d'][b]['trace']['idle'], '{:.3f}')}"
+                  f" (profiled)")
+    if cuda:
+        print(f"[cards]     dense on one card (no group, full weights): wall "
+              f"ms {per_rank(lambda s: s['d']['dense_wall_ms'], '{:.2f}')}; "
+              f"weights built per rank in "
+              f"{per_rank(lambda s: s['init_s'], '{:.2f}')} s")
+    e = r0["e"]
+    agree = sum(a == b for t, u in zip(e["tokens"], e["ref_tokens"])
+                for a, b in zip(t, u))
+    print(f"[cards] (e) DecodeEngine per rank, decode_attn=\"shard_map\": "
+          f"{b} requests x {size['new']} new tokens (prompt "
+          f"{size['prompt']}), cache {size['cache']} ({e['slice']} positions per "
+          f"rank), {e['steps']} steps: the same tokens on every rank and on "
+          f"a second run; step logits vs the one-card logical engine's fed "
+          f"the same tokens max_abs_err "
+          f"{max(s['e']['err'] for s in results):.4e} of max |logit| "
+          f"{e['scale']:.4f}; greedy tokens equal to the logical engine's "
+          f"{agree} of {b * size['new']}; ms per step "
+          f"{per_rank(lambda s: s['e']['ms'], '{:.2f}')} (first run "
+          f"{per_rank(lambda s: s['e']['first_ms'], '{:.2f}')}), the logical "
+          f"engine {per_rank(lambda s: s['e']['ref_ms'], '{:.2f}')}")
+    print(f"[cards] req0: {e['tokens'][0]}")
+    dma = [res["d"]["dma"]["launches"] for res in results]
+    return {name: [c[name] for c in dma] for name in dma[0]}
 
 
 def main() -> int:
@@ -4750,8 +5290,12 @@ def drive(device) -> int:
         SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
     # [group] once the card's memory is free of the models.
     group_counts = phase_group(device)
+    # [cards] on a card per rank: runs where there are GROUP cards.
+    cards_counts = phase_cards()
     for k in kernels:
         k["group_rank_launches"] = group_counts[k["name"]]
+        k["cards_rank_launches"] = (cards_counts[k["name"]] if cards_counts
+                                    else None)
         k["moe_prefill_launches"] = moe_counts[k["name"]]
         k["moe_train_step_launches"] = moe_train_counts[k["name"]]
         k["encdec_prefill_launches"] = encdec_counts[k["name"]]
@@ -4761,7 +5305,10 @@ def drive(device) -> int:
         k["hybrid_train_step_launches"] = hybrid_train_counts[k["name"]]
         k["ssm_train_step_launches"] = ssm_train_counts[k["name"]]
 
-    print(f"[done] every phase passed ({', '.join(PHASES)}) in "
+    ran = [p for p in PHASES if cards_counts or p != "cards"]
+    not_run = ("" if cards_counts else
+               f"; not run: cards ({torch.cuda.device_count()} card(s))")
+    print(f"[done] every phase passed ({', '.join(ran)}){not_run} in "
           f"{time.time() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "routes",
             "train_step_launches", "moe_prefill_launches",
@@ -4769,7 +5316,7 @@ def drive(device) -> int:
             "vlm_prefill_launches", "hybrid_prefill_launches",
             "ssm_prefill_launches", "hybrid_train_step_launches",
             "ssm_train_step_launches", "obs_cli_prefill_launches",
-            "group_rank_launches", "max_abs_err",
+            "group_rank_launches", "cards_rank_launches", "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

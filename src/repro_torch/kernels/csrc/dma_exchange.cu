@@ -58,6 +58,11 @@
 //    flag before it overwrites that slot two steps later (depth-2 ring).
 //    Counters rise across calls, so nothing waits on the host between
 //    steps or calls.
+// With a card per rank each push is a peer copy over NVLink on the
+// sender's copy engines, and its ready counter crosses the same link after
+// it.  On four H100s every receiver saw a push's bytes once it saw its
+// counter, over 50 exchanges with the inputs changing, so the waits carry
+// no CU_STREAM_WAIT_VALUE_FLUSH (those cards do not offer it either).
 // Driver errors come back negated (-CUresult), the runtime's as they are
 // (cudaError_t); dma_exchange_strerror reads both.
 

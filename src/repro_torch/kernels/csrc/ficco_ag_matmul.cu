@@ -12,7 +12,8 @@
 // tile's A rows are loaded straight from the owning rank's shard, through
 // one tensor map per rank (wgmma route) or a per-rank pointer table (wmma
 // and simt routes); on one card these hold the logical ranks' shards,
-// across processes the peers' shards mapped by CUDA IPC.  Every output
+// across processes the peers' shards mapped by CUDA IPC (another card's
+// memory over NVLink when each rank has its own card).  Every output
 // row is stored straight into its final row d*m_s + s*m_c + i.  The
 // variant's chunk count and dispatch order set only the order in which
 // tiles are taken up, earlier pipeline positions first.  A launch computes
@@ -37,7 +38,10 @@
 //    a group of at most MAX_WGMMA_RANKS): gemm_wgmma.cuh's persistent
 //    main loop, TMA-fed through an mbarrier ring.  The rank table becomes
 //    one 2D tensor map per rank over its (m_s, K) shard (across cards the
-//    same maps would point at peer-mapped shards), plus a 3D map of the
+//    maps point at the peers' shards on their cards, and TMA loads them
+//    over NVLink: on four H100s every call gave the logical launch's bits,
+//    so the route needs no local copy of a peer's shard and no slot
+//    ring), plus a 3D map of the
 //    weight and a 4D map of the output; g + 2 maps of 128 bytes in the
 //    kernel's parameters.  A tile is (rank r, source rank d, row block j
 //    of d's shard, column block), 128 rows by 128 or 192 columns

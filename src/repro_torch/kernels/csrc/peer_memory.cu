@@ -74,6 +74,23 @@ extern "C" int peer_flags_write(void* const* flags, int n, unsigned value,
   return 0;
 }
 
+// CU_DEVICE_ATTRIBUTE_CAN_FLUSH_REMOTE_WRITES of the current device: 1
+// where a wait may carry CU_STREAM_WAIT_VALUE_FLUSH, which makes remote
+// writes that reached the device before the wait visible to the work
+// after it.
+extern "C" int peer_can_flush_remote_writes(int* can) {
+  using GetAttribute = CUresult (*)(int*, CUdevice_attribute, CUdevice);
+  static const GetAttribute fn =
+      stream_flags::driver_fn<GetAttribute>("cuDeviceGetAttribute");
+  if (!fn) return cudaErrorNotSupported;
+  int dev;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const CUresult r =
+      fn(can, CU_DEVICE_ATTRIBUTE_CAN_FLUSH_REMOTE_WRITES, dev);
+  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
 extern "C" const char* peer_memory_strerror(int err) {
   return stream_flags::flag_strerror(err);
 }

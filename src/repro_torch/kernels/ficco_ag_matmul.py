@@ -24,8 +24,11 @@ PeerShards`); the caller's x is copied into its own slot there first.
 Counters in that memory take the place of the reference's push and
 release flags: ready counters order the launch after every peer's shard
 is written, release counters keep a rank from overwriting its shard
-while a peer's launch still reads it.  On the CPU the plain version
-takes the gloo all-gather of the shards.
+while a peer's launch still reads it.  With a card per rank the launch's
+TMA loads read the peers' shards over NVLink, where they lie: on four
+H100s that gave the logical launch's bits on every call, so no shard is
+copied to a local slot ring first.  On the CPU the plain version takes
+the gloo all-gather of the shards.
 
 The wrapper picks the route by :func:`route`, from the operands alone and
 never from the variant, and the C side launches it or refuses the

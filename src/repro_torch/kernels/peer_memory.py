@@ -60,6 +60,7 @@ def _lib() -> ctypes.CDLL:
         "peer_handle_bytes": [],
         "peer_flags_wait": [ptr, ctypes.c_int, u32, ptr],
         "peer_flags_write": [ptr, ctypes.c_int, u32, ptr],
+        "peer_can_flush_remote_writes": [ctypes.POINTER(ctypes.c_int)],
     }.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -188,6 +189,19 @@ def write_flags(addresses, value: int, stream) -> None:
     earlier work is done."""
     check(_lib().peer_flags_write(_table(addresses), len(addresses),
                                   value & 0xFFFFFFFF, stream.cuda_stream))
+
+
+def can_flush_remote_writes(device) -> bool:
+    """``CU_DEVICE_ATTRIBUTE_CAN_FLUSH_REMOTE_WRITES`` of ``device``: whether
+    its waits may carry ``CU_STREAM_WAIT_VALUE_FLUSH``.  The counters do
+    not ask for it: a writer's counter is written after its copy on the
+    same stream, with the write's default fence, and on four H100s joined
+    by NVLink every reader saw the copy's bytes once it saw the counter
+    (``chip_smoke.py [cards]`` (c))."""
+    can = ctypes.c_int()
+    with torch.cuda.device(device):
+        check(_lib().peer_can_flush_remote_writes(ctypes.byref(can)))
+    return bool(can.value)
 
 
 class Exchange:
@@ -372,5 +386,5 @@ class PeerMemory:
 
 
 __all__ = ["ALIGN", "FLAG_BYTES", "aligned", "check", "SharedRegion",
-           "Flags", "wait_flags", "write_flags", "Exchange", "PeerRing",
-           "PeerShards", "PeerMemory"]
+           "Flags", "wait_flags", "write_flags", "can_flush_remote_writes",
+           "Exchange", "PeerRing", "PeerShards", "PeerMemory"]

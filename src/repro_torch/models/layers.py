@@ -290,7 +290,8 @@ def attn_decode(
     rope_theta: float,
     window: Optional[int] = None,
 ):
-    """One-token decode. x: (B, 1, d); cache: {"k","v"} (B, S, KV, D).
+    """One-token decode. x: (B, 1, d); cache: {"k","v"} (B, S, KV, D),
+    and ``"time_slice"`` where it holds a rank's slice of the time axis.
 
     The cache is updated in place (the reference returns a new one); the
     same dict is returned.
@@ -310,7 +311,8 @@ def attn_decode(
     if ov is not None and ov.decode_attn == "shard_map":
         from repro_torch.parallel import decode_attn
 
-        if decode_attn.applicable(cache["k"], window):
+        if decode_attn.applicable(cache["k"], window,
+                                  time_slice="time_slice" in cache):
             out, cache["k"], cache["v"] = decode_attn.shard_map_attn_decode(
                 q, k, v, cache["k"], cache["v"], pos
             )

@@ -43,6 +43,7 @@ from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, mamba, mla, moe, xlstm
 from repro_torch.models.layers import AttnDims
+from repro_torch.parallel import decode_attn
 from repro_torch.parallel.context import get_overlap, overlap_context
 from repro_torch.parallel.sharding import (
     MODEL_AXIS,
@@ -334,11 +335,20 @@ def _layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                                       lead=lead)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     s = min(cache_len, cfg.sliding_window or cache_len)
-    shape = (*lead, batch, s, kv, hd)
-    return {
+    # A rank of a group of processes may hold only its time slice.
+    s_here = decode_attn.cache_positions(s, _window(cfg),
+                                         cfg.overlap.decode_attn)
+    shape = (*lead, batch, s_here, kv, hd)
+    cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }
+    if s_here < s:
+        # The record that decode_attn.applicable reads: the slice's first
+        # position, per period.
+        cache["time_slice"] = torch.full(lead, active_group().rank * s_here,
+                                         device=device)
+    return cache
 
 
 def _layer_decode(p, spec: LayerSpec, cfg: ModelConfig, x, cache, pos: int):
@@ -584,7 +594,12 @@ class Model:
         recurrent state (``cache_len`` does not size these), and an
         encoder-decoder's cross-attention the encoder's ``enc_len`` keys
         and values (``cross_k``, ``cross_v``; zeros until
-        :meth:`prefill_cross`)."""
+        :meth:`prefill_cross`).  On a rank of a ``RankGroup`` serving with
+        ``decode_attn="shard_map"``, an attention layer's K and V hold the
+        rank's time slice where the reference's guard takes the cache
+        (:func:`~repro_torch.parallel.decode_attn.cache_positions`), and
+        its ``"time_slice"`` leaf, the slice's first position, records
+        it."""
         cfg = self.config
         dev = resolve_device(device)
         caches = [

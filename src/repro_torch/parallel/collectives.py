@@ -11,7 +11,9 @@ afterwards.  Given ``group=`` a :class:`RankGroup`, each takes this
 rank's own block, with no leading rank dim, and runs as a
 ``torch.distributed`` call on the group's plain process group (gloo on
 the CPU, NCCL with a card per rank; ranks sharing a card raise, ROADMAP
-A9): the per-rank form of a ``shard_map`` body's collective.
+A9): the per-rank form of a ``shard_map`` body's collective.  NCCL takes
+the CUDA tensors where they lie and orders its work after the caller's
+current stream; no collective copies through the host.
 
 :func:`counting` records what the collectives move, as the reference's
 ``roofline.analysis.parse_collectives`` reads it from a compiled per-device
@@ -32,7 +34,8 @@ from repro_torch.parallel.group import RankGroup
 @dataclasses.dataclass
 class CollectiveStats:
     """Bytes and calls by kind (``all-gather``, ``all-to-all``,
-    ``collective-permute``), each call's bytes its output on one rank."""
+    ``collective-permute``, ``all-reduce``), each call's bytes its output
+    on one rank."""
 
     bytes_by_kind: dict[str, float]
     count_by_kind: dict[str, int]
@@ -50,8 +53,8 @@ def counting():
     """Count the collectives called inside the block; yields the
     :class:`CollectiveStats` they add to.
 
-    Each :func:`all_gather`, :func:`all_to_all`, :func:`ppermute` and
-    :func:`all_reduce` call adds its per-rank output bytes (a stacked
+    Each :func:`all_gather`, :func:`all_to_all`, :func:`ppermute`,
+    :func:`all_reduce` and :func:`pmax` call adds its per-rank output bytes (a stacked
     output's over the group size; a :class:`RankGroup` rank's own) under
     the reference's HLO kind.  Two things are not counted:
     a collective the autograd engine runs in a backward (the
@@ -163,14 +166,22 @@ def ppermute(x: torch.Tensor, shift: int = 1, *,
     return _record("collective-permute", x[src])
 
 
-def all_reduce(x: torch.Tensor, *, group: RankGroup) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, *, group: RankGroup,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``lax.psum`` over a :class:`RankGroup`: the sum of every rank's
-    ``x``, the same bits on every rank (a copy; ``x`` is unchanged)."""
+    ``x`` (``op`` another reduction), the same bits on every rank (a copy;
+    ``x`` is unchanged)."""
     pg = _plain(group)
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=pg)
+    dist.all_reduce(out, op=op, group=pg)
     return _record("all-reduce", out, ranks=1)
 
 
+def pmax(x: torch.Tensor, *, group: RankGroup) -> torch.Tensor:
+    """``lax.pmax`` over a :class:`RankGroup`: the elementwise max of every
+    rank's ``x``, counted under ``all-reduce`` as XLA lowers it."""
+    return all_reduce(x, group=group, op=dist.ReduceOp.MAX)
+
+
 __all__ = ["CollectiveStats", "counting", "all_gather", "all_to_all",
-           "ppermute", "all_reduce"]
+           "ppermute", "all_reduce", "pmax"]

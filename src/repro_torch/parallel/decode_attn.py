@@ -24,11 +24,18 @@ axis, with ``lax.pmax``/``lax.psum`` across devices.  The port's
 device, so the cache is viewed as ``(B, g, S/g, KV, D)`` (rank r's time
 slice at ``[:, r]``, no copy) and the collectives are a max and sums
 over that rank dim, as :mod:`repro_torch.parallel.collectives` does it.
+On a :class:`~repro_torch.parallel.group.RankGroup` the same body runs
+as the reference's does, once per process: the rank holds only its time
+slice ``(B, S/g, KV, D)`` at offset ``r * S/g`` (the reference's
+``cache_spec = P(batch, "model", None, None)``; :meth:`Model.init_cache
+<repro_torch.models.model.Model.init_cache>` sizes it by
+:func:`cache_positions`) and combines with
+:func:`~repro_torch.parallel.collectives.pmax` and two
+:func:`~repro_torch.parallel.collectives.all_reduce` over the group.
 The reference computes with ``jnp`` einsums and XLA collectives, not
 Pallas, so plain PyTorch ops are its faithful port.  The group has no
 batch axis (the reference's ``BATCH_AXES``), so the batch always
-divides.  Under a group of processes (a ``RankGroup``) it does not apply:
-its per-rank form waits for ROADMAP A9, step 2.
+divides.
 """
 
 from __future__ import annotations
@@ -37,24 +44,50 @@ import math
 
 import torch
 
-from repro_torch.parallel.sharding import TPGroup, active_group
+from repro_torch.parallel.collectives import all_reduce, pmax
+from repro_torch.parallel.group import RankGroup
+from repro_torch.parallel.sharding import active_group
 
 _NEG_INF = -1e30
 
 
-def applicable(k_cache: torch.Tensor, window) -> bool:
-    """The reference's guard: a group of more than one rank, no sliding
-    window, the cache length a multiple of the group and at least 1024."""
+def _guard(cache_len: int, window, g: int) -> bool:
+    """The reference's guard on a cache of ``cache_len`` positions in all:
+    a group of more than one rank, no sliding window, the length a
+    multiple of the group and at least 1024."""
+    return g > 1 and window is None and cache_len % g == 0 \
+        and cache_len >= 1024
+
+
+def applicable(k_cache: torch.Tensor, window,
+               time_slice: bool = False) -> bool:
+    """The reference's guard, on the full cache length.  On a
+    :class:`RankGroup` the cache applies where :func:`cache_positions`
+    cut it to the rank's slice (``time_slice``, which
+    :meth:`Model.init_cache <repro_torch.models.model.Model.init_cache>`
+    records); a whole cache there takes the plain decode."""
     group = active_group()
-    if not isinstance(group, TPGroup):  # none, or a group of processes
+    if group is None:
         return False
-    g = group.size
-    return (
-        g > 1
-        and window is None
-        and k_cache.shape[1] % g == 0
-        and k_cache.shape[1] >= 1024
-    )
+    s = k_cache.shape[1]
+    if isinstance(group, RankGroup):
+        if not time_slice:
+            return False
+        s *= group.size
+    return _guard(s, window, group.size)
+
+
+def cache_positions(cache_len: int, window, decode_attn: str) -> int:
+    """How many of an attention cache's ``cache_len`` positions this
+    process holds: all of them, but on a :class:`RankGroup` of g > 1
+    ranks serving with ``decode_attn="shard_map"`` a cache the
+    reference's guard takes holds the rank's time slice,
+    ``cache_len / g``."""
+    group = active_group()
+    if (decode_attn != "shard_map" or not isinstance(group, RankGroup)
+            or not _guard(cache_len, window, group.size)):
+        return cache_len
+    return cache_len // group.size
 
 
 def shard_map_attn_decode(
@@ -68,40 +101,61 @@ def shard_map_attn_decode(
     """Returns (out (B, 1, H, D), k_cache, v_cache).
 
     The caches are updated in place (the reference returns new ones), as
-    the port's unsharded ``attn_decode`` does.
+    the port's unsharded ``attn_decode`` does.  On a :class:`RankGroup`
+    they are this rank's (B, S/g, KV, D) time slices.
     """
-    g = active_group().size
+    group = active_group()
+    if isinstance(group, RankGroup):
+        # One process, one time slice; the combine crosses processes.
+        n, first = 1, group.rank
+
+        def amax(t):
+            return pmax(t, group=group)
+
+        def total(t):
+            return all_reduce(t, group=group)
+    else:
+        # One process holds every rank's slice; the combine is over dim 1.
+        n, first = group.size, 0
+
+        def amax(t):
+            return t.amax(1, keepdim=True)
+
+        def total(t):
+            return t.sum(1, keepdim=True)
     b, s, kv, d = k_cache.shape
     h = q.shape[2]
-    s_loc = s // g
-    k_c = k_cache.view(b, g, s_loc, kv, d)
-    v_c = v_cache.view(b, g, s_loc, kv, d)
-    # The masked write lands on one rank's slice only: that rank writes
-    # in place, no other rank's slice changes.
-    k_c[:, pos // s_loc, pos % s_loc] = k_new[:, 0].to(k_c.dtype)
-    v_c[:, pos // s_loc, pos % s_loc] = v_new[:, 0].to(v_c.dtype)
+    s_loc = s // n
+    k_c = k_cache.view(b, n, s_loc, kv, d)
+    v_c = v_cache.view(b, n, s_loc, kv, d)
+    # The masked write lands in the one slice that holds pos, in place.
+    j = pos // s_loc - first
+    if 0 <= j < n:
+        k_c[:, j, pos % s_loc] = k_new[:, 0].to(k_c.dtype)
+        v_c[:, j, pos % s_loc] = v_new[:, 0].to(v_c.dtype)
 
+    # Each slice's partial attention, in fp32.
     rep = h // kv
-    kr = k_c.repeat_interleave(rep, dim=3).float()  # (B, g, s_loc, H, D)
+    kr = k_c.repeat_interleave(rep, dim=3).float()  # (B, n, s_loc, H, D)
     vr = v_c.repeat_interleave(rep, dim=3).float()
     scores = torch.einsum("bqhd,bgkhd->bghqk", q.float(), kr) / math.sqrt(d)
-    offset = torch.arange(g, device=q.device)[:, None] * s_loc
+    offset = (first + torch.arange(n, device=q.device)[:, None]) * s_loc
     local_idx = torch.arange(s_loc, device=q.device)[None, :]
     valid = (local_idx + offset <= pos)[None, :, None, None, :]
     scores = scores.masked_fill(~valid, _NEG_INF)
-    m_loc = scores.amax(-1)  # (B, g, H, 1)
+    m_loc = scores.amax(-1)  # (B, n, H, 1)
     p = torch.exp(scores - m_loc[..., None])
     p = p.masked_fill(~valid, 0.0)
-    l_loc = p.sum(-1)  # (B, g, H, 1)
+    l_loc = p.sum(-1)  # (B, n, H, 1)
     o_loc = torch.einsum("bghqk,bgkhd->bgqhd", p, vr)
 
-    # The group's combine: pmax and psum over the rank dim.
-    m_g = m_loc.amax(1, keepdim=True)
+    # The group's combine: pmax and two psums.
+    m_g = amax(m_loc)
     corr = torch.exp(m_loc - m_g)
-    l_g = (l_loc * corr).sum(1)  # (B, H, 1)
-    o_g = (o_loc * corr.transpose(2, 3)[..., None]).sum(1)  # (B, 1, H, D)
+    l_g = total(l_loc * corr)[:, 0]  # (B, H, 1)
+    o_g = total(o_loc * corr.transpose(2, 3)[..., None])[:, 0]  # (B, 1, H, D)
     out = o_g / l_g.clamp_min(1e-30).transpose(1, 2)[..., None]
     return out.to(q.dtype), k_cache, v_cache
 
 
-__all__ = ["applicable", "shard_map_attn_decode"]
+__all__ = ["applicable", "cache_positions", "shard_map_attn_decode"]

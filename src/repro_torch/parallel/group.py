@@ -1,4 +1,4 @@
-"""A tensor-parallel group whose ranks are processes (ROADMAP A9, step 1).
+"""A tensor-parallel group whose ranks are processes (ROADMAP A9).
 
 The reference runs every schedule per device inside ``shard_map``; the
 port's :class:`~repro_torch.parallel.sharding.TPGroup` stacks its ranks
@@ -16,10 +16,13 @@ Two kinds of traffic cross its processes:
     on the host whatever the devices;
   * **plain collectives** (:mod:`repro_torch.parallel.collectives` with
     ``group=``): gloo when the ranks are on the CPU, NCCL when each rank
-    has a card of its own (:func:`plain_backend`).  Ranks that share one
-    card cannot run them: NCCL refuses two ranks on one device, and
-    nothing falls back to gloo or the host, so the first plain collective
-    raises (ROADMAP A9, step 2).
+    has a card of its own (:func:`plain_backend`).  The NCCL group is made
+    when the group is, on every rank in the same order (``new_group`` is
+    collective over the world), after every pair of the group's cards is
+    found to reach the other's memory (:func:`check_peer_access`).  Ranks
+    that share one card cannot run them: NCCL refuses two ranks on one
+    device, and nothing falls back to gloo or the host, so the first
+    plain collective raises (ROADMAP A9).
 
 K3's and K4's exchanges cross processes through CUDA IPC instead
 (``peers``, a :class:`~repro_torch.kernels.peer_memory.PeerMemory`):
@@ -46,8 +49,8 @@ CONTROL_TIMEOUT = datetime.timedelta(seconds=300)
 SHARED_CARD = (
     "the ranks of this group share a CUDA device ({devices}): its plain "
     "collectives run on NCCL between cards, and NCCL refuses two ranks on "
-    "one device; they need a card per rank (ROADMAP A9, step 2).  K3's "
-    "and K4's exchanges do run across processes on one card."
+    "one device; they need a card per rank (ROADMAP A9).  K3's and K4's "
+    "exchanges do run across processes on one card."
 )
 
 
@@ -71,11 +74,33 @@ def plain_backend(devices, hosts=None) -> str:
     return "nccl"
 
 
+def check_peer_access(devices, hosts=None) -> None:
+    """Raise, naming the pair, unless every two of the group's cards on
+    one host reach each other's memory (``can_device_access_peer``): K3's
+    pushes, K4's reads and NCCL's transfers go card to card, and nothing
+    stages through the host."""
+    where = list(zip(hosts or [None] * len(devices),
+                     (torch.device(d) for d in devices)))
+    for i, (host_a, a) in enumerate(where):
+        for host_b, b in where[i + 1:]:
+            if host_a != host_b or a == b:
+                continue
+            for src, dst in ((a, b), (b, a)):
+                if not torch.cuda.can_device_access_peer(src.index,
+                                                         dst.index):
+                    raise RuntimeError(
+                        f"{src} cannot access {dst}'s memory (no peer "
+                        "access): a group with a card per rank exchanges "
+                        "card to card and stages nothing through the host")
+
+
 class RankGroup(CopyStreams):
     """Rank ``rank`` of a tensor-parallel group of ``size`` processes.
 
     Joins the group's gloo control group at ``tcp://addr:port`` (rank 0
-    listens there), then gathers every rank's host and device.  On CUDA it
+    listens there), then gathers every rank's host and device; with a card
+    per rank it checks their peer access and makes the NCCL group of the
+    plain collectives (every rank at this point).  On CUDA it
     owns the copy streams of the chunk exchange, as
     :class:`~repro_torch.parallel.sharding.TPGroup` does
     (:class:`~repro_torch.parallel.sharding.CopyStreams`); ``peers`` is
@@ -102,7 +127,16 @@ class RankGroup(CopyStreams):
         where = self.peers.gather_object((socket.gethostname(), str(dev)))
         self.hosts = tuple(h for h, _ in where)
         self.devices = tuple(torch.device(d) for _, d in where)
-        self._plain = None
+        try:
+            backend = plain_backend(self.devices, self.hosts)
+        except RuntimeError as err:  # ranks sharing a card: K3 and K4 run
+            self._plain = err
+        else:
+            if backend == "nccl":
+                check_peer_access(self.devices, self.hosts)
+                self._plain = dist.new_group(backend="nccl")
+            else:
+                self._plain = self.control
 
     def barrier(self) -> None:
         dist.barrier(group=self.control)
@@ -110,13 +144,10 @@ class RankGroup(CopyStreams):
     @property
     def plain(self):
         """The process group the plain collectives run on (the control
-        group on the CPU; an NCCL group across cards); raises where the
+        group on the CPU; the NCCL group across cards); raises where the
         ranks share a card."""
-        if self._plain is None:
-            if plain_backend(self.devices, self.hosts) == "gloo":
-                self._plain = self.control
-            else:
-                self._plain = dist.new_group(backend="nccl")
+        if isinstance(self._plain, RuntimeError):
+            raise RuntimeError(str(self._plain))
         return self._plain
 
     def close(self) -> None:
@@ -131,4 +162,5 @@ class RankGroup(CopyStreams):
                 f"device={str(self.device)!r})")
 
 
-__all__ = ["SHARED_CARD", "CONTROL_TIMEOUT", "plain_backend", "RankGroup"]
+__all__ = ["SHARED_CARD", "CONTROL_TIMEOUT", "plain_backend",
+           "check_peer_access", "RankGroup"]

@@ -19,6 +19,13 @@ from 0 and masks the rest.
 request-load digest through the online-adaptation tier
 (:class:`repro_torch.serve.adapt.AdaptiveTier`) and records the tuned
 overlap schedule, which never changes what the model computes.
+
+Under a group of processes (``tp_group`` of a
+:class:`~repro_torch.parallel.group.RankGroup`) both run per rank, as a
+``shard_map`` body: the state holds the rank's MLP blocks
+(:func:`~repro_torch.parallel.sharding.shard_mlp_params`), each MLP sums
+over the group, and with ``decode_attn="shard_map"`` each attention cache
+holds the rank's time slice; every rank gets the same logits and tokens.
 """
 
 from __future__ import annotations

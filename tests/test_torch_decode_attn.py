@@ -4,6 +4,9 @@
 (``tests/torch_jax_reference.py``, entry ``decode_attn``) on a mesh of 4
 host devices on the ``model`` axis, with GQA 8/2, fp32.
 
+On a rank of a group of processes (a ``RankGroup``) the guard reads the
+full length from the rank's slice, ``cache_positions`` sizes that slice
+and ``Model.init_cache`` records it; the per-rank body itself runs in ``tests/test_torch_group.py``.
 The model-level decode through it is held against the plain decode in
 ``tests/test_torch_parallel.py``.
 """
@@ -15,6 +18,7 @@ import torch_jax_reference as ref_driver
 
 from repro_torch.models.layers import cache_attention
 from repro_torch.parallel import decode_attn
+from repro_torch.parallel.group import RankGroup
 from repro_torch.parallel.sharding import TPGroup, tp_group
 
 # The pytest-xdist workers share the host's cores: one intra-op thread
@@ -72,3 +76,69 @@ def test_applicable(group, s, window, want):
     k_cache = torch.zeros(2, s, 2, 8)
     with tp_group(TPGroup(group, "cpu") if group else None):
         assert decode_attn.applicable(k_cache, window) is want
+
+
+def _rank(size: int):
+    """A stand-in for rank 0 of a group of ``size`` processes: all that
+    ``applicable`` and ``cache_positions`` read of a ``RankGroup``."""
+    group = RankGroup.__new__(RankGroup)
+    group.rank, group.size = 0, size
+    return group
+
+
+@pytest.mark.parametrize("slice_len,window,time_slice,want", [
+    (256, None, True, True),      # a quarter of 1024
+    (1024, None, True, True),     # a quarter of 4096
+    (256, 256, True, False),      # a sliding window
+    (512, None, False, False),    # whole: the guard refused 512
+    (2048, None, False, False),   # whole, whatever its length
+])
+def test_applicable_on_a_rank_reads_the_full_length(slice_len, window,
+                                                    time_slice, want):
+    with tp_group(_rank(4)):
+        assert decode_attn.applicable(torch.zeros(2, slice_len, 2, 8),
+                                      window, time_slice) is want
+
+
+@pytest.mark.parametrize("size,cache,window,mode,want", [
+    (4, 2048, None, "shard_map", 512),   # the rank's time slice
+    (4, 1024, None, "shard_map", 256),
+    (4, 2048, 512, "shard_map", 2048),   # a window: whole, not sharded
+    (4, 2048, None, "gspmd", 2048),      # another decode attention
+    (1, 2048, None, "shard_map", 2048),  # a group of one
+    (4, 512, None, "shard_map", 512),    # the guard refuses: whole
+    (4, 1026, None, "shard_map", 1026),
+])
+def test_cache_positions_on_a_rank(size, cache, window, mode, want):
+    with tp_group(_rank(size)):
+        assert decode_attn.cache_positions(cache, window, mode) == want
+
+
+def test_cache_positions_off_a_rank():
+    with tp_group(TPGroup(4, "cpu")):
+        assert decode_attn.cache_positions(2048, None, "shard_map") == 2048
+    assert decode_attn.cache_positions(512, None, "shard_map") == 512
+
+
+@pytest.mark.parametrize("cache,sliced", [(2048, True), (512, False)])
+def test_init_cache_records_the_time_slice(cache, sliced):
+    """``Model.init_cache`` on a rank: the slice and its record where the
+    guard takes the cache, the whole cache and no record where not."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("tinyllama-1.1b").reduced()
+    cfg = dataclasses.replace(cfg, overlap=OverlapConfig(
+        decode_attn="shard_map"))
+    group = _rank(4)
+    group.rank = 2
+    with tp_group(group):
+        caches = build_model(cfg).init_cache(1, cache, device="meta")
+    for c in caches:
+        assert c["k"].shape[-3] == (cache // 4 if sliced else cache)
+        assert ("time_slice" in c) is sliced
+        if sliced:
+            assert c["time_slice"].shape == c["k"].shape[:1]

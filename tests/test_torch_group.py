@@ -11,7 +11,16 @@ imports no JAX) and pickles the results back:
     tolerances of ``tests/multidev_driver.py``; each rank's
     ``counting()`` against that entry's ``parse_collectives`` bytes and
     calls by kind;
-  * the per-rank collectives against their stacked forms;
+  * the per-rank collectives against their stacked forms, and
+    ``all_reduce`` and ``pmax`` against the reference's ``lax.psum`` and
+    ``lax.pmax`` under ``shard_map`` (that entry's ``"reduce"``);
+  * the per-rank ``shard_map_attn_decode``, each rank on its time slice,
+    against the reference's ``shard_map`` decode attention (the
+    subprocess's ``decode_attn`` entry) at 1e-5;
+  * a ``DecodeEngine`` per rank on the reduced TinyLlama with
+    ``decode_attn="shard_map"`` and a cache of 1024 (256 positions a
+    rank), and of 512 (whole on every rank, which the guard refuses): the
+    same tokens on every rank as the port's engine in this process;
   * the K3 + K1 composer and K4 per rank, on their plain versions (gloo's
     all-gather for the exchange), against the stacked port at 1e-5, two
     calls each through the same ring and shards;
@@ -23,8 +32,13 @@ imports no JAX) and pickles the results back:
 
 Besides: the launcher raises, and leaves no rank running, when one rank
 raises; ranks that share a CUDA device refuse plain collectives (decided
-on device objects: there is no card here).
+on device objects: there is no card here); a ``RankGroup`` with a card
+per rank makes its NCCL group while it is built, and raises when two of
+its cards lack peer access (``torch.distributed`` and the CUDA queries
+patched).
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -62,6 +76,10 @@ VARIANTS = (
 )
 PREFILL_MODES = (("uniform-fused-1d", "collective"),
                  ("uniform-fused-1d", "dma"))
+# The engine per rank: prompts of PROMPT tokens, NEW new tokens each; a
+# cache the reference's guard takes (time-sharded) and one it refuses
+# (whole on every rank, the plain decode).
+ENGINE = dict(batch=2, prompt=5, new=4, cache=1024, whole=512, seed=53)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -82,6 +100,12 @@ def model_reference():
                 logits=np.asarray(logits, np.float32))
 
 
+def _engine_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(ENGINE["seed"])
+    return list(rng.integers(0, vocab, (ENGINE["batch"], ENGINE["prompt"]))
+                .astype(np.int32))
+
+
 def _composer_operands():
     rng = np.random.default_rng(COMPOSER["seed"])
     x = rng.standard_normal((G, COMPOSER["m_s"], COMPOSER["k"]))
@@ -96,7 +120,13 @@ def ranks(model_reference, tmp_path_factory):
         "schedules": jax_reference.schedule_operands(),
         "collectives": np.random.default_rng(52).standard_normal(
             (G, G, 3, 5)).astype(np.float32),
+        "reductions": jax_reference.reduce_operands(),
+        "decode_attention": (jax_reference.decode_attn_operands(),
+                             jax_reference.DECODE_ATTN_POS),
         "composers": (*_composer_operands(), VARIANTS),
+        "engine": (
+            _engine_prompts(jax_get_config(ARCH).reduced().vocab_size),
+            ENGINE["new"], (ENGINE["cache"], ENGINE["whole"])),
         "prefill_modes": PREFILL_MODES,
         "params": model_reference["numpy_params"],
         "tokens": model_reference["tokens"],
@@ -159,6 +189,77 @@ def test_rank_collectives_match_stacked(ranks):
                                       ranks[0]["collectives"]["all_reduce"])
 
 
+@pytest.mark.parametrize("name", ["psum", "pmax"])
+def test_rank_reductions_match_lax(ranks, reference_collectives, name):
+    want = reference_collectives["reduce"][name]
+    for res in ranks:
+        got = res["reductions"][name]
+        if name == "pmax":
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(got, ranks[0]["reductions"][name])
+
+
+@pytest.mark.parametrize("pos", jax_reference.DECODE_ATTN_POS)
+def test_rank_decode_attention_matches_shard_map(ranks, tmp_path_factory,
+                                                 pos):
+    """Each rank's output and its slice of the updated caches against the
+    reference's ``shard_map`` body on a mesh of 4."""
+    want_out, want_k, want_v = jax_reference.reference(
+        tmp_path_factory)["decode_attn"][pos]
+    s_loc = want_k.shape[1] // G
+    for r, res in enumerate(ranks):
+        out, k, v, in_place = res["decode_attention"][pos]
+        assert in_place
+        rows = slice(r * s_loc, (r + 1) * s_loc)
+        np.testing.assert_allclose(out, want_out, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(k, want_k[:, rows], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(v, want_v[:, rows], rtol=1e-5, atol=1e-5)
+
+
+def _one_process_tokens(model_reference, cache_len: int) -> list:
+    """The port's engine on the whole reduced TinyLlama, in this process."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    cfg = dataclasses.replace(get_config(ARCH).reduced(),
+                              overlap=OverlapConfig(decode_attn="shard_map"))
+    state = params_from_jax(model_reference["numpy_params"], cfg,
+                            device="cpu")
+    eng = DecodeEngine(cfg, state, batch_size=ENGINE["batch"],
+                       cache_len=cache_len, device="cpu")
+    reqs = eng.run([Request(p, ENGINE["new"])
+                    for p in _engine_prompts(cfg.vocab_size)])
+    want = [list(r.out) for r in reqs]
+    assert all(len(t) == ENGINE["new"] for t in want)
+    return want
+
+
+def test_rank_decode_engine_matches_one_process(ranks, model_reference):
+    """Every rank's engine (its MLP blocks, its quarter of the cache)
+    gives the tokens of the port's engine on the whole model here."""
+    want = _one_process_tokens(model_reference, ENGINE["cache"])
+    for res in ranks:
+        tokens, positions = res["engine"][ENGINE["cache"]]
+        assert positions == ENGINE["cache"] // G
+        assert tokens == want
+
+
+def test_rank_decode_engine_serves_a_cache_the_guard_refuses(
+        ranks, model_reference):
+    """A cache of 512 (under the reference's 1024) stays whole on every
+    rank and takes the plain decode, as the reference's fallback does:
+    the same tokens as the engine here."""
+    want = _one_process_tokens(model_reference, ENGINE["whole"])
+    for res in ranks:
+        tokens, positions = res["engine"][ENGINE["whole"]]
+        assert positions == ENGINE["whole"]
+        assert tokens == want
+
+
 @pytest.mark.parametrize("kernel", ["dma_exchange", "ficco_ag_matmul"])
 @pytest.mark.parametrize("spec", VARIANTS,
                          ids=["default", "chunks2_reverse"])
@@ -204,6 +305,55 @@ def test_ranks_sharing_a_card_refuse_plain_collectives():
     assert plain_backend([cpu] * G) == "gloo"
     with pytest.raises(ValueError):
         plain_backend([cpu, card])
+
+
+def _patched_rank_group(monkeypatch, devices, peer_access=None):
+    """``RankGroup(0, len(devices))`` whose gathered devices are
+    ``devices`` on one host, with no process group, no exported memory
+    and ``can_device_access_peer`` replaced; returns it and the
+    ``new_group`` calls it made."""
+    from repro_torch.parallel import group as group_mod
+
+    class Peers:
+        def __init__(self, *args):
+            pass
+
+        def gather_object(self, obj):
+            return [("host", d) for d in devices]
+
+    calls = []
+    monkeypatch.setattr(group_mod, "PeerMemory", Peers)
+    monkeypatch.setattr(group_mod.dist, "init_process_group",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(group_mod.dist, "new_group",
+                        lambda **kw: calls.append(kw) or "nccl group")
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        peer_access or (lambda a, b: True))
+    group = RankGroup(0, len(devices), addr="127.0.0.1", port=1,
+                      device="cpu")
+    return group, calls
+
+
+def test_rank_group_builds_its_nccl_group_when_built(monkeypatch):
+    group, calls = _patched_rank_group(
+        monkeypatch, [f"cuda:{r}" for r in range(G)])
+    assert calls == [{"backend": "nccl"}]  # made in __init__, not lazily
+    assert group.plain == "nccl group"
+    assert calls == [{"backend": "nccl"}]
+
+
+def test_rank_group_raises_without_peer_access(monkeypatch):
+    with pytest.raises(RuntimeError, match="cuda:2 cannot access cuda:1"):
+        _patched_rank_group(monkeypatch, [f"cuda:{r}" for r in range(G)],
+                            lambda a, b: (a, b) != (2, 1))
+
+
+def test_rank_group_sharing_a_card_raises_at_first_plain_collective(
+        monkeypatch):
+    group, calls = _patched_rank_group(monkeypatch, ["cuda:0"] * G)
+    assert calls == []
+    with pytest.raises(RuntimeError, match="ROADMAP A9"):
+        group.plain
 
 
 def test_collective_refuses_a_logical_group():

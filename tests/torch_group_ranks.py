@@ -53,6 +53,57 @@ def collectives(group, x) -> dict:
     }
 
 
+def reductions(group, y) -> dict:
+    """``all_reduce`` (``lax.psum``) and ``pmax`` (``lax.pmax``) of this
+    rank's block of y (g, ...)."""
+    from repro_torch.parallel.collectives import all_reduce, pmax
+
+    yr = torch.from_numpy(y[group.rank])
+    return {"psum": all_reduce(yr, group=group).numpy(),
+            "pmax": pmax(yr, group=group).numpy()}
+
+
+def decode_attention(group, operands, positions) -> dict:
+    """The per-rank ``shard_map_attn_decode`` at each position, each from
+    the operands as given (q, k_new, v_new, full caches): this rank's
+    output and its time slice of the updated caches."""
+    from repro_torch.parallel.decode_attn import shard_map_attn_decode
+
+    q, k_new, v_new, k_full, v_full = map(torch.from_numpy, operands)
+    s_loc = k_full.shape[1] // group.size
+    rows = slice(group.rank * s_loc, (group.rank + 1) * s_loc)
+    out = {}
+    for pos in positions:
+        k_c, v_c = k_full[:, rows].clone(), v_full[:, rows].clone()
+        o, k2, v2 = shard_map_attn_decode(q, k_new, v_new, k_c, v_c, pos)
+        out[pos] = (o.numpy(), k2.numpy(), v2.numpy(), k2 is k_c)
+    return out
+
+
+def engine(group, numpy_params, prompts, new_tokens: int, cache_lens):
+    """A ``DecodeEngine`` on this rank of the reduced TinyLlama, with its
+    MLP blocks and ``decode_attn="shard_map"``, at each cache length: the
+    tokens of each request, and the K cache's positions on this rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.parallel.sharding import shard_mlp_params
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              overlap=OverlapConfig(decode_attn="shard_map"))
+    state = shard_mlp_params(params_from_jax(numpy_params, cfg, device="cpu"),
+                             group.rank, group.size)
+    out = {}
+    for cache_len in cache_lens:
+        eng = DecodeEngine(cfg, state, batch_size=len(prompts),
+                           cache_len=cache_len, device="cpu")
+        reqs = eng.run([Request(p, new_tokens) for p in prompts])
+        out[cache_len] = ([list(r.out) for r in reqs],
+                          eng.cache[0]["k"].shape[-3])
+    return out
+
+
 def composers(group, x, w, variants) -> dict:
     """The K3 + K1 composer and K4 on this rank's shards, per variant,
     each called twice (the second through the same ring and shards)."""
@@ -100,7 +151,11 @@ def run_all(group, cases: dict) -> dict:
     out = {
         "schedules": schedules(group, *cases["schedules"]),
         "collectives": collectives(group, cases["collectives"]),
+        "reductions": reductions(group, cases["reductions"]),
+        "decode_attention": decode_attention(group,
+                                             *cases["decode_attention"]),
         "composers": composers(group, *cases["composers"]),
+        "engine": engine(group, cases["params"], *cases["engine"]),
     }
     for mode, backend in cases["prefill_modes"]:
         out["prefill", mode, backend] = prefill(

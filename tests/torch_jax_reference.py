@@ -52,9 +52,11 @@ FIRST.pkl`` and one more pickle for each of ``LATER``) it evaluates, with ``JAX_
     of the six schedules (``SCHEDULE_FNS``) under ``shard_map`` on
     ``COLLECTIVES["g"]`` devices, at :func:`schedule_operands`' shapes,
     and of ``serial_a2a_ffn`` on :func:`moe_operands`' (``"serial_a2a"``):
-    (bytes by kind, count by kind); and under ``"outputs"`` each
-    schedule's output on those operands in float32 and in bfloat16 (as
-    float32 numpy, by dtype name, then schedule);
+    (bytes by kind, count by kind); under ``"outputs"`` each schedule's
+    output on those operands in float32 and in bfloat16 (as float32
+    numpy, by dtype name, then schedule); and under ``"reduce"``
+    ``lax.psum`` and ``lax.pmax`` over the axis of
+    :func:`reduce_operands`' blocks (``"psum"``, ``"pmax"``);
   * ``dryrun``: the dry-run's specs, each tree as ``{path: tuple(spec)}``
     (:func:`spec_paths`): every arch's ``param_specs()``, and on each of
     ``DRYRUN["meshes"]`` (stand-ins with a ``shape``) its
@@ -147,8 +149,9 @@ RECURRENT = dict(archs=("jamba-1.5-large-398b", "xlstm-1.3b"), seq=32,
 # Training the hybrid and SSM families: as MOE_TRAIN.
 RECURRENT_TRAIN = dict(MOE_TRAIN, archs=RECURRENT["archs"])
 # The schedules' collectives: g ranks of m_s rows, K columns, n_local
-# output columns each (row chunks of m_s / g, K slices of K / g).
-COLLECTIVES = dict(g=4, m_s=16, k=32, n_local=8, seed=41)
+# output columns each (row chunks of m_s / g, K slices of K / g); the
+# reductions' blocks of `reduce` each.
+COLLECTIVES = dict(g=4, m_s=16, k=32, n_local=8, seed=41, reduce=(3, 5))
 # The dry-run's spec stand-ins and compiled steps.
 DRYRUN = dict(meshes=({"data": 16, "model": 16},
                       {"pod": 2, "data": 16, "model": 16},
@@ -181,6 +184,14 @@ def schedule_operands():
     rng = np.random.default_rng(COLLECTIVES["seed"])
     return (rng.standard_normal((g, m_s, k)).astype(np.float32),
             rng.standard_normal((g, k, n)).astype(np.float32))
+
+
+def reduce_operands():
+    """y (g, *COLLECTIVES["reduce"]) fp32, rank r's block at [r], for the
+    reductions (``lax.psum``, ``lax.pmax``)."""
+    rng = np.random.default_rng(COLLECTIVES["seed"] + 1)
+    return rng.standard_normal(
+        (COLLECTIVES["g"], *COLLECTIVES["reduce"])).astype(np.float32)
 
 
 def recurrent_requests(request_cls, vocab: int) -> list:
@@ -578,6 +589,12 @@ def _collectives() -> dict:
                 in_specs=(rows, cols), out_specs=cols, check_vma=False,
             ))(xd, wd), np.float32)
             for s, fn in SCHEDULE_FNS.items()}
+    y = reduce_operands()
+    psum, pmax = jax.jit(shard_map(
+        lambda a: (jax.lax.psum(a, "model"), jax.lax.pmax(a, "model")),
+        mesh=mesh, in_specs=rows, out_specs=(P(None, None), P(None, None)),
+        check_vma=False))(y.reshape(-1, y.shape[-1]))
+    out["reduce"] = {"psum": np.asarray(psum), "pmax": np.asarray(pmax)}
     spec = P("model", None, None)
     out["serial_a2a"] = count(
         serial_a2a_ffn, (spec, spec, spec), spec,
