@@ -3272,11 +3272,13 @@ def _moe_work(cfg, batch: int, seq: int, ctx: float) -> dict:
     to ``ctx`` positions each on average, by part, as the reference's
     arithmetic runs them: the routed experts at capacity, every
     projection, the router, the causal attention and the unembedding."""
+    from repro_torch.models.moe import expert_capacity
+
     d, h, n = cfg.d_model, cfg.num_heads, cfg.num_layers
     m, e = cfg.mla, cfg.moe
     t = batch * seq
     qk = m.nope_head_dim + m.rope_head_dim
-    cap = int(max(e.capacity_factor * t * e.top_k / e.num_experts, 4))
+    cap = expert_capacity(e, t)
     per_token_mla = (d * h * qk + d * (m.kv_lora_rank + m.rope_head_dim)
                      + m.kv_lora_rank * h * (m.nope_head_dim + m.v_head_dim)
                      + h * m.v_head_dim * d)
@@ -3341,8 +3343,10 @@ def _dropped_share(choices, cfg, tokens: int) -> float:
     """Share of the (token, k) assignments that the capacity clip drops."""
     import torch
 
+    from repro_torch.models.moe import expert_capacity
+
     e = cfg.moe.num_experts
-    cap = int(max(cfg.moe.capacity_factor * tokens * cfg.moe.top_k / e, 4))
+    cap = expert_capacity(cfg.moe, tokens)
     drops = total = 0
     for idx in choices:
         counts = torch.zeros(e, device=idx.device).index_add_(
@@ -4800,9 +4804,14 @@ def phase_group(device) -> dict:
 # (b) the six schedules per rank, (c) [group]'s K3, composer and K4 calls
 # (_group_rank) over NVLink, CARDS["calls"] calls in a row, cycling
 # CARDS["inputs"] inputs, (d) the full-width prefill per rank, (e) a
-# DecodeEngine per rank with the per-rank decode attention.
+# DecodeEngine per rank with the per-rank decode attention; then (A9 step
+# 3, items 1-2) (f) the EP dispatch per rank at DeepSeek-V2-Lite-16B's MoE
+# layer (EP_ARCH), capacity from a batch x seq prefill, and (g)
+# CARDS["train_steps"] AdamW steps per rank of TinyLlama-1.1B whole on
+# uniform-fused-2d, each rank holding its MLP blocks.
 CARDS = dict(batch=PREFILL_BATCH, seq=PREFILL_SEQ, calls=50, inputs=3,
-             reps=10, prompt=8, new=16, cache=2048)
+             reps=10, prompt=8, new=16, cache=2048, train_steps=3)
+EP_ARCH = "deepseek-v2-lite-16b"
 CARDS_SEED = 62
 CARDS_TIMEOUT = 600.0
 # The NVLink rate of one H100 SXM, each way (NVIDIA data sheet: 900 GB/s
@@ -4850,14 +4859,243 @@ def _cards_collectives(group, x, y, reps: int, cuda: bool) -> dict:
     return out
 
 
-def _cards_rank(group, seed: int, cfg, size: dict) -> dict:
+def _ep_cases(capacity: int) -> dict:
+    """(f)'s dispatches: name -> ficco_a2a_ffn's keyword arguments (None:
+    serial_a2a_ffn)."""
+    from repro_torch.core.workload import StepProfile
+    from repro_torch.tune.variants import default_variant
+
+    reverse = dataclasses.replace(
+        default_variant("ficco_a2a_ffn", group=GROUP),
+        dispatch_order="reverse")
+    third, half = capacity // 3, capacity // 2
+    sizes = (third, 0, half, capacity - third - half)  # one empty chunk
+    return {"serial": None, "default": {}, "chunks=2": {"chunks": 2},
+            "reverse": {"variant": reverse},
+            "skewed(4, 2.0)": {"profile": StepProfile.skewed(GROUP, 2.0)},
+            f"sizes {sizes}": {"chunk_sizes": sizes}}
+
+
+def _rank_trace(run) -> dict:
+    """``run`` under torch.profiler on this rank's card: the window (first
+    to last event, host or device), the NCCL kernels' time, the expert or
+    step GEMMs' (cuBLAS, K1/K2) time, the time of everything on the device
+    but NCCL's kernels ("compute": NCCL's kernels spin while they wait for
+    a peer, so their time is not work), in ms, and the shares of the
+    NCCL time under the GEMMs and of the GEMMs' time under NCCL's kernels.
+    Raises if it saw no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    window, nccl, gemm, compute = [], [], [], []
+    for name, start, end, on_device in _trace_events(prof):
+        window += [start, end]
+        if not on_device:
+            continue
+        if "nccl" in name.lower():
+            nccl.append((start, end))
+            continue
+        compute.append((start, end))
+        if _kind(name) in ("cuBLAS GEMM", "K1/K2 chunked_gemm.cu"):
+            gemm.append((start, end))
+    if not nccl and not compute:
+        raise AssertionError("[cards] torch.profiler recorded no device "
+                             "events")
+    nccl, gemm, compute = _union(nccl), _union(gemm), _union(compute)
+
+    def ms(merged):
+        return sum(b - a for a, b in merged) / 1e3
+
+    return dict(window_ms=(max(window) - min(window)) / 1e3,
+                nccl_ms=ms(nccl), gemm_ms=ms(gemm), compute_ms=ms(compute),
+                overlap_share=(_overlap(nccl, gemm) / 1e3 / ms(nccl)
+                               if nccl else None),
+                gemm_share=(_overlap(nccl, gemm) / 1e3 / ms(gemm)
+                            if gemm else None))
+
+
+def _cards_ep(group, seed: int, ep_cfg, tokens: int, reps: int,
+              cuda: bool) -> dict:
+    """(f): the EP dispatch per rank at the MoE layer of model ``ep_cfg``
+    at full width, capacity from ``tokens`` tokens, bf16: each case against the
+    logical group's slot on this card, the serial and default dispatch
+    timed (CUDA events) and one default call traced for how much of the
+    NCCL kernels' time runs under the expert GEMMs."""
+    import torch
+
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.overlap.moe import (ficco_a2a_ffn, plan_chunks,
+                                         serial_a2a_ffn)
+    from repro_torch.parallel.collectives import all_to_all, counting
+
+    dev, g, r = group.device, group.size, group.rank
+    moe, d = ep_cfg.moe, ep_cfg.d_model
+    e, f = moe.num_experts, moe.d_ff_expert
+    c = expert_capacity(moe, tokens)
+    randn = _randn_fn(dev, seed + 1)
+    x = randn(g, e, c, d, dtype=torch.bfloat16)
+    w_up = randn(g, e // g, d, f, dtype=torch.bfloat16, scale=d ** -0.5)
+    w_down = randn(g, e // g, f, d, dtype=torch.bfloat16, scale=f ** -0.5)
+    mine = [t[r].contiguous() for t in (x, w_up, w_down)]
+    cases = _ep_cases(c)
+
+    def run(kw, logical=False):
+        if logical:
+            return (serial_a2a_ffn(x, w_up, w_down) if kw is None
+                    else ficco_a2a_ffn(x, w_up, w_down, **kw))[r]
+        return (serial_a2a_ffn(*mine, group=group) if kw is None
+                else ficco_a2a_ffn(*mine, group=group, **kw))
+
+    out = {"capacity": c, "shape": (e, c, d), "cases": {}}
+    with torch.no_grad():
+        for name, kw in cases.items():
+            plan = None if kw is None else plan_chunks(c, g, **kw)
+            want = run(kw, logical=True)
+            with counting() as stats:
+                got = run(kw)
+            out["cases"][name] = dict(
+                sizes=None if plan is None else plan[0],
+                err=_max_err(got, want), scale=want.float().abs().max()
+                .item(), finite=bool(torch.isfinite(got).all()),
+                ok=bool(torch.allclose(got.float(), want.float(),
+                                       rtol=TOL["bfloat16"],
+                                       atol=TOL["bfloat16"])),
+                a2a=stats.count_by_kind.get("all-to-all", 0))
+            if name == "default":
+                default = got
+            elif name == "reverse":
+                out["reverse_equal"] = bool(torch.equal(got, default))
+        del x, w_up, w_down, want, got, default
+        # The parts alone: one all-to-all of the whole (E, C, D), and the
+        # rank's expert FFN on a (E/g, g * C, D) batch.
+        x_r, up_r, down_r = mine
+        parts = {
+            "all_to_all": lambda: all_to_all(
+                x_r.view(g, e // g, c, d), group=group),
+            "expert FFN": lambda: torch.matmul(F.gelu(torch.matmul(
+                x_r.view(e // g, g * c, d), up_r), approximate="tanh"),
+                down_r),
+        }
+        timed = {name: (lambda kw=cases[name]: run(kw))
+                 for name in ("serial", "default", "chunks=2")}
+        out["times"] = {}
+        for name, fn in {**timed, **parts}.items():
+            out["times"][name] = dict(
+                ms=_events_ms(fn, reps, cuda),
+                issue_ms=issue_ms(fn, reps) if cuda else None,
+                wall_ms=wall_ms(fn, reps) if cuda else None)
+        if cuda:
+            out["trace"] = _rank_trace(lambda: run(cases["default"]))
+    # The bound: the expert GEMMs' operations, or the 3/4 of the tokens
+    # that leave the card twice (dispatch and combine) over NVLink.
+    rows = g * c
+    flops = 2 * 2 * (e // g) * rows * d * f
+    link = 2 * (g - 1) / g * e * c * d * 2
+    out["bound_ms"] = max(flops / PEAK_BF16_FLOPS, link / NVLINK_BYTES) * 1e3
+    out["flops"], out["link_bytes"] = flops, link
+    return out
+
+
+def _cards_train(group, cfg, state, size: dict, cuda: bool) -> dict:
+    """(g): ``size["train_steps"]`` AdamW steps of TinyLlama whole on this
+    rank, uniform-fused-2d on the collective backend, the rank holding
+    its MLP blocks and their moments, from ``state`` (the params from
+    seed 0) and fresh moments; first one logical ``TPGroup`` step on this
+    card from the same state, which the first step's loss and gradient
+    norm are held to."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import OverlapConfig, ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.sharding import (TPGroup, rank_blocks,
+                                               shard_train_state, tp_group)
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.tree import leaves
+
+    dev, g, r = group.device, group.size, group.rank
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tcfg = dataclasses.replace(cfg, overlap=OverlapConfig(
+        mode="uniform-fused-2d", backend="collective"))
+    b, seq, steps = size["batch"], size["seq"], size["train_steps"]
+    data = SyntheticLM(tcfg, ShapeConfig("smoke", seq, b, "train"), seed=0)
+    batches = [to_device(data.batch_at(i), dev) for i in range(steps)]
+    step = make_train_step(build_model(tcfg), OptimizerConfig(warmup_steps=2))
+    full = {"params": state, "opt_state": init_state(state)}
+    with tp_group(TPGroup(g, dev)):
+        new, m = step(full, batches[0])
+    logical = {k: float(v) for k, v in m.items()}
+    rank_state = shard_train_state(full, r, g)
+    del new, m, full
+    sync()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev) if cuda else 0
+    params = leaves(rank_state["params"])
+    p_bytes = sum(t.numel() * t.element_size() for t in params)
+    largest = max(t.numel() for t in params)
+    # The AdamW update holds the old and the new params and moments and the
+    # gradients (1 + 1 + 4 + 4 + 1 params' worth beyond what is allocated
+    # before the steps: 6 more), four fp32 temporaries of the largest leaf
+    # (optimizer.apply_updates), and the loss's three fp32 (B, S, V)
+    # logits-sized tensors in the backward.
+    predicted = (start + 6 * p_bytes + 4 * 4 * largest
+                 + 3 * 4 * b * seq * cfg.vocab_size)
+    out = {"logical": logical, "metrics": [], "walls": [], "launches": [],
+           "routes": [], "replicated_equal": [], "p_bytes": p_bytes,
+           "start": start, "predicted": predicted}
+    blocks = rank_blocks(rank_state)
+    for i in range(steps):
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        if cuda and i == steps - 1:
+            def one(i=i):
+                nonlocal rank_state, m
+                rank_state, m = step(rank_state, batches[i])
+
+            out["trace"] = _rank_trace(one)
+        else:
+            rank_state, m = step(rank_state, batches[i])
+        sync()
+        out["walls"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(ops.launch_counts())
+        out["routes"].append(ops.route_counts())
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        same = True
+        for leaf, block in zip(leaves(rank_state), blocks):
+            if not block:
+                first = leaf.clone()
+                dist.broadcast(first, src=0, group=group.plain)
+                same = same and bool(torch.equal(first, leaf))
+        out["replicated_equal"].append(same)
+    out["finite"] = all(bool(torch.isfinite(t).all())
+                        for t in leaves(rank_state["params"]))
+    out["peak"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+    return out
+
+
+def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
     """One rank of ``[cards]``, in a process of its own on its own card
     (run by ``repro_torch.launch.group.spawn``): parts (a)-(e) of
     :func:`phase_cards` for model ``cfg`` at the sizes ``size`` (as
     :data:`CARDS`), each against the logical ``TPGroup`` computed on this
-    rank's card, and (b) and (c) against the plain version too; returns
-    what :func:`_cards_report` checks and prints.  On the CPU (a
-    rehearsal: gloo and the plain versions) the times are None."""
+    rank's card, and (b) and (c) against the plain version too; then (f)
+    at the MoE layer of ``ep_cfg`` (:func:`_cards_ep`) and (g)
+    (:func:`_cards_train`); returns what :func:`_cards_report` checks and
+    prints.  On the CPU (a rehearsal: gloo and the plain versions) the
+    times are None."""
     import contextlib
     import io
 
@@ -5034,17 +5272,29 @@ def _cards_rank(group, seed: int, cfg, size: dict) -> dict:
                     scale=scale, launches=launches,
                     finite=all(bool(torch.isfinite(lg).all())
                                for lg in logits))
+    del eng, ref, ref_cache, logits, fed
+    sync()
+
+    # (f) the EP dispatch per rank at the MoE layer's full width.
+    out["f"] = _cards_ep(group, seed, ep_cfg, size["batch"] * size["seq"],
+                         reps, cuda)
+    sync()
+
+    # (g) training per rank, from the prefill's weights.
+    del rank_state
+    out["g"] = _cards_train(group, cfg, state, size, cuda)
     sync()
     return out
 
 
-def phase_cards() -> dict | None:
+def phase_cards() -> tuple | None:
     """``[cards]``: GROUP rank processes, one card each, through
     ``repro_torch.launch.group.spawn`` (:func:`_cards_rank`) on
-    TinyLlama-1.1B at full width and the sizes of :data:`CARDS`, checked
-    and printed by :func:`_cards_report`.  Returns each kernel's launches
-    per rank in one DMA-path prefill, or None (and prints why) with fewer
-    than GROUP cards."""
+    TinyLlama-1.1B at full width and the sizes of :data:`CARDS` (and
+    EP_ARCH's MoE layer for (f)), checked and printed by
+    :func:`_cards_report`.  Returns each kernel's launches per rank in one
+    DMA-path prefill and in the last training step, or None (and prints
+    why) with fewer than GROUP cards."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5057,15 +5307,16 @@ def phase_cards() -> dict | None:
         return None
     for r, line in enumerate(_cards_smi()[:GROUP]):
         print(f"[cards] cuda:{r}: {line}")
-    cfg = get_config("tinyllama-1.1b")
+    cfg, ep_cfg = get_config("tinyllama-1.1b"), get_config(EP_ARCH)
     t0 = time.time()
     results = spawn(_cards_rank, GROUP, device=[f"cuda:{r}"
                                                 for r in range(GROUP)],
-                    args=(CARDS_SEED, cfg, CARDS), timeout=CARDS_TIMEOUT)
-    return _cards_report(results, time.time() - t0, cfg, CARDS)
+                    args=(CARDS_SEED, cfg, CARDS, ep_cfg),
+                    timeout=CARDS_TIMEOUT)
+    return _cards_report(results, time.time() - t0, cfg, CARDS, ep_cfg)
 
 
-def _cards_report(results, wall: float, cfg, size: dict) -> dict:
+def _cards_report(results, wall: float, cfg, size: dict, ep_cfg) -> dict:
     """Check every rank's results of :func:`_cards_rank` and print them."""
     g, b = GROUP, size["batch"]
     m_s = b * size["seq"] // g
@@ -5209,8 +5460,154 @@ def _cards_report(results, wall: float, cfg, size: dict) -> dict:
           f"{per_rank(lambda s: s['e']['first_ms'], '{:.2f}')}), the logical "
           f"engine {per_rank(lambda s: s['e']['ref_ms'], '{:.2f}')}")
     print(f"[cards] req0: {e['tokens'][0]}")
+    _cards_report_ep_train(results, cfg, size, ep_cfg)
     dma = [res["d"]["dma"]["launches"] for res in results]
-    return {name: [c[name] for c in dma] for name in dma[0]}
+    train = [res["g"]["launches"][-1] for res in results]
+    return ({name: [c[name] for c in dma] for name in dma[0]},
+            {name: [c[name] for c in train] for name in train[0]})
+
+
+def _cards_report_ep_train(results, cfg, size: dict, ep_cfg) -> None:
+    """Check and print parts (f) and (g) of every rank's results."""
+    g, b = GROUP, size["batch"]
+    cuda = results[0]["cuda"]
+    # K2 per up/gate step of every layer, and again in the backward's
+    # recomputation of each period under remat.
+    per_train_step = cfg.num_layers * 2 * g * (2 if cfg.remat else 1)
+
+    def fail(msg):
+        raise AssertionError(f"[cards] {msg}")
+
+    def per_rank(fn, fmt="{:.4f}"):
+        return _per_rank(results, fn, fmt)
+
+    for res in results:
+        rank = res["rank"]
+        ep = res["f"]
+        for name, c in ep["cases"].items():
+            chunks = 1 if c["sizes"] is None else sum(
+                1 for n in c["sizes"] if n)
+            if not c["finite"] or not c["ok"]:
+                fail(f"rank {rank} (f) EP {name}: not finite or not within "
+                     f"{TOL['bfloat16']} of the logical slot (max_abs_err "
+                     f"{c['err']:.3e})")
+            if c["a2a"] != 2 * chunks:
+                fail(f"rank {rank} (f) EP {name}: {c['a2a']} all-to-alls "
+                     f"counted for {chunks} chunks")
+        if not ep["reverse_equal"]:
+            fail(f"rank {rank} (f) EP: reverse is not bit-equal to default")
+        if cuda and ep["trace"]["nccl_ms"] <= 0:
+            fail(f"rank {rank} (f) EP: no NCCL kernel in the traced call")
+        t = res["g"]
+        if t["metrics"] != results[0]["g"]["metrics"]:
+            fail(f"rank {rank} (g) train: metrics {t['metrics']} differ from "
+                 f"rank 0's {results[0]['g']['metrics']}")
+        if not all(t["replicated_equal"]):
+            fail(f"rank {rank} (g) train: replicated leaves differ from rank "
+                 f"0's after steps {t['replicated_equal']}")
+        if not t["finite"] or not all(math.isfinite(v) for m in t["metrics"]
+                                      for v in m.values()):
+            fail(f"rank {rank} (g) train: not finite ({t['metrics']})")
+        first = t["metrics"][0]
+        for key, limit in (("loss", 1e-2), ("grad_norm", 5e-2)):
+            want = t["logical"][key]
+            if abs(first[key] - want) > limit * abs(want):
+                fail(f"rank {rank} (g) train: step 1 {key} {first[key]} vs "
+                     f"the logical TPGroup({g})'s {want} (limit {limit})")
+        for i, (launches, routes) in enumerate(zip(t["launches"],
+                                                   t["routes"])):
+            _rank_launches(
+                f"[cards] rank {rank} (g) train step {i + 1}",
+                {"launches": launches, "routes": routes, "cuda": cuda},
+                {"accumulate_matmul": per_train_step},
+                {"accumulate_matmul": {"wgmma": per_train_step}})
+    r0 = results[0]
+    ep = r0["f"]
+    moe = ep_cfg.moe
+    e_, c_, d_ = ep["shape"]
+    print(f"[cards] (f) the EP dispatch per rank at {ep_cfg.name}'s MoE "
+          f"layer, full width: x ({e_}, {c_}, {d_}) per rank (E "
+          f"{moe.num_experts}, capacity {c_} = int(max({moe.capacity_factor}"
+          f" x {b * size['seq']} tokens x top-{moe.top_k} / {moe.num_experts},"
+          f" 4))), {moe.num_experts // g} experts of F {moe.d_ff_expert} per "
+          f"rank, bf16; each case within {TOL['bfloat16']} of the logical "
+          "group's slot on every rank, reverse bit-equal to default, 2 "
+          "all-to-alls per non-empty chunk:")
+    for name, c in ep["cases"].items():
+        cut = ("one exchange (serial_a2a_ffn)" if name == "serial" else
+               "fell back to serial_a2a_ffn" if c["sizes"] is None else
+               f"chunk sizes {tuple(c['sizes'])}")
+        print(f"[cards]     {name}: {cut}; max_abs_err "
+              f"{max(s['f']['cases'][name]['err'] for s in results):.3e} of "
+              f"max |out| {c['scale']:.3f}; all-to-alls per rank "
+              f"{c['a2a']}")
+    if cuda:
+        def times(name, key):
+            return per_rank(lambda s: s["f"]["times"][name][key])
+
+        for name in ep["times"]:
+            print(f"[cards] (f) {name}: device ms per call (events over "
+                  f"{size['reps']} calls in a row) {times(name, 'ms')}, host "
+                  f"issue ms per call {times(name, 'issue_ms')}, wall ms per "
+                  f"call (median of {size['reps']}) {times(name, 'wall_ms')}")
+        ratio = per_rank(lambda s: s["f"]["times"]["default"]["ms"]
+                         / s["f"]["times"]["serial"]["ms"], "{:.3f}")
+        print(f"[cards] (f) ficco default / serial {ratio}; bound "
+              f"{ep['bound_ms']:.4f} ms (the "
+              f"larger of {ep['flops'] / 1e9:.1f} GFLOP at the bf16 peak and "
+              f"{ep['link_bytes'] / 2 ** 20:.1f} MiB over NVLink at "
+              f"{NVLINK_BYTES / 1e9:.0f} GB/s); one traced ficco call: "
+              f"window {per_rank(lambda s: s['f']['trace']['window_ms'])} ms,"
+              f" device time outside NCCL's kernels "
+              f"{per_rank(lambda s: s['f']['trace']['compute_ms'])} ms, NCCL "
+              f"kernels {per_rank(lambda s: s['f']['trace']['nccl_ms'])} ms, "
+              f"expert GEMMs {per_rank(lambda s: s['f']['trace']['gemm_ms'])}"
+              f" ms, share of the NCCL time under the GEMMs "
+              f"{per_rank(lambda s: s['f']['trace']['overlap_share'], '{:.3f}')}"
+              f" and of the GEMMs' time under NCCL's kernels "
+              f"{per_rank(lambda s: s['f']['trace']['gemm_share'], '{:.3f}')}")
+    t = r0["g"]
+    n = len(t["metrics"])
+    print(f"[cards] (g) {cfg.name} whole ({cfg.num_layers} layers, "
+          f"{cfg.dtype}, remat {cfg.remat}), {b} x {size['seq']} tokens, "
+          f"uniform-fused-2d on the collective backend, {n} AdamW steps per "
+          f"rank, each rank holding its MLP blocks and their moments: "
+          f"loss, lr and grad_norm bit-equal on every rank, replicated "
+          f"leaves bit-equal after every step; loss "
+          + " -> ".join(f"{m['loss']:.6f}" for m in t["metrics"])
+          + ", grad_norm "
+          + ", ".join(f"{m['grad_norm']:.6f}" for m in t["metrics"])
+          + f"; step 1 against the logical TPGroup({g}) on one card: loss "
+          f"{t['logical']['loss']:.6f} (relative diff "
+          f"{abs(t['metrics'][0]['loss'] / t['logical']['loss'] - 1):.3e}, "
+          f"limit 1e-2), grad_norm {t['logical']['grad_norm']:.6f} "
+          f"(relative diff "
+          f"{abs(t['metrics'][0]['grad_norm'] / t['logical']['grad_norm'] - 1):.3e}"
+          f", limit 5e-2); K2 launches per rank per step "
+          f"{[c['accumulate_matmul'] for c in t['launches']]} ({cfg.num_layers}"
+          f" layers x 2 x {g} x {2 if cfg.remat else 1}, wgmma)")
+    if cuda:
+        walls = [per_rank(lambda s, i=i: s["g"]["walls"][i], "{:.1f}")
+                 for i in range(n)]
+        print(f"[cards] (g) step wall ms per rank: "
+              + ", ".join(f"step {i + 1} {w}" for i, w in enumerate(walls))
+              + f" (step {n} profiled: window "
+              f"{per_rank(lambda s: s['g']['trace']['window_ms'], '{:.1f}')}"
+              f" ms); in it, device time outside NCCL's kernels "
+              f"{per_rank(lambda s: s['g']['trace']['compute_ms'], '{:.1f}')}"
+              f" ms (K2 and cuBLAS GEMMs "
+              f"{per_rank(lambda s: s['g']['trace']['gemm_ms'], '{:.1f}')}),"
+              f" NCCL's kernels "
+              f"{per_rank(lambda s: s['g']['trace']['nccl_ms'], '{:.1f}')} "
+              f"ms (spinning included); idle share outside NCCL over step "
+              f"{n - 1}'s unprofiled wall "
+              f"{per_rank(lambda s: 1 - s['g']['trace']['compute_ms'] / s['g']['walls'][-2], '{:.3f}')}"
+              f"; peak memory GiB "
+              f"{per_rank(lambda s: s['g']['peak'] / 2 ** 30, '{:.2f}')} "
+              f"against the predicted "
+              f"{per_rank(lambda s: s['g']['predicted'] / 2 ** 30, '{:.2f}')}"
+              f" ({t['start'] / 2 ** 30:.2f} GiB before the steps, the "
+              f"rank's params {t['p_bytes'] / 2 ** 30:.3f} GiB)")
 
 
 def main() -> int:
@@ -5294,8 +5691,10 @@ def drive(device) -> int:
     cards_counts = phase_cards()
     for k in kernels:
         k["group_rank_launches"] = group_counts[k["name"]]
-        k["cards_rank_launches"] = (cards_counts[k["name"]] if cards_counts
-                                    else None)
+        k["cards_rank_launches"] = (cards_counts[0][k["name"]]
+                                    if cards_counts else None)
+        k["cards_train_step_launches"] = (cards_counts[1][k["name"]]
+                                          if cards_counts else None)
         k["moe_prefill_launches"] = moe_counts[k["name"]]
         k["moe_train_step_launches"] = moe_train_counts[k["name"]]
         k["encdec_prefill_launches"] = encdec_counts[k["name"]]
@@ -5316,7 +5715,8 @@ def drive(device) -> int:
             "vlm_prefill_launches", "hybrid_prefill_launches",
             "ssm_prefill_launches", "hybrid_train_step_launches",
             "ssm_train_step_launches", "obs_cli_prefill_launches",
-            "group_rank_launches", "cards_rank_launches", "max_abs_err",
+            "group_rank_launches", "cards_rank_launches",
+            "cards_train_step_launches", "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

@@ -389,15 +389,19 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp_apply_rank(params, x, ov, group) -> torch.Tensor:
-    """:func:`mlp_apply` on one rank of a group of processes."""
+    """:func:`mlp_apply` on one rank of a group of processes.  Under grad
+    the rank's blocks get their gradient blocks, and the replicated ``x``
+    the sum of every rank's part (the FiCCO linear's, or
+    :func:`~repro_torch.parallel.collectives.replicated`'s, backward); the
+    ``all_reduce``'s gradient is the identity."""
     from repro_torch.parallel import tp
-    from repro_torch.parallel.collectives import all_reduce
+    from repro_torch.parallel.collectives import all_reduce, replicated
 
     def up(w):
         if (ov is not None and ov.mode != "gspmd_serial"
                 and tp.overlap_applicable(x, w)):
             return tp.tp_ficco_linear(x, w, ov)
-        return x @ w
+        return replicated(x, group=group) @ w
 
     h = up(params["w_up"])
     if "w_gate" in params:

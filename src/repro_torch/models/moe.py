@@ -85,6 +85,14 @@ def route(params, xf: torch.Tensor, cfg: MoEConfig):
     return logits, probs, top_w, top_e
 
 
+def expert_capacity(cfg, tokens: int) -> int:
+    """Each expert's capacity for ``tokens`` tokens under MoE config
+    ``cfg``: ``capacity_factor * tokens * top_k / num_experts``, at least
+    4, as the reference's."""
+    return int(max(cfg.capacity_factor * tokens * cfg.top_k
+                   / cfg.num_experts, 4))
+
+
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
     """x: (B, S, D) -> (out (B, S, D), aux loss (fp32 scalar))."""
     b, s, d = x.shape
@@ -107,7 +115,7 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
         torch.logsumexp(logits, dim=-1) ** 2
     )
 
-    capacity = int(max(cfg.capacity_factor * t * k / e, 4))
+    capacity = expert_capacity(cfg, t)
 
     # ---- sorted capacity dispatch -----------------------------------
     flat_w = top_w.reshape(-1)

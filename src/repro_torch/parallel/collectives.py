@@ -13,7 +13,11 @@ rank's own block, with no leading rank dim, and runs as a
 the CPU, NCCL with a card per rank; ranks sharing a card raise, ROADMAP
 A9): the per-rank form of a ``shard_map`` body's collective.  NCCL takes
 the CUDA tensors where they lie and orders its work after the caller's
-current stream; no collective copies through the host.
+current stream; no collective copies through the host.  The per-rank
+forms have gradients (``pmax`` excepted), the transposes ``jax.grad``
+takes through ``shard_map``; :func:`rank_block` and :func:`replicated`
+carry a replicated activation's gradient across the group where a rank
+cuts its block out of it or multiplies it by its own weight block.
 
 :func:`counting` records what the collectives move, as the reference's
 ``roofline.analysis.parse_collectives`` reads it from a compiled per-device
@@ -24,11 +28,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import warnings
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.group import RankGroup
+
+# Later torch releases deprecate ``all_gather_into_tensor`` and
+# ``reduce_scatter_tensor`` for ``*_single`` forms, which earlier ones
+# lack; every release takes the calls used here.
+warnings.filterwarnings(
+    "ignore", message=r"`torch\.distributed\.(all_gather_into_tensor|"
+    r"reduce_scatter_tensor)` is deprecated", category=FutureWarning)
 
 
 @dataclasses.dataclass
@@ -91,6 +103,135 @@ def _plain(group: RankGroup):
     return group.plain
 
 
+# The per-rank forms run on the group's plain process group.  Each is a
+# torch.autograd.Function whose backward is the transpose that
+# ``jax.grad`` takes through a ``shard_map`` body: the all-gather's is a
+# reduce-scatter, the all-to-all's an all-to-all, a ppermute's the ppermute
+# back, and a psum's the identity (the cotangent of a replicated output is
+# replicated already; summing it again would scale it by g).  Collectives
+# that run in a backward are not counted (``_record``).
+
+def _gather(x: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """(m, ...) -> (g, m, ...), every rank's block in rank order."""
+    out = torch.empty((group.size, *x.shape), dtype=x.dtype, device=x.device)
+    # The concatenated form, which gloo takes as well as NCCL.
+    dist.all_gather_into_tensor(out.flatten(0, 1), x.contiguous(),
+                                group=_plain(group))
+    return out
+
+
+def _reduce_scatter(dy: torch.Tensor, group: RankGroup) -> torch.Tensor:
+    """(g, m, ...) on every rank -> (m, ...): block r of the sum over
+    ranks, on rank r."""
+    out = torch.empty(dy.shape[1:], dtype=dy.dtype, device=dy.device)
+    dist.reduce_scatter_tensor(out, dy.contiguous().flatten(0, 1),
+                               group=_plain(group))
+    return out
+
+
+def _exchange(x: torch.Tensor, group: RankGroup, async_op: bool = False):
+    if x.shape[0] != group.size:
+        raise ValueError(f"all_to_all of {tuple(x.shape)}: dim 0 must be "
+                         "the group size")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    work = dist.all_to_all_single(out, x.contiguous(), group=_plain(group),
+                                  async_op=async_op)
+    return out, work
+
+
+def _permute(x: torch.Tensor, shift: int, group: RankGroup) -> torch.Tensor:
+    g, r = group.size, group.rank
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if shift % g == 0:
+        out.copy_(x)
+        return out
+    pg = _plain(group)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, (r + shift) % g, pg),
+        dist.P2POp(dist.irecv, out, (r - shift) % g, pg),
+    ])
+    for req in reqs:
+        req.wait()
+    return out
+
+
+def _sum(x: torch.Tensor, group: RankGroup, op=dist.ReduceOp.SUM):
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=_plain(group))
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _record("all-gather", _gather(x, group), ranks=1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _reduce_scatter(dy, ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _record("all-to-all", _exchange(x, group)[0], ranks=1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _exchange(dy, ctx.group)[0], None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shift, group):
+        ctx.shift, ctx.group = shift, group
+        return _record("collective-permute", _permute(x, shift, group),
+                       ranks=1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _permute(dy, -ctx.shift, ctx.group), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _record("all-reduce", _sum(x, group), ranks=1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _RankBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // group.size
+        return x.narrow(dim, group.rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, dy):
+        full = _gather(dy, ctx.group)  # (g, *block)
+        return full.movedim(0, ctx.dim).flatten(ctx.dim, ctx.dim + 1), \
+            None, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _sum(dy, ctx.group), None
+
+
 def all_gather(x: torch.Tensor, *, tiled: bool = False,
                group: RankGroup | None = None) -> torch.Tensor:
     """``lax.all_gather(x, axis=0[, tiled])`` on every rank.
@@ -98,16 +239,11 @@ def all_gather(x: torch.Tensor, *, tiled: bool = False,
     x: (g, m, ...), rank r's block at [r].  Untiled -> (g, g, m, ...),
     out[r, s] = x[s]; tiled -> (g, g * m, ...), the blocks concatenated
     in rank order on every rank.  With ``group``: x is this rank's (m,
-    ...) block -> (g, m, ...), or (g * m, ...) tiled.
+    ...) block -> (g, m, ...), or (g * m, ...) tiled; its gradient is the
+    reduce-scatter of the output's.
     """
     if group is not None:
-        pg = _plain(group)
-        out = torch.empty((group.size, *x.shape), dtype=x.dtype,
-                          device=x.device)
-        # The concatenated form, which gloo takes as well as NCCL.
-        dist.all_gather_into_tensor(out.flatten(0, 1), x.contiguous(),
-                                    group=pg)
-        _record("all-gather", out, ranks=1)
+        out = _AllGather.apply(x, group)
         return out.flatten(0, 1) if tiled else out
     g = x.shape[0]
     out = _record("all-gather", x.unsqueeze(0).expand(g, *x.shape)
@@ -124,20 +260,29 @@ def all_to_all(x: torch.Tensor, *, group: RankGroup | None = None
     x: (g, g, ...), rank r's block s at [r, s] -> (g, g, ...): rank r's
     block s lands in rank s's slot r, out[s, r] = x[r, s], a copy.  With
     ``group``: x is this rank's (g, ...) blocks -> (g, ...), out[s] rank
-    s's block for this rank.
+    s's block for this rank; its gradient is the all-to-all of the
+    output's.
     """
     if group is not None:
-        pg = _plain(group)
-        if x.shape[0] != group.size:
-            raise ValueError(f"all_to_all of {tuple(x.shape)}: dim 0 must "
-                             "be the group size")
-        out = torch.empty_like(x, memory_format=torch.contiguous_format)
-        dist.all_to_all_single(out, x.contiguous(), group=pg)
-        return _record("all-to-all", out, ranks=1)
+        return _AllToAll.apply(x, group)
     if x.shape[1] != x.shape[0]:
         raise ValueError(f"all_to_all of {tuple(x.shape)}: dim 1 must be "
                          "the group size")
     return _record("all-to-all", x.transpose(0, 1).contiguous())
+
+
+def all_to_all_start(x: torch.Tensor, *, group: RankGroup):
+    """:func:`all_to_all` with ``group``, issued and not waited for:
+    returns (out, work).  ``out`` must not be read before ``work.wait()``,
+    which, on NCCL, makes the caller's current stream wait for the
+    exchange (the host does not block); NCCL orders the exchange after
+    the work already on that stream when it is issued.  No gradient: the
+    EP dispatch's overlapped form (:mod:`repro_torch.overlap.moe`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("all_to_all_start has no reverse-mode rule; "
+                           "use all_to_all(group=) under grad")
+    out, work = _exchange(x, group, async_op=True)
+    return _record("all-to-all", out, ranks=1), work
 
 
 def ppermute(x: torch.Tensor, shift: int = 1, *,
@@ -145,22 +290,10 @@ def ppermute(x: torch.Tensor, shift: int = 1, *,
     """``lax.ppermute`` with ``perm = [(i, (i + shift) % g)]``: rank r
     receives rank (r - shift)'s block.  x: (g, ...) -> (g, ...), a copy.
     With ``group``: x is this rank's block, sent to rank r + shift while
-    rank r - shift's is received (one ``batch_isend_irecv``)."""
+    rank r - shift's is received (one ``batch_isend_irecv``); its gradient
+    is the ppermute by ``-shift`` of the output's."""
     if group is not None:
-        pg = _plain(group)
-        g, r = group.size, group.rank
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        if shift % g == 0:
-            out.copy_(x)
-        else:
-            reqs = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, x, (r + shift) % g, pg),
-                dist.P2POp(dist.irecv, out, (r - shift) % g, pg),
-            ])
-            for req in reqs:
-                req.wait()
-        return _record("collective-permute", out, ranks=1)
+        return _Ppermute.apply(x, shift, group)
     g = x.shape[0]
     src = (torch.arange(g, device=x.device) - shift) % g
     return _record("collective-permute", x[src])
@@ -170,18 +303,41 @@ def all_reduce(x: torch.Tensor, *, group: RankGroup,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``lax.psum`` over a :class:`RankGroup`: the sum of every rank's
     ``x`` (``op`` another reduction), the same bits on every rank (a copy;
-    ``x`` is unchanged)."""
-    pg = _plain(group)
-    out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=op, group=pg)
-    return _record("all-reduce", out, ranks=1)
+    ``x`` is unchanged).  The sum's gradient is the output's, unchanged:
+    the output is replicated, so its cotangent already is.  Another
+    ``op`` refuses grad."""
+    if op == dist.ReduceOp.SUM:
+        return _AllReduce.apply(x, group)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(f"all_reduce with {op} has no reverse-mode rule")
+    return _record("all-reduce", _sum(x, group, op), ranks=1)
 
 
 def pmax(x: torch.Tensor, *, group: RankGroup) -> torch.Tensor:
     """``lax.pmax`` over a :class:`RankGroup`: the elementwise max of every
-    rank's ``x``, counted under ``all-reduce`` as XLA lowers it."""
+    rank's ``x``, counted under ``all-reduce`` as XLA lowers it.  Decode
+    only: refuses grad."""
     return all_reduce(x, group=group, op=dist.ReduceOp.MAX)
 
 
+def rank_block(x: torch.Tensor, dim: int, *, group: RankGroup
+               ) -> torch.Tensor:
+    """This rank's block r of the replicated ``x`` along ``dim`` (a copy),
+    as ``shard_map`` cuts a replicated operand.  Its gradient is the full
+    ``x``'s: the blocks' cotangents all-gathered, the same bits on every
+    rank, so the replicated computation upstream gets the gradient it
+    would in one process.  No collective in the forward."""
+    return _RankBlock.apply(x, dim % x.dim(), group)
+
+
+def replicated(x: torch.Tensor, *, group: RankGroup) -> torch.Tensor:
+    """``x``, a replicated operand of this rank's partial product (a
+    column block's GEMM): the forward is the identity, the gradient the
+    sum of every rank's cotangent (an all-reduce), as the rank's own is
+    only its block's part."""
+    return _Replicated.apply(x, group)
+
+
 __all__ = ["CollectiveStats", "counting", "all_gather", "all_to_all",
-           "ppermute", "all_reduce", "pmax"]
+           "all_to_all_start", "ppermute", "all_reduce", "pmax",
+           "rank_block", "replicated"]

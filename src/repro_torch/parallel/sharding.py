@@ -25,7 +25,8 @@ this module's globals, so a variant can replace them here
 constrain.  A group whose ranks are processes
 (:class:`~repro_torch.parallel.group.RankGroup`) holds each rank's blocks
 in its own process instead; :func:`shard_mlp_params` cuts a model's MLP
-weights to one rank's blocks (ROADMAP A9).
+weights to one rank's blocks and :func:`shard_train_state` a train state,
+by the one rule of :func:`block_dim` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import threading
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tree import leaves
 
 _STATE = threading.local()
 # Copy streams a group's chunk exchange spreads its copies over, at most one
@@ -126,15 +128,50 @@ def shard_columns(w: torch.Tensor, g: int) -> torch.Tensor:
 _MLP_KEYS = {"w_up", "w_down", "w_gate"}
 
 
+def block_dim(node, key) -> int | None:
+    """The dim along which leaf ``node[key]`` of a state tree is cut to a
+    rank's block, or None where every rank holds it whole: the rule of
+    :func:`shard_mlp_params` and :func:`shard_train_state`, which the
+    optimizer's global norm reads too (:func:`rank_blocks`).  An MLP is a
+    dict of ``w_up``, ``w_down`` and optionally ``w_gate``: ``w_up`` and
+    ``w_gate`` are cut to their column block (-1, ``P(None, "model")``),
+    ``w_down`` to its row block (-2, ``P("model", None)``); every other
+    leaf, the MoE experts' included, is whole."""
+    if (isinstance(node, dict) and key in _MLP_KEYS
+            and {"w_up", "w_down"} <= set(node) <= _MLP_KEYS):
+        return -2 if key == "w_down" else -1
+    return None
+
+
+def _map_blocks(fn, tree):
+    """``fn(leaf, dim)`` over a tree's leaves, ``dim`` from
+    :func:`block_dim`; a tree like ``tree``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            dim = block_dim(tree, k)
+            out[k] = _map_blocks(fn, v) if dim is None else fn(v, dim)
+        return out
+    if isinstance(tree, list):
+        return [_map_blocks(fn, v) for v in tree]
+    return fn(tree, None)
+
+
+def rank_blocks(tree) -> list[bool]:
+    """For each leaf of ``tree`` in :func:`repro_torch.tree.leaves` order,
+    whether a rank holds only its block of it (:func:`block_dim`)."""
+    return leaves(_map_blocks(lambda t, dim: dim is not None, tree))
+
+
 def shard_mlp_params(tree, rank: int, size: int):
     """Rank ``rank``'s copy of a model's state for a group of ``size``
-    processes: every MLP's ``w_up`` and ``w_gate`` cut to their column
-    block r (``P(None, "model")``) and ``w_down`` to its row block r
-    (``P("model", None)``), on their last two dims (a period-stacked leaf
-    keeps its leading dims); every other leaf, the MoE experts' included,
-    as it is.  The blocks are copies, so the full weights can be freed.
-    An MLP is a dict of ``w_up``, ``w_down`` and optionally ``w_gate``."""
-    def block(t: torch.Tensor, dim: int) -> torch.Tensor:
+    processes: each leaf that :func:`block_dim` cuts, cut to its block r
+    on its last two dims (a period-stacked leaf keeps its leading dims);
+    every other leaf as it is.  The blocks are copies, so the full
+    weights can be freed."""
+    def block(t: torch.Tensor, dim):
+        if dim is None:
+            return t
         n = t.shape[dim]
         if n % size:
             raise ValueError(f"dim {dim} of {tuple(t.shape)} not divisible "
@@ -143,14 +180,22 @@ def shard_mlp_params(tree, rank: int, size: int):
         return t.narrow(dim, rank * b, b).clone(
             memory_format=torch.contiguous_format)
 
-    if isinstance(tree, dict):
-        if {"w_up", "w_down"} <= set(tree) <= _MLP_KEYS:
-            return {k: block(v, -2 if k == "w_down" else -1)
-                    for k, v in tree.items()}
-        return {k: shard_mlp_params(v, rank, size) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [shard_mlp_params(v, rank, size) for v in tree]
-    return tree
+    return _map_blocks(block, tree)
+
+
+def shard_train_state(state, rank: int, size: int):
+    """Rank ``rank``'s copy of a train state ``{"params", "opt_state":
+    {"m", "v", "step"}}``: the params and AdamW's ``m`` and ``v`` cut by
+    :func:`shard_mlp_params`' rule, ``step`` as it is."""
+    opt_state = state["opt_state"]
+    return {
+        "params": shard_mlp_params(state["params"], rank, size),
+        "opt_state": {
+            **opt_state,
+            "m": shard_mlp_params(opt_state["m"], rank, size),
+            "v": shard_mlp_params(opt_state["v"], rank, size),
+        },
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -354,5 +399,8 @@ __all__ = [
     "tp_group",
     "shard_rows",
     "shard_columns",
+    "block_dim",
+    "rank_blocks",
     "shard_mlp_params",
+    "shard_train_state",
 ]

@@ -13,7 +13,8 @@ for :data:`~repro_torch.core.machine.H100_SXM`.
 On a :class:`~repro_torch.parallel.group.RankGroup` the same function is
 one rank's ``shard_map`` body: the weight is this rank's column block
 already, and the rank cuts its own sequence block out of the replicated
-activation and returns its column block of the output.
+activation and returns its column block of the output; the cut's
+gradient is the whole activation's, so training runs per rank too.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from repro_torch.core.machine import H100_SXM
 from repro_torch.core.schedule_types import Schedule
 from repro_torch.kernels.ops import ag_matmul_dma
 from repro_torch.overlap.api import ficco_linear
+from repro_torch.parallel.collectives import rank_block
 from repro_torch.parallel.group import RankGroup
 from repro_torch.parallel.sharding import active_group, shard_columns
 
@@ -85,12 +87,15 @@ def tp_ficco_linear(
 
 def _rank_linear(x, w, schedule, dma: bool, group: RankGroup):
     """x: (B, S, D), replicated; w: (D, F/g), this rank's columns ->
-    (B, S, F/g), this rank's column block (the reference's ``body``)."""
-    g, r = group.size, group.rank
+    (B, S, F/g), this rank's column block (the reference's ``body``).
+    Under grad the schedule's all-gathers reduce-scatter the cotangent,
+    and the block cut all-gathers it back: every rank gets the whole
+    dx, the same bits on each."""
+    g = group.size
     b, s, d = x.shape
-    s_loc = s // g
-    # This rank's sequence block, rows seq-major ((S/g) * B rows).
-    rows = x[:, r * s_loc:(r + 1) * s_loc].transpose(0, 1).reshape(-1, d)
+    # This rank's sequence block, rows seq-major ((S/g) * B rows); its
+    # gradient comes back as the full, replicated dx.
+    rows = rank_block(x, 1, group=group).transpose(0, 1).reshape(-1, d)
     if dma and rows.shape[0] % g == 0:
         out = ag_matmul_dma(rows, w, group=group)
     else:

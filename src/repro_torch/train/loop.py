@@ -8,6 +8,14 @@ by autograd, and one AdamW update.  The TP MLP's FiCCO overlap applies
 only inside ``tp_group(TPGroup(g))``, as the reference's applies only
 under a mesh; on ``uniform-fused-2d`` its up and gate projections run K2
 forward and the plain products of K2's autograd Function backward.
+
+Inside ``tp_group(RankGroup)`` the same functions run on one rank of a
+group of processes: the state holds the rank's MLP blocks and their
+moments (:func:`~repro_torch.parallel.sharding.shard_train_state`), every
+rank draws the same batch, the per-rank collectives carry the gradients
+across the group, and :func:`~repro_torch.train.optimizer.global_norm`
+sums the blocks' squares over the ranks, so each rank updates its blocks
+and the replicated leaves the same bits on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from repro_torch.models.model import Model, build_model
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
 from repro_torch.parallel.context import overlap_context
+from repro_torch.parallel.group import RankGroup
+from repro_torch.parallel.sharding import active_group, shard_train_state
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import leaves, unflatten
 
@@ -119,17 +129,31 @@ def train(
     log_fn=print,
     device=None,
 ) -> dict:
-    """Single-process training loop on ``device`` (default ``cuda``).
+    """Training loop on ``device`` (default ``cuda``).
 
     Run it inside ``tp_group(TPGroup(g))`` for the model's overlap mode to
-    apply to the TP MLPs.
+    apply to the TP MLPs.  Inside ``tp_group(RankGroup)`` it is one rank's
+    loop (``device`` defaults to the group's): the state is drawn whole
+    from ``seed`` and cut to the rank's blocks, and the returned state
+    holds them.  Checkpoints there raise: the reference saves whole
+    arrays, and gathering the blocks is ROADMAP A14.
     """
-    dev = resolve_device(device)
+    group = active_group()
+    per_rank = isinstance(group, RankGroup)
+    if per_rank and checkpoint_dir:
+        raise NotImplementedError(
+            "train(checkpoint_dir=...) on a RankGroup: each rank holds only "
+            "its MLP blocks and the checkpoint format is whole arrays; "
+            "sharded checkpoints are ROADMAP A14")
+    dev = resolve_device(group.device if per_rank and device is None
+                         else device)
     ocfg = ocfg or opt.OptimizerConfig(
         warmup_steps=max(steps // 20, 5), decay_steps=steps
     )
     model = build_model(cfg)
     state = init_train_state(model, seed, device=dev)
+    if per_rank:
+        state = shard_train_state(state, group.rank, group.size)
     step_fn = make_train_step(model, ocfg)
     data = make_pipeline(cfg, shape, seed=seed, device=dev)
 

@@ -8,6 +8,9 @@ order.  ``step`` is a 0-dim int32 tensor on the parameters' device, and
 ``lr`` and ``grad_norm`` stay 0-dim device tensors, so a step never waits
 on the host.  :func:`state_specs` shards the moments like the parameters
 (the dry-run's optimizer state, :mod:`repro_torch.launch.dryrun`).
+On a rank of a ``RankGroup`` the trees hold the rank's blocks
+(:func:`repro_torch.parallel.sharding.shard_train_state`) and
+:func:`global_norm` is the whole tree's.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.parallel.sharding import P
+from repro_torch.parallel.collectives import all_reduce
+from repro_torch.parallel.group import RankGroup
+from repro_torch.parallel.sharding import P, active_group, rank_blocks
 from repro_torch.tree import leaves, tree_map, unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -77,11 +82,26 @@ def state_specs(param_specs) -> dict[str, Any]:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's fp32 sum of squares, leaf by leaf
-    in the reference's order."""
-    total = 0
-    for g in leaves(tree):
-        total = total + torch.sum(torch.square(g.float()))
-    return torch.sqrt(total)
+    in the reference's order.
+
+    Under an active :class:`~repro_torch.parallel.group.RankGroup` the
+    tree holds this rank's blocks (:func:`~repro_torch.parallel.sharding.
+    rank_blocks`): their squares are summed over the ranks by one
+    ``all_reduce``, and the replicated leaves', the same on every rank,
+    are counted once, so the norm is the whole tree's, the same bits on
+    every rank."""
+    group = active_group()
+    if not isinstance(group, RankGroup):
+        total = 0
+        for g in leaves(tree):
+            total = total + torch.sum(torch.square(g.float()))
+        return torch.sqrt(total)
+    parts = {True: 0, False: 0}
+    for g, block in zip(leaves(tree), rank_blocks(tree)):
+        parts[block] = parts[block] + torch.sum(torch.square(g.float()))
+    blocks = torch.as_tensor(parts[True], dtype=torch.float32,
+                             device=leaves(tree)[0].device)
+    return torch.sqrt(parts[False] + all_reduce(blocks, group=group))
 
 
 @torch.no_grad()

@@ -28,14 +28,31 @@ imports no JAX) and pickles the results back:
     ``uniform-fused-1d`` on the collective backend and on the DMA
     backend, against the reference's single-device forward in this
     process at 2e-3 (``tests/test_torch_model.py``'s tolerance; R4 rules
-    out the reference's sharded forward), every rank's logits bit-equal.
+    out the reference's sharded forward), every rank's logits bit-equal;
+  * the EP dispatch per rank (``serial_a2a_ffn`` / ``ficco_a2a_ffn`` with
+    ``group=``), each of ``MOE_CASES``, against the reference's
+    ``shard_map`` outputs (the subprocess's ``moe`` entry) at 1e-5, with
+    ``"reverse"`` bit-equal to ``"default"`` and two all-to-alls counted
+    per non-empty chunk;
+  * each per-rank collective's gradient against the logical form's
+    autograd (``all_reduce``'s the identity);
+  * 2 AdamW steps per rank of the reduced TinyLlama (fp32) on serial,
+    uniform-fused-2d and uniform-fused-2d with ``accum_steps=2``, from
+    the reference's params cut by ``shard_train_state``, against the
+    reference's jitted steps run in this process
+    (``torch_jax_reference.train_reference``) at 2e-3: the metrics and
+    the replicated leaves bit-equal across ranks, K2's folds and the
+    counted (forward) collectives per step; the DMA backend refusing
+    grad per rank.
 
 Besides: the launcher raises, and leaves no rank running, when one rank
 raises; ranks that share a CUDA device refuse plain collectives (decided
 on device objects: there is no card here); a ``RankGroup`` with a card
 per rank makes its NCCL group while it is built, and raises when two of
 its cards lack peer access (``torch.distributed`` and the CUDA queries
-patched).
+patched); ``pmax`` refuses grad; ``train(checkpoint_dir=)`` on a
+``RankGroup`` raises, citing ROADMAP A14; ``shard_train_state`` cuts the
+params and both moments.
 """
 
 import dataclasses
@@ -48,15 +65,21 @@ import torch_group_ranks
 import torch_jax_reference as jax_reference
 
 from repro.configs import get_config as jax_get_config
+from repro.core.workload import StepProfile as JaxStepProfile
 from repro.models.model import build_model as jax_build_model
+from repro.overlap.moe import skewed_chunk_sizes as jax_skewed_chunk_sizes
+from repro.tune.variants import default_variant as jax_default_variant
+from repro_torch.configs import get_config
 from repro_torch.core.schedule_types import Schedule
+from repro_torch.core.workload import StepProfile
 from repro_torch.kernels.dma_exchange import ficco_uniform_fused_1d_dma
 from repro_torch.kernels.ficco_ag_matmul import ficco_ag_matmul_fused
 from repro_torch.launch.group import spawn
 from repro_torch.parallel import collectives
 from repro_torch.parallel.group import RankGroup, plain_backend
-from repro_torch.parallel.sharding import shard_mlp_params
-from repro_torch.tune.variants import KernelVariant
+from repro_torch.parallel.sharding import (rank_blocks, shard_mlp_params,
+                                           shard_train_state, tp_group)
+from repro_torch.tune.variants import KernelVariant, default_variant
 
 # The pytest-xdist workers share the host's cores: one intra-op thread
 # each, or the small tensors here spend their time oversubscribing them.
@@ -76,6 +99,11 @@ VARIANTS = (
 )
 PREFILL_MODES = (("uniform-fused-1d", "collective"),
                  ("uniform-fused-1d", "dma"))
+# Training per rank (reduced TinyLlama, fp32, 2 steps): (mode, accum_steps)
+# on the collective backend.
+TRAIN_MODES = (("serial", 1), ("uniform-fused-2d", 1), ("uniform-fused-2d", 2))
+# K2 folds per forward on the 2D path: 2 layers x (up, gate) x 4 K slices.
+FOLDS_2D = 16
 # The engine per rank: prompts of PROMPT tokens, NEW new tokens each; a
 # cache the reference's guard takes (time-sharded) and one it refuses
 # (whole on every rank, the plain decode).
@@ -113,9 +141,44 @@ def _composer_operands():
     return x.astype(np.float32), w.astype(np.float32)
 
 
+def _ep_cases() -> dict:
+    """``MOE_CASES``' keyword arguments for the port's ``ficco_a2a_ffn``
+    (None: ``serial_a2a_ffn``), as the reference's entry runs them."""
+    g = jax_reference.MOE["g"]
+    reverse = dataclasses.replace(
+        default_variant("ficco_a2a_ffn", group=g), dispatch_order="reverse")
+    kwargs = {
+        "serial": None,
+        "default": {},
+        "chunks3": {"chunks": 3},
+        "reverse": {"variant": reverse},
+        "skewed": {"profile": StepProfile.skewed(g, jax_reference.MOE_SKEW)},
+        "sizes": {"chunk_sizes": jax_reference.MOE_SIZES},
+    }
+    return {name: kwargs[name] for name in jax_reference.MOE_CASES}
+
+
+def _grad_operands():
+    """x (g, g, 3, 5) and each collective's output cotangent: stacked by
+    rank, or one replicated array for ``all_reduce``."""
+    rng = np.random.default_rng(54)
+
+    def draw(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    x = draw(G, G, 3, 5)
+    return x, {"all_gather": draw(G, G, G, 3, 5),
+               "all_gather_tiled": draw(G, G * G, 3, 5),
+               "all_to_all": draw(G, G, 3, 5),
+               "ppermute": draw(G, G, 3, 5),
+               "ppermute_back": draw(G, G, 3, 5),
+               "all_reduce": draw(G, 3, 5)}
+
+
 @pytest.fixture(scope="module")
 def ranks(model_reference, tmp_path_factory):
     """Every rank's results of :func:`torch_group_ranks.run_all`."""
+    train = jax_reference.TRAIN
     cases = {
         "schedules": jax_reference.schedule_operands(),
         "collectives": np.random.default_rng(52).standard_normal(
@@ -130,6 +193,11 @@ def ranks(model_reference, tmp_path_factory):
         "prefill_modes": PREFILL_MODES,
         "params": model_reference["numpy_params"],
         "tokens": model_reference["tokens"],
+        "ep": (*jax_reference.moe_operands(), _ep_cases()),
+        "collective_grads": _grad_operands(),
+        "train_modes": TRAIN_MODES,
+        "train": ((train["seq"], train["batch"]), train["ocfg"],
+                  train["steps"]),
     }
     with pytest.MonkeyPatch.context() as mp:
         # The ranks resolve no promoted variant from the home directory.
@@ -400,3 +468,226 @@ def test_rank_group_needs_a_device_or_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         RankGroup(0, 1, addr="127.0.0.1", port=1)
+
+
+# ---------------------------------------------------------------------------
+# The EP dispatch per rank
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dispatch_reference(tmp_path_factory):
+    return jax_reference.reference(tmp_path_factory)["moe"]
+
+
+@pytest.mark.parametrize("name", jax_reference.MOE_CASES)
+def test_rank_ep_dispatch_matches_shard_map(ranks, dispatch_reference,
+                                            name):
+    """Each rank's (E, C, D) block of the reference's ``shard_map`` output
+    of ``serial_a2a_ffn`` / ``ficco_a2a_ffn``, at 1e-5 in fp32."""
+    for r, res in enumerate(ranks):
+        got, _ = res["ep"][name]
+        np.testing.assert_allclose(got, dispatch_reference[name][r],
+                                   rtol=TOL["float32"], atol=TOL["float32"])
+
+
+def test_rank_ep_reverse_is_bit_equal_to_default(ranks):
+    for res in ranks:
+        np.testing.assert_array_equal(res["ep"]["reverse"][0],
+                                      res["ep"]["default"][0])
+
+
+def _ep_chunks(name: str) -> int:
+    """The non-empty chunks the reference's cut gives each case."""
+    c, g = jax_reference.MOE["c"], jax_reference.MOE["g"]
+    if name == "serial":
+        return 1
+    if name == "chunks3":
+        return 3
+    if name == "skewed":
+        sizes = jax_skewed_chunk_sizes(c, JaxStepProfile.skewed(
+            g, jax_reference.MOE_SKEW))
+        return sum(1 for s in sizes if s)
+    if name == "sizes":
+        return sum(1 for s in jax_reference.MOE_SIZES if s)
+    return jax_default_variant("ficco_a2a_ffn", group=g).chunks
+
+
+@pytest.mark.parametrize("name", jax_reference.MOE_CASES)
+def test_rank_ep_counts_two_all_to_alls_per_chunk(ranks, name):
+    for res in ranks:
+        _, counts = res["ep"][name]
+        assert counts == {"all-to-all": 2 * _ep_chunks(name)}
+
+
+# ---------------------------------------------------------------------------
+# Gradients per rank
+# ---------------------------------------------------------------------------
+
+def _logical_grads():
+    """Each collective's gradient in the logical form, by autograd over
+    the stacked ranks: the reference's transposes."""
+    x, cot = _grad_operands()
+    fns = {
+        "all_gather": collectives.all_gather,
+        "all_gather_tiled": lambda v: collectives.all_gather(v, tiled=True),
+        "all_to_all": collectives.all_to_all,
+        "ppermute": lambda v: collectives.ppermute(v, 1),
+        "ppermute_back": lambda v: collectives.ppermute(v, -1),
+        # psum's output is one replicated array: its cotangent reaches
+        # every rank's block once.
+        "all_reduce": lambda v: v.sum(0),
+    }
+    out = {}
+    for name, fn in fns.items():
+        xt = torch.from_numpy(x).requires_grad_(True)
+        (grad,) = torch.autograd.grad(fn(xt), xt, torch.from_numpy(cot[name]))
+        out[name] = grad.numpy()
+    return out
+
+
+@pytest.mark.parametrize("name", ["all_gather", "all_gather_tiled",
+                                  "all_to_all", "ppermute", "ppermute_back",
+                                  "all_reduce"])
+def test_rank_collective_grad_matches_logical(ranks, name):
+    want = _logical_grads()[name]
+    for r, res in enumerate(ranks):
+        np.testing.assert_allclose(res["collective_grads"][name], want[r],
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_pmax_refuses_grad():
+    from repro_torch.parallel.group import RankGroup as Group
+
+    group = Group.__new__(Group)
+    group._plain, group.size, group.rank = "gloo group", 2, 0
+    with pytest.raises(RuntimeError, match="no reverse-mode rule"):
+        collectives.pmax(torch.ones(2, requires_grad=True), group=group)
+
+
+# ---------------------------------------------------------------------------
+# Training per rank
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def train_reference():
+    return jax_reference.train_reference()
+
+
+def _rank_want(train_reference, rank: int) -> list:
+    """The reference's state after the last step, cut to ``rank``'s
+    blocks, as numpy leaves in the port's order."""
+    from repro_torch.convert import opt_state_from_jax, params_from_jax
+    from repro_torch.tree import leaves
+
+    cfg = get_config(ARCH).reduced()
+    want = train_reference["states"][-1]
+    state = {"params": params_from_jax(want["params"], cfg, device="cpu"),
+             "opt_state": opt_state_from_jax(want["opt_state"], cfg,
+                                             device="cpu")}
+    return [t.numpy() for t in leaves(shard_train_state(state, rank, G))]
+
+
+@pytest.mark.parametrize("mode,accum", TRAIN_MODES)
+def test_rank_train_matches_reference(ranks, train_reference, mode, accum):
+    """Each step's metrics and every leaf of the last state, cut to the
+    rank's blocks, within 2e-3 of the reference's jitted steps."""
+    for r, res in enumerate(ranks):
+        got = res["train", mode, accum]
+        for m, want_m in zip(got["metrics"], train_reference["metrics"],
+                             strict=True):
+            for k in ("loss", "ce", "aux", "lr", "grad_norm"):
+                np.testing.assert_allclose(m[k], want_m[k], **MODEL_TOL,
+                                           err_msg=k)
+        want = _rank_want(train_reference, r)
+        assert len(got["leaves"]) == len(want)
+        for a, b in zip(got["leaves"], want):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, **MODEL_TOL)
+
+
+@pytest.mark.parametrize("mode,accum", TRAIN_MODES)
+def test_rank_train_replicated_leaves_bit_equal(ranks, mode, accum):
+    """The metrics and every replicated leaf are the same bits on every
+    rank; the blocks (the MLPs' three weights, with ``m`` and ``v``)
+    differ."""
+    first = ranks[0]["train", mode, accum]
+    assert sum(first["blocks"]) == 3 * 3  # params, m, v x 3 weights
+    for res in ranks[1:]:
+        got = res["train", mode, accum]
+        assert got["metrics"] == first["metrics"]
+        assert got["blocks"] == first["blocks"]
+        for a, b, block in zip(got["leaves"], first["leaves"],
+                               first["blocks"]):
+            if not block:
+                np.testing.assert_array_equal(a, b)
+            else:
+                assert not np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode,accum", TRAIN_MODES)
+def test_rank_train_k2_folds(ranks, mode, accum):
+    """K2 folds each up/gate step of the 2D path per rank: 16 per forward
+    (one forward per microbatch); none on serial."""
+    per_step = FOLDS_2D * accum if mode == "uniform-fused-2d" else 0
+    for res in ranks:
+        assert res["train", mode, accum]["folds"] == \
+            [per_step] * jax_reference.TRAIN["steps"]
+
+
+@pytest.mark.parametrize("mode,accum", TRAIN_MODES)
+def test_rank_train_counts_the_forward_collectives_only(ranks, mode, accum):
+    """``counting()`` around a step records each microbatch's forward
+    collectives (each MLP's up and gate all-gathers, one per K slice on
+    the 2D path, and its down projection's all-reduce) and the global
+    norm's all-reduce; the backward's reduce-scatters and all-gathers go
+    uncounted."""
+    layers = get_config(ARCH).reduced().num_layers
+    gathers = 2 * (G if mode == "uniform-fused-2d" else 1)
+    want = {"all-gather": layers * gathers * accum,
+            "all-reduce": layers * accum + 1}
+    for res in ranks:
+        assert res["train", mode, accum]["collectives"] == \
+            [want] * jax_reference.TRAIN["steps"]
+
+
+def test_rank_dma_backend_refuses_grad(ranks):
+    for res in ranks:
+        assert "no reverse-mode rule" in res["dma_grad"]
+
+
+def test_train_with_checkpoints_on_a_rank_group_raises(monkeypatch,
+                                                       tmp_path):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.loop import train
+
+    group, _ = _patched_rank_group(monkeypatch, ["cpu"] * G)
+    with tp_group(group), pytest.raises(NotImplementedError,
+                                        match="ROADMAP A14"):
+        train(get_config(ARCH).reduced(), ShapeConfig("t", 16, 2, "train"),
+              steps=1, checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    assert not any(tmp_path.iterdir())
+
+
+def test_shard_train_state_cuts_params_and_moments():
+    gen = torch.Generator().manual_seed(0)
+
+    def tree():
+        return {"embed": torch.randn(5, 8, generator=gen),
+                "layers": [{"ffn": {
+                    "w_up": torch.randn(2, 8, 16, generator=gen),
+                    "w_gate": torch.randn(2, 8, 16, generator=gen),
+                    "w_down": torch.randn(2, 16, 8, generator=gen)}}]}
+
+    state = {"params": tree(),
+             "opt_state": {"m": tree(), "v": tree(),
+                           "step": torch.tensor(3, dtype=torch.int32)}}
+    got = shard_train_state(state, 2, G)
+    assert got["opt_state"]["step"] is state["opt_state"]["step"]
+    for part in (got["params"], got["opt_state"]["m"],
+                 got["opt_state"]["v"]):
+        assert rank_blocks(part) == [False, True, True, True]
+    for key in ("m", "v"):
+        full = state["opt_state"][key]["layers"][0]["ffn"]
+        cut = got["opt_state"][key]["layers"][0]["ffn"]
+        assert torch.equal(cut["w_up"], full["w_up"][..., 8:12])
+        assert torch.equal(cut["w_down"], full["w_down"][:, 8:12])

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_jax_reference as jax_reference
 
 from repro.ckpt.checkpoint import restore_checkpoint as jax_restore
 from repro.ckpt.checkpoint import save_checkpoint as jax_save
@@ -25,7 +26,6 @@ from repro.configs.base import ShapeConfig as JaxShapeConfig
 from repro.data.pipeline import SyntheticLM as JaxSyntheticLM
 from repro.models.model import build_model as jax_build_model
 from repro.train import optimizer as jax_opt
-from repro.train.loop import init_train_state as jax_init_train_state
 from repro.train.loop import make_train_step as jax_make_train_step
 from repro_torch.ckpt.checkpoint import (
     latest_step,
@@ -62,7 +62,7 @@ ARCH = "tinyllama-1.1b"
 # The reference's tolerance for a model forward, fp32 (as in
 # tests/test_torch_model.py).
 TOL = dict(rtol=2e-3, atol=2e-3)
-OCFG = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
+OCFG = jax_reference.TRAIN["ocfg"]
 
 
 @pytest.fixture(autouse=True)
@@ -77,25 +77,7 @@ def _fresh_obs():
 @pytest.fixture(scope="module")
 def reference():
     """The reference's state and its jitted train step run for 2 steps."""
-    cfg = jax_get_config(ARCH).reduced()
-    shape = JaxShapeConfig("t", seq_len=32, global_batch=4, kind="train")
-    model = jax_build_model(cfg)
-    state = jax_init_train_state(model, jax.random.PRNGKey(0))
-    step = jax.jit(jax_make_train_step(model, jax_opt.OptimizerConfig(**OCFG)))
-    data = JaxSyntheticLM(cfg, shape)
-    batches = [data.batch_at(i) for i in range(2)]
-    states, metrics_ = [], []
-    s = state
-    for b in batches:
-        s, m = step(s, b)
-        states.append(jax.tree.map(np.asarray, s))
-        metrics_.append({k: float(v) for k, v in m.items()})
-    loss, parts = jax.jit(model.loss)(state["params"], batches[0])
-    return dict(
-        cfg=cfg, model=model, shape=shape, batches=batches,
-        state=jax.tree.map(np.asarray, state), states=states,
-        metrics=metrics_, loss=float(loss), ce=float(parts["ce"]),
-    )
+    return jax_reference.train_reference()
 
 
 def _port_cfg(**overlap):

@@ -145,6 +145,137 @@ def prefill(group, numpy_params, tokens, mode: str, backend: str):
     return logits.float().numpy()
 
 
+def ep_dispatch(group, x, w_up, w_down, cases: dict) -> dict:
+    """The per-rank ``serial_a2a_ffn`` / ``ficco_a2a_ffn`` on this rank's
+    blocks of the stacked (g, E, C, D), (g, E/g, D, F), (g, E/g, F, D)
+    operands, for each case (name -> ficco_a2a_ffn's keyword arguments,
+    None for the serial dispatch): its output and ``counting()``'s calls
+    by kind."""
+    from repro_torch.overlap.moe import ficco_a2a_ffn, serial_a2a_ffn
+    from repro_torch.parallel.collectives import counting
+
+    r = group.rank
+    ops = [torch.from_numpy(a[r]) for a in (x, w_up, w_down)]
+    out = {}
+    for name, kw in cases.items():
+        with counting() as stats:
+            y = (serial_a2a_ffn(*ops, group=group) if kw is None
+                 else ficco_a2a_ffn(*ops, group=group, **kw))
+        out[name] = (y.numpy(), dict(stats.count_by_kind))
+    return out
+
+
+def collective_grads(group, x, cotangents: dict) -> dict:
+    """The gradient of each per-rank collective of this rank's block of x
+    (g, g, ...) for the cotangent of its output (stacked by rank, or one
+    replicated array for ``all_reduce``)."""
+    from repro_torch.parallel.collectives import (all_gather, all_reduce,
+                                                  all_to_all, ppermute)
+
+    r, g = group.rank, group.size
+    fns = {
+        "all_gather": lambda v: all_gather(v, group=group),
+        "all_gather_tiled": lambda v: all_gather(v, tiled=True, group=group),
+        "all_to_all": lambda v: all_to_all(v, group=group),
+        "ppermute": lambda v: ppermute(v, 1, group=group),
+        "ppermute_back": lambda v: ppermute(v, -1, group=group),
+        "all_reduce": lambda v: all_reduce(v, group=group),
+    }
+    out = {}
+    for name, fn in fns.items():
+        xr = torch.from_numpy(x[r]).requires_grad_(True)
+        dy = cotangents[name]
+        dy = torch.from_numpy(dy if name == "all_reduce" else dy[r])
+        (grad,) = torch.autograd.grad(fn(xr), xr, dy)
+        out[name] = grad.numpy()
+    return out
+
+
+def train_steps(group, numpy_params, mode: str, shape: tuple, ocfg: dict,
+                steps: int, accum_steps: int = 1) -> dict:
+    """``steps`` AdamW steps of ``make_train_step`` on this rank of the
+    reduced TinyLlama (fp32) in ``mode`` on the collective backend, from
+    the reference's params and fresh moments cut by
+    ``shard_train_state``, on ``SyntheticLM``'s batches at ``shape``
+    (seq, batch): each step's metrics, K2 folds and ``counting()``'s
+    calls by kind, and the last state's leaves with whether each is a
+    rank's block."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OverlapConfig, ShapeConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.collectives import counting
+    from repro_torch.parallel.sharding import rank_blocks, shard_train_state
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(
+        get_config("tinyllama-1.1b").reduced(),
+        overlap=OverlapConfig(mode=mode, backend="collective"))
+    params = params_from_jax(numpy_params, cfg, device="cpu")
+    state = shard_train_state(
+        {"params": params, "opt_state": opt.init_state(params)},
+        group.rank, group.size)
+    data = SyntheticLM(cfg, ShapeConfig("t", seq_len=shape[0],
+                                        global_batch=shape[1], kind="train"))
+    step = make_train_step(build_model(cfg), opt.OptimizerConfig(**ocfg),
+                           accum_steps=accum_steps)
+    folds, collectives = [], []
+    real = ops.matmul_accumulate
+
+    def spy(c, x, w):
+        folds[-1] += 1
+        return real(c, x, w)
+
+    ops.matmul_accumulate = spy
+    metrics = []
+    try:
+        for i in range(steps):
+            folds.append(0)
+            batch = {k: torch.from_numpy(v) for k, v in
+                     data.batch_at(i).items()}
+            with counting() as stats:
+                state, m = step(state, batch)
+            collectives.append(dict(stats.count_by_kind))
+            metrics.append({k: v.item() for k, v in m.items()})
+    finally:
+        ops.matmul_accumulate = real
+    return dict(metrics=metrics, folds=folds, collectives=collectives,
+                leaves=[t.numpy() for t in leaves(state)],
+                blocks=rank_blocks(state))
+
+
+def dma_refuses_grad(group, numpy_params, shape: tuple) -> str:
+    """The error that ``loss_and_grads`` raises on this rank on the DMA
+    backend (K3 + K1 have no reverse-mode rule)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OverlapConfig, ShapeConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.sharding import shard_mlp_params
+    from repro_torch.train.loop import loss_and_grads
+
+    cfg = dataclasses.replace(
+        get_config("tinyllama-1.1b").reduced(),
+        overlap=OverlapConfig(mode="uniform-fused-1d", backend="dma"))
+    params = shard_mlp_params(params_from_jax(numpy_params, cfg,
+                                              device="cpu"),
+                              group.rank, group.size)
+    batch = SyntheticLM(cfg, ShapeConfig("t", seq_len=shape[0],
+                                         global_batch=shape[1],
+                                         kind="train")).batch_at(0)
+    try:
+        loss_and_grads(build_model(cfg), params,
+                       {k: torch.from_numpy(v) for k, v in batch.items()})
+    except RuntimeError as err:
+        return str(err)
+    return "no error"
+
+
 def run_all(group, cases: dict) -> dict:
     """Every case of the module, in one spawn."""
     torch.manual_seed(0)
@@ -160,6 +291,15 @@ def run_all(group, cases: dict) -> dict:
     for mode, backend in cases["prefill_modes"]:
         out["prefill", mode, backend] = prefill(
             group, cases["params"], cases["tokens"], mode, backend)
+    out["ep"] = ep_dispatch(group, *cases["ep"])
+    out["collective_grads"] = collective_grads(group,
+                                               *cases["collective_grads"])
+    for mode, accum in cases["train_modes"]:
+        out["train", mode, accum] = train_steps(
+            group, cases["params"], mode, *cases["train"],
+            accum_steps=accum)
+    out["dma_grad"] = dma_refuses_grad(group, cases["params"],
+                                       cases["train"][0])
     return out
 
 

@@ -194,6 +194,50 @@ def reduce_operands():
         (COLLECTIVES["g"], *COLLECTIVES["reduce"])).astype(np.float32)
 
 
+# The reduced TinyLlama's train steps (fp32) that the port's training is
+# held to, in the pytest process: the substrate tests' shape.
+TRAIN = dict(arch="tinyllama-1.1b", seq=32, batch=4, steps=2,
+             ocfg=dict(peak_lr=1e-3, warmup_steps=1, decay_steps=10))
+
+
+def train_reference() -> dict:
+    """The reference's state from ``PRNGKey(0)`` and its jitted train step
+    run for ``TRAIN["steps"]`` steps on ``SyntheticLM``'s batches, run
+    in the calling process (it imports JAX): each step's metrics and
+    state (numpy), the batches, the loss and ce at the first batch, and
+    the config, model and shape."""
+    import jax
+
+    from repro.configs import get_config
+    from repro.configs.base import ShapeConfig
+    from repro.data.pipeline import SyntheticLM
+    from repro.models.model import build_model
+    from repro.train import optimizer
+    from repro.train.loop import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN["arch"]).reduced()
+    shape = ShapeConfig("t", seq_len=TRAIN["seq"],
+                        global_batch=TRAIN["batch"], kind="train")
+    model = build_model(cfg)
+    state = init_train_state(model, jax.random.PRNGKey(0))
+    step = jax.jit(make_train_step(
+        model, optimizer.OptimizerConfig(**TRAIN["ocfg"])))
+    data = SyntheticLM(cfg, shape)
+    batches = [data.batch_at(i) for i in range(TRAIN["steps"])]
+    states, metrics = [], []
+    s = state
+    for b in batches:
+        s, m = step(s, b)
+        states.append(jax.tree.map(np.asarray, s))
+        metrics.append({k: float(v) for k, v in m.items()})
+    loss, parts = jax.jit(model.loss)(state["params"], batches[0])
+    return dict(
+        cfg=cfg, model=model, shape=shape, batches=batches,
+        state=jax.tree.map(np.asarray, state), states=states,
+        metrics=metrics, loss=float(loss), ce=float(parts["ce"]),
+    )
+
+
 def recurrent_requests(request_cls, vocab: int) -> list:
     """``RECURRENT["batch"]`` requests of ``request_cls`` (either
     package's ``Request``) with seeded prompts of unequal lengths."""
