@@ -172,11 +172,13 @@ Phases, each of which exits non-zero on failure:
      each rank's device ms per call and wall, the logical group's beside
      them, labelled as time-sliced contexts (nothing of NVLink); a rank's
      failure or the launcher's timeout fails the phase;
- 17. the group with a card per rank (``[cards]``, ROADMAP A9 step 2),
-     where the machine has 4 cards (on fewer it prints that it did not
-     run, and ``[done]`` says so): 4 rank processes on ``cuda:0``-``3``,
-     each building TinyLlama-1.1B from seed 0 on its own card and holding
-     every part against the logical ``TPGroup(4)`` on that card: (a) the
+ 17. the group with a card per rank (``[cards]``, ROADMAP A9 steps 2
+     and 3), where the machine has 4 cards (on fewer it prints that it did
+     not run, and ``[done]`` says so): 4 rank processes on
+     ``cuda:0``-``3``, each building TinyLlama-1.1B from seed 0 on its own
+     card, holding its blocks of the attention (its 8 of 32 heads) and the
+     MLPs (``Model.rank_specs``), and holding every part against the
+     logical ``TPGroup(4)`` on that card: (a) the
      plain collectives on NCCL (copies and ``pmax`` bit-equal, the sum
      within 1e-5); (b) the six schedules per rank at the up projection
      (bf16 tolerance); (c) K3 alone, the K3 + K1 composer and K4 over
@@ -188,7 +190,16 @@ Phases, each of which exits non-zero on failure:
      ``DecodeEngine`` per rank with ``decode_attn="shard_map"`` at a
      cache of 2048 (4 requests x 16 new tokens): the same tokens on every
      rank and on a second run, each step's logits within 5 % of the
-     one-card logical engine's fed the same tokens, ms per step;
+     one-card logical engine's fed the same tokens, ms per step; (f) the
+     EP dispatch per rank at DeepSeek-V2-Lite's MoE layer; (g) TinyLlama
+     whole trained per rank (3 AdamW steps, 2D with remat, K2 352 per
+     step, metrics and replicated leaves bit-equal across ranks, step 1
+     against a logical step); (h) DeepSeek-V2-Lite-16B whole per rank,
+     its 16 of 64 experts and 4 of 16 MLA heads a rank: the 4 x 512
+     prefill on both backends (K3 216, K1 0 on the DMA path) within 5 %
+     of the logical prefill and equal on every rank, a ``DecodeEngine``,
+     the rank's parameter bytes to the byte; (i) DeepSeek cut to 2 layers
+     trained per rank (K2 32 per step, as (g));
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -5004,9 +5015,10 @@ def _cards_ep(group, seed: int, ep_cfg, tokens: int, reps: int,
 
 
 def _cards_train(group, cfg, state, size: dict, cuda: bool) -> dict:
-    """(g): ``size["train_steps"]`` AdamW steps of TinyLlama whole on this
-    rank, uniform-fused-2d on the collective backend, the rank holding
-    its MLP blocks and their moments, from ``state`` (the params from
+    """(g) and (i): ``size["train_steps"]`` AdamW steps of model ``cfg``
+    on this rank, uniform-fused-2d on the collective backend, the rank
+    holding its blocks (``Model.rank_specs``: the attention's, the MLPs'
+    and the experts') and their moments, from ``state`` (the params from
     seed 0) and fresh moments; first one logical ``TPGroup`` step on this
     card from the same state, which the first step's loss and gradient
     norm are held to."""
@@ -5020,7 +5032,8 @@ def _cards_train(group, cfg, state, size: dict, cuda: bool) -> dict:
     from repro_torch.parallel.sharding import (TPGroup, rank_blocks,
                                                shard_train_state, tp_group)
     from repro_torch.train.loop import make_train_step
-    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.train.optimizer import (OptimizerConfig, init_state,
+                                             state_specs)
     from repro_torch.tree import leaves
 
     dev, g, r = group.device, group.size, group.rank
@@ -5030,12 +5043,14 @@ def _cards_train(group, cfg, state, size: dict, cuda: bool) -> dict:
     b, seq, steps = size["batch"], size["seq"], size["train_steps"]
     data = SyntheticLM(tcfg, ShapeConfig("smoke", seq, b, "train"), seed=0)
     batches = [to_device(data.batch_at(i), dev) for i in range(steps)]
-    step = make_train_step(build_model(tcfg), OptimizerConfig(warmup_steps=2))
+    model = build_model(tcfg)
+    step = make_train_step(model, OptimizerConfig(warmup_steps=2))
     full = {"params": state, "opt_state": init_state(state)}
     with tp_group(TPGroup(g, dev)):
         new, m = step(full, batches[0])
     logical = {k: float(v) for k, v in m.items()}
-    rank_state = shard_train_state(full, r, g)
+    specs = model.rank_specs(g)
+    rank_state = shard_train_state(full, specs, r, g)
     del new, m, full
     sync()
     if cuda:
@@ -5055,7 +5070,8 @@ def _cards_train(group, cfg, state, size: dict, cuda: bool) -> dict:
     out = {"logical": logical, "metrics": [], "walls": [], "launches": [],
            "routes": [], "replicated_equal": [], "p_bytes": p_bytes,
            "start": start, "predicted": predicted}
-    blocks = rank_blocks(rank_state)
+    blocks = rank_blocks(rank_state, {"params": specs,
+                                      "opt_state": state_specs(specs)})
     for i in range(steps):
         ops.reset_launch_counts()
         sync()
@@ -5086,6 +5102,197 @@ def _cards_train(group, cfg, state, size: dict, cuda: bool) -> dict:
     return out
 
 
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _predicted_rank_bytes(model, state, g: int) -> int:
+    """What the reference's rule says a rank of ``g`` holds of ``state``:
+    ``shard_shape`` over ``fix_param_specs`` of ``param_specs`` on
+    ``Mesh(("model",), (g,))`` for the leaves of a layer's attention and
+    FFN, the whole leaf for every other (the embedding and unembedding,
+    the norms, the router: ROADMAP A15)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import RANK_CUT
+    from repro_torch.parallel.sharding import (MODEL_AXIS, P,
+                                               fix_param_specs, shard_shape)
+
+    mesh = Mesh((MODEL_AXIS,), (g,))
+    fixed = fix_param_specs(model.param_specs(), state, mesh)
+
+    def walk(tree, specs, cut):
+        if isinstance(specs, P):
+            shape = shard_shape(specs, tree.shape, mesh) if cut else tree.shape
+            return math.prod(shape) * tree.element_size()
+        if isinstance(specs, dict):
+            return sum(walk(tree[k], v, cut) for k, v in specs.items())
+        return sum(walk(t, v, cut) for t, v in zip(tree, specs))
+
+    total = sum(_tree_bytes(v) for k, v in state.items() if k != "layers")
+    for slot, slot_specs in zip(state["layers"], fixed["layers"]):
+        total += sum(walk(slot[k], v, k in RANK_CUT)
+                     for k, v in slot_specs.items())
+    return total
+
+
+def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
+    """(h): DeepSeek-V2-Lite-16B (``cfg``) whole on this rank's card from
+    seed 0.  The one-card logical ``TPGroup`` runs the DMA-path prefill
+    and a ``DecodeEngine`` first, and keeps their logits, expert choices
+    and tokens; then the card cuts the model to the rank's blocks
+    (``Model.rank_specs``: 4 of 16 MLA heads, 16 of 64 experts, the
+    shared experts' columns and rows) and frees the whole.  Per rank: the
+    prefill on the collective backend and the DMA path, free-running (its
+    launches, and its expert choices against the logical run's) and held
+    on the logical run's choices (``_Routing`` replays them: its logits
+    against the logical ones), walls and one trace split at NCCL's
+    kernels; the parameter bytes against :func:`_predicted_rank_bytes`;
+    peak memory; a ``DecodeEngine`` run twice."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel.collectives import counting
+    from repro_torch.parallel.sharding import TPGroup, shard_params, tp_group
+    from repro_torch.serve.engine import DecodeEngine, Request, make_prefill
+    from repro_torch.tree import leaves
+
+    dev, g, r = group.device, group.size, group.rank
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    b, seq = size["batch"], size["seq"]
+    cfgs = {backend: dataclasses.replace(cfg, overlap=OverlapConfig(
+        mode="uniform-fused-1d", backend=backend))
+        for backend in ("collective", "dma")}
+    model = build_model(cfgs["dma"])
+    t0 = time.time()
+    state = model.init(0, device=dev)
+    sync()
+    out = {"init_s": time.time() - t0, "whole_bytes": _tree_bytes(state),
+           "whole_params": sum(t.numel() for t in leaves(state))}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, seq),
+                                     generator=gen, device=dev)}
+    raw = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (b, size["prompt"]))
+
+    def answer(eng):
+        reqs = [Request(raw[i].astype(np.int32),
+                        max_new_tokens=size["new"]) for i in range(b)]
+        steps = []
+        real = eng.step_fn
+
+        def step(*args):
+            steps.append(1)
+            return real(*args)
+
+        eng.step_fn = step
+        sync()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        sync()
+        eng.step_fn = real
+        return ([list(q.out) for q in reqs],
+                (time.perf_counter() - t0) * 1e3 / max(len(steps), 1))
+
+    scfg = dataclasses.replace(cfg, overlap=OverlapConfig(
+        decode_attn="shard_map"))
+    with torch.no_grad(), _Routing() as routing:
+        with tp_group(TPGroup(g, dev)):
+            logical = make_prefill(model)(state, batch)
+            logical_choices = routing.take()
+            ref = DecodeEngine(scfg, state, batch_size=b,
+                               cache_len=size["cache"], device=dev)
+            out["ref_tokens"], out["ref_ms"] = answer(ref)
+            del ref
+            routing.take()
+    out["scale"] = logical.float().abs().max().item()
+    specs = model.rank_specs(g)
+    rank_state = shard_params(state, specs, r, g)
+    out["p_bytes"] = _tree_bytes(rank_state)
+    out["p_params"] = sum(t.numel() for t in leaves(rank_state))
+    out["predicted_bytes"] = _predicted_rank_bytes(model, state, g)
+    del state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev) if cuda else 0
+    # The prefill holds the rank's params, the logical logits kept and
+    # its own (B, S, V) bf16 logits, the layer's (B, S, D) activations
+    # (a dozen, fp32 among them) and the MoE dispatch's (E * C, D)
+    # buffers (the dispatch, the rank's FFN out gathered back, the
+    # combine's gathered rows).
+    capacity = int(max(cfg.moe.capacity_factor * b * seq * cfg.moe.top_k
+                       / cfg.moe.num_experts, 4))
+    out["predicted_peak"] = (
+        start + 2 * b * seq * cfg.vocab_size * 2
+        + 12 * b * seq * cfg.d_model * 4
+        + 4 * cfg.moe.num_experts * capacity * cfg.d_model * 2)
+    out["start"] = start
+    out["prefill"] = {}
+    with torch.no_grad():
+        for backend, bcfg in cfgs.items():
+            prefill = make_prefill(build_model(bcfg))
+            ops.reset_launch_counts()
+            with _Routing() as routing:
+                with counting() as stats:
+                    free = prefill(rank_state, batch)
+                sync()
+                launches, routes = ops.launch_counts(), ops.route_counts()
+                choices = routing.take()
+                # Held on the logical run's expert choices, what remains
+                # between the two is arithmetic.
+                routing.replay = iter(logical_choices)
+                logits = prefill(rank_state, batch)
+            res = dict(launches=launches, routes=routes,
+                       collectives=dict(stats.count_by_kind),
+                       err=_max_err(logits, logical),
+                       free_err=_max_err(free, logical),
+                       finite=all(bool(torch.isfinite(t).all())
+                                  for t in (free, logits)),
+                       shape=tuple(logits.shape),
+                       flipped=[_choices_differ(a, c, cfg.moe.num_experts)
+                                for a, c in zip(logical_choices, choices)])
+            res["same_as_rank0"] = True
+            for t in (free, logits):
+                first = t.clone()
+                dist.broadcast(first, src=0, group=group.plain)
+                res["same_as_rank0"] &= bool(torch.equal(first, t))
+            del first, logits, free
+            if cuda:
+                res["wall_ms"] = [wall_ms(lambda: prefill(rank_state, batch))
+                                  for _ in range(2)]
+                res["trace"] = _rank_trace(lambda: prefill(rank_state, batch))
+            out["prefill"][backend] = res
+        out["peak"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+        del logical
+        eng = DecodeEngine(scfg, rank_state, batch_size=b,
+                           cache_len=size["cache"], device=dev)
+        out["tokens1"], out["first_ms"] = answer(eng)
+        ops.reset_launch_counts()
+        out["tokens"], out["ms"] = answer(eng)  # R7: from the start again
+        out["decode_launches"] = ops.launch_counts()
+        out["decode_routes"] = ops.route_counts()
+        if cuda:  # one more step, traced
+            last = size["prompt"] + size["new"] - 2
+            tok = torch.tensor([[t[-1]] for t in out["tokens"]], device=dev)
+            out["decode_trace"] = _rank_trace(lambda: eng.step_fn(
+                rank_state, eng.cache, tok, last))
+    del eng, rank_state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
     """One rank of ``[cards]``, in a process of its own on its own card
     (run by ``repro_torch.launch.group.spawn``): parts (a)-(e) of
@@ -5110,7 +5317,7 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
     from repro_torch.overlap.api import ficco_linear
     from repro_torch.parallel.collectives import counting
     from repro_torch.parallel.sharding import (TPGroup, shard_columns,
-                                               shard_mlp_params, tp_group)
+                                               shard_params, tp_group)
     from repro_torch.serve.engine import DecodeEngine, Request, make_prefill
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5167,13 +5374,16 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
 
     # (d) the prefill per rank: each rank's weights from seed 0 on its
     # own card; the dense forward (no group) on the full weights, then
-    # this rank's MLP blocks on the collective backend and the DMA path.
+    # this rank's blocks of the attention and the MLPs on the collective
+    # backend and the DMA path.
     t0 = time.time()
     model = build_model(cfg)
     state = model.init(0, device=dev)
     sync()
     out["init_s"] = time.time() - t0
-    rank_state = shard_mlp_params(state, r, g)
+    rank_state = shard_params(state, model.rank_specs(g), r, g)
+    out["p_bytes"] = _tree_bytes(rank_state)
+    out["whole_bytes"] = _tree_bytes(state)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (size["batch"], size["seq"]),
@@ -5211,6 +5421,8 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
                     res["trace"] = phase_trace(
                         f"rank {r} {backend}",
                         lambda: prefill(rank_state, batch))
+                res["nccl_trace"] = _rank_trace(
+                    lambda: prefill(rank_state, batch))
             out["d"][backend] = res
         if cuda:
             with tp_group(None):
@@ -5256,6 +5468,10 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
         ops.reset_launch_counts()
         toks, fed, logits, step_ms = answer(eng)  # R7: from the start again
         launches = ops.launch_counts()
+        # One more step at the last position, traced: the step's device
+        # time outside NCCL's kernels against its wall.
+        step_trace = (_rank_trace(lambda: eng.step_fn(
+            rank_state, eng.cache, *fed[-1])) if cuda else None)
         with tp_group(logical):
             ref = DecodeEngine(scfg, state, batch_size=b,
                                cache_len=size["cache"], device=dev)
@@ -5269,7 +5485,7 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
     out["e"] = dict(tokens=toks, repeat_equal=toks == toks1, slice=slice_len,
                     steps=len(fed), ms=step_ms, first_ms=first_ms,
                     ref_ms=ref_ms, ref_tokens=ref_toks, err=max(errs),
-                    scale=scale, launches=launches,
+                    scale=scale, launches=launches, trace=step_trace,
                     finite=all(bool(torch.isfinite(lg).all())
                                for lg in logits))
     del eng, ref, ref_cache, logits, fed
@@ -5283,7 +5499,16 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
     # (g) training per rank, from the prefill's weights.
     del rank_state
     out["g"] = _cards_train(group, cfg, state, size, cuda)
+    del state, model
     sync()
+
+    # (h) DeepSeek-V2-Lite-16B whole per rank; (i) its 2-layer cut
+    # trained per rank.
+    out["h"] = _cards_moe(group, ep_cfg, size, cuda)
+    sync()
+    cut = dataclasses.replace(ep_cfg, num_layers=MOE_TRAIN_LAYERS)
+    state = build_model(cut).init(0, device=dev)
+    out["i"] = _cards_train(group, cut, state, size, cuda)
     return out
 
 
@@ -5291,10 +5516,12 @@ def phase_cards() -> tuple | None:
     """``[cards]``: GROUP rank processes, one card each, through
     ``repro_torch.launch.group.spawn`` (:func:`_cards_rank`) on
     TinyLlama-1.1B at full width and the sizes of :data:`CARDS` (and
-    EP_ARCH's MoE layer for (f)), checked and printed by
+    EP_ARCH, DeepSeek-V2-Lite-16B: its MoE layer for (f), whole for (h),
+    its 2-layer cut for (i)), checked and printed by
     :func:`_cards_report`.  Returns each kernel's launches per rank in one
-    DMA-path prefill and in the last training step, or None (and prints
-    why) with fewer than GROUP cards."""
+    TinyLlama DMA-path prefill, its last training step, one DeepSeek
+    DMA-path prefill and the cut's last training step, or None (and
+    prints why) with fewer than GROUP cards."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5424,7 +5651,10 @@ def _cards_report(results, wall: float, cfg, size: dict, ep_cfg) -> dict:
     for backend in ("collective", "dma"):
         d = r0["d"][backend]
         print(f"[cards] (d) {cfg.name} prefill, {cfg.num_layers} layers, "
-              f"{b} x {size['seq']}, {backend} backend: logits "
+              f"{b} x {size['seq']}, {backend} backend, each rank holding "
+              f"{cfg.num_heads // g} of {cfg.num_heads} heads and its MLP "
+              f"blocks ({r0['p_bytes'] / 1e9:.3f} of "
+              f"{r0['whole_bytes'] / 1e9:.3f} GB): logits "
               f"equal on every rank, max_abs_err vs dense {d['err']:.4e} of "
               f"max |logit| {d['scale']:.4f} ({d['err'] / d['scale']:.2e}); "
               f"launches per rank {d['launches']}; collectives per rank "
@@ -5438,7 +5668,14 @@ def _cards_report(results, wall: float, cfg, size: dict, ep_cfg) -> dict:
                   f"{per_rank(lambda s, b=backend: s['d'][b]['trace']['busy_ms'], '{:.2f}')}"
                   f", idle share "
                   f"{per_rank(lambda s, b=backend: s['d'][b]['trace']['idle'], '{:.3f}')}"
-                  f" (profiled)")
+                  f" (profiled); in another traced call, device time "
+                  f"outside NCCL's kernels "
+                  f"{per_rank(lambda s, b=backend: s['d'][b]['nccl_trace']['compute_ms'], '{:.2f}')}"
+                  f" ms, NCCL's kernels "
+                  f"{per_rank(lambda s, b=backend: s['d'][b]['nccl_trace']['nccl_ms'], '{:.2f}')}"
+                  f" ms; idle share outside NCCL over the second median "
+                  f"wall "
+                  f"{per_rank(lambda s, b=backend: 1 - s['d'][b]['nccl_trace']['compute_ms'] / s['d'][b]['wall_ms'][1], '{:.3f}')}")
     if cuda:
         print(f"[cards]     dense on one card (no group, full weights): wall "
               f"ms {per_rank(lambda s: s['d']['dense_wall_ms'], '{:.2f}')}; "
@@ -5459,21 +5696,167 @@ def _cards_report(results, wall: float, cfg, size: dict, ep_cfg) -> dict:
           f"{per_rank(lambda s: s['e']['ms'], '{:.2f}')} (first run "
           f"{per_rank(lambda s: s['e']['first_ms'], '{:.2f}')}), the logical "
           f"engine {per_rank(lambda s: s['e']['ref_ms'], '{:.2f}')}")
+    if cuda:
+        print(f"[cards] (e) one traced decode step: window "
+              f"{per_rank(lambda s: s['e']['trace']['window_ms'], '{:.2f}')}"
+              f" ms, device time outside NCCL's kernels "
+              f"{per_rank(lambda s: s['e']['trace']['compute_ms'], '{:.2f}')}"
+              f" ms, NCCL's kernels "
+              f"{per_rank(lambda s: s['e']['trace']['nccl_ms'], '{:.2f}')}"
+              " ms (spinning included)")
     print(f"[cards] req0: {e['tokens'][0]}")
     _cards_report_ep_train(results, cfg, size, ep_cfg)
-    dma = [res["d"]["dma"]["launches"] for res in results]
-    train = [res["g"]["launches"][-1] for res in results]
-    return ({name: [c[name] for c in dma] for name in dma[0]},
-            {name: [c[name] for c in train] for name in train[0]})
+    _cards_report_moe(results, ep_cfg, size)
+    cut = dataclasses.replace(ep_cfg, num_layers=MOE_TRAIN_LAYERS)
+    _check_train(results, "i", cut)
+    _print_train(results, "i", cut, size, f"cut to {MOE_TRAIN_LAYERS} layers")
+
+    def by_kernel(counts):
+        return {name: [c[name] for c in counts] for name in counts[0]}
+
+    return (by_kernel([res["d"]["dma"]["launches"] for res in results]),
+            by_kernel([res["g"]["launches"][-1] for res in results]),
+            by_kernel([res["h"]["prefill"]["dma"]["launches"]
+                       for res in results]),
+            by_kernel([res["i"]["launches"][-1] for res in results]))
+
+
+# [cards] (h): the largest share of (token, k) expert choices, averaged over
+# the layers, that a rank's free-running prefill may route otherwise than
+# the logical group's.  A near-tied router choice flips where the two round
+# differently (the rank sums its partial output projections in bf16 over
+# NCCL, the logical group in one GEMM), and a flip moves every later
+# layer's input; an unrelated top-6 of 64 experts differs in about 0.9 of
+# its choices.  (The arithmetic itself is held on the logical run's
+# choices, within 5 % of its logits.)
+CARDS_FLIP_LIMIT = 0.25
+
+
+def _cards_report_moe(results, cfg, size: dict) -> None:
+    """Print, then check, part (h) of every rank's results."""
+    g, b = GROUP, size["batch"]
+    cuda = results[0]["cuda"]
+    moe = cfg.moe
+    k3 = cfg.num_layers * 2 * g
+    n_local = moe.d_ff_expert * moe.num_shared_experts // g
+
+    def fail(msg):
+        raise AssertionError(f"[cards] {msg}")
+
+    def per_rank(fn, fmt="{:.4f}"):
+        return _per_rank(results, fn, fmt)
+
+    h0 = results[0]["h"]
+    print(f"[cards] (h) {cfg.name} whole ({cfg.num_layers} layers, "
+          f"{h0['whole_params'] / 1e9:.3f}e9 parameters, "
+          f"{h0['whole_bytes'] / 1e9:.2f} GB drawn on each card in "
+          f"{per_rank(lambda s: s['h']['init_s'], '{:.1f}')} s), cut per "
+          f"rank to {cfg.num_heads // g} of {cfg.num_heads} MLA heads, "
+          f"{moe.num_experts // g} of {moe.num_experts} experts and the "
+          f"shared experts' n_local {n_local}: "
+          f"{h0['p_params'] / 1e9:.4f}e9 parameters, {h0['p_bytes']} bytes "
+          f"({h0['p_bytes'] / 1e9:.3f} GB) a rank; the rule predicts "
+          f"{h0['predicted_bytes']} (shard_shape over fix_param_specs on "
+          f"Mesh(model={g}), the embedding and unembedding whole)")
+    for backend in ("collective", "dma"):
+        p = h0["prefill"][backend]
+        flips = max(statistics.mean(s["h"]["prefill"][backend]["flipped"])
+                    for s in results)
+        print(f"[cards] (h) {b} x {size['seq']} prefill per rank, "
+              f"uniform-fused-1d on the {backend} backend: logits equal on "
+              f"every rank, max_abs_err vs the logical TPGroup({g})'s DMA "
+              f"prefill, on its expert choices (replayed), "
+              f"{max(s['h']['prefill'][backend]['err'] for s in results):.4e}"
+              f" of max |logit| {h0['scale']:.4f}; free-running "
+              f"{max(s['h']['prefill'][backend]['free_err'] for s in results):.4e}"
+              f", its expert choices differing from the logical run's in "
+              f"{flips:.3e} of (token, k), mean over the layers (limit "
+              f"{CARDS_FLIP_LIMIT}; first layer "
+              f"{p['flipped'][0]:.3e}, last {p['flipped'][-1]:.3e}, max "
+              f"{max(p['flipped']):.3e}); launches per rank "
+              f"{p['launches']}; collectives per rank {p['collectives']}")
+        if cuda:
+            print(f"[cards]     wall ms (median of 5, twice) "
+                  f"{per_rank(lambda s, b=backend: s['h']['prefill'][b]['wall_ms'][0], '{:.2f}')}"
+                  f" / "
+                  f"{per_rank(lambda s, b=backend: s['h']['prefill'][b]['wall_ms'][1], '{:.2f}')}"
+                  f"; one traced call: device time outside NCCL's kernels "
+                  f"{per_rank(lambda s, b=backend: s['h']['prefill'][b]['trace']['compute_ms'], '{:.2f}')}"
+                  f" ms (GEMMs "
+                  f"{per_rank(lambda s, b=backend: s['h']['prefill'][b]['trace']['gemm_ms'], '{:.2f}')}"
+                  f"), NCCL's kernels "
+                  f"{per_rank(lambda s, b=backend: s['h']['prefill'][b]['trace']['nccl_ms'], '{:.2f}')}"
+                  f" ms, window "
+                  f"{per_rank(lambda s, b=backend: s['h']['prefill'][b]['trace']['window_ms'], '{:.2f}')}"
+                  f" ms; idle share outside NCCL over the second median "
+                  f"wall "
+                  f"{per_rank(lambda s, b=backend: 1 - s['h']['prefill'][b]['trace']['compute_ms'] / s['h']['prefill'][b]['wall_ms'][1], '{:.3f}')}")
+    agree = sum(a == c for t, u in zip(h0["tokens"], h0["ref_tokens"])
+                for a, c in zip(t, u))
+    print(f"[cards] (h) DecodeEngine per rank: {b} requests x {size['new']} "
+          f"new tokens (prompt {size['prompt']}, cache {size['cache']}; the "
+          f"MLA latent whole on every rank): the same tokens on every rank "
+          f"and on a second run; greedy tokens equal to the logical "
+          f"engine's {agree} of {b * size['new']}; ms per step "
+          f"{per_rank(lambda s: s['h']['ms'], '{:.2f}')} (first run "
+          f"{per_rank(lambda s: s['h']['first_ms'], '{:.2f}')}), the logical "
+          f"engine {per_rank(lambda s: s['h']['ref_ms'], '{:.2f}')}")
+    if cuda:
+        print(f"[cards] (h) one traced decode step: window "
+              f"{per_rank(lambda s: s['h']['decode_trace']['window_ms'], '{:.2f}')}"
+              f" ms, device time outside NCCL's kernels "
+              f"{per_rank(lambda s: s['h']['decode_trace']['compute_ms'], '{:.2f}')}"
+              f" ms, NCCL's kernels "
+              f"{per_rank(lambda s: s['h']['decode_trace']['nccl_ms'], '{:.2f}')}"
+              " ms (spinning included)")
+    print(f"[cards] (h) req0: {h0['tokens'][0]}")
+    if cuda:
+        print(f"[cards] (h) peak memory GiB over the two prefills "
+              f"{per_rank(lambda s: s['h']['peak'] / 2 ** 30, '{:.2f}')} "
+              f"against the predicted "
+              f"{per_rank(lambda s: s['h']['predicted_peak'] / 2 ** 30, '{:.2f}')}"
+              f" ({h0['start'] / 2 ** 30:.2f} GiB allocated before them)")
+    for res in results:
+        rank, h = res["rank"], res["h"]
+        if h["p_bytes"] != h["predicted_bytes"]:
+            fail(f"rank {rank} (h): {h['p_bytes']} parameter bytes, the rule "
+                 f"predicts {h['predicted_bytes']}")
+        for backend, launches, routes in (
+                ("collective", {}, {}),
+                ("dma", {"a2a_chunk_exchange": k3},
+                 {"a2a_chunk_exchange": {"pairs": k3}})):
+            p = h["prefill"][backend]
+            _rank_launches(f"[cards] rank {rank} (h) {backend} prefill",
+                           p | {"cuda": cuda}, launches, routes)
+            shape = (b, size["seq"], cfg.vocab_size)
+            if not p["finite"] or p["shape"] != shape:
+                fail(f"rank {rank} (h) {backend}: logits {p['shape']} not "
+                     f"finite or not {shape}")
+            if not p["same_as_rank0"]:
+                fail(f"rank {rank} (h) {backend}: logits differ from rank "
+                     "0's")
+            if p["err"] > 5e-2 * h["scale"]:
+                fail(f"rank {rank} (h) {backend}: logits on the logical "
+                     f"prefill's expert choices differ from its logits by "
+                     f"{p['err']} (> 5% of {h['scale']})")
+            flipped = statistics.mean(p["flipped"])
+            if flipped > CARDS_FLIP_LIMIT:
+                fail(f"rank {rank} (h) {backend}: {flipped:.3e} of the "
+                     "expert choices differ from the logical prefill's "
+                     f"(limit {CARDS_FLIP_LIMIT})")
+        if h["tokens"] != h0["tokens"]:
+            fail(f"rank {rank} (h): decode tokens differ from rank 0's")
+        if h["tokens"] != h["tokens1"]:
+            fail(f"rank {rank} (h): a second run gave other tokens (R7)")
+        _rank_launches(f"[cards] rank {rank} (h) decode",
+                       {"launches": h["decode_launches"],
+                        "routes": h["decode_routes"], "cuda": cuda}, {})
 
 
 def _cards_report_ep_train(results, cfg, size: dict, ep_cfg) -> None:
     """Check and print parts (f) and (g) of every rank's results."""
     g, b = GROUP, size["batch"]
     cuda = results[0]["cuda"]
-    # K2 per up/gate step of every layer, and again in the backward's
-    # recomputation of each period under remat.
-    per_train_step = cfg.num_layers * 2 * g * (2 if cfg.remat else 1)
 
     def fail(msg):
         raise AssertionError(f"[cards] {msg}")
@@ -5498,29 +5881,7 @@ def _cards_report_ep_train(results, cfg, size: dict, ep_cfg) -> None:
             fail(f"rank {rank} (f) EP: reverse is not bit-equal to default")
         if cuda and ep["trace"]["nccl_ms"] <= 0:
             fail(f"rank {rank} (f) EP: no NCCL kernel in the traced call")
-        t = res["g"]
-        if t["metrics"] != results[0]["g"]["metrics"]:
-            fail(f"rank {rank} (g) train: metrics {t['metrics']} differ from "
-                 f"rank 0's {results[0]['g']['metrics']}")
-        if not all(t["replicated_equal"]):
-            fail(f"rank {rank} (g) train: replicated leaves differ from rank "
-                 f"0's after steps {t['replicated_equal']}")
-        if not t["finite"] or not all(math.isfinite(v) for m in t["metrics"]
-                                      for v in m.values()):
-            fail(f"rank {rank} (g) train: not finite ({t['metrics']})")
-        first = t["metrics"][0]
-        for key, limit in (("loss", 1e-2), ("grad_norm", 5e-2)):
-            want = t["logical"][key]
-            if abs(first[key] - want) > limit * abs(want):
-                fail(f"rank {rank} (g) train: step 1 {key} {first[key]} vs "
-                     f"the logical TPGroup({g})'s {want} (limit {limit})")
-        for i, (launches, routes) in enumerate(zip(t["launches"],
-                                                   t["routes"])):
-            _rank_launches(
-                f"[cards] rank {rank} (g) train step {i + 1}",
-                {"launches": launches, "routes": routes, "cuda": cuda},
-                {"accumulate_matmul": per_train_step},
-                {"accumulate_matmul": {"wgmma": per_train_step}})
+    _check_train(results, "g", cfg)
     r0 = results[0]
     ep = r0["f"]
     moe = ep_cfg.moe
@@ -5566,12 +5927,64 @@ def _cards_report_ep_train(results, cfg, size: dict, ep_cfg) -> None:
               f"{per_rank(lambda s: s['f']['trace']['overlap_share'], '{:.3f}')}"
               f" and of the GEMMs' time under NCCL's kernels "
               f"{per_rank(lambda s: s['f']['trace']['gemm_share'], '{:.3f}')}")
-    t = r0["g"]
+    _print_train(results, "g", cfg, size, "whole")
+
+
+def _check_train(results, part: str, cfg) -> None:
+    """Check every rank's (g) or (i) (``part``, :func:`_cards_train` on
+    model ``cfg``): metrics bit-equal across ranks, replicated leaves
+    bit-equal after every step, finite, step 1 against the logical group,
+    K2's launches per step."""
+    g, cuda = GROUP, results[0]["cuda"]
+    # K2 per up/gate step of every FiCCO site (an MLP, or an MoE layer's
+    # shared experts), and again in the backward's recomputation of each
+    # period under remat.
+    per_train_step = cfg.num_layers * 2 * g * (2 if cfg.remat else 1)
+
+    def fail(msg):
+        raise AssertionError(f"[cards] {msg}")
+
+    for res in results:
+        rank, t = res["rank"], res[part]
+        if t["metrics"] != results[0][part]["metrics"]:
+            fail(f"rank {rank} ({part}) train: metrics {t['metrics']} differ"
+                 f" from rank 0's {results[0][part]['metrics']}")
+        if not all(t["replicated_equal"]):
+            fail(f"rank {rank} ({part}) train: replicated leaves differ from "
+                 f"rank 0's after steps {t['replicated_equal']}")
+        if not t["finite"] or not all(math.isfinite(v) for m in t["metrics"]
+                                      for v in m.values()):
+            fail(f"rank {rank} ({part}) train: not finite ({t['metrics']})")
+        first = t["metrics"][0]
+        for key, limit in (("loss", 1e-2), ("grad_norm", 5e-2)):
+            want = t["logical"][key]
+            if abs(first[key] - want) > limit * abs(want):
+                fail(f"rank {rank} ({part}) train: step 1 {key} {first[key]}"
+                     f" vs the logical TPGroup({g})'s {want} (limit {limit})")
+        for i, (launches, routes) in enumerate(zip(t["launches"],
+                                                   t["routes"])):
+            _rank_launches(
+                f"[cards] rank {rank} ({part}) train step {i + 1}",
+                {"launches": launches, "routes": routes, "cuda": cuda},
+                {"accumulate_matmul": per_train_step},
+                {"accumulate_matmul": {"wgmma": per_train_step}})
+
+
+def _print_train(results, part: str, cfg, size: dict, cut: str) -> None:
+    """Print every rank's (g) or (i) (``part``) for model ``cfg``."""
+    g, b = GROUP, size["batch"]
+    t = results[0][part]
     n = len(t["metrics"])
-    print(f"[cards] (g) {cfg.name} whole ({cfg.num_layers} layers, "
+
+    def per_rank(fn, fmt="{:.4f}"):
+        return _per_rank(results, fn, fmt)
+
+    print(f"[cards] ({part}) {cfg.name} {cut} ({cfg.num_layers} layers, "
           f"{cfg.dtype}, remat {cfg.remat}), {b} x {size['seq']} tokens, "
           f"uniform-fused-2d on the collective backend, {n} AdamW steps per "
-          f"rank, each rank holding its MLP blocks and their moments: "
+          f"rank, each rank holding its blocks (attention heads, MLPs, "
+          f"experts) and their moments ({t['p_bytes'] / 1e9:.3f} GB of "
+          f"params a rank): "
           f"loss, lr and grad_norm bit-equal on every rank, replicated "
           f"leaves bit-equal after every step; loss "
           + " -> ".join(f"{m['loss']:.6f}" for m in t["metrics"])
@@ -5586,26 +5999,26 @@ def _cards_report_ep_train(results, cfg, size: dict, ep_cfg) -> None:
           f", limit 5e-2); K2 launches per rank per step "
           f"{[c['accumulate_matmul'] for c in t['launches']]} ({cfg.num_layers}"
           f" layers x 2 x {g} x {2 if cfg.remat else 1}, wgmma)")
-    if cuda:
-        walls = [per_rank(lambda s, i=i: s["g"]["walls"][i], "{:.1f}")
+    if results[0]["cuda"]:
+        walls = [per_rank(lambda s, i=i: s[part]["walls"][i], "{:.1f}")
                  for i in range(n)]
-        print(f"[cards] (g) step wall ms per rank: "
+        print(f"[cards] ({part}) step wall ms per rank: "
               + ", ".join(f"step {i + 1} {w}" for i, w in enumerate(walls))
               + f" (step {n} profiled: window "
-              f"{per_rank(lambda s: s['g']['trace']['window_ms'], '{:.1f}')}"
+              f"{per_rank(lambda s: s[part]['trace']['window_ms'], '{:.1f}')}"
               f" ms); in it, device time outside NCCL's kernels "
-              f"{per_rank(lambda s: s['g']['trace']['compute_ms'], '{:.1f}')}"
+              f"{per_rank(lambda s: s[part]['trace']['compute_ms'], '{:.1f}')}"
               f" ms (K2 and cuBLAS GEMMs "
-              f"{per_rank(lambda s: s['g']['trace']['gemm_ms'], '{:.1f}')}),"
+              f"{per_rank(lambda s: s[part]['trace']['gemm_ms'], '{:.1f}')}),"
               f" NCCL's kernels "
-              f"{per_rank(lambda s: s['g']['trace']['nccl_ms'], '{:.1f}')} "
+              f"{per_rank(lambda s: s[part]['trace']['nccl_ms'], '{:.1f}')} "
               f"ms (spinning included); idle share outside NCCL over step "
               f"{n - 1}'s unprofiled wall "
-              f"{per_rank(lambda s: 1 - s['g']['trace']['compute_ms'] / s['g']['walls'][-2], '{:.3f}')}"
+              f"{per_rank(lambda s: 1 - s[part]['trace']['compute_ms'] / s[part]['walls'][-2], '{:.3f}')}"
               f"; peak memory GiB "
-              f"{per_rank(lambda s: s['g']['peak'] / 2 ** 30, '{:.2f}')} "
+              f"{per_rank(lambda s: s[part]['peak'] / 2 ** 30, '{:.2f}')} "
               f"against the predicted "
-              f"{per_rank(lambda s: s['g']['predicted'] / 2 ** 30, '{:.2f}')}"
+              f"{per_rank(lambda s: s[part]['predicted'] / 2 ** 30, '{:.2f}')}"
               f" ({t['start'] / 2 ** 30:.2f} GiB before the steps, the "
               f"rank's params {t['p_bytes'] / 2 ** 30:.3f} GiB)")
 
@@ -5695,6 +6108,10 @@ def drive(device) -> int:
                                     if cards_counts else None)
         k["cards_train_step_launches"] = (cards_counts[1][k["name"]]
                                           if cards_counts else None)
+        k["cards_moe_prefill_launches"] = (cards_counts[2][k["name"]]
+                                           if cards_counts else None)
+        k["cards_moe_train_step_launches"] = (cards_counts[3][k["name"]]
+                                              if cards_counts else None)
         k["moe_prefill_launches"] = moe_counts[k["name"]]
         k["moe_train_step_launches"] = moe_train_counts[k["name"]]
         k["encdec_prefill_launches"] = encdec_counts[k["name"]]
@@ -5716,7 +6133,8 @@ def drive(device) -> int:
             "ssm_prefill_launches", "hybrid_train_step_launches",
             "ssm_train_step_launches", "obs_cli_prefill_launches",
             "group_rank_launches", "cards_rank_launches",
-            "cards_train_step_launches", "max_abs_err",
+            "cards_train_step_launches", "cards_moe_prefill_launches",
+            "cards_moe_train_step_launches", "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

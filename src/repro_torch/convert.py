@@ -11,8 +11,11 @@ the device changes, and each leaf takes the dtype the reference's
 ``Model.init`` gives it: the config's, except the leaves it keeps in fp32
 (the MoE router; Mamba's ``a_log`` and ``d_skip``; the mLSTM's ``w_if``;
 the sLSTM's ``w_gates`` and ``r_gates``: :data:`FP32_LEAVES`), as the
-port's ``Model.init`` does.  This module imports neither JAX nor the
-reference: it takes numpy arrays.
+port's ``Model.init`` does.  Given a rank and a group size, each leaf is
+cut to that rank's block while it is still a numpy array, by the rule of
+:func:`repro_torch.parallel.sharding.shard_params` (the model's
+``rank_specs``), so a rank never holds the whole model on its device.
+This module imports neither JAX nor the reference: it takes numpy arrays.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import _DTYPES, build_model
 from repro_torch.models import mamba, moe, xlstm
+from repro_torch.parallel.sharding import shard_params
 
 # Every leaf the reference keeps in fp32 whatever the model's dtype.
 FP32_LEAVES = moe.FP32_LEAVES | mamba.FP32_LEAVES | xlstm.FP32_LEAVES
@@ -42,10 +46,17 @@ def _convert(tree, dtype, device):
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
-def params_from_jax(tree_of_numpy, cfg: ModelConfig, *, device=None) -> dict:
-    """The port's state for ``cfg`` from the reference's numpy params."""
+def params_from_jax(tree_of_numpy, cfg: ModelConfig, *, device=None,
+                    rank: int | None = None, size: int = 1) -> dict:
+    """The port's state for ``cfg`` from the reference's numpy params;
+    with ``rank``, that rank's blocks for a group of ``size`` processes
+    (:meth:`Model.rank_specs <repro_torch.models.model.Model.rank_specs>`;
+    a family without a per-rank form raises)."""
     dev = resolve_device(device)
     model = build_model(cfg)  # raises for a family the port lacks
+    if rank is not None:
+        tree_of_numpy = shard_params(
+            tree_of_numpy, model.rank_specs(size), rank, size)
     state = _convert(tree_of_numpy, _DTYPES[cfg.dtype], dev)
     if len(state["layers"]) != len(model.pattern):
         raise ValueError(

@@ -8,6 +8,13 @@ cast back to the activation dtype.  Attention and the dense projections
 are plain PyTorch ops, as the reference leaves them to XLA; the TP MLP's
 up and gate projections take the FiCCO path (``repro_torch.parallel.tp``)
 when an overlap context and a tensor-parallel group are active.
+
+On a rank of a group of processes (a ``RankGroup``) the params hold the
+rank's blocks (``repro_torch.parallel.sharding.shard_params``): the
+attention's Q/K/V column blocks and ``wo``'s row block, the MLP's column
+and row blocks.  Each rank computes its part, as GSPMD partitions the
+reference's ``constrain``ed heads, and one ``all_reduce`` sums the
+partial output projections.
 """
 
 from __future__ import annotations
@@ -265,6 +272,11 @@ def attn_apply(
     writes it).  With ``kv_for_cross`` (B, S_enc, d), the keys and values
     come from the encoder's output: cross-attention, no RoPE, no mask.
     """
+    group = rank_group()
+    if group is not None:
+        return _attn_apply_rank(params, x, dims, group, rope_theta=rope_theta,
+                                positions=positions, window=window,
+                                causal=causal, kv_for_cross=kv_for_cross)
     b, s, _ = x.shape
     h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
     src = kv_for_cross if kv_for_cross is not None else x
@@ -296,6 +308,10 @@ def attn_decode(
     The cache is updated in place (the reference returns a new one); the
     same dict is returned.
     """
+    group = rank_group()
+    if group is not None:
+        return _attn_decode_rank(params, x, cache, pos, dims, group,
+                                 rope_theta=rope_theta, window=window)
     b = x.shape[0]
     h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
     q = (x @ params["wq"]).view(b, 1, h, hd)
@@ -328,6 +344,155 @@ def attn_decode(
 
 
 # ---------------------------------------------------------------------------
+# GQA attention on a rank of a group of processes
+# ---------------------------------------------------------------------------
+
+def rank_group():
+    """The active group where it is a ``RankGroup`` of more than one rank,
+    else None."""
+    from repro_torch.parallel.group import RankGroup
+    from repro_torch.parallel.sharding import active_group
+
+    group = active_group()
+    return group if isinstance(group, RankGroup) and group.size > 1 else None
+
+
+def _cut(w: torch.Tensor, n: int, dim: int) -> bool:
+    """Whether the rank holds a block of ``w`` (n wide on ``dim`` whole)."""
+    return w.shape[dim] != n
+
+
+def _heads_mine(dims: AttnDims, g: int) -> bool:
+    """Whether each rank computes its own h/g query and kv/g K/V heads:
+    where g divides both, as the reference's ``constrain`` keeps both
+    shardings.  Otherwise every rank computes every head (the same
+    output; the reference keeps Q's sharding where only h divides)."""
+    return dims.num_heads % g == 0 and dims.num_kv_heads % g == 0
+
+
+def _rank_heads(inp, inp_rep, w, n: int, hd: int, group, *, mine: bool):
+    """``inp @ w`` as (B, S, heads, hd) on this rank: its n/g heads where
+    ``mine`` (``w`` is their column block), else all n.  A column block
+    of ``w`` multiplies ``inp_rep``, ``inp`` marked replicated (its
+    gradient summed over the ranks), and unless ``mine`` is gathered to
+    all n heads, from which every rank computes alike
+    (``gather_replicated``); a whole ``w`` gives all n at once."""
+    from repro_torch.parallel.collectives import gather_replicated
+
+    b, s = inp.shape[:2]
+    if not _cut(w, n * hd, -1):
+        return (inp @ w).view(b, s, n, hd)
+    t = inp_rep @ w
+    if not mine:
+        t = gather_replicated(t, -1, group=group)
+    return t.view(b, s, -1, hd)
+
+
+def _rank_out(out, wo, width: int, group):
+    """``out`` (B, S, heads * hd) times ``wo`` (``width`` rows whole) on
+    this rank: with ``wo``'s row block, the rank's column block of
+    ``out`` where ``out`` holds every head (the cut's gradient gathers the
+    whole cotangent back), then the group's sum of the partial products;
+    a whole ``wo`` on a whole ``out`` is one product that every rank
+    computes alike."""
+    from repro_torch.parallel.collectives import all_reduce, rank_block
+
+    if not _cut(wo, width, 0):
+        return out @ wo
+    if out.shape[-1] != wo.shape[0]:
+        out = rank_block(out, -1, group=group)
+    return all_reduce(out @ wo, group=group)
+
+
+def _attn_apply_rank(params, x, dims: AttnDims, group, *, rope_theta,
+                     positions, window, causal, kv_for_cross):
+    """:func:`attn_apply` on a rank holding its blocks.
+
+    Where g divides the query and the K/V heads the rank computes its
+    h/g and kv/g heads, whose output block meets ``wo``'s row block.
+    Where it does not (SmolLM's 15 / 5 on 4), the rank gathers its Q/K/V
+    column blocks to whole heads, computes every head, and multiplies by
+    ``wo``'s row block only the columns that block owns.  One
+    ``all_reduce`` sums the partial products.
+    """
+    from repro_torch.parallel.collectives import replicated
+
+    b, s, _ = x.shape
+    h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    src = kv_for_cross if kv_for_cross is not None else x
+    mine = _heads_mine(dims, group.size)
+    # One replicated mark per input, so its gradient is summed over the
+    # ranks once for all the projections that read it.
+    x_rep = replicated(x, group=group)
+    src_rep = x_rep if kv_for_cross is None else replicated(src, group=group)
+    q = _rank_heads(x, x_rep, params["wq"], h, hd, group, mine=mine)
+    k, v = (_rank_heads(src, src_rep, params[key], kv, hd, group, mine=mine)
+            for key in ("wk", "wv"))
+    if kv_for_cross is None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+        out = blockwise_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = blockwise_attention(q, k, v, causal=False)
+    return _rank_out(out.reshape(b, s, -1), params["wo"], h * hd, group)
+
+
+def _attn_decode_rank(params, x, cache, pos: int, dims: AttnDims, group, *,
+                      rope_theta, window):
+    """:func:`attn_decode` on a rank holding its blocks.  The cache holds
+    every K/V head (whole, or the rank's time slice under
+    ``decode_attn="shard_map"``), so the new token's K and V columns, and
+    its Q columns where the time-sliced body or indivisible heads need
+    every query head, are gathered in one all-gather of their
+    concatenation.  The rank writes the cache it holds, computes the heads
+    its ``wo`` rows need, and the group sums the partial products."""
+    from repro_torch.parallel import decode_attn
+    from repro_torch.parallel.collectives import all_gather
+    from repro_torch.parallel.context import get_overlap
+
+    g, r = group.size, group.rank
+    b = x.shape[0]
+    h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    ov = get_overlap()
+    sliced = (ov is not None and ov.decode_attn == "shard_map"
+              and decode_attn.applicable(cache["k"], window,
+                                         time_slice="time_slice" in cache))
+    q_all = sliced or not _heads_mine(dims, g)
+    proj = {"q": (params["wq"], h), "k": (params["wk"], kv),
+            "v": (params["wv"], kv)}
+    cols = {key: x @ w for key, (w, _) in proj.items()}
+    gather = [key for key, (w, n) in proj.items()
+              if _cut(w, n * hd, -1) and (key != "q" or q_all)]
+    if gather:
+        joined = all_gather(torch.cat([cols[key] for key in gather], -1),
+                            group=group)
+        parts = joined.split([cols[key].shape[-1] for key in gather], -1)
+        for key, part in zip(gather, parts):
+            cols[key] = part.movedim(0, -2).flatten(-2)
+    q, k, v = (cols[key].view(b, 1, -1, hd) for key in ("q", "k", "v"))
+    posv = torch.full((b, 1), pos, device=x.device)
+    q = apply_rope(q, posv, rope_theta)
+    k = apply_rope(k, posv, rope_theta)
+    if sliced:
+        out, cache["k"], cache["v"] = decode_attn.shard_map_attn_decode(
+            q, k, v, cache["k"], cache["v"], pos)
+        return (_rank_out(out.reshape(b, 1, -1), params["wo"], h * hd,
+                          group), cache)
+    s_cache = cache["k"].shape[1]
+    slot = pos % s_cache if window is not None else pos
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    k_c, v_c = cache["k"], cache["v"]
+    if not q_all:  # the rank's kv/g heads, read in place
+        n = kv // g
+        k_c, v_c = (t[:, :, r * n:(r + 1) * n] for t in (k_c, v_c))
+    out = cache_attention(q, k_c, v_c, valid_len=pos + 1,
+                          ring=window is not None)
+    return (_rank_out(out.reshape(b, 1, -1), params["wo"], h * hd, group),
+            cache)
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -356,7 +521,7 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     scenarios: DMA engines lack arithmetic, §IV-B2).
 
     Under a group of processes (a ``RankGroup``) the params hold this
-    rank's blocks (``repro_torch.parallel.sharding.shard_mlp_params``):
+    rank's blocks (``repro_torch.parallel.sharding.shard_params``):
     the rank computes ``silu(x @ w_gate_r) * (x @ w_up_r) @ w_down_r`` and
     the group's ``all_reduce`` sums the partial products, as GSPMD does
     for the reference's ``constrain``ed down projection."""

@@ -9,6 +9,13 @@ size).  Prefill materialises per-head K and V from the latent, which is
 mathematically the same.  q and k heads are ``nope_head_dim +
 rope_head_dim`` wide, v heads ``v_head_dim``: the attention keeps them
 apart and scales by 1/sqrt(q's width).
+
+On a rank of a group of processes (a ``RankGroup``) the params hold the
+rank's blocks: ``wq``, ``w_uk`` and ``w_uv`` by head (h/g heads a rank),
+``wo`` by rows, ``w_dkv`` and ``w_kr`` whole.  So the latent and the
+shared rope key, and the decode cache that holds them, are the same on
+every rank, no K/V crosses the group, and one ``all_reduce`` sums the
+ranks' partial output projections.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.models import layers
+from repro_torch.parallel.collectives import all_reduce, replicated
 from repro_torch.parallel.sharding import MODEL_AXIS, P
 from repro_torch.models.layers import (
     apply_rope,
@@ -60,10 +68,18 @@ def mla_param_specs():
         "wo": P(MODEL_AXIS, None),
     }
 
-def _project(params, x, num_heads: int, cfg: MLAConfig, positions):
+def _project(params, x, num_heads: int, cfg: MLAConfig, positions,
+             group=None):
+    """Q (B, S, heads, qk), the latent (B, S, r) and the shared rope key
+    (B, S, 1, rope).  With ``group`` (a ``RankGroup``) ``num_heads`` is the
+    rank's and ``wq`` their column block, and the latent and rope key,
+    whole on every rank but used only for the rank's heads, have their
+    gradients summed over the ranks (``replicated``), as has ``x``'s part
+    through ``wq``."""
     b, s, _ = x.shape
     qk_head = cfg.nope_head_dim + cfg.rope_head_dim
-    q = (x @ params["wq"]).view(b, s, num_heads, qk_head)
+    xq = x if group is None else replicated(x, group=group)
+    q = (xq @ params["wq"]).view(b, s, num_heads, qk_head)
     q_nope, q_rope = q.split([cfg.nope_head_dim, cfg.rope_head_dim], dim=-1)
     q = torch.cat([q_nope, apply_rope(q_rope, positions, _ROPE_THETA)], -1)
     c_kv = x @ params["w_dkv"]  # (B, S, r)
@@ -71,7 +87,20 @@ def _project(params, x, num_heads: int, cfg: MLAConfig, positions):
         (x @ params["w_kr"]).view(b, s, 1, cfg.rope_head_dim),
         positions, _ROPE_THETA,
     )
+    if group is not None:
+        c_kv = replicated(c_kv, group=group)
+        k_rope = replicated(k_rope, group=group)
     return q, c_kv, k_rope
+
+
+def _heads_on_rank(num_heads: int, group) -> int:
+    """The heads a rank of ``group`` computes: h/g, or raise where g does
+    not divide h (that per-rank form is ROADMAP A15)."""
+    if num_heads % group.size:
+        raise NotImplementedError(
+            f"MLA with {num_heads} heads on a RankGroup of {group.size}: "
+            "heads that the group does not divide are ROADMAP A15")
+    return num_heads // group.size
 
 
 def _expand_kv(params, c_kv, k_rope, num_heads: int, cfg: MLAConfig):
@@ -88,10 +117,14 @@ def mla_apply(params, x: torch.Tensor, num_heads: int, cfg: MLAConfig, *,
               positions: torch.Tensor, window=None) -> torch.Tensor:
     """Prefill (causal self-attention).  x: (B, S, d) -> (B, S, d)."""
     b, s, _ = x.shape
-    q, c_kv, k_rope = _project(params, x, num_heads, cfg, positions)
+    group = layers.rank_group()
+    if group is not None:
+        num_heads = _heads_on_rank(num_heads, group)
+    q, c_kv, k_rope = _project(params, x, num_heads, cfg, positions, group)
     k, v = _expand_kv(params, c_kv, k_rope, num_heads, cfg)
     out = blockwise_attention(q, k, v, causal=True, window=window)
-    return out.reshape(b, s, num_heads * cfg.v_head_dim) @ params["wo"]
+    y = out.reshape(b, s, num_heads * cfg.v_head_dim) @ params["wo"]
+    return y if group is None else all_reduce(y, group=group)
 
 
 def mla_init_cache(batch: int, seq: int, cfg: MLAConfig, dtype, device, *,
@@ -112,6 +145,9 @@ def mla_decode(params, x: torch.Tensor, cache: dict, pos: int,
     "k_rope" (B, S, 1, rope)}, updated in place (the reference returns a
     new one); the same dict is returned."""
     b = x.shape[0]
+    group = layers.rank_group()
+    if group is not None:
+        num_heads = _heads_on_rank(num_heads, group)
     posv = torch.full((b, 1), pos, device=x.device)
     q, c_kv_new, k_rope_new = _project(params, x, num_heads, cfg, posv)
     cache["c_kv"][:, pos] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
@@ -119,7 +155,8 @@ def mla_decode(params, x: torch.Tensor, cache: dict, pos: int,
     # Up-project the whole latent cache for this step's attention.
     k, v = _expand_kv(params, cache["c_kv"], cache["k_rope"], num_heads, cfg)
     out = cache_attention(q, k, v, valid_len=pos + 1)
-    return out.reshape(b, 1, num_heads * cfg.v_head_dim) @ params["wo"], cache
+    y = out.reshape(b, 1, num_heads * cfg.v_head_dim) @ params["wo"]
+    return (y if group is None else all_reduce(y, group=group)), cache
 
 
 __all__ = ["mla_init", "mla_param_specs", "mla_apply", "mla_init_cache",

@@ -45,15 +45,42 @@ from repro_torch.models import layers, mamba, mla, moe, xlstm
 from repro_torch.models.layers import AttnDims
 from repro_torch.parallel import decode_attn
 from repro_torch.parallel.context import get_overlap, overlap_context
+from repro_torch.parallel.group import RankGroup
 from repro_torch.parallel.sharding import (
     MODEL_AXIS,
     P,
     active_group,
+    fix_param_specs,
     map_specs,
     tp_group,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# The families whose per-rank path (a rank of a RankGroup holding its
+# blocks) is held to the reference; the others raise there (ROADMAP A15).
+RANK_FAMILIES = frozenset({Family.DENSE, Family.MOE})
+# A layer's subtrees that a rank cuts by their specs: the attention's (GQA
+# or MLA; an encoder-decoder's cross-attention) and the FFN's (an MLP, or
+# the MoE experts with their shared and dense-residual MLPs).  Every other
+# leaf is whole on every rank: the embedding and unembedding, the router,
+# the norms, the recurrent mixers and ``frontend_proj`` (ROADMAP A15).
+RANK_CUT = ("attn", "cross", "ffn")
+
+
+def check_rank_family(cfg: ModelConfig) -> None:
+    """Raise unless a rank of a group of processes runs ``cfg``'s family
+    (:data:`RANK_FAMILIES`)."""
+    if cfg.family not in RANK_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family.value}) on a RankGroup: only the "
+            f"{sorted(f.value for f in RANK_FAMILIES)} families run per "
+            "rank; the others' per-rank forms are ROADMAP A15")
+
+
+def _check_rank(cfg: ModelConfig) -> None:
+    if isinstance(active_group(), RankGroup):
+        check_rank_family(cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -422,6 +449,7 @@ class Model:
             )
         self.n_periods = config.num_layers // len(self.pattern)
         self._remat = _remat_kwargs(config) if config.remat else None
+        self._rank_specs: dict[int, dict] = {}
 
     # ---- init -----------------------------------------------------------
     def init(self, seed: int = 0, *, device=None) -> dict:
@@ -492,6 +520,35 @@ class Model:
             specs["frontend_proj"] = P(None, None)
         return specs
 
+    def rank_specs(self, size: int) -> dict:
+        """The specs by which a rank of a group of ``size`` processes holds
+        the state (:func:`~repro_torch.parallel.sharding.shard_params`):
+        :meth:`param_specs` with the leaves under a layer's
+        :data:`RANK_CUT` keys kept and every other leaf whole, fixed by
+        :func:`~repro_torch.parallel.sharding.fix_param_specs` on the
+        whole shapes on ``Mesh(("model",), (size,))``, which drops a cut
+        that ``size`` does not divide, as the reference's ``constrain``
+        does.  Raises for a family outside :data:`RANK_FAMILIES`."""
+        from repro_torch.launch.mesh import Mesh
+
+        check_rank_family(self.config)
+        cached = self._rank_specs.get(size)
+        if cached is not None:
+            return cached
+        specs = self.param_specs()
+
+        def whole(tree):
+            return map_specs(lambda sp: P(), tree)
+
+        cut = {k: whole(v) for k, v in specs.items() if k != "layers"}
+        cut["layers"] = [
+            {k: v if k in RANK_CUT else whole(v) for k, v in slot.items()}
+            for slot in specs["layers"]
+        ]
+        self._rank_specs[size] = fix_param_specs(
+            cut, self.init(device="meta"), Mesh((MODEL_AXIS,), (size,)))
+        return self._rank_specs[size]
+
     # ---- forward ----------------------------------------------------------
     def _encode(self, state, enc_frames):
         """The encoder over (B, S_enc, d) frames -> its normed output.
@@ -521,6 +578,7 @@ class Model:
         (audio).  Returns (logits over the text tokens, aux_loss): aux is
         the MoE layers' summed load-balance and z losses (0 without)."""
         cfg = self.config
+        _check_rank(cfg)
         tokens = batch["tokens"]
         x = state["embed"][tokens].to(_dtype(cfg))
         enc_out = (self._encode(state, batch["enc_frames"])
@@ -601,6 +659,7 @@ class Model:
         its ``"time_slice"`` leaf, the slice's first position, records
         it."""
         cfg = self.config
+        _check_rank(cfg)
         dev = resolve_device(device)
         caches = [
             _layer_init_cache(spec, cfg, batch, cache_len, dev,
@@ -641,6 +700,7 @@ class Model:
         The cache is updated in place and returned.
         """
         cfg = self.config
+        _check_rank(cfg)
         x = state["embed"][tokens].to(_dtype(cfg))
         for i in range(self.n_periods):
             for j, spec in enumerate(self.pattern):

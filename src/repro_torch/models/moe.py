@@ -14,6 +14,14 @@ same bits run to run.  The chunked expert-parallel dispatch lives in
 Supports DeepSeek-style shared experts and Arctic's dense residual FFN;
 both go through :func:`repro_torch.models.layers.mlp_apply`, so their up
 and gate projections take the FiCCO path under an overlap context.
+
+On a rank of a group of processes (a ``RankGroup``) the params hold the
+rank's E/g experts (``P("model", None, None)``) and its blocks of the
+shared and dense-residual MLPs.  As GSPMD partitions the reference's
+``constrain``ed expert batches with the tokens replicated, every rank
+routes and dispatches every token, runs the FFN of its own experts, and
+gathers the experts' outputs for the combine, which every rank then
+computes alike.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import layers
+from repro_torch.parallel.collectives import gather_replicated, replicated
 from repro_torch.parallel.sharding import MODEL_AXIS, P
 
 # The leaves the reference keeps in fp32 whatever the model's dtype: the
@@ -128,15 +137,25 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
     keep = pos < capacity
     slot = torch.where(keep, se * capacity + pos, e * capacity)  # dummy tail
 
+    group = layers.rank_group()
+    # A rank's experts see only their tokens: the dispatched rows'
+    # gradient is summed over the ranks (the router's is every rank's
+    # alike, since the combine is).
+    src = xf if group is None else replicated(xf, group=group)
     disp = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=x.device)
-    disp[slot] = xf[stok]
+    disp[slot] = src[stok]
     expert_in = disp[: e * capacity].view(e, capacity, d)
+    mine = params["w_up"].shape[0]  # the experts this rank holds
+    if mine != e:  # this rank's rows of expert_in: a view
+        expert_in = expert_in[group.rank * mine:(group.rank + 1) * mine]
 
     # ---- expert FFN (the paper's EP hot spot: grouped GEMMs) ----------
     h = torch.bmm(expert_in, params["w_up"])
     g = torch.bmm(expert_in, params["w_gate"])
     h = F.silu(g) * h
     expert_out = torch.bmm(h, params["w_down"])
+    if mine != e:  # every rank's experts, for a combine every rank does
+        expert_out = gather_replicated(expert_out, 0, group=group)
 
     # ---- combine back -------------------------------------------------
     # The reference scatter-adds each kept assignment's weighted output to

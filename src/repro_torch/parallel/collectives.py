@@ -17,7 +17,9 @@ current stream; no collective copies through the host.  The per-rank
 forms have gradients (``pmax`` excepted), the transposes ``jax.grad``
 takes through ``shard_map``; :func:`rank_block` and :func:`replicated`
 carry a replicated activation's gradient across the group where a rank
-cuts its block out of it or multiplies it by its own weight block.
+cuts its block out of it or multiplies it by its own weight block, and
+:func:`gather_replicated`, the transpose of :func:`rank_block`, gathers
+the rank's block of a result that every rank then uses alike.
 
 :func:`counting` records what the collectives move, as the reference's
 ``roofline.analysis.parse_collectives`` reads it from a compiled per-device
@@ -221,6 +223,20 @@ class _RankBlock(torch.autograd.Function):
             None, None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        out = _record("all-gather", _gather(x, group), ranks=1)
+        return out.movedim(0, dim).flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        n = dy.shape[ctx.dim] // ctx.group.size
+        return dy.narrow(ctx.dim, ctx.group.rank * n, n).contiguous(), \
+            None, None
+
+
 class _Replicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -330,6 +346,17 @@ def rank_block(x: torch.Tensor, dim: int, *, group: RankGroup
     return _RankBlock.apply(x, dim % x.dim(), group)
 
 
+def gather_replicated(x: torch.Tensor, dim: int, *, group: RankGroup
+                      ) -> torch.Tensor:
+    """Every rank's block ``x`` joined along ``dim`` in rank order (one
+    all-gather), for a computation that every rank then does alike: the
+    transpose of :func:`rank_block`.  The output's cotangent is then the
+    same on every rank, so the gradient is this rank's block of it, not
+    the reduce-scatter of :func:`all_gather`'s backward, which would sum
+    the g equal copies into g times the block's gradient."""
+    return _GatherReplicated.apply(x, dim % x.dim(), group)
+
+
 def replicated(x: torch.Tensor, *, group: RankGroup) -> torch.Tensor:
     """``x``, a replicated operand of this rank's partial product (a
     column block's GEMM): the forward is the identity, the gradient the
@@ -340,4 +367,4 @@ def replicated(x: torch.Tensor, *, group: RankGroup) -> torch.Tensor:
 
 __all__ = ["CollectiveStats", "counting", "all_gather", "all_to_all",
            "all_to_all_start", "ppermute", "all_reduce", "pmax",
-           "rank_block", "replicated"]
+           "rank_block", "gather_replicated", "replicated"]

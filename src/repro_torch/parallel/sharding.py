@@ -24,9 +24,10 @@ this module's globals, so a variant can replace them here
 ``_active_mesh`` have no counterpart: there is no partitioner to
 constrain.  A group whose ranks are processes
 (:class:`~repro_torch.parallel.group.RankGroup`) holds each rank's blocks
-in its own process instead; :func:`shard_mlp_params` cuts a model's MLP
-weights to one rank's blocks and :func:`shard_train_state` a train state,
-by the one rule of :func:`block_dim` (ROADMAP A9).
+in its own process instead; :func:`shard_params` cuts a model's state to
+one rank's blocks and :func:`shard_train_state` a train state, by the one
+rule of :func:`block_dim`: a leaf is cut where its spec, fixed for a
+model-only mesh of the group's size, names the model axis (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -125,75 +126,79 @@ def shard_columns(w: torch.Tensor, g: int) -> torch.Tensor:
     return w.view(k, g, n // g).permute(1, 0, 2)
 
 
-_MLP_KEYS = {"w_up", "w_down", "w_gate"}
-
-
-def block_dim(node, key) -> int | None:
-    """The dim along which leaf ``node[key]`` of a state tree is cut to a
-    rank's block, or None where every rank holds it whole: the rule of
-    :func:`shard_mlp_params` and :func:`shard_train_state`, which the
-    optimizer's global norm reads too (:func:`rank_blocks`).  An MLP is a
-    dict of ``w_up``, ``w_down`` and optionally ``w_gate``: ``w_up`` and
-    ``w_gate`` are cut to their column block (-1, ``P(None, "model")``),
-    ``w_down`` to its row block (-2, ``P("model", None)``); every other
-    leaf, the MoE experts' included, is whole."""
-    if (isinstance(node, dict) and key in _MLP_KEYS
-            and {"w_up", "w_down"} <= set(node) <= _MLP_KEYS):
-        return -2 if key == "w_down" else -1
+def block_dim(spec) -> int | None:
+    """The dim on which a rank of a group of processes holds only its
+    block of a leaf whose fixed spec is ``spec``: the dim whose entry
+    names ``MODEL_AXIS``, or None where the rank holds the leaf whole.
+    ``spec`` comes from :meth:`Model.rank_specs
+    <repro_torch.models.model.Model.rank_specs>`: the reference's
+    ``param_specs`` through :func:`fix_param_spec` on a model-only mesh
+    of the group's size, so a dim the group does not divide stays whole.
+    The one rule of :func:`shard_params`, :func:`shard_train_state` and
+    :func:`rank_blocks`, which the optimizer's global norm reads."""
+    for i, entry in enumerate(spec):
+        if MODEL_AXIS in entry_axes(entry):
+            return i
     return None
 
 
-def _map_blocks(fn, tree):
-    """``fn(leaf, dim)`` over a tree's leaves, ``dim`` from
-    :func:`block_dim`; a tree like ``tree``."""
+def _map_blocks(fn, tree, specs):
+    """``fn(leaf, dim)`` over a tree's leaves, ``dim`` the
+    :func:`block_dim` of the leaf's spec in ``specs`` (a tree of
+    :class:`P` over the tree's structure); a tree like ``tree``."""
     if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            dim = block_dim(tree, k)
-            out[k] = _map_blocks(fn, v) if dim is None else fn(v, dim)
-        return out
-    if isinstance(tree, list):
-        return [_map_blocks(fn, v) for v in tree]
-    return fn(tree, None)
+        return {k: _map_blocks(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_blocks(fn, v, s)
+                for v, s in zip(tree, specs, strict=True)]
+    return fn(tree, block_dim(specs))
 
 
-def rank_blocks(tree) -> list[bool]:
+def rank_blocks(tree, specs) -> list[bool]:
     """For each leaf of ``tree`` in :func:`repro_torch.tree.leaves` order,
-    whether a rank holds only its block of it (:func:`block_dim`)."""
-    return leaves(_map_blocks(lambda t, dim: dim is not None, tree))
+    whether a rank holds only its block of it (:func:`block_dim` of its
+    spec in ``specs``)."""
+    return leaves(_map_blocks(lambda t, dim: dim is not None, tree, specs))
 
 
-def shard_mlp_params(tree, rank: int, size: int):
+def take_block(t, dim: int, rank: int, size: int):
+    """Block ``rank`` of ``size`` of ``t`` (a tensor or a numpy array)
+    along ``dim``, a contiguous copy."""
+    n = t.shape[dim]
+    if n % size:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} not divisible "
+                         f"by {size}")
+    b = n // size
+    block = t[(slice(None),) * dim + (slice(rank * b, (rank + 1) * b),)]
+    if isinstance(block, torch.Tensor):
+        return block.clone(memory_format=torch.contiguous_format)
+    return block.copy()
+
+
+def shard_params(tree, specs, rank: int, size: int):
     """Rank ``rank``'s copy of a model's state for a group of ``size``
-    processes: each leaf that :func:`block_dim` cuts, cut to its block r
-    on its last two dims (a period-stacked leaf keeps its leading dims);
-    every other leaf as it is.  The blocks are copies, so the full
-    weights can be freed."""
-    def block(t: torch.Tensor, dim):
-        if dim is None:
-            return t
-        n = t.shape[dim]
-        if n % size:
-            raise ValueError(f"dim {dim} of {tuple(t.shape)} not divisible "
-                             f"by {size}")
-        b = n // size
-        return t.narrow(dim, rank * b, b).clone(
-            memory_format=torch.contiguous_format)
-
-    return _map_blocks(block, tree)
+    processes: each leaf whose spec in ``specs`` (:meth:`Model.rank_specs
+    <repro_torch.models.model.Model.rank_specs>` for ``size``) names the
+    model axis, cut to its block r on that dim (:func:`block_dim`); every
+    other leaf as it is.  The blocks are copies, so the full weights can
+    be freed."""
+    return _map_blocks(
+        lambda t, dim: t if dim is None else take_block(t, dim, rank, size),
+        tree, specs)
 
 
-def shard_train_state(state, rank: int, size: int):
+def shard_train_state(state, specs, rank: int, size: int):
     """Rank ``rank``'s copy of a train state ``{"params", "opt_state":
     {"m", "v", "step"}}``: the params and AdamW's ``m`` and ``v`` cut by
-    :func:`shard_mlp_params`' rule, ``step`` as it is."""
+    :func:`shard_params` with the params' ``specs``, ``step`` as it
+    is."""
     opt_state = state["opt_state"]
     return {
-        "params": shard_mlp_params(state["params"], rank, size),
+        "params": shard_params(state["params"], specs, rank, size),
         "opt_state": {
             **opt_state,
-            "m": shard_mlp_params(opt_state["m"], rank, size),
-            "v": shard_mlp_params(opt_state["v"], rank, size),
+            "m": shard_params(opt_state["m"], specs, rank, size),
+            "v": shard_params(opt_state["v"], specs, rank, size),
         },
     }
 
@@ -401,6 +406,7 @@ __all__ = [
     "shard_columns",
     "block_dim",
     "rank_blocks",
-    "shard_mlp_params",
+    "take_block",
+    "shard_params",
     "shard_train_state",
 ]

@@ -22,10 +22,13 @@ overlap schedule, which never changes what the model computes.
 
 Under a group of processes (``tp_group`` of a
 :class:`~repro_torch.parallel.group.RankGroup`) both run per rank, as a
-``shard_map`` body: the state holds the rank's MLP blocks
-(:func:`~repro_torch.parallel.sharding.shard_mlp_params`), each MLP sums
-over the group, and with ``decode_attn="shard_map"`` each attention cache
-holds the rank's time slice; every rank gets the same logits and tokens.
+``shard_map`` body: the state holds the rank's blocks of the attention
+(its heads), the MLPs and the experts
+(:func:`~repro_torch.parallel.sharding.shard_params` by the model's
+``rank_specs``), each attention and MLP sums over the group, an MoE layer
+gathers its experts' outputs, and with ``decode_attn="shard_map"`` each
+attention cache holds the rank's time slice; every rank gets the same
+logits and tokens.
 """
 
 from __future__ import annotations

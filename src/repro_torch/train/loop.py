@@ -10,12 +10,14 @@ under a mesh; on ``uniform-fused-2d`` its up and gate projections run K2
 forward and the plain products of K2's autograd Function backward.
 
 Inside ``tp_group(RankGroup)`` the same functions run on one rank of a
-group of processes: the state holds the rank's MLP blocks and their
-moments (:func:`~repro_torch.parallel.sharding.shard_train_state`), every
-rank draws the same batch, the per-rank collectives carry the gradients
-across the group, and :func:`~repro_torch.train.optimizer.global_norm`
-sums the blocks' squares over the ranks, so each rank updates its blocks
-and the replicated leaves the same bits on every rank.
+group of processes: the state holds the rank's blocks of the attention,
+the MLPs and the experts and their moments
+(:func:`~repro_torch.parallel.sharding.shard_train_state` by the model's
+``rank_specs``), every rank draws the same batch, the per-rank
+collectives carry the gradients across the group, and
+:func:`~repro_torch.train.optimizer.global_norm` sums the blocks' squares
+over the ranks, so each rank updates its blocks and the replicated leaves
+the same bits on every rank.
 """
 
 from __future__ import annotations
@@ -97,11 +99,14 @@ def make_train_step(
     """
 
     def train_step(state, batch):
+        group = active_group()
+        specs = (model.rank_specs(group.size)
+                 if isinstance(group, RankGroup) else None)
         loss, parts, grads = loss_and_grads(
             model, state["params"], batch, accum_steps=accum_steps
         )
         params, opt_state, om = opt.apply_updates(
-            state["params"], grads, state["opt_state"], ocfg
+            state["params"], grads, state["opt_state"], ocfg, specs=specs
         )
         metrics = {
             "loss": loss, "ce": parts["ce"], "aux": parts["aux"], **om
@@ -143,7 +148,7 @@ def train(
     if per_rank and checkpoint_dir:
         raise NotImplementedError(
             "train(checkpoint_dir=...) on a RankGroup: each rank holds only "
-            "its MLP blocks and the checkpoint format is whole arrays; "
+            "its blocks and the checkpoint format is whole arrays; "
             "sharded checkpoints are ROADMAP A14")
     dev = resolve_device(group.device if per_rank and device is None
                          else device)
@@ -153,7 +158,8 @@ def train(
     model = build_model(cfg)
     state = init_train_state(model, seed, device=dev)
     if per_rank:
-        state = shard_train_state(state, group.rank, group.size)
+        state = shard_train_state(state, model.rank_specs(group.size),
+                                  group.rank, group.size)
     step_fn = make_train_step(model, ocfg)
     data = make_pipeline(cfg, shape, seed=seed, device=dev)
 

@@ -9,7 +9,8 @@ order.  ``step`` is a 0-dim int32 tensor on the parameters' device, and
 on the host.  :func:`state_specs` shards the moments like the parameters
 (the dry-run's optimizer state, :mod:`repro_torch.launch.dryrun`).
 On a rank of a ``RankGroup`` the trees hold the rank's blocks
-(:func:`repro_torch.parallel.sharding.shard_train_state`) and
+(:func:`repro_torch.parallel.sharding.shard_train_state`, by the model's
+``rank_specs``, which :func:`apply_updates` takes as ``specs``) and
 :func:`global_norm` is the whole tree's.
 """
 
@@ -80,24 +81,28 @@ def state_specs(param_specs) -> dict[str, Any]:
     return {"m": param_specs, "v": param_specs, "step": P()}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's fp32 sum of squares, leaf by leaf
     in the reference's order.
 
     Under an active :class:`~repro_torch.parallel.group.RankGroup` the
-    tree holds this rank's blocks (:func:`~repro_torch.parallel.sharding.
-    rank_blocks`): their squares are summed over the ranks by one
-    ``all_reduce``, and the replicated leaves', the same on every rank,
-    are counted once, so the norm is the whole tree's, the same bits on
-    every rank."""
+    tree holds this rank's blocks of the leaves whose spec in ``specs``
+    cuts them (:func:`~repro_torch.parallel.sharding.rank_blocks`; the
+    model's ``rank_specs``): their squares are summed over the ranks by
+    one ``all_reduce``, and the replicated leaves', the same on every
+    rank, are counted once, so the norm is the whole tree's, the same
+    bits on every rank."""
     group = active_group()
     if not isinstance(group, RankGroup):
         total = 0
         for g in leaves(tree):
             total = total + torch.sum(torch.square(g.float()))
         return torch.sqrt(total)
+    if specs is None:
+        raise ValueError("global_norm on a RankGroup needs the specs that "
+                         "cut the tree (Model.rank_specs)")
     parts = {True: 0, False: 0}
-    for g, block in zip(leaves(tree), rank_blocks(tree)):
+    for g, block in zip(leaves(tree), rank_blocks(tree, specs)):
         parts[block] = parts[block] + torch.sum(torch.square(g.float()))
     blocks = torch.as_tensor(parts[True], dtype=torch.float32,
                              device=leaves(tree)[0].device)
@@ -105,11 +110,13 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: OptimizerConfig):
+def apply_updates(params, grads, state, cfg: OptimizerConfig, *,
+                  specs=None):
     """One AdamW step with global-norm clipping.  Returns (params, state,
-    metrics)."""
+    metrics).  On a ``RankGroup``, ``specs`` are the ones that cut the
+    trees (:func:`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     stepf = step.float()

@@ -43,7 +43,21 @@ imports no JAX) and pickles the results back:
     (``torch_jax_reference.train_reference``) at 2e-3: the metrics and
     the replicated leaves bit-equal across ranks, K2's folds and the
     counted (forward) collectives per step; the DMA backend refusing
-    grad per rank.
+    grad per rank;
+  * each rank holding its blocks of the attention (heads), the MLPs and
+    the experts by the model's ``rank_specs``: the reduced DeepSeek-V2-Lite
+    with 8 experts (MLA, 4 heads) and a SmolLM-like model with 15 / 5
+    heads (their sharding dropped: the ranks gather whole heads), each
+    from the reference's params cut by ``params_from_jax(rank=)``:
+    prefill logits against the reference's one-device forward (the
+    subprocess's ``ranks`` entry) at 2e-3, every rank's bit-equal; a
+    ``DecodeEngine`` per rank against one process's tokens, with a
+    time-sliced and a whole cache; ``loss_and_grads``' loss and each
+    rank's gradient blocks, and one step's loss and ``grad_norm``,
+    against the reference's jitted ones;
+  * ``gather_replicated``'s gradient against the logical one: this rank's
+    block of the replicated cotangent, not the g-fold sum that
+    ``all_gather``'s reduce-scatter gives.
 
 Besides: the launcher raises, and leaves no rank running, when one rank
 raises; ranks that share a CUDA device refuse plain collectives (decided
@@ -52,7 +66,10 @@ per rank makes its NCCL group while it is built, and raises when two of
 its cards lack peer access (``torch.distributed`` and the CUDA queries
 patched); ``pmax`` refuses grad; ``train(checkpoint_dir=)`` on a
 ``RankGroup`` raises, citing ROADMAP A14; ``shard_train_state`` cuts the
-params and both moments.
+params and both moments; each rank's parameter bytes at full width equal
+``shard_shape`` over the reference rule's fixed specs on a model-only
+mesh of 4 for the cut leaves plus the whole leaves' bytes; a family
+without a per-rank form raises on a ``RankGroup``, citing ROADMAP A15.
 """
 
 import dataclasses
@@ -75,9 +92,10 @@ from repro_torch.core.workload import StepProfile
 from repro_torch.kernels.dma_exchange import ficco_uniform_fused_1d_dma
 from repro_torch.kernels.ficco_ag_matmul import ficco_ag_matmul_fused
 from repro_torch.launch.group import spawn
+from repro_torch.models.model import build_model
 from repro_torch.parallel import collectives
 from repro_torch.parallel.group import RankGroup, plain_backend
-from repro_torch.parallel.sharding import (rank_blocks, shard_mlp_params,
+from repro_torch.parallel.sharding import (rank_blocks, shard_params,
                                            shard_train_state, tp_group)
 from repro_torch.tune.variants import KernelVariant, default_variant
 
@@ -108,6 +126,10 @@ FOLDS_2D = 16
 # cache the reference's guard takes (time-sharded) and one it refuses
 # (whole on every rank, the plain decode).
 ENGINE = dict(batch=2, prompt=5, new=4, cache=1024, whole=512, seed=53)
+# The reference's other per-rank models: the prefill's backends and the
+# training mode (collective backend) of each.
+RANK_MODELS = {"deepseek": (("collective", "dma"), "uniform-fused-2d"),
+               "smollm": (("collective",), "serial")}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -126,6 +148,21 @@ def model_reference():
     logits, _ = jax.jit(model.forward)(params, {"tokens": tokens})
     return dict(numpy_params=jax.tree.map(np.asarray, params), tokens=tokens,
                 logits=np.asarray(logits, np.float32))
+
+
+def _rank_caches(name: str) -> tuple:
+    """A rank model's engine caches: one the guard time-slices and one it
+    keeps whole; MLA's latent cache is whole on every rank whatever its
+    length, so DeepSeek's engine runs the whole one only."""
+    if _rank_cfg(name).mla is not None:
+        return ("whole",)
+    return ("cache", "whole")
+
+
+def _rank_engine_case(name: str) -> tuple:
+    """A rank model's engine: prompts, new tokens and cache lengths."""
+    return (_engine_prompts(_rank_cfg(name).vocab_size), ENGINE["new"],
+            tuple(ENGINE[c] for c in _rank_caches(name)))
 
 
 def _engine_prompts(vocab: int) -> list:
@@ -175,8 +212,41 @@ def _grad_operands():
                "all_reduce": draw(G, 3, 5)}
 
 
+def _rank_cfg(name: str):
+    return jax_reference.rank_config(get_config, name)
+
+
+def _rank_batch(name: str) -> dict:
+    """SyntheticLM's batch 0 at ``RANK_TRAIN``'s shape (numpy), as the
+    reference's entry draws it."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+
+    t = jax_reference.RANK_TRAIN
+    return SyntheticLM(_rank_cfg(name), ShapeConfig("t", t["seq"], t["batch"],
+                                                    "train"),
+                       seed=t["seed"]).batch_at(0)
+
+
 @pytest.fixture(scope="module")
-def ranks(model_reference, tmp_path_factory):
+def rank_params():
+    """Each of ``RANK_MODELS``' params from ``PRNGKey(0)``, as the
+    subprocess's ``ranks`` entry draws them (numpy)."""
+    return {name: jax.tree.map(np.asarray, jax_build_model(
+        jax_reference.rank_config(jax_get_config, name)).init(
+            jax.random.PRNGKey(0))) for name in RANK_MODELS}
+
+
+def _gather_operands():
+    """x (g, m, n) and the replicated cotangent (m, g * n) of its
+    gathered dim 1."""
+    rng = np.random.default_rng(55)
+    return (rng.standard_normal((G, 3, 5)).astype(np.float32),
+            rng.standard_normal((3, G * 5)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def ranks(model_reference, rank_params, tmp_path_factory):
     """Every rank's results of :func:`torch_group_ranks.run_all`."""
     train = jax_reference.TRAIN
     cases = {
@@ -198,6 +268,11 @@ def ranks(model_reference, tmp_path_factory):
         "train_modes": TRAIN_MODES,
         "train": ((train["seq"], train["batch"]), train["ocfg"],
                   train["steps"]),
+        "gather_grad": _gather_operands(),
+        "rank_models": {
+            name: (_rank_cfg(name), rank_params[name], _rank_batch(name),
+                   backends, _rank_engine_case(name), mode)
+            for name, (backends, mode) in RANK_MODELS.items()},
     }
     with pytest.MonkeyPatch.context() as mp:
         # The ranks resolve no promoted variant from the home directory.
@@ -286,17 +361,16 @@ def test_rank_decode_attention_matches_shard_map(ranks, tmp_path_factory,
         np.testing.assert_allclose(v, want_v[:, rows], rtol=1e-5, atol=1e-5)
 
 
-def _one_process_tokens(model_reference, cache_len: int) -> list:
-    """The port's engine on the whole reduced TinyLlama, in this process."""
-    from repro_torch.configs import get_config
+def _one_process_tokens(numpy_params, cache_len: int, cfg=None) -> list:
+    """The port's engine on the whole model (``cfg``, the reduced
+    TinyLlama by default), in this process."""
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
     from repro_torch.serve.engine import DecodeEngine, Request
 
-    cfg = dataclasses.replace(get_config(ARCH).reduced(),
+    cfg = dataclasses.replace(cfg or get_config(ARCH).reduced(),
                               overlap=OverlapConfig(decode_attn="shard_map"))
-    state = params_from_jax(model_reference["numpy_params"], cfg,
-                            device="cpu")
+    state = params_from_jax(numpy_params, cfg, device="cpu")
     eng = DecodeEngine(cfg, state, batch_size=ENGINE["batch"],
                        cache_len=cache_len, device="cpu")
     reqs = eng.run([Request(p, ENGINE["new"])
@@ -307,9 +381,11 @@ def _one_process_tokens(model_reference, cache_len: int) -> list:
 
 
 def test_rank_decode_engine_matches_one_process(ranks, model_reference):
-    """Every rank's engine (its MLP blocks, its quarter of the cache)
-    gives the tokens of the port's engine on the whole model here."""
-    want = _one_process_tokens(model_reference, ENGINE["cache"])
+    """Every rank's engine (its blocks of the attention and the MLPs, its
+    quarter of the cache) gives the tokens of the port's engine on the
+    whole model here."""
+    want = _one_process_tokens(model_reference["numpy_params"],
+                               ENGINE["cache"])
     for res in ranks:
         tokens, positions = res["engine"][ENGINE["cache"]]
         assert positions == ENGINE["cache"] // G
@@ -321,7 +397,8 @@ def test_rank_decode_engine_serves_a_cache_the_guard_refuses(
     """A cache of 512 (under the reference's 1024) stays whole on every
     rank and takes the plain decode, as the reference's fallback does:
     the same tokens as the engine here."""
-    want = _one_process_tokens(model_reference, ENGINE["whole"])
+    want = _one_process_tokens(model_reference["numpy_params"],
+                               ENGINE["whole"])
     for res in ranks:
         tokens, positions = res["engine"][ENGINE["whole"]]
         assert positions == ENGINE["whole"]
@@ -432,26 +509,52 @@ def test_collective_refuses_a_logical_group():
 
 
 def test_shard_mlp_params_keeps_rank_blocks():
-    gen = torch.Generator().manual_seed(0)
-    mlp = {"w_up": torch.randn(3, 8, 16, generator=gen),
-           "w_gate": torch.randn(3, 8, 16, generator=gen),
-           "w_down": torch.randn(3, 16, 8, generator=gen)}
-    moe = {"router": torch.randn(8, 4, generator=gen),
-           "w_up": torch.randn(4, 8, 6, generator=gen),
-           "w_down": torch.randn(4, 6, 8, generator=gen),
-           "shared": dict(mlp)}
-    state = {"embed": torch.randn(5, 8, generator=gen),
-             "layers": [{"ffn": mlp}, {"ffn": moe}]}
-    got = shard_mlp_params(state, 1, G)
+    """``shard_params`` by the model's ``rank_specs``: the attention's
+    (MLA's) heads, the experts and the shared MLP cut to rank 1's blocks;
+    the embedding, the norms, the router and MLA's latent projections
+    whole (the same tensors)."""
+    cfg = _rank_cfg("deepseek")
+    model = build_model(cfg)
+    state = model.init(0, device="cpu")
+    got = shard_params(state, model.rank_specs(G), 1, G)
     assert got["embed"] is state["embed"]
-    ffn = got["layers"][0]["ffn"]
-    assert torch.equal(ffn["w_up"], mlp["w_up"][..., 4:8])
-    assert torch.equal(ffn["w_gate"], mlp["w_gate"][..., 4:8])
-    assert torch.equal(ffn["w_down"], mlp["w_down"][:, 4:8])
-    assert ffn["w_up"].is_contiguous()
-    assert got["layers"][1]["ffn"]["w_up"] is moe["w_up"]  # experts kept
-    assert torch.equal(got["layers"][1]["ffn"]["shared"]["w_down"],
-                       mlp["w_down"][:, 4:8])
+    assert got["unembed"] is state["unembed"]
+    want, cut = state["layers"][0], got["layers"][0]
+    assert cut["norm1"]["scale"] is want["norm1"]["scale"]
+    attn, mla = cut["attn"], want["attn"]
+    for key in ("wq", "w_uk", "w_uv"):
+        n = mla[key].shape[-1] // G
+        assert torch.equal(attn[key], mla[key][..., n:2 * n])
+        assert attn[key].is_contiguous()
+    n = mla["wo"].shape[1] // G
+    assert torch.equal(attn["wo"], mla["wo"][:, n:2 * n])
+    assert attn["w_dkv"] is mla["w_dkv"] and attn["w_kr"] is mla["w_kr"]
+    ffn, moe = cut["ffn"], want["ffn"]
+    assert ffn["router"] is moe["router"]
+    e = cfg.moe.num_experts // G
+    for key in ("w_up", "w_gate", "w_down"):
+        assert torch.equal(ffn[key], moe[key][:, e:2 * e])  # experts kept
+    n = moe["shared"]["w_down"].shape[1] // G
+    assert torch.equal(ffn["shared"]["w_down"],
+                       moe["shared"]["w_down"][:, n:2 * n])
+
+
+def test_params_from_jax_cuts_a_rank(rank_params):
+    """The converter's cut, on numpy, equals ``shard_params`` of the whole
+    converted state."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.tree import leaves
+
+    cfg = _rank_cfg("deepseek")
+    whole = params_from_jax(rank_params["deepseek"], cfg, device="cpu")
+    specs = build_model(cfg).rank_specs(G)
+    for r in range(G):
+        got = params_from_jax(rank_params["deepseek"], cfg, device="cpu",
+                              rank=r, size=G)
+        want = shard_params(whole, specs, r, G)
+        for a, b in zip(leaves(got), leaves(want), strict=True):
+            assert a.dtype == b.dtype
+            assert torch.equal(a, b)
 
 
 def test_missing_stream_memory_operations_raise():
@@ -584,7 +687,9 @@ def _rank_want(train_reference, rank: int) -> list:
     state = {"params": params_from_jax(want["params"], cfg, device="cpu"),
              "opt_state": opt_state_from_jax(want["opt_state"], cfg,
                                              device="cpu")}
-    return [t.numpy() for t in leaves(shard_train_state(state, rank, G))]
+    specs = build_model(cfg).rank_specs(G)
+    return [t.numpy()
+            for t in leaves(shard_train_state(state, specs, rank, G))]
 
 
 @pytest.mark.parametrize("mode,accum", TRAIN_MODES)
@@ -608,10 +713,10 @@ def test_rank_train_matches_reference(ranks, train_reference, mode, accum):
 @pytest.mark.parametrize("mode,accum", TRAIN_MODES)
 def test_rank_train_replicated_leaves_bit_equal(ranks, mode, accum):
     """The metrics and every replicated leaf are the same bits on every
-    rank; the blocks (the MLPs' three weights, with ``m`` and ``v``)
-    differ."""
+    rank; the blocks (the attention's four weights and the MLP's three,
+    with ``m`` and ``v``) differ."""
     first = ranks[0]["train", mode, accum]
-    assert sum(first["blocks"]) == 3 * 3  # params, m, v x 3 weights
+    assert sum(first["blocks"]) == 3 * 7  # params, m, v x 7 weights
     for res in ranks[1:]:
         got = res["train", mode, accum]
         assert got["metrics"] == first["metrics"]
@@ -638,13 +743,14 @@ def test_rank_train_k2_folds(ranks, mode, accum):
 def test_rank_train_counts_the_forward_collectives_only(ranks, mode, accum):
     """``counting()`` around a step records each microbatch's forward
     collectives (each MLP's up and gate all-gathers, one per K slice on
-    the 2D path, and its down projection's all-reduce) and the global
-    norm's all-reduce; the backward's reduce-scatters and all-gathers go
-    uncounted."""
+    the 2D path, and the all-reduces of each attention's and each MLP's
+    output projection; the heads divide by the group, so the attention
+    gathers nothing) and the global norm's all-reduce; the backward's
+    reduce-scatters and all-gathers go uncounted."""
     layers = get_config(ARCH).reduced().num_layers
     gathers = 2 * (G if mode == "uniform-fused-2d" else 1)
     want = {"all-gather": layers * gathers * accum,
-            "all-reduce": layers * accum + 1}
+            "all-reduce": 2 * layers * accum + 1}
     for res in ranks:
         assert res["train", mode, accum]["collectives"] == \
             [want] * jax_reference.TRAIN["steps"]
@@ -669,25 +775,202 @@ def test_train_with_checkpoints_on_a_rank_group_raises(monkeypatch,
 
 
 def test_shard_train_state_cuts_params_and_moments():
-    gen = torch.Generator().manual_seed(0)
+    """The params and both moments cut by the model's ``rank_specs``: the
+    attention's and the MLP's weights (the leaves under ``attn`` and
+    ``ffn``) are blocks, every other leaf whole; ``step`` as it is."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import named_leaves
 
-    def tree():
-        return {"embed": torch.randn(5, 8, generator=gen),
-                "layers": [{"ffn": {
-                    "w_up": torch.randn(2, 8, 16, generator=gen),
-                    "w_gate": torch.randn(2, 8, 16, generator=gen),
-                    "w_down": torch.randn(2, 16, 8, generator=gen)}}]}
-
-    state = {"params": tree(),
-             "opt_state": {"m": tree(), "v": tree(),
-                           "step": torch.tensor(3, dtype=torch.int32)}}
-    got = shard_train_state(state, 2, G)
+    cfg = get_config(ARCH).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    state = {"params": params, "opt_state": opt.init_state(params)}
+    for key in ("m", "v"):  # moments that differ from the params
+        state["opt_state"][key] = model.init(1 + len(key), device="cpu")
+    specs = model.rank_specs(G)
+    got = shard_train_state(state, specs, 2, G)
     assert got["opt_state"]["step"] is state["opt_state"]["step"]
+    want = [path.split("/")[2:3] in (["attn"], ["ffn"])
+            for path, _ in named_leaves(params)]
+    assert sum(want) == 7
     for part in (got["params"], got["opt_state"]["m"],
                  got["opt_state"]["v"]):
-        assert rank_blocks(part) == [False, True, True, True]
+        assert rank_blocks(part, specs) == want
+    n = cfg.num_heads * cfg.resolved_head_dim // G
     for key in ("m", "v"):
-        full = state["opt_state"][key]["layers"][0]["ffn"]
-        cut = got["opt_state"][key]["layers"][0]["ffn"]
-        assert torch.equal(cut["w_up"], full["w_up"][..., 8:12])
-        assert torch.equal(cut["w_down"], full["w_down"][:, 8:12])
+        full = state["opt_state"][key]["layers"][0]
+        cut = got["opt_state"][key]["layers"][0]
+        assert torch.equal(cut["attn"]["wq"],
+                           full["attn"]["wq"][..., 2 * n:3 * n])
+        assert torch.equal(cut["attn"]["wo"],
+                           full["attn"]["wo"][:, 2 * n:3 * n])
+        f = cfg.d_ff // G
+        assert torch.equal(cut["ffn"]["w_up"],
+                           full["ffn"]["w_up"][..., 2 * f:3 * f])
+        assert torch.equal(cut["ffn"]["w_down"],
+                           full["ffn"]["w_down"][:, 2 * f:3 * f])
+        assert cut["norm1"]["scale"] is full["norm1"]["scale"]
+
+
+# ---------------------------------------------------------------------------
+# Attention by heads and experts by expert on each rank
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rank_reference(tmp_path_factory):
+    return jax_reference.reference(tmp_path_factory, entry="ranks")
+
+
+@pytest.mark.parametrize("name,backend", [
+    (name, backend) for name, (backends, _) in RANK_MODELS.items()
+    for backend in backends])
+def test_rank_model_prefill_matches_reference(ranks, rank_reference, name,
+                                              backend):
+    """Each rank's prefill on its blocks (``uniform-fused-1d``) within
+    2e-3 of the reference's one-device forward, the same bits on every
+    rank."""
+    logits = [res["model", name]["prefill"][backend] for res in ranks]
+    np.testing.assert_allclose(logits[0], rank_reference[name]["logits"],
+                               **MODEL_TOL)
+    for other in logits[1:]:
+        np.testing.assert_array_equal(other, logits[0])
+
+
+@pytest.mark.parametrize("name,cache", [
+    (name, cache) for name in RANK_MODELS for cache in _rank_caches(name)])
+def test_rank_model_engine_matches_one_process(ranks, rank_params, name,
+                                               cache):
+    """Every rank's engine gives the tokens of the port's engine on the
+    whole model here, with the cache the guard time-slices (the rank's
+    quarter of the attention cache) and with one it keeps whole."""
+    cfg = _rank_cfg(name)
+    cache_len = ENGINE[cache]
+    want = _one_process_tokens(rank_params[name], cache_len, cfg)
+    sliced = cache == "cache"
+    for res in ranks:
+        tokens, positions = res["model", name]["engine"][cache_len]
+        assert positions == (cache_len // G if sliced else cache_len)
+        assert tokens == want
+
+
+@pytest.mark.parametrize("name", list(RANK_MODELS))
+def test_rank_model_grads_match_reference(ranks, rank_reference, name):
+    """Each rank's loss and gradient blocks against the reference's jitted
+    loss and gradients, cut by the same rule, at 2e-3."""
+    from repro_torch.tree import leaves, unflatten
+
+    want = rank_reference[name]
+    model = build_model(_rank_cfg(name))
+    specs = model.rank_specs(G)
+    grads = unflatten(model.init(device="meta"), want["grads"])
+    for r, res in enumerate(ranks):
+        got = res["model", name]
+        np.testing.assert_allclose(got["loss"], want["loss"], **MODEL_TOL)
+        cut = leaves(shard_params(grads, specs, r, G))
+        assert len(got["grads"]) == len(cut)
+        for a, b in zip(got["grads"], cut):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, **MODEL_TOL)
+
+
+@pytest.mark.parametrize("name", list(RANK_MODELS))
+def test_rank_model_step_matches_reference(ranks, rank_reference, name):
+    """One train step's loss and ``grad_norm`` on every rank against the
+    reference's (its jitted loss and its ``global_norm`` of the
+    gradients), the same bits on every rank."""
+    want = rank_reference[name]
+    first = ranks[0]["model", name]["metrics"]
+    for res in ranks:
+        got = res["model", name]["metrics"]
+        assert got == first
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got[key], want[key], **MODEL_TOL,
+                                       err_msg=key)
+
+
+def test_rank_gather_replicated_grad_matches_logical(ranks):
+    """``gather_replicated`` joins the blocks in rank order, and its
+    gradient is this rank's block of the replicated cotangent, as the
+    logical step (the blocks joined once, one computation after) gives;
+    ``all_gather``'s reduce-scatter would give g times that."""
+    x, dy = _gather_operands()
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = xt.movedim(0, 1).flatten(1)
+    (want,) = torch.autograd.grad(y, xt, torch.from_numpy(dy))
+    for r, res in enumerate(ranks):
+        out, grad = res["gather_grad"]["gather_replicated"]
+        np.testing.assert_array_equal(out, y.detach().numpy())
+        np.testing.assert_allclose(grad, want[r].numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        _, summed = res["gather_grad"]["all_gather"]
+        np.testing.assert_allclose(summed, G * want[r].numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def _spec_leaves(specs) -> list:
+    """The specs of a tree of ``P`` in ``leaves`` order."""
+    from repro_torch.parallel.sharding import P
+
+    if isinstance(specs, P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_leaves(specs[k])]
+    return [x for v in specs for x in _spec_leaves(v)]
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-lite-16b",
+                                  "smollm-360m", "arctic-480b"])
+def test_rank_param_bytes_match_shard_shape(arch):
+    """At full width (on the meta device), each rank's parameter bytes:
+    ``shard_shape`` over ``fix_param_specs`` of ``param_specs`` on a
+    model-only mesh of 4 for the leaves of a layer's attention and FFN,
+    and the whole bytes of every other leaf (the embedding and
+    unembedding, the norms, the router: ROADMAP A15)."""
+    import math
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import fix_param_specs, shard_shape
+    from repro_torch.tree import leaves
+
+    model = build_model(get_config(arch))
+    state = model.init(device="meta")
+    mesh = Mesh(("model",), (G,))
+    fixed = fix_param_specs(model.param_specs(), state, mesh)
+
+    def nbytes(shape, t):
+        return math.prod(shape) * t.element_size()
+
+    want = sum(nbytes(t.shape, t) for k, v in state.items()
+               if k != "layers" for t in leaves(v))
+    for slot, slot_specs in zip(state["layers"], fixed["layers"]):
+        for key, sub in slot.items():
+            cut = key in ("attn", "cross", "ffn")
+            for t, sp in zip(leaves(sub), _spec_leaves(slot_specs[key]),
+                             strict=True):
+                want += nbytes(shard_shape(sp, t.shape, mesh) if cut
+                               else t.shape, t)
+    whole = sum(nbytes(t.shape, t) for t in leaves(state))
+    specs = model.rank_specs(G)
+    for r in range(G):
+        got = sum(t.numel() * t.element_size()
+                  for t in leaves(shard_params(state, specs, r, G)))
+        assert got == want
+    assert want < whole
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b",
+                                  "seamless-m4t-large-v2", "internvl2-76b"])
+def test_uncovered_family_raises_on_a_rank_group(monkeypatch, arch):
+    """The hybrid, SSM, encoder-decoder and VLM families have no per-rank
+    form held to the reference yet: cutting their state and running them
+    on a ``RankGroup`` raise, citing ROADMAP A15."""
+    model = build_model(get_config(arch).reduced())
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        model.rank_specs(G)
+    group, _ = _patched_rank_group(monkeypatch, ["cpu"] * G)
+    with tp_group(group):
+        for call in (lambda: model.forward({}, {}),
+                     lambda: model.init_cache(1, 8, device="cpu"),
+                     lambda: model.decode_step({}, [], None, 0)):
+            with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+                call()

@@ -80,27 +80,30 @@ def decode_attention(group, operands, positions) -> dict:
     return out
 
 
-def engine(group, numpy_params, prompts, new_tokens: int, cache_lens):
-    """A ``DecodeEngine`` on this rank of the reduced TinyLlama, with its
-    MLP blocks and ``decode_attn="shard_map"``, at each cache length: the
-    tokens of each request, and the K cache's positions on this rank."""
+def engine(group, numpy_params, prompts, new_tokens: int, cache_lens,
+           cfg=None):
+    """A ``DecodeEngine`` on this rank of ``cfg`` (the reduced TinyLlama by
+    default), with its blocks and ``decode_attn="shard_map"``, at each
+    cache length: the tokens of each request, and the positions of the
+    first layer's cache on this rank (K's, or MLA's latent's)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
-    from repro_torch.parallel.sharding import shard_mlp_params
     from repro_torch.serve.engine import DecodeEngine, Request
 
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+    cfg = dataclasses.replace(cfg or get_config("tinyllama-1.1b").reduced(),
                               overlap=OverlapConfig(decode_attn="shard_map"))
-    state = shard_mlp_params(params_from_jax(numpy_params, cfg, device="cpu"),
-                             group.rank, group.size)
+    state = params_from_jax(numpy_params, cfg, device="cpu",
+                            rank=group.rank, size=group.size)
     out = {}
     for cache_len in cache_lens:
         eng = DecodeEngine(cfg, state, batch_size=len(prompts),
                            cache_len=cache_len, device="cpu")
         reqs = eng.run([Request(p, new_tokens) for p in prompts])
+        first = eng.cache[0]
         out[cache_len] = ([list(r.out) for r in reqs],
-                          eng.cache[0]["k"].shape[-3])
+                          (first["k"] if "k" in first else first["c_kv"])
+                          .shape[2])
     return out
 
 
@@ -125,21 +128,22 @@ def composers(group, x, w, variants) -> dict:
     return out
 
 
-def prefill(group, numpy_params, tokens, mode: str, backend: str):
-    """The reduced TinyLlama prefill on this rank: the params converted,
-    this rank's MLP blocks kept, the logits (float32 numpy)."""
+def prefill(group, numpy_params, tokens, mode: str, backend: str,
+            cfg=None):
+    """The prefill of ``cfg`` (the reduced TinyLlama by default) on this
+    rank: the params converted to this rank's blocks, the logits (float32
+    numpy)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
     from repro_torch.models.model import build_model
-    from repro_torch.parallel.sharding import shard_mlp_params
     from repro_torch.serve.engine import make_prefill
 
     cfg = dataclasses.replace(
-        get_config("tinyllama-1.1b").reduced(),
+        cfg or get_config("tinyllama-1.1b").reduced(),
         overlap=OverlapConfig(mode=mode, backend=backend))
-    state = shard_mlp_params(params_from_jax(numpy_params, cfg, device="cpu"),
-                             group.rank, group.size)
+    state = params_from_jax(numpy_params, cfg, device="cpu",
+                            rank=group.rank, size=group.size)
     logits = make_prefill(build_model(cfg))(
         state, {"tokens": torch.from_numpy(tokens).long()})
     return logits.float().numpy()
@@ -196,7 +200,8 @@ def train_steps(group, numpy_params, mode: str, shape: tuple, ocfg: dict,
     """``steps`` AdamW steps of ``make_train_step`` on this rank of the
     reduced TinyLlama (fp32) in ``mode`` on the collective backend, from
     the reference's params and fresh moments cut by
-    ``shard_train_state``, on ``SyntheticLM``'s batches at ``shape``
+    ``shard_train_state`` (the model's ``rank_specs``), on
+    ``SyntheticLM``'s batches at ``shape``
     (seq, batch): each step's metrics, K2 folds and ``counting()``'s
     calls by kind, and the last state's leaves with whether each is a
     rank's block."""
@@ -216,12 +221,14 @@ def train_steps(group, numpy_params, mode: str, shape: tuple, ocfg: dict,
         get_config("tinyllama-1.1b").reduced(),
         overlap=OverlapConfig(mode=mode, backend="collective"))
     params = params_from_jax(numpy_params, cfg, device="cpu")
+    model = build_model(cfg)
+    specs = model.rank_specs(group.size)
     state = shard_train_state(
-        {"params": params, "opt_state": opt.init_state(params)},
+        {"params": params, "opt_state": opt.init_state(params)}, specs,
         group.rank, group.size)
     data = SyntheticLM(cfg, ShapeConfig("t", seq_len=shape[0],
                                         global_batch=shape[1], kind="train"))
-    step = make_train_step(build_model(cfg), opt.OptimizerConfig(**ocfg),
+    step = make_train_step(model, opt.OptimizerConfig(**ocfg),
                            accum_steps=accum_steps)
     folds, collectives = [], []
     real = ops.matmul_accumulate
@@ -245,7 +252,8 @@ def train_steps(group, numpy_params, mode: str, shape: tuple, ocfg: dict,
         ops.matmul_accumulate = real
     return dict(metrics=metrics, folds=folds, collectives=collectives,
                 leaves=[t.numpy() for t in leaves(state)],
-                blocks=rank_blocks(state))
+                blocks=rank_blocks(state, {
+                    "params": specs, "opt_state": opt.state_specs(specs)}))
 
 
 def dma_refuses_grad(group, numpy_params, shape: tuple) -> str:
@@ -256,15 +264,13 @@ def dma_refuses_grad(group, numpy_params, shape: tuple) -> str:
     from repro_torch.convert import params_from_jax
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.model import build_model
-    from repro_torch.parallel.sharding import shard_mlp_params
     from repro_torch.train.loop import loss_and_grads
 
     cfg = dataclasses.replace(
         get_config("tinyllama-1.1b").reduced(),
         overlap=OverlapConfig(mode="uniform-fused-1d", backend="dma"))
-    params = shard_mlp_params(params_from_jax(numpy_params, cfg,
-                                              device="cpu"),
-                              group.rank, group.size)
+    params = params_from_jax(numpy_params, cfg, device="cpu",
+                             rank=group.rank, size=group.size)
     batch = SyntheticLM(cfg, ShapeConfig("t", seq_len=shape[0],
                                          global_batch=shape[1],
                                          kind="train")).batch_at(0)
@@ -274,6 +280,63 @@ def dma_refuses_grad(group, numpy_params, shape: tuple) -> str:
     except RuntimeError as err:
         return str(err)
     return "no error"
+
+
+def rank_model(group, cfg, numpy_params, batch, backends, engine_case,
+               train_mode: str) -> dict:
+    """One of the reference's ``RANK_MODELS`` (``cfg``, fp32) on this
+    rank, from the reference's params cut to the rank's blocks: the
+    prefill's logits on ``batch``'s tokens in ``uniform-fused-1d`` on
+    each of ``backends``; a ``DecodeEngine`` (:func:`engine`, with
+    ``engine_case``'s prompts, new tokens and cache lengths); and, in
+    ``train_mode`` on the collective backend, ``loss_and_grads``' loss and
+    gradient blocks at ``batch`` and one ``make_train_step`` step's
+    metrics from fresh moments."""
+    from repro_torch.configs.base import OverlapConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import loss_and_grads, make_train_step
+    from repro_torch.tree import leaves
+
+    out = {"prefill": {
+        backend: prefill(group, numpy_params, batch["tokens"],
+                         "uniform-fused-1d", backend, cfg)
+        for backend in backends}}
+    out["engine"] = engine(group, numpy_params, *engine_case, cfg=cfg)
+    tcfg = dataclasses.replace(cfg, overlap=OverlapConfig(
+        mode=train_mode, backend="collective"))
+    model = build_model(tcfg)
+    params = params_from_jax(numpy_params, tcfg, device="cpu",
+                             rank=group.rank, size=group.size)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, _, grads = loss_and_grads(model, params, tbatch)
+    out["loss"] = loss.item()
+    out["grads"] = [g.numpy() for g in leaves(grads)]
+    step = make_train_step(model, opt.OptimizerConfig())
+    _, metrics = step({"params": params, "opt_state": opt.init_state(params)},
+                      tbatch)
+    out["metrics"] = {k: v.item() for k, v in metrics.items()}
+    return out
+
+
+def gather_grad(group, x, dy) -> dict:
+    """``gather_replicated`` (dim 1) and ``all_gather`` (tiled, moved to
+    dim 1) of this rank's block of x (g, m, n), each with the replicated
+    cotangent ``dy`` (m, g * n): their outputs and gradients."""
+    from repro_torch.parallel.collectives import all_gather, gather_replicated
+
+    out = {}
+    for name, fn in (
+            ("gather_replicated",
+             lambda v: gather_replicated(v, 1, group=group)),
+            ("all_gather",
+             lambda v: all_gather(v, group=group).movedim(0, 1).flatten(1))):
+        xr = torch.from_numpy(x[group.rank]).requires_grad_(True)
+        y = fn(xr)
+        (grad,) = torch.autograd.grad(y, xr, torch.from_numpy(dy))
+        out[name] = (y.detach().numpy(), grad.numpy())
+    return out
 
 
 def run_all(group, cases: dict) -> dict:
@@ -300,6 +363,9 @@ def run_all(group, cases: dict) -> dict:
             accum_steps=accum)
     out["dma_grad"] = dma_refuses_grad(group, cases["params"],
                                        cases["train"][0])
+    out["gather_grad"] = gather_grad(group, *cases["gather_grad"])
+    for name, args in cases["rank_models"].items():
+        out["model", name] = rank_model(group, *args)
     return out
 
 

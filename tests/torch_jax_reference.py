@@ -68,7 +68,12 @@ FIRST.pkl`` and one more pickle for each of ``LATER``) it evaluates, with ``JAX_
     (bytes by kind, count by kind);
   * ``examples``: the reference's ``examples/serve_batched.py`` run as it
     stands (``runpy``, its output swallowed): its params
-    (``PRNGKey(0)``) and each request's tokens.
+    (``PRNGKey(0)``) and each request's tokens;
+  * ``ranks``: for each of ``RANK_MODELS`` (:func:`rank_config`, fp32),
+    from ``PRNGKey(0)``, the one-device forward's logits on the tokens of
+    ``SyntheticLM``'s batch 0 at ``RANK_TRAIN``'s shape, and the loss,
+    the gradients and their global norm there (a train step's loss and
+    ``grad_norm``), in one jitted function.
 
 The first eight entries go to ``FIRST.pkl``; the later ones (the whole
 models, the slower half) follow, each in a pickle of its own, in
@@ -86,6 +91,7 @@ own tests run meanwhile.  :func:`reference` waits for its pickle.
 """
 
 import atexit
+import dataclasses
 import fcntl
 import os
 import pickle
@@ -164,9 +170,30 @@ DRYRUN = dict(meshes=({"data": 16, "model": 16},
 # goes before those), each holding a pytest-xdist worker that waits for
 # it (seconds alone, on one run: counts 5.8, collectives 1.2, examples
 # 5.6, recurrent_grad 18.3, encdec 9.7, recurrent 8.9, dryrun 15.8,
-# moe_grad 17.1).
-LATER = ("counts", "collectives", "examples", "recurrent_grad", "encdec",
-         "recurrent", "dryrun", "moe_grad")
+# moe_grad 17.1; ranks about 7).
+LATER = ("counts", "collectives", "examples", "ranks", "recurrent_grad",
+         "encdec", "recurrent", "dryrun", "moe_grad")
+# The per-rank models of tests/test_torch_group.py beside TinyLlama, each
+# reduced and in fp32: DeepSeek-V2-Lite with 8 experts (2 a rank of 4)
+# and one shared expert, and a SmolLM-360M with its 15 query and 5 K/V
+# heads, which 4 ranks do not divide (the group drops their sharding); at
+# seq x batch of SyntheticLM(seed).
+RANK_MODELS = {
+    "deepseek": dict(arch="deepseek-v2-lite-16b", moe=dict(num_experts=8)),
+    "smollm": dict(arch="smollm-360m", d_model=240, num_heads=15,
+                   num_kv_heads=5, head_dim=16),
+}
+RANK_TRAIN = dict(seq=32, batch=2, seed=0)
+
+
+def rank_config(get_config, name: str):
+    """``RANK_MODELS[name]``'s config from either package's
+    ``get_config``."""
+    spec = dict(RANK_MODELS[name])
+    cfg = get_config(spec.pop("arch")).reduced()
+    if "moe" in spec:
+        spec["moe"] = dataclasses.replace(cfg.moe, **spec["moe"])
+    return dataclasses.replace(cfg, **spec)
 
 
 def spec_paths(flat) -> dict:
@@ -357,6 +384,7 @@ def main(err_path: str, first_path: str, *later_paths: str) -> None:
         "counts": _counts,
         "collectives": _collectives,
         "examples": _examples,
+        "ranks": lambda: {n: _rank_model(n) for n in RANK_MODELS},
         "recurrent_grad": lambda: {a: _grad(a, RECURRENT_TRAIN)
                                    for a in RECURRENT_TRAIN["archs"]},
         "encdec": lambda: {a: _encdec(a) for a in ENCDEC["archs"]},
@@ -484,6 +512,38 @@ def _grad(arch: str, spec: dict = MOE_TRAIN) -> dict:
             "aux": float(parts["aux"]),
             "grads": [np.asarray(g) for g in jax.tree.leaves(grads)],
             "state": _numpy(s), "metrics": metrics}
+
+
+def _rank_model(name: str) -> dict:
+    """``RANK_MODELS[name]``: the forward's logits on batch 0's tokens,
+    and the loss, gradients and their global norm (what a train step
+    reports, ``optimizer.global_norm``) at batch 0, in one jitted
+    function."""
+    import jax
+
+    from repro.configs import get_config
+    from repro.configs.base import ShapeConfig
+    from repro.data.pipeline import SyntheticLM
+    from repro.models.model import build_model
+    from repro.train.optimizer import global_norm
+
+    cfg = rank_config(get_config, name)
+    model = build_model(cfg)
+    batch = SyntheticLM(cfg, ShapeConfig("t", RANK_TRAIN["seq"],
+                                         RANK_TRAIN["batch"], "train"),
+                        seed=RANK_TRAIN["seed"]).batch_at(0)
+
+    def run(params, batch):
+        logits, _ = model.forward(params, {"tokens": batch["tokens"]})
+        (loss, _), grads = jax.value_and_grad(model.loss, has_aux=True)(
+            params, batch)
+        return logits, loss, grads, global_norm(grads)
+
+    logits, loss, grads, norm = jax.jit(run)(
+        model.init(jax.random.PRNGKey(0)), batch)
+    return {"logits": np.asarray(logits, np.float32), "loss": float(loss),
+            "grads": [np.asarray(g) for g in jax.tree.leaves(grads)],
+            "grad_norm": float(norm)}
 
 
 def _encdec(arch: str) -> dict:
