@@ -176,9 +176,12 @@ Phases, each of which exits non-zero on failure:
      and 3), where the machine has 4 cards (on fewer it prints that it did
      not run, and ``[done]`` says so): 4 rank processes on
      ``cuda:0``-``3``, each building TinyLlama-1.1B from seed 0 on its own
-     card, holding its blocks of the attention (its 8 of 32 heads) and the
-     MLPs (``Model.rank_specs``), and holding every part against the
-     logical ``TPGroup(4)`` on that card: (a) the
+     card, holding its blocks of the embedding and unembedding (its
+     vocabulary), the attention (its 8 of 32 heads) and the MLPs
+     (``Model.rank_specs``; its parameter bytes held to the rule's to the
+     byte), keeping its sequence block of the
+     residual stream between layers (asserted), and holding every part
+     against the logical ``TPGroup(4)`` on that card: (a) the
      plain collectives on NCCL (copies and ``pmax`` bit-equal, the sum
      within 1e-5); (b) the six schedules per rank at the up projection
      (bf16 tolerance); (c) K3 alone, the K3 + K1 composer and K4 over
@@ -186,20 +189,27 @@ Phases, each of which exits non-zero on failure:
      to the logical slot, launches per call asserted, NVLink bytes and
      rate; (d) the full-width 4 x 512 prefill per rank on the collective
      backend and the DMA path (K1 = K3 = 176 per rank), logits equal on
-     every rank and within 5 % of dense, walls, busy and idle share; (e) a
-     ``DecodeEngine`` per rank with ``decode_attn="shard_map"`` at a
-     cache of 2048 (4 requests x 16 new tokens): the same tokens on every
-     rank and on a second run, each step's logits within 5 % of the
-     one-card logical engine's fed the same tokens, ms per step; (f) the
+     every rank and within 5 % of dense, collectives by kind and bytes,
+     walls, busy and idle share; (e) a ``DecodeEngine`` per rank in each
+     decode attention (:data:`DECODE_MODES`) at a cache of 2048 (4
+     requests x 16 new tokens), each cache leaf the rank's time slice by
+     the reference's ``cache_leaf_spec`` (its bytes held to the byte): the
+     same tokens on every rank and on a second run, each step's logits
+     within 5 % of the one-card logical engine's fed the same tokens, the
+     collectives of a step, ms per step; (f) the
      EP dispatch per rank at DeepSeek-V2-Lite's MoE layer; (g) TinyLlama
      whole trained per rank (3 AdamW steps, 2D with remat, K2 352 per
      step, metrics and replicated leaves bit-equal across ranks, step 1
      against a logical step); (h) DeepSeek-V2-Lite-16B whole per rank,
      its 16 of 64 experts and 4 of 16 MLA heads a rank: the 4 x 512
      prefill on both backends (K3 216, K1 0 on the DMA path) within 5 %
-     of the logical prefill and equal on every rank, a ``DecodeEngine``,
-     the rank's parameter bytes to the byte; (i) DeepSeek cut to 2 layers
-     trained per rank (K2 32 per step, as (g));
+     of the logical prefill and equal on every rank, its residual block
+     and collectives, a ``DecodeEngine`` in each decode attention on the
+     rank's slice of the MLA latent (each step's logits, fed the one-card
+     logical engine's tokens on its expert choices, within 5 % of its),
+     the rank's parameter and cache bytes to the byte; (i) DeepSeek cut
+     to 2 layers trained per rank (K2 32 per step, as (g)); (g) and (i)
+     print the collectives of a step's forward;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -4815,14 +4825,18 @@ def phase_group(device) -> dict:
 # (b) the six schedules per rank, (c) [group]'s K3, composer and K4 calls
 # (_group_rank) over NVLink, CARDS["calls"] calls in a row, cycling
 # CARDS["inputs"] inputs, (d) the full-width prefill per rank, (e) a
-# DecodeEngine per rank with the per-rank decode attention; then (A9 step
-# 3, items 1-2) (f) the EP dispatch per rank at DeepSeek-V2-Lite-16B's MoE
-# layer (EP_ARCH), capacity from a batch x seq prefill, and (g)
+# DecodeEngine per rank in each decode attention; then (A9 step 3, items
+# 1-2) (f) the EP dispatch per rank at DeepSeek-V2-Lite-16B's MoE layer
+# (EP_ARCH), capacity from a batch x seq prefill, and (g)
 # CARDS["train_steps"] AdamW steps per rank of TinyLlama-1.1B whole on
-# uniform-fused-2d, each rank holding its MLP blocks.
+# uniform-fused-2d; (h) and (i) DeepSeek-V2-Lite whole and cut.  Each rank
+# holds its blocks by Model.rank_specs (the vocabulary, heads, MLPs and
+# experts) and its sequence block of the residual stream (ROADMAP A15).
 CARDS = dict(batch=PREFILL_BATCH, seq=PREFILL_SEQ, calls=50, inputs=3,
              reps=10, prompt=8, new=16, cache=2048, train_steps=3)
 EP_ARCH = "deepseek-v2-lite-16b"
+# (e) and (h) run a DecodeEngine per rank in each decode attention.
+DECODE_MODES = ("shard_map", "gspmd")
 CARDS_SEED = 62
 CARDS_TIMEOUT = 600.0
 # The NVLink rate of one H100 SXM, each way (NVIDIA data sheet: 900 GB/s
@@ -5017,11 +5031,12 @@ def _cards_ep(group, seed: int, ep_cfg, tokens: int, reps: int,
 def _cards_train(group, cfg, state, size: dict, cuda: bool) -> dict:
     """(g) and (i): ``size["train_steps"]`` AdamW steps of model ``cfg``
     on this rank, uniform-fused-2d on the collective backend, the rank
-    holding its blocks (``Model.rank_specs``: the attention's, the MLPs'
-    and the experts') and their moments, from ``state`` (the params from
-    seed 0) and fresh moments; first one logical ``TPGroup`` step on this
-    card from the same state, which the first step's loss and gradient
-    norm are held to."""
+    holding its blocks (``Model.rank_specs``: the vocabulary's, the
+    attention's, the MLPs' and the experts') and their moments, from
+    ``state`` (the params from seed 0) and fresh moments; first one
+    logical ``TPGroup`` step on this card from the same state, which the
+    first step's loss and gradient norm are held to; the collectives of
+    step 1's forward counted."""
     import torch
     import torch.distributed as dist
 
@@ -5029,6 +5044,7 @@ def _cards_train(group, cfg, state, size: dict, cuda: bool) -> dict:
     from repro_torch.data.pipeline import SyntheticLM, to_device
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
+    from repro_torch.parallel.collectives import counting
     from repro_torch.parallel.sharding import (TPGroup, rank_blocks,
                                                shard_train_state, tp_group)
     from repro_torch.train.loop import make_train_step
@@ -5063,10 +5079,11 @@ def _cards_train(group, cfg, state, size: dict, cuda: bool) -> dict:
     # The AdamW update holds the old and the new params and moments and the
     # gradients (1 + 1 + 4 + 4 + 1 params' worth beyond what is allocated
     # before the steps: 6 more), four fp32 temporaries of the largest leaf
-    # (optimizer.apply_updates), and the loss's three fp32 (B, S, V)
-    # logits-sized tensors in the backward.
+    # (optimizer.apply_updates), and the loss's three fp32 (B, S, V/g)
+    # tensors of the rank's vocabulary block in the backward.
+    vocab = rank_state["params"]["embed"].shape[0]
     predicted = (start + 6 * p_bytes + 4 * 4 * largest
-                 + 3 * 4 * b * seq * cfg.vocab_size)
+                 + 3 * 4 * b * seq * vocab)
     out = {"logical": logical, "metrics": [], "walls": [], "launches": [],
            "routes": [], "replicated_equal": [], "p_bytes": p_bytes,
            "start": start, "predicted": predicted}
@@ -5082,6 +5099,11 @@ def _cards_train(group, cfg, state, size: dict, cuda: bool) -> dict:
                 rank_state, m = step(rank_state, batches[i])
 
             out["trace"] = _rank_trace(one)
+        elif i == 0:  # the forward's collectives (counting skips backward)
+            with counting() as stats:
+                rank_state, m = step(rank_state, batches[i])
+            out["collectives"] = dict(stats.count_by_kind)
+            out["collective_bytes"] = dict(stats.bytes_by_kind)
         else:
             rank_state, m = step(rank_state, batches[i])
         sync()
@@ -5111,11 +5133,11 @@ def _tree_bytes(tree) -> int:
 def _predicted_rank_bytes(model, state, g: int) -> int:
     """What the reference's rule says a rank of ``g`` holds of ``state``:
     ``shard_shape`` over ``fix_param_specs`` of ``param_specs`` on
-    ``Mesh(("model",), (g,))`` for the leaves of a layer's attention and
-    FFN, the whole leaf for every other (the embedding and unembedding,
-    the norms, the router: ROADMAP A15)."""
+    ``Mesh(("model",), (g,))`` for the embedding and unembedding and the
+    leaves of a layer's attention and FFN, the whole leaf for every other
+    (the norms, the router, MLA's latent projections)."""
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.models.model import RANK_CUT
+    from repro_torch.models.model import RANK_CUT, RANK_CUT_TOP
     from repro_torch.parallel.sharding import (MODEL_AXIS, P,
                                                fix_param_specs, shard_shape)
 
@@ -5130,11 +5152,35 @@ def _predicted_rank_bytes(model, state, g: int) -> int:
             return sum(walk(tree[k], v, cut) for k, v in specs.items())
         return sum(walk(t, v, cut) for t, v in zip(tree, specs))
 
-    total = sum(_tree_bytes(v) for k, v in state.items() if k != "layers")
+    total = sum(walk(v, fixed[k], k in RANK_CUT_TOP)
+                for k, v in state.items() if k != "layers")
     for slot, slot_specs in zip(state["layers"], fixed["layers"]):
         total += sum(walk(slot[k], v, k in RANK_CUT)
                      for k, v in slot_specs.items())
     return total
+
+
+def _cache_bytes(cache) -> int:
+    """The bytes of a decode cache's K/V, latent and rope-key leaves (not
+    the ``"time_slice"`` records)."""
+    return sum(t.numel() * t.element_size() for c in cache
+               for k, t in c.items() if k != "time_slice")
+
+
+def _predicted_cache_bytes(model, batch: int, cache_len: int, g: int) -> int:
+    """What the reference's ``cache_leaf_spec`` on ``Mesh(("model",),
+    (g,))`` gives a rank of the model's decode cache (the whole cache's
+    shapes on the meta device)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import (MODEL_AXIS, cache_leaf_spec,
+                                               shard_shape, tp_group)
+
+    mesh = Mesh((MODEL_AXIS,), (g,))
+    with tp_group(None):  # the whole cache
+        whole = model.init_cache(batch, cache_len, device="meta")
+    return sum(math.prod(shard_shape(cache_leaf_spec(t.shape, mesh), t.shape,
+                                     mesh)) * t.element_size()
+               for c in whole for t in c.values())
 
 
 def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
@@ -5143,13 +5189,19 @@ def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
     and a ``DecodeEngine`` first, and keeps their logits, expert choices
     and tokens; then the card cuts the model to the rank's blocks
     (``Model.rank_specs``: 4 of 16 MLA heads, 16 of 64 experts, the
-    shared experts' columns and rows) and frees the whole.  Per rank: the
+    shared experts' columns and rows, its vocabulary blocks) and frees the
+    whole.  Per rank: the
     prefill on the collective backend and the DMA path, free-running (its
     launches, and its expert choices against the logical run's) and held
     on the logical run's choices (``_Routing`` replays them: its logits
-    against the logical ones), walls and one trace split at NCCL's
-    kernels; the parameter bytes against :func:`_predicted_rank_bytes`;
-    peak memory; a ``DecodeEngine`` run twice."""
+    against the logical ones), the residual's shape between layers,
+    walls and one trace split at NCCL's kernels; the parameter bytes
+    against :func:`_predicted_rank_bytes`; peak memory; a
+    ``DecodeEngine`` in each of :data:`DECODE_MODES` run twice, its cache
+    bytes against :func:`_predicted_cache_bytes` and one step's
+    collectives, then its steps on a fresh cache fed the logical engine's
+    tokens on the logical engine's expert choices (replayed), each step's
+    logits against the logical engine's."""
     import gc
 
     import numpy as np
@@ -5158,7 +5210,7 @@ def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
 
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.kernels import ops
-    from repro_torch.models.model import build_model
+    from repro_torch.models.model import build_model, residual_shapes
     from repro_torch.parallel.collectives import counting
     from repro_torch.parallel.sharding import TPGroup, shard_params, tp_group
     from repro_torch.serve.engine import DecodeEngine, Request, make_prefill
@@ -5183,15 +5235,20 @@ def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
     raw = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                             (b, size["prompt"]))
 
-    def answer(eng):
+    def answer(eng, steps=None):
+        """The engine's tokens and ms per step; each step's fed tokens,
+        position and logits appended to ``steps`` where given."""
         reqs = [Request(raw[i].astype(np.int32),
                         max_new_tokens=size["new"]) for i in range(b)]
-        steps = []
+        n = [0]
         real = eng.step_fn
 
-        def step(*args):
-            steps.append(1)
-            return real(*args)
+        def step(st, cache, tok, pos):
+            lg, cache = real(st, cache, tok, pos)
+            n[0] += 1
+            if steps is not None:
+                steps.append((tok.clone(), pos, lg.float()))
+            return lg, cache
 
         eng.step_fn = step
         sync()
@@ -5200,19 +5257,22 @@ def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
         sync()
         eng.step_fn = real
         return ([list(q.out) for q in reqs],
-                (time.perf_counter() - t0) * 1e3 / max(len(steps), 1))
+                (time.perf_counter() - t0) * 1e3 / max(n[0], 1))
 
     scfg = dataclasses.replace(cfg, overlap=OverlapConfig(
         decode_attn="shard_map"))
+    ref_steps = []
     with torch.no_grad(), _Routing() as routing:
         with tp_group(TPGroup(g, dev)):
             logical = make_prefill(model)(state, batch)
             logical_choices = routing.take()
             ref = DecodeEngine(scfg, state, batch_size=b,
                                cache_len=size["cache"], device=dev)
-            out["ref_tokens"], out["ref_ms"] = answer(ref)
+            out["ref_tokens"], out["ref_ms"] = answer(ref, ref_steps)
             del ref
-            routing.take()
+            ref_step_choices = routing.take()
+    out["ref_step_scale"] = max(lg.abs().max().item()
+                                for _, _, lg in ref_steps)
     out["scale"] = logical.float().abs().max().item()
     specs = model.rank_specs(g)
     rank_state = shard_params(state, specs, r, g)
@@ -5225,15 +5285,16 @@ def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     start = torch.cuda.memory_allocated(dev) if cuda else 0
-    # The prefill holds the rank's params, the logical logits kept and
-    # its own (B, S, V) bf16 logits, the layer's (B, S, D) activations
-    # (a dozen, fp32 among them) and the MoE dispatch's (E * C, D)
-    # buffers (the dispatch, the rank's FFN out gathered back, the
-    # combine's gathered rows).
+    # The prefill holds the rank's params, the logical logits kept, its
+    # own (B, S, V/g) bf16 vocabulary block and their (B, S, V) gather,
+    # the layer's (B, S, D) activations (a dozen, fp32 among them) and
+    # the MoE dispatch's (E * C, D) buffers (the dispatch, the rank's FFN
+    # out gathered back, the combine's gathered rows).
     capacity = int(max(cfg.moe.capacity_factor * b * seq * cfg.moe.top_k
                        / cfg.moe.num_experts, 4))
     out["predicted_peak"] = (
         start + 2 * b * seq * cfg.vocab_size * 2
+        + b * seq * rank_state["embed"].shape[0] * 2
         + 12 * b * seq * cfg.d_model * 4
         + 4 * cfg.moe.num_experts * capacity * cfg.d_model * 2)
     out["start"] = start
@@ -5243,7 +5304,7 @@ def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
             prefill = make_prefill(build_model(bcfg))
             ops.reset_launch_counts()
             with _Routing() as routing:
-                with counting() as stats:
+                with counting() as stats, residual_shapes() as shapes:
                     free = prefill(rank_state, batch)
                 sync()
                 launches, routes = ops.launch_counts(), ops.route_counts()
@@ -5254,6 +5315,8 @@ def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
                 logits = prefill(rank_state, batch)
             res = dict(launches=launches, routes=routes,
                        collectives=dict(stats.count_by_kind),
+                       collective_bytes=dict(stats.bytes_by_kind),
+                       residual=sorted(set(shapes)),
                        err=_max_err(logits, logical),
                        free_err=_max_err(free, logical),
                        finite=all(bool(torch.isfinite(t).all())
@@ -5274,19 +5337,46 @@ def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
             out["prefill"][backend] = res
         out["peak"] = torch.cuda.max_memory_allocated(dev) if cuda else None
         del logical
-        eng = DecodeEngine(scfg, rank_state, batch_size=b,
-                           cache_len=size["cache"], device=dev)
-        out["tokens1"], out["first_ms"] = answer(eng)
-        ops.reset_launch_counts()
-        out["tokens"], out["ms"] = answer(eng)  # R7: from the start again
-        out["decode_launches"] = ops.launch_counts()
-        out["decode_routes"] = ops.route_counts()
-        if cuda:  # one more step, traced
+        out["decode"] = {}
+        for mode in DECODE_MODES:
+            eng = DecodeEngine(dataclasses.replace(cfg, overlap=OverlapConfig(
+                decode_attn=mode)), rank_state, batch_size=b,
+                cache_len=size["cache"], device=dev)
+            res = {"cache_bytes": _cache_bytes(eng.cache),
+                   "slice": eng.cache[0]["c_kv"].shape[-2]}
+            res["tokens1"], res["first_ms"] = answer(eng)
+            ops.reset_launch_counts()
+            res["tokens"], res["ms"] = answer(eng)  # R7: from the start
+            res["launches"] = ops.launch_counts()
+            res["routes"] = ops.route_counts()
+            # One more step, counted, then traced.
             last = size["prompt"] + size["new"] - 2
-            tok = torch.tensor([[t[-1]] for t in out["tokens"]], device=dev)
-            out["decode_trace"] = _rank_trace(lambda: eng.step_fn(
-                rank_state, eng.cache, tok, last))
-    del eng, rank_state
+            tok = torch.tensor([[t[-1]] for t in res["tokens"]], device=dev)
+            with counting() as stats:
+                eng.step_fn(rank_state, eng.cache, tok, last)
+            res["collectives"] = dict(stats.count_by_kind)
+            res["collective_bytes"] = dict(stats.bytes_by_kind)
+            if cuda:
+                res["trace"] = _rank_trace(lambda: eng.step_fn(
+                    rank_state, eng.cache, tok, last))
+            # The rank's steps on a fresh cache, fed the logical engine's
+            # tokens on its expert choices (replayed): what remains
+            # between the two is arithmetic, each step's logits.
+            cache = eng.model.init_cache(b, size["cache"], device=dev)
+            errs, finite = [], True
+            with _Routing() as routing:
+                routing.replay = iter(ref_step_choices)
+                for tok, pos, want in ref_steps:
+                    lg, cache = eng.step_fn(rank_state, cache, tok, pos)
+                    errs.append(_max_err(lg, want))
+                    finite &= bool(torch.isfinite(lg).all())
+            res["err"], res["finite"], res["steps"] = max(errs), finite, \
+                len(errs)
+            out["decode"][mode] = res
+            del eng, cache
+    out["predicted_cache_bytes"] = _predicted_cache_bytes(
+        model, b, size["cache"], g)
+    del rank_state
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -5313,12 +5403,13 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.core.schedule_types import Schedule
     from repro_torch.kernels import ops, peer_memory, ref
-    from repro_torch.models.model import build_model
+    from repro_torch.models.model import build_model, residual_shapes
     from repro_torch.overlap.api import ficco_linear
     from repro_torch.parallel.collectives import counting
     from repro_torch.parallel.sharding import (TPGroup, shard_columns,
                                                shard_params, tp_group)
-    from repro_torch.serve.engine import DecodeEngine, Request, make_prefill
+    from repro_torch.serve.engine import (DecodeEngine, Request,
+                                          make_prefill, make_serve_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, g, r = group.device, group.size, group.rank
@@ -5383,6 +5474,7 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
     out["init_s"] = time.time() - t0
     rank_state = shard_params(state, model.rank_specs(g), r, g)
     out["p_bytes"] = _tree_bytes(rank_state)
+    out["predicted_bytes"] = _predicted_rank_bytes(model, state, g)
     out["whole_bytes"] = _tree_bytes(state)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -5400,13 +5492,14 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
                 mode="uniform-fused-1d", backend=backend))
             prefill = make_prefill(build_model(bcfg))
             ops.reset_launch_counts()
-            with counting() as stats:
+            with counting() as stats, residual_shapes() as shapes:
                 logits = prefill(rank_state, batch)
             sync()
             res = dict(launches=ops.launch_counts(),
                        routes=ops.route_counts(),
                        collectives=dict(stats.count_by_kind),
                        collective_bytes=dict(stats.bytes_by_kind),
+                       residual=sorted(set(shapes)),
                        err=_max_err(logits, dense), scale=scale,
                        finite=bool(torch.isfinite(logits).all()),
                        shape=tuple(logits.shape))
@@ -5461,34 +5554,52 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
                 wall / max(len(fed), 1))
 
     with torch.no_grad():
-        eng = DecodeEngine(scfg, rank_state, batch_size=b,
-                           cache_len=size["cache"], device=dev)
-        slice_len = eng.cache[0]["k"].shape[-3]
-        toks1, _, _, first_ms = answer(eng)
-        ops.reset_launch_counts()
-        toks, fed, logits, step_ms = answer(eng)  # R7: from the start again
-        launches = ops.launch_counts()
-        # One more step at the last position, traced: the step's device
-        # time outside NCCL's kernels against its wall.
-        step_trace = (_rank_trace(lambda: eng.step_fn(
-            rank_state, eng.cache, *fed[-1])) if cuda else None)
         with tp_group(logical):
             ref = DecodeEngine(scfg, state, batch_size=b,
                                cache_len=size["cache"], device=dev)
             ref_toks, _, _, ref_ms = answer(ref)
-            ref_cache = ref.model.init_cache(b, size["cache"], device=dev)
-            errs, scale = [], 0.0
-            for (tok, pos), lg in zip(fed, logits):
-                want, ref_cache = ref.step_fn(state, ref_cache, tok, pos)
-                scale = max(scale, want.float().abs().max().item())
-                errs.append(_max_err(lg, want))
-    out["e"] = dict(tokens=toks, repeat_equal=toks == toks1, slice=slice_len,
-                    steps=len(fed), ms=step_ms, first_ms=first_ms,
-                    ref_ms=ref_ms, ref_tokens=ref_toks, err=max(errs),
-                    scale=scale, launches=launches, trace=step_trace,
-                    finite=all(bool(torch.isfinite(lg).all())
-                               for lg in logits))
-    del eng, ref, ref_cache, logits, fed
+            del ref
+        out["e"] = {"ref_tokens": ref_toks, "ref_ms": ref_ms, "modes": {}}
+        for mode in DECODE_MODES:
+            mcfg = dataclasses.replace(cfg, overlap=OverlapConfig(
+                decode_attn=mode))
+            eng = DecodeEngine(mcfg, rank_state, batch_size=b,
+                               cache_len=size["cache"], device=dev)
+            cache_bytes = _cache_bytes(eng.cache)
+            slice_len = eng.cache[0]["k"].shape[-3]
+            toks1, _, _, first_ms = answer(eng)
+            ops.reset_launch_counts()
+            toks, fed, logits, step_ms = answer(eng)  # R7: from the start
+            launches = ops.launch_counts()
+            # One more step at the last position, counted, then traced:
+            # the step's device time outside NCCL's kernels against its
+            # wall.
+            with counting() as stats:
+                eng.step_fn(rank_state, eng.cache, *fed[-1])
+            step_trace = (_rank_trace(lambda: eng.step_fn(
+                rank_state, eng.cache, *fed[-1])) if cuda else None)
+            del eng
+            with tp_group(logical):
+                ref_cache = build_model(scfg).init_cache(
+                    b, size["cache"], device=dev)
+                step_ref = make_serve_step(build_model(scfg))
+                errs, scale = [], 0.0
+                for (tok, pos), lg in zip(fed, logits):
+                    want, ref_cache = step_ref(state, ref_cache, tok, pos)
+                    scale = max(scale, want.float().abs().max().item())
+                    errs.append(_max_err(lg, want))
+                del ref_cache
+            out["e"]["modes"][mode] = dict(
+                tokens=toks, repeat_equal=toks == toks1, slice=slice_len,
+                cache_bytes=cache_bytes, steps=len(fed), ms=step_ms,
+                first_ms=first_ms, err=max(errs), scale=scale,
+                launches=launches, trace=step_trace,
+                collectives=dict(stats.count_by_kind),
+                collective_bytes=dict(stats.bytes_by_kind),
+                finite=all(bool(torch.isfinite(lg).all()) for lg in logits))
+            del logits, fed
+    out["e"]["predicted_cache_bytes"] = _predicted_cache_bytes(
+        model, b, size["cache"], g)
     sync()
 
     # (f) the EP dispatch per rank at the MoE layer's full width.
@@ -5587,16 +5698,28 @@ def _cards_report(results, wall: float, cfg, size: dict, ep_cfg) -> dict:
             if d["err"] > 5e-2 * d["scale"]:
                 fail(f"rank {rank} (d) {backend}: logits differ from dense "
                      f"by {d['err']} (> 5% of {d['scale']})")
-        e = res["e"]
-        if e["tokens"] != results[0]["e"]["tokens"]:
-            fail(f"rank {rank} (e): tokens differ from rank 0's")
-        if not e["repeat_equal"]:
-            fail(f"rank {rank} (e): a second run gave other tokens (R7)")
-        if not e["finite"] or e["err"] > 5e-2 * e["scale"]:
-            fail(f"rank {rank} (e): step logits differ from the logical "
-                 f"engine's by {e['err']} (> 5% of {e['scale']})")
-        _rank_launches(f"[cards] rank {rank} (e) decode", e | {"cuda": cuda},
-                       {})
+            block = [(b, size["seq"] // g, cfg.d_model)]
+            if d["residual"] != block:
+                fail(f"rank {rank} (d) {backend}: the residual between "
+                     f"layers is {d['residual']}, not the rank's sequence "
+                     f"block {block[0]}")
+        _check_bytes(f"rank {rank} (d)", "parameter", res["p_bytes"],
+                     res["predicted_bytes"], fail)
+        for mode, e in res["e"]["modes"].items():
+            if e["tokens"] != results[0]["e"]["modes"][mode]["tokens"]:
+                fail(f"rank {rank} (e) {mode}: tokens differ from rank 0's")
+            if not e["repeat_equal"]:
+                fail(f"rank {rank} (e) {mode}: a second run gave other "
+                     "tokens (R7)")
+            if not e["finite"] or e["err"] > 5e-2 * e["scale"]:
+                fail(f"rank {rank} (e) {mode}: step logits differ from the "
+                     f"logical engine's by {e['err']} (> 5% of "
+                     f"{e['scale']})")
+            _check_bytes(f"rank {rank} (e) {mode}", "cache",
+                         e["cache_bytes"], res["e"]["predicted_cache_bytes"],
+                         fail)
+            _rank_launches(f"[cards] rank {rank} (e) {mode} decode",
+                           e | {"cuda": cuda}, {})
 
     def per_rank(fn, fmt="{:.4f}"):
         return _per_rank(results, fn, fmt)
@@ -5652,13 +5775,16 @@ def _cards_report(results, wall: float, cfg, size: dict, ep_cfg) -> dict:
         d = r0["d"][backend]
         print(f"[cards] (d) {cfg.name} prefill, {cfg.num_layers} layers, "
               f"{b} x {size['seq']}, {backend} backend, each rank holding "
+              f"its vocabulary block of the embedding and unembedding, "
               f"{cfg.num_heads // g} of {cfg.num_heads} heads and its MLP "
-              f"blocks ({r0['p_bytes'] / 1e9:.3f} of "
-              f"{r0['whole_bytes'] / 1e9:.3f} GB): logits "
-              f"equal on every rank, max_abs_err vs dense {d['err']:.4e} of "
+              f"blocks ({r0['p_bytes']} bytes a rank, the rule "
+              f"{r0['predicted_bytes']}, of {r0['whole_bytes']} whole); the "
+              f"residual between layers {d['residual']} on every rank; "
+              f"logits (the vocabulary blocks gathered) equal on every rank, "
+              f"max_abs_err vs dense {d['err']:.4e} of "
               f"max |logit| {d['scale']:.4f} ({d['err'] / d['scale']:.2e}); "
               f"launches per rank {d['launches']}; collectives per rank "
-              f"{d['collectives']}")
+              f"{d['collectives']}, bytes {_fmt_bytes(d['collective_bytes'])}")
         if cuda:
             print(f"[cards]     wall ms (median of 5, twice) "
                   f"{per_rank(lambda s, b=backend: s['d'][b]['wall_ms'][0], '{:.2f}')}"
@@ -5681,30 +5807,37 @@ def _cards_report(results, wall: float, cfg, size: dict, ep_cfg) -> dict:
               f"ms {per_rank(lambda s: s['d']['dense_wall_ms'], '{:.2f}')}; "
               f"weights built per rank in "
               f"{per_rank(lambda s: s['init_s'], '{:.2f}')} s")
-    e = r0["e"]
-    agree = sum(a == b for t, u in zip(e["tokens"], e["ref_tokens"])
-                for a, b in zip(t, u))
-    print(f"[cards] (e) DecodeEngine per rank, decode_attn=\"shard_map\": "
-          f"{b} requests x {size['new']} new tokens (prompt "
-          f"{size['prompt']}), cache {size['cache']} ({e['slice']} positions per "
-          f"rank), {e['steps']} steps: the same tokens on every rank and on "
-          f"a second run; step logits vs the one-card logical engine's fed "
-          f"the same tokens max_abs_err "
-          f"{max(s['e']['err'] for s in results):.4e} of max |logit| "
-          f"{e['scale']:.4f}; greedy tokens equal to the logical engine's "
-          f"{agree} of {b * size['new']}; ms per step "
-          f"{per_rank(lambda s: s['e']['ms'], '{:.2f}')} (first run "
-          f"{per_rank(lambda s: s['e']['first_ms'], '{:.2f}')}), the logical "
-          f"engine {per_rank(lambda s: s['e']['ref_ms'], '{:.2f}')}")
-    if cuda:
-        print(f"[cards] (e) one traced decode step: window "
-              f"{per_rank(lambda s: s['e']['trace']['window_ms'], '{:.2f}')}"
-              f" ms, device time outside NCCL's kernels "
-              f"{per_rank(lambda s: s['e']['trace']['compute_ms'], '{:.2f}')}"
-              f" ms, NCCL's kernels "
-              f"{per_rank(lambda s: s['e']['trace']['nccl_ms'], '{:.2f}')}"
-              " ms (spinning included)")
-    print(f"[cards] req0: {e['tokens'][0]}")
+    for mode, e in r0["e"]["modes"].items():
+        agree = sum(a == c for t, u in zip(e["tokens"],
+                                           r0["e"]["ref_tokens"])
+                    for a, c in zip(t, u))
+        print(f"[cards] (e) DecodeEngine per rank, decode_attn=\"{mode}\": "
+              f"{b} requests x {size['new']} new tokens (prompt "
+              f"{size['prompt']}), cache {size['cache']} ({e['slice']} "
+              f"positions per rank, {e['cache_bytes']} bytes a rank, the "
+              f"rule {r0['e']['predicted_cache_bytes']}), {e['steps']} "
+              "steps: the same tokens on every rank and on a second run; "
+              "step logits vs the one-card logical engine's fed the same "
+              f"tokens max_abs_err "
+              f"{max(s['e']['modes'][mode]['err'] for s in results):.4e} of "
+              f"max |logit| {e['scale']:.4f}; greedy tokens equal to the "
+              f"logical engine's {agree} of {b * size['new']}; collectives "
+              f"per step {e['collectives']}, bytes "
+              f"{_fmt_bytes(e['collective_bytes'])}; ms per step "
+              f"{per_rank(lambda s, m=mode: s['e']['modes'][m]['ms'], '{:.2f}')}"
+              f" (first run "
+              f"{per_rank(lambda s, m=mode: s['e']['modes'][m]['first_ms'], '{:.2f}')}"
+              f"), the logical engine "
+              f"{per_rank(lambda s: s['e']['ref_ms'], '{:.2f}')}")
+        if cuda:
+            print(f"[cards] (e) {mode}: one traced decode step: window "
+                  f"{per_rank(lambda s, m=mode: s['e']['modes'][m]['trace']['window_ms'], '{:.2f}')}"
+                  f" ms, device time outside NCCL's kernels "
+                  f"{per_rank(lambda s, m=mode: s['e']['modes'][m]['trace']['compute_ms'], '{:.2f}')}"
+                  f" ms, NCCL's kernels "
+                  f"{per_rank(lambda s, m=mode: s['e']['modes'][m]['trace']['nccl_ms'], '{:.2f}')}"
+                  " ms (spinning included)")
+        print(f"[cards] (e) {mode} req0: {e['tokens'][0]}")
     _cards_report_ep_train(results, cfg, size, ep_cfg)
     _cards_report_moe(results, ep_cfg, size)
     cut = dataclasses.replace(ep_cfg, num_layers=MOE_TRAIN_LAYERS)
@@ -5719,6 +5852,21 @@ def _cards_report(results, wall: float, cfg, size: dict, ep_cfg) -> dict:
             by_kernel([res["h"]["prefill"]["dma"]["launches"]
                        for res in results]),
             by_kernel([res["i"]["launches"][-1] for res in results]))
+
+
+def _fmt_bytes(by_kind: dict) -> str:
+    """Collective bytes by kind, in MiB."""
+    return "{" + ", ".join(f"{k}: {v / 2 ** 20:.2f} MiB"
+                           for k, v in sorted(by_kind.items())) + "}"
+
+
+def _check_bytes(label: str, what: str, got: int, predicted: int,
+                 fail) -> None:
+    """A rank's parameter or decode-cache bytes: the rule's (host
+    arithmetic on meta tensors) to the byte.  The rule's numbers at full
+    width are held by tests/test_torch_group.py's ``RANK_BYTES``."""
+    if got != predicted:
+        fail(f"{label}: {got} {what} bytes, the rule predicts {predicted}")
 
 
 # [cards] (h): the largest share of (token, k) expert choices, averaged over
@@ -5753,11 +5901,12 @@ def _cards_report_moe(results, cfg, size: dict) -> None:
           f"{per_rank(lambda s: s['h']['init_s'], '{:.1f}')} s), cut per "
           f"rank to {cfg.num_heads // g} of {cfg.num_heads} MLA heads, "
           f"{moe.num_experts // g} of {moe.num_experts} experts and the "
-          f"shared experts' n_local {n_local}: "
+          f"shared experts' n_local {n_local} and its vocabulary block of "
+          f"the embedding and unembedding: "
           f"{h0['p_params'] / 1e9:.4f}e9 parameters, {h0['p_bytes']} bytes "
           f"({h0['p_bytes'] / 1e9:.3f} GB) a rank; the rule predicts "
           f"{h0['predicted_bytes']} (shard_shape over fix_param_specs on "
-          f"Mesh(model={g}), the embedding and unembedding whole)")
+          f"Mesh(model={g}))")
     for backend in ("collective", "dma"):
         p = h0["prefill"][backend]
         flips = max(statistics.mean(s["h"]["prefill"][backend]["flipped"])
@@ -5773,8 +5922,10 @@ def _cards_report_moe(results, cfg, size: dict) -> None:
               f"{flips:.3e} of (token, k), mean over the layers (limit "
               f"{CARDS_FLIP_LIMIT}; first layer "
               f"{p['flipped'][0]:.3e}, last {p['flipped'][-1]:.3e}, max "
-              f"{max(p['flipped']):.3e}); launches per rank "
-              f"{p['launches']}; collectives per rank {p['collectives']}")
+              f"{max(p['flipped']):.3e}); the residual between layers "
+              f"{p['residual']}; launches per rank "
+              f"{p['launches']}; collectives per rank {p['collectives']}, "
+              f"bytes {_fmt_bytes(p['collective_bytes'])}")
         if cuda:
             print(f"[cards]     wall ms (median of 5, twice) "
                   f"{per_rank(lambda s, b=backend: s['h']['prefill'][b]['wall_ms'][0], '{:.2f}')}"
@@ -5791,25 +5942,37 @@ def _cards_report_moe(results, cfg, size: dict) -> None:
                   f" ms; idle share outside NCCL over the second median "
                   f"wall "
                   f"{per_rank(lambda s, b=backend: 1 - s['h']['prefill'][b]['trace']['compute_ms'] / s['h']['prefill'][b]['wall_ms'][1], '{:.3f}')}")
-    agree = sum(a == c for t, u in zip(h0["tokens"], h0["ref_tokens"])
-                for a, c in zip(t, u))
-    print(f"[cards] (h) DecodeEngine per rank: {b} requests x {size['new']} "
-          f"new tokens (prompt {size['prompt']}, cache {size['cache']}; the "
-          f"MLA latent whole on every rank): the same tokens on every rank "
-          f"and on a second run; greedy tokens equal to the logical "
-          f"engine's {agree} of {b * size['new']}; ms per step "
-          f"{per_rank(lambda s: s['h']['ms'], '{:.2f}')} (first run "
-          f"{per_rank(lambda s: s['h']['first_ms'], '{:.2f}')}), the logical "
-          f"engine {per_rank(lambda s: s['h']['ref_ms'], '{:.2f}')}")
-    if cuda:
-        print(f"[cards] (h) one traced decode step: window "
-              f"{per_rank(lambda s: s['h']['decode_trace']['window_ms'], '{:.2f}')}"
-              f" ms, device time outside NCCL's kernels "
-              f"{per_rank(lambda s: s['h']['decode_trace']['compute_ms'], '{:.2f}')}"
-              f" ms, NCCL's kernels "
-              f"{per_rank(lambda s: s['h']['decode_trace']['nccl_ms'], '{:.2f}')}"
-              " ms (spinning included)")
-    print(f"[cards] (h) req0: {h0['tokens'][0]}")
+    for mode, dec in h0["decode"].items():
+        agree = sum(a == c for t, u in zip(dec["tokens"], h0["ref_tokens"])
+                    for a, c in zip(t, u))
+        print(f"[cards] (h) DecodeEngine per rank, decode_attn=\"{mode}\": "
+              f"{b} requests x {size['new']} new tokens (prompt "
+              f"{size['prompt']}), cache {size['cache']} (the MLA latent's "
+              f"{dec['slice']} positions a rank, {dec['cache_bytes']} bytes "
+              f"a rank, the rule {h0['predicted_cache_bytes']}): the same "
+              f"tokens on every rank and on a second run; fed the logical "
+              f"engine's tokens on its expert choices (replayed), "
+              f"{dec['steps']} steps' logits within "
+              f"{max(t['h']['decode'][mode]['err'] for t in results):.4e} "
+              f"of its, max |logit| {h0['ref_step_scale']:.4f}; "
+              f"free-running greedy tokens equal to the logical engine's "
+              f"{agree} of {b * size['new']}; "
+              f"collectives per step {dec['collectives']}, bytes "
+              f"{_fmt_bytes(dec['collective_bytes'])}; ms per step "
+              f"{per_rank(lambda s, m=mode: s['h']['decode'][m]['ms'], '{:.2f}')}"
+              f" (first run "
+              f"{per_rank(lambda s, m=mode: s['h']['decode'][m]['first_ms'], '{:.2f}')}"
+              f"), the logical engine "
+              f"{per_rank(lambda s: s['h']['ref_ms'], '{:.2f}')}")
+        if cuda:
+            print(f"[cards] (h) {mode}: one traced decode step: window "
+                  f"{per_rank(lambda s, m=mode: s['h']['decode'][m]['trace']['window_ms'], '{:.2f}')}"
+                  f" ms, device time outside NCCL's kernels "
+                  f"{per_rank(lambda s, m=mode: s['h']['decode'][m]['trace']['compute_ms'], '{:.2f}')}"
+                  f" ms, NCCL's kernels "
+                  f"{per_rank(lambda s, m=mode: s['h']['decode'][m]['trace']['nccl_ms'], '{:.2f}')}"
+                  " ms (spinning included)")
+        print(f"[cards] (h) {mode} req0: {dec['tokens'][0]}")
     if cuda:
         print(f"[cards] (h) peak memory GiB over the two prefills "
               f"{per_rank(lambda s: s['h']['peak'] / 2 ** 30, '{:.2f}')} "
@@ -5818,9 +5981,8 @@ def _cards_report_moe(results, cfg, size: dict) -> None:
               f" ({h0['start'] / 2 ** 30:.2f} GiB allocated before them)")
     for res in results:
         rank, h = res["rank"], res["h"]
-        if h["p_bytes"] != h["predicted_bytes"]:
-            fail(f"rank {rank} (h): {h['p_bytes']} parameter bytes, the rule "
-                 f"predicts {h['predicted_bytes']}")
+        _check_bytes(f"rank {rank} (h)", "parameter", h["p_bytes"],
+                     h["predicted_bytes"], fail)
         for backend, launches, routes in (
                 ("collective", {}, {}),
                 ("dma", {"a2a_chunk_exchange": k3},
@@ -5844,13 +6006,26 @@ def _cards_report_moe(results, cfg, size: dict) -> None:
                 fail(f"rank {rank} (h) {backend}: {flipped:.3e} of the "
                      "expert choices differ from the logical prefill's "
                      f"(limit {CARDS_FLIP_LIMIT})")
-        if h["tokens"] != h0["tokens"]:
-            fail(f"rank {rank} (h): decode tokens differ from rank 0's")
-        if h["tokens"] != h["tokens1"]:
-            fail(f"rank {rank} (h): a second run gave other tokens (R7)")
-        _rank_launches(f"[cards] rank {rank} (h) decode",
-                       {"launches": h["decode_launches"],
-                        "routes": h["decode_routes"], "cuda": cuda}, {})
+            block = [(b, size["seq"] // g, cfg.d_model)]
+            if p["residual"] != block:
+                fail(f"rank {rank} (h) {backend}: the residual between "
+                     f"layers is {p['residual']}, not the rank's sequence "
+                     f"block {block[0]}")
+        for mode, dec in h["decode"].items():
+            if dec["tokens"] != h0["decode"][mode]["tokens"]:
+                fail(f"rank {rank} (h) {mode}: decode tokens differ from "
+                     "rank 0's")
+            if dec["tokens"] != dec["tokens1"]:
+                fail(f"rank {rank} (h) {mode}: a second run gave other "
+                     "tokens (R7)")
+            if not dec["finite"] or dec["err"] > 5e-2 * h["ref_step_scale"]:
+                fail(f"rank {rank} (h) {mode}: step logits on the logical "
+                     f"engine's tokens and expert choices differ from its "
+                     f"by {dec['err']} (> 5% of {h['ref_step_scale']})")
+            _check_bytes(f"rank {rank} (h) {mode}", "cache",
+                         dec["cache_bytes"], h["predicted_cache_bytes"], fail)
+            _rank_launches(f"[cards] rank {rank} (h) {mode} decode",
+                           dec | {"cuda": cuda}, {})
 
 
 def _cards_report_ep_train(results, cfg, size: dict, ep_cfg) -> None:
@@ -5982,8 +6157,8 @@ def _print_train(results, part: str, cfg, size: dict, cut: str) -> None:
     print(f"[cards] ({part}) {cfg.name} {cut} ({cfg.num_layers} layers, "
           f"{cfg.dtype}, remat {cfg.remat}), {b} x {size['seq']} tokens, "
           f"uniform-fused-2d on the collective backend, {n} AdamW steps per "
-          f"rank, each rank holding its blocks (attention heads, MLPs, "
-          f"experts) and their moments ({t['p_bytes'] / 1e9:.3f} GB of "
+          f"rank, each rank holding its blocks (vocabulary, attention heads, "
+          f"MLPs, experts) and their moments ({t['p_bytes'] / 1e9:.3f} GB of "
           f"params a rank): "
           f"loss, lr and grad_norm bit-equal on every rank, replicated "
           f"leaves bit-equal after every step; loss "
@@ -5998,7 +6173,10 @@ def _print_train(results, part: str, cfg, size: dict, cut: str) -> None:
           f"{abs(t['metrics'][0]['grad_norm'] / t['logical']['grad_norm'] - 1):.3e}"
           f", limit 5e-2); K2 launches per rank per step "
           f"{[c['accumulate_matmul'] for c in t['launches']]} ({cfg.num_layers}"
-          f" layers x 2 x {g} x {2 if cfg.remat else 1}, wgmma)")
+          f" layers x 2 x {g} x {2 if cfg.remat else 1}, wgmma); "
+          f"collectives in step 1's forward (the backward's transposes "
+          f"uncounted) {t.get('collectives')}, bytes "
+          f"{_fmt_bytes(t.get('collective_bytes', {}))}")
     if results[0]["cuda"]:
         walls = [per_rank(lambda s, i=i: s[part]["walls"][i], "{:.1f}")
                  for i in range(n)]

@@ -13,8 +13,19 @@ On a rank of a group of processes (a ``RankGroup``) the params hold the
 rank's blocks (``repro_torch.parallel.sharding.shard_params``): the
 attention's Q/K/V column blocks and ``wo``'s row block, the MLP's column
 and row blocks.  Each rank computes its part, as GSPMD partitions the
-reference's ``constrain``ed heads, and one ``all_reduce`` sums the
-partial output projections.
+reference's ``constrain``ed heads, and the group sums the partial output
+projections.  With ``seq=True`` the input is the rank's (B, S/g, d)
+block of the residual stream, cut by sequence as the reference's
+``constrain(x, BATCH_AXES, MODEL_AXIS, None)`` cuts it (Megatron's
+sequence parallelism): the layer all-gathers it along the sequence and
+reduce-scatters its output back to the rank's block
+(:func:`~repro_torch.parallel.collectives.psum_scatter`).  Otherwise the
+input is replicated and one ``all_reduce`` sums the output.  Between the
+two collectives a rank computes only its part: the cotangents there are
+the rank's partial ones, so a gather of the ranks' blocks is an
+``all_gather`` (its transpose sums them), a whole weight is marked
+``replicated`` (its gradient summed over the ranks), and a rank takes its
+part of a tensor every rank holds by a plain slice.
 """
 
 from __future__ import annotations
@@ -264,8 +275,11 @@ def attn_apply(
     window: Optional[int] = None,
     causal: bool = True,
     kv_for_cross: Optional[torch.Tensor] = None,
+    seq: bool = False,
 ) -> torch.Tensor:
-    """Training/prefill attention.  x: (B, S, d).
+    """Training/prefill attention.  x: (B, S, d); with ``seq``, on a
+    ``RankGroup``, the rank's (B, S/g, d) block, ``positions`` the whole
+    sequence's.
 
     Self-attention with RoPE: causal in a decoder, bidirectional with
     ``causal=False`` (the encoder's, as the reference's ``_layer_apply``
@@ -276,7 +290,8 @@ def attn_apply(
     if group is not None:
         return _attn_apply_rank(params, x, dims, group, rope_theta=rope_theta,
                                 positions=positions, window=window,
-                                causal=causal, kv_for_cross=kv_for_cross)
+                                causal=causal, kv_for_cross=kv_for_cross,
+                                seq=seq)
     b, s, _ = x.shape
     h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
     src = kv_for_cross if kv_for_cross is not None else x
@@ -370,63 +385,93 @@ def _heads_mine(dims: AttnDims, g: int) -> bool:
     return dims.num_heads % g == 0 and dims.num_kv_heads % g == 0
 
 
-def _rank_heads(inp, inp_rep, w, n: int, hd: int, group, *, mine: bool):
-    """``inp @ w`` as (B, S, heads, hd) on this rank: its n/g heads where
-    ``mine`` (``w`` is their column block), else all n.  A column block
-    of ``w`` multiplies ``inp_rep``, ``inp`` marked replicated (its
-    gradient summed over the ranks), and unless ``mine`` is gathered to
-    all n heads, from which every rank computes alike
-    (``gather_replicated``); a whole ``w`` gives all n at once."""
-    from repro_torch.parallel.collectives import gather_replicated
+def rank_input(x, group, seq: bool):
+    """A layer's input on a rank, for the rank's partial computation: the
+    rank's sequence block gathered along the sequence (``seq``; the
+    gather's transpose sums the ranks' partial cotangents and keeps the
+    rank's block), or the replicated ``x`` marked ``replicated`` (its
+    gradient the sum of the ranks' parts)."""
+    from repro_torch.parallel.collectives import all_gather, replicated
+
+    if seq:
+        return all_gather(x, tiled=True, axis=1, group=group)
+    return replicated(x, group=group)
+
+
+def rank_output(y, group, seq: bool):
+    """The group's sum of the ranks' partial outputs ``y`` (B, S, d): the
+    rank's sequence block of it (``seq``, a reduce-scatter), or all of it
+    on every rank (an ``all_reduce``)."""
+    from repro_torch.parallel.collectives import all_reduce, psum_scatter
+
+    if seq:
+        return psum_scatter(y, 1, group=group)
+    return all_reduce(y, group=group)
+
+
+def _share(width: int, g: int, r: int) -> tuple[int, int]:
+    """Rank r's (first, count) of ``width`` items split g ways, the larger
+    shares first (``torch.tensor_split``'s)."""
+    base, extra = divmod(width, g)
+    return r * base + min(r, extra), base + (r < extra)
+
+
+def _rank_heads(inp, w, n: int, hd: int, group, *, mine: bool):
+    """``inp @ w`` as (B, S, heads, hd) on this rank, ``inp`` the layer's
+    input (:func:`rank_input`): its n/g heads where ``mine`` (``w`` is
+    their column block), else all n, the column blocks gathered by an
+    ``all_gather``; a whole ``w`` (marked ``replicated``) gives all n at
+    once."""
+    from repro_torch.parallel.collectives import all_gather, replicated
 
     b, s = inp.shape[:2]
     if not _cut(w, n * hd, -1):
-        return (inp @ w).view(b, s, n, hd)
-    t = inp_rep @ w
+        return (inp @ replicated(w, group=group)).view(b, s, n, hd)
+    t = inp @ w
     if not mine:
-        t = gather_replicated(t, -1, group=group)
+        t = all_gather(t, tiled=True, axis=-1, group=group)
     return t.view(b, s, -1, hd)
 
 
-def _rank_out(out, wo, width: int, group):
-    """``out`` (B, S, heads * hd) times ``wo`` (``width`` rows whole) on
-    this rank: with ``wo``'s row block, the rank's column block of
-    ``out`` where ``out`` holds every head (the cut's gradient gathers the
-    whole cotangent back), then the group's sum of the partial products;
-    a whole ``wo`` on a whole ``out`` is one product that every rank
-    computes alike."""
-    from repro_torch.parallel.collectives import all_reduce, rank_block
+def _rank_part(out, wo, width: int, group):
+    """This rank's part of ``out`` (B, S, heads * hd) times ``wo``
+    (``width`` rows whole): ``wo``'s row block against the same columns
+    of ``out``, or, where ``wo`` is whole, the rank's share of its rows.
+    The group's sum of the parts is the product."""
+    from repro_torch.parallel.collectives import replicated
 
-    if not _cut(wo, width, 0):
-        return out @ wo
-    if out.shape[-1] != wo.shape[0]:
-        out = rank_block(out, -1, group=group)
-    return all_reduce(out @ wo, group=group)
+    if _cut(wo, width, 0):
+        first, rows = group.rank * wo.shape[0], wo.shape[0]
+    else:
+        first, rows = _share(width, group.size, group.rank)
+        wo = replicated(wo, group=group).narrow(0, first, rows)
+    if out.shape[-1] != rows:  # out holds every head
+        out = out.narrow(-1, first, rows)
+    return out @ wo
 
 
 def _attn_apply_rank(params, x, dims: AttnDims, group, *, rope_theta,
-                     positions, window, causal, kv_for_cross):
+                     positions, window, causal, kv_for_cross, seq):
     """:func:`attn_apply` on a rank holding its blocks.
 
     Where g divides the query and the K/V heads the rank computes its
     h/g and kv/g heads, whose output block meets ``wo``'s row block.
     Where it does not (SmolLM's 15 / 5 on 4), the rank gathers its Q/K/V
     column blocks to whole heads, computes every head, and multiplies by
-    ``wo``'s row block only the columns that block owns.  One
-    ``all_reduce`` sums the partial products.
+    ``wo``'s row block only the columns that block owns.  The group sums
+    the partial products (:func:`rank_output`).
     """
     from repro_torch.parallel.collectives import replicated
 
-    b, s, _ = x.shape
+    b = x.shape[0]
     h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
-    src = kv_for_cross if kv_for_cross is not None else x
     mine = _heads_mine(dims, group.size)
-    # One replicated mark per input, so its gradient is summed over the
-    # ranks once for all the projections that read it.
-    x_rep = replicated(x, group=group)
-    src_rep = x_rep if kv_for_cross is None else replicated(src, group=group)
-    q = _rank_heads(x, x_rep, params["wq"], h, hd, group, mine=mine)
-    k, v = (_rank_heads(src, src_rep, params[key], kv, hd, group, mine=mine)
+    x_in = rank_input(x, group, seq)
+    s = x_in.shape[1]
+    src = (x_in if kv_for_cross is None
+           else replicated(kv_for_cross, group=group))
+    q = _rank_heads(x_in, params["wq"], h, hd, group, mine=mine)
+    k, v = (_rank_heads(src, params[key], kv, hd, group, mine=mine)
             for key in ("wk", "wv"))
     if kv_for_cross is None:
         q = apply_rope(q, positions, rope_theta)
@@ -434,30 +479,37 @@ def _attn_apply_rank(params, x, dims: AttnDims, group, *, rope_theta,
         out = blockwise_attention(q, k, v, causal=causal, window=window)
     else:
         out = blockwise_attention(q, k, v, causal=False)
-    return _rank_out(out.reshape(b, s, -1), params["wo"], h * hd, group)
+    return rank_output(_rank_part(out.reshape(b, s, -1), params["wo"],
+                                  h * hd, group), group, seq)
 
 
 def _attn_decode_rank(params, x, cache, pos: int, dims: AttnDims, group, *,
                       rope_theta, window):
     """:func:`attn_decode` on a rank holding its blocks.  The cache holds
-    every K/V head (whole, or the rank's time slice under
-    ``decode_attn="shard_map"``), so the new token's K and V columns, and
-    its Q columns where the time-sliced body or indivisible heads need
-    every query head, are gathered in one all-gather of their
-    concatenation.  The rank writes the cache it holds, computes the heads
-    its ``wo`` rows need, and the group sums the partial products."""
+    every K/V head, whole or, where the reference's rule cuts its time
+    axis (``"time_slice"``), the rank's slice, so the new token's K and V
+    columns, and its Q columns where the time-sliced body or indivisible
+    heads need every query head, are gathered in one all-gather of their
+    concatenation.  The rank whose slice holds the position writes it.
+    With ``decode_attn="shard_map"`` a time slice takes the reference's
+    flash-decode body; otherwise the rank attends over the whole cache, as
+    GSPMD partitions the chain op by op: every rank's slice gathered (an
+    all-gather where it computes every head, an all-to-all of the slices
+    of each rank's own kv/g heads where it computes those).  The group
+    sums the partial output products."""
     from repro_torch.parallel import decode_attn
-    from repro_torch.parallel.collectives import all_gather
+    from repro_torch.parallel.collectives import (all_gather, all_reduce,
+                                                  all_to_all)
     from repro_torch.parallel.context import get_overlap
 
     g, r = group.size, group.rank
     b = x.shape[0]
     h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
     ov = get_overlap()
-    sliced = (ov is not None and ov.decode_attn == "shard_map"
-              and decode_attn.applicable(cache["k"], window,
-                                         time_slice="time_slice" in cache))
-    q_all = sliced or not _heads_mine(dims, g)
+    sliced = "time_slice" in cache
+    flash = (sliced and ov is not None and ov.decode_attn == "shard_map"
+             and decode_attn.applicable(cache["k"], window, time_slice=True))
+    q_all = flash or not _heads_mine(dims, g)
     proj = {"q": (params["wq"], h), "k": (params["wk"], kv),
             "v": (params["wv"], kv)}
     cols = {key: x @ w for key, (w, _) in proj.items()}
@@ -473,23 +525,33 @@ def _attn_decode_rank(params, x, cache, pos: int, dims: AttnDims, group, *,
     posv = torch.full((b, 1), pos, device=x.device)
     q = apply_rope(q, posv, rope_theta)
     k = apply_rope(k, posv, rope_theta)
-    if sliced:
+    if flash:
         out, cache["k"], cache["v"] = decode_attn.shard_map_attn_decode(
             q, k, v, cache["k"], cache["v"], pos)
-        return (_rank_out(out.reshape(b, 1, -1), params["wo"], h * hd,
-                          group), cache)
-    s_cache = cache["k"].shape[1]
-    slot = pos % s_cache if window is not None else pos
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    k_c, v_c = cache["k"], cache["v"]
-    if not q_all:  # the rank's kv/g heads, read in place
-        n = kv // g
-        k_c, v_c = (t[:, :, r * n:(r + 1) * n] for t in (k_c, v_c))
-    out = cache_attention(q, k_c, v_c, valid_len=pos + 1,
-                          ring=window is not None)
-    return (_rank_out(out.reshape(b, 1, -1), params["wo"], h * hd, group),
-            cache)
+    else:
+        s_here = cache["k"].shape[1]
+        s_all = s_here * g if sliced else s_here
+        slot = pos % s_all if window is not None else pos
+        first = r * s_here if sliced else 0
+        if first <= slot < first + s_here:
+            cache["k"][:, slot - first] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, slot - first] = v[:, 0].to(cache["v"].dtype)
+        k_c, v_c = cache["k"], cache["v"]
+        if sliced:  # every rank's slice of the heads this rank computes
+            kv_c = torch.cat([k_c, v_c], -1)
+            if q_all:
+                kv_c = all_gather(kv_c, tiled=True, axis=1, group=group)
+            else:  # slice s of rank r's heads goes from rank s to rank r
+                kv_c = all_to_all(kv_c.unflatten(2, (g, -1)).movedim(2, 0),
+                                  group=group).movedim(0, 1).flatten(1, 2)
+            k_c, v_c = kv_c.chunk(2, -1)
+        elif not q_all:  # the rank's kv/g heads, read in place
+            n = kv // g
+            k_c, v_c = (t[:, :, r * n:(r + 1) * n] for t in (k_c, v_c))
+        out = cache_attention(q, k_c, v_c, valid_len=pos + 1,
+                              ring=window is not None)
+    return (all_reduce(_rank_part(out.reshape(b, 1, -1), params["wo"],
+                                  h * hd, group), group=group), cache)
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +575,8 @@ def mlp_param_specs(*, gated: bool = True):
     return p
 
 
-def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(params, x: torch.Tensor, ff: int | None = None, *,
+              seq: bool = False) -> torch.Tensor:
     """TP MLP.  The up/gate projections are the paper's data-dependent
     AG->GEMM pair: with an overlap context and a TP group active they run
     a FiCCO schedule (repro_torch.parallel.tp); otherwise dense.  The down
@@ -523,8 +586,12 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     Under a group of processes (a ``RankGroup``) the params hold this
     rank's blocks (``repro_torch.parallel.sharding.shard_params``):
     the rank computes ``silu(x @ w_gate_r) * (x @ w_up_r) @ w_down_r`` and
-    the group's ``all_reduce`` sums the partial products, as GSPMD does
-    for the reference's ``constrain``ed down projection."""
+    the group sums the partial products, as GSPMD does for the
+    reference's ``constrain``ed down projection.  With ``seq`` x is the
+    rank's (B, S/g, d) sequence block, the FiCCO site's own rows, and the
+    output the rank's block of the sum.  ``ff``, the hidden width whole,
+    tells a rank's blocks from whole weights (the group does not divide
+    it); a rank needs it."""
     from repro_torch.parallel.context import get_overlap
     from repro_torch.parallel.group import RankGroup
     from repro_torch.parallel.sharding import active_group
@@ -532,7 +599,7 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     ov = get_overlap()
     group = active_group()
     if isinstance(group, RankGroup):
-        return _mlp_apply_rank(params, x, ov, group)
+        return _mlp_apply_rank(params, x, ff, ov, group, seq)
     if ov is not None and ov.mode != "gspmd_serial":
         from repro_torch.parallel import tp
 
@@ -553,24 +620,43 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     return h @ params["w_down"]
 
 
-def _mlp_apply_rank(params, x, ov, group) -> torch.Tensor:
-    """:func:`mlp_apply` on one rank of a group of processes.  Under grad
-    the rank's blocks get their gradient blocks, and the replicated ``x``
-    the sum of every rank's part (the FiCCO linear's, or
-    :func:`~repro_torch.parallel.collectives.replicated`'s, backward); the
-    ``all_reduce``'s gradient is the identity."""
+def _mlp_apply_rank(params, x, ff, ov, group, seq: bool) -> torch.Tensor:
+    """:func:`mlp_apply` on one rank of a group of processes.  With
+    ``seq`` and an overlap mode the up and gate projections are FiCCO
+    linears on the rank's sequence block (their schedules' all-gathers
+    transpose to reduce-scatters); otherwise the input is gathered or
+    marked once (:func:`rank_input`).  Where the weights are whole (g
+    does not divide ``ff``) the rank takes its share of the hidden
+    columns and of ``w_down``'s rows, the weights marked ``replicated``,
+    as :func:`_rank_part` shares a whole ``wo``.  The down projection's
+    partial products are summed by :func:`rank_output`, whose transpose
+    hands every rank the whole cotangent."""
     from repro_torch.parallel import tp
-    from repro_torch.parallel.collectives import all_reduce, replicated
+    from repro_torch.parallel.collectives import replicated
+
+    if ff is None:
+        raise ValueError("an MLP on a rank needs its whole hidden width ff")
+    whole = not _cut(params["w_up"], ff, -1)
+    w_up, w_gate, w_down = (params["w_up"], params.get("w_gate"),
+                            params["w_down"])
+    if whole:
+        first, cols = _share(ff, group.size, group.rank)
+        w_up, w_down = (replicated(w_up, group=group).narrow(1, first, cols),
+                        replicated(w_down, group=group).narrow(0, first,
+                                                               cols))
+        if w_gate is not None:
+            w_gate = replicated(w_gate, group=group).narrow(1, first, cols)
+    ficco = seq and not whole and ov is not None and ov.mode != "gspmd_serial"
+    x_in = None if ficco else rank_input(x, group, seq)
 
     def up(w):
-        if (ov is not None and ov.mode != "gspmd_serial"
-                and tp.overlap_applicable(x, w)):
+        if ficco:
             return tp.tp_ficco_linear(x, w, ov)
-        return replicated(x, group=group) @ w
+        return x_in @ w
 
-    h = up(params["w_up"])
-    if "w_gate" in params:
-        h = F.silu(up(params["w_gate"])) * h
+    h = up(w_up)
+    if w_gate is not None:
+        h = F.silu(up(w_gate)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return all_reduce(h @ params["w_down"], group=group)
+    return rank_output(h @ w_down, group, seq)

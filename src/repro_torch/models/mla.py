@@ -13,9 +13,14 @@ apart and scales by 1/sqrt(q's width).
 On a rank of a group of processes (a ``RankGroup``) the params hold the
 rank's blocks: ``wq``, ``w_uk`` and ``w_uv`` by head (h/g heads a rank),
 ``wo`` by rows, ``w_dkv`` and ``w_kr`` whole.  So the latent and the
-shared rope key, and the decode cache that holds them, are the same on
-every rank, no K/V crosses the group, and one ``all_reduce`` sums the
-ranks' partial output projections.
+shared rope key are the same on every rank, no K/V crosses the group,
+and the group sums the ranks' partial output projections
+(:func:`~repro_torch.models.layers.rank_output`: a reduce-scatter along
+the sequence where the input is the rank's sequence block, else an
+``all_reduce``).  The decode cache holds the latent and rope key of the
+rank's time slice where the reference's rule cuts its time axis, and the
+ranks gather the slices each step (the reference has no ``shard_map``
+form of MLA decode).
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import torch
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.models import layers
-from repro_torch.parallel.collectives import all_reduce, replicated
+from repro_torch.parallel.collectives import (all_gather, all_reduce,
+                                              replicated)
 from repro_torch.parallel.sharding import MODEL_AXIS, P
 from repro_torch.models.layers import (
     apply_rope,
@@ -71,35 +77,34 @@ def mla_param_specs():
 def _project(params, x, num_heads: int, cfg: MLAConfig, positions,
              group=None):
     """Q (B, S, heads, qk), the latent (B, S, r) and the shared rope key
-    (B, S, 1, rope).  With ``group`` (a ``RankGroup``) ``num_heads`` is the
-    rank's and ``wq`` their column block, and the latent and rope key,
-    whole on every rank but used only for the rank's heads, have their
-    gradients summed over the ranks (``replicated``), as has ``x``'s part
-    through ``wq``."""
+    (B, S, 1, rope).  With ``group`` (a ``RankGroup``) ``x`` is the
+    layer's input (:func:`~repro_torch.models.layers.rank_input`),
+    ``num_heads`` is the rank's and ``wq`` their column block, and the
+    whole latent and rope-key projections, used here only for the rank's
+    heads, are marked ``replicated``: their gradients are summed over the
+    ranks."""
     b, s, _ = x.shape
     qk_head = cfg.nope_head_dim + cfg.rope_head_dim
-    xq = x if group is None else replicated(x, group=group)
-    q = (xq @ params["wq"]).view(b, s, num_heads, qk_head)
+    w_dkv, w_kr = params["w_dkv"], params["w_kr"]
+    if group is not None:
+        w_dkv, w_kr = (replicated(w, group=group) for w in (w_dkv, w_kr))
+    q = (x @ params["wq"]).view(b, s, num_heads, qk_head)
     q_nope, q_rope = q.split([cfg.nope_head_dim, cfg.rope_head_dim], dim=-1)
     q = torch.cat([q_nope, apply_rope(q_rope, positions, _ROPE_THETA)], -1)
-    c_kv = x @ params["w_dkv"]  # (B, S, r)
+    c_kv = x @ w_dkv  # (B, S, r)
     k_rope = apply_rope(
-        (x @ params["w_kr"]).view(b, s, 1, cfg.rope_head_dim),
-        positions, _ROPE_THETA,
+        (x @ w_kr).view(b, s, 1, cfg.rope_head_dim), positions, _ROPE_THETA,
     )
-    if group is not None:
-        c_kv = replicated(c_kv, group=group)
-        k_rope = replicated(k_rope, group=group)
     return q, c_kv, k_rope
 
 
 def _heads_on_rank(num_heads: int, group) -> int:
     """The heads a rank of ``group`` computes: h/g, or raise where g does
-    not divide h (that per-rank form is ROADMAP A15)."""
+    not divide h (that per-rank form is ROADMAP A17)."""
     if num_heads % group.size:
         raise NotImplementedError(
             f"MLA with {num_heads} heads on a RankGroup of {group.size}: "
-            "heads that the group does not divide are ROADMAP A15")
+            "heads that the group does not divide are ROADMAP A17")
     return num_heads // group.size
 
 
@@ -114,27 +119,33 @@ def _expand_kv(params, c_kv, k_rope, num_heads: int, cfg: MLAConfig):
 
 
 def mla_apply(params, x: torch.Tensor, num_heads: int, cfg: MLAConfig, *,
-              positions: torch.Tensor, window=None) -> torch.Tensor:
-    """Prefill (causal self-attention).  x: (B, S, d) -> (B, S, d)."""
-    b, s, _ = x.shape
+              positions: torch.Tensor, window=None,
+              seq: bool = False) -> torch.Tensor:
+    """Prefill (causal self-attention).  x: (B, S, d) -> (B, S, d); with
+    ``seq``, on a ``RankGroup``, the rank's (B, S/g, d) sequence block in
+    and out, ``positions`` the whole sequence's."""
     group = layers.rank_group()
     if group is not None:
         num_heads = _heads_on_rank(num_heads, group)
+        x = layers.rank_input(x, group, seq)
+    b, s, _ = x.shape
     q, c_kv, k_rope = _project(params, x, num_heads, cfg, positions, group)
     k, v = _expand_kv(params, c_kv, k_rope, num_heads, cfg)
     out = blockwise_attention(q, k, v, causal=True, window=window)
     y = out.reshape(b, s, num_heads * cfg.v_head_dim) @ params["wo"]
-    return y if group is None else all_reduce(y, group=group)
+    return y if group is None else layers.rank_output(y, group, seq)
 
 
 def mla_init_cache(batch: int, seq: int, cfg: MLAConfig, dtype, device, *,
-                   lead: tuple = ()):
+                   lead: tuple = (), positions=None):
     """The MLA cache: latent and shared rope key only (its memory win),
-    behind ``lead`` dims (the model's periods)."""
+    behind ``lead`` dims (the model's periods); ``positions`` of the
+    ``seq`` held here (a rank's time slice), all of them by default."""
+    held = seq if positions is None else positions
     return {
-        "c_kv": torch.zeros((*lead, batch, seq, cfg.kv_lora_rank),
+        "c_kv": torch.zeros((*lead, batch, held, cfg.kv_lora_rank),
                             dtype=dtype, device=device),
-        "k_rope": torch.zeros((*lead, batch, seq, 1, cfg.rope_head_dim),
+        "k_rope": torch.zeros((*lead, batch, held, 1, cfg.rope_head_dim),
                               dtype=dtype, device=device),
     }
 
@@ -143,17 +154,29 @@ def mla_decode(params, x: torch.Tensor, cache: dict, pos: int,
                num_heads: int, cfg: MLAConfig):
     """One-token decode.  x: (B, 1, d); cache: {"c_kv" (B, S, r),
     "k_rope" (B, S, 1, rope)}, updated in place (the reference returns a
-    new one); the same dict is returned."""
+    new one); the same dict is returned.  On a rank whose cache holds its
+    time slice (``"time_slice"``) the rank whose slice holds ``pos``
+    writes it, and every rank gathers the slices (one all-gather of the
+    latent and rope key joined) before the up-projection."""
     b = x.shape[0]
     group = layers.rank_group()
     if group is not None:
         num_heads = _heads_on_rank(num_heads, group)
     posv = torch.full((b, 1), pos, device=x.device)
     q, c_kv_new, k_rope_new = _project(params, x, num_heads, cfg, posv)
-    cache["c_kv"][:, pos] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][:, pos] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    here = c_kv.shape[1]
+    first = group.rank * here if "time_slice" in cache else 0
+    if first <= pos < first + here:
+        c_kv[:, pos - first] = c_kv_new[:, 0].to(c_kv.dtype)
+        k_rope[:, pos - first] = k_rope_new[:, 0].to(k_rope.dtype)
+    if "time_slice" in cache:
+        r = cfg.kv_lora_rank
+        whole = all_gather(torch.cat([c_kv, k_rope.flatten(-2)], -1),
+                           tiled=True, axis=1, group=group)
+        c_kv, k_rope = whole[..., :r], whole[..., r:].unsqueeze(-2)
     # Up-project the whole latent cache for this step's attention.
-    k, v = _expand_kv(params, cache["c_kv"], cache["k_rope"], num_heads, cfg)
+    k, v = _expand_kv(params, c_kv, k_rope, num_heads, cfg)
     out = cache_attention(q, k, v, valid_len=pos + 1)
     y = out.reshape(b, 1, num_heads * cfg.v_head_dim) @ params["wo"]
     return (y if group is None else all_reduce(y, group=group)), cache

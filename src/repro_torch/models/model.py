@@ -29,10 +29,22 @@ Interface (used by serve/launch):
     cache         = model.init_cache(batch, cache_len, enc_len=..., device=...)
     cache         = model.prefill_cross(state, cache, enc_frames)  # enc-dec
     logits, cache = model.decode_step(state, cache, tokens, pos)
+    logits        = model.gather_vocab(logits)  # whole, from a rank's block
+
+On a rank of a group of processes (a ``RankGroup``, the dense and MoE
+families) the state holds the rank's blocks by :meth:`Model.rank_specs`,
+as a ``shard_map`` body over the reference's specs would: the embedding's
+and unembedding's vocabulary blocks, and each layer's attention heads,
+MLP blocks and experts.  Where the group divides the sequence
+(:func:`sequence_cut`) the rank keeps its (B, S/g, d) block of the
+residual stream between layers, as the reference's ``constrain`` does
+(Megatron's sequence parallelism); the logits are the rank's vocabulary
+block, and :meth:`Model.loss` reduces over the blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional
 
@@ -44,6 +56,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers, mamba, mla, moe, xlstm
 from repro_torch.models.layers import AttnDims
 from repro_torch.parallel import decode_attn
+from repro_torch.parallel.collectives import (all_gather, all_reduce,
+                                              gather_replicated, pmax,
+                                              psum_scatter, rank_block,
+                                              replicated)
 from repro_torch.parallel.context import get_overlap, overlap_context
 from repro_torch.parallel.group import RankGroup
 from repro_torch.parallel.sharding import (
@@ -58,14 +74,17 @@ from repro_torch.parallel.sharding import (
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # The families whose per-rank path (a rank of a RankGroup holding its
-# blocks) is held to the reference; the others raise there (ROADMAP A15).
+# blocks) is held to the reference; the others raise there (ROADMAP A17).
 RANK_FAMILIES = frozenset({Family.DENSE, Family.MOE})
 # A layer's subtrees that a rank cuts by their specs: the attention's (GQA
 # or MLA; an encoder-decoder's cross-attention) and the FFN's (an MLP, or
-# the MoE experts with their shared and dense-residual MLPs).  Every other
-# leaf is whole on every rank: the embedding and unembedding, the router,
-# the norms, the recurrent mixers and ``frontend_proj`` (ROADMAP A15).
+# the MoE experts with their shared and dense-residual MLPs).
 RANK_CUT = ("attn", "cross", "ffn")
+# The top-level leaves a rank cuts by their specs: the embedding's rows
+# and the unembedding's columns, by vocabulary.  Every other leaf is whole
+# on every rank, as in the reference: the router, the norms, MLA's latent
+# projections, the recurrent mixers and ``frontend_proj``.
+RANK_CUT_TOP = ("embed", "unembed")
 
 
 def check_rank_family(cfg: ModelConfig) -> None:
@@ -75,12 +94,49 @@ def check_rank_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family.value}) on a RankGroup: only the "
             f"{sorted(f.value for f in RANK_FAMILIES)} families run per "
-            "rank; the others' per-rank forms are ROADMAP A15")
+            "rank; the others' per-rank forms are ROADMAP A17")
 
 
 def _check_rank(cfg: ModelConfig) -> None:
     if isinstance(active_group(), RankGroup):
         check_rank_family(cfg)
+
+
+def sequence_cut(seq_len: int, group) -> bool:
+    """Whether a rank of ``group`` (``layers.rank_group()``: a RankGroup of
+    more than one rank, or None) holds the residual stream of a
+    ``seq_len`` sequence cut by sequence, its (B, S/g, d) block between
+    layers: where g divides S, as the reference's ``constrain`` keeps the
+    cut only where the model axis divides the dim.  Otherwise (a decode
+    step, an odd prompt) the residual is replicated.  The one predicate
+    of the per-rank path's layout."""
+    return group is not None and seq_len % group.size == 0
+
+
+# The list that :func:`residual_shapes` yields while it is entered.
+_residual_log: Optional[list] = None
+
+
+@contextlib.contextmanager
+def residual_shapes():
+    """Within ``with``: the shape of the residual stream after each period
+    of every forward, appended to the list it yields (a rank's layout
+    between layers, :func:`sequence_cut`)."""
+    global _residual_log
+    outer, _residual_log = _residual_log, []
+    try:
+        yield _residual_log
+    finally:
+        _residual_log = outer
+
+
+def _norm(params, x, cfg: ModelConfig, seq: bool):
+    """A norm; on a sequence block its whole scale and bias are marked
+    ``replicated``: each rank's gradient covers only its block."""
+    if seq:
+        group = layers.rank_group()
+        params = {k: replicated(v, group=group) for k, v in params.items()}
+    return layers.apply_norm(params, x, cfg.norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,22 +300,24 @@ def _stacked_specs(specs):
 
 
 def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions, *,
-                 enc_out=None, causal: bool = True):
+                 enc_out=None, causal: bool = True, seq: bool = False):
     """One layer.  Returns (x, aux): the MoE FFN's aux loss, or None.
 
     ``causal=False`` is the encoder's bidirectional self-attention (no
     window); ``enc_out`` adds the decoder's cross-attention over it.
+    With ``seq`` x is a rank's sequence block (:func:`sequence_cut`), and
+    so is the output.
     """
-    h = layers.apply_norm(p["norm1"], x, cfg.norm)
+    h = _norm(p["norm1"], x, cfg, seq)
     if spec.mixer == "attn":
         y = layers.attn_apply(
             p["attn"], h, _attn_dims(cfg), rope_theta=cfg.rope_theta,
             positions=positions, window=_window(cfg) if causal else None,
-            causal=causal,
+            causal=causal, seq=seq,
         )
     elif spec.mixer == "mla":
         y = mla.mla_apply(p["attn"], h, cfg.num_heads, cfg.mla,
-                          positions=positions, window=_window(cfg))
+                          positions=positions, window=_window(cfg), seq=seq)
     elif spec.mixer == "mamba":
         y = mamba.mamba_apply(p["mixer"], h, cfg.hybrid.mamba)
     elif spec.mixer == "mlstm":
@@ -275,34 +333,36 @@ def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions, *,
         )
     if spec.ffn == "none":
         return x, None
-    h = layers.apply_norm(p["norm2"], x, cfg.norm)
+    h = _norm(p["norm2"], x, cfg, seq)
     if spec.ffn == "moe":
-        y, aux = moe.moe_apply(p["ffn"], h, cfg.moe)
+        y, aux = moe.moe_apply(p["ffn"], h, cfg.moe, seq=seq)
         return x + y, aux
-    return x + layers.mlp_apply(p["ffn"], h), None
+    return x + layers.mlp_apply(p["ffn"], h, cfg.d_ff, seq=seq), None
 
 
 def _period_apply(period, pattern, cfg: ModelConfig, x, positions,
-                  enc_out=None):
+                  enc_out=None, seq: bool = False):
     """The layers of one period (period[j] holds slot j's parameters).
     Returns (x, the period's summed aux loss or None)."""
     aux = None
     for p, spec in zip(period, pattern):
-        x, a = _layer_apply(p, spec, cfg, x, positions, enc_out=enc_out)
+        x, a = _layer_apply(p, spec, cfg, x, positions, enc_out=enc_out,
+                            seq=seq)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
 
 
 def _remat_period(period, pattern, cfg: ModelConfig, x, positions,
-                  enc_out, overlap, group):
+                  enc_out, seq, overlap, group):
     """A period under recomputation.  The backward reruns it after the
     forward's overlap context and TP group have been left, so it enters
     the ones the forward ran in.  A recurrent mixer builds its state from
     zero in every call, so the rerun reproduces the forward bit for
     bit."""
     with overlap_context(overlap), tp_group(group):
-        return _period_apply(period, pattern, cfg, x, positions, enc_out)
+        return _period_apply(period, pattern, cfg, x, positions, enc_out,
+                             seq)
 
 
 def _remat_enc_layer(p, cfg: ModelConfig, x, positions, overlap, group):
@@ -349,8 +409,18 @@ def _layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       cache_len: int, device, lead: tuple):
     dt = _dtype(cfg)
     if spec.mixer == "mla":
-        return mla.mla_init_cache(batch, cache_len, cfg.mla, dt, device,
-                                  lead=lead)
+        m = cfg.mla
+        held = {decode_attn.cache_positions(shape) for shape in (
+            (*lead, batch, cache_len, m.kv_lora_rank),
+            (*lead, batch, cache_len, 1, m.rope_head_dim))}
+        if len(held) > 1:
+            raise NotImplementedError(
+                f"MLA's cache of {cache_len} positions on a RankGroup: the "
+                "reference's rule cuts its latent and rope key apart")
+        (here,) = held
+        return _time_slice(mla.mla_init_cache(
+            batch, cache_len, m, dt, device, lead=lead, positions=here),
+            cache_len, here, lead, device)
     if spec.mixer == "mamba":
         return mamba.mamba_init_cache(batch, cfg.d_model, cfg.hybrid.mamba,
                                       dt, device, lead=lead)
@@ -362,18 +432,22 @@ def _layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                                       lead=lead)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     s = min(cache_len, cfg.sliding_window or cache_len)
-    # A rank of a group of processes may hold only its time slice.
-    s_here = decode_attn.cache_positions(s, _window(cfg),
-                                         cfg.overlap.decode_attn)
-    shape = (*lead, batch, s_here, kv, hd)
-    cache = {
+    # A rank of a group of processes holds its block by the reference's
+    # rule: its time slice where the rule cuts the time axis.
+    here = decode_attn.cache_positions((*lead, batch, s, kv, hd))
+    shape = (*lead, batch, here, kv, hd)
+    return _time_slice({
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
-    }
-    if s_here < s:
-        # The record that decode_attn.applicable reads: the slice's first
-        # position, per period.
-        cache["time_slice"] = torch.full(lead, active_group().rank * s_here,
+    }, s, here, lead, device)
+
+
+def _time_slice(cache: dict, s: int, here: int, lead: tuple, device) -> dict:
+    """Where a rank holds ``here`` of a cache's ``s`` positions, the
+    record that the decode reads (``"time_slice"``): the slice's first
+    position, per period."""
+    if here < s:
+        cache["time_slice"] = torch.full(lead, active_group().rank * here,
                                          device=device)
     return cache
 
@@ -412,7 +486,7 @@ def _layer_decode(p, spec: LayerSpec, cfg: ModelConfig, x, cache, pos: int):
     if spec.ffn == "moe":
         y, _ = moe.moe_apply(p["ffn"], h, cfg.moe)
     else:
-        y = layers.mlp_apply(p["ffn"], h)
+        y = layers.mlp_apply(p["ffn"], h, cfg.d_ff)
     return x + y, cache
 
 
@@ -524,7 +598,8 @@ class Model:
         """The specs by which a rank of a group of ``size`` processes holds
         the state (:func:`~repro_torch.parallel.sharding.shard_params`):
         :meth:`param_specs` with the leaves under a layer's
-        :data:`RANK_CUT` keys kept and every other leaf whole, fixed by
+        :data:`RANK_CUT` keys and the :data:`RANK_CUT_TOP` leaves (the
+        vocabulary's) kept and every other leaf whole, fixed by
         :func:`~repro_torch.parallel.sharding.fix_param_specs` on the
         whole shapes on ``Mesh(("model",), (size,))``, which drops a cut
         that ``size`` does not divide, as the reference's ``constrain``
@@ -540,7 +615,8 @@ class Model:
         def whole(tree):
             return map_specs(lambda sp: P(), tree)
 
-        cut = {k: whole(v) for k, v in specs.items() if k != "layers"}
+        cut = {k: v if k in RANK_CUT_TOP else whole(v)
+               for k, v in specs.items() if k != "layers"}
         cut["layers"] = [
             {k: v if k in RANK_CUT else whole(v) for k, v in slot.items()}
             for slot in specs["layers"]
@@ -576,11 +652,22 @@ class Model:
         """batch keys: tokens (B, S); with the stub frontends also
         prefix_embeds (B, P, embed_dim) (VLM) or enc_frames (B, S_enc, d)
         (audio).  Returns (logits over the text tokens, aux_loss): aux is
-        the MoE layers' summed load-balance and z losses (0 without)."""
+        the MoE layers' summed load-balance and z losses (0 without).
+
+        On a rank of a ``RankGroup`` the logits are the rank's (B, S, V/g)
+        vocabulary block where the unembedding is cut, as a ``shard_map``
+        body's ``P(None, None, "model")`` output (:meth:`gather_vocab`
+        joins them), and between layers the rank holds its (B, S/g, d)
+        sequence block of the residual stream where g divides S
+        (:func:`sequence_cut`)."""
         cfg = self.config
         _check_rank(cfg)
         tokens = batch["tokens"]
-        x = state["embed"][tokens].to(_dtype(cfg))
+        group = layers.rank_group()
+        # Only the dense and MoE families, which take no prefix, run on a
+        # RankGroup (check_rank_family).
+        seq = sequence_cut(tokens.shape[1], group)
+        x = self._embed(state, tokens, seq)
         enc_out = (self._encode(state, batch["enc_frames"])
                    if self.is_encdec else None)
         prefix = cfg.frontend is not None and "prefix_embeds" in batch
@@ -589,7 +676,7 @@ class Model:
             if "frontend_proj" in state:
                 pe = pe @ state["frontend_proj"]
             x = torch.cat([pe, x], dim=1)
-        b, s = x.shape[:2]
+        b, s = x.shape[0], tokens.shape[1] + (pe.shape[1] if prefix else 0)
         positions = torch.arange(s, device=x.device).expand(b, s)
         slots = [_unstack(slot, self.n_periods) for slot in state["layers"]]
         remat = self._remat is not None and torch.is_grad_enabled()
@@ -603,25 +690,70 @@ class Model:
             if remat:
                 x, a = tcp.checkpoint(
                     _remat_period, period, self.pattern, cfg, x, positions,
-                    enc_out, *ctx, use_reentrant=False,
+                    enc_out, seq, *ctx, use_reentrant=False,
                     preserve_rng_state=False, **self._remat)
             else:
                 x, a = _period_apply(period, self.pattern, cfg, x, positions,
-                                     enc_out)
+                                     enc_out, seq)
             if a is not None:
                 aux = aux + a
-        x = layers.apply_norm(state["final_norm"], x, cfg.norm)
+            if _residual_log is not None:
+                _residual_log.append(tuple(x.shape))
+        x = _norm(state["final_norm"], x, cfg, seq)
         if prefix:
             x = x[:, -tokens.shape[1]:]  # logits over the text segment
-        return self._unembed(state, x), aux
+        return self._unembed(state, x, seq), aux
 
-    def _unembed(self, state, x):
+    def _embed(self, state, tokens, seq: bool):
+        """The embedding lookup.  On a rank holding its row block of the
+        vocabulary, the tokens in its rows are looked up and the others
+        are zeros; the group's sum (a reduce-scatter along the sequence
+        where it is cut, else an ``all_reduce``) has exactly one nonzero
+        term per token, so it is the lookup exactly, in any dtype.  A whole
+        embedding is looked up alike on every rank, cut to the rank's
+        sequence block where it is cut."""
+        cfg = self.config
+        w = state["embed"]
+        group = layers.rank_group()
+        if group is None or w.shape[0] == cfg.vocab_size:
+            x = w[tokens].to(_dtype(cfg))
+            return rank_block(x, 1, group=group) if seq else x
+        n = w.shape[0]
+        local = tokens - group.rank * n
+        mine = (local >= 0) & (local < n)
+        x = torch.where(mine[..., None], w[local.clamp(0, n - 1)],
+                        0).to(_dtype(cfg))
+        if seq:
+            return psum_scatter(x, 1, group=group)
+        return all_reduce(x, group=group)
+
+    def _unembed(self, state, x, seq: bool = False):
+        """The logits of the final-normed ``x``.  On a rank holding its
+        column block of the unembedding (or, tied, its row block of the
+        embedding) they are its vocabulary block, from every rank's
+        sequence blocks gathered (``seq``) or the replicated ``x``."""
         w = (
             state["embed"].T
             if self.config.tie_embeddings
             else state["unembed"]
         )
+        group = layers.rank_group()
+        if group is not None:
+            if w.shape[1] != self.config.vocab_size:
+                x = layers.rank_input(x, group, seq)
+            elif seq:  # every rank computes the whole logits alike
+                x = gather_replicated(x, 1, group=group)
         return x @ w.to(x.dtype)
+
+    def gather_vocab(self, logits):
+        """Whole logits from a rank's vocabulary block (one all-gather, the
+        blocks in rank order), for callers that read every token's
+        logits; ``logits`` as they are off a ``RankGroup`` or where the
+        unembedding is whole."""
+        group = layers.rank_group()
+        if group is None or logits.shape[-1] == self.config.vocab_size:
+            return logits
+        return all_gather(logits, tiled=True, axis=-1, group=group)
 
     def loss(self, state, batch: dict):
         """Vocab-wise fp32 cross entropy, as the reference's ``Model.loss``.
@@ -631,15 +763,31 @@ class Model:
         the reductions run over the vocab dim in the reference's order:
         logsumexp per position, then the mean over (B, S - 1).  The gold
         logit is a gather, which equals the reference's masked sum over
-        the vocab exactly (one nonzero term).
+        the vocab exactly (one nonzero term).  On a rank holding its
+        vocabulary block of the logits the reductions cross the group
+        without gathering them, as GSPMD partitions the reference's: the
+        max by ``pmax``, the sum of exponentials and the gold logit (the
+        rank's masked pick, zero where the label is another rank's) by
+        ``all_reduce``.
         """
         logits, aux = self.forward(state, batch)
         labels = batch["labels"]
         lg = logits[:, :-1].float()
         tg = labels[:, 1:].long()
-        m = lg.amax(dim=-1, keepdim=True).detach()
-        logz = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
-        gold = lg.gather(-1, tg[..., None])[..., 0]
+        group = layers.rank_group()
+        n = lg.shape[-1]
+        if group is None or n == self.config.vocab_size:
+            m = lg.amax(dim=-1, keepdim=True).detach()
+            logz = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+            gold = lg.gather(-1, tg[..., None])[..., 0]
+        else:
+            m = pmax(lg.detach().amax(dim=-1, keepdim=True), group=group)
+            logz = torch.log(all_reduce(torch.exp(lg - m).sum(dim=-1),
+                                        group=group)) + m[..., 0]
+            local = tg - group.rank * n
+            mine = (local >= 0) & (local < n)
+            pick = lg.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+            gold = all_reduce(torch.where(mine, pick, 0.0), group=group)
         ce = (logz - gold).mean()
         return ce + aux, {"ce": ce, "aux": aux}
 
@@ -652,11 +800,13 @@ class Model:
         recurrent state (``cache_len`` does not size these), and an
         encoder-decoder's cross-attention the encoder's ``enc_len`` keys
         and values (``cross_k``, ``cross_v``; zeros until
-        :meth:`prefill_cross`).  On a rank of a ``RankGroup`` serving with
-        ``decode_attn="shard_map"``, an attention layer's K and V hold the
-        rank's time slice where the reference's guard takes the cache
-        (:func:`~repro_torch.parallel.decode_attn.cache_positions`), and
-        its ``"time_slice"`` leaf, the slice's first position, records
+        :meth:`prefill_cross`).  On a rank of a ``RankGroup`` each leaf
+        is the rank's block by the reference's ``cache_leaf_spec``
+        (:func:`~repro_torch.parallel.decode_attn.cache_positions`),
+        whatever the decode attention: an attention layer's K and V, and
+        MLA's latent and rope key, hold the rank's time slice where the
+        rule cuts the time axis (1024 positions or more, divisible by g),
+        and a ``"time_slice"`` leaf, the slice's first position, records
         it."""
         cfg = self.config
         _check_rank(cfg)
@@ -697,11 +847,13 @@ class Model:
     def decode_step(self, state, cache, tokens, pos: int):
         """tokens: (B, 1) int; pos: position. -> (logits, cache).
 
-        The cache is updated in place and returned.
+        The cache is updated in place and returned.  On a rank the
+        residual is replicated (one position) and the logits are the
+        rank's vocabulary block, as :meth:`forward`'s.
         """
         cfg = self.config
         _check_rank(cfg)
-        x = state["embed"][tokens].to(_dtype(cfg))
+        x = self._embed(state, tokens, seq=False)
         for i in range(self.n_periods):
             for j, spec in enumerate(self.pattern):
                 x, _ = _layer_decode(

@@ -21,7 +21,11 @@ shared and dense-residual MLPs.  As GSPMD partitions the reference's
 ``constrain``ed expert batches with the tokens replicated, every rank
 routes and dispatches every token, runs the FFN of its own experts, and
 gathers the experts' outputs for the combine, which every rank then
-computes alike.
+computes alike.  Where the input is the rank's sequence block (``seq``)
+the rank first gathers every rank's normed tokens, since the reference's
+capacity and its drops are over all B·S tokens, and keeps its sequence
+block of the combine; the shared and dense-residual MLPs take the block
+as the model's MLPs do.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import layers
-from repro_torch.parallel.collectives import gather_replicated, replicated
+from repro_torch.parallel.collectives import (gather_replicated, rank_block,
+                                              replicated)
 from repro_torch.parallel.sharding import MODEL_AXIS, P
 
 # The leaves the reference keeps in fp32 whatever the model's dtype: the
@@ -102,8 +107,15 @@ def expert_capacity(cfg, tokens: int) -> int:
                    / cfg.num_experts, 4))
 
 
-def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
-    """x: (B, S, D) -> (out (B, S, D), aux loss (fp32 scalar))."""
+def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *,
+              seq: bool = False):
+    """x: (B, S, D) -> (out (B, S, D), aux loss (fp32 scalar)); with
+    ``seq``, on a ``RankGroup``, the rank's (B, S/g, D) sequence block in
+    and out (the aux loss over every token)."""
+    group = layers.rank_group()
+    x_in = x
+    if seq:  # every rank's tokens, for routing and capacity over all
+        x = gather_replicated(x, 1, group=group)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.top_k
@@ -137,15 +149,16 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
     keep = pos < capacity
     slot = torch.where(keep, se * capacity + pos, e * capacity)  # dummy tail
 
-    group = layers.rank_group()
     # A rank's experts see only their tokens: the dispatched rows'
     # gradient is summed over the ranks (the router's is every rank's
-    # alike, since the combine is).
-    src = xf if group is None else replicated(xf, group=group)
+    # alike, since the combine is).  Where the group does not divide the
+    # experts every rank runs all of them alike, and its gradient is
+    # whole already.
+    mine = params["w_up"].shape[0]  # the experts this rank holds
+    src = xf if mine == e else replicated(xf, group=group)
     disp = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=x.device)
     disp[slot] = src[stok]
     expert_in = disp[: e * capacity].view(e, capacity, d)
-    mine = params["w_up"].shape[0]  # the experts this rank holds
     if mine != e:  # this rank's rows of expert_in: a view
         expert_in = expert_in[group.rank * mine:(group.rank + 1) * mine]
 
@@ -169,11 +182,16 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig):
     slot_tok = torch.empty_like(slot).scatter_(0, order, slot)
     routed = flat_out[slot_tok] * flat_w[:, None].to(x.dtype)
     out = routed.view(b, s, k, d).sum(2)
+    if seq:  # the rank's block of a combine every rank computed alike
+        out = rank_block(out, 1, group=group)
 
     if "shared" in params:
-        out = out + layers.mlp_apply(params["shared"], x)
+        out = out + layers.mlp_apply(
+            params["shared"], x_in, cfg.d_ff_expert * cfg.num_shared_experts,
+            seq=seq)
     if "dense_residual" in params:
-        out = out + layers.mlp_apply(params["dense_residual"], x)
+        out = out + layers.mlp_apply(params["dense_residual"], x_in,
+                                     cfg.dense_residual_ff, seq=seq)
     return out, lb_loss + z_loss
 
 

@@ -15,7 +15,9 @@ A9): the per-rank form of a ``shard_map`` body's collective.  NCCL takes
 the CUDA tensors where they lie and orders its work after the caller's
 current stream; no collective copies through the host.  The per-rank
 forms have gradients (``pmax`` excepted), the transposes ``jax.grad``
-takes through ``shard_map``; :func:`rank_block` and :func:`replicated`
+takes through ``shard_map``: an all-gather's is :func:`psum_scatter`
+(``lax.psum_scatter``) and the other way round; :func:`rank_block` and
+:func:`replicated`
 carry a replicated activation's gradient across the group where a rank
 cuts its block out of it or multiplies it by its own weight block, and
 :func:`gather_replicated`, the transpose of :func:`rank_block`, gathers
@@ -48,8 +50,8 @@ warnings.filterwarnings(
 @dataclasses.dataclass
 class CollectiveStats:
     """Bytes and calls by kind (``all-gather``, ``all-to-all``,
-    ``collective-permute``, ``all-reduce``), each call's bytes its output
-    on one rank."""
+    ``collective-permute``, ``all-reduce``, ``reduce-scatter``), each
+    call's bytes its output on one rank."""
 
     bytes_by_kind: dict[str, float]
     count_by_kind: dict[str, int]
@@ -68,7 +70,8 @@ def counting():
     :class:`CollectiveStats` they add to.
 
     Each :func:`all_gather`, :func:`all_to_all`, :func:`ppermute`,
-    :func:`all_reduce` and :func:`pmax` call adds its per-rank output bytes (a stacked
+    :func:`all_reduce`, :func:`pmax` and :func:`psum_scatter` call adds
+    its per-rank output bytes (a stacked
     output's over the group size; a :class:`RankGroup` rank's own) under
     the reference's HLO kind.  Two things are not counted:
     a collective the autograd engine runs in a backward (the
@@ -131,6 +134,20 @@ def _reduce_scatter(dy: torch.Tensor, group: RankGroup) -> torch.Tensor:
     return out
 
 
+def _scatter_along(x: torch.Tensor, dim: int, group: RankGroup
+                   ) -> torch.Tensor:
+    """Block r of the sum over ranks of ``x`` along ``dim``, on rank r."""
+    blocks = x.movedim(dim, 0)
+    blocks = blocks.reshape(group.size, -1, *blocks.shape[1:])
+    return _reduce_scatter(blocks, group).movedim(0, dim)
+
+
+def _gather_along(x: torch.Tensor, dim: int, group: RankGroup
+                  ) -> torch.Tensor:
+    """Every rank's block ``x`` joined along ``dim`` in rank order."""
+    return _gather(x, group).movedim(0, dim).flatten(dim, dim + 1)
+
+
 def _exchange(x: torch.Tensor, group: RankGroup, async_op: bool = False):
     if x.shape[0] != group.size:
         raise ValueError(f"all_to_all of {tuple(x.shape)}: dim 0 must be "
@@ -173,6 +190,18 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return _reduce_scatter(dy, ctx.group), None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _record("reduce-scatter", _scatter_along(x, dim, group),
+                       ranks=1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _gather_along(dy, ctx.dim, ctx.group), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -248,25 +277,54 @@ class _Replicated(torch.autograd.Function):
         return _sum(dy, ctx.group), None
 
 
-def all_gather(x: torch.Tensor, *, tiled: bool = False,
+def all_gather(x: torch.Tensor, *, tiled: bool = False, axis: int = 0,
                group: RankGroup | None = None) -> torch.Tensor:
-    """``lax.all_gather(x, axis=0[, tiled])`` on every rank.
+    """``lax.all_gather(x, axis=axis[, tiled])`` on every rank.
 
     x: (g, m, ...), rank r's block at [r].  Untiled -> (g, g, m, ...),
     out[r, s] = x[s]; tiled -> (g, g * m, ...), the blocks concatenated
-    in rank order on every rank.  With ``group``: x is this rank's (m,
-    ...) block -> (g, m, ...), or (g * m, ...) tiled; its gradient is the
-    reduce-scatter of the output's.
+    in rank order on every rank (along the block's dim ``axis``, which
+    untiled must be 0).  With ``group``: x is this rank's (m, ...) block
+    -> (g, m, ...), or tiled the blocks joined along ``axis``; its
+    gradient is the reduce-scatter of the output's
+    (:func:`psum_scatter`), as the gathered tensor feeds a computation
+    that differs by rank.
     """
+    if axis and not tiled:
+        raise ValueError("all_gather along an axis other than 0 is tiled")
     if group is not None:
         out = _AllGather.apply(x, group)
-        return out.flatten(0, 1) if tiled else out
+        if not tiled:
+            return out
+        axis %= x.dim()
+        return out.movedim(0, axis).flatten(axis, axis + 1)
     g = x.shape[0]
     out = _record("all-gather", x.unsqueeze(0).expand(g, *x.shape)
                   .contiguous())
     if tiled:
-        return out.view(g, g * x.shape[1], *x.shape[2:])
+        axis = axis % (x.dim() - 1) + 1
+        return out.movedim(1, axis).flatten(axis, axis + 1)
     return out
+
+
+def psum_scatter(x: torch.Tensor, dim: int, *,
+                 group: RankGroup | None = None) -> torch.Tensor:
+    """``lax.psum_scatter(x, scatter_dimension=dim, tiled=True)``: block r
+    along ``dim`` of the sum of every rank's ``x``, on rank r.
+
+    x: (g, ...), rank r's addend at [r] -> (g, ...) with ``dim`` of the
+    addend cut g-fold.  With ``group``: x is this rank's addend -> its
+    block; the gradient is the all-gather of the output's along ``dim``,
+    every rank's block of the cotangent joined (the transpose of
+    :func:`all_gather`).  Counted under ``reduce-scatter``.
+    """
+    if group is not None:
+        return _PsumScatter.apply(x, dim % x.dim(), group)
+    g = x.shape[0]
+    dim = dim % (x.dim() - 1)
+    total = x.sum(0).movedim(dim, 0)
+    blocks = total.reshape(g, -1, *total.shape[1:]).movedim(1, dim + 1)
+    return _record("reduce-scatter", blocks.contiguous())
 
 
 def all_to_all(x: torch.Tensor, *, group: RankGroup | None = None
@@ -365,6 +423,6 @@ def replicated(x: torch.Tensor, *, group: RankGroup) -> torch.Tensor:
     return _Replicated.apply(x, group)
 
 
-__all__ = ["CollectiveStats", "counting", "all_gather", "all_to_all",
-           "all_to_all_start", "ppermute", "all_reduce", "pmax",
+__all__ = ["CollectiveStats", "counting", "all_gather", "psum_scatter",
+           "all_to_all", "all_to_all_start", "ppermute", "all_reduce", "pmax",
            "rank_block", "gather_replicated", "replicated"]

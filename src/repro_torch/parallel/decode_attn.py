@@ -27,7 +27,9 @@ over that rank dim, as :mod:`repro_torch.parallel.collectives` does it.
 On a :class:`~repro_torch.parallel.group.RankGroup` the same body runs
 as the reference's does, once per process: the rank holds only its time
 slice ``(B, S/g, KV, D)`` at offset ``r * S/g`` (the reference's
-``cache_spec = P(batch, "model", None, None)``; :meth:`Model.init_cache
+``cache_spec = P(batch, "model", None, None)``, which its
+``cache_leaf_spec`` gives every cache of 1024 positions or more that the
+group divides; :meth:`Model.init_cache
 <repro_torch.models.model.Model.init_cache>` sizes it by
 :func:`cache_positions`) and combines with
 :func:`~repro_torch.parallel.collectives.pmax` and two
@@ -46,9 +48,11 @@ import torch
 
 from repro_torch.parallel.collectives import all_reduce, pmax
 from repro_torch.parallel.group import RankGroup
-from repro_torch.parallel.sharding import active_group
+from repro_torch.parallel.sharding import (MODEL_AXIS, active_group,
+                                           cache_leaf_spec, shard_shape)
 
 _NEG_INF = -1e30
+_TIME = 2  # a decode cache leaf is (periods, B, S, ...)
 
 
 def _guard(cache_len: int, window, g: int) -> bool:
@@ -77,17 +81,29 @@ def applicable(k_cache: torch.Tensor, window,
     return _guard(s, window, group.size)
 
 
-def cache_positions(cache_len: int, window, decode_attn: str) -> int:
-    """How many of an attention cache's ``cache_len`` positions this
-    process holds: all of them, but on a :class:`RankGroup` of g > 1
-    ranks serving with ``decode_attn="shard_map"`` a cache the
-    reference's guard takes holds the rank's time slice,
-    ``cache_len / g``."""
+def cache_positions(shape) -> int:
+    """How many of the positions of a decode-cache leaf whose whole shape
+    is ``shape`` (``(periods, B, S, ...)``) this process holds: all of
+    them, but on a :class:`RankGroup` of g > 1 ranks its block by the
+    reference's :func:`~repro_torch.parallel.sharding.cache_leaf_spec` on
+    ``Mesh(("model",), (g,))``, whatever the decode attention: the rank's
+    time slice, ``S / g``, where the rule cuts the time axis (1024
+    positions or more, divisible by g).  Raises where the rule cuts
+    another dim, which no per-rank decode reads."""
+    from repro_torch.launch.mesh import Mesh
+
+    shape = tuple(shape)
     group = active_group()
-    if (decode_attn != "shard_map" or not isinstance(group, RankGroup)
-            or not _guard(cache_len, window, group.size)):
-        return cache_len
-    return cache_len // group.size
+    if not isinstance(group, RankGroup) or group.size <= 1:
+        return shape[_TIME]
+    mesh = Mesh((MODEL_AXIS,), (group.size,))
+    held = shard_shape(cache_leaf_spec(shape, mesh), shape, mesh)
+    if any(h != n for i, (h, n) in enumerate(zip(held, shape))
+           if i != _TIME):
+        raise NotImplementedError(
+            f"a decode cache of {shape} on a RankGroup of {group.size}: "
+            f"the reference's rule cuts it to {held}, not on its time axis")
+    return held[_TIME]
 
 
 def shard_map_attn_decode(

@@ -11,10 +11,11 @@ mode goes through :func:`repro_torch.overlap.api.ficco_linear`, deciding
 for :data:`~repro_torch.core.machine.H100_SXM`.
 
 On a :class:`~repro_torch.parallel.group.RankGroup` the same function is
-one rank's ``shard_map`` body: the weight is this rank's column block
-already, and the rank cuts its own sequence block out of the replicated
-activation and returns its column block of the output; the cut's
-gradient is the whole activation's, so training runs per rank too.
+one rank's ``shard_map`` body: the activation is the rank's sequence
+block of the residual stream (the model cuts it by sequence), the weight
+this rank's column block, and the rank returns its column block of the
+output over the whole sequence; the schedule's all-gathers transpose to
+reduce-scatters, so training runs per rank too.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from repro_torch.core.machine import H100_SXM
 from repro_torch.core.schedule_types import Schedule
 from repro_torch.kernels.ops import ag_matmul_dma
 from repro_torch.overlap.api import ficco_linear
-from repro_torch.parallel.collectives import rank_block
 from repro_torch.parallel.group import RankGroup
 from repro_torch.parallel.sharding import active_group, shard_columns
 
@@ -45,8 +45,6 @@ def overlap_applicable(x: torch.Tensor, w: torch.Tensor) -> bool:
         return False
     g = group.size
     b, s, d = x.shape
-    if isinstance(group, RankGroup):  # w: this rank's column block
-        return s % g == 0
     return s % g == 0 and w.shape[1] % g == 0
 
 
@@ -62,7 +60,8 @@ def tp_ficco_linear(
     concatenation rebuilds the global seq order, and computes the full-S
     x (F/g) output block r.  The ranks' blocks are laid side by side into
     the (B, S, F) result, as ``shard_map``'s ``P(None, None, "model")``
-    output would be.
+    output would be.  On a ``RankGroup`` x is the rank's (B, S/g, D)
+    block and w its column block: the result is its (B, S, F/g) block.
     """
     group = active_group()
     g = group.size
@@ -86,22 +85,22 @@ def tp_ficco_linear(
 
 
 def _rank_linear(x, w, schedule, dma: bool, group: RankGroup):
-    """x: (B, S, D), replicated; w: (D, F/g), this rank's columns ->
-    (B, S, F/g), this rank's column block (the reference's ``body``).
-    Under grad the schedule's all-gathers reduce-scatter the cotangent,
-    and the block cut all-gathers it back: every rank gets the whole
-    dx, the same bits on each."""
+    """x: (B, S/g, D), this rank's sequence block; w: (D, F/g), this
+    rank's columns -> (B, S, F/g), this rank's column block over the
+    whole sequence (the reference's ``body``).  Under grad the schedule's
+    all-gathers reduce-scatter the cotangent: every rank gets the sum of
+    the ranks' parts for its block."""
     g = group.size
-    b, s, d = x.shape
-    # This rank's sequence block, rows seq-major ((S/g) * B rows); its
-    # gradient comes back as the full, replicated dx.
-    rows = rank_block(x, 1, group=group).transpose(0, 1).reshape(-1, d)
+    b, s_loc, d = x.shape
+    # The rank's rows, seq-major ((S/g) * B rows), so the all-gather's
+    # rank-major concatenation rebuilds the global seq order.
+    rows = x.transpose(0, 1).reshape(-1, d)
     if dma and rows.shape[0] % g == 0:
         out = ag_matmul_dma(rows, w, group=group)
     else:
         out = ficco_linear(rows, w, schedule=schedule, machine=H100_SXM)
     # (S * B, F/g) -> (B, S, F/g)
-    return out.view(s, b, w.shape[1]).transpose(0, 1)
+    return out.view(g * s_loc, b, w.shape[1]).transpose(0, 1)
 
 
 __all__ = ["overlap_applicable", "tp_ficco_linear"]

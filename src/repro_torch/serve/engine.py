@@ -22,13 +22,16 @@ overlap schedule, which never changes what the model computes.
 
 Under a group of processes (``tp_group`` of a
 :class:`~repro_torch.parallel.group.RankGroup`) both run per rank, as a
-``shard_map`` body: the state holds the rank's blocks of the attention
-(its heads), the MLPs and the experts
+``shard_map`` body: the state holds the rank's blocks of the embedding
+and unembedding (its vocabulary rows and columns), the attention (its
+heads), the MLPs and the experts
 (:func:`~repro_torch.parallel.sharding.shard_params` by the model's
-``rank_specs``), each attention and MLP sums over the group, an MoE layer
-gathers its experts' outputs, and with ``decode_attn="shard_map"`` each
-attention cache holds the rank's time slice; every rank gets the same
-logits and tokens.
+``rank_specs``); a prefill whose length the group divides keeps the
+residual stream cut by sequence; each attention cache of 1024 positions
+or more holds the rank's time slice.  The model's logits are the rank's
+vocabulary block; the prefill and the serve step gather the blocks
+(``Model.gather_vocab``, one all-gather), so every rank gets the same
+whole logits and tokens.
 """
 
 from __future__ import annotations
@@ -48,11 +51,12 @@ from repro_torch.parallel.context import overlap_context
 
 
 def make_serve_step(model: Model) -> Callable:
-    """(state, cache, tokens (B,1), pos) -> (logits, cache)."""
+    """(state, cache, tokens (B,1), pos) -> (logits (B, 1, V), cache)."""
 
     def serve_step(state, cache, tokens, pos):
         with overlap_context(model.config.overlap):
-            return model.decode_step(state, cache, tokens, pos)
+            logits, cache = model.decode_step(state, cache, tokens, pos)
+            return model.gather_vocab(logits), cache
 
     return serve_step
 
@@ -65,7 +69,7 @@ def make_prefill(model: Model) -> Callable:
     def prefill(state, batch):
         with overlap_context(model.config.overlap):
             logits, _ = model.forward(state, batch)
-        return logits
+            return model.gather_vocab(logits)
 
     return prefill
 

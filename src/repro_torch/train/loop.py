@@ -10,11 +10,14 @@ under a mesh; on ``uniform-fused-2d`` its up and gate projections run K2
 forward and the plain products of K2's autograd Function backward.
 
 Inside ``tp_group(RankGroup)`` the same functions run on one rank of a
-group of processes: the state holds the rank's blocks of the attention,
-the MLPs and the experts and their moments
+group of processes: the state holds the rank's blocks of the embedding
+and unembedding (its vocabulary), the attention, the MLPs and the experts
+and their moments
 (:func:`~repro_torch.parallel.sharding.shard_train_state` by the model's
-``rank_specs``), every rank draws the same batch, the per-rank
-collectives carry the gradients across the group, and
+``rank_specs``), every rank draws the same batch, the model keeps the
+residual stream cut by sequence where the group divides it and reduces
+the loss over the vocabulary blocks, the per-rank collectives carry the
+gradients across the group, and
 :func:`~repro_torch.train.optimizer.global_norm` sums the blocks' squares
 over the ranks, so each rank updates its blocks and the replicated leaves
 the same bits on every rank.

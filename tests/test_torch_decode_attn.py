@@ -6,7 +6,8 @@ host devices on the ``model`` axis, with GQA 8/2, fp32.
 
 On a rank of a group of processes (a ``RankGroup``) the guard reads the
 full length from the rank's slice, ``cache_positions`` sizes that slice
-and ``Model.init_cache`` records it; the per-rank body itself runs in ``tests/test_torch_group.py``.
+by the reference's ``cache_leaf_spec`` and ``Model.init_cache`` records
+it; the per-rank body itself runs in ``tests/test_torch_group.py``.
 The model-level decode through it is held against the plain decode in
 ``tests/test_torch_parallel.py``.
 """
@@ -100,30 +101,42 @@ def test_applicable_on_a_rank_reads_the_full_length(slice_len, window,
                                       window, time_slice) is want
 
 
-@pytest.mark.parametrize("size,cache,window,mode,want", [
-    (4, 2048, None, "shard_map", 512),   # the rank's time slice
-    (4, 1024, None, "shard_map", 256),
-    (4, 2048, 512, "shard_map", 2048),   # a window: whole, not sharded
-    (4, 2048, None, "gspmd", 2048),      # another decode attention
-    (1, 2048, None, "shard_map", 2048),  # a group of one
-    (4, 512, None, "shard_map", 512),    # the guard refuses: whole
-    (4, 1026, None, "shard_map", 1026),
+@pytest.mark.parametrize("size,shape,want", [
+    (4, (22, 4, 2048, 4, 64), 512),     # the rank's time slice
+    (4, (22, 4, 1024, 4, 64), 256),
+    (4, (27, 4, 2048, 512), 512),       # MLA's latent
+    (4, (27, 4, 2048, 1, 64), 512),     # and its rope key
+    (1, (22, 4, 2048, 4, 64), 2048),    # a group of one
+    (4, (22, 4, 512, 4, 64), 512),      # under 1024: whole
+    (4, (22, 4, 1026, 4, 64), 1026),    # not a multiple of 4: whole
 ])
-def test_cache_positions_on_a_rank(size, cache, window, mode, want):
+def test_cache_positions_on_a_rank(size, shape, want):
+    """The reference's rule, whatever the decode attention: the time axis
+    cut where it is 1024 or more and the group divides it."""
     with tp_group(_rank(size)):
-        assert decode_attn.cache_positions(cache, window, mode) == want
+        assert decode_attn.cache_positions(shape) == want
+
+
+def test_cache_positions_raise_where_the_rule_cuts_another_dim():
+    """A latent of 4096 outgrows a cache of 1024: the rule cuts the
+    latent, which no per-rank decode reads."""
+    with tp_group(_rank(4)), pytest.raises(NotImplementedError,
+                                           match="time axis"):
+        decode_attn.cache_positions((2, 1, 1024, 4096))
 
 
 def test_cache_positions_off_a_rank():
     with tp_group(TPGroup(4, "cpu")):
-        assert decode_attn.cache_positions(2048, None, "shard_map") == 2048
-    assert decode_attn.cache_positions(512, None, "shard_map") == 512
+        assert decode_attn.cache_positions((2, 1, 2048, 4, 8)) == 2048
+    assert decode_attn.cache_positions((2, 1, 512, 4, 8)) == 512
 
 
+@pytest.mark.parametrize("mode", ["gspmd", "shard_map"])
 @pytest.mark.parametrize("cache,sliced", [(2048, True), (512, False)])
-def test_init_cache_records_the_time_slice(cache, sliced):
-    """``Model.init_cache`` on a rank: the slice and its record where the
-    guard takes the cache, the whole cache and no record where not."""
+def test_init_cache_records_the_time_slice(cache, sliced, mode):
+    """``Model.init_cache`` on a rank, in either decode attention: the
+    slice and its record where the reference's rule cuts the cache, the
+    whole cache and no record where not."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -131,8 +144,7 @@ def test_init_cache_records_the_time_slice(cache, sliced):
     from repro_torch.models.model import build_model
 
     cfg = get_config("tinyllama-1.1b").reduced()
-    cfg = dataclasses.replace(cfg, overlap=OverlapConfig(
-        decode_attn="shard_map"))
+    cfg = dataclasses.replace(cfg, overlap=OverlapConfig(decode_attn=mode))
     group = _rank(4)
     group.rank = 2
     with tp_group(group):

@@ -19,8 +19,9 @@ imports no JAX) and pickles the results back:
     subprocess's ``decode_attn`` entry) at 1e-5;
   * a ``DecodeEngine`` per rank on the reduced TinyLlama with
     ``decode_attn="shard_map"`` and a cache of 1024 (256 positions a
-    rank), and of 512 (whole on every rank, which the guard refuses): the
-    same tokens on every rank as the port's engine in this process;
+    rank), and of 512 (whole on every rank, which the reference's rule
+    leaves whole): the same tokens on every rank as the port's engine in
+    this process;
   * the K3 + K1 composer and K4 per rank, on their plain versions (gloo's
     all-gather for the exchange), against the stacked port at 1e-5, two
     calls each through the same ring and shards;
@@ -28,14 +29,17 @@ imports no JAX) and pickles the results back:
     ``uniform-fused-1d`` on the collective backend and on the DMA
     backend, against the reference's single-device forward in this
     process at 2e-3 (``tests/test_torch_model.py``'s tolerance; R4 rules
-    out the reference's sharded forward), every rank's logits bit-equal;
+    out the reference's sharded forward), every rank's logits (the
+    vocabulary blocks gathered) bit-equal, the residual stream between
+    layers the rank's (B, S/g, d) sequence block;
   * the EP dispatch per rank (``serial_a2a_ffn`` / ``ficco_a2a_ffn`` with
     ``group=``), each of ``MOE_CASES``, against the reference's
     ``shard_map`` outputs (the subprocess's ``moe`` entry) at 1e-5, with
     ``"reverse"`` bit-equal to ``"default"`` and two all-to-alls counted
     per non-empty chunk;
   * each per-rank collective's gradient against the logical form's
-    autograd (``all_reduce``'s the identity);
+    autograd (``all_reduce``'s the identity; ``psum_scatter``'s the
+    all-gather, and the other way round);
   * 2 AdamW steps per rank of the reduced TinyLlama (fp32) on serial,
     uniform-fused-2d and uniform-fused-2d with ``accum_steps=2``, from
     the reference's params cut by ``shard_train_state``, against the
@@ -44,16 +48,24 @@ imports no JAX) and pickles the results back:
     the replicated leaves bit-equal across ranks, K2's folds and the
     counted (forward) collectives per step; the DMA backend refusing
     grad per rank;
-  * each rank holding its blocks of the attention (heads), the MLPs and
-    the experts by the model's ``rank_specs``: the reduced DeepSeek-V2-Lite
-    with 8 experts (MLA, 4 heads) and a SmolLM-like model with 15 / 5
-    heads (their sharding dropped: the ranks gather whole heads), each
-    from the reference's params cut by ``params_from_jax(rank=)``:
-    prefill logits against the reference's one-device forward (the
-    subprocess's ``ranks`` entry) at 2e-3, every rank's bit-equal; a
-    ``DecodeEngine`` per rank against one process's tokens, with a
-    time-sliced and a whole cache; ``loss_and_grads``' loss and each
-    rank's gradient blocks, and one step's loss and ``grad_norm``,
+  * each rank holding its blocks of the embedding and unembedding (the
+    vocabulary), the attention (heads), the MLPs and the experts by the
+    model's ``rank_specs``: the reduced TinyLlama at a prompt of 30
+    tokens, which 4 ranks do not divide (the residual stays replicated),
+    the reduced DeepSeek-V2-Lite with 8 experts (MLA, 4 heads) and a
+    SmolLM-like model with 15 / 5 heads (their sharding dropped: the
+    ranks gather whole heads) and tied embeddings, each from the
+    reference's params cut by ``params_from_jax(rank=)``: prefill logits
+    against the reference's one-device forward (the subprocess's
+    ``ranks`` entry) at 2e-3, every rank's bit-equal, and the residual's
+    shape between layers; ``DecodeEngine``s per rank in both
+    ``decode_attn`` modes at a cache the rule time-slices, for a prompt
+    length 4 divides and one it does not, against the reference's
+    one-device engine's tokens, and against one process's tokens with a
+    time-sliced and a whole cache, each cache leaf the rank's block by
+    the reference's ``cache_leaf_spec``; ``loss_and_grads``' loss
+    (vocab-parallel) and each rank's gradient blocks, the embedding's and
+    unembedding's included, and one step's loss and ``grad_norm``,
     against the reference's jitted ones;
   * ``gather_replicated``'s gradient against the logical one: this rank's
     block of the replicated cotangent, not the g-fold sum that
@@ -69,7 +81,7 @@ patched); ``pmax`` refuses grad; ``train(checkpoint_dir=)`` on a
 params and both moments; each rank's parameter bytes at full width equal
 ``shard_shape`` over the reference rule's fixed specs on a model-only
 mesh of 4 for the cut leaves plus the whole leaves' bytes; a family
-without a per-rank form raises on a ``RankGroup``, citing ROADMAP A15.
+without a per-rank form raises on a ``RankGroup``, citing ROADMAP A17.
 """
 
 import dataclasses
@@ -122,14 +134,18 @@ PREFILL_MODES = (("uniform-fused-1d", "collective"),
 TRAIN_MODES = (("serial", 1), ("uniform-fused-2d", 1), ("uniform-fused-2d", 2))
 # K2 folds per forward on the 2D path: 2 layers x (up, gate) x 4 K slices.
 FOLDS_2D = 16
-# The engine per rank: prompts of PROMPT tokens, NEW new tokens each; a
-# cache the reference's guard takes (time-sharded) and one it refuses
-# (whole on every rank, the plain decode).
-ENGINE = dict(batch=2, prompt=5, new=4, cache=1024, whole=512, seed=53)
-# The reference's other per-rank models: the prefill's backends and the
-# training mode (collective backend) of each.
-RANK_MODELS = {"deepseek": (("collective", "dma"), "uniform-fused-2d"),
-               "smollm": (("collective",), "serial")}
+# The engine per rank (the subprocess's RANK_ENGINE): prompts of each
+# length, new tokens each; a cache the reference's rule time-slices and
+# one it keeps whole on every rank.
+ENGINE = dict(jax_reference.RANK_ENGINE, whole=512)
+PROMPT = ENGINE["prompts"][0]
+DECODE_ATTN = ("gspmd", "shard_map")
+# The per-rank models held to the subprocess's ``ranks`` entry: the
+# prefill's backends and the training mode (collective backend) of each.
+RANK_MODELS = {"dense": (("collective", "dma"), "serial"),
+               "deepseek": (("collective", "dma"), "uniform-fused-2d"),
+               "smollm": (("collective",), "serial"),
+               "indivisible": (("collective",), "serial")}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -150,25 +166,15 @@ def model_reference():
                 logits=np.asarray(logits, np.float32))
 
 
-def _rank_caches(name: str) -> tuple:
-    """A rank model's engine caches: one the guard time-slices and one it
-    keeps whole; MLA's latent cache is whole on every rank whatever its
-    length, so DeepSeek's engine runs the whole one only."""
-    if _rank_cfg(name).mla is not None:
-        return ("whole",)
-    return ("cache", "whole")
-
-
-def _rank_engine_case(name: str) -> tuple:
-    """A rank model's engine: prompts, new tokens and cache lengths."""
-    return (_engine_prompts(_rank_cfg(name).vocab_size), ENGINE["new"],
-            tuple(ENGINE[c] for c in _rank_caches(name)))
-
-
-def _engine_prompts(vocab: int) -> list:
-    rng = np.random.default_rng(ENGINE["seed"])
-    return list(rng.integers(0, vocab, (ENGINE["batch"], ENGINE["prompt"]))
-                .astype(np.int32))
+def _engine_runs(vocab: int) -> list:
+    """Each rank model's engines: both decode attentions at the cache the
+    rule time-slices for each prompt length, and ``decode_attn=
+    "shard_map"`` at one it keeps whole."""
+    runs = [(mode, ENGINE["cache"], length) for mode in DECODE_ATTN
+            for length in ENGINE["prompts"]]
+    runs.append(("shard_map", ENGINE["whole"], PROMPT))
+    return [(mode, cache, jax_reference.engine_prompts(vocab, length),
+             ENGINE["new"]) for mode, cache, length in runs]
 
 
 def _composer_operands():
@@ -204,7 +210,9 @@ def _grad_operands():
         return rng.standard_normal(shape).astype(np.float32)
 
     x = draw(G, G, 3, 5)
-    return x, {"all_gather": draw(G, G, G, 3, 5),
+    return x, {"psum_scatter": draw(G, 1, 3, 5),
+               "all_gather_axis1": draw(G, G, G * 3, 5),
+               "all_gather": draw(G, G, G, 3, 5),
                "all_gather_tiled": draw(G, G * G, 3, 5),
                "all_to_all": draw(G, G, 3, 5),
                "ppermute": draw(G, G, 3, 5),
@@ -213,28 +221,39 @@ def _grad_operands():
 
 
 def _rank_cfg(name: str):
+    if name == "dense":
+        return get_config(ARCH).reduced()
     return jax_reference.rank_config(get_config, name)
 
 
+def _rank_shape(name: str) -> dict:
+    return (jax_reference.RANK_ODD if name == "dense"
+            else jax_reference.RANK_TRAIN)
+
+
 def _rank_batch(name: str) -> dict:
-    """SyntheticLM's batch 0 at ``RANK_TRAIN``'s shape (numpy), as the
+    """SyntheticLM's batch 0 at the model's shape (``RANK_ODD`` for the
+    dense model, ``RANK_TRAIN`` for the others; numpy), as the
     reference's entry draws it."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import SyntheticLM
 
-    t = jax_reference.RANK_TRAIN
+    t = _rank_shape(name)
     return SyntheticLM(_rank_cfg(name), ShapeConfig("t", t["seq"], t["batch"],
                                                     "train"),
                        seed=t["seed"]).batch_at(0)
 
 
 @pytest.fixture(scope="module")
-def rank_params():
+def rank_params(model_reference):
     """Each of ``RANK_MODELS``' params from ``PRNGKey(0)``, as the
     subprocess's ``ranks`` entry draws them (numpy)."""
-    return {name: jax.tree.map(np.asarray, jax_build_model(
+    params = {name: jax.tree.map(np.asarray, jax_build_model(
         jax_reference.rank_config(jax_get_config, name)).init(
-            jax.random.PRNGKey(0))) for name in RANK_MODELS}
+            jax.random.PRNGKey(0))) for name in RANK_MODELS
+        if name != "dense"}
+    params["dense"] = model_reference["numpy_params"]
+    return params
 
 
 def _gather_operands():
@@ -257,9 +276,6 @@ def ranks(model_reference, rank_params, tmp_path_factory):
         "decode_attention": (jax_reference.decode_attn_operands(),
                              jax_reference.DECODE_ATTN_POS),
         "composers": (*_composer_operands(), VARIANTS),
-        "engine": (
-            _engine_prompts(jax_get_config(ARCH).reduced().vocab_size),
-            ENGINE["new"], (ENGINE["cache"], ENGINE["whole"])),
         "prefill_modes": PREFILL_MODES,
         "params": model_reference["numpy_params"],
         "tokens": model_reference["tokens"],
@@ -271,7 +287,7 @@ def ranks(model_reference, rank_params, tmp_path_factory):
         "gather_grad": _gather_operands(),
         "rank_models": {
             name: (_rank_cfg(name), rank_params[name], _rank_batch(name),
-                   backends, _rank_engine_case(name), mode)
+                   backends, _engine_runs(_rank_cfg(name).vocab_size), mode)
             for name, (backends, mode) in RANK_MODELS.items()},
     }
     with pytest.MonkeyPatch.context() as mp:
@@ -321,6 +337,7 @@ def test_rank_collectives_match_stacked(ranks):
         "ppermute_back": collectives.ppermute(x, -1),
     }
     total = x.sum(0)
+    scattered = collectives.psum_scatter(x, 0)
     for r, res in enumerate(ranks):
         got = res["collectives"]
         for name, stacked in want.items():
@@ -328,6 +345,11 @@ def test_rank_collectives_match_stacked(ranks):
                                           err_msg=name)
         np.testing.assert_allclose(got["all_reduce"], total.numpy(),
                                    rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got["psum_scatter"], total[r:r + 1],
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got["psum_scatter"],
+                                   scattered[r].numpy(), rtol=1e-6,
+                                   atol=1e-6)
         np.testing.assert_array_equal(got["all_reduce"],
                                       ranks[0]["collectives"]["all_reduce"])
 
@@ -363,7 +385,8 @@ def test_rank_decode_attention_matches_shard_map(ranks, tmp_path_factory,
 
 def _one_process_tokens(numpy_params, cache_len: int, cfg=None) -> list:
     """The port's engine on the whole model (``cfg``, the reduced
-    TinyLlama by default), in this process."""
+    TinyLlama by default), in this process, on the prompts of ``PROMPT``
+    tokens."""
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
     from repro_torch.serve.engine import DecodeEngine, Request
@@ -373,11 +396,21 @@ def _one_process_tokens(numpy_params, cache_len: int, cfg=None) -> list:
     state = params_from_jax(numpy_params, cfg, device="cpu")
     eng = DecodeEngine(cfg, state, batch_size=ENGINE["batch"],
                        cache_len=cache_len, device="cpu")
-    reqs = eng.run([Request(p, ENGINE["new"])
-                    for p in _engine_prompts(cfg.vocab_size)])
+    reqs = eng.run([Request(p, ENGINE["new"]) for p in
+                    jax_reference.engine_prompts(cfg.vocab_size, PROMPT)])
     want = [list(r.out) for r in reqs]
     assert all(len(t) == ENGINE["new"] for t in want)
     return want
+
+
+def _positions(res, name: str, cache_len: int) -> tuple:
+    """The tokens of a rank's ``shard_map`` engine at ``cache_len`` on the
+    prompts of ``PROMPT`` tokens, and the positions its first layer's
+    cache holds (K's, or MLA's latent's)."""
+    tokens, leaves = res["model", name]["engine"][
+        "shard_map", cache_len, PROMPT]
+    first = leaves[0]
+    return tokens, (first["k"] if "k" in first else first["c_kv"])[2]
 
 
 def test_rank_decode_engine_matches_one_process(ranks, model_reference):
@@ -387,7 +420,7 @@ def test_rank_decode_engine_matches_one_process(ranks, model_reference):
     want = _one_process_tokens(model_reference["numpy_params"],
                                ENGINE["cache"])
     for res in ranks:
-        tokens, positions = res["engine"][ENGINE["cache"]]
+        tokens, positions = _positions(res, "dense", ENGINE["cache"])
         assert positions == ENGINE["cache"] // G
         assert tokens == want
 
@@ -400,7 +433,7 @@ def test_rank_decode_engine_serves_a_cache_the_guard_refuses(
     want = _one_process_tokens(model_reference["numpy_params"],
                                ENGINE["whole"])
     for res in ranks:
-        tokens, positions = res["engine"][ENGINE["whole"]]
+        tokens, positions = _positions(res, "dense", ENGINE["whole"])
         assert positions == ENGINE["whole"]
         assert tokens == want
 
@@ -424,11 +457,40 @@ def test_composer_and_k4_per_rank_match_stacked(ranks, kernel, spec):
 @pytest.mark.parametrize("mode,backend", PREFILL_MODES)
 def test_prefill_across_ranks_matches_reference(ranks, model_reference,
                                                 mode, backend):
-    logits = [res["prefill", mode, backend] for res in ranks]
+    logits = [res["prefill", mode, backend][0] for res in ranks]
     np.testing.assert_allclose(logits[0], model_reference["logits"],
                                **MODEL_TOL)
     for other in logits[1:]:
         np.testing.assert_array_equal(other, logits[0])
+
+
+def _layout_cases() -> list:
+    """(model, backend): the dense model at 512 tokens (the prefill
+    modes' backends) and each rank model at its batch."""
+    return ([("dense-512", backend) for _, backend in PREFILL_MODES]
+            + [(name, backend) for name, (backends, _) in RANK_MODELS.items()
+               for backend in backends])
+
+
+@pytest.mark.parametrize("name,backend", _layout_cases())
+def test_rank_residual_between_layers(ranks, model_reference, name,
+                                      backend):
+    """After every period the residual stream is the rank's (B, S/g, d)
+    sequence block where 4 divides S (512 and 32 tokens), and the whole
+    (B, S, d) where it does not (the dense model's 30)."""
+    if name == "dense-512":
+        tokens = model_reference["tokens"]
+        cfg = get_config(ARCH).reduced()
+        got = [res["prefill", "uniform-fused-1d", backend][1]
+               for res in ranks]
+    else:
+        tokens, cfg = _rank_batch(name)["tokens"], _rank_cfg(name)
+        got = [res["model", name]["prefill"][backend][1] for res in ranks]
+    b, s = tokens.shape
+    block = (b, s // G if s % G == 0 else s, cfg.d_model)
+    periods = cfg.num_layers // len(build_model(cfg).pattern)
+    for shapes in got:
+        assert shapes == [block] * periods
 
 
 def test_launcher_raises_when_a_rank_raises():
@@ -509,16 +571,19 @@ def test_collective_refuses_a_logical_group():
 
 
 def test_shard_mlp_params_keeps_rank_blocks():
-    """``shard_params`` by the model's ``rank_specs``: the attention's
+    """``shard_params`` by the model's ``rank_specs``: the embedding's
+    vocabulary rows and the unembedding's columns, the attention's
     (MLA's) heads, the experts and the shared MLP cut to rank 1's blocks;
-    the embedding, the norms, the router and MLA's latent projections
-    whole (the same tensors)."""
+    the norms, the router and MLA's latent projections whole (the same
+    tensors)."""
     cfg = _rank_cfg("deepseek")
     model = build_model(cfg)
     state = model.init(0, device="cpu")
     got = shard_params(state, model.rank_specs(G), 1, G)
-    assert got["embed"] is state["embed"]
-    assert got["unembed"] is state["unembed"]
+    v = cfg.vocab_size // G
+    assert torch.equal(got["embed"], state["embed"][v:2 * v])
+    assert torch.equal(got["unembed"], state["unembed"][:, v:2 * v])
+    assert got["final_norm"]["scale"] is state["final_norm"]["scale"]
     want, cut = state["layers"][0], got["layers"][0]
     assert cut["norm1"]["scale"] is want["norm1"]["scale"]
     attn, mla = cut["attn"], want["attn"]
@@ -631,6 +696,9 @@ def _logical_grads():
     the stacked ranks: the reference's transposes."""
     x, cot = _grad_operands()
     fns = {
+        "psum_scatter": lambda v: collectives.psum_scatter(v, 0),
+        "all_gather_axis1": lambda v: collectives.all_gather(
+            v, tiled=True, axis=1),
         "all_gather": collectives.all_gather,
         "all_gather_tiled": lambda v: collectives.all_gather(v, tiled=True),
         "all_to_all": collectives.all_to_all,
@@ -648,7 +716,8 @@ def _logical_grads():
     return out
 
 
-@pytest.mark.parametrize("name", ["all_gather", "all_gather_tiled",
+@pytest.mark.parametrize("name", ["psum_scatter", "all_gather_axis1",
+                                  "all_gather", "all_gather_tiled",
                                   "all_to_all", "ppermute", "ppermute_back",
                                   "all_reduce"])
 def test_rank_collective_grad_matches_logical(ranks, name):
@@ -713,10 +782,10 @@ def test_rank_train_matches_reference(ranks, train_reference, mode, accum):
 @pytest.mark.parametrize("mode,accum", TRAIN_MODES)
 def test_rank_train_replicated_leaves_bit_equal(ranks, mode, accum):
     """The metrics and every replicated leaf are the same bits on every
-    rank; the blocks (the attention's four weights and the MLP's three,
-    with ``m`` and ``v``) differ."""
+    rank; the blocks (the embedding and unembedding, the attention's four
+    weights and the MLP's three, with ``m`` and ``v``) differ."""
     first = ranks[0]["train", mode, accum]
-    assert sum(first["blocks"]) == 3 * 7  # params, m, v x 7 weights
+    assert sum(first["blocks"]) == 3 * 9  # params, m, v x 9 weights
     for res in ranks[1:]:
         got = res["train", mode, accum]
         assert got["metrics"] == first["metrics"]
@@ -742,15 +811,19 @@ def test_rank_train_k2_folds(ranks, mode, accum):
 @pytest.mark.parametrize("mode,accum", TRAIN_MODES)
 def test_rank_train_counts_the_forward_collectives_only(ranks, mode, accum):
     """``counting()`` around a step records each microbatch's forward
-    collectives (each MLP's up and gate all-gathers, one per K slice on
-    the 2D path, and the all-reduces of each attention's and each MLP's
-    output projection; the heads divide by the group, so the attention
-    gathers nothing) and the global norm's all-reduce; the backward's
-    reduce-scatters and all-gathers go uncounted."""
+    collectives (the residual cut by sequence: the embedding's
+    reduce-scatter; in each layer the attention's all-gather of its input
+    and each MLP's up and gate all-gathers, one per K slice on the 2D
+    path, and the reduce-scatters of the attention's and the MLP's output
+    projections; the unembedding's all-gather; the vocab-parallel loss's
+    ``pmax`` and two all-reduces; the heads divide by the group, so the
+    attention gathers no heads) and the global norm's all-reduce; the
+    backward's reduce-scatters and all-gathers go uncounted."""
     layers = get_config(ARCH).reduced().num_layers
     gathers = 2 * (G if mode == "uniform-fused-2d" else 1)
-    want = {"all-gather": layers * gathers * accum,
-            "all-reduce": 2 * layers * accum + 1}
+    want = {"all-gather": (layers * (1 + gathers) + 1) * accum,
+            "reduce-scatter": (2 * layers + 1) * accum,
+            "all-reduce": 3 * accum + 1}
     for res in ranks:
         assert res["train", mode, accum]["collectives"] == \
             [want] * jax_reference.TRAIN["steps"]
@@ -776,8 +849,9 @@ def test_train_with_checkpoints_on_a_rank_group_raises(monkeypatch,
 
 def test_shard_train_state_cuts_params_and_moments():
     """The params and both moments cut by the model's ``rank_specs``: the
-    attention's and the MLP's weights (the leaves under ``attn`` and
-    ``ffn``) are blocks, every other leaf whole; ``step`` as it is."""
+    embedding and unembedding and the attention's and the MLP's weights
+    (the leaves under ``attn`` and ``ffn``) are blocks, every other leaf
+    whole; ``step`` as it is."""
     from repro_torch.train import optimizer as opt
     from repro_torch.tree import named_leaves
 
@@ -791,8 +865,9 @@ def test_shard_train_state_cuts_params_and_moments():
     got = shard_train_state(state, specs, 2, G)
     assert got["opt_state"]["step"] is state["opt_state"]["step"]
     want = [path.split("/")[2:3] in (["attn"], ["ffn"])
+            or path in ("embed", "unembed")
             for path, _ in named_leaves(params)]
-    assert sum(want) == 7
+    assert sum(want) == 9
     for part in (got["params"], got["opt_state"]["m"],
                  got["opt_state"]["v"]):
         assert rank_blocks(part, specs) == want
@@ -810,6 +885,9 @@ def test_shard_train_state_cuts_params_and_moments():
         assert torch.equal(cut["ffn"]["w_down"],
                            full["ffn"]["w_down"][:, 2 * f:3 * f])
         assert cut["norm1"]["scale"] is full["norm1"]["scale"]
+        v = cfg.vocab_size // G
+        assert torch.equal(got["opt_state"][key]["embed"],
+                           state["opt_state"][key]["embed"][2 * v:3 * v])
 
 
 # ---------------------------------------------------------------------------
@@ -829,7 +907,7 @@ def test_rank_model_prefill_matches_reference(ranks, rank_reference, name,
     """Each rank's prefill on its blocks (``uniform-fused-1d``) within
     2e-3 of the reference's one-device forward, the same bits on every
     rank."""
-    logits = [res["model", name]["prefill"][backend] for res in ranks]
+    logits = [res["model", name]["prefill"][backend][0] for res in ranks]
     np.testing.assert_allclose(logits[0], rank_reference[name]["logits"],
                                **MODEL_TOL)
     for other in logits[1:]:
@@ -837,20 +915,70 @@ def test_rank_model_prefill_matches_reference(ranks, rank_reference, name,
 
 
 @pytest.mark.parametrize("name,cache", [
-    (name, cache) for name in RANK_MODELS for cache in _rank_caches(name)])
+    (name, cache) for name in RANK_MODELS for cache in ("cache", "whole")])
 def test_rank_model_engine_matches_one_process(ranks, rank_params, name,
                                                cache):
     """Every rank's engine gives the tokens of the port's engine on the
-    whole model here, with the cache the guard time-slices (the rank's
-    quarter of the attention cache) and with one it keeps whole."""
+    whole model here, with the cache the rule time-slices (the rank's
+    quarter of the attention or latent cache) and with one it keeps
+    whole."""
     cfg = _rank_cfg(name)
     cache_len = ENGINE[cache]
     want = _one_process_tokens(rank_params[name], cache_len, cfg)
     sliced = cache == "cache"
     for res in ranks:
-        tokens, positions = res["model", name]["engine"][cache_len]
+        tokens, positions = _positions(res, name, cache_len)
         assert positions == (cache_len // G if sliced else cache_len)
         assert tokens == want
+
+
+@pytest.mark.parametrize("name,mode,length", [
+    (name, mode, length) for name in RANK_MODELS for mode in DECODE_ATTN
+    for length in ENGINE["prompts"]])
+def test_rank_engine_matches_reference_engine(ranks, rank_reference, name,
+                                              mode, length):
+    """Every rank's ``DecodeEngine`` in either decode attention, at a
+    cache the rule time-slices, gives the tokens of the reference's
+    one-device engine, for a prompt length 4 divides and one it does
+    not."""
+    want = rank_reference[name]["engine"][length]
+    assert all(len(t) == ENGINE["new"] for t in want)
+    for res in ranks:
+        tokens, _ = res["model", name]["engine"][mode, ENGINE["cache"],
+                                                 length]
+        assert tokens == want
+
+
+@pytest.mark.parametrize("name,cache", [
+    (name, cache) for name in RANK_MODELS for cache in ("cache", "whole")])
+def test_rank_cache_leaves_follow_the_reference_rule(ranks, name, cache):
+    """Each leaf of a rank's engine cache has the shape of its block by
+    the reference's ``cache_leaf_spec`` on a model-only mesh of 4 (the
+    whole cache's on the meta device), in either decode attention; a
+    time slice carries its record."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import cache_leaf_spec, shard_shape
+
+    mesh = Mesh(("model",), (G,))
+    cache_len = ENGINE[cache]
+    whole = build_model(_rank_cfg(name)).init_cache(
+        ENGINE["batch"], cache_len, device="meta")
+    want = [{k: shard_shape(cache_leaf_spec(v.shape, mesh), v.shape, mesh)
+             for k, v in c.items()} for c in whole]
+    sliced = cache == "cache"
+    runs = [(mode, cache_len, PROMPT) for mode in DECODE_ATTN
+            if sliced or mode == "shard_map"]
+    for res in ranks:
+        for run in runs:
+            got = res["model", name]["engine"][run][1]
+            for leaves_got, leaves_want in zip(got, want, strict=True):
+                assert ("time_slice" in leaves_got) is sliced
+                leaves_got = {k: v for k, v in leaves_got.items()
+                              if k != "time_slice"}
+                assert leaves_got == leaves_want
+                if sliced:
+                    assert all(v[2] == cache_len // G
+                               for v in leaves_got.values())
 
 
 @pytest.mark.parametrize("name", list(RANK_MODELS))
@@ -918,14 +1046,22 @@ def _spec_leaves(specs) -> list:
     return [x for v in specs for x in _spec_leaves(v)]
 
 
+# A rank's parameter bytes (bf16, the MoE router fp32) and its decode
+# cache's bytes at 4 requests of 2048 positions, on 4 ranks at full width
+# (chip_smoke.py holds the card's to the rule's, which these hold).
+RANK_BYTES = {"tinyllama-1.1b": (550_162_432, 46_137_344),
+              "deepseek-v2-lite-16b": (8_165_486_592, 63_700_992)}
+
+
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-lite-16b",
                                   "smollm-360m", "arctic-480b"])
 def test_rank_param_bytes_match_shard_shape(arch):
     """At full width (on the meta device), each rank's parameter bytes:
     ``shard_shape`` over ``fix_param_specs`` of ``param_specs`` on a
-    model-only mesh of 4 for the leaves of a layer's attention and FFN,
-    and the whole bytes of every other leaf (the embedding and
-    unembedding, the norms, the router: ROADMAP A15)."""
+    model-only mesh of 4 for the embedding and unembedding and the leaves
+    of a layer's attention and FFN, and the whole bytes of every other
+    leaf (the norms, the router); TinyLlama-1.1B's and
+    DeepSeek-V2-Lite-16B's to the byte."""
     import math
 
     from repro_torch.launch.mesh import Mesh
@@ -940,8 +1076,10 @@ def test_rank_param_bytes_match_shard_shape(arch):
     def nbytes(shape, t):
         return math.prod(shape) * t.element_size()
 
-    want = sum(nbytes(t.shape, t) for k, v in state.items()
-               if k != "layers" for t in leaves(v))
+    want = sum(nbytes(shard_shape(fixed[k], t.shape, mesh)
+                      if k in ("embed", "unembed") else t.shape, t)
+               for k, v in state.items() if k != "layers"
+               for t in leaves(v))
     for slot, slot_specs in zip(state["layers"], fixed["layers"]):
         for key, sub in slot.items():
             cut = key in ("attn", "cross", "ffn")
@@ -956,6 +1094,28 @@ def test_rank_param_bytes_match_shard_shape(arch):
                   for t in leaves(shard_params(state, specs, r, G)))
         assert got == want
     assert want < whole
+    assert want == RANK_BYTES.get(arch, (want,))[0]
+
+
+@pytest.mark.parametrize("arch", list(RANK_BYTES))
+def test_rank_cache_bytes_at_full_width(arch):
+    """At full width (on the meta device), a rank's decode cache for 4
+    requests of 2048 positions: its leaves' bytes, each the rank's time
+    slice by ``cache_leaf_spec`` on a model-only mesh of 4, to the
+    byte."""
+    import math
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import cache_leaf_spec, shard_shape
+
+    mesh = Mesh(("model",), (G,))
+    whole = build_model(get_config(arch)).init_cache(4, 2048, device="meta")
+    got = sum(math.prod(shard_shape(cache_leaf_spec(t.shape, mesh), t.shape,
+                                    mesh)) * t.element_size()
+              for c in whole for t in c.values())
+    assert got == RANK_BYTES[arch][1]
+    assert got * G == sum(t.numel() * t.element_size()
+                          for c in whole for t in c.values())
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b",
@@ -963,14 +1123,14 @@ def test_rank_param_bytes_match_shard_shape(arch):
 def test_uncovered_family_raises_on_a_rank_group(monkeypatch, arch):
     """The hybrid, SSM, encoder-decoder and VLM families have no per-rank
     form held to the reference yet: cutting their state and running them
-    on a ``RankGroup`` raise, citing ROADMAP A15."""
+    on a ``RankGroup`` raise, citing ROADMAP A17."""
     model = build_model(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         model.rank_specs(G)
     group, _ = _patched_rank_group(monkeypatch, ["cpu"] * G)
     with tp_group(group):
         for call in (lambda: model.forward({}, {}),
                      lambda: model.init_cache(1, 8, device="cpu"),
                      lambda: model.decode_step({}, [], None, 0)):
-            with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+            with pytest.raises(NotImplementedError, match="ROADMAP A17"):
                 call()

@@ -40,10 +40,12 @@ def schedules(group, x, w) -> dict:
 def collectives(group, x) -> dict:
     """The per-rank collectives on this rank's block of x (g, m, ...)."""
     from repro_torch.parallel.collectives import (all_gather, all_reduce,
-                                                  all_to_all, ppermute)
+                                                  all_to_all, ppermute,
+                                                  psum_scatter)
 
     xr = torch.from_numpy(x[group.rank])
     return {
+        "psum_scatter": psum_scatter(xr, 0, group=group).numpy(),
         "all_gather": all_gather(xr, group=group).numpy(),
         "all_gather_tiled": all_gather(xr, tiled=True, group=group).numpy(),
         "all_to_all": all_to_all(xr[:group.size], group=group).numpy(),
@@ -80,30 +82,30 @@ def decode_attention(group, operands, positions) -> dict:
     return out
 
 
-def engine(group, numpy_params, prompts, new_tokens: int, cache_lens,
-           cfg=None):
+def engine(group, numpy_params, runs, cfg=None) -> dict:
     """A ``DecodeEngine`` on this rank of ``cfg`` (the reduced TinyLlama by
-    default), with its blocks and ``decode_attn="shard_map"``, at each
-    cache length: the tokens of each request, and the positions of the
-    first layer's cache on this rank (K's, or MLA's latent's)."""
+    default), with its blocks, for each of ``runs`` ((decode_attn, cache
+    length, prompts) with ``new`` new tokens): the tokens of each request,
+    and the shape of every leaf of the engine's cache on this rank."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
     from repro_torch.serve.engine import DecodeEngine, Request
 
-    cfg = dataclasses.replace(cfg or get_config("tinyllama-1.1b").reduced(),
-                              overlap=OverlapConfig(decode_attn="shard_map"))
+    cfg = cfg or get_config("tinyllama-1.1b").reduced()
     state = params_from_jax(numpy_params, cfg, device="cpu",
                             rank=group.rank, size=group.size)
     out = {}
-    for cache_len in cache_lens:
-        eng = DecodeEngine(cfg, state, batch_size=len(prompts),
-                           cache_len=cache_len, device="cpu")
-        reqs = eng.run([Request(p, new_tokens) for p in prompts])
-        first = eng.cache[0]
-        out[cache_len] = ([list(r.out) for r in reqs],
-                          (first["k"] if "k" in first else first["c_kv"])
-                          .shape[2])
+    for decode_attn, cache_len, prompts, new in runs:
+        eng = DecodeEngine(
+            dataclasses.replace(cfg, overlap=OverlapConfig(
+                decode_attn=decode_attn)),
+            state, batch_size=len(prompts), cache_len=cache_len,
+            device="cpu")
+        reqs = eng.run([Request(p, new) for p in prompts])
+        out[decode_attn, cache_len, len(prompts[0])] = (
+            [list(r.out) for r in reqs],
+            [{k: tuple(v.shape) for k, v in c.items()} for c in eng.cache])
     return out
 
 
@@ -132,11 +134,11 @@ def prefill(group, numpy_params, tokens, mode: str, backend: str,
             cfg=None):
     """The prefill of ``cfg`` (the reduced TinyLlama by default) on this
     rank: the params converted to this rank's blocks, the logits (float32
-    numpy)."""
+    numpy) and the shape of the residual stream after each period."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
-    from repro_torch.models.model import build_model
+    from repro_torch.models import model as model_mod
     from repro_torch.serve.engine import make_prefill
 
     cfg = dataclasses.replace(
@@ -144,9 +146,10 @@ def prefill(group, numpy_params, tokens, mode: str, backend: str,
         overlap=OverlapConfig(mode=mode, backend=backend))
     state = params_from_jax(numpy_params, cfg, device="cpu",
                             rank=group.rank, size=group.size)
-    logits = make_prefill(build_model(cfg))(
-        state, {"tokens": torch.from_numpy(tokens).long()})
-    return logits.float().numpy()
+    with model_mod.residual_shapes() as shapes:
+        logits = make_prefill(model_mod.build_model(cfg))(
+            state, {"tokens": torch.from_numpy(tokens).long()})
+    return logits.float().numpy(), shapes
 
 
 def ep_dispatch(group, x, w_up, w_down, cases: dict) -> dict:
@@ -174,10 +177,14 @@ def collective_grads(group, x, cotangents: dict) -> dict:
     (g, g, ...) for the cotangent of its output (stacked by rank, or one
     replicated array for ``all_reduce``)."""
     from repro_torch.parallel.collectives import (all_gather, all_reduce,
-                                                  all_to_all, ppermute)
+                                                  all_to_all, ppermute,
+                                                  psum_scatter)
 
     r, g = group.rank, group.size
     fns = {
+        "psum_scatter": lambda v: psum_scatter(v, 0, group=group),
+        "all_gather_axis1": lambda v: all_gather(v, tiled=True, axis=1,
+                                                 group=group),
         "all_gather": lambda v: all_gather(v, group=group),
         "all_gather_tiled": lambda v: all_gather(v, tiled=True, group=group),
         "all_to_all": lambda v: all_to_all(v, group=group),
@@ -282,16 +289,16 @@ def dma_refuses_grad(group, numpy_params, shape: tuple) -> str:
     return "no error"
 
 
-def rank_model(group, cfg, numpy_params, batch, backends, engine_case,
+def rank_model(group, cfg, numpy_params, batch, backends, engine_runs,
                train_mode: str) -> dict:
-    """One of the reference's ``RANK_MODELS`` (``cfg``, fp32) on this
+    """One of the reference's per-rank models (``cfg``, fp32) on this
     rank, from the reference's params cut to the rank's blocks: the
-    prefill's logits on ``batch``'s tokens in ``uniform-fused-1d`` on
-    each of ``backends``; a ``DecodeEngine`` (:func:`engine`, with
-    ``engine_case``'s prompts, new tokens and cache lengths); and, in
+    prefill's logits and residual shapes (:func:`prefill`) on ``batch``'s
+    tokens in ``uniform-fused-1d`` on each of ``backends``; its
+    ``DecodeEngine``s (:func:`engine`, ``engine_runs``); and, in
     ``train_mode`` on the collective backend, ``loss_and_grads``' loss and
     gradient blocks at ``batch`` and one ``make_train_step`` step's
-    metrics from fresh moments."""
+    metrics from fresh moments (none for ``train_mode`` None)."""
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
     from repro_torch.models.model import build_model
@@ -303,7 +310,9 @@ def rank_model(group, cfg, numpy_params, batch, backends, engine_case,
         backend: prefill(group, numpy_params, batch["tokens"],
                          "uniform-fused-1d", backend, cfg)
         for backend in backends}}
-    out["engine"] = engine(group, numpy_params, *engine_case, cfg=cfg)
+    out["engine"] = engine(group, numpy_params, engine_runs, cfg=cfg)
+    if train_mode is None:
+        return out
     tcfg = dataclasses.replace(cfg, overlap=OverlapConfig(
         mode=train_mode, backend="collective"))
     model = build_model(tcfg)
@@ -349,7 +358,6 @@ def run_all(group, cases: dict) -> dict:
         "decode_attention": decode_attention(group,
                                              *cases["decode_attention"]),
         "composers": composers(group, *cases["composers"]),
-        "engine": engine(group, cases["params"], *cases["engine"]),
     }
     for mode, backend in cases["prefill_modes"]:
         out["prefill", mode, backend] = prefill(

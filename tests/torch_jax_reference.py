@@ -73,7 +73,11 @@ FIRST.pkl`` and one more pickle for each of ``LATER``) it evaluates, with ``JAX_
     from ``PRNGKey(0)``, the one-device forward's logits on the tokens of
     ``SyntheticLM``'s batch 0 at ``RANK_TRAIN``'s shape, and the loss,
     the gradients and their global norm there (a train step's loss and
-    ``grad_norm``), in one jitted function.
+    ``grad_norm``), in one jitted function; and under ``"dense"`` the
+    same for the reduced TinyLlama at ``RANK_ODD``'s shape, whose length
+    a group of 4 does not divide; for each of them, the tokens of
+    the one-device ``DecodeEngine`` (``RANK_ENGINE``) for each prompt
+    length.
 
 The first eight entries go to ``FIRST.pkl``; the later ones (the whole
 models, the slower half) follow, each in a pickle of its own, in
@@ -175,15 +179,36 @@ LATER = ("counts", "collectives", "examples", "ranks", "recurrent_grad",
          "encdec", "recurrent", "dryrun", "moe_grad")
 # The per-rank models of tests/test_torch_group.py beside TinyLlama, each
 # reduced and in fp32: DeepSeek-V2-Lite with 8 experts (2 a rank of 4)
-# and one shared expert, and a SmolLM-360M with its 15 query and 5 K/V
-# heads, which 4 ranks do not divide (the group drops their sharding); at
-# seq x batch of SyntheticLM(seed).
+# and one shared expert; a SmolLM-360M with its 15 query and 5 K/V
+# heads, which 4 ranks do not divide (the group drops their sharding);
+# and an Arctic whose every cut 4 ranks do not divide (the vocabulary,
+# the heads and ``wo``'s 66 rows, the 6 experts, the dense residual's 90
+# hidden columns), so that a rank holds each leaf whole; at seq x batch
+# of SyntheticLM(seed).
 RANK_MODELS = {
     "deepseek": dict(arch="deepseek-v2-lite-16b", moe=dict(num_experts=8)),
     "smollm": dict(arch="smollm-360m", d_model=240, num_heads=15,
                    num_kv_heads=5, head_dim=16),
+    "indivisible": dict(arch="arctic-480b", vocab_size=510, num_heads=3,
+                        num_kv_heads=3, head_dim=22,
+                        moe=dict(num_experts=6, d_ff_expert=90,
+                                 dense_residual_ff=90)),
 }
 RANK_TRAIN = dict(seq=32, batch=2, seed=0)
+# An odd prompt for the dense model per rank: 4 ranks do not divide its
+# length, so a rank keeps the residual stream replicated.
+RANK_ODD = dict(seq=30, batch=2, seed=1)
+# The engines per rank: batch requests of each prompt length (one the group
+# of 4 divides, one it does not), new tokens each, at a cache whose time
+# axis the reference's rule cuts over 4 ranks.
+RANK_ENGINE = dict(batch=2, prompts=(5, 8), new=4, cache=1024, seed=53)
+
+
+def engine_prompts(vocab: int, length: int) -> list:
+    """``RANK_ENGINE``'s prompts of ``length`` tokens (int32 arrays)."""
+    rng = np.random.default_rng(RANK_ENGINE["seed"])
+    return list(rng.integers(0, vocab, (RANK_ENGINE["batch"], length))
+                .astype(np.int32))
 
 
 def rank_config(get_config, name: str):
@@ -384,7 +409,8 @@ def main(err_path: str, first_path: str, *later_paths: str) -> None:
         "counts": _counts,
         "collectives": _collectives,
         "examples": _examples,
-        "ranks": lambda: {n: _rank_model(n) for n in RANK_MODELS},
+        "ranks": lambda: {n: _rank_model(n)
+                          for n in ("dense", *RANK_MODELS)},
         "recurrent_grad": lambda: {a: _grad(a, RECURRENT_TRAIN)
                                    for a in RECURRENT_TRAIN["archs"]},
         "encdec": lambda: {a: _encdec(a) for a in ENCDEC["archs"]},
@@ -515,23 +541,29 @@ def _grad(arch: str, spec: dict = MOE_TRAIN) -> dict:
 
 
 def _rank_model(name: str) -> dict:
-    """``RANK_MODELS[name]``: the forward's logits on batch 0's tokens,
-    and the loss, gradients and their global norm (what a train step
-    reports, ``optimizer.global_norm``) at batch 0, in one jitted
-    function."""
+    """``RANK_MODELS[name]`` (or, ``"dense"``, the reduced TinyLlama at
+    ``RANK_ODD``'s shape): the forward's logits on batch 0's tokens, and
+    the loss, gradients and their global norm (what a train step reports,
+    ``optimizer.global_norm``) at batch 0, in one jitted function; and
+    the ``DecodeEngine``'s tokens for each of ``RANK_ENGINE``'s prompt
+    lengths."""
     import jax
 
     from repro.configs import get_config
     from repro.configs.base import ShapeConfig
     from repro.data.pipeline import SyntheticLM
     from repro.models.model import build_model
+    from repro.serve.engine import DecodeEngine, Request
     from repro.train.optimizer import global_norm
 
-    cfg = rank_config(get_config, name)
+    if name == "dense":
+        cfg, shape = get_config("tinyllama-1.1b").reduced(), RANK_ODD
+    else:
+        cfg, shape = rank_config(get_config, name), RANK_TRAIN
     model = build_model(cfg)
-    batch = SyntheticLM(cfg, ShapeConfig("t", RANK_TRAIN["seq"],
-                                         RANK_TRAIN["batch"], "train"),
-                        seed=RANK_TRAIN["seed"]).batch_at(0)
+    batch = SyntheticLM(cfg, ShapeConfig("t", shape["seq"], shape["batch"],
+                                         "train"),
+                        seed=shape["seed"]).batch_at(0)
 
     def run(params, batch):
         logits, _ = model.forward(params, {"tokens": batch["tokens"]})
@@ -539,11 +571,18 @@ def _rank_model(name: str) -> dict:
             params, batch)
         return logits, loss, grads, global_norm(grads)
 
-    logits, loss, grads, norm = jax.jit(run)(
-        model.init(jax.random.PRNGKey(0)), batch)
+    params = model.init(jax.random.PRNGKey(0))
+    logits, loss, grads, norm = jax.jit(run)(params, batch)
+    engine = DecodeEngine(cfg, params, batch_size=RANK_ENGINE["batch"],
+                          cache_len=RANK_ENGINE["cache"])
+    tokens = {
+        length: [[int(t) for t in r.out] for r in engine.run(
+            [Request(p, RANK_ENGINE["new"])
+             for p in engine_prompts(cfg.vocab_size, length)])]
+        for length in RANK_ENGINE["prompts"]}
     return {"logits": np.asarray(logits, np.float32), "loss": float(loss),
             "grads": [np.asarray(g) for g in jax.tree.leaves(grads)],
-            "grad_norm": float(norm)}
+            "grad_norm": float(norm), "engine": tokens}
 
 
 def _encdec(arch: str) -> dict:
