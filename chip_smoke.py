@@ -209,7 +209,19 @@ Phases, each of which exits non-zero on failure:
      logical engine's tokens on its expert choices, within 5 % of its),
      the rank's parameter and cache bytes to the byte; (i) DeepSeek cut
      to 2 layers trained per rank (K2 32 per step, as (g)); (g) and (i)
-     print the collectives of a step's forward;
+     print the collectives of a step's forward; (j) SeamlessM4T-v2-large
+     whole and (k) InternVL2-76B's backbone cut to 8 layers per rank
+     (the encoder's and the decoder's heads and MLP blocks, the
+     vocabulary's; the encoder's 512 frames and the VLM's 256 patches +
+     256 tokens cut by sequence between layers): the 4 x 512 prefill on
+     both backends (K1 = K3 = 384 and 64 per rank on the DMA path) within
+     5 % of the dense forward on one card and equal on every rank, the
+     rank's parameter and cache bytes to the byte, collectives by kind
+     and bytes, device time outside NCCL's kernels, a ``DecodeEngine`` per
+     rank (Seamless's with cross caches of 16 and of 1024 encoder
+     positions, the latter the rank's time slice) whose every step's
+     logits are within 5 % of the logical engine's, and (j) 2 AdamW steps
+     per rank (K2 768 a step) against a logical step, as (g);
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -4829,9 +4841,11 @@ def phase_group(device) -> dict:
 # 1-2) (f) the EP dispatch per rank at DeepSeek-V2-Lite-16B's MoE layer
 # (EP_ARCH), capacity from a batch x seq prefill, and (g)
 # CARDS["train_steps"] AdamW steps per rank of TinyLlama-1.1B whole on
-# uniform-fused-2d; (h) and (i) DeepSeek-V2-Lite whole and cut.  Each rank
-# holds its blocks by Model.rank_specs (the vocabulary, heads, MLPs and
-# experts) and its sequence block of the residual stream (ROADMAP A15).
+# uniform-fused-2d; (h) and (i) DeepSeek-V2-Lite whole and cut; (j)
+# SeamlessM4T-v2 whole and (k) InternVL2's 8-layer backbone (ROADMAP A17
+# part 1).  Each rank holds its blocks by Model.rank_specs (the
+# vocabulary, heads, MLPs and experts, an encoder's layers too) and its
+# sequence block of the residual stream (ROADMAP A15).
 CARDS = dict(batch=PREFILL_BATCH, seq=PREFILL_SEQ, calls=50, inputs=3,
              reps=10, prompt=8, new=16, cache=2048, train_steps=3)
 EP_ARCH = "deepseek-v2-lite-16b"
@@ -5134,10 +5148,11 @@ def _predicted_rank_bytes(model, state, g: int) -> int:
     """What the reference's rule says a rank of ``g`` holds of ``state``:
     ``shard_shape`` over ``fix_param_specs`` of ``param_specs`` on
     ``Mesh(("model",), (g,))`` for the embedding and unembedding and the
-    leaves of a layer's attention and FFN, the whole leaf for every other
-    (the norms, the router, MLA's latent projections)."""
+    leaves of a layer's attention and FFN (the encoder's layers' too), the
+    whole leaf for every other (the norms, the router, MLA's latent
+    projections, ``enc_norm``, ``frontend_proj``)."""
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.models.model import RANK_CUT, RANK_CUT_TOP
+    from repro_torch.models.model import RANK_CUT, RANK_CUT_STACK, RANK_CUT_TOP
     from repro_torch.parallel.sharding import (MODEL_AXIS, P,
                                                fix_param_specs, shard_shape)
 
@@ -5152,32 +5167,39 @@ def _predicted_rank_bytes(model, state, g: int) -> int:
             return sum(walk(tree[k], v, cut) for k, v in specs.items())
         return sum(walk(t, v, cut) for t, v in zip(tree, specs))
 
+    stacks = [k for k in RANK_CUT_STACK if k in state]
     total = sum(walk(v, fixed[k], k in RANK_CUT_TOP)
-                for k, v in state.items() if k != "layers")
-    for slot, slot_specs in zip(state["layers"], fixed["layers"]):
+                for k, v in state.items() if k not in ("layers", *stacks))
+    for slot, slot_specs in [*zip(state["layers"], fixed["layers"]),
+                             *((state[k], fixed[k]) for k in stacks)]:
         total += sum(walk(slot[k], v, k in RANK_CUT)
                      for k, v in slot_specs.items())
     return total
 
 
 def _cache_bytes(cache) -> int:
-    """The bytes of a decode cache's K/V, latent and rope-key leaves (not
-    the ``"time_slice"`` records)."""
+    """The bytes of a decode cache's K/V, latent, rope-key and cross K/V
+    leaves (not the time slices' records)."""
+    from repro_torch.models.model import SLICE_RECORDS
+
     return sum(t.numel() * t.element_size() for c in cache
-               for k, t in c.items() if k != "time_slice")
+               for k, t in c.items() if k not in SLICE_RECORDS)
 
 
-def _predicted_cache_bytes(model, batch: int, cache_len: int, g: int) -> int:
+def _predicted_cache_bytes(model, batch: int, cache_len: int, g: int,
+                           enc_len: int = 0) -> int:
     """What the reference's ``cache_leaf_spec`` on ``Mesh(("model",),
     (g,))`` gives a rank of the model's decode cache (the whole cache's
-    shapes on the meta device)."""
+    shapes on the meta device; an encoder-decoder's cross K/V of
+    ``enc_len`` encoder positions)."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel.sharding import (MODEL_AXIS, cache_leaf_spec,
                                                shard_shape, tp_group)
 
     mesh = Mesh((MODEL_AXIS,), (g,))
     with tp_group(None):  # the whole cache
-        whole = model.init_cache(batch, cache_len, device="meta")
+        whole = model.init_cache(batch, cache_len, enc_len=enc_len,
+                                 device="meta")
     return sum(math.prod(shard_shape(cache_leaf_spec(t.shape, mesh), t.shape,
                                      mesh)) * t.element_size()
                for c in whole for t in c.values())
@@ -5383,15 +5405,221 @@ def _cards_moe(group, cfg, size: dict, cuda: bool) -> dict:
     return out
 
 
-def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
+def _answer_fed(eng, raw, new: int, sync):
+    """``eng`` (a ``DecodeEngine``) answers ``raw``'s prompts, one row a
+    request, with ``new`` tokens each: the tokens of each request, each
+    step's fed (tokens, position) and logits (fp32), and the host wall ms
+    per step (synchronised before and after the run)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    fed, logits = [], []
+    real = eng.step_fn
+
+    def step(st, cache, tok, pos):
+        lg, cache = real(st, cache, tok, pos)
+        fed.append((tok.clone(), pos))
+        logits.append(lg.float())
+        return lg, cache
+
+    eng.step_fn = step
+    reqs = [Request(row.astype(np.int32), max_new_tokens=new) for row in raw]
+    sync()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    eng.step_fn = real
+    return ([list(q.out) for q in reqs], fed, logits,
+            wall / max(len(fed), 1))
+
+
+# [cards] (j) SeamlessM4T-v2-large whole and (k) InternVL2-76B's backbone
+# cut to VLM_LAYERS, per rank: a DecodeEngine of FAMILY_NEW new tokens a
+# request, an encoder-decoder's with its cross K/V at each of FAMILY_ENC
+# encoder positions (kept whole on every rank by the reference's rule,
+# then cut to the rank's time slice), and (j) FAMILY_TRAIN_STEPS AdamW
+# steps.
+FAMILY_NEW = 8
+FAMILY_ENC = (16, 1024)
+FAMILY_TRAIN_STEPS = 2
+
+
+def _family_cfgs() -> tuple:
+    """(part, config) of ``[cards]`` (j) and (k) at full width."""
+    from repro_torch.configs import get_config
+
+    return (("j", get_config(ENCDEC_ARCH)),
+            ("k", _first_layers(VLM_LAYERS)(get_config(VLM_ARCH))))
+
+
+def _cards_family(group, cfg, size: dict, cuda: bool) -> dict:
+    """(j) and (k): model ``cfg`` (an encoder-decoder or a VLM at full
+    width) from seed 0 on this rank's card.  The dense forward on the
+    whole weights (no group) first; then the rank's blocks
+    (``Model.rank_specs``: the decoder's and the encoder's attention heads
+    and MLP blocks, the vocabulary's; ``enc_norm`` and ``frontend_proj``
+    whole): the batch x seq prefill (an encoder's seq frames, a VLM's
+    prefix patches joined before its text) on the collective backend and
+    the DMA path, its launches, collectives, residual shapes between
+    layers, logits against dense, walls and one trace split at NCCL's
+    kernels; the parameter bytes against :func:`_predicted_rank_bytes`; a
+    ``DecodeEngine`` per rank (``decode_attn="shard_map"``, a cache of
+    ``size["cache"]``) at each encoder length (:data:`FAMILY_ENC`, the
+    cross K/V filled by ``DecodeEngine.encode`` per rank; a VLM serves
+    text), its cache bytes against :func:`_predicted_cache_bytes`, one
+    step's collectives and trace, and each step's logits against the
+    one-card logical ``TPGroup``'s serve step fed the same tokens (and
+    frames); for an encoder-decoder then :data:`FAMILY_TRAIN_STEPS` 2D
+    steps (:func:`_cards_train`)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import OverlapConfig, ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model, residual_shapes
+    from repro_torch.parallel.collectives import counting
+    from repro_torch.parallel.sharding import TPGroup, shard_params, tp_group
+    from repro_torch.serve.engine import (DecodeEngine, make_prefill,
+                                          make_prefill_cross,
+                                          make_serve_step)
+
+    dev, g, r = group.device, group.size, group.rank
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    b = size["batch"]
+    model = build_model(cfg)
+    t0 = time.time()
+    state = model.init(0, device=dev)
+    sync()
+    out = {"init_s": time.time() - t0, "whole_bytes": _tree_bytes(state)}
+    data = SyntheticLM(cfg, ShapeConfig("smoke", size["seq"], b, "prefill"),
+                       seed=0).batch_at(0)
+    batch = {k: v for k, v in to_device(data, dev).items() if k != "labels"}
+    out["batch"] = {k: tuple(v.shape) for k, v in batch.items()}
+    with torch.no_grad():
+        with tp_group(None):
+            dense = make_prefill(model)(state, batch)
+        sync()
+        scale = dense.float().abs().max().item()
+        rank_state = shard_params(state, model.rank_specs(g), r, g)
+        out["p_bytes"] = _tree_bytes(rank_state)
+        out["predicted_bytes"] = _predicted_rank_bytes(model, state, g)
+        out["prefill"] = {}
+        for backend in ("collective", "dma"):
+            prefill = make_prefill(build_model(dataclasses.replace(
+                cfg, overlap=OverlapConfig(mode="uniform-fused-1d",
+                                           backend=backend))))
+            ops.reset_launch_counts()
+            with counting() as stats, residual_shapes() as shapes:
+                logits = prefill(rank_state, batch)
+            sync()
+            res = dict(launches=ops.launch_counts(),
+                       routes=ops.route_counts(),
+                       collectives=dict(stats.count_by_kind),
+                       collective_bytes=dict(stats.bytes_by_kind),
+                       residual=sorted(set(shapes)), n_residual=len(shapes),
+                       err=_max_err(logits, dense), scale=scale,
+                       finite=bool(torch.isfinite(logits).all()),
+                       shape=tuple(logits.shape))
+            first = logits.clone()
+            dist.broadcast(first, src=0, group=group.plain)
+            res["same_as_rank0"] = bool(torch.equal(first, logits))
+            del first, logits
+            if cuda:
+                res["wall_ms"] = wall_ms(lambda: prefill(rank_state, batch))
+                res["trace"] = _rank_trace(lambda: prefill(rank_state, batch))
+            out["prefill"][backend] = res
+        if cuda:
+            with tp_group(None):
+                out["dense_wall_ms"] = wall_ms(
+                    lambda: make_prefill(model)(state, batch))
+    del dense, batch
+
+    scfg = dataclasses.replace(cfg, overlap=OverlapConfig(
+        decode_attn="shard_map"))
+    raw = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (b, size["prompt"]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    out["decode"] = {}
+    with torch.no_grad():
+        for enc in (FAMILY_ENC if cfg.encdec else (0,)):
+            frames = (torch.randn((b, enc, cfg.d_model), generator=gen,
+                                  device=dev) if enc else None)
+            eng = DecodeEngine(scfg, rank_state, batch_size=b,
+                               cache_len=size["cache"], enc_len=enc,
+                               device=dev)
+            res = {}
+            if enc:
+                with counting() as stats:
+                    eng.encode(frames)
+                res["encode_collectives"] = dict(stats.count_by_kind)
+                res["encode_bytes"] = dict(stats.bytes_by_kind)
+                res["cross_slice"] = eng.cache[0]["cross_k"].shape[2]
+            res["slice"] = eng.cache[0]["k"].shape[2]
+            res["cache_bytes"] = _cache_bytes(eng.cache)
+            res["predicted_cache_bytes"] = _predicted_cache_bytes(
+                model, b, size["cache"], g, enc)
+            toks, fed, logits, res["ms"] = _answer_fed(eng, raw,
+                                                       FAMILY_NEW, sync)
+            with counting() as stats:
+                eng.step_fn(rank_state, eng.cache, *fed[-1])
+            res["collectives"] = dict(stats.count_by_kind)
+            res["collective_bytes"] = dict(stats.bytes_by_kind)
+            res["trace"] = (_rank_trace(lambda: eng.step_fn(
+                rank_state, eng.cache, *fed[-1])) if cuda else None)
+            del eng
+            with tp_group(TPGroup(g, dev)):
+                ref = build_model(scfg)
+                cache = ref.init_cache(b, size["cache"], enc_len=enc,
+                                       device=dev)
+                if enc:
+                    cache = make_prefill_cross(ref)(state, cache, frames)
+                step_ref = make_serve_step(ref)
+                errs, ref_scale = [], 0.0
+                for (tok, pos), lg in zip(fed, logits):
+                    want, cache = step_ref(state, cache, tok, pos)
+                    ref_scale = max(ref_scale,
+                                    want.float().abs().max().item())
+                    errs.append(_max_err(lg, want))
+                del cache
+            res.update(tokens=toks, steps=len(fed), err=max(errs),
+                       scale=ref_scale,
+                       finite=all(bool(torch.isfinite(lg).all())
+                                  for lg in logits))
+            out["decode"][enc] = res
+            del logits, fed, frames
+    del rank_state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if cfg.encdec:
+        out["train"] = _cards_train(group, cfg, state, dict(
+            size, train_steps=FAMILY_TRAIN_STEPS), cuda)
+    del state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg,
+                family_cfgs=None) -> dict:
     """One rank of ``[cards]``, in a process of its own on its own card
     (run by ``repro_torch.launch.group.spawn``): parts (a)-(e) of
     :func:`phase_cards` for model ``cfg`` at the sizes ``size`` (as
     :data:`CARDS`), each against the logical ``TPGroup`` computed on this
     rank's card, and (b) and (c) against the plain version too; then (f)
-    at the MoE layer of ``ep_cfg`` (:func:`_cards_ep`) and (g)
-    (:func:`_cards_train`); returns what :func:`_cards_report` checks and
-    prints.  On the CPU (a rehearsal: gloo and the plain versions) the
+    at the MoE layer of ``ep_cfg`` (:func:`_cards_ep`), (g)
+    (:func:`_cards_train`), (h) and (i) on ``ep_cfg``, and (j) and (k)
+    (:func:`_cards_family`) on ``family_cfgs`` ((part, config) pairs,
+    :func:`_family_cfgs` by default); returns what :func:`_cards_report`
+    checks and prints.  On the CPU (a rehearsal: gloo and the plain versions) the
     times are None."""
     import contextlib
     import io
@@ -5408,8 +5636,8 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
     from repro_torch.parallel.collectives import counting
     from repro_torch.parallel.sharding import (TPGroup, shard_columns,
                                                shard_params, tp_group)
-    from repro_torch.serve.engine import (DecodeEngine, Request,
-                                          make_prefill, make_serve_step)
+    from repro_torch.serve.engine import (DecodeEngine, make_prefill,
+                                          make_serve_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, g, r = group.device, group.size, group.rank
@@ -5532,26 +5760,7 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
         0, cfg.vocab_size, (b, size["prompt"]))
 
     def answer(eng):
-        fed, logits = [], []
-        real = eng.step_fn
-
-        def step(st, cache, tok, pos):
-            lg, cache = real(st, cache, tok, pos)
-            fed.append((tok.clone(), pos))
-            logits.append(lg.float())
-            return lg, cache
-
-        eng.step_fn = step
-        reqs = [Request(raw[i].astype(np.int32),
-                        max_new_tokens=size["new"]) for i in range(b)]
-        sync()
-        t0 = time.perf_counter()
-        eng.run(reqs)
-        sync()
-        wall = (time.perf_counter() - t0) * 1e3
-        eng.step_fn = real
-        return ([list(q.out) for q in reqs], fed, logits,
-                wall / max(len(fed), 1))
+        return _answer_fed(eng, raw, size["new"], sync)
 
     with torch.no_grad():
         with tp_group(logical):
@@ -5620,6 +5829,13 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg) -> dict:
     cut = dataclasses.replace(ep_cfg, num_layers=MOE_TRAIN_LAYERS)
     state = build_model(cut).init(0, device=dev)
     out["i"] = _cards_train(group, cut, state, size, cuda)
+    del state
+    sync()
+
+    # (j) SeamlessM4T-v2 whole and (k) InternVL2's backbone per rank.
+    for part, fcfg in family_cfgs or _family_cfgs():
+        out[part] = _cards_family(group, fcfg, size, cuda)
+        sync()
     return out
 
 
@@ -5631,7 +5847,9 @@ def phase_cards() -> tuple | None:
     its 2-layer cut for (i)), checked and printed by
     :func:`_cards_report`.  Returns each kernel's launches per rank in one
     TinyLlama DMA-path prefill, its last training step, one DeepSeek
-    DMA-path prefill and the cut's last training step, or None (and
+    DMA-path prefill, the cut's last training step, one SeamlessM4T-v2
+    and one InternVL2 (8 layers) DMA-path prefill (parts (j) and (k),
+    :func:`_cards_family`) and Seamless's last training step, or None (and
     prints why) with fewer than GROUP cards."""
     import torch
 
@@ -5646,16 +5864,20 @@ def phase_cards() -> tuple | None:
     for r, line in enumerate(_cards_smi()[:GROUP]):
         print(f"[cards] cuda:{r}: {line}")
     cfg, ep_cfg = get_config("tinyllama-1.1b"), get_config(EP_ARCH)
+    family = _family_cfgs()
     t0 = time.time()
     results = spawn(_cards_rank, GROUP, device=[f"cuda:{r}"
                                                 for r in range(GROUP)],
-                    args=(CARDS_SEED, cfg, CARDS, ep_cfg),
+                    args=(CARDS_SEED, cfg, CARDS, ep_cfg, family),
                     timeout=CARDS_TIMEOUT)
-    return _cards_report(results, time.time() - t0, cfg, CARDS, ep_cfg)
+    return _cards_report(results, time.time() - t0, cfg, CARDS, ep_cfg,
+                         family)
 
 
-def _cards_report(results, wall: float, cfg, size: dict, ep_cfg) -> dict:
-    """Check every rank's results of :func:`_cards_rank` and print them."""
+def _cards_report(results, wall: float, cfg, size: dict, ep_cfg,
+                  family=()) -> tuple:
+    """Check every rank's results of :func:`_cards_rank` and print them:
+    (a)-(i), then (j) and (k) for each (part, config) of ``family``."""
     g, b = GROUP, size["batch"]
     m_s = b * size["seq"] // g
     cuda = results[0]["cuda"]
@@ -5844,14 +6066,162 @@ def _cards_report(results, wall: float, cfg, size: dict, ep_cfg) -> dict:
     _check_train(results, "i", cut)
     _print_train(results, "i", cut, size, f"cut to {MOE_TRAIN_LAYERS} layers")
 
+    for part, fcfg in family:
+        _cards_report_family(results, part, fcfg, size)
+
     def by_kernel(counts):
         return {name: [c[name] for c in counts] for name in counts[0]}
 
+    parts = dict(family)
     return (by_kernel([res["d"]["dma"]["launches"] for res in results]),
             by_kernel([res["g"]["launches"][-1] for res in results]),
             by_kernel([res["h"]["prefill"]["dma"]["launches"]
                        for res in results]),
-            by_kernel([res["i"]["launches"][-1] for res in results]))
+            by_kernel([res["i"]["launches"][-1] for res in results]),
+            *(by_kernel([res[p]["prefill"]["dma"]["launches"]
+                         for res in results]) if p in parts else None
+              for p in ("j", "k")),
+            by_kernel([res["j"]["train"]["launches"][-1] for res in results])
+            if "j" in parts else None)
+
+
+def _cards_report_family(results, part: str, cfg, size: dict) -> None:
+    """Check, then print, part ``part`` ((j) or (k), :func:`_cards_family`
+    on model ``cfg``) of every rank's results."""
+    g, b, seq = GROUP, size["batch"], size["seq"]
+    cuda = results[0]["cuda"]
+    per_prefill = _sites(cfg) * 2 * g
+    block = [(b, seq // g, cfg.d_model)]
+    n_residual = (_periods(cfg)
+                  + (cfg.encdec.encoder_layers if cfg.encdec else 0))
+
+    def fail(msg):
+        raise AssertionError(f"[cards] ({part}) {msg}")
+
+    def per_rank(fn, fmt="{:.4f}"):
+        return _per_rank(results, fn, fmt)
+
+    for res in results:
+        rank, f = res["rank"], res[part]
+        _check_bytes(f"rank {rank} ({part})", "parameter", f["p_bytes"],
+                     f["predicted_bytes"], fail)
+        for backend, launches, routes in (
+                ("collective", {}, {}),
+                ("dma", {"a2a_chunk_exchange": per_prefill,
+                         "chunked_matmul": per_prefill},
+                 {"a2a_chunk_exchange": {"pairs": per_prefill},
+                  "chunked_matmul": {"wgmma": per_prefill}})):
+            d = f["prefill"][backend]
+            _rank_launches(f"[cards] rank {rank} ({part}) {backend} prefill",
+                           d | {"cuda": cuda}, launches, routes)
+            text = f["batch"]["tokens"][1]
+            if not d["finite"] or d["shape"] != (b, text, cfg.vocab_size):
+                fail(f"rank {rank} {backend}: logits {d['shape']} not finite "
+                     f"or not {(b, text, cfg.vocab_size)}")
+            if not d["same_as_rank0"]:
+                fail(f"rank {rank} {backend}: logits differ from rank 0's")
+            if d["err"] > 5e-2 * d["scale"]:
+                fail(f"rank {rank} {backend}: logits differ from dense by "
+                     f"{d['err']} (> 5% of {d['scale']})")
+            if d["residual"] != block or d["n_residual"] != n_residual:
+                fail(f"rank {rank} {backend}: the residual after each of "
+                     f"{d['n_residual']} layers is {d['residual']}, not the "
+                     f"rank's sequence block {block[0]} after each of "
+                     f"{n_residual}")
+        for enc, e in f["decode"].items():
+            want = results[0][part]["decode"][enc]["tokens"]
+            if e["tokens"] != want:
+                fail(f"rank {rank} decode (enc {enc}): tokens differ from "
+                     "rank 0's")
+            if not e["finite"] or e["err"] > 5e-2 * e["scale"]:
+                fail(f"rank {rank} decode (enc {enc}): step logits differ "
+                     f"from the logical engine's by {e['err']} (> 5% of "
+                     f"{e['scale']})")
+            _check_bytes(f"rank {rank} ({part}) decode (enc {enc})", "cache",
+                         e["cache_bytes"], e["predicted_cache_bytes"], fail)
+            cross = enc // g if enc >= 1024 and enc % g == 0 else enc
+            if e["slice"] != size["cache"] // g or e.get(
+                    "cross_slice", 0) != cross:
+                fail(f"rank {rank} decode (enc {enc}): cache slices "
+                     f"{e['slice']} / {e.get('cross_slice')}, not "
+                     f"{size['cache'] // g} / {cross}")
+
+    f0 = results[0][part]
+    what = (f"whole ({cfg.num_layers} + {cfg.encdec.encoder_layers} encoder "
+            "layers)" if cfg.encdec else
+            f"cut to {cfg.num_layers} layers, {f0['batch']['prefix_embeds'][1]}"
+            " prefix patches joined before the text")
+    print(f"[cards] ({part}) {cfg.name} {what}, drawn on each card in "
+          f"{per_rank(lambda s: s[part]['init_s'], '{:.1f}')} s; each rank "
+          f"holds its vocabulary blocks, {cfg.num_heads // g} of "
+          f"{cfg.num_heads} heads and its MLP blocks in every decoder"
+          + (" and encoder" if cfg.encdec else "") + " layer: "
+          f"{f0['p_bytes']} bytes a rank, the rule {f0['predicted_bytes']}, "
+          f"of {f0['whole_bytes']} whole; batch {f0['batch']}")
+    for backend in ("collective", "dma"):
+        d = f0["prefill"][backend]
+        print(f"[cards] ({part}) prefill per rank, {backend} backend: the "
+              f"residual after each of {d['n_residual']} layers "
+              f"{d['residual']}; logits equal on every rank, max_abs_err vs "
+              f"dense on one card "
+              f"{max(s[part]['prefill'][backend]['err'] for s in results):.4e}"
+              f" of max |logit| {d['scale']:.4f}; launches per rank "
+              f"{d['launches']}, routes "
+              f"{ {k: v for k, v in d['routes'].items() if any(v.values())} }"
+              f"; collectives per rank {d['collectives']}, bytes "
+              f"{_fmt_bytes(d['collective_bytes'])}")
+        if cuda:
+            print(f"[cards] ({part})     wall ms (median of 5) "
+                  f"{per_rank(lambda s, b=backend: s[part]['prefill'][b]['wall_ms'], '{:.2f}')}"
+                  f" (dense on one card "
+                  f"{per_rank(lambda s: s[part]['dense_wall_ms'], '{:.2f}')}"
+                  f"); in a traced call, device time outside NCCL's kernels "
+                  f"{per_rank(lambda s, b=backend: s[part]['prefill'][b]['trace']['compute_ms'], '{:.2f}')}"
+                  f" ms (GEMMs "
+                  f"{per_rank(lambda s, b=backend: s[part]['prefill'][b]['trace']['gemm_ms'], '{:.2f}')}"
+                  f"), NCCL's kernels "
+                  f"{per_rank(lambda s, b=backend: s[part]['prefill'][b]['trace']['nccl_ms'], '{:.2f}')}"
+                  f" ms; idle share outside NCCL over the wall "
+                  f"{per_rank(lambda s, b=backend: 1 - s[part]['prefill'][b]['trace']['compute_ms'] / s[part]['prefill'][b]['wall_ms'], '{:.3f}')}")
+    for enc, e in f0["decode"].items():
+        cross = (f", cross K/V of {enc} encoder positions ("
+                 f"{e['cross_slice']} a rank), filled per rank by one encode "
+                 f"with collectives {e['encode_collectives']}, bytes "
+                 f"{_fmt_bytes(e['encode_bytes'])}") if enc else ""
+        print(f"[cards] ({part}) DecodeEngine per rank, decode_attn="
+              f"\"shard_map\", {b} requests x {FAMILY_NEW} new tokens "
+              f"(prompt {size['prompt']}), cache {size['cache']} "
+              f"({e['slice']} positions a rank){cross}: "
+              f"{e['cache_bytes']} cache bytes a rank, the rule "
+              f"{e['predicted_cache_bytes']}; tokens equal on every rank; "
+              f"{e['steps']} steps' logits vs the one-card logical "
+              f"TPGroup({g})'s fed the same tokens max_abs_err "
+              f"{max(s[part]['decode'][enc]['err'] for s in results):.4e} of"
+              f" max |logit| {e['scale']:.4f}; collectives per step "
+              f"{e['collectives']}, bytes {_fmt_bytes(e['collective_bytes'])}"
+              f"; ms per step "
+              f"{per_rank(lambda s, n=enc: s[part]['decode'][n]['ms'], '{:.2f}')}")
+        if cuda:
+            print(f"[cards] ({part})     one traced step: window "
+                  f"{per_rank(lambda s, n=enc: s[part]['decode'][n]['trace']['window_ms'], '{:.2f}')}"
+                  f" ms, device time outside NCCL's kernels "
+                  f"{per_rank(lambda s, n=enc: s[part]['decode'][n]['trace']['compute_ms'], '{:.2f}')}"
+                  f" ms, NCCL's kernels "
+                  f"{per_rank(lambda s, n=enc: s[part]['decode'][n]['trace']['nccl_ms'], '{:.2f}')}"
+                  " ms")
+    if "train" in f0:
+        key = f"{part}-train"
+        view = [dict(res, **{key: res[part]["train"]}) for res in results]
+        _check_train(view, key, cfg)
+        _print_train(view, key, cfg, size, "whole")
+
+
+def _periods(cfg) -> int:
+    """The decoder's periods of model ``cfg`` (the residual after each is
+    logged)."""
+    from repro_torch.models.model import build_model
+
+    return build_model(cfg).n_periods
 
 
 def _fmt_bytes(by_kind: dict) -> str:
@@ -6105,16 +6475,22 @@ def _cards_report_ep_train(results, cfg, size: dict, ep_cfg) -> None:
     _print_train(results, "g", cfg, size, "whole")
 
 
+def _sites(cfg) -> int:
+    """The FiCCO sites of a ``[cards]`` model: one per decoder layer (its
+    MLP, or an MoE layer's shared experts) and per encoder layer."""
+    return cfg.num_layers + (cfg.encdec.encoder_layers if cfg.encdec else 0)
+
+
 def _check_train(results, part: str, cfg) -> None:
     """Check every rank's (g) or (i) (``part``, :func:`_cards_train` on
     model ``cfg``): metrics bit-equal across ranks, replicated leaves
     bit-equal after every step, finite, step 1 against the logical group,
     K2's launches per step."""
     g, cuda = GROUP, results[0]["cuda"]
-    # K2 per up/gate step of every FiCCO site (an MLP, or an MoE layer's
-    # shared experts), and again in the backward's recomputation of each
-    # period under remat.
-    per_train_step = cfg.num_layers * 2 * g * (2 if cfg.remat else 1)
+    # K2 per up/gate step of every FiCCO site (an MLP, an encoder's too, or
+    # an MoE layer's shared experts), and again in the backward's
+    # recomputation of each period or encoder layer under remat.
+    per_train_step = _sites(cfg) * 2 * g * (2 if cfg.remat else 1)
 
     def fail(msg):
         raise AssertionError(f"[cards] {msg}")
@@ -6172,7 +6548,7 @@ def _print_train(results, part: str, cfg, size: dict, cut: str) -> None:
           f"(relative diff "
           f"{abs(t['metrics'][0]['grad_norm'] / t['logical']['grad_norm'] - 1):.3e}"
           f", limit 5e-2); K2 launches per rank per step "
-          f"{[c['accumulate_matmul'] for c in t['launches']]} ({cfg.num_layers}"
+          f"{[c['accumulate_matmul'] for c in t['launches']]} ({_sites(cfg)}"
           f" layers x 2 x {g} x {2 if cfg.remat else 1}, wgmma); "
           f"collectives in step 1's forward (the backward's transposes "
           f"uncounted) {t.get('collectives')}, bytes "
@@ -6290,6 +6666,12 @@ def drive(device) -> int:
                                            if cards_counts else None)
         k["cards_moe_train_step_launches"] = (cards_counts[3][k["name"]]
                                               if cards_counts else None)
+        k["cards_encdec_prefill_launches"] = (cards_counts[4][k["name"]]
+                                              if cards_counts else None)
+        k["cards_vlm_prefill_launches"] = (cards_counts[5][k["name"]]
+                                           if cards_counts else None)
+        k["cards_encdec_train_step_launches"] = (
+            cards_counts[6][k["name"]] if cards_counts else None)
         k["moe_prefill_launches"] = moe_counts[k["name"]]
         k["moe_train_step_launches"] = moe_train_counts[k["name"]]
         k["encdec_prefill_launches"] = encdec_counts[k["name"]]
@@ -6312,7 +6694,9 @@ def drive(device) -> int:
             "ssm_train_step_launches", "obs_cli_prefill_launches",
             "group_rank_launches", "cards_rank_launches",
             "cards_train_step_launches", "cards_moe_prefill_launches",
-            "cards_moe_train_step_launches", "max_abs_err",
+            "cards_moe_train_step_launches", "cards_encdec_prefill_launches",
+            "cards_vlm_prefill_launches", "cards_encdec_train_step_launches",
+            "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

@@ -110,10 +110,8 @@ def main(argv=None):
         enc_len=enc_len, device=device, adapt=tier,
     )
     if cfg.encdec:
-        frames = torch.zeros((args.prompts, enc_len, cfg.d_model),
-                             device=device)
-        with torch.no_grad():
-            eng.cache = model.prefill_cross(state, eng.cache, frames)
+        eng.encode(torch.zeros((args.prompts, enc_len, cfg.d_model),
+                               device=device))
     rng = np.random.default_rng(0)
     reqs = [
         Request(

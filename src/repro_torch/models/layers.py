@@ -284,7 +284,10 @@ def attn_apply(
     Self-attention with RoPE: causal in a decoder, bidirectional with
     ``causal=False`` (the encoder's, as the reference's ``_layer_apply``
     writes it).  With ``kv_for_cross`` (B, S_enc, d), the keys and values
-    come from the encoder's output: cross-attention, no RoPE, no mask.
+    come from the encoder's output: cross-attention, no RoPE, no mask.  On
+    a rank it is whole and already the rank's operand for a partial
+    computation (``Model._encode``: an all-gather's output or marked
+    ``replicated``), so it is not marked here.
     """
     group = rank_group()
     if group is not None:
@@ -459,17 +462,17 @@ def _attn_apply_rank(params, x, dims: AttnDims, group, *, rope_theta,
     Where it does not (SmolLM's 15 / 5 on 4), the rank gathers its Q/K/V
     column blocks to whole heads, computes every head, and multiplies by
     ``wo``'s row block only the columns that block owns.  The group sums
-    the partial products (:func:`rank_output`).
+    the partial products (:func:`rank_output`).  A cross-attention's
+    ``kv_for_cross`` is used as it comes (:func:`attn_apply`): marking an
+    all-gather's output ``replicated`` as well would sum the ranks'
+    cotangents twice, g times the gradient.
     """
-    from repro_torch.parallel.collectives import replicated
-
     b = x.shape[0]
     h, kv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
     mine = _heads_mine(dims, group.size)
     x_in = rank_input(x, group, seq)
     s = x_in.shape[1]
-    src = (x_in if kv_for_cross is None
-           else replicated(kv_for_cross, group=group))
+    src = x_in if kv_for_cross is None else kv_for_cross
     q = _rank_heads(x_in, params["wq"], h, hd, group, mine=mine)
     k, v = (_rank_heads(src, params[key], kv, hd, group, mine=mine)
             for key in ("wk", "wv"))
@@ -552,6 +555,49 @@ def _attn_decode_rank(params, x, cache, pos: int, dims: AttnDims, group, *,
                               ring=window is not None)
     return (all_reduce(_rank_part(out.reshape(b, 1, -1), params["wo"],
                                   h * hd, group), group=group), cache)
+
+
+def cross_attn_decode(params, x: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, dims: AttnDims, *,
+                      sliced: bool = False) -> torch.Tensor:
+    """One token's cross-attention over an encoder-decoder's cached K and
+    V (B, S_enc, KV, D), every position valid: x (B, 1, d) -> (B, 1, d),
+    no RoPE.
+
+    On a ``RankGroup`` the params are the rank's blocks and the cache its
+    block by the reference's rule: every K/V head, whole or (``sliced``)
+    the rank's slice of the encoder's time.  Over a whole cache the rank
+    attends with its h/g query heads (every head, their column blocks
+    gathered, where g does not divide h) against the K/V heads they read;
+    over a time slice every rank attends with every query head over its
+    slice and the group combines the partial softmaxes
+    (:func:`~repro_torch.parallel.decode_attn.slice_attention`).  Then the
+    rank's part of the product with ``wo`` (its row block) and one
+    ``all_reduce``."""
+    group = rank_group()
+    b = x.shape[0]
+    h, hd = dims.num_heads, dims.head_dim
+    if group is None:
+        q = (x @ params["wq"]).view(b, 1, h, hd)
+        out = cache_attention(q, k_cache, v_cache,
+                              valid_len=k_cache.shape[1], ring=True)
+        return out.reshape(b, 1, h * hd) @ params["wo"]
+    from repro_torch.parallel import decode_attn
+    from repro_torch.parallel.collectives import all_reduce
+
+    q = _rank_heads(x, params["wq"], h, hd, group,
+                    mine=not sliced and h % group.size == 0)
+    n = q.shape[2]
+    if sliced:
+        out = decode_attn.slice_attention(q, k_cache, v_cache, group=group)
+    else:  # the K/V heads that the rank's n query heads read
+        first = group.rank * n if n < h else 0
+        idx = torch.arange(first, first + n, device=x.device) // (
+            h // dims.num_kv_heads)
+        out = cache_attention(q, k_cache[:, :, idx], v_cache[:, :, idx],
+                              valid_len=k_cache.shape[1], ring=True)
+    return all_reduce(_rank_part(out.reshape(b, 1, -1), params["wo"],
+                                 h * hd, group), group=group)
 
 
 # ---------------------------------------------------------------------------

@@ -11,16 +11,21 @@ rope_head_dim`` wide, v heads ``v_head_dim``: the attention keeps them
 apart and scales by 1/sqrt(q's width).
 
 On a rank of a group of processes (a ``RankGroup``) the params hold the
-rank's blocks: ``wq``, ``w_uk`` and ``w_uv`` by head (h/g heads a rank),
-``wo`` by rows, ``w_dkv`` and ``w_kr`` whole.  So the latent and the
-shared rope key are the same on every rank, no K/V crosses the group,
-and the group sums the ranks' partial output projections
-(:func:`~repro_torch.models.layers.rank_output`: a reduce-scatter along
-the sequence where the input is the rank's sequence block, else an
-``all_reduce``).  The decode cache holds the latent and rope key of the
-rank's time slice where the reference's rule cuts its time axis, and the
-ranks gather the slices each step (the reference has no ``shard_map``
-form of MLA decode).
+rank's blocks: ``wq``, ``w_uk`` and ``w_uv`` by their columns (h/g heads
+a rank where g divides h), ``wo`` by rows, ``w_dkv`` and ``w_kr`` whole.
+So the latent and the shared rope key are the same on every rank, no K/V
+crosses the group, and the group sums the ranks' partial output
+projections (:func:`~repro_torch.models.layers.rank_output`: a
+reduce-scatter along the sequence where the input is the rank's sequence
+block, else an ``all_reduce``).  Where g does not divide h but divides a
+projection's columns (the reference's ``fix_param_spec`` keeps a cut
+wherever g divides the dimension), a rank's column block straddles heads:
+the rank gathers the blocks to whole heads, computes every head, and
+multiplies by ``wo``'s row block only the columns that block owns, as
+GQA does for heads the group does not divide.  The decode cache holds
+the latent and rope key of the rank's time slice where the reference's
+rule cuts its time axis, and the ranks gather the slices each step (the
+reference has no ``shard_map`` form of MLA decode).
 """
 
 from __future__ import annotations
@@ -78,17 +83,16 @@ def _project(params, x, num_heads: int, cfg: MLAConfig, positions,
              group=None):
     """Q (B, S, heads, qk), the latent (B, S, r) and the shared rope key
     (B, S, 1, rope).  With ``group`` (a ``RankGroup``) ``x`` is the
-    layer's input (:func:`~repro_torch.models.layers.rank_input`),
-    ``num_heads`` is the rank's and ``wq`` their column block, and the
-    whole latent and rope-key projections, used here only for the rank's
-    heads, are marked ``replicated``: their gradients are summed over the
-    ranks."""
+    layer's input (:func:`~repro_torch.models.layers.rank_input`), Q's
+    heads are the rank's (:func:`_heads`), and the whole latent and
+    rope-key projections, used here only for the rank's part, are marked
+    ``replicated``: their gradients are summed over the ranks."""
     b, s, _ = x.shape
     qk_head = cfg.nope_head_dim + cfg.rope_head_dim
     w_dkv, w_kr = params["w_dkv"], params["w_kr"]
     if group is not None:
         w_dkv, w_kr = (replicated(w, group=group) for w in (w_dkv, w_kr))
-    q = (x @ params["wq"]).view(b, s, num_heads, qk_head)
+    q = _heads(x, params["wq"], num_heads, qk_head, group)
     q_nope, q_rope = q.split([cfg.nope_head_dim, cfg.rope_head_dim], dim=-1)
     q = torch.cat([q_nope, apply_rope(q_rope, positions, _ROPE_THETA)], -1)
     c_kv = x @ w_dkv  # (B, S, r)
@@ -98,24 +102,41 @@ def _project(params, x, num_heads: int, cfg: MLAConfig, positions,
     return q, c_kv, k_rope
 
 
-def _heads_on_rank(num_heads: int, group) -> int:
-    """The heads a rank of ``group`` computes: h/g, or raise where g does
-    not divide h (that per-rank form is ROADMAP A17)."""
-    if num_heads % group.size:
-        raise NotImplementedError(
-            f"MLA with {num_heads} heads on a RankGroup of {group.size}: "
-            "heads that the group does not divide are ROADMAP A17")
-    return num_heads // group.size
+def _heads(inp, w, num_heads: int, width: int, group):
+    """``inp @ w`` as (B, S, heads, width): every head, or on a rank
+    (``w`` its column block of the ``num_heads`` heads) its h/g heads
+    where g divides h, else every head, the column blocks gathered
+    (:func:`~repro_torch.models.layers._rank_heads`)."""
+    if group is None:
+        return (inp @ w).view(*inp.shape[:2], num_heads, width)
+    return layers._rank_heads(inp, w, num_heads, width, group,
+                              mine=num_heads % group.size == 0)
 
 
-def _expand_kv(params, c_kv, k_rope, num_heads: int, cfg: MLAConfig):
+def _expand_kv(params, c_kv, k_rope, num_heads: int, cfg: MLAConfig,
+               group=None):
+    """Per-head K (nope and the shared rope key) and V from the latent:
+    every head, or on a rank its heads (:func:`_heads`)."""
     b, s, _ = c_kv.shape
-    k_nope = (c_kv @ params["w_uk"]).view(b, s, num_heads, cfg.nope_head_dim)
-    v = (c_kv @ params["w_uv"]).view(b, s, num_heads, cfg.v_head_dim)
+    k_nope = _heads(c_kv, params["w_uk"], num_heads, cfg.nope_head_dim,
+                    group)
+    v = _heads(c_kv, params["w_uv"], num_heads, cfg.v_head_dim, group)
+    n = k_nope.shape[2]
     k = torch.cat(
-        [k_nope, k_rope.expand(b, s, num_heads, cfg.rope_head_dim)], -1
+        [k_nope, k_rope.expand(b, s, n, cfg.rope_head_dim)], -1
     )
     return k, v
+
+
+def _output(out, params, num_heads: int, cfg: MLAConfig, group):
+    """The attention's (B, S, heads, v) output through ``wo``: whole, or
+    on a rank its part (:func:`~repro_torch.models.layers._rank_part`:
+    ``wo``'s row block against the columns it owns)."""
+    out = out.flatten(-2)
+    if group is None:
+        return out @ params["wo"]
+    return layers._rank_part(out, params["wo"], num_heads * cfg.v_head_dim,
+                             group)
 
 
 def mla_apply(params, x: torch.Tensor, num_heads: int, cfg: MLAConfig, *,
@@ -126,13 +147,11 @@ def mla_apply(params, x: torch.Tensor, num_heads: int, cfg: MLAConfig, *,
     and out, ``positions`` the whole sequence's."""
     group = layers.rank_group()
     if group is not None:
-        num_heads = _heads_on_rank(num_heads, group)
         x = layers.rank_input(x, group, seq)
-    b, s, _ = x.shape
     q, c_kv, k_rope = _project(params, x, num_heads, cfg, positions, group)
-    k, v = _expand_kv(params, c_kv, k_rope, num_heads, cfg)
+    k, v = _expand_kv(params, c_kv, k_rope, num_heads, cfg, group)
     out = blockwise_attention(q, k, v, causal=True, window=window)
-    y = out.reshape(b, s, num_heads * cfg.v_head_dim) @ params["wo"]
+    y = _output(out, params, num_heads, cfg, group)
     return y if group is None else layers.rank_output(y, group, seq)
 
 
@@ -160,10 +179,9 @@ def mla_decode(params, x: torch.Tensor, cache: dict, pos: int,
     latent and rope key joined) before the up-projection."""
     b = x.shape[0]
     group = layers.rank_group()
-    if group is not None:
-        num_heads = _heads_on_rank(num_heads, group)
     posv = torch.full((b, 1), pos, device=x.device)
-    q, c_kv_new, k_rope_new = _project(params, x, num_heads, cfg, posv)
+    q, c_kv_new, k_rope_new = _project(params, x, num_heads, cfg, posv,
+                                       group)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     here = c_kv.shape[1]
     first = group.rank * here if "time_slice" in cache else 0
@@ -176,9 +194,9 @@ def mla_decode(params, x: torch.Tensor, cache: dict, pos: int,
                            tiled=True, axis=1, group=group)
         c_kv, k_rope = whole[..., :r], whole[..., r:].unsqueeze(-2)
     # Up-project the whole latent cache for this step's attention.
-    k, v = _expand_kv(params, c_kv, k_rope, num_heads, cfg)
+    k, v = _expand_kv(params, c_kv, k_rope, num_heads, cfg, group)
     out = cache_attention(q, k, v, valid_len=pos + 1)
-    y = out.reshape(b, 1, num_heads * cfg.v_head_dim) @ params["wo"]
+    y = _output(out, params, num_heads, cfg, group)
     return (y if group is None else all_reduce(y, group=group)), cache
 
 

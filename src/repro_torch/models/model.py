@@ -31,15 +31,19 @@ Interface (used by serve/launch):
     logits, cache = model.decode_step(state, cache, tokens, pos)
     logits        = model.gather_vocab(logits)  # whole, from a rank's block
 
-On a rank of a group of processes (a ``RankGroup``, the dense and MoE
-families) the state holds the rank's blocks by :meth:`Model.rank_specs`,
-as a ``shard_map`` body over the reference's specs would: the embedding's
-and unembedding's vocabulary blocks, and each layer's attention heads,
-MLP blocks and experts.  Where the group divides the sequence
-(:func:`sequence_cut`) the rank keeps its (B, S/g, d) block of the
-residual stream between layers, as the reference's ``constrain`` does
-(Megatron's sequence parallelism); the logits are the rank's vocabulary
-block, and :meth:`Model.loss` reduces over the blocks.
+On a rank of a group of processes (a ``RankGroup``: the dense, MoE,
+encoder-decoder and VLM families) the state holds the rank's blocks by
+:meth:`Model.rank_specs`, as a ``shard_map`` body over the reference's
+specs would: the embedding's and unembedding's vocabulary blocks, and
+each layer's attention heads, MLP blocks and experts, the encoder's
+layers' too.  Where the group divides the sequence (:func:`sequence_cut`:
+a VLM's prefix and text joined, an encoder's frames) the rank keeps its
+(B, S/g, d) block of the residual stream between layers, as the
+reference's ``constrain`` does (Megatron's sequence parallelism); the
+logits are the rank's vocabulary block, and :meth:`Model.loss` reduces
+over the blocks.  The encoder's output is gathered once for the
+decoder's cross-attention, and each cross K/V cache leaf is the rank's
+block by the reference's ``cache_leaf_spec``.
 """
 
 from __future__ import annotations
@@ -57,8 +61,8 @@ from repro_torch.models import layers, mamba, mla, moe, xlstm
 from repro_torch.models.layers import AttnDims
 from repro_torch.parallel import decode_attn
 from repro_torch.parallel.collectives import (all_gather, all_reduce,
-                                              gather_replicated, pmax,
-                                              psum_scatter, rank_block,
+                                              all_to_all, gather_replicated,
+                                              pmax, psum_scatter, rank_block,
                                               replicated)
 from repro_torch.parallel.context import get_overlap, overlap_context
 from repro_torch.parallel.group import RankGroup
@@ -74,17 +78,29 @@ from repro_torch.parallel.sharding import (
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # The families whose per-rank path (a rank of a RankGroup holding its
-# blocks) is held to the reference; the others raise there (ROADMAP A17).
-RANK_FAMILIES = frozenset({Family.DENSE, Family.MOE})
+# blocks) is held to the reference; the others (the hybrid and SSM
+# families, whose recurrent mixers have no per-rank form) raise there
+# (ROADMAP A17).
+RANK_FAMILIES = frozenset({Family.DENSE, Family.MOE, Family.AUDIO,
+                           Family.VLM})
 # A layer's subtrees that a rank cuts by their specs: the attention's (GQA
 # or MLA; an encoder-decoder's cross-attention) and the FFN's (an MLP, or
-# the MoE experts with their shared and dense-residual MLPs).
+# the MoE experts with their shared and dense-residual MLPs); in the
+# decoder's layers and the encoder's.
 RANK_CUT = ("attn", "cross", "ffn")
 # The top-level leaves a rank cuts by their specs: the embedding's rows
 # and the unembedding's columns, by vocabulary.  Every other leaf is whole
-# on every rank, as in the reference: the router, the norms, MLA's latent
-# projections, the recurrent mixers and ``frontend_proj``.
+# on every rank, as in the reference: the router, the norms (``enc_norm``
+# too), MLA's latent projections, the recurrent mixers and
+# ``frontend_proj``.
 RANK_CUT_TOP = ("embed", "unembed")
+# The top-level stack of layers besides ``layers``: the encoder's, one
+# layer's tree stacked over its layers, cut as a layer is (RANK_CUT).
+RANK_CUT_STACK = ("encoder",)
+# The cache records of a rank's time slice: the self-attention's or
+# MLA's (``"time_slice"``) and the cross-attention's (``"cross_slice"``),
+# each the slice's first position per period.
+SLICE_RECORDS = ("time_slice", "cross_slice")
 
 
 def check_rank_family(cfg: ModelConfig) -> None:
@@ -326,10 +342,10 @@ def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions, *,
         y = xlstm.slstm_apply(p["mixer"], h, cfg.xlstm)
     x = x + y
     if enc_out is not None:
-        h = layers.apply_norm(p["norm_cross"], x, cfg.norm)
+        h = _norm(p["norm_cross"], x, cfg, seq)
         x = x + layers.attn_apply(
             p["cross"], h, _attn_dims(cfg), rope_theta=cfg.rope_theta,
-            positions=positions, kv_for_cross=enc_out,
+            positions=positions, kv_for_cross=enc_out, seq=seq,
         )
     if spec.ffn == "none":
         return x, None
@@ -365,11 +381,12 @@ def _remat_period(period, pattern, cfg: ModelConfig, x, positions,
                              seq)
 
 
-def _remat_enc_layer(p, cfg: ModelConfig, x, positions, overlap, group):
+def _remat_enc_layer(p, cfg: ModelConfig, x, positions, seq, overlap,
+                     group):
     """An encoder layer under recomputation (as :func:`_remat_period`)."""
     with overlap_context(overlap), tp_group(group):
-        return _layer_apply(p, _ENC_SPEC, cfg, x, positions,
-                            causal=False)[0]
+        return _layer_apply(p, _ENC_SPEC, cfg, x, positions, causal=False,
+                            seq=seq)[0]
 
 
 # The matmul family of aten ops: what ``remat_policy="dots"`` saves, as the
@@ -442,13 +459,14 @@ def _layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
     }, s, here, lead, device)
 
 
-def _time_slice(cache: dict, s: int, here: int, lead: tuple, device) -> dict:
+def _time_slice(cache: dict, s: int, here: int, lead: tuple, device,
+                key: str = "time_slice") -> dict:
     """Where a rank holds ``here`` of a cache's ``s`` positions, the
-    record that the decode reads (``"time_slice"``): the slice's first
-    position, per period."""
+    record that the decode reads (``key``, one of :data:`SLICE_RECORDS`):
+    the slice's first position, per period."""
     if here < s:
-        cache["time_slice"] = torch.full(lead, active_group().rank * here,
-                                         device=device)
+        cache[key] = torch.full(lead, active_group().rank * here,
+                                device=device)
     return cache
 
 
@@ -472,14 +490,9 @@ def _layer_decode(p, spec: LayerSpec, cfg: ModelConfig, x, cache, pos: int):
     x = x + y
     if "cross_k" in cache:  # the encoder-decoder's cross-attention
         h = layers.apply_norm(p["norm_cross"], x, cfg.norm)
-        dims = _attn_dims(cfg)
-        b = x.shape[0]
-        q = (h @ p["cross"]["wq"]).view(b, 1, dims.num_heads, dims.head_dim)
-        out = layers.cache_attention(
-            q, cache["cross_k"], cache["cross_v"],
-            valid_len=cache["cross_k"].shape[1], ring=True,
-        )
-        x = x + out.reshape(b, 1, -1) @ p["cross"]["wo"]
+        x = x + layers.cross_attn_decode(
+            p["cross"], h, cache["cross_k"], cache["cross_v"],
+            _attn_dims(cfg), sliced="cross_slice" in cache)
     if spec.ffn == "none":
         return x, cache
     h = layers.apply_norm(p["norm2"], x, cfg.norm)
@@ -598,7 +611,8 @@ class Model:
         """The specs by which a rank of a group of ``size`` processes holds
         the state (:func:`~repro_torch.parallel.sharding.shard_params`):
         :meth:`param_specs` with the leaves under a layer's
-        :data:`RANK_CUT` keys and the :data:`RANK_CUT_TOP` leaves (the
+        :data:`RANK_CUT` keys (the decoder's and, :data:`RANK_CUT_STACK`,
+        the encoder's) and the :data:`RANK_CUT_TOP` leaves (the
         vocabulary's) kept and every other leaf whole, fixed by
         :func:`~repro_torch.parallel.sharding.fix_param_specs` on the
         whole shapes on ``Mesh(("model",), (size,))``, which drops a cut
@@ -615,12 +629,14 @@ class Model:
         def whole(tree):
             return map_specs(lambda sp: P(), tree)
 
-        cut = {k: v if k in RANK_CUT_TOP else whole(v)
+        def layer(slot):
+            return {k: v if k in RANK_CUT else whole(v)
+                    for k, v in slot.items()}
+
+        cut = {k: v if k in RANK_CUT_TOP else
+               layer(v) if k in RANK_CUT_STACK else whole(v)
                for k, v in specs.items() if k != "layers"}
-        cut["layers"] = [
-            {k: v if k in RANK_CUT else whole(v) for k, v in slot.items()}
-            for slot in specs["layers"]
-        ]
+        cut["layers"] = [layer(slot) for slot in specs["layers"]]
         self._rank_specs[size] = fix_param_specs(
             cut, self.init(device="meta"), Mesh((MODEL_AXIS,), (size,)))
         return self._rank_specs[size]
@@ -631,22 +647,40 @@ class Model:
 
         Under ``remat`` each layer is recomputed in the backward, as the
         reference's ``jax.checkpoint`` around its layer (which saves
-        nothing, whatever the config's policy)."""
+        nothing, whatever the config's policy).
+
+        On a rank of a ``RankGroup`` each layer runs on the rank's heads
+        and MLP blocks; where g divides S_enc (:func:`sequence_cut`) the
+        rank holds its (B, S_enc/g, d) block between layers and
+        ``enc_norm`` applies to it, as the reference's ``constrain`` ends
+        every layer, the encoder's too.  The output comes back whole on
+        every rank as the decoder's cross-attention operand
+        (:func:`~repro_torch.models.layers.rank_input`): one all-gather
+        along the sequence per forward, whose transpose sums the ranks'
+        partial cotangents, or, replicated, marked ``replicated``; so the
+        cross-attention marks nothing again."""
         cfg = self.config
         x = enc_frames.to(_dtype(cfg))
         b, s = x.shape[:2]
+        group = layers.rank_group()
+        seq = sequence_cut(s, group)
+        if seq:
+            x = rank_block(x, 1, group=group)
         positions = torch.arange(s, device=x.device).expand(b, s)
         remat = self._remat is not None and torch.is_grad_enabled()
         ctx = (get_overlap(), active_group()) if remat else ()
         for p in _unstack(state["encoder"], cfg.encdec.encoder_layers):
             if remat:
                 x = tcp.checkpoint(
-                    _remat_enc_layer, p, cfg, x, positions, *ctx,
+                    _remat_enc_layer, p, cfg, x, positions, seq, *ctx,
                     use_reentrant=False, preserve_rng_state=False)
             else:
                 x, _ = _layer_apply(p, _ENC_SPEC, cfg, x, positions,
-                                    causal=False)
-        return layers.apply_norm(state["enc_norm"], x, cfg.norm)
+                                    causal=False, seq=seq)
+            if _residual_log is not None:
+                _residual_log.append(tuple(x.shape))
+        x = _norm(state["enc_norm"], x, cfg, seq)
+        return x if group is None else layers.rank_input(x, group, seq)
 
     def forward(self, state, batch: dict):
         """batch keys: tokens (B, S); with the stub frontends also
@@ -657,26 +691,28 @@ class Model:
         On a rank of a ``RankGroup`` the logits are the rank's (B, S, V/g)
         vocabulary block where the unembedding is cut, as a ``shard_map``
         body's ``P(None, None, "model")`` output (:meth:`gather_vocab`
-        joins them), and between layers the rank holds its (B, S/g, d)
-        sequence block of the residual stream where g divides S
-        (:func:`sequence_cut`)."""
+        joins them), and between layers the rank holds its sequence block
+        of the residual stream where g divides its length
+        (:func:`sequence_cut`): a VLM's (B, (P + S)/g, d) block of the
+        prefix and the text joined, as the reference runs its layers on
+        the whole P + S sequence; the encoder's likewise
+        (:meth:`_encode`)."""
         cfg = self.config
         _check_rank(cfg)
         tokens = batch["tokens"]
         group = layers.rank_group()
-        # Only the dense and MoE families, which take no prefix, run on a
-        # RankGroup (check_rank_family).
-        seq = sequence_cut(tokens.shape[1], group)
-        x = self._embed(state, tokens, seq)
+        prefix = cfg.frontend is not None and "prefix_embeds" in batch
+        n_text = tokens.shape[1]
+        s = n_text + (batch["prefix_embeds"].shape[1] if prefix else 0)
+        seq = sequence_cut(s, group)
+        if prefix:
+            x = self._embed_prefixed(state, tokens, batch["prefix_embeds"],
+                                     seq)
+        else:
+            x = self._embed(state, tokens, seq)
         enc_out = (self._encode(state, batch["enc_frames"])
                    if self.is_encdec else None)
-        prefix = cfg.frontend is not None and "prefix_embeds" in batch
-        if prefix:
-            pe = batch["prefix_embeds"].to(_dtype(cfg))
-            if "frontend_proj" in state:
-                pe = pe @ state["frontend_proj"]
-            x = torch.cat([pe, x], dim=1)
-        b, s = x.shape[0], tokens.shape[1] + (pe.shape[1] if prefix else 0)
+        b = x.shape[0]
         positions = torch.arange(s, device=x.device).expand(b, s)
         slots = [_unstack(slot, self.n_periods) for slot in state["layers"]]
         remat = self._remat is not None and torch.is_grad_enabled()
@@ -700,38 +736,63 @@ class Model:
             if _residual_log is not None:
                 _residual_log.append(tuple(x.shape))
         x = _norm(state["final_norm"], x, cfg, seq)
-        if prefix:
-            x = x[:, -tokens.shape[1]:]  # logits over the text segment
-        return self._unembed(state, x, seq), aux
+        # The logits cover the text segment (the last n_text positions).
+        return self._unembed(state, x, seq, n_text if prefix else None), aux
 
-    def _embed(self, state, tokens, seq: bool):
+    def _embed(self, state, tokens, seq: bool, lead: int = 0):
         """The embedding lookup.  On a rank holding its row block of the
         vocabulary, the tokens in its rows are looked up and the others
         are zeros; the group's sum (a reduce-scatter along the sequence
         where it is cut, else an ``all_reduce``) has exactly one nonzero
         term per token, so it is the lookup exactly, in any dtype.  A whole
         embedding is looked up alike on every rank, cut to the rank's
-        sequence block where it is cut."""
+        sequence block where it is cut.  ``lead`` zero rows go before the
+        tokens' (a VLM's prefix positions, :meth:`_embed_prefixed`)."""
         cfg = self.config
         w = state["embed"]
         group = layers.rank_group()
         if group is None or w.shape[0] == cfg.vocab_size:
-            x = w[tokens].to(_dtype(cfg))
+            x = _lead_zeros(w[tokens].to(_dtype(cfg)), lead)
             return rank_block(x, 1, group=group) if seq else x
         n = w.shape[0]
         local = tokens - group.rank * n
         mine = (local >= 0) & (local < n)
-        x = torch.where(mine[..., None], w[local.clamp(0, n - 1)],
-                        0).to(_dtype(cfg))
+        x = _lead_zeros(torch.where(mine[..., None], w[local.clamp(0, n - 1)],
+                                    0).to(_dtype(cfg)), lead)
         if seq:
             return psum_scatter(x, 1, group=group)
         return all_reduce(x, group=group)
 
-    def _unembed(self, state, x, seq: bool = False):
-        """The logits of the final-normed ``x``.  On a rank holding its
-        column block of the unembedding (or, tied, its row block of the
-        embedding) they are its vocabulary block, from every rank's
-        sequence blocks gathered (``seq``) or the replicated ``x``."""
+    def _embed_prefixed(self, state, tokens, prefix_embeds, seq: bool):
+        """A VLM's input: the stub frontend's (B, P, embed_dim) patch
+        embeddings projected by ``frontend_proj`` and joined before the
+        text's embedding, (B, P + S, d).  On a rank with ``seq`` the rank's
+        block of the joined sequence: the text's lookup behind P zero rows
+        (:meth:`_embed`), plus the rank's rows of the prefix (zeros where
+        they are text) through the whole ``frontend_proj``, marked
+        ``replicated`` (each rank's gradient covers its rows); the two
+        have no nonzero row in common, so the sum is the join exactly."""
+        cfg = self.config
+        pe = prefix_embeds.to(_dtype(cfg))
+        w = state.get("frontend_proj")
+        if not seq:
+            if w is not None:
+                pe = pe @ w
+            return torch.cat([pe, self._embed(state, tokens, False)], dim=1)
+        group = layers.rank_group()
+        rows = rank_block(torch.cat([pe, pe.new_zeros(
+            (*tokens.shape, pe.shape[-1]))], dim=1), 1, group=group)
+        if w is not None:
+            rows = rows @ replicated(w, group=group)
+        return self._embed(state, tokens, True, lead=pe.shape[1]) + rows
+
+    def _unembed(self, state, x, seq: bool = False, text: int | None = None):
+        """The logits of the final-normed ``x`` (of its last ``text``
+        positions, where given: a VLM's text segment).  On a rank holding
+        its column block of the unembedding (or, tied, its row block of
+        the embedding) they are its vocabulary block, from every rank's
+        sequence blocks gathered (``seq``; the text segment is taken from
+        the gathered sequence) or the replicated ``x``."""
         w = (
             state["embed"].T
             if self.config.tie_embeddings
@@ -743,6 +804,8 @@ class Model:
                 x = layers.rank_input(x, group, seq)
             elif seq:  # every rank computes the whole logits alike
                 x = gather_replicated(x, 1, group=group)
+        if text is not None:
+            x = x[:, -text:]
         return x @ w.to(x.dtype)
 
     def gather_vocab(self, logits):
@@ -807,41 +870,66 @@ class Model:
         MLA's latent and rope key, hold the rank's time slice where the
         rule cuts the time axis (1024 positions or more, divisible by g),
         and a ``"time_slice"`` leaf, the slice's first position, records
-        it."""
+        it; likewise the cross K and V, the rank's slice of the encoder's
+        ``enc_len`` positions where the rule cuts them (1024 or more,
+        divisible by g), recorded by ``"cross_slice"``."""
         cfg = self.config
         _check_rank(cfg)
         dev = resolve_device(device)
+        lead = (self.n_periods,)
         caches = [
-            _layer_init_cache(spec, cfg, batch, cache_len, dev,
-                              (self.n_periods,))
+            _layer_init_cache(spec, cfg, batch, cache_len, dev, lead)
             for spec in self.pattern
         ]
         if self.is_encdec:
-            shape = (self.n_periods, batch, enc_len, cfg.num_kv_heads,
-                     cfg.resolved_head_dim)
+            tail = (cfg.num_kv_heads, cfg.resolved_head_dim)
+            here = decode_attn.cache_positions((*lead, batch, enc_len, *tail))
             for c in caches:
-                c["cross_k"] = torch.zeros(shape, dtype=_dtype(cfg),
-                                           device=dev)
-                c["cross_v"] = torch.zeros(shape, dtype=_dtype(cfg),
-                                           device=dev)
+                for name in ("cross_k", "cross_v"):
+                    c[name] = torch.zeros((*lead, batch, here, *tail),
+                                          dtype=_dtype(cfg), device=dev)
+                _time_slice(c, enc_len, here, lead, dev, "cross_slice")
         return caches
 
     def prefill_cross(self, state, cache, enc_frames):
         """Encoder-decoder: run the encoder over (B, S_enc, d) frames and
         put each decoder layer's cross K and V of its output into the
         cache (replacing ``cross_k`` / ``cross_v``, as the reference's
-        returned cache does).  Returns the cache."""
+        returned cache does).  Returns the cache.
+
+        On a rank each layer's ``wk`` and ``wv`` are column blocks (kv/g
+        heads, or a share of one where g does not divide kv), so each
+        slot's K and V columns of every period are joined and exchanged
+        once: an all-gather of the column blocks where the rule keeps the
+        leaf whole, an all-to-all from columns to time where it cuts the
+        time axis (rank s sends each rank its columns of that rank's time
+        slice), as the ``gspmd`` decode exchanges cache slices."""
         cfg = self.config
         enc_out = self._encode(state, enc_frames)
         dims = _attn_dims(cfg)
-        b, s_enc, _ = enc_out.shape
-        shape = (b, s_enc, dims.num_kv_heads, dims.head_dim)
+        width = dims.num_kv_heads * dims.head_dim
+        group = layers.rank_group()
         for p, c in zip(state["layers"], cache):
-            for name, key in (("cross_k", "wk"), ("cross_v", "wv")):
-                w = p["cross"][key]
-                c[name] = torch.stack([
-                    (enc_out @ w[i]).view(shape) for i in range(self.n_periods)
-                ]).to(_dtype(cfg))
+            wk, wv = p["cross"]["wk"], p["cross"]["wv"]
+            cols = torch.stack([torch.stack([enc_out @ wk[i], enc_out @ wv[i]],
+                                            -2)
+                                for i in range(self.n_periods)])
+            # cols: (periods, B, S_enc, 2, columns held here)
+            sliced = "cross_slice" in c
+            if group is not None and wk.shape[-1] != width:
+                if sliced:  # [s]: rank s's columns of this rank's slice
+                    cols = all_to_all(cols.unflatten(2, (group.size, -1))
+                                      .movedim(2, 0).contiguous(),
+                                      group=group)
+                else:  # [s]: rank s's columns
+                    cols = all_gather(cols.contiguous(), group=group)
+                cols = cols.movedim(0, -2).flatten(-2)
+            elif sliced:  # whole columns: the rank's time slice of them
+                here = c["cross_k"].shape[2]
+                cols = cols.narrow(2, group.rank * here, here)
+            k, v = cols.unflatten(-1, (dims.num_kv_heads,
+                                       dims.head_dim)).unbind(-3)
+            c["cross_k"], c["cross_v"] = k.to(_dtype(cfg)), v.to(_dtype(cfg))
         return cache
 
     def decode_step(self, state, cache, tokens, pos: int):
@@ -862,6 +950,13 @@ class Model:
                 )
         x = layers.apply_norm(state["final_norm"], x, cfg.norm)
         return self._unembed(state, x), cache
+
+
+def _lead_zeros(x, lead: int):
+    """``x`` (B, S, d) behind ``lead`` rows of zeros along the sequence."""
+    if not lead:
+        return x
+    return torch.cat([x.new_zeros((x.shape[0], lead, x.shape[2])), x], 1)
 
 
 def _init_stack(init_one, n: int):

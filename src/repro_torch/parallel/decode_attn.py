@@ -174,4 +174,33 @@ def shard_map_attn_decode(
     return out.to(q.dtype), k_cache, v_cache
 
 
-__all__ = ["applicable", "cache_positions", "shard_map_attn_decode"]
+def slice_attention(q: torch.Tensor, k_slice: torch.Tensor,
+                    v_slice: torch.Tensor, *, group: RankGroup
+                    ) -> torch.Tensor:
+    """Attention of q (B, 1, H, D) over every position of a cache whose
+    time axis ``group`` holds in slices, this rank's (B, S/g, KV, D): the
+    rank's partial softmax over its slice, combined as
+    :func:`shard_map_attn_decode`'s body combines, by one
+    :func:`~repro_torch.parallel.collectives.pmax` and one
+    :func:`~repro_torch.parallel.collectives.all_reduce` of the output
+    and the denominator joined.  Every position is valid (an
+    encoder-decoder's cross cache) and nothing is written.  Decode only:
+    ``pmax`` refuses grad."""
+    h, d = q.shape[2:]
+    rep = h // k_slice.shape[2]
+    kr = k_slice.repeat_interleave(rep, dim=2).float()
+    vr = v_slice.repeat_interleave(rep, dim=2).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / math.sqrt(d)
+    m_loc = scores.amax(-1)  # (B, H, 1)
+    p = torch.exp(scores - m_loc[..., None])
+    corr = torch.exp(m_loc - pmax(m_loc, group=group)).transpose(1, 2)
+    o_loc = torch.einsum("bhqk,bkhd->bqhd", p, vr)  # (B, 1, H, D)
+    l_loc = p.sum(-1).transpose(1, 2)[..., None]  # (B, 1, H, 1)
+    both = all_reduce(torch.cat([o_loc, l_loc], -1) * corr[..., None],
+                      group=group)
+    out = both[..., :d] / both[..., d:].clamp_min(1e-30)
+    return out.to(q.dtype)
+
+
+__all__ = ["applicable", "cache_positions", "shard_map_attn_decode",
+           "slice_attention"]

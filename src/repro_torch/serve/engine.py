@@ -28,7 +28,9 @@ heads), the MLPs and the experts
 (:func:`~repro_torch.parallel.sharding.shard_params` by the model's
 ``rank_specs``); a prefill whose length the group divides keeps the
 residual stream cut by sequence; each attention cache of 1024 positions
-or more holds the rank's time slice.  The model's logits are the rank's
+or more holds the rank's time slice, and so does an encoder-decoder's
+cross K/V cache of 1024 encoder positions or more (:meth:`DecodeEngine.
+encode` runs the encoder per rank and fills it).  The model's logits are the rank's
 vocabulary block; the prefill and the serve step gather the blocks
 (``Model.gather_vocab``, one all-gather), so every rank gets the same
 whole logits and tokens.
@@ -59,6 +61,19 @@ def make_serve_step(model: Model) -> Callable:
             return model.gather_vocab(logits), cache
 
     return serve_step
+
+
+def make_prefill_cross(model: Model) -> Callable:
+    """(state, cache, enc_frames (B, S_enc, d)) -> cache with an
+    encoder-decoder's cross K/V filled (``Model.prefill_cross``) under the
+    model's overlap context: the encoder's MLPs take the FiCCO path as
+    the prefill's do."""
+
+    def prefill_cross(state, cache, enc_frames):
+        with overlap_context(model.config.overlap):
+            return model.prefill_cross(state, cache, enc_frames)
+
+    return prefill_cross
 
 
 def make_prefill(model: Model) -> Callable:
@@ -107,8 +122,8 @@ class DecodeEngine:
         self.state = state
         self.batch = batch_size
         self.cache_len = cache_len
-        # An encoder-decoder's cross K/V hold enc_len encoder positions,
-        # filled by ``model.prefill_cross`` before run().
+        # An encoder-decoder's cross K/V hold enc_len encoder positions
+        # (a rank's block of them), filled by ``encode`` before run().
         self.cache = self.model.init_cache(
             batch_size, cache_len, enc_len=enc_len, device=self.device
         )
@@ -118,6 +133,14 @@ class DecodeEngine:
         # the tier and records the tuned overlap schedule for the batch.
         self.adapt = adapt
         self.last_decision = None
+
+    @torch.no_grad()
+    def encode(self, enc_frames) -> None:
+        """An encoder-decoder: run the encoder over (B, enc_len, d) frames
+        and fill the cache's cross K/V (:func:`make_prefill_cross`), for
+        every later :meth:`run`."""
+        self.cache = make_prefill_cross(self.model)(
+            self.state, self.cache, enc_frames)
 
     @torch.no_grad()
     def run(self, requests: list[Request]) -> list[Request]:
@@ -203,4 +226,5 @@ class DecodeEngine:
         return requests
 
 
-__all__ = ["make_serve_step", "make_prefill", "Request", "DecodeEngine"]
+__all__ = ["make_serve_step", "make_prefill", "make_prefill_cross",
+           "Request", "DecodeEngine"]

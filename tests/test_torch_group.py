@@ -52,24 +52,38 @@ imports no JAX) and pickles the results back:
     vocabulary), the attention (heads), the MLPs and the experts by the
     model's ``rank_specs``: the reduced TinyLlama at a prompt of 30
     tokens, which 4 ranks do not divide (the residual stays replicated),
-    the reduced DeepSeek-V2-Lite with 8 experts (MLA, 4 heads) and a
+    the reduced DeepSeek-V2-Lite with 8 experts (MLA, 4 heads), a
     SmolLM-like model with 15 / 5 heads (their sharding dropped: the
-    ranks gather whole heads) and tied embeddings, each from the
-    reference's params cut by ``params_from_jax(rank=)``: prefill logits
-    against the reference's one-device forward (the subprocess's
-    ``ranks`` entry) at 2e-3, every rank's bit-equal, and the residual's
-    shape between layers; ``DecodeEngine``s per rank in both
+    ranks gather whole heads) and tied embeddings, SeamlessM4T-v2 (the
+    encoder's layers cut too, its 32 frames by sequence) and InternVL2
+    (its 8 prefix patches joined before 24 tokens and cut by sequence),
+    each from the reference's params cut by ``params_from_jax(rank=)``:
+    prefill logits against the reference's one-device forward (the
+    subprocess's ``ranks`` entry; Seamless's and InternVL2's from its
+    ``encdec`` entry) at 2e-3, every rank's bit-equal, and the residual's
+    shape between layers (and encoder layers), and for Seamless and
+    InternVL2 at an odd shape too (30 frames, 8 + 22 positions: the
+    residual replicated); ``DecodeEngine``s per rank in both
     ``decode_attn`` modes at a cache the rule time-slices, for a prompt
     length 4 divides and one it does not, against the reference's
     one-device engine's tokens, and against one process's tokens with a
     time-sliced and a whole cache, each cache leaf the rank's block by
-    the reference's ``cache_leaf_spec``; ``loss_and_grads``' loss
+    the reference's ``cache_leaf_spec``, Seamless's with its cross K/V
+    of 16 encoder positions (whole on every rank) and of 1024 (the
+    rank's time slice); ``loss_and_grads``' loss
     (vocab-parallel) and each rank's gradient blocks, the embedding's and
     unembedding's included, and one step's loss and ``grad_norm``,
     against the reference's jitted ones;
   * ``gather_replicated``'s gradient against the logical one: this rank's
     block of the replicated cotangent, not the g-fold sum that
-    ``all_gather``'s reduce-scatter gives.
+    ``all_gather``'s reduce-scatter gives;
+  * an MLA layer with 6 heads, which 4 ranks do not divide while they
+    divide every projection's columns (a rank's block straddles heads):
+    ``mla_apply`` on the replicated input and on the rank's sequence
+    block, its gradients, and ``mla_decode`` on a latent cache the rule
+    keeps whole and one it time-slices, against the reference's
+    ``mla_apply``, ``jax.grad`` and ``mla_decode`` (jitted in this
+    process) at 1e-5.
 
 Besides: the launcher raises, and leaves no rank running, when one rank
 raises; ranks that share a CUDA device refuse plain collectives (decided
@@ -80,8 +94,10 @@ patched); ``pmax`` refuses grad; ``train(checkpoint_dir=)`` on a
 ``RankGroup`` raises, citing ROADMAP A14; ``shard_train_state`` cuts the
 params and both moments; each rank's parameter bytes at full width equal
 ``shard_shape`` over the reference rule's fixed specs on a model-only
-mesh of 4 for the cut leaves plus the whole leaves' bytes; a family
-without a per-rank form raises on a ``RankGroup``, citing ROADMAP A17.
+mesh of 4 for the cut leaves plus the whole leaves' bytes (Seamless's
+and InternVL2's too); the encoder-decoder's and VLM's ``rank_specs`` cut
+by the rule; the hybrid and SSM families, which have no per-rank form,
+raise on a ``RankGroup``, citing ROADMAP A17.
 """
 
 import dataclasses
@@ -145,7 +161,16 @@ DECODE_ATTN = ("gspmd", "shard_map")
 RANK_MODELS = {"dense": (("collective", "dma"), "serial"),
                "deepseek": (("collective", "dma"), "uniform-fused-2d"),
                "smollm": (("collective",), "serial"),
-               "indivisible": (("collective",), "serial")}
+               "indivisible": (("collective",), "serial"),
+               "seamless": (("collective", "dma"), "uniform-fused-2d"),
+               "internvl": (("collective", "dma"), "uniform-fused-2d")}
+# The rank models whose prefill also runs at an odd shape (RANK_ODD: the
+# encoder's 30 frames, the VLM's 8 + 22 joined positions).
+ODD = jax_reference.RANK_ODD_PREFILL
+MLA = jax_reference.RANK_MLA
+# The MLA layer case's decode caches: one the rule keeps whole, one whose
+# time axis it cuts.
+MLA_CACHES = (64, 1024)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -166,15 +191,25 @@ def model_reference():
                 logits=np.asarray(logits, np.float32))
 
 
-def _engine_runs(vocab: int) -> list:
+def _encs(cfg) -> tuple:
+    """An engine's encoder lengths: ``RANK_ENC``'s for an encoder-decoder
+    (its cross cache whole, then time-sliced), else 0."""
+    return jax_reference.RANK_ENC if cfg.encdec else (0,)
+
+
+def _engine_runs(cfg) -> list:
     """Each rank model's engines: both decode attentions at the cache the
-    rule time-slices for each prompt length, and ``decode_attn=
-    "shard_map"`` at one it keeps whole."""
-    runs = [(mode, ENGINE["cache"], length) for mode in DECODE_ATTN
-            for length in ENGINE["prompts"]]
-    runs.append(("shard_map", ENGINE["whole"], PROMPT))
-    return [(mode, cache, jax_reference.engine_prompts(vocab, length),
-             ENGINE["new"]) for mode, cache, length in runs]
+    rule time-slices for each prompt length, at each encoder length, and
+    ``decode_attn="shard_map"`` at one it keeps whole, at the first; an
+    encoder-decoder's engine encodes ``engine_frames`` first."""
+    encs = _encs(cfg)
+    runs = [(mode, ENGINE["cache"], length, enc) for enc in encs
+            for mode in DECODE_ATTN for length in ENGINE["prompts"]]
+    runs.append(("shard_map", ENGINE["whole"], PROMPT, encs[0]))
+    return [(mode, cache, jax_reference.engine_prompts(cfg.vocab_size, length),
+             ENGINE["new"], enc,
+             jax_reference.engine_frames(cfg.d_model, enc) if enc else None)
+            for mode, cache, length, enc in runs]
 
 
 def _composer_operands():
@@ -231,17 +266,30 @@ def _rank_shape(name: str) -> dict:
             else jax_reference.RANK_TRAIN)
 
 
-def _rank_batch(name: str) -> dict:
+def _rank_batch(name: str, shape: dict | None = None) -> dict:
     """SyntheticLM's batch 0 at the model's shape (``RANK_ODD`` for the
-    dense model, ``RANK_TRAIN`` for the others; numpy), as the
+    dense model, ``RANK_TRAIN`` for the others) or at ``shape``; numpy,
+    with a VLM's prefix or an encoder-decoder's frames, as the
     reference's entry draws it."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import SyntheticLM
 
-    t = _rank_shape(name)
+    t = shape or _rank_shape(name)
     return SyntheticLM(_rank_cfg(name), ShapeConfig("t", t["seq"], t["batch"],
                                                     "train"),
                        seed=t["seed"]).batch_at(0)
+
+
+def _mla_cfg(get):
+    """The MLA layer case's latent and head widths (the reduced
+    DeepSeek-V2-Lite's) from either package's ``get_config``."""
+    return get("deepseek-v2-lite-16b").reduced()
+
+
+def _mla_operands() -> tuple:
+    """The MLA layer case's params, x and output cotangent (numpy)."""
+    cfg = _mla_cfg(get_config)
+    return jax_reference.mla_operands(cfg.d_model, cfg.mla)
 
 
 @pytest.fixture(scope="module")
@@ -287,8 +335,12 @@ def ranks(model_reference, rank_params, tmp_path_factory):
         "gather_grad": _gather_operands(),
         "rank_models": {
             name: (_rank_cfg(name), rank_params[name], _rank_batch(name),
-                   backends, _engine_runs(_rank_cfg(name).vocab_size), mode)
+                   backends, _engine_runs(_rank_cfg(name)), mode,
+                   _rank_batch(name, jax_reference.RANK_ODD)
+                   if name in ODD else None)
             for name, (backends, mode) in RANK_MODELS.items()},
+        "mla": (_mla_operands()[0], _mla_cfg(get_config).mla, MLA["heads"],
+                *_mla_operands()[1:], MLA["decode"], MLA_CACHES),
     }
     with pytest.MonkeyPatch.context() as mp:
         # The ranks resolve no promoted variant from the home directory.
@@ -383,10 +435,12 @@ def test_rank_decode_attention_matches_shard_map(ranks, tmp_path_factory,
         np.testing.assert_allclose(v, want_v[:, rows], rtol=1e-5, atol=1e-5)
 
 
-def _one_process_tokens(numpy_params, cache_len: int, cfg=None) -> list:
+def _one_process_tokens(numpy_params, cache_len: int, cfg=None,
+                        enc_len: int = 0) -> list:
     """The port's engine on the whole model (``cfg``, the reduced
     TinyLlama by default), in this process, on the prompts of ``PROMPT``
-    tokens."""
+    tokens; an encoder-decoder's after encoding ``engine_frames`` of
+    ``enc_len``."""
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
     from repro_torch.serve.engine import DecodeEngine, Request
@@ -395,7 +449,10 @@ def _one_process_tokens(numpy_params, cache_len: int, cfg=None) -> list:
                               overlap=OverlapConfig(decode_attn="shard_map"))
     state = params_from_jax(numpy_params, cfg, device="cpu")
     eng = DecodeEngine(cfg, state, batch_size=ENGINE["batch"],
-                       cache_len=cache_len, device="cpu")
+                       cache_len=cache_len, enc_len=enc_len, device="cpu")
+    if enc_len:
+        eng.encode(torch.from_numpy(jax_reference.engine_frames(
+            cfg.d_model, enc_len)))
     reqs = eng.run([Request(p, ENGINE["new"]) for p in
                     jax_reference.engine_prompts(cfg.vocab_size, PROMPT)])
     want = [list(r.out) for r in reqs]
@@ -403,12 +460,12 @@ def _one_process_tokens(numpy_params, cache_len: int, cfg=None) -> list:
     return want
 
 
-def _positions(res, name: str, cache_len: int) -> tuple:
-    """The tokens of a rank's ``shard_map`` engine at ``cache_len`` on the
-    prompts of ``PROMPT`` tokens, and the positions its first layer's
-    cache holds (K's, or MLA's latent's)."""
+def _positions(res, name: str, cache_len: int, enc_len: int = 0) -> tuple:
+    """The tokens of a rank's ``shard_map`` engine at ``cache_len`` (and
+    ``enc_len``) on the prompts of ``PROMPT`` tokens, and the positions
+    its first layer's cache holds (K's, or MLA's latent's)."""
     tokens, leaves = res["model", name]["engine"][
-        "shard_map", cache_len, PROMPT]
+        "shard_map", cache_len, PROMPT, enc_len]
     first = leaves[0]
     return tokens, (first["k"] if "k" in first else first["c_kv"])[2]
 
@@ -466,31 +523,58 @@ def test_prefill_across_ranks_matches_reference(ranks, model_reference,
 
 def _layout_cases() -> list:
     """(model, backend): the dense model at 512 tokens (the prefill
-    modes' backends) and each rank model at its batch."""
+    modes' backends), each rank model at its batch, and the odd shape of
+    each of ``ODD`` (collective backend)."""
     return ([("dense-512", backend) for _, backend in PREFILL_MODES]
             + [(name, backend) for name, (backends, _) in RANK_MODELS.items()
-               for backend in backends])
+               for backend in backends]
+            + [(name, "odd") for name in ODD])
+
+
+def _layout(cfg, batch: dict) -> list:
+    """The residual's shape after each encoder layer and decoder period
+    of a prefill on ``batch`` on a rank of G: the rank's (B, S/G, d)
+    sequence block where G divides the length S (the encoder's frames;
+    a VLM's prefix and text joined), else the whole (B, S, d)."""
+    def block(b, s):
+        return (b, s // G if s % G == 0 else s, cfg.d_model)
+
+    b, s = batch["tokens"].shape
+    shapes = []
+    if "enc_frames" in batch:
+        shapes += ([block(b, batch["enc_frames"].shape[1])]
+                   * cfg.encdec.encoder_layers)
+    if "prefix_embeds" in batch:
+        s += batch["prefix_embeds"].shape[1]
+    periods = cfg.num_layers // len(build_model(cfg).pattern)
+    return shapes + [block(b, s)] * periods
 
 
 @pytest.mark.parametrize("name,backend", _layout_cases())
 def test_rank_residual_between_layers(ranks, model_reference, name,
                                       backend):
     """After every period the residual stream is the rank's (B, S/g, d)
-    sequence block where 4 divides S (512 and 32 tokens), and the whole
-    (B, S, d) where it does not (the dense model's 30)."""
+    sequence block where 4 divides S (512 and 32 tokens; 32 frames and 32
+    positions of the VLM's prefix and text), and the whole (B, S, d)
+    where it does not (the dense model's 30 tokens, the odd shapes' 30
+    frames and 8 + 22 positions); likewise after each encoder layer."""
     if name == "dense-512":
-        tokens = model_reference["tokens"]
+        batch = {"tokens": model_reference["tokens"]}
         cfg = get_config(ARCH).reduced()
         got = [res["prefill", "uniform-fused-1d", backend][1]
                for res in ranks]
+    elif backend == "odd":
+        batch, cfg = _rank_batch(name, jax_reference.RANK_ODD), \
+            _rank_cfg(name)
+        got = [res["model", name]["prefill_odd"][1] for res in ranks]
     else:
-        tokens, cfg = _rank_batch(name)["tokens"], _rank_cfg(name)
+        batch, cfg = _rank_batch(name), _rank_cfg(name)
         got = [res["model", name]["prefill"][backend][1] for res in ranks]
-    b, s = tokens.shape
-    block = (b, s // G if s % G == 0 else s, cfg.d_model)
-    periods = cfg.num_layers // len(build_model(cfg).pattern)
+    want = _layout(cfg, batch)
+    if name in ODD:  # whole at the odd shape, cut at the other
+        assert all(sh[1] % G for sh in want) is (backend == "odd")
     for shapes in got:
-        assert shapes == [block] * periods
+        assert shapes == want
 
 
 def test_launcher_raises_when_a_rank_raises():
@@ -620,6 +704,42 @@ def test_params_from_jax_cuts_a_rank(rank_params):
         for a, b in zip(leaves(got), leaves(want), strict=True):
             assert a.dtype == b.dtype
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["seamless", "internvl"])
+def test_params_from_jax_and_shard_train_state_cut_the_encoder_and_prefix(
+        rank_params, name):
+    """The converter's cut of the encoder-decoder and the VLM equals
+    ``shard_params`` of the whole converted state, and
+    ``shard_train_state`` cuts the moments alike: the encoder's attention
+    and MLP leaves are blocks, ``enc_norm`` and ``frontend_proj`` whole."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import leaves, named_leaves
+
+    cfg = _rank_cfg(name)
+    whole = params_from_jax(rank_params[name], cfg, device="cpu")
+    specs = build_model(cfg).rank_specs(G)
+    want = [path.split("/")[0] == "encoder"
+            and path.split("/")[1] in ("attn", "ffn")
+            for path, _ in named_leaves(whole)]
+    assert any(want) is (name == "seamless")
+    kept = [path.split("/")[0] in ("enc_norm", "frontend_proj")
+            for path, _ in named_leaves(whole)]
+    assert any(kept)
+    state = {"params": whole, "opt_state": opt.init_state(whole)}
+    for r in range(G):
+        got = params_from_jax(rank_params[name], cfg, device="cpu",
+                              rank=r, size=G)
+        for a, b in zip(leaves(got), leaves(shard_params(whole, specs, r, G)),
+                        strict=True):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        cut = shard_train_state(state, specs, r, G)
+        for part in (cut["params"], cut["opt_state"]["m"],
+                     cut["opt_state"]["v"]):
+            blocks = rank_blocks(part, specs)
+            assert all(blocks[i] for i, w in enumerate(want) if w)
+            assert not any(blocks[i] for i, k in enumerate(kept) if k)
 
 
 def test_missing_stream_memory_operations_raise():
@@ -896,7 +1016,18 @@ def test_shard_train_state_cuts_params_and_moments():
 
 @pytest.fixture(scope="module")
 def rank_reference(tmp_path_factory):
-    return jax_reference.reference(tmp_path_factory, entry="ranks")
+    """The subprocess's ``ranks`` entry, with the ``RANK_SHARED`` models'
+    one-device logits, loss, gradients and their global norm taken from
+    its ``encdec`` entry (the same reduced config, params and batch)."""
+    ranks = jax_reference.reference(tmp_path_factory, entry="ranks")
+    encdec = jax_reference.reference(tmp_path_factory, entry="encdec")
+    for name in jax_reference.RANK_SHARED:
+        want = encdec[jax_reference.RANK_MODELS[name]["arch"]]
+        norm = np.sqrt(sum(np.square(g, dtype=np.float64).sum()
+                           for g in want["grads"]))
+        ranks[name].update(logits=want["logits"], loss=want["loss"],
+                           grads=want["grads"], grad_norm=float(norm))
+    return ranks
 
 
 @pytest.mark.parametrize("name,backend", [
@@ -914,71 +1045,106 @@ def test_rank_model_prefill_matches_reference(ranks, rank_reference, name,
         np.testing.assert_array_equal(other, logits[0])
 
 
-@pytest.mark.parametrize("name,cache", [
-    (name, cache) for name in RANK_MODELS for cache in ("cache", "whole")])
+@pytest.mark.parametrize("name", ODD)
+def test_rank_model_odd_prefill_matches_reference(ranks, rank_reference,
+                                                  name):
+    """At a length the group does not divide (30 encoder frames; a VLM's
+    8 + 22 positions joined), each rank's prefill with the residual
+    replicated within 2e-3 of the reference's one-device forward, the
+    same bits on every rank."""
+    logits = [res["model", name]["prefill_odd"][0] for res in ranks]
+    np.testing.assert_allclose(logits[0], rank_reference[name]["logits_odd"],
+                               **MODEL_TOL)
+    for other in logits[1:]:
+        np.testing.assert_array_equal(other, logits[0])
+
+
+def _engine_cases() -> list:
+    """(model, cache, encoder length): each rank model's engine at the
+    cache the rule time-slices and at one it keeps whole, an
+    encoder-decoder's with its cross cache whole, and with it
+    time-sliced at the first."""
+    cases = []
+    for name in RANK_MODELS:
+        encs = _encs(_rank_cfg(name))
+        cases += [(name, cache, encs[0]) for cache in ("cache", "whole")]
+        cases += [(name, "cache", enc) for enc in encs[1:]]
+    return cases
+
+
+@pytest.mark.parametrize("name,cache,enc", _engine_cases())
 def test_rank_model_engine_matches_one_process(ranks, rank_params, name,
-                                               cache):
+                                               cache, enc):
     """Every rank's engine gives the tokens of the port's engine on the
     whole model here, with the cache the rule time-slices (the rank's
     quarter of the attention or latent cache) and with one it keeps
-    whole."""
+    whole; an encoder-decoder's with its cross cache whole (16 frames)
+    and time-sliced (1024)."""
     cfg = _rank_cfg(name)
     cache_len = ENGINE[cache]
-    want = _one_process_tokens(rank_params[name], cache_len, cfg)
+    want = _one_process_tokens(rank_params[name], cache_len, cfg, enc)
     sliced = cache == "cache"
     for res in ranks:
-        tokens, positions = _positions(res, name, cache_len)
+        tokens, positions = _positions(res, name, cache_len, enc)
         assert positions == (cache_len // G if sliced else cache_len)
         assert tokens == want
 
 
-@pytest.mark.parametrize("name,mode,length", [
-    (name, mode, length) for name in RANK_MODELS for mode in DECODE_ATTN
+@pytest.mark.parametrize("name,mode,length,enc", [
+    (name, mode, length, enc) for name in RANK_MODELS
+    for enc in _encs(_rank_cfg(name)) for mode in DECODE_ATTN
     for length in ENGINE["prompts"]])
 def test_rank_engine_matches_reference_engine(ranks, rank_reference, name,
-                                              mode, length):
+                                              mode, length, enc):
     """Every rank's ``DecodeEngine`` in either decode attention, at a
     cache the rule time-slices, gives the tokens of the reference's
     one-device engine, for a prompt length 4 divides and one it does
-    not."""
-    want = rank_reference[name]["engine"][length]
+    not; an encoder-decoder's at an encoder length whose cross cache the
+    rule keeps whole and one it time-slices."""
+    want = rank_reference[name]["engine"][length, enc]
     assert all(len(t) == ENGINE["new"] for t in want)
     for res in ranks:
         tokens, _ = res["model", name]["engine"][mode, ENGINE["cache"],
-                                                 length]
+                                                 length, enc]
         assert tokens == want
 
 
-@pytest.mark.parametrize("name,cache", [
-    (name, cache) for name in RANK_MODELS for cache in ("cache", "whole")])
-def test_rank_cache_leaves_follow_the_reference_rule(ranks, name, cache):
+@pytest.mark.parametrize("name,cache,enc", _engine_cases())
+def test_rank_cache_leaves_follow_the_reference_rule(ranks, name, cache,
+                                                     enc):
     """Each leaf of a rank's engine cache has the shape of its block by
     the reference's ``cache_leaf_spec`` on a model-only mesh of 4 (the
     whole cache's on the meta device), in either decode attention; a
-    time slice carries its record."""
+    time slice carries its record (``"time_slice"``, an encoder-decoder's
+    cross cache ``"cross_slice"``)."""
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import SLICE_RECORDS
     from repro_torch.parallel.sharding import cache_leaf_spec, shard_shape
 
     mesh = Mesh(("model",), (G,))
     cache_len = ENGINE[cache]
     whole = build_model(_rank_cfg(name)).init_cache(
-        ENGINE["batch"], cache_len, device="meta")
+        ENGINE["batch"], cache_len, enc_len=enc, device="meta")
     want = [{k: shard_shape(cache_leaf_spec(v.shape, mesh), v.shape, mesh)
              for k, v in c.items()} for c in whole]
     sliced = cache == "cache"
-    runs = [(mode, cache_len, PROMPT) for mode in DECODE_ATTN
+    cross = enc >= 1024
+    runs = [(mode, cache_len, PROMPT, enc) for mode in DECODE_ATTN
             if sliced or mode == "shard_map"]
     for res in ranks:
         for run in runs:
             got = res["model", name]["engine"][run][1]
             for leaves_got, leaves_want in zip(got, want, strict=True):
                 assert ("time_slice" in leaves_got) is sliced
+                assert ("cross_slice" in leaves_got) is cross
                 leaves_got = {k: v for k, v in leaves_got.items()
-                              if k != "time_slice"}
+                              if k not in SLICE_RECORDS}
                 assert leaves_got == leaves_want
-                if sliced:
-                    assert all(v[2] == cache_len // G
-                               for v in leaves_got.values())
+                for k, v in leaves_got.items():
+                    if k.startswith("cross_"):
+                        assert v[2] == (enc // G if cross else enc)
+                    elif sliced:
+                        assert v[2] == cache_len // G
 
 
 @pytest.mark.parametrize("name", list(RANK_MODELS))
@@ -1016,6 +1182,120 @@ def test_rank_model_step_matches_reference(ranks, rank_reference, name):
                                        err_msg=key)
 
 
+# ---------------------------------------------------------------------------
+# MLA with heads the group does not divide
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mla_reference():
+    """The reference's ``mla_apply`` on the MLA layer case's x, the
+    gradients of sum(y * dy), and ``mla_decode`` over x's first
+    positions on a whole cache of each of ``MLA_CACHES`` (numpy; each
+    jitted once)."""
+    from repro.models import mla as jax_mla
+
+    cfg = _mla_cfg(jax_get_config).mla
+    params, x, dy = _mla_operands()
+    b, s, _ = x.shape
+    positions = np.broadcast_to(np.arange(s), (b, s))
+
+    def forward(p):
+        def apply(p):
+            return jax_mla.mla_apply(p, x, MLA["heads"], cfg,
+                                     positions=positions)
+
+        y, vjp = jax.vjp(apply, p)
+        return y, vjp(dy)[0]
+
+    def decode(p, cache):
+        ys = []
+        for t in range(MLA["decode"]):
+            y_t, cache = jax_mla.mla_decode(p, x[:, t:t + 1], cache, t,
+                                            MLA["heads"], cfg)
+            ys.append(y_t)
+        return jax.numpy.concatenate(ys, 1)
+
+    y, grads = jax.jit(forward)(params)
+    return dict(y=np.asarray(y), grads=jax.tree.map(np.asarray, grads),
+                decode={n: np.asarray(jax.jit(decode)(
+                    params, jax_mla.mla_init_cache(b, n, cfg,
+                                                   jax.numpy.float32)))
+                        for n in MLA_CACHES})
+
+
+def test_rank_mla_blocks_straddle_heads(ranks):
+    """Each rank holds a column block of ``wq``, ``w_uk`` and ``w_uv`` that
+    is no whole number of the 6 heads (the rule keeps a cut wherever 4
+    divides the dimension), ``wo``'s row block, and the latent and
+    rope-key projections whole."""
+    cfg = _mla_cfg(get_config).mla
+    mla_params = _mla_operands()[0]
+    widths = {"wq": cfg.nope_head_dim + cfg.rope_head_dim,
+              "w_uk": cfg.nope_head_dim, "w_uv": cfg.v_head_dim}
+    for res in ranks:
+        blocks = res["mla"]["blocks"]
+        for key, width in widths.items():
+            cols = blocks[key][1]
+            assert cols * G == mla_params[key].shape[1]
+            assert cols % width  # a share of a head
+        assert blocks["wo"][0] * G == mla_params["wo"].shape[0]
+        for key in ("w_dkv", "w_kr"):
+            assert blocks[key] == mla_params[key].shape
+
+
+@pytest.mark.parametrize("layout", ["replicated", "seq"])
+def test_rank_mla_indivisible_heads_match_reference(ranks, mla_reference,
+                                                    layout):
+    """MLA with 6 heads on 4 ranks: each rank gathers its column blocks to
+    whole heads, computes every head and multiplies by ``wo``'s row block
+    the columns it owns; the group's sum (all-reduced on the replicated
+    input, reduce-scattered to the rank's block of the sequence) within
+    1e-5 of the reference's ``mla_apply``."""
+    s = mla_reference["y"].shape[1] // G
+    for r, res in enumerate(ranks):
+        want = mla_reference["y"]
+        if layout == "seq":
+            want = want[:, r * s:(r + 1) * s]
+        np.testing.assert_allclose(res["mla"][layout], want, rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_rank_mla_indivisible_heads_grads_match_reference(
+        ranks, mla_reference):
+    """Each rank's gradients of its MLA blocks (the sequence-cut input)
+    against the reference's ``jax.grad``, cut by the same rule, at 1e-5
+    of the largest: a whole latent projection's summed over the ranks, a
+    straddling column block's its own."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import mla
+    from repro_torch.parallel.sharding import fix_param_specs
+
+    shapes = {k: torch.empty(v.shape, device="meta")
+              for k, v in mla_reference["grads"].items()}
+    specs = fix_param_specs(mla.mla_param_specs(), shapes,
+                            Mesh(("model",), (G,)))
+    for r, res in enumerate(ranks):
+        want = shard_params(mla_reference["grads"], specs, r, G)
+        for key, got in res["mla"]["grads"].items():
+            scale = np.abs(want[key]).max()
+            np.testing.assert_allclose(got, want[key], rtol=1e-5,
+                                       atol=1e-5 * scale, err_msg=key)
+
+
+@pytest.mark.parametrize("cache_len", MLA_CACHES)
+def test_rank_mla_indivisible_heads_decode_matches_reference(
+        ranks, mla_reference, cache_len):
+    """``mla_decode`` per rank with 6 heads on 4, over a latent cache the
+    rule keeps whole (64) and one whose time axis it cuts (1024: the
+    rank's 256 positions, gathered each step), within 1e-5 of the
+    reference's on a whole cache, every step."""
+    for res in ranks:
+        got, here = res["mla"]["decode"][cache_len]
+        assert here == (cache_len // G if cache_len >= 1024 else cache_len)
+        np.testing.assert_allclose(got, mla_reference["decode"][cache_len],
+                                   rtol=1e-5, atol=1e-5)
+
+
 def test_rank_gather_replicated_grad_matches_logical(ranks):
     """``gather_replicated`` joins the blocks in rank order, and its
     gradient is this rank's block of the replicated cotangent, as the
@@ -1047,21 +1327,27 @@ def _spec_leaves(specs) -> list:
 
 
 # A rank's parameter bytes (bf16, the MoE router fp32) and its decode
-# cache's bytes at 4 requests of 2048 positions, on 4 ranks at full width
-# (chip_smoke.py holds the card's to the rule's, which these hold).
+# cache's bytes at 4 requests of 2048 positions (an encoder-decoder's with
+# 1024 encoder positions), on 4 ranks at full width (chip_smoke.py holds
+# the card's to the rule's, which these hold).
 RANK_BYTES = {"tinyllama-1.1b": (550_162_432, 46_137_344),
-              "deepseek-v2-lite-16b": (8_165_486_592, 63_700_992)}
+              "deepseek-v2-lite-16b": (8_165_486_592, 63_700_992),
+              "seamless-m4t-large-v2": (1_017_880_576, 301_989_888),
+              "internvl2-76b": (35_331_260_416, 671_088_640)}
+RANK_ENC_LEN = 1024
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-lite-16b",
-                                  "smollm-360m", "arctic-480b"])
+                                  "smollm-360m", "arctic-480b",
+                                  "seamless-m4t-large-v2", "internvl2-76b"])
 def test_rank_param_bytes_match_shard_shape(arch):
     """At full width (on the meta device), each rank's parameter bytes:
     ``shard_shape`` over ``fix_param_specs`` of ``param_specs`` on a
     model-only mesh of 4 for the embedding and unembedding and the leaves
-    of a layer's attention and FFN, and the whole bytes of every other
-    leaf (the norms, the router); TinyLlama-1.1B's and
-    DeepSeek-V2-Lite-16B's to the byte."""
+    of a layer's attention and FFN (the encoder's layers' too), and the
+    whole bytes of every other leaf (the norms, the router, ``enc_norm``,
+    ``frontend_proj``); TinyLlama-1.1B's, DeepSeek-V2-Lite-16B's,
+    SeamlessM4T-v2's and InternVL2-76B's to the byte."""
     import math
 
     from repro_torch.launch.mesh import Mesh
@@ -1076,17 +1362,24 @@ def test_rank_param_bytes_match_shard_shape(arch):
     def nbytes(shape, t):
         return math.prod(shape) * t.element_size()
 
-    want = sum(nbytes(shard_shape(fixed[k], t.shape, mesh)
-                      if k in ("embed", "unembed") else t.shape, t)
-               for k, v in state.items() if k != "layers"
-               for t in leaves(v))
-    for slot, slot_specs in zip(state["layers"], fixed["layers"]):
+    def layer(slot, slot_specs):
+        total = 0
         for key, sub in slot.items():
             cut = key in ("attn", "cross", "ffn")
             for t, sp in zip(leaves(sub), _spec_leaves(slot_specs[key]),
                              strict=True):
-                want += nbytes(shard_shape(sp, t.shape, mesh) if cut
-                               else t.shape, t)
+                total += nbytes(shard_shape(sp, t.shape, mesh) if cut
+                                else t.shape, t)
+        return total
+
+    want = sum(nbytes(shard_shape(fixed[k], t.shape, mesh)
+                      if k in ("embed", "unembed") else t.shape, t)
+               for k, v in state.items() if k not in ("layers", "encoder")
+               for t in leaves(v))
+    for slot, slot_specs in zip(state["layers"], fixed["layers"]):
+        want += layer(slot, slot_specs)
+    if "encoder" in state:
+        want += layer(state["encoder"], fixed["encoder"])
     whole = sum(nbytes(t.shape, t) for t in leaves(state))
     specs = model.rank_specs(G)
     for r in range(G):
@@ -1100,7 +1393,8 @@ def test_rank_param_bytes_match_shard_shape(arch):
 @pytest.mark.parametrize("arch", list(RANK_BYTES))
 def test_rank_cache_bytes_at_full_width(arch):
     """At full width (on the meta device), a rank's decode cache for 4
-    requests of 2048 positions: its leaves' bytes, each the rank's time
+    requests of 2048 positions (and an encoder-decoder's cross K/V of
+    1024 encoder positions): its leaves' bytes, each the rank's time
     slice by ``cache_leaf_spec`` on a model-only mesh of 4, to the
     byte."""
     import math
@@ -1109,7 +1403,9 @@ def test_rank_cache_bytes_at_full_width(arch):
     from repro_torch.parallel.sharding import cache_leaf_spec, shard_shape
 
     mesh = Mesh(("model",), (G,))
-    whole = build_model(get_config(arch)).init_cache(4, 2048, device="meta")
+    cfg = get_config(arch)
+    whole = build_model(cfg).init_cache(
+        4, 2048, enc_len=RANK_ENC_LEN if cfg.encdec else 0, device="meta")
     got = sum(math.prod(shard_shape(cache_leaf_spec(t.shape, mesh), t.shape,
                                     mesh)) * t.element_size()
               for c in whole for t in c.values())
@@ -1118,12 +1414,11 @@ def test_rank_cache_bytes_at_full_width(arch):
                           for c in whole for t in c.values())
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b",
-                                  "seamless-m4t-large-v2", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b"])
 def test_uncovered_family_raises_on_a_rank_group(monkeypatch, arch):
-    """The hybrid, SSM, encoder-decoder and VLM families have no per-rank
-    form held to the reference yet: cutting their state and running them
-    on a ``RankGroup`` raise, citing ROADMAP A17."""
+    """The hybrid and SSM families have no per-rank form held to the
+    reference yet (their recurrent mixers): cutting their state and
+    running them on a ``RankGroup`` raise, citing ROADMAP A17."""
     model = build_model(get_config(arch).reduced())
     with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         model.rank_specs(G)
@@ -1134,3 +1429,39 @@ def test_uncovered_family_raises_on_a_rank_group(monkeypatch, arch):
                      lambda: model.decode_step({}, [], None, 0)):
             with pytest.raises(NotImplementedError, match="ROADMAP A17"):
                 call()
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b"])
+def test_encdec_and_vlm_rank_specs_cut_by_the_rule(arch):
+    """The encoder-decoder and VLM families run per rank: their
+    ``rank_specs`` are the reference's ``param_specs`` fixed on a
+    model-only mesh of 4 for the decoder's and the encoder's attention
+    and FFN leaves (each cut on the model axis where 4 divides it), the
+    cross-attention's and the vocabulary's, with ``enc_norm``,
+    ``frontend_proj`` and the norms whole."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import block_dim, fix_param_specs
+
+    def whole(tree):
+        return all(block_dim(sp) is None for sp in _spec_leaves(tree))
+
+    model = build_model(get_config(arch).reduced())
+    specs = model.rank_specs(G)
+    fixed = fix_param_specs(model.param_specs(), model.init(device="meta"),
+                            Mesh(("model",), (G,)))
+    stacks = [*zip(specs["layers"], fixed["layers"])]
+    if "encoder" in specs:
+        stacks.append((specs["encoder"], fixed["encoder"]))
+        assert whole(specs["enc_norm"])
+    else:
+        assert whole(specs["frontend_proj"])
+    for got, want in stacks:
+        for key in got:
+            if key in ("attn", "cross", "ffn"):
+                assert got[key] == want[key]
+                assert not any(block_dim(sp) is None
+                               for sp in _spec_leaves(got[key]))
+            else:
+                assert whole(got[key])
+    for key in ("embed", "unembed"):
+        assert specs[key] == fixed[key] and block_dim(specs[key]) is not None

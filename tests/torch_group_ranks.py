@@ -85,8 +85,11 @@ def decode_attention(group, operands, positions) -> dict:
 def engine(group, numpy_params, runs, cfg=None) -> dict:
     """A ``DecodeEngine`` on this rank of ``cfg`` (the reduced TinyLlama by
     default), with its blocks, for each of ``runs`` ((decode_attn, cache
-    length, prompts) with ``new`` new tokens): the tokens of each request,
-    and the shape of every leaf of the engine's cache on this rank."""
+    length, prompts, new tokens, encoder length, frames): an
+    encoder-decoder's engine first encodes the (B, enc_len, d) frames):
+    the tokens of each request, and the shape of every leaf of the
+    engine's cache on this rank; keyed (decode_attn, cache length, prompt
+    length, encoder length)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
@@ -96,14 +99,16 @@ def engine(group, numpy_params, runs, cfg=None) -> dict:
     state = params_from_jax(numpy_params, cfg, device="cpu",
                             rank=group.rank, size=group.size)
     out = {}
-    for decode_attn, cache_len, prompts, new in runs:
+    for decode_attn, cache_len, prompts, new, enc_len, frames in runs:
         eng = DecodeEngine(
             dataclasses.replace(cfg, overlap=OverlapConfig(
                 decode_attn=decode_attn)),
             state, batch_size=len(prompts), cache_len=cache_len,
-            device="cpu")
+            enc_len=enc_len, device="cpu")
+        if frames is not None:
+            eng.encode(torch.from_numpy(frames))
         reqs = eng.run([Request(p, new) for p in prompts])
-        out[decode_attn, cache_len, len(prompts[0])] = (
+        out[decode_attn, cache_len, len(prompts[0]), enc_len] = (
             [list(r.out) for r in reqs],
             [{k: tuple(v.shape) for k, v in c.items()} for c in eng.cache])
     return out
@@ -130,11 +135,13 @@ def composers(group, x, w, variants) -> dict:
     return out
 
 
-def prefill(group, numpy_params, tokens, mode: str, backend: str,
+def prefill(group, numpy_params, inputs, mode: str, backend: str,
             cfg=None):
     """The prefill of ``cfg`` (the reduced TinyLlama by default) on this
-    rank: the params converted to this rank's blocks, the logits (float32
-    numpy) and the shape of the residual stream after each period."""
+    rank, on ``inputs`` (the tokens, or a dict of them and a VLM's prefix
+    or an encoder-decoder's frames): the params converted to this rank's
+    blocks, the logits (float32 numpy) and the shape of the residual
+    stream after each encoder layer and decoder period."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
@@ -146,9 +153,12 @@ def prefill(group, numpy_params, tokens, mode: str, backend: str,
         overlap=OverlapConfig(mode=mode, backend=backend))
     state = params_from_jax(numpy_params, cfg, device="cpu",
                             rank=group.rank, size=group.size)
+    if not isinstance(inputs, dict):
+        inputs = {"tokens": inputs}
+    batch = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    batch["tokens"] = batch["tokens"].long()
     with model_mod.residual_shapes() as shapes:
-        logits = make_prefill(model_mod.build_model(cfg))(
-            state, {"tokens": torch.from_numpy(tokens).long()})
+        logits = make_prefill(model_mod.build_model(cfg))(state, batch)
     return logits.float().numpy(), shapes
 
 
@@ -290,11 +300,12 @@ def dma_refuses_grad(group, numpy_params, shape: tuple) -> str:
 
 
 def rank_model(group, cfg, numpy_params, batch, backends, engine_runs,
-               train_mode: str) -> dict:
+               train_mode: str, odd_batch=None) -> dict:
     """One of the reference's per-rank models (``cfg``, fp32) on this
     rank, from the reference's params cut to the rank's blocks: the
     prefill's logits and residual shapes (:func:`prefill`) on ``batch``'s
-    tokens in ``uniform-fused-1d`` on each of ``backends``; its
+    inputs in ``uniform-fused-1d`` on each of ``backends``, and on
+    ``odd_batch``'s on the collective backend where given; its
     ``DecodeEngine``s (:func:`engine`, ``engine_runs``); and, in
     ``train_mode`` on the collective backend, ``loss_and_grads``' loss and
     gradient blocks at ``batch`` and one ``make_train_step`` step's
@@ -306,10 +317,16 @@ def rank_model(group, cfg, numpy_params, batch, backends, engine_runs,
     from repro_torch.train.loop import loss_and_grads, make_train_step
     from repro_torch.tree import leaves
 
+    def inputs(b):
+        return {k: v for k, v in b.items() if k != "labels"}
+
     out = {"prefill": {
-        backend: prefill(group, numpy_params, batch["tokens"],
+        backend: prefill(group, numpy_params, inputs(batch),
                          "uniform-fused-1d", backend, cfg)
         for backend in backends}}
+    if odd_batch is not None:
+        out["prefill_odd"] = prefill(group, numpy_params, inputs(odd_batch),
+                                     "uniform-fused-1d", "collective", cfg)
     out["engine"] = engine(group, numpy_params, engine_runs, cfg=cfg)
     if train_mode is None:
         return out
@@ -348,6 +365,55 @@ def gather_grad(group, x, dy) -> dict:
     return out
 
 
+def mla_layer(group, numpy_params, mla_cfg, heads: int, x, dy,
+              decode: int, caches) -> dict:
+    """An MLA layer whose ``heads`` the group does not divide, on this
+    rank's blocks (``fix_param_specs`` of ``mla_param_specs`` on a
+    model-only mesh: ``wq``, ``w_uk`` and ``w_uv`` by columns that
+    straddle heads, ``wo`` by rows): ``mla_apply`` on the replicated x
+    (B, S, d) and on the rank's sequence block of it, the gradient of
+    sum(y * dy) with respect to the rank's leaves (from the sequence
+    block), and ``mla_decode`` over x's first ``decode`` positions at
+    each of ``caches`` lengths (the rule's block of the latent cache)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import mla
+    from repro_torch.parallel.decode_attn import cache_positions
+    from repro_torch.parallel.sharding import fix_param_specs, shard_params
+
+    g, r = group.size, group.rank
+    whole = {k: torch.from_numpy(v) for k, v in numpy_params.items()}
+    specs = fix_param_specs(mla.mla_param_specs(), whole,
+                            Mesh(("model",), (g,)))
+    params = shard_params(whole, specs, r, g)
+    xt, dyt = torch.from_numpy(x), torch.from_numpy(dy)
+    b, s, _ = xt.shape
+    positions = torch.arange(s).expand(b, s)
+    n = s // g
+    rows = slice(r * n, (r + 1) * n)
+    out = {"blocks": {k: tuple(v.shape) for k, v in params.items()}}
+    with torch.no_grad():
+        out["replicated"] = mla.mla_apply(params, xt, heads, mla_cfg,
+                                          positions=positions).numpy()
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    y = mla.mla_apply(leaves, xt[:, rows], heads, mla_cfg,
+                      positions=positions, seq=True)
+    out["seq"] = y.detach().numpy()
+    (y * dyt[:, rows]).sum().backward()
+    out["grads"] = {k: v.grad.numpy() for k, v in leaves.items()}
+    out["decode"] = {}
+    with torch.no_grad():
+        for cache_len in caches:
+            here = cache_positions((1, b, cache_len, mla_cfg.kv_lora_rank))
+            cache = mla.mla_init_cache(b, cache_len, mla_cfg, torch.float32,
+                                       "cpu", positions=here)
+            if here < cache_len:
+                cache["time_slice"] = torch.tensor(r * here)
+            ys = [mla.mla_decode(params, xt[:, t:t + 1], cache, t, heads,
+                                 mla_cfg)[0] for t in range(decode)]
+            out["decode"][cache_len] = (torch.cat(ys, 1).numpy(), here)
+    return out
+
+
 def run_all(group, cases: dict) -> dict:
     """Every case of the module, in one spawn."""
     torch.manual_seed(0)
@@ -374,6 +440,7 @@ def run_all(group, cases: dict) -> dict:
     out["gather_grad"] = gather_grad(group, *cases["gather_grad"])
     for name, args in cases["rank_models"].items():
         out["model", name] = rank_model(group, *args)
+    out["mla"] = mla_layer(group, *cases["mla"])
     return out
 
 

@@ -70,14 +70,18 @@ FIRST.pkl`` and one more pickle for each of ``LATER``) it evaluates, with ``JAX_
     stands (``runpy``, its output swallowed): its params
     (``PRNGKey(0)``) and each request's tokens;
   * ``ranks``: for each of ``RANK_MODELS`` (:func:`rank_config`, fp32),
-    from ``PRNGKey(0)``, the one-device forward's logits on the tokens of
-    ``SyntheticLM``'s batch 0 at ``RANK_TRAIN``'s shape, and the loss,
-    the gradients and their global norm there (a train step's loss and
-    ``grad_norm``), in one jitted function; and under ``"dense"`` the
-    same for the reduced TinyLlama at ``RANK_ODD``'s shape, whose length
-    a group of 4 does not divide; for each of them, the tokens of
-    the one-device ``DecodeEngine`` (``RANK_ENGINE``) for each prompt
-    length.
+    from ``PRNGKey(0)``, the one-device forward's logits on SyntheticLM's
+    batch 0 at ``RANK_TRAIN``'s shape (its tokens, and a VLM's prefix or
+    an encoder-decoder's frames), and the loss, the gradients and their
+    global norm there (a train step's loss and ``grad_norm``), in one
+    jitted function; for each of ``RANK_ODD_PREFILL`` also the forward's
+    logits at ``RANK_ODD``'s shape (``"logits_odd"``); and under
+    ``"dense"`` the same for the reduced TinyLlama at ``RANK_ODD``'s
+    shape, whose length a group of 4 does not divide; for each of them,
+    the tokens of the one-device ``DecodeEngine`` (``RANK_ENGINE``) for
+    each prompt length, an encoder-decoder's at each of ``RANK_ENC``'s
+    encoder lengths, its cross K/V filled by ``prefill_cross`` from
+    :func:`engine_frames`.
 
 The first eight entries go to ``FIRST.pkl``; the later ones (the whole
 models, the slower half) follow, each in a pickle of its own, in
@@ -173,10 +177,12 @@ DRYRUN = dict(meshes=({"data": 16, "model": 16},
 # order the script writes them after the first eight (``collectives``
 # goes before those), each holding a pytest-xdist worker that waits for
 # it (seconds alone, on one run: counts 5.8, collectives 1.2, examples
-# 5.6, recurrent_grad 18.3, encdec 9.7, recurrent 8.9, dryrun 15.8,
-# moe_grad 17.1; ranks about 7).
-LATER = ("counts", "collectives", "examples", "ranks", "recurrent_grad",
-         "encdec", "recurrent", "dryrun", "moe_grad")
+# 5.6, recurrent_grad 18.3, recurrent 8.9, dryrun 15.8, moe_grad 17.1;
+# on a later run encdec 16.4 and ranks 37.8, 7.2 of it the encoder-decoder
+# and VLM rank models, which take their forward and gradients from
+# ``encdec``, written first).
+LATER = ("counts", "collectives", "examples", "encdec", "ranks",
+         "recurrent_grad", "recurrent", "dryrun", "moe_grad")
 # The per-rank models of tests/test_torch_group.py beside TinyLlama, each
 # reduced and in fp32: DeepSeek-V2-Lite with 8 experts (2 a rank of 4)
 # and one shared expert; a SmolLM-360M with its 15 query and 5 K/V
@@ -187,6 +193,8 @@ LATER = ("counts", "collectives", "examples", "ranks", "recurrent_grad",
 # of SyntheticLM(seed).
 RANK_MODELS = {
     "deepseek": dict(arch="deepseek-v2-lite-16b", moe=dict(num_experts=8)),
+    "seamless": dict(arch="seamless-m4t-large-v2"),
+    "internvl": dict(arch="internvl2-76b"),
     "smollm": dict(arch="smollm-360m", d_model=240, num_heads=15,
                    num_kv_heads=5, head_dim=16),
     "indivisible": dict(arch="arctic-480b", vocab_size=510, num_heads=3,
@@ -202,6 +210,51 @@ RANK_ODD = dict(seq=30, batch=2, seed=1)
 # of 4 divides, one it does not), new tokens each, at a cache whose time
 # axis the reference's rule cuts over 4 ranks.
 RANK_ENGINE = dict(batch=2, prompts=(5, 8), new=4, cache=1024, seed=53)
+# The rank models whose prefill also runs at RANK_ODD's shape: the
+# encoder-decoder's 30 frames and the VLM's 8 + 22 joined positions, which
+# a group of 4 does not divide (the residual replicated).
+RANK_ODD_PREFILL = ("seamless", "internvl")
+# The rank models whose one-device forward, loss and gradients at
+# RANK_TRAIN's shape the ``encdec`` entry holds already (the same reduced
+# config, params and batch): ``ranks`` computes only their odd prefill and
+# engines, and the tests take the rest from ``encdec``.
+RANK_SHARED = ("seamless", "internvl")
+# An encoder-decoder engine's encoder lengths: one the reference's rule
+# keeps whole on every rank and one whose time axis it cuts over 4 ranks.
+RANK_ENC = (16, 1024)
+# The MLA layer with heads that a group of 4 does not divide (the reduced
+# DeepSeek-V2-Lite's latent and head widths with 6 heads): every
+# projection's columns divide, so a rank's block straddles heads; batch,
+# prompt length and decode steps.
+RANK_MLA = dict(heads=6, batch=2, seq=32, decode=5, seed=57)
+
+
+def engine_frames(d_model: int, enc_len: int) -> np.ndarray:
+    """The frames (float32) an encoder-decoder engine's ``RANK_ENGINE``
+    requests are encoded from: ``enc_len`` of width ``d_model`` each."""
+    rng = np.random.default_rng(RANK_ENGINE["seed"] + enc_len)
+    return rng.standard_normal((RANK_ENGINE["batch"], enc_len, d_model)
+                               ).astype(np.float32)
+
+
+def mla_operands(d_model: int, cfg) -> tuple:
+    """The MLA layer case's params (the reference's ``mla_init`` tree of
+    ``RANK_MLA["heads"]`` heads at ``cfg``'s widths, either package's
+    ``MLAConfig``, each leaf normal over the square root of its input
+    width), its input x (B, S, d_model) and the cotangent of its output;
+    float32 numpy."""
+    rng = np.random.default_rng(RANK_MLA["seed"])
+    h, r = RANK_MLA["heads"], cfg.kv_lora_rank
+    shapes = {"wq": (d_model, h * (cfg.nope_head_dim + cfg.rope_head_dim)),
+              "w_dkv": (d_model, r), "w_kr": (d_model, cfg.rope_head_dim),
+              "w_uk": (r, h * cfg.nope_head_dim),
+              "w_uv": (r, h * cfg.v_head_dim),
+              "wo": (h * cfg.v_head_dim, d_model)}
+    params = {k: (rng.standard_normal(shape) / np.sqrt(shape[0])).astype(
+        np.float32) for k, shape in shapes.items()}
+    shape = (RANK_MLA["batch"], RANK_MLA["seq"], d_model)
+    return (params, *(rng.standard_normal(shape).astype(np.float32)
+                      for _ in range(2)))
 
 
 def engine_prompts(vocab: int, length: int) -> list:
@@ -409,11 +462,11 @@ def main(err_path: str, first_path: str, *later_paths: str) -> None:
         "counts": _counts,
         "collectives": _collectives,
         "examples": _examples,
+        "encdec": lambda: {a: _encdec(a) for a in ENCDEC["archs"]},
         "ranks": lambda: {n: _rank_model(n)
                           for n in ("dense", *RANK_MODELS)},
         "recurrent_grad": lambda: {a: _grad(a, RECURRENT_TRAIN)
                                    for a in RECURRENT_TRAIN["archs"]},
-        "encdec": lambda: {a: _encdec(a) for a in ENCDEC["archs"]},
         "recurrent": lambda: {a: _recurrent(a) for a in RECURRENT["archs"]},
         "dryrun": _dryrun,
         "moe_grad": lambda: {a: _grad(a) for a in MOE_TRAIN["archs"]},
@@ -542,11 +595,13 @@ def _grad(arch: str, spec: dict = MOE_TRAIN) -> dict:
 
 def _rank_model(name: str) -> dict:
     """``RANK_MODELS[name]`` (or, ``"dense"``, the reduced TinyLlama at
-    ``RANK_ODD``'s shape): the forward's logits on batch 0's tokens, and
-    the loss, gradients and their global norm (what a train step reports,
-    ``optimizer.global_norm``) at batch 0, in one jitted function; and
-    the ``DecodeEngine``'s tokens for each of ``RANK_ENGINE``'s prompt
-    lengths."""
+    ``RANK_ODD``'s shape): the forward's logits on batch 0 (without its
+    labels), and the loss, gradients and their global norm (what a train
+    step reports, ``optimizer.global_norm``) at batch 0, in one jitted
+    function (but for ``RANK_SHARED``); the logits at ``RANK_ODD``'s shape for each of
+    ``RANK_ODD_PREFILL``; and the ``DecodeEngine``'s tokens for each of
+    ``RANK_ENGINE``'s prompt lengths and each encoder length
+    (``RANK_ENC``, 0 without an encoder), keyed (length, enc_len)."""
     import jax
 
     from repro.configs import get_config
@@ -561,28 +616,45 @@ def _rank_model(name: str) -> dict:
     else:
         cfg, shape = rank_config(get_config, name), RANK_TRAIN
     model = build_model(cfg)
-    batch = SyntheticLM(cfg, ShapeConfig("t", shape["seq"], shape["batch"],
-                                         "train"),
-                        seed=shape["seed"]).batch_at(0)
+
+    def batch_at(shape):
+        return SyntheticLM(cfg, ShapeConfig("t", shape["seq"],
+                                            shape["batch"], "train"),
+                           seed=shape["seed"]).batch_at(0)
+
+    def inputs(batch):
+        return {k: v for k, v in batch.items() if k != "labels"}
+
+    batch = batch_at(shape)
 
     def run(params, batch):
-        logits, _ = model.forward(params, {"tokens": batch["tokens"]})
+        logits, _ = model.forward(params, inputs(batch))
         (loss, _), grads = jax.value_and_grad(model.loss, has_aux=True)(
             params, batch)
         return logits, loss, grads, global_norm(grads)
 
     params = model.init(jax.random.PRNGKey(0))
-    logits, loss, grads, norm = jax.jit(run)(params, batch)
-    engine = DecodeEngine(cfg, params, batch_size=RANK_ENGINE["batch"],
-                          cache_len=RANK_ENGINE["cache"])
-    tokens = {
-        length: [[int(t) for t in r.out] for r in engine.run(
-            [Request(p, RANK_ENGINE["new"])
-             for p in engine_prompts(cfg.vocab_size, length)])]
-        for length in RANK_ENGINE["prompts"]}
-    return {"logits": np.asarray(logits, np.float32), "loss": float(loss),
-            "grads": [np.asarray(g) for g in jax.tree.leaves(grads)],
-            "grad_norm": float(norm), "engine": tokens}
+    out = {"engine": {}}
+    if name not in RANK_SHARED:
+        logits, loss, grads, norm = jax.jit(run)(params, batch)
+        out.update(logits=np.asarray(logits, np.float32), loss=float(loss),
+                   grads=[np.asarray(g) for g in jax.tree.leaves(grads)],
+                   grad_norm=float(norm))
+    if name in RANK_ODD_PREFILL:
+        odd, _ = jax.jit(model.forward)(params, inputs(batch_at(RANK_ODD)))
+        out["logits_odd"] = np.asarray(odd, np.float32)
+    for enc_len in (RANK_ENC if cfg.encdec else (0,)):
+        engine = DecodeEngine(cfg, params, batch_size=RANK_ENGINE["batch"],
+                              cache_len=RANK_ENGINE["cache"], enc_len=enc_len)
+        if enc_len:
+            engine.cache = jax.jit(model.prefill_cross)(
+                params, engine.cache, engine_frames(cfg.d_model, enc_len))
+        for length in RANK_ENGINE["prompts"]:
+            out["engine"][length, enc_len] = [
+                [int(t) for t in r.out] for r in engine.run(
+                    [Request(p, RANK_ENGINE["new"])
+                     for p in engine_prompts(cfg.vocab_size, length)])]
+    return out
 
 
 def _encdec(arch: str) -> dict:
@@ -600,9 +672,10 @@ def _encdec(arch: str) -> dict:
     batch = SyntheticLM(cfg, ShapeConfig("t", ENCDEC["seq"], ENCDEC["batch"],
                                          "train"),
                         seed=ENCDEC["seed"]).batch_at(0)
-    logits, aux = jax.jit(model.forward)(params, batch)
-    (loss, parts), grads = jax.jit(jax.value_and_grad(
-        model.loss, has_aux=True))(params, batch)
+    # The forward and the gradients in one compiled function.
+    (logits, aux), ((loss, parts), grads) = jax.jit(lambda p, b: (
+        model.forward(p, b),
+        jax.value_and_grad(model.loss, has_aux=True)(p, b)))(params, batch)
     enc_len = batch["enc_frames"].shape[1] if cfg.encdec else 0
     cache = model.init_cache(ENCDEC["batch"], ENCDEC["cache"],
                              enc_len=enc_len)
@@ -647,8 +720,9 @@ def _recurrent(arch: str, dtype: str | None = None) -> dict:
     params = model.init(jax.random.PRNGKey(0))
     batch = SyntheticLM(cfg, ShapeConfig("t", r["seq"], r["batch"], "train"),
                         seed=r["seed"]).batch_at(0)
-    logits, aux = jax.jit(model.forward)(params, batch)
-    loss, parts = jax.jit(model.loss)(params, batch)
+    # The forward and the loss in one compiled function.
+    (logits, aux), (loss, parts) = jax.jit(lambda p, b: (
+        model.forward(p, b), model.loss(p, b)))(params, batch)
     cache = model.init_cache(r["batch"], r["cache"])
     step = jax.jit(model.decode_step)
     decode = []
