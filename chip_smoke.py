@@ -221,7 +221,18 @@ Phases, each of which exits non-zero on failure:
      rank (Seamless's with cross caches of 16 and of 1024 encoder
      positions, the latter the rank's time slice) whose every step's
      logits are within 5 % of the logical engine's, and (j) 2 AdamW steps
-     per rank (K2 768 a step) against a logical step, as (g);
+     per rank (K2 768 a step) against a logical step, as (g); (l)
+     Jamba-1.5-Large cut to 4 layers (3 Mamba, 1 attention, 2 MoE) and
+     (m) xLSTM-1.3B whole per rank, in fp32 (its bf16 rank state held
+     to the rule's bytes too; each Mamba, mLSTM and sLSTM mixer's
+     block of d_inner, the rank's block of its decode state by the rule,
+     the mLSTM's on its key dim): the prefill (Jamba's 4 x 512 on both
+     backends, K1 = K3 = 16 per rank on the DMA path, held on the dense
+     run's expert choices; xLSTM's 4 x 64 on the collective backend)
+     within 5 % of the dense forward on one card, bytes to the byte, a
+     ``DecodeEngine`` per rank against the logical engine, and 2 AdamW
+     steps per rank on Jamba's 2-layer cut (K2 32 a step) and on
+     xLSTM's first 8 layers at 2 x 64 against a logical step;
 then one JSON line listing the kernels and, last, the result line.
 With no CUDA device, or without the repository's ``src/repro_torch`` beside
 it, the script exits non-zero and prints no result.
@@ -4843,9 +4854,11 @@ def phase_group(device) -> dict:
 # CARDS["train_steps"] AdamW steps per rank of TinyLlama-1.1B whole on
 # uniform-fused-2d; (h) and (i) DeepSeek-V2-Lite whole and cut; (j)
 # SeamlessM4T-v2 whole and (k) InternVL2's 8-layer backbone (ROADMAP A17
-# part 1).  Each rank holds its blocks by Model.rank_specs (the
-# vocabulary, heads, MLPs and experts, an encoder's layers too) and its
-# sequence block of the residual stream (ROADMAP A15).
+# part 1); (l) Jamba-1.5-Large's 4-layer cut and (m) xLSTM-1.3B whole
+# (A17 part 2).  Each rank holds its blocks by Model.rank_specs (the
+# vocabulary, heads, MLPs, experts and recurrent mixers, an encoder's
+# layers too) and its sequence block of the residual stream (ROADMAP
+# A15).
 CARDS = dict(batch=PREFILL_BATCH, seq=PREFILL_SEQ, calls=50, inputs=3,
              reps=10, prompt=8, new=16, cache=2048, train_steps=3)
 EP_ARCH = "deepseek-v2-lite-16b"
@@ -5435,44 +5448,85 @@ def _answer_fed(eng, raw, new: int, sync):
             wall / max(len(fed), 1))
 
 
-# [cards] (j) SeamlessM4T-v2-large whole and (k) InternVL2-76B's backbone
-# cut to VLM_LAYERS, per rank: a DecodeEngine of FAMILY_NEW new tokens a
+# [cards] (j) SeamlessM4T-v2-large whole, (k) InternVL2-76B's backbone
+# cut to VLM_LAYERS, (l) Jamba-1.5-Large cut to _hybrid_cut's 4 layers and
+# (m) xLSTM-1.3B whole, per rank: a DecodeEngine of FAMILY_NEW new tokens a
 # request, an encoder-decoder's with its cross K/V at each of FAMILY_ENC
 # encoder positions (kept whole on every rank by the reference's rule,
-# then cut to the rank's time slice), and (j) FAMILY_TRAIN_STEPS AdamW
-# steps.
+# then cut to the rank's time slice), and FAMILY_TRAIN_STEPS AdamW steps:
+# (j) whole, (l) on _hybrid_train_cut, (m) on its first SSM_TRAIN_LAYERS
+# layers at SSM_TRAIN_BATCH x SSM_TRAIN_SEQ.  xLSTM's prefill is
+# CARDS_SSM_SEQ positions a request (its eager time loops issue ~10^3
+# launches a position), which 4 divides.  (m) runs in fp32: the random
+# bf16 xLSTM is chaotic at depth (a rank's bf16 partial sums put its
+# 48-layer logits 68 % of max |logit| from dense's), as [ssm] holds its
+# full-depth decode in fp32; its bf16 rank state is drawn on the card
+# too and held to the rule's bytes.
 FAMILY_NEW = 8
 FAMILY_ENC = (16, 1024)
 FAMILY_TRAIN_STEPS = 2
+CARDS_SSM_SEQ = 64
 
 
 def _family_cfgs() -> tuple:
-    """(part, config) of ``[cards]`` (j) and (k) at full width."""
+    """(part, config) of ``[cards]`` (j)-(m) at full width."""
     from repro_torch.configs import get_config
 
     return (("j", get_config(ENCDEC_ARCH)),
-            ("k", _first_layers(VLM_LAYERS)(get_config(VLM_ARCH))))
+            ("k", _first_layers(VLM_LAYERS)(get_config(VLM_ARCH))),
+            ("l", _hybrid_cut(get_config(HYBRID_ARCH))),
+            ("m", dataclasses.replace(get_config(SSM_ARCH),
+                                      dtype="float32")))
+
+
+def _family_train(cfg, size: dict) -> tuple | None:
+    """The config and sizes that ``[cards]`` trains for family model
+    ``cfg`` (:data:`FAMILY_TRAIN_STEPS` steps), or None: an
+    encoder-decoder whole, Jamba's 2-layer cut, xLSTM's first
+    SSM_TRAIN_LAYERS layers at SSM_TRAIN_BATCH x SSM_TRAIN_SEQ."""
+    size = dict(size, train_steps=FAMILY_TRAIN_STEPS)
+    if cfg.encdec:
+        return cfg, size
+    if cfg.hybrid:
+        return _hybrid_train_cut(cfg), size
+    if cfg.xlstm:
+        return (_first_layers(SSM_TRAIN_LAYERS)(cfg),
+                dict(size, batch=SSM_TRAIN_BATCH, seq=SSM_TRAIN_SEQ))
+    return None
+
+
+def _family_seq(cfg, size: dict) -> int:
+    """A family model's prefill length: xLSTM's CARDS_SSM_SEQ."""
+    return min(size["seq"], CARDS_SSM_SEQ) if cfg.xlstm else size["seq"]
+
 
 
 def _cards_family(group, cfg, size: dict, cuda: bool) -> dict:
-    """(j) and (k): model ``cfg`` (an encoder-decoder or a VLM at full
-    width) from seed 0 on this rank's card.  The dense forward on the
-    whole weights (no group) first; then the rank's blocks
+    """(j)-(m): model ``cfg`` (an encoder-decoder, a VLM, the hybrid or the
+    SSM at full width) from seed 0 on this rank's card.  The dense forward
+    on the whole weights (no group) first; then the rank's blocks
     (``Model.rank_specs``: the decoder's and the encoder's attention heads
-    and MLP blocks, the vocabulary's; ``enc_norm`` and ``frontend_proj``
-    whole): the batch x seq prefill (an encoder's seq frames, a VLM's
-    prefix patches joined before its text) on the collective backend and
-    the DMA path, its launches, collectives, residual shapes between
-    layers, logits against dense, walls and one trace split at NCCL's
-    kernels; the parameter bytes against :func:`_predicted_rank_bytes`; a
-    ``DecodeEngine`` per rank (``decode_attn="shard_map"``, a cache of
-    ``size["cache"]``) at each encoder length (:data:`FAMILY_ENC`, the
-    cross K/V filled by ``DecodeEngine.encode`` per rank; a VLM serves
-    text), its cache bytes against :func:`_predicted_cache_bytes`, one
-    step's collectives and trace, and each step's logits against the
-    one-card logical ``TPGroup``'s serve step fed the same tokens (and
-    frames); for an encoder-decoder then :data:`FAMILY_TRAIN_STEPS` 2D
-    steps (:func:`_cards_train`)."""
+    and MLP blocks, the recurrent mixers' blocks of d_inner, the
+    vocabulary's; ``enc_norm``, ``frontend_proj``, the router, the mLSTM's
+    ``w_if`` and the sLSTM's ``r_gates`` whole): the batch x seq prefill
+    (an encoder's seq frames, a VLM's prefix patches joined before its
+    text; xLSTM's :func:`_family_seq` positions) on the collective
+    backend and, where the model has a FiCCO site, the DMA path, its
+    launches, collectives, residual shapes between layers, logits against
+    dense, walls and one trace split at NCCL's kernels; the parameter
+    bytes against :func:`_predicted_rank_bytes`; a ``DecodeEngine`` per
+    rank (``decode_attn="shard_map"``, a cache of ``size["cache"]``) at
+    each encoder length (:data:`FAMILY_ENC`, the cross K/V filled by
+    ``DecodeEngine.encode`` per rank; a VLM serves text), its cache bytes
+    against :func:`_predicted_cache_bytes`, the shapes of the recurrent
+    layers' state blocks, one step's collectives and trace, and each
+    step's logits against the one-card logical ``TPGroup``'s serve step
+    fed the same tokens (and frames); then :data:`FAMILY_TRAIN_STEPS` 2D
+    steps (:func:`_cards_train`) of :func:`_family_train`'s cut, where it
+    names one.  An MoE model (Jamba) is held on one run's expert choices
+    (``_Routing``): the per-rank prefill on the dense run's, the logical
+    decode on the rank engine's; the share of the free-running prefill's
+    choices that differ from dense's is recorded."""
     import gc
 
     import numpy as np
@@ -5482,7 +5536,8 @@ def _cards_family(group, cfg, size: dict, cuda: bool) -> dict:
     from repro_torch.configs.base import OverlapConfig, ShapeConfig
     from repro_torch.data.pipeline import SyntheticLM, to_device
     from repro_torch.kernels import ops
-    from repro_torch.models.model import build_model, residual_shapes
+    from repro_torch.models.model import RECURRENT, build_model, \
+        residual_shapes
     from repro_torch.parallel.collectives import counting
     from repro_torch.parallel.sharding import TPGroup, shard_params, tp_group
     from repro_torch.serve.engine import (DecodeEngine, make_prefill,
@@ -5491,33 +5546,50 @@ def _cards_family(group, cfg, size: dict, cuda: bool) -> dict:
 
     dev, g, r = group.device, group.size, group.rank
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    b = size["batch"]
+    b, seq = size["batch"], _family_seq(cfg, size)
+    reps = 2 if cfg.xlstm else 5
+    out = {"reps": reps}
+    if cfg.dtype != "bfloat16":  # the bf16 model's rank state, its bytes
+        bf16 = build_model(dataclasses.replace(cfg, dtype="bfloat16"))
+        state = bf16.init(0, device=dev)
+        rank_state = shard_params(state, bf16.rank_specs(g), r, g)
+        out["bf16_bytes"] = (_tree_bytes(rank_state),
+                             _predicted_rank_bytes(bf16, state, g))
+        del state, rank_state
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
     model = build_model(cfg)
     t0 = time.time()
     state = model.init(0, device=dev)
     sync()
-    out = {"init_s": time.time() - t0, "whole_bytes": _tree_bytes(state)}
-    data = SyntheticLM(cfg, ShapeConfig("smoke", size["seq"], b, "prefill"),
+    out.update(init_s=time.time() - t0, whole_bytes=_tree_bytes(state))
+    data = SyntheticLM(cfg, ShapeConfig("smoke", seq, b, "prefill"),
                        seed=0).batch_at(0)
     batch = {k: v for k, v in to_device(data, dev).items() if k != "labels"}
     out["batch"] = {k: tuple(v.shape) for k, v in batch.items()}
-    with torch.no_grad():
+    backends = ("collective", "dma") if _sites(cfg) else ("collective",)
+    with torch.no_grad(), _Routing() as routing:
         with tp_group(None):
             dense = make_prefill(model)(state, batch)
         sync()
+        choices = routing.take()
         scale = dense.float().abs().max().item()
         rank_state = shard_params(state, model.rank_specs(g), r, g)
         out["p_bytes"] = _tree_bytes(rank_state)
         out["predicted_bytes"] = _predicted_rank_bytes(model, state, g)
         out["prefill"] = {}
-        for backend in ("collective", "dma"):
+        for backend in backends:
             prefill = make_prefill(build_model(dataclasses.replace(
                 cfg, overlap=OverlapConfig(mode="uniform-fused-1d",
                                            backend=backend))))
             ops.reset_launch_counts()
+            routing.replay = iter(choices)
             with counting() as stats, residual_shapes() as shapes:
                 logits = prefill(rank_state, batch)
             sync()
+            routing.replay = None
+            routing.take()
             res = dict(launches=ops.launch_counts(),
                        routes=ops.route_counts(),
                        collectives=dict(stats.count_by_kind),
@@ -5530,15 +5602,23 @@ def _cards_family(group, cfg, size: dict, cuda: bool) -> dict:
             dist.broadcast(first, src=0, group=group.plain)
             res["same_as_rank0"] = bool(torch.equal(first, logits))
             del first, logits
+            if choices:  # the free-running prefill's expert choices
+                prefill(rank_state, batch)
+                res["flips"] = float(np.mean([
+                    _choices_differ(a, c, cfg.moe.num_experts)
+                    for a, c in zip(routing.take(), choices)]))
             if cuda:
-                res["wall_ms"] = wall_ms(lambda: prefill(rank_state, batch))
+                res["wall_ms"] = wall_ms(lambda: prefill(rank_state, batch),
+                                         reps)
                 res["trace"] = _rank_trace(lambda: prefill(rank_state, batch))
+                routing.take()
             out["prefill"][backend] = res
         if cuda:
             with tp_group(None):
                 out["dense_wall_ms"] = wall_ms(
-                    lambda: make_prefill(model)(state, batch))
-    del dense, batch
+                    lambda: make_prefill(model)(state, batch), reps)
+        routing.take()
+    del dense, batch, choices
 
     scfg = dataclasses.replace(cfg, overlap=OverlapConfig(
         decode_attn="shard_map"))
@@ -5547,7 +5627,7 @@ def _cards_family(group, cfg, size: dict, cuda: bool) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     out["decode"] = {}
-    with torch.no_grad():
+    with torch.no_grad(), _Routing() as routing:
         for enc in (FAMILY_ENC if cfg.encdec else (0,)):
             frames = (torch.randn((b, enc, cfg.d_model), generator=gen,
                                   device=dev) if enc else None)
@@ -5561,18 +5641,26 @@ def _cards_family(group, cfg, size: dict, cuda: bool) -> dict:
                 res["encode_collectives"] = dict(stats.count_by_kind)
                 res["encode_bytes"] = dict(stats.bytes_by_kind)
                 res["cross_slice"] = eng.cache[0]["cross_k"].shape[2]
-            res["slice"] = eng.cache[0]["k"].shape[2]
+            # the first attention layer's time slice (xLSTM has none)
+            res["slice"] = next((c["k"].shape[2] for c in eng.cache
+                                 if "k" in c), None)
+            res["state_blocks"] = {
+                spec.mixer: {k: tuple(v.shape) for k, v in c.items()}
+                for spec, c in zip(eng.model.pattern, eng.cache)
+                if spec.mixer in RECURRENT}
             res["cache_bytes"] = _cache_bytes(eng.cache)
             res["predicted_cache_bytes"] = _predicted_cache_bytes(
                 model, b, size["cache"], g, enc)
             toks, fed, logits, res["ms"] = _answer_fed(eng, raw,
                                                        FAMILY_NEW, sync)
+            step_choices = routing.take()
             with counting() as stats:
                 eng.step_fn(rank_state, eng.cache, *fed[-1])
             res["collectives"] = dict(stats.count_by_kind)
             res["collective_bytes"] = dict(stats.bytes_by_kind)
             res["trace"] = (_rank_trace(lambda: eng.step_fn(
                 rank_state, eng.cache, *fed[-1])) if cuda else None)
+            routing.take()
             del eng
             with tp_group(TPGroup(g, dev)):
                 ref = build_model(scfg)
@@ -5582,11 +5670,14 @@ def _cards_family(group, cfg, size: dict, cuda: bool) -> dict:
                     cache = make_prefill_cross(ref)(state, cache, frames)
                 step_ref = make_serve_step(ref)
                 errs, ref_scale = [], 0.0
+                routing.replay = iter(step_choices)
                 for (tok, pos), lg in zip(fed, logits):
                     want, cache = step_ref(state, cache, tok, pos)
                     ref_scale = max(ref_scale,
                                     want.float().abs().max().item())
                     errs.append(_max_err(lg, want))
+                routing.replay = None
+                routing.take()
                 del cache
             res.update(tokens=toks, steps=len(fed), err=max(errs),
                        scale=ref_scale,
@@ -5598,9 +5689,16 @@ def _cards_family(group, cfg, size: dict, cuda: bool) -> dict:
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    if cfg.encdec:
-        out["train"] = _cards_train(group, cfg, state, dict(
-            size, train_steps=FAMILY_TRAIN_STEPS), cuda)
+    train = _family_train(cfg, size)
+    if train is not None:
+        tcfg, tsize = train
+        if tcfg is not cfg:  # the cut: its own weights from seed 0
+            del state
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            state = build_model(tcfg).init(0, device=dev)
+        out["train"] = _cards_train(group, tcfg, state, tsize, cuda)
     del state
     gc.collect()
     if cuda:
@@ -5616,7 +5714,7 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg,
     :data:`CARDS`), each against the logical ``TPGroup`` computed on this
     rank's card, and (b) and (c) against the plain version too; then (f)
     at the MoE layer of ``ep_cfg`` (:func:`_cards_ep`), (g)
-    (:func:`_cards_train`), (h) and (i) on ``ep_cfg``, and (j) and (k)
+    (:func:`_cards_train`), (h) and (i) on ``ep_cfg``, and (j)-(m)
     (:func:`_cards_family`) on ``family_cfgs`` ((part, config) pairs,
     :func:`_family_cfgs` by default); returns what :func:`_cards_report`
     checks and prints.  On the CPU (a rehearsal: gloo and the plain versions) the
@@ -5832,7 +5930,8 @@ def _cards_rank(group, seed: int, cfg, size: dict, ep_cfg,
     del state
     sync()
 
-    # (j) SeamlessM4T-v2 whole and (k) InternVL2's backbone per rank.
+    # (j) SeamlessM4T-v2 whole, (k) InternVL2's backbone, (l) Jamba's
+    # 4-layer cut and (m) xLSTM-1.3B whole per rank.
     for part, fcfg in family_cfgs or _family_cfgs():
         out[part] = _cards_family(group, fcfg, size, cuda)
         sync()
@@ -5849,8 +5948,12 @@ def phase_cards() -> tuple | None:
     TinyLlama DMA-path prefill, its last training step, one DeepSeek
     DMA-path prefill, the cut's last training step, one SeamlessM4T-v2
     and one InternVL2 (8 layers) DMA-path prefill (parts (j) and (k),
-    :func:`_cards_family`) and Seamless's last training step, or None (and
-    prints why) with fewer than GROUP cards."""
+    :func:`_cards_family`), Seamless's last training step, one
+    Jamba-1.5-Large (4 layers) DMA-path prefill and its 2-layer cut's
+    last training step (part (l)), and one xLSTM-1.3B prefill and its
+    8-layer cut's last training step (part (m), on the collective
+    backend: xLSTM has no FiCCO site), or None (and prints why) with
+    fewer than GROUP cards."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5877,7 +5980,13 @@ def phase_cards() -> tuple | None:
 def _cards_report(results, wall: float, cfg, size: dict, ep_cfg,
                   family=()) -> tuple:
     """Check every rank's results of :func:`_cards_rank` and print them:
-    (a)-(i), then (j) and (k) for each (part, config) of ``family``."""
+    (a)-(i), then (j) SeamlessM4T-v2, (k) InternVL2's backbone, (l)
+    Jamba-1.5-Large's 4-layer cut and (m) xLSTM-1.3B for each (part,
+    config) of ``family``.  Returns each kernel's launches per rank in
+    (d)'s DMA prefill, (g)'s last step, (h)'s DMA prefill, (i)'s last
+    step, (j)'s and (k)'s DMA prefill, (j)'s last step, (l)'s DMA
+    prefill, (l)'s last step, (m)'s prefill and (m)'s last step (None
+    for a part not in ``family``)."""
     g, b = GROUP, size["batch"]
     m_s = b * size["seq"] // g
     cuda = results[0]["cuda"]
@@ -6073,22 +6182,32 @@ def _cards_report(results, wall: float, cfg, size: dict, ep_cfg,
         return {name: [c[name] for c in counts] for name in counts[0]}
 
     parts = dict(family)
+
+    def prefill(p):  # the DMA path's, where the part has a FiCCO site
+        if p not in parts:
+            return None
+        d = results[0][p]["prefill"]
+        backend = "dma" if "dma" in d else "collective"
+        return by_kernel([res[p]["prefill"][backend]["launches"]
+                          for res in results])
+
+    def train(p):
+        return (by_kernel([res[p]["train"]["launches"][-1]
+                           for res in results]) if p in parts else None)
+
     return (by_kernel([res["d"]["dma"]["launches"] for res in results]),
             by_kernel([res["g"]["launches"][-1] for res in results]),
             by_kernel([res["h"]["prefill"]["dma"]["launches"]
                        for res in results]),
             by_kernel([res["i"]["launches"][-1] for res in results]),
-            *(by_kernel([res[p]["prefill"]["dma"]["launches"]
-                         for res in results]) if p in parts else None
-              for p in ("j", "k")),
-            by_kernel([res["j"]["train"]["launches"][-1] for res in results])
-            if "j" in parts else None)
+            prefill("j"), prefill("k"), train("j"), prefill("l"), train("l"),
+            prefill("m"), train("m"))
 
 
 def _cards_report_family(results, part: str, cfg, size: dict) -> None:
-    """Check, then print, part ``part`` ((j) or (k), :func:`_cards_family`
-    on model ``cfg``) of every rank's results."""
-    g, b, seq = GROUP, size["batch"], size["seq"]
+    """Check, then print, part ``part`` ((j)-(m), :func:`_cards_family` on
+    model ``cfg``) of every rank's results."""
+    g, b, seq = GROUP, size["batch"], _family_seq(cfg, size)
     cuda = results[0]["cuda"]
     per_prefill = _sites(cfg) * 2 * g
     block = [(b, seq // g, cfg.d_model)]
@@ -6105,12 +6224,20 @@ def _cards_report_family(results, part: str, cfg, size: dict) -> None:
         rank, f = res["rank"], res[part]
         _check_bytes(f"rank {rank} ({part})", "parameter", f["p_bytes"],
                      f["predicted_bytes"], fail)
+        if "bf16_bytes" in f:
+            _check_bytes(f"rank {rank} ({part}) in bf16", "parameter",
+                         *f["bf16_bytes"], fail)
+        if set(f["prefill"]) != ({"collective", "dma"} if per_prefill
+                                 else {"collective"}):
+            fail(f"rank {rank}: prefill on {sorted(f['prefill'])}")
         for backend, launches, routes in (
                 ("collective", {}, {}),
                 ("dma", {"a2a_chunk_exchange": per_prefill,
                          "chunked_matmul": per_prefill},
                  {"a2a_chunk_exchange": {"pairs": per_prefill},
                   "chunked_matmul": {"wgmma": per_prefill}})):
+            if backend not in f["prefill"]:
+                continue
             d = f["prefill"][backend]
             _rank_launches(f"[cards] rank {rank} ({part}) {backend} prefill",
                            d | {"cuda": cuda}, launches, routes)
@@ -6140,25 +6267,49 @@ def _cards_report_family(results, part: str, cfg, size: dict) -> None:
             _check_bytes(f"rank {rank} ({part}) decode (enc {enc})", "cache",
                          e["cache_bytes"], e["predicted_cache_bytes"], fail)
             cross = enc // g if enc >= 1024 and enc % g == 0 else enc
-            if e["slice"] != size["cache"] // g or e.get(
-                    "cross_slice", 0) != cross:
+            time_slice = size["cache"] // g if e["slice"] is not None \
+                else None
+            if (e["slice"] != time_slice
+                    or (e["slice"] is None) != bool(cfg.xlstm)
+                    or e.get("cross_slice", 0) != cross):
                 fail(f"rank {rank} decode (enc {enc}): cache slices "
                      f"{e['slice']} / {e.get('cross_slice')}, not "
-                     f"{size['cache'] // g} / {cross}")
+                     f"{time_slice} / {cross}")
+            _check_state_blocks(e["state_blocks"], cfg, b, fail)
 
     f0 = results[0][part]
-    what = (f"whole ({cfg.num_layers} + {cfg.encdec.encoder_layers} encoder "
-            "layers)" if cfg.encdec else
-            f"cut to {cfg.num_layers} layers, {f0['batch']['prefix_embeds'][1]}"
-            " prefix patches joined before the text")
-    print(f"[cards] ({part}) {cfg.name} {what}, drawn on each card in "
-          f"{per_rank(lambda s: s[part]['init_s'], '{:.1f}')} s; each rank "
-          f"holds its vocabulary blocks, {cfg.num_heads // g} of "
-          f"{cfg.num_heads} heads and its MLP blocks in every decoder"
-          + (" and encoder" if cfg.encdec else "") + " layer: "
+    if cfg.encdec:
+        what = (f"whole ({cfg.num_layers} + {cfg.encdec.encoder_layers} "
+                "encoder layers)")
+    elif cfg.frontend:
+        what = (f"cut to {cfg.num_layers} layers, "
+                f"{f0['batch']['prefix_embeds'][1]} prefix patches joined "
+                "before the text")
+    elif cfg.hybrid:
+        from repro_torch.models.model import layer_pattern
+
+        what = (f"cut to {cfg.num_layers} layers ("
+                + ", ".join(f"{s.mixer}/{s.ffn}"
+                            for s in layer_pattern(cfg)) + ")")
+    else:
+        what = f"whole ({cfg.num_layers} layers)"
+    holds = (f"{cfg.num_heads // g} of {cfg.num_heads} heads and its MLP "
+             "blocks in every decoder" + (" and encoder" if cfg.encdec
+                                          else "") + " layer"
+             if not (cfg.hybrid or cfg.xlstm) else
+             "its block of d_inner in every Mamba, mLSTM and sLSTM mixer "
+             "(the mLSTM's w_if and the sLSTM's r_gates whole)"
+             + (f", {cfg.num_heads // g} of {cfg.num_heads} heads, its "
+                "MLP blocks and its experts" if cfg.hybrid else ""))
+    bf16 = (f" (in bf16, drawn on the card too: {f0['bf16_bytes'][0]} "
+            f"bytes a rank, the rule {f0['bf16_bytes'][1]})"
+            if "bf16_bytes" in f0 else "")
+    print(f"[cards] ({part}) {cfg.name} {what}, {cfg.dtype}, drawn on each "
+          f"card in {per_rank(lambda s: s[part]['init_s'], '{:.1f}')} s; "
+          f"each rank holds its vocabulary blocks and {holds}: "
           f"{f0['p_bytes']} bytes a rank, the rule {f0['predicted_bytes']}, "
-          f"of {f0['whole_bytes']} whole; batch {f0['batch']}")
-    for backend in ("collective", "dma"):
+          f"of {f0['whole_bytes']} whole{bf16}; batch {f0['batch']}")
+    for backend in f0["prefill"]:
         d = f0["prefill"][backend]
         print(f"[cards] ({part}) prefill per rank, {backend} backend: the "
               f"residual after each of {d['n_residual']} layers "
@@ -6169,9 +6320,13 @@ def _cards_report_family(results, part: str, cfg, size: dict) -> None:
               f"{d['launches']}, routes "
               f"{ {k: v for k, v in d['routes'].items() if any(v.values())} }"
               f"; collectives per rank {d['collectives']}, bytes "
-              f"{_fmt_bytes(d['collective_bytes'])}")
+              f"{_fmt_bytes(d['collective_bytes'])}"
+              + (f"; held on the dense run's expert choices (free-running, "
+                 f"a share "
+                 f"{per_rank(lambda s, b=backend: s[part]['prefill'][b]['flips'])}"
+                 " of them differ)" if "flips" in d else ""))
         if cuda:
-            print(f"[cards] ({part})     wall ms (median of 5) "
+            print(f"[cards] ({part})     wall ms (median of {f0['reps']}) "
                   f"{per_rank(lambda s, b=backend: s[part]['prefill'][b]['wall_ms'], '{:.2f}')}"
                   f" (dense on one card "
                   f"{per_rank(lambda s: s[part]['dense_wall_ms'], '{:.2f}')}"
@@ -6188,10 +6343,14 @@ def _cards_report_family(results, part: str, cfg, size: dict) -> None:
                  f"{e['cross_slice']} a rank), filled per rank by one encode "
                  f"with collectives {e['encode_collectives']}, bytes "
                  f"{_fmt_bytes(e['encode_bytes'])}") if enc else ""
+        held = (f"{e['slice']} positions a rank" if e["slice"] is not None
+                 else "no attention layer")
+        blocks = "".join(f"; {mixer} state a rank {shapes}"
+                         for mixer, shapes in e["state_blocks"].items())
         print(f"[cards] ({part}) DecodeEngine per rank, decode_attn="
               f"\"shard_map\", {b} requests x {FAMILY_NEW} new tokens "
               f"(prompt {size['prompt']}), cache {size['cache']} "
-              f"({e['slice']} positions a rank){cross}: "
+              f"({held}){cross}{blocks}: "
               f"{e['cache_bytes']} cache bytes a rank, the rule "
               f"{e['predicted_cache_bytes']}; tokens equal on every rank; "
               f"{e['steps']} steps' logits vs the one-card logical "
@@ -6211,9 +6370,39 @@ def _cards_report_family(results, part: str, cfg, size: dict) -> None:
                   " ms")
     if "train" in f0:
         key = f"{part}-train"
+        tcfg, tsize = _family_train(cfg, size)
         view = [dict(res, **{key: res[part]["train"]}) for res in results]
-        _check_train(view, key, cfg)
-        _print_train(view, key, cfg, size, "whole")
+        _check_train(view, key, tcfg)
+        _print_train(view, key, tcfg, tsize, "whole" if tcfg is cfg else
+                     f"cut to {tcfg.num_layers} layers")
+
+
+def _check_state_blocks(blocks: dict, cfg, b: int, fail) -> None:
+    """A rank's recurrent decode state (each mixer's first slot's leaf
+    shapes, per period stacked) cut by the reference's rule on d_inner
+    at full width, the mLSTM's ``c`` on its key dim (dim 3 of (periods,
+    B, H, hd, hd)) and ``n`` on hd, its ``m`` whole."""
+    g = GROUP
+
+    def cut(n):  # the rule cuts a dim of 1024 or more that g divides
+        return n // g if n >= 1024 and n % g == 0 else n
+
+    for mixer, shapes in blocks.items():
+        if mixer == "mamba":
+            d = cfg.hybrid.mamba.expand * cfg.d_model
+            want = {"conv": cut(d), "h": cut(d)}
+            got = {"conv": shapes["conv"][-1], "h": shapes["h"][-2]}
+        elif mixer == "mlstm":
+            hd = int(cfg.xlstm.proj_factor * cfg.d_model) // cfg.num_heads
+            want = {"c": (cut(hd), hd), "n": cut(hd), "m": cfg.num_heads}
+            got = {"c": shapes["c"][-2:], "n": shapes["n"][-1],
+                   "m": shapes["m"][-1]}
+        else:
+            d = int(cfg.xlstm.proj_factor * cfg.d_model)
+            want = {k: cut(d) for k in ("c", "n", "h", "m")}
+            got = {k: shapes[k][-1] for k in want}
+        if got != want or any(sh[1] != b for sh in shapes.values()):
+            fail(f"{mixer} state blocks {shapes}: {got}, not {want}")
 
 
 def _periods(cfg) -> int:
@@ -6476,9 +6665,14 @@ def _cards_report_ep_train(results, cfg, size: dict, ep_cfg) -> None:
 
 
 def _sites(cfg) -> int:
-    """The FiCCO sites of a ``[cards]`` model: one per decoder layer (its
-    MLP, or an MoE layer's shared experts) and per encoder layer."""
-    return cfg.num_layers + (cfg.encdec.encoder_layers if cfg.encdec else 0)
+    """The FiCCO sites of a ``[cards]`` model: one per decoder layer with
+    an MLP or an MoE layer's shared experts (:func:`_ficco_sites`; none in
+    an MoE layer without them, nor in xLSTM's) and per encoder layer."""
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    return (len(_ficco_sites(cfg, model.pattern)) * model.n_periods
+            + (cfg.encdec.encoder_layers if cfg.encdec else 0))
 
 
 def _check_train(results, part: str, cfg) -> None:
@@ -6514,11 +6708,14 @@ def _check_train(results, part: str, cfg) -> None:
                      f" vs the logical TPGroup({g})'s {want} (limit {limit})")
         for i, (launches, routes) in enumerate(zip(t["launches"],
                                                    t["routes"])):
+            # A model without a FiCCO site (xLSTM) launches no kernel.
             _rank_launches(
                 f"[cards] rank {rank} ({part}) train step {i + 1}",
                 {"launches": launches, "routes": routes, "cuda": cuda},
-                {"accumulate_matmul": per_train_step},
-                {"accumulate_matmul": {"wgmma": per_train_step}})
+                {"accumulate_matmul": per_train_step} if per_train_step
+                else {},
+                {"accumulate_matmul": {"wgmma": per_train_step}
+                 if per_train_step else {}})
 
 
 def _print_train(results, part: str, cfg, size: dict, cut: str) -> None:
@@ -6534,7 +6731,8 @@ def _print_train(results, part: str, cfg, size: dict, cut: str) -> None:
           f"{cfg.dtype}, remat {cfg.remat}), {b} x {size['seq']} tokens, "
           f"uniform-fused-2d on the collective backend, {n} AdamW steps per "
           f"rank, each rank holding its blocks (vocabulary, attention heads, "
-          f"MLPs, experts) and their moments ({t['p_bytes'] / 1e9:.3f} GB of "
+          f"MLPs, experts, recurrent mixers) and their moments "
+          f"({t['p_bytes'] / 1e9:.3f} GB of "
           f"params a rank): "
           f"loss, lr and grad_norm bit-equal on every rank, replicated "
           f"leaves bit-equal after every step; loss "
@@ -6672,6 +6870,11 @@ def drive(device) -> int:
                                            if cards_counts else None)
         k["cards_encdec_train_step_launches"] = (
             cards_counts[6][k["name"]] if cards_counts else None)
+        for i, key in enumerate(("cards_hybrid_prefill_launches",
+                                 "cards_hybrid_train_step_launches",
+                                 "cards_ssm_prefill_launches",
+                                 "cards_ssm_train_step_launches"), 7):
+            k[key] = cards_counts[i][k["name"]] if cards_counts else None
         k["moe_prefill_launches"] = moe_counts[k["name"]]
         k["moe_train_step_launches"] = moe_train_counts[k["name"]]
         k["encdec_prefill_launches"] = encdec_counts[k["name"]]
@@ -6696,7 +6899,9 @@ def drive(device) -> int:
             "cards_train_step_launches", "cards_moe_prefill_launches",
             "cards_moe_train_step_launches", "cards_encdec_prefill_launches",
             "cards_vlm_prefill_launches", "cards_encdec_train_step_launches",
-            "max_abs_err",
+            "cards_hybrid_prefill_launches",
+            "cards_hybrid_train_step_launches", "cards_ssm_prefill_launches",
+            "cards_ssm_train_step_launches", "max_abs_err",
             "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

@@ -412,6 +412,33 @@ def rank_output(y, group, seq: bool):
     return all_reduce(y, group=group)
 
 
+def rank_channels(width: int, group) -> tuple[int, int]:
+    """A rank's (first, count) of a recurrent mixer's ``width`` (d_inner)
+    channels: its block, as the reference's specs cut them.  Raises
+    where the group does not divide them (the rule would keep every
+    leaf whole, which no per-rank mixer computes)."""
+    if width % group.size:
+        raise ValueError(
+            f"a recurrent mixer of d_inner {width} on a RankGroup of "
+            f"{group.size}: the per-rank mixer needs the group to divide it")
+    n = width // group.size
+    return group.rank * n, n
+
+
+def rank_halves(inp, w, width: int, group):
+    """``inp @ w`` split into its halves u and z of ``width`` columns
+    each (a recurrent mixer's input projection, ``[u | z]``), whole, on a
+    rank that holds ``w``'s column block of the 2 * ``width`` columns:
+    a block of the concatenation, not the rank's share of each half, so
+    the blocks' products are all-gathered (its transpose, a
+    reduce-scatter, sums the ranks' partial cotangents) and the rank
+    takes what it needs of both halves by plain slices."""
+    from repro_torch.parallel.collectives import all_gather
+
+    return all_gather(inp @ w, tiled=True, axis=-1, group=group).split(
+        width, dim=-1)
+
+
 def _share(width: int, g: int, r: int) -> tuple[int, int]:
     """Rank r's (first, count) of ``width`` items split g ways, the larger
     shares first (``torch.tensor_split``'s)."""

@@ -13,6 +13,23 @@ output returns to the model's dtype before the gate.  ``a_log`` and
 (:data:`FP32_LEAVES`).
 
 Decode carries (conv window, ssm state): O(1) per token.
+
+On a rank of a group of processes (a ``RankGroup``) the params hold the
+rank's blocks by the reference's ``mamba_param_specs``: every leaf cut on
+d_inner, so the rank runs the scan on its d_inner/g channels alone (the
+channels are independent given dt, B and C).  ``w_in``'s column block is
+a block of the [u | z] concatenation, not the rank's channels of both
+halves, so the ranks all-gather ``x @ w_in``'s column blocks and each
+takes its channels of u and z (:func:`~repro_torch.models.layers.
+rank_halves`).  ``w_x``'s rows are cut, so ``u @ w_x`` is a partial sum:
+one ``all_reduce`` makes dt, B and C whole, and they go alike into every
+rank's channels.  The group sums the partial products with ``w_out``'s
+row block (:func:`~repro_torch.models.layers.rank_output`).  The decode
+state is the rank's block of d_inner where the reference's
+``cache_leaf_spec`` cuts it (d_inner of 1024 or more that g divides);
+where it keeps it whole, every rank keeps the whole state, equal on
+every rank: the conv window from the gathered u, the ssm state gathered
+each step.
 """
 
 from __future__ import annotations
@@ -23,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import MambaConfig
 from repro_torch.models import layers
+from repro_torch.parallel.collectives import all_gather, all_reduce, replicated
 from repro_torch.parallel.sharding import MODEL_AXIS, P
 
 # The leaves the reference keeps in fp32 whatever the model's dtype.
@@ -84,8 +102,15 @@ def _causal_conv(x, conv_w, conv_b, state=None):
     return out + conv_b, xp[:, -(k - 1):]
 
 
-def _ssm_params(params, u, cfg: MambaConfig, dt_rank: int):
+def _ssm_params(params, u, cfg: MambaConfig, dt_rank: int, group=None):
+    """dt (B, S, D) fp32, A (D, N) and B, C (B, S, N) fp32.  On a rank
+    (``group``) ``u`` holds its channels and ``w_x`` its rows, so the
+    projection is the rank's partial sum: all-reduced, then marked
+    ``replicated`` (dt's low rank, B and C go alike into every rank's
+    channels, so each rank's cotangent of them is its part)."""
     proj = u @ params["w_x"]  # (B, S, dt_rank + 2N)
+    if group is not None:
+        proj = replicated(all_reduce(proj, group=group), group=group)
     dt_low, b_mat, c_mat = proj.split(
         [dt_rank, cfg.d_state, cfg.d_state], dim=-1)
     dt = layers.softplus(
@@ -103,26 +128,42 @@ def _scan_step(h, a, dt_t, dtu_t, b_t, c_t):
     return h, torch.einsum("bdn,bn->bd", h, c_t)
 
 
-def mamba_apply(params, x: torch.Tensor, cfg: MambaConfig) -> torch.Tensor:
-    """x: (B, S, d_model) -> (B, S, d_model)."""
-    b, s, d_model = x.shape
-    d_inner, dt_rank = mamba_dims(d_model, cfg)
-    u, z = (x @ params["w_in"]).chunk(2, dim=-1)  # (B, S, D) each
+def _mixer(params, u, z, cfg: MambaConfig, dt_rank: int, dtype, group=None):
+    """The conv, the scan and the gate over u and z (B, S, D) (a rank's
+    channels, with ``group``) -> y (B, S, D) before ``w_out``."""
+    b, _, d = u.shape
     u, _ = _causal_conv(u, params["conv_w"], params["conv_b"])
     u = torch.nn.functional.silu(u)
-    dt, a, b_mat, c_mat = _ssm_params(params, u, cfg, dt_rank)
+    dt, a, b_mat, c_mat = _ssm_params(params, u, cfg, dt_rank, group)
     uf = u.float()
     dtu = dt * uf  # (B, S, D): the step's dt_t * u_t
-    h = torch.zeros((b, d_inner, cfg.d_state), dtype=torch.float32,
-                    device=x.device)
+    h = torch.zeros((b, d, cfg.d_state), dtype=torch.float32,
+                    device=u.device)
     ys = []
-    for t in range(s):
+    for t in range(u.shape[1]):
         h, y_t = _scan_step(h, a, dt[:, t], dtu[:, t], b_mat[:, t],
                             c_mat[:, t])
         ys.append(y_t)
     y = torch.stack(ys, dim=1) + uf * params["d_skip"]
-    y = y.to(x.dtype) * torch.nn.functional.silu(z)
-    return y @ params["w_out"]
+    return y.to(dtype) * torch.nn.functional.silu(z)
+
+
+def mamba_apply(params, x: torch.Tensor, cfg: MambaConfig, *,
+                seq: bool = False) -> torch.Tensor:
+    """x: (B, S, d_model) -> (B, S, d_model).  On a ``RankGroup``, with
+    ``seq``, the rank's (B, S/g, d) sequence block in and out: the scan
+    needs the whole sequence, so the input is gathered once
+    (:func:`~repro_torch.models.layers.rank_input`)."""
+    d_inner, dt_rank = mamba_dims(x.shape[-1], cfg)
+    group = layers.rank_group()
+    if group is None:
+        u, z = (x @ params["w_in"]).chunk(2, dim=-1)  # (B, S, D) each
+        return _mixer(params, u, z, cfg, dt_rank, x.dtype) @ params["w_out"]
+    first, n = layers.rank_channels(d_inner, group)
+    u, z = (t.narrow(-1, first, n) for t in layers.rank_halves(
+        layers.rank_input(x, group, seq), params["w_in"], d_inner, group))
+    y = _mixer(params, u, z, cfg, dt_rank, x.dtype, group)
+    return layers.rank_output(y @ params["w_out"], group, seq)
 
 
 def mamba_init_cache(batch: int, d_model: int, cfg: MambaConfig, dtype,
@@ -140,21 +181,41 @@ def mamba_init_cache(batch: int, d_model: int, cfg: MambaConfig, dtype,
 
 def mamba_decode(params, x: torch.Tensor, cache: dict, cfg: MambaConfig):
     """x: (B, 1, d_model); O(1) state update.  The cache is updated in
-    place (the reference returns a new one); the same dict is returned."""
+    place (the reference returns a new one); the same dict is returned.
+    On a ``RankGroup`` the step runs on the rank's channels, and the
+    cache holds the rank's block of d_inner or, where the reference's
+    rule keeps it whole, every channel, which every rank updates alike:
+    the window from the gathered u, the ssm state gathered."""
     d_inner, dt_rank = mamba_dims(x.shape[-1], cfg)
-    u, z = (x @ params["w_in"]).chunk(2, dim=-1)
-    u, conv_state = _causal_conv(u, params["conv_w"], params["conv_b"],
-                                 state=cache["conv"])
+    group = layers.rank_group()
+    if group is None:
+        u_all, z = (x @ params["w_in"]).chunk(2, dim=-1)
+        first, n = 0, d_inner
+    else:
+        first, n = layers.rank_channels(d_inner, group)
+        u_all, z = layers.rank_halves(x, params["w_in"], d_inner, group)
+        z = z.narrow(-1, first, n)
+    whole = cache["h"].shape[-2] != n  # every channel, on a rank
+    conv, h_prev = cache["conv"], cache["h"]
+    if whole:
+        conv, h_prev = conv.narrow(-1, first, n), h_prev.narrow(-2, first, n)
+    u, conv_state = _causal_conv(u_all.narrow(-1, first, n),
+                                 params["conv_w"], params["conv_b"],
+                                 state=conv)
     u = torch.nn.functional.silu(u)
-    dt, a, b_mat, c_mat = _ssm_params(params, u, cfg, dt_rank)
+    dt, a, b_mat, c_mat = _ssm_params(params, u, cfg, dt_rank, group)
     u_t, dt_t = u[:, 0].float(), dt[:, 0]
     b_t, c_t = b_mat[:, 0], c_mat[:, 0]
-    h, y = _scan_step(cache["h"], a, dt_t, dt_t * u_t, b_t, c_t)
+    h, y = _scan_step(h_prev, a, dt_t, dt_t * u_t, b_t, c_t)
     y = y + u_t * params["d_skip"]
     y = y[:, None, :].to(x.dtype) * torch.nn.functional.silu(z)
+    if whole:
+        conv_state = torch.cat([cache["conv"], u_all], 1)[:, 1:]
+        h = all_gather(h, tiled=True, axis=1, group=group)
     cache["conv"].copy_(conv_state)
     cache["h"].copy_(h)
-    return y @ params["w_out"], cache
+    out = y @ params["w_out"]
+    return (out if group is None else all_reduce(out, group=group)), cache
 
 
 __all__ = ["FP32_LEAVES", "mamba_dims", "mamba_init",

@@ -31,19 +31,20 @@ Interface (used by serve/launch):
     logits, cache = model.decode_step(state, cache, tokens, pos)
     logits        = model.gather_vocab(logits)  # whole, from a rank's block
 
-On a rank of a group of processes (a ``RankGroup``: the dense, MoE,
-encoder-decoder and VLM families) the state holds the rank's blocks by
-:meth:`Model.rank_specs`, as a ``shard_map`` body over the reference's
-specs would: the embedding's and unembedding's vocabulary blocks, and
-each layer's attention heads, MLP blocks and experts, the encoder's
-layers' too.  Where the group divides the sequence (:func:`sequence_cut`:
+On a rank of a group of processes (a ``RankGroup``: every family) the
+state holds the rank's blocks by :meth:`Model.rank_specs`, as a
+``shard_map`` body over the reference's specs would: the embedding's and
+unembedding's vocabulary blocks, and each layer's attention heads, MLP
+blocks and experts, the encoder's layers' too, and each Mamba, mLSTM and
+sLSTM mixer's block of its inner width.  Where the group divides the sequence (:func:`sequence_cut`:
 a VLM's prefix and text joined, an encoder's frames) the rank keeps its
 (B, S/g, d) block of the residual stream between layers, as the
 reference's ``constrain`` does (Megatron's sequence parallelism); the
 logits are the rank's vocabulary block, and :meth:`Model.loss` reduces
 over the blocks.  The encoder's output is gathered once for the
 decoder's cross-attention, and each cross K/V cache leaf is the rank's
-block by the reference's ``cache_leaf_spec``.
+block by the reference's ``cache_leaf_spec``, as is each recurrent
+layer's decode state.
 """
 
 from __future__ import annotations
@@ -65,7 +66,6 @@ from repro_torch.parallel.collectives import (all_gather, all_reduce,
                                               pmax, psum_scatter, rank_block,
                                               replicated)
 from repro_torch.parallel.context import get_overlap, overlap_context
-from repro_torch.parallel.group import RankGroup
 from repro_torch.parallel.sharding import (
     MODEL_AXIS,
     P,
@@ -77,22 +77,17 @@ from repro_torch.parallel.sharding import (
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# The families whose per-rank path (a rank of a RankGroup holding its
-# blocks) is held to the reference; the others (the hybrid and SSM
-# families, whose recurrent mixers have no per-rank form) raise there
-# (ROADMAP A17).
-RANK_FAMILIES = frozenset({Family.DENSE, Family.MOE, Family.AUDIO,
-                           Family.VLM})
 # A layer's subtrees that a rank cuts by their specs: the attention's (GQA
-# or MLA; an encoder-decoder's cross-attention) and the FFN's (an MLP, or
-# the MoE experts with their shared and dense-residual MLPs); in the
-# decoder's layers and the encoder's.
-RANK_CUT = ("attn", "cross", "ffn")
+# or MLA; an encoder-decoder's cross-attention), the FFN's (an MLP, or the
+# MoE experts with their shared and dense-residual MLPs) and the recurrent
+# mixer's (Mamba's, the mLSTM's and the sLSTM's, on d_inner; the mLSTM's
+# ``w_if`` and the sLSTM's ``r_gates``, ``P(None, None)``, stay whole); in
+# the decoder's layers and the encoder's.
+RANK_CUT = ("attn", "cross", "ffn", "mixer")
 # The top-level leaves a rank cuts by their specs: the embedding's rows
 # and the unembedding's columns, by vocabulary.  Every other leaf is whole
 # on every rank, as in the reference: the router, the norms (``enc_norm``
-# too), MLA's latent projections, the recurrent mixers and
-# ``frontend_proj``.
+# too), MLA's latent projections and ``frontend_proj``.
 RANK_CUT_TOP = ("embed", "unembed")
 # The top-level stack of layers besides ``layers``: the encoder's, one
 # layer's tree stacked over its layers, cut as a layer is (RANK_CUT).
@@ -101,21 +96,6 @@ RANK_CUT_STACK = ("encoder",)
 # MLA's (``"time_slice"``) and the cross-attention's (``"cross_slice"``),
 # each the slice's first position per period.
 SLICE_RECORDS = ("time_slice", "cross_slice")
-
-
-def check_rank_family(cfg: ModelConfig) -> None:
-    """Raise unless a rank of a group of processes runs ``cfg``'s family
-    (:data:`RANK_FAMILIES`)."""
-    if cfg.family not in RANK_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family.value}) on a RankGroup: only the "
-            f"{sorted(f.value for f in RANK_FAMILIES)} families run per "
-            "rank; the others' per-rank forms are ROADMAP A17")
-
-
-def _check_rank(cfg: ModelConfig) -> None:
-    if isinstance(active_group(), RankGroup):
-        check_rank_family(cfg)
 
 
 def sequence_cut(seq_len: int, group) -> bool:
@@ -335,11 +315,12 @@ def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, positions, *,
         y = mla.mla_apply(p["attn"], h, cfg.num_heads, cfg.mla,
                           positions=positions, window=_window(cfg), seq=seq)
     elif spec.mixer == "mamba":
-        y = mamba.mamba_apply(p["mixer"], h, cfg.hybrid.mamba)
+        y = mamba.mamba_apply(p["mixer"], h, cfg.hybrid.mamba, seq=seq)
     elif spec.mixer == "mlstm":
-        y = xlstm.mlstm_apply(p["mixer"], h, cfg.num_heads, cfg.xlstm)
+        y = xlstm.mlstm_apply(p["mixer"], h, cfg.num_heads, cfg.xlstm,
+                              seq=seq)
     else:
-        y = xlstm.slstm_apply(p["mixer"], h, cfg.xlstm)
+        y = xlstm.slstm_apply(p["mixer"], h, cfg.xlstm, seq=seq)
     x = x + y
     if enc_out is not None:
         h = _norm(p["norm_cross"], x, cfg, seq)
@@ -438,15 +419,14 @@ def _layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
         return _time_slice(mla.mla_init_cache(
             batch, cache_len, m, dt, device, lead=lead, positions=here),
             cache_len, here, lead, device)
-    if spec.mixer == "mamba":
-        return mamba.mamba_init_cache(batch, cfg.d_model, cfg.hybrid.mamba,
-                                      dt, device, lead=lead)
-    if spec.mixer == "mlstm":
-        return xlstm.mlstm_init_cache(batch, cfg.d_model, cfg.num_heads,
-                                      cfg.xlstm, device, lead=lead)
-    if spec.mixer == "slstm":
-        return xlstm.slstm_init_cache(batch, cfg.d_model, cfg.xlstm, device,
-                                      lead=lead)
+    if spec.mixer in RECURRENT:
+        # A rank holds its block of each leaf by the reference's rule
+        # (d_inner, or the mLSTM's key dim, where it cuts them).
+        return {key: torch.full(decode_attn.cache_block(leaf.shape),
+                                _state_start(key), dtype=leaf.dtype,
+                                device=device)
+                for key, leaf in _recurrent_cache(spec, cfg, batch, dt,
+                                                  lead).items()}
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     s = min(cache_len, cfg.sliding_window or cache_len)
     # A rank of a group of processes holds its block by the reference's
@@ -457,6 +437,19 @@ def _layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }, s, here, lead, device)
+
+
+def _recurrent_cache(spec: LayerSpec, cfg: ModelConfig, batch: int, dt,
+                     lead: tuple) -> dict:
+    """A recurrent layer's whole decode state, on the meta device."""
+    if spec.mixer == "mamba":
+        return mamba.mamba_init_cache(batch, cfg.d_model, cfg.hybrid.mamba,
+                                      dt, "meta", lead=lead)
+    if spec.mixer == "mlstm":
+        return xlstm.mlstm_init_cache(batch, cfg.d_model, cfg.num_heads,
+                                      cfg.xlstm, "meta", lead=lead)
+    return xlstm.slstm_init_cache(batch, cfg.d_model, cfg.xlstm, "meta",
+                                  lead=lead)
 
 
 def _time_slice(cache: dict, s: int, here: int, lead: tuple, device,
@@ -508,6 +501,11 @@ def _layer_decode(p, spec: LayerSpec, cfg: ModelConfig, x, cache, pos: int):
 RECURRENT = frozenset({"mamba", "mlstm", "slstm"})
 
 
+def _state_start(key: str) -> float:
+    """A recurrent decode state leaf's start value."""
+    return xlstm.M_START if key == "m" else 0.0
+
+
 def reset_recurrent(pattern, cache) -> None:
     """Return the recurrent layers' decode state in ``cache`` (one dict
     per pattern slot, as :meth:`Model.init_cache` makes it) to the start,
@@ -518,7 +516,7 @@ def reset_recurrent(pattern, cache) -> None:
     for spec, c in zip(pattern, cache):
         if spec.mixer in RECURRENT:
             for key, leaf in c.items():
-                leaf.fill_(xlstm.M_START if key == "m" else 0.0)
+                leaf.fill_(_state_start(key))
 
 
 class Model:
@@ -617,10 +615,9 @@ class Model:
         :func:`~repro_torch.parallel.sharding.fix_param_specs` on the
         whole shapes on ``Mesh(("model",), (size,))``, which drops a cut
         that ``size`` does not divide, as the reference's ``constrain``
-        does.  Raises for a family outside :data:`RANK_FAMILIES`."""
+        does."""
         from repro_torch.launch.mesh import Mesh
 
-        check_rank_family(self.config)
         cached = self._rank_specs.get(size)
         if cached is not None:
             return cached
@@ -698,7 +695,6 @@ class Model:
         the whole P + S sequence; the encoder's likewise
         (:meth:`_encode`)."""
         cfg = self.config
-        _check_rank(cfg)
         tokens = batch["tokens"]
         group = layers.rank_group()
         prefix = cfg.frontend is not None and "prefix_embeds" in batch
@@ -872,9 +868,11 @@ class Model:
         and a ``"time_slice"`` leaf, the slice's first position, records
         it; likewise the cross K and V, the rank's slice of the encoder's
         ``enc_len`` positions where the rule cuts them (1024 or more,
-        divisible by g), recorded by ``"cross_slice"``."""
+        divisible by g), recorded by ``"cross_slice"``; and a recurrent
+        layer's state, the rank's block of d_inner (the mLSTM's of its
+        key dim) where the rule cuts it (1024 or more, divisible by g),
+        else whole on every rank."""
         cfg = self.config
-        _check_rank(cfg)
         dev = resolve_device(device)
         lead = (self.n_periods,)
         caches = [
@@ -940,7 +938,6 @@ class Model:
         rank's vocabulary block, as :meth:`forward`'s.
         """
         cfg = self.config
-        _check_rank(cfg)
         x = self._embed(state, tokens, seq=False)
         for i in range(self.n_periods):
             for j, spec in enumerate(self.pattern):

@@ -81,28 +81,40 @@ def applicable(k_cache: torch.Tensor, window,
     return _guard(s, window, group.size)
 
 
-def cache_positions(shape) -> int:
-    """How many of the positions of a decode-cache leaf whose whole shape
-    is ``shape`` (``(periods, B, S, ...)``) this process holds: all of
-    them, but on a :class:`RankGroup` of g > 1 ranks its block by the
-    reference's :func:`~repro_torch.parallel.sharding.cache_leaf_spec` on
-    ``Mesh(("model",), (g,))``, whatever the decode attention: the rank's
-    time slice, ``S / g``, where the rule cuts the time axis (1024
-    positions or more, divisible by g).  Raises where the rule cuts
-    another dim, which no per-rank decode reads."""
+def cache_block(shape) -> tuple:
+    """This process's block of a decode-cache leaf whose whole shape is
+    ``shape`` (``(periods, B, ...)``): all of it, but on a
+    :class:`RankGroup` of g > 1 ranks its block by the reference's
+    :func:`~repro_torch.parallel.sharding.cache_leaf_spec` on
+    ``Mesh(("model",), (g,))``: the rule cuts the largest dim past the
+    batch of 1024 or more that g divides (an attention cache's time axis,
+    a recurrent state's d_inner or the mLSTM's key dim)."""
     from repro_torch.launch.mesh import Mesh
 
     shape = tuple(shape)
     group = active_group()
     if not isinstance(group, RankGroup) or group.size <= 1:
-        return shape[_TIME]
+        return shape
     mesh = Mesh((MODEL_AXIS,), (group.size,))
-    held = shard_shape(cache_leaf_spec(shape, mesh), shape, mesh)
+    return shard_shape(cache_leaf_spec(shape, mesh), shape, mesh)
+
+
+def cache_positions(shape) -> int:
+    """How many of the positions of an attention cache leaf whose whole
+    shape is ``shape`` (``(periods, B, S, ...)``) this process holds
+    (:func:`cache_block`): all of them, but on a :class:`RankGroup` of g
+    > 1 ranks the rank's time slice, ``S / g``, where the rule cuts the
+    time axis (1024 positions or more, divisible by g), whatever the
+    decode attention.  Raises where the rule cuts another dim, which no
+    per-rank attention decode reads."""
+    shape = tuple(shape)
+    held = cache_block(shape)
     if any(h != n for i, (h, n) in enumerate(zip(held, shape))
            if i != _TIME):
         raise NotImplementedError(
-            f"a decode cache of {shape} on a RankGroup of {group.size}: "
-            f"the reference's rule cuts it to {held}, not on its time axis")
+            f"a decode cache of {shape} on a RankGroup of "
+            f"{active_group().size}: the reference's rule cuts it to "
+            f"{held}, not on its time axis")
     return held[_TIME]
 
 
@@ -202,5 +214,5 @@ def slice_attention(q: torch.Tensor, k_slice: torch.Tensor,
     return out.to(q.dtype)
 
 
-__all__ = ["applicable", "cache_positions", "shard_map_attn_decode",
-           "slice_attention"]
+__all__ = ["applicable", "cache_block", "cache_positions",
+           "shard_map_attn_decode", "slice_attention"]

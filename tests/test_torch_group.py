@@ -55,15 +55,20 @@ imports no JAX) and pickles the results back:
     the reduced DeepSeek-V2-Lite with 8 experts (MLA, 4 heads), a
     SmolLM-like model with 15 / 5 heads (their sharding dropped: the
     ranks gather whole heads) and tied embeddings, SeamlessM4T-v2 (the
-    encoder's layers cut too, its 32 frames by sequence) and InternVL2
-    (its 8 prefix patches joined before 24 tokens and cut by sequence),
-    each from the reference's params cut by ``params_from_jax(rank=)``:
-    prefill logits against the reference's one-device forward (the
-    subprocess's ``ranks`` entry; Seamless's and InternVL2's from its
-    ``encdec`` entry) at 2e-3, every rank's bit-equal, and the residual's
-    shape between layers (and encoder layers), and for Seamless and
-    InternVL2 at an odd shape too (30 frames, 8 + 22 positions: the
-    residual replicated); ``DecodeEngine``s per rank in both
+    encoder's layers cut too, its 32 frames by sequence), InternVL2 (its
+    8 prefix patches joined before 24 tokens and cut by sequence), Jamba
+    (its Mamba mixer cut on d_inner, its attention layer by heads) and
+    xLSTM (its mLSTM and sLSTM mixers cut on d_inner), each from the
+    reference's params cut by ``params_from_jax(rank=)``: prefill logits
+    against the reference's one-device forward (the subprocess's
+    ``ranks`` entry; Seamless's and InternVL2's from its ``encdec``
+    entry, Jamba's and xLSTM's from its ``recurrent`` and
+    ``recurrent_grad`` entries) at 2e-3, every rank's bit-equal, and the
+    residual's shape between layers (and encoder layers), and for
+    Seamless, InternVL2, Jamba and xLSTM at an odd shape too (30 frames,
+    8 + 22 positions, 30 tokens: the residual replicated); the recurrent
+    layers' decode state (whole at these widths) the same bits on every
+    rank after each engine run; ``DecodeEngine``s per rank in both
     ``decode_attn`` modes at a cache the rule time-slices, for a prompt
     length 4 divides and one it does not, against the reference's
     one-device engine's tokens, and against one process's tokens with a
@@ -83,7 +88,15 @@ imports no JAX) and pickles the results back:
     block, its gradients, and ``mla_decode`` on a latent cache the rule
     keeps whole and one it time-slices, against the reference's
     ``mla_apply``, ``jax.grad`` and ``mla_decode`` (jitted in this
-    process) at 1e-5.
+    process) at 1e-5;
+  * a Mamba layer of d_inner 1024, an mLSTM of 4 heads of 1024 and an
+    sLSTM of d_inner 1024 (the narrowest widths at which the reference's
+    cache rule cuts their state over 4 ranks): the apply on the
+    replicated input and on the rank's sequence block, its gradients,
+    and a few decode steps with the state the rank's block by
+    ``cache_leaf_spec`` (the mLSTM's ``c`` on its key dim), against the
+    reference's layers jitted in this process at 1e-5 of the largest
+    value, the whole leaves the same bits on every rank.
 
 Besides: the launcher raises, and leaves no rank running, when one rank
 raises; ranks that share a CUDA device refuse plain collectives (decided
@@ -94,10 +107,10 @@ patched); ``pmax`` refuses grad; ``train(checkpoint_dir=)`` on a
 ``RankGroup`` raises, citing ROADMAP A14; ``shard_train_state`` cuts the
 params and both moments; each rank's parameter bytes at full width equal
 ``shard_shape`` over the reference rule's fixed specs on a model-only
-mesh of 4 for the cut leaves plus the whole leaves' bytes (Seamless's
-and InternVL2's too); the encoder-decoder's and VLM's ``rank_specs`` cut
-by the rule; the hybrid and SSM families, which have no per-rank form,
-raise on a ``RankGroup``, citing ROADMAP A17.
+mesh of 4 for the cut leaves plus the whole leaves' bytes (Seamless's,
+InternVL2's, Jamba-1.5-Large's and xLSTM-1.3B's too), and its decode
+cache's; the encoder-decoder's, VLM's, hybrid's and SSM's
+``rank_specs`` cut by the rule.
 """
 
 import dataclasses
@@ -163,14 +176,22 @@ RANK_MODELS = {"dense": (("collective", "dma"), "serial"),
                "smollm": (("collective",), "serial"),
                "indivisible": (("collective",), "serial"),
                "seamless": (("collective", "dma"), "uniform-fused-2d"),
-               "internvl": (("collective", "dma"), "uniform-fused-2d")}
+               "internvl": (("collective", "dma"), "uniform-fused-2d"),
+               "jamba": (("collective", "dma"), "uniform-fused-2d"),
+               "xlstm": (("collective",), "serial")}
 # The rank models whose prefill also runs at an odd shape (RANK_ODD: the
-# encoder's 30 frames, the VLM's 8 + 22 joined positions).
+# encoder's 30 frames, the VLM's 8 + 22 joined positions, the hybrid's and
+# SSM's 30 tokens).
 ODD = jax_reference.RANK_ODD_PREFILL
 MLA = jax_reference.RANK_MLA
 # The MLA layer case's decode caches: one the rule keeps whole, one whose
 # time axis it cuts.
 MLA_CACHES = (64, 1024)
+# The recurrent layer cases (Mamba, mLSTM, sLSTM) at the widths where the
+# rule cuts their decode state.
+RECURRENT = jax_reference.RANK_RECURRENT
+# The rank models with recurrent layers.
+RECURRENT_MODELS = ("jamba", "xlstm")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -341,6 +362,9 @@ def ranks(model_reference, rank_params, tmp_path_factory):
             for name, (backends, mode) in RANK_MODELS.items()},
         "mla": (_mla_operands()[0], _mla_cfg(get_config).mla, MLA["heads"],
                 *_mla_operands()[1:], MLA["decode"], MLA_CACHES),
+        "recurrent": (RECURRENT["kinds"],
+                      [jax_reference.recurrent_layer_config(get_config, kind)
+                       for kind in RECURRENT["kinds"]], RECURRENT["decode"]),
     }
     with pytest.MonkeyPatch.context() as mp:
         # The ranks resolve no promoted variant from the home directory.
@@ -463,11 +487,13 @@ def _one_process_tokens(numpy_params, cache_len: int, cfg=None,
 def _positions(res, name: str, cache_len: int, enc_len: int = 0) -> tuple:
     """The tokens of a rank's ``shard_map`` engine at ``cache_len`` (and
     ``enc_len``) on the prompts of ``PROMPT`` tokens, and the positions
-    its first layer's cache holds (K's, or MLA's latent's)."""
+    its first attention layer's cache holds (K's, or MLA's latent's;
+    None without one: the SSM family)."""
     tokens, leaves = res["model", name]["engine"][
         "shard_map", cache_len, PROMPT, enc_len]
-    first = leaves[0]
-    return tokens, (first["k"] if "k" in first else first["c_kv"])[2]
+    held = [c["k" if "k" in c else "c_kv"][2] for c in leaves
+            if "k" in c or "c_kv" in c]
+    return tokens, (held[0] if held else None)
 
 
 def test_rank_decode_engine_matches_one_process(ranks, model_reference):
@@ -1018,14 +1044,19 @@ def test_shard_train_state_cuts_params_and_moments():
 def rank_reference(tmp_path_factory):
     """The subprocess's ``ranks`` entry, with the ``RANK_SHARED`` models'
     one-device logits, loss, gradients and their global norm taken from
-    its ``encdec`` entry (the same reduced config, params and batch)."""
+    its ``encdec`` entry, or its ``recurrent`` and ``recurrent_grad``
+    ones (the same reduced config, params and batch)."""
     ranks = jax_reference.reference(tmp_path_factory, entry="ranks")
-    encdec = jax_reference.reference(tmp_path_factory, entry="encdec")
-    for name in jax_reference.RANK_SHARED:
-        want = encdec[jax_reference.RANK_MODELS[name]["arch"]]
+    entries = {entry: jax_reference.reference(tmp_path_factory, entry=entry)
+               for pair in jax_reference.RANK_SHARED.values()
+               for entry in pair}
+    for name, (fwd, grad) in jax_reference.RANK_SHARED.items():
+        arch = jax_reference.RANK_MODELS[name]["arch"]
+        want = entries[grad][arch]
         norm = np.sqrt(sum(np.square(g, dtype=np.float64).sum()
                            for g in want["grads"]))
-        ranks[name].update(logits=want["logits"], loss=want["loss"],
+        ranks[name].update(logits=entries[fwd][arch]["logits"],
+                           loss=want["loss"],
                            grads=want["grads"], grad_norm=float(norm))
     return ranks
 
@@ -1086,7 +1117,8 @@ def test_rank_model_engine_matches_one_process(ranks, rank_params, name,
     sliced = cache == "cache"
     for res in ranks:
         tokens, positions = _positions(res, name, cache_len, enc)
-        assert positions == (cache_len // G if sliced else cache_len)
+        if name != "xlstm":  # the SSM family has no attention cache
+            assert positions == (cache_len // G if sliced else cache_len)
         assert tokens == want
 
 
@@ -1116,7 +1148,8 @@ def test_rank_cache_leaves_follow_the_reference_rule(ranks, name, cache,
     the reference's ``cache_leaf_spec`` on a model-only mesh of 4 (the
     whole cache's on the meta device), in either decode attention; a
     time slice carries its record (``"time_slice"``, an encoder-decoder's
-    cross cache ``"cross_slice"``)."""
+    cross cache ``"cross_slice"``); a recurrent layer's state (which the
+    rule keeps whole at these widths) has none."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.model import SLICE_RECORDS
     from repro_torch.parallel.sharding import cache_leaf_spec, shard_shape
@@ -1135,7 +1168,8 @@ def test_rank_cache_leaves_follow_the_reference_rule(ranks, name, cache,
         for run in runs:
             got = res["model", name]["engine"][run][1]
             for leaves_got, leaves_want in zip(got, want, strict=True):
-                assert ("time_slice" in leaves_got) is sliced
+                attention = "k" in leaves_got or "c_kv" in leaves_got
+                assert ("time_slice" in leaves_got) is (sliced and attention)
                 assert ("cross_slice" in leaves_got) is cross
                 leaves_got = {k: v for k, v in leaves_got.items()
                               if k not in SLICE_RECORDS}
@@ -1143,7 +1177,7 @@ def test_rank_cache_leaves_follow_the_reference_rule(ranks, name, cache,
                 for k, v in leaves_got.items():
                     if k.startswith("cross_"):
                         assert v[2] == (enc // G if cross else enc)
-                    elif sliced:
+                    elif sliced and attention:
                         assert v[2] == cache_len // G
 
 
@@ -1296,6 +1330,175 @@ def test_rank_mla_indivisible_heads_decode_matches_reference(
                                    rtol=1e-5, atol=1e-5)
 
 
+# ---------------------------------------------------------------------------
+# The recurrent layers with their decode state cut by the rule
+# ---------------------------------------------------------------------------
+
+def _recurrent_fns(kind: str, d_model: int, heads: int, cfg):
+    """The reference's apply (p, x), whole start state (batch) and decode
+    (p, x, cache) of a ``RECURRENT`` layer."""
+    from repro.models import mamba as jax_mamba
+    from repro.models import xlstm as jax_xlstm
+
+    f32 = jax.numpy.float32
+    if kind == "mamba":
+        return (lambda p, x: jax_mamba.mamba_apply(p, x, cfg),
+                lambda b: jax_mamba.mamba_init_cache(b, d_model, cfg, f32),
+                lambda p, x, c: jax_mamba.mamba_decode(p, x, c, cfg))
+    if kind == "mlstm":
+        return (lambda p, x: jax_xlstm.mlstm_apply(p, x, heads, cfg),
+                lambda b: jax_xlstm.mlstm_init_cache(b, d_model, heads, cfg),
+                lambda p, x, c: jax_xlstm.mlstm_decode(p, x, c, heads, cfg))
+    return (lambda p, x: jax_xlstm.slstm_apply(p, x, cfg),
+            lambda b: jax_xlstm.slstm_init_cache(b, d_model, cfg),
+            lambda p, x, c: jax_xlstm.slstm_decode(p, x, c, cfg))
+
+
+@pytest.fixture(scope="module")
+def recurrent_reference():
+    """For each ``RECURRENT`` layer: the reference's apply on its x, the
+    gradients of sum(y * dy), and its decode over x's first positions
+    from the whole start state, with the state after (numpy; one jitted
+    function a layer)."""
+    out = {}
+    for kind in RECURRENT["kinds"]:
+        layer = jax_reference.recurrent_layer_config(jax_get_config, kind)
+        params, x, dy = jax_reference.recurrent_operands(kind, *layer)
+        apply, start, step = _recurrent_fns(kind, *layer)
+
+        def run(p, cache, apply=apply, step=step, x=x, dy=dy):
+            y, vjp = jax.vjp(lambda q: apply(q, x), p)
+            ys = []
+            for t in range(RECURRENT["decode"]):
+                y_t, cache = step(p, x[:, t:t + 1], cache)
+                ys.append(y_t)
+            return y, vjp(dy)[0], jax.numpy.concatenate(ys, 1), cache
+
+        y, grads, ys, cache = jax.jit(run)(params, start(x.shape[0]))
+        out[kind] = dict(y=np.asarray(y),
+                         grads=jax.tree.map(np.asarray, grads),
+                         decode=np.asarray(ys),
+                         cache=jax.tree.map(np.asarray, cache))
+    return out
+
+
+def _recurrent_specs(kind: str, tree):
+    """The rule's specs of a ``RECURRENT`` layer's leaves (``tree``'s
+    shapes) on a model-only mesh of 4."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import mamba, xlstm
+    from repro_torch.parallel.sharding import fix_param_specs
+
+    specs = {"mamba": mamba.mamba_param_specs,
+             "mlstm": xlstm.mlstm_param_specs,
+             "slstm": xlstm.slstm_param_specs}[kind]()
+    shapes = {k: torch.empty(v.shape, device="meta") for k, v in tree.items()}
+    return fix_param_specs(specs, shapes, Mesh(("model",), (G,)))
+
+
+def _close(got, want, err_msg=""):
+    """Within 1e-5 of the largest |want|, as the MLA case's gradients."""
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale,
+                               err_msg=err_msg)
+
+
+@pytest.mark.parametrize("layout", ["replicated", "seq"])
+@pytest.mark.parametrize("kind", RECURRENT["kinds"])
+def test_rank_recurrent_layer_matches_reference(ranks, recurrent_reference,
+                                                kind, layout):
+    """A Mamba layer of d_inner 1024, an mLSTM of 4 heads of 1024 and an
+    sLSTM of d_inner 1024 on each rank's blocks (every d_inner leaf cut,
+    the mLSTM's ``w_if`` and the sLSTM's ``r_gates`` whole): the group's
+    sum on the replicated input (all-reduced) and on the rank's sequence
+    block (reduce-scattered) within 1e-5 of the largest output of the
+    reference's layer."""
+    want = recurrent_reference[kind]["y"]
+    s = want.shape[1] // G
+    for r, res in enumerate(ranks):
+        got = res["recurrent", kind][layout]
+        _close(got, want if layout == "replicated"
+               else want[:, r * s:(r + 1) * s])
+
+
+@pytest.mark.parametrize("kind", RECURRENT["kinds"])
+def test_rank_recurrent_layer_grads_match_reference(ranks,
+                                                    recurrent_reference,
+                                                    kind):
+    """Each rank's blocks are the rule's (``shard_shape`` on a model-only
+    mesh of 4; the whole leaves whole), and their gradients (the
+    sequence-cut input) against the reference's ``jax.grad`` cut by the
+    same rule, within 1e-5 of the largest: a whole leaf's summed over the
+    ranks, a block's its own."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import block_dim, shard_shape
+
+    grads = recurrent_reference[kind]["grads"]
+    specs = _recurrent_specs(kind, grads)
+    mesh = Mesh(("model",), (G,))
+    whole = {k for k, sp in specs.items() if block_dim(sp) is None}
+    assert whole == {"mlstm": {"w_if"}, "slstm": {"r_gates"}}.get(kind,
+                                                                  set())
+    for r, res in enumerate(ranks):
+        got = res["recurrent", kind]
+        assert got["blocks"] == {k: shard_shape(specs[k], v.shape, mesh)
+                                 for k, v in grads.items()}
+        want = shard_params(grads, specs, r, G)
+        for key, grad in got["grads"].items():
+            _close(grad, want[key], err_msg=key)
+
+
+@pytest.mark.parametrize("kind", RECURRENT["kinds"])
+def test_rank_recurrent_layer_decode_matches_reference(ranks,
+                                                       recurrent_reference,
+                                                       kind):
+    """The decode per rank from the start state, each leaf the rank's
+    block by ``cache_leaf_spec`` (Mamba's conv window and ssm state and
+    the sLSTM's state on d_inner, the mLSTM's ``c`` on its key dim and
+    ``n`` on hd; the mLSTM's ``m`` whole): every step's output within
+    1e-5 of the largest of the reference's on a whole state, the state
+    after it the rank's block of the reference's, and a whole leaf the
+    same bits on every rank."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import block_dim, cache_leaf_spec
+
+    want = recurrent_reference[kind]
+    mesh = Mesh(("model",), (G,))
+    for r, res in enumerate(ranks):
+        got = res["recurrent", kind]
+        _close(got["decode"], want["decode"])
+        for key, leaf in got["cache"].items():
+            whole = want["cache"][key]
+            spec = cache_leaf_spec((1, *whole.shape), mesh)
+            dim = block_dim(spec)
+            assert (dim is None) is (kind == "mlstm" and key == "m")
+            if kind == "mlstm" and key == "c":
+                assert dim == 3  # c[b, h, d, e]'s key dim d
+            if dim is None:
+                np.testing.assert_array_equal(
+                    leaf, ranks[0]["recurrent", kind]["cache"][key])
+            else:
+                n = whole.shape[dim - 1] // G
+                whole = whole.take(range(r * n, (r + 1) * n), axis=dim - 1)
+            _close(leaf, whole, err_msg=key)
+
+
+@pytest.mark.parametrize("name", RECURRENT_MODELS)
+def test_rank_recurrent_state_equal_on_every_rank(ranks, name):
+    """After each engine run of the reduced Jamba and xLSTM per rank, the
+    recurrent layers' decode state, which the rule keeps whole at their
+    widths, holds the same bits on every rank."""
+    first = ranks[0]["model", name]["states"]
+    assert first and all(first.values())
+    for res in ranks[1:]:
+        states = res["model", name]["states"]
+        assert states.keys() == first.keys()
+        for run, leaves in states.items():
+            for key, leaf in leaves.items():
+                np.testing.assert_array_equal(leaf, first[run][key],
+                                              err_msg=str((run, key)))
+
+
 def test_rank_gather_replicated_grad_matches_logical(ranks):
     """``gather_replicated`` joins the blocks in rank order, and its
     gradient is this rank's block of the replicated cotangent, as the
@@ -1333,21 +1536,25 @@ def _spec_leaves(specs) -> list:
 RANK_BYTES = {"tinyllama-1.1b": (550_162_432, 46_137_344),
               "deepseek-v2-lite-16b": (8_165_486_592, 63_700_992),
               "seamless-m4t-large-v2": (1_017_880_576, 301_989_888),
-              "internvl2-76b": (35_331_260_416, 671_088_640)}
+              "internvl2-76b": (35_331_260_416, 671_088_640),
+              "jamba-1.5-large-398b": (199_304_626_176, 147_750_912),
+              "xlstm-1.3b": (3_757_858_816, 705_727_104)}
 RANK_ENC_LEN = 1024
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-lite-16b",
                                   "smollm-360m", "arctic-480b",
-                                  "seamless-m4t-large-v2", "internvl2-76b"])
+                                  "seamless-m4t-large-v2", "internvl2-76b",
+                                  "jamba-1.5-large-398b", "xlstm-1.3b"])
 def test_rank_param_bytes_match_shard_shape(arch):
     """At full width (on the meta device), each rank's parameter bytes:
     ``shard_shape`` over ``fix_param_specs`` of ``param_specs`` on a
     model-only mesh of 4 for the embedding and unembedding and the leaves
-    of a layer's attention and FFN (the encoder's layers' too), and the
-    whole bytes of every other leaf (the norms, the router, ``enc_norm``,
-    ``frontend_proj``); TinyLlama-1.1B's, DeepSeek-V2-Lite-16B's,
-    SeamlessM4T-v2's and InternVL2-76B's to the byte."""
+    of a layer's attention, FFN and recurrent mixer (the encoder's
+    layers' too), and the whole bytes of every other leaf (the norms, the
+    router, ``enc_norm``, ``frontend_proj``); TinyLlama-1.1B's,
+    DeepSeek-V2-Lite-16B's, SeamlessM4T-v2's, InternVL2-76B's,
+    Jamba-1.5-Large's and xLSTM-1.3B's to the byte."""
     import math
 
     from repro_torch.launch.mesh import Mesh
@@ -1365,7 +1572,7 @@ def test_rank_param_bytes_match_shard_shape(arch):
     def layer(slot, slot_specs):
         total = 0
         for key, sub in slot.items():
-            cut = key in ("attn", "cross", "ffn")
+            cut = key in ("attn", "cross", "ffn", "mixer")
             for t, sp in zip(leaves(sub), _spec_leaves(slot_specs[key]),
                              strict=True):
                 total += nbytes(shard_shape(sp, t.shape, mesh) if cut
@@ -1394,13 +1601,16 @@ def test_rank_param_bytes_match_shard_shape(arch):
 def test_rank_cache_bytes_at_full_width(arch):
     """At full width (on the meta device), a rank's decode cache for 4
     requests of 2048 positions (and an encoder-decoder's cross K/V of
-    1024 encoder positions): its leaves' bytes, each the rank's time
-    slice by ``cache_leaf_spec`` on a model-only mesh of 4, to the
-    byte."""
+    1024 encoder positions): its leaves' bytes, each the rank's block by
+    ``cache_leaf_spec`` on a model-only mesh of 4 (an attention cache's
+    time slice, a recurrent state's block of d_inner or of the mLSTM's
+    key dim), to the byte; every leaf is cut but the mLSTM's running
+    maxima ``m``."""
     import math
 
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.parallel.sharding import cache_leaf_spec, shard_shape
+    from repro_torch.parallel.sharding import (block_dim, cache_leaf_spec,
+                                               shard_shape)
 
     mesh = Mesh(("model",), (G,))
     cfg = get_config(arch)
@@ -1410,35 +1620,26 @@ def test_rank_cache_bytes_at_full_width(arch):
                                     mesh)) * t.element_size()
               for c in whole for t in c.values())
     assert got == RANK_BYTES[arch][1]
-    assert got * G == sum(t.numel() * t.element_size()
-                          for c in whole for t in c.values())
+    kept = [(k, t.numel() * t.element_size()) for c in whole
+            for k, t in c.items() if block_dim(cache_leaf_spec(t.shape,
+                                                               mesh)) is None]
+    assert {k for k, _ in kept} <= {"m"}
+    kept_bytes = sum(n for _, n in kept)
+    assert (got - kept_bytes) * G == sum(
+        t.numel() * t.element_size() for c in whole
+        for t in c.values()) - kept_bytes
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b"])
-def test_uncovered_family_raises_on_a_rank_group(monkeypatch, arch):
-    """The hybrid and SSM families have no per-rank form held to the
-    reference yet (their recurrent mixers): cutting their state and
-    running them on a ``RankGroup`` raise, citing ROADMAP A17."""
-    model = build_model(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        model.rank_specs(G)
-    group, _ = _patched_rank_group(monkeypatch, ["cpu"] * G)
-    with tp_group(group):
-        for call in (lambda: model.forward({}, {}),
-                     lambda: model.init_cache(1, 8, device="cpu"),
-                     lambda: model.decode_step({}, [], None, 0)):
-            with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-                call()
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b"])
-def test_encdec_and_vlm_rank_specs_cut_by_the_rule(arch):
-    """The encoder-decoder and VLM families run per rank: their
-    ``rank_specs`` are the reference's ``param_specs`` fixed on a
-    model-only mesh of 4 for the decoder's and the encoder's attention
-    and FFN leaves (each cut on the model axis where 4 divides it), the
-    cross-attention's and the vocabulary's, with ``enc_norm``,
-    ``frontend_proj`` and the norms whole."""
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b",
+                                  "jamba-1.5-large-398b", "xlstm-1.3b"])
+def test_encdec_vlm_hybrid_and_ssm_rank_specs_cut_by_the_rule(arch):
+    """The encoder-decoder, VLM, hybrid and SSM families run per rank:
+    their ``rank_specs`` are the reference's ``param_specs`` fixed on a
+    model-only mesh of 4 for the decoder's and the encoder's attention,
+    FFN and recurrent mixer leaves (each cut on the model axis where 4
+    divides it, but the mLSTM's ``w_if`` and the sLSTM's ``r_gates``,
+    whole in the reference), the cross-attention's and the vocabulary's,
+    with ``enc_norm``, ``frontend_proj`` and the norms whole."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel.sharding import block_dim, fix_param_specs
 
@@ -1449,19 +1650,33 @@ def test_encdec_and_vlm_rank_specs_cut_by_the_rule(arch):
     specs = model.rank_specs(G)
     fixed = fix_param_specs(model.param_specs(), model.init(device="meta"),
                             Mesh(("model",), (G,)))
-    stacks = [*zip(specs["layers"], fixed["layers"])]
+    raw = model.param_specs()
+    stacks = [*zip(specs["layers"], fixed["layers"], raw["layers"])]
     if "encoder" in specs:
-        stacks.append((specs["encoder"], fixed["encoder"]))
+        stacks.append((specs["encoder"], fixed["encoder"], raw["encoder"]))
         assert whole(specs["enc_norm"])
-    else:
+    elif "frontend_proj" in specs:
         assert whole(specs["frontend_proj"])
-    for got, want in stacks:
+    mixers = 0
+    for got, want, ref in stacks:
         for key in got:
-            if key in ("attn", "cross", "ffn"):
+            if key in ("attn", "cross", "ffn", "mixer"):
                 assert got[key] == want[key]
-                assert not any(block_dim(sp) is None
-                               for sp in _spec_leaves(got[key]))
+                # Cut wherever the reference's spec names the model axis
+                # (4 divides every such dim here); whole where it does
+                # not: the router, the mLSTM's w_if, the sLSTM's r_gates.
+                for sp, sp_ref in zip(_spec_leaves(got[key]),
+                                      _spec_leaves(ref[key]), strict=True):
+                    assert (block_dim(sp) is None) is (
+                        block_dim(sp_ref) is None)
+                if key == "mixer":
+                    mixers += 1
+                    kept = {k for k, sp in got[key].items()
+                            if block_dim(sp) is None}
+                    assert kept == {"w_if", "r_gates"} & set(got[key])
             else:
                 assert whole(got[key])
+    assert mixers == (len(stacks) if arch == "xlstm-1.3b" else
+                      len(stacks) - 1 if arch.startswith("jamba") else 0)
     for key in ("embed", "unembed"):
         assert specs[key] == fixed[key] and block_dim(specs[key]) is not None

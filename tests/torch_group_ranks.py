@@ -82,14 +82,16 @@ def decode_attention(group, operands, positions) -> dict:
     return out
 
 
-def engine(group, numpy_params, runs, cfg=None) -> dict:
+def engine(group, numpy_params, runs, cfg=None, states=None) -> dict:
     """A ``DecodeEngine`` on this rank of ``cfg`` (the reduced TinyLlama by
     default), with its blocks, for each of ``runs`` ((decode_attn, cache
     length, prompts, new tokens, encoder length, frames): an
     encoder-decoder's engine first encodes the (B, enc_len, d) frames):
     the tokens of each request, and the shape of every leaf of the
     engine's cache on this rank; keyed (decode_attn, cache length, prompt
-    length, encoder length)."""
+    length, encoder length).  ``states``, a dict, takes each run's
+    recurrent layers' decode state after it (numpy, by slot and leaf)."""
+    from repro_torch.models.model import RECURRENT
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OverlapConfig
     from repro_torch.convert import params_from_jax
@@ -108,9 +110,14 @@ def engine(group, numpy_params, runs, cfg=None) -> dict:
         if frames is not None:
             eng.encode(torch.from_numpy(frames))
         reqs = eng.run([Request(p, new) for p in prompts])
-        out[decode_attn, cache_len, len(prompts[0]), enc_len] = (
+        key = decode_attn, cache_len, len(prompts[0]), enc_len
+        out[key] = (
             [list(r.out) for r in reqs],
             [{k: tuple(v.shape) for k, v in c.items()} for c in eng.cache])
+        if states is not None:
+            states[key] = {(j, k): v.numpy() for j, (spec, c) in enumerate(
+                zip(eng.model.pattern, eng.cache)) if spec.mixer in RECURRENT
+                for k, v in c.items()}
     return out
 
 
@@ -327,7 +334,9 @@ def rank_model(group, cfg, numpy_params, batch, backends, engine_runs,
     if odd_batch is not None:
         out["prefill_odd"] = prefill(group, numpy_params, inputs(odd_batch),
                                      "uniform-fused-1d", "collective", cfg)
-    out["engine"] = engine(group, numpy_params, engine_runs, cfg=cfg)
+    out["states"] = {}
+    out["engine"] = engine(group, numpy_params, engine_runs, cfg=cfg,
+                           states=out["states"])
     if train_mode is None:
         return out
     tcfg = dataclasses.replace(cfg, overlap=OverlapConfig(
@@ -414,6 +423,77 @@ def mla_layer(group, numpy_params, mla_cfg, heads: int, x, dy,
     return out
 
 
+def recurrent_layer(group, kind: str, layer, decode: int) -> dict:
+    """A Mamba, mLSTM or sLSTM layer (``kind``; ``layer`` its (d_model,
+    heads, mixer config)) at widths where the reference's cache rule cuts
+    its state, on this rank's blocks (``fix_param_specs`` of its
+    ``param_specs`` on a model-only mesh), from
+    ``torch_jax_reference.recurrent_operands`` (numpy, drawn here): its
+    apply on the replicated x and on the rank's sequence block, the
+    gradient of sum(y * dy) with respect to the rank's leaves (from the
+    sequence block), and ``decode`` steps of its decode over x's first
+    positions from the start state, the rank's block of each leaf by
+    ``cache_block`` (the state at the end too)."""
+    import torch_jax_reference  # numpy only: no JAX, no reference
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import mamba, xlstm
+    from repro_torch.models.model import _state_start
+    from repro_torch.parallel.decode_attn import cache_block
+    from repro_torch.parallel.sharding import fix_param_specs, shard_params
+
+    g, r = group.size, group.rank
+    d_model, heads, cfg = layer
+    numpy_params, x, dy = torch_jax_reference.recurrent_operands(
+        kind, d_model, heads, cfg)
+    whole = {k: torch.from_numpy(v) for k, v in numpy_params.items()}
+    fns = {  # the specs, apply, the whole start state, decode
+        "mamba": (mamba.mamba_param_specs,
+                  lambda p, v, seq=False: mamba.mamba_apply(p, v, cfg,
+                                                            seq=seq),
+                  lambda b: mamba.mamba_init_cache(
+                      b, d_model, cfg, torch.float32, "meta", lead=(1,)),
+                  lambda p, v, c: mamba.mamba_decode(p, v, c, cfg)),
+        "mlstm": (xlstm.mlstm_param_specs,
+                  lambda p, v, seq=False: xlstm.mlstm_apply(
+                      p, v, heads, cfg, seq=seq),
+                  lambda b: xlstm.mlstm_init_cache(b, d_model, heads, cfg,
+                                                   "meta", lead=(1,)),
+                  lambda p, v, c: xlstm.mlstm_decode(p, v, c, heads, cfg)),
+        "slstm": (xlstm.slstm_param_specs,
+                  lambda p, v, seq=False: xlstm.slstm_apply(p, v, cfg,
+                                                            seq=seq),
+                  lambda b: xlstm.slstm_init_cache(b, d_model, cfg, "meta",
+                                                   lead=(1,)),
+                  lambda p, v, c: xlstm.slstm_decode(p, v, c, cfg)),
+    }
+    param_specs, apply, init_cache, step = fns[kind]
+    specs = fix_param_specs(param_specs(), whole, Mesh(("model",), (g,)))
+    params = shard_params(whole, specs, r, g)
+    del whole, numpy_params
+    xt, dyt = torch.from_numpy(x), torch.from_numpy(dy)
+    b, s, _ = xt.shape
+    n = s // g
+    rows = slice(r * n, (r + 1) * n)
+    out = {"blocks": {k: tuple(v.shape) for k, v in params.items()}}
+    with torch.no_grad():
+        out["replicated"] = apply(params, xt).numpy()
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    y = apply(leaves, xt[:, rows], seq=True)
+    out["seq"] = y.detach().numpy()
+    (y * dyt[:, rows]).sum().backward()
+    out["grads"] = {k: v.grad.numpy() for k, v in leaves.items()}
+    with torch.no_grad():
+        cache = {k: torch.full(cache_block(v.shape), _state_start(k),
+                               dtype=v.dtype)
+                 for k, v in init_cache(b).items()}
+        here = {k: v[0] for k, v in cache.items()}  # one period's views
+        ys = [step(params, xt[:, t:t + 1], here)[0] for t in range(decode)]
+    out["decode"] = torch.cat(ys, 1).numpy()
+    out["cache"] = {k: v[0].numpy() for k, v in cache.items()}
+    return out
+
+
 def run_all(group, cases: dict) -> dict:
     """Every case of the module, in one spawn."""
     torch.manual_seed(0)
@@ -441,6 +521,9 @@ def run_all(group, cases: dict) -> dict:
     for name, args in cases["rank_models"].items():
         out["model", name] = rank_model(group, *args)
     out["mla"] = mla_layer(group, *cases["mla"])
+    kinds, layers, decode = cases["recurrent"]
+    for kind, layer in zip(kinds, layers):
+        out["recurrent", kind] = recurrent_layer(group, kind, layer, decode)
     return out
 
 

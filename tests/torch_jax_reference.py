@@ -74,14 +74,15 @@ FIRST.pkl`` and one more pickle for each of ``LATER``) it evaluates, with ``JAX_
     batch 0 at ``RANK_TRAIN``'s shape (its tokens, and a VLM's prefix or
     an encoder-decoder's frames), and the loss, the gradients and their
     global norm there (a train step's loss and ``grad_norm``), in one
-    jitted function; for each of ``RANK_ODD_PREFILL`` also the forward's
+    jitted function (but for ``RANK_SHARED``, whose earlier entries hold
+    them); for each of ``RANK_ODD_PREFILL`` also the forward's
     logits at ``RANK_ODD``'s shape (``"logits_odd"``); and under
     ``"dense"`` the same for the reduced TinyLlama at ``RANK_ODD``'s
     shape, whose length a group of 4 does not divide; for each of them,
     the tokens of the one-device ``DecodeEngine`` (``RANK_ENGINE``) for
-    each prompt length, an encoder-decoder's at each of ``RANK_ENC``'s
-    encoder lengths, its cross K/V filled by ``prefill_cross`` from
-    :func:`engine_frames`.
+    each prompt length (a hybrid's or SSM's from a fresh cache each),
+    an encoder-decoder's at each of ``RANK_ENC``'s encoder lengths, its
+    cross K/V filled by ``prefill_cross`` from :func:`engine_frames`.
 
 The first eight entries go to ``FIRST.pkl``; the later ones (the whole
 models, the slower half) follow, each in a pickle of its own, in
@@ -180,9 +181,17 @@ DRYRUN = dict(meshes=({"data": 16, "model": 16},
 # 5.6, recurrent_grad 18.3, recurrent 8.9, dryrun 15.8, moe_grad 17.1;
 # on a later run encdec 16.4 and ranks 37.8, 7.2 of it the encoder-decoder
 # and VLM rank models, which take their forward and gradients from
-# ``encdec``, written first).
-LATER = ("counts", "collectives", "examples", "encdec", "ranks",
-         "recurrent_grad", "recurrent", "dryrun", "moe_grad")
+# ``encdec``, written first).  The order is the shortest first, with
+# ``ranks`` (about 33 s) last: the test files that wait for the others
+# hold a pytest-xdist worker each, while tests/test_torch_group.py waits
+# for its own gloo spawn too (the suite without test_kernels_multidev ran
+# 265-297 s so, against 283-305 s with ``ranks`` before ``dryrun`` and
+# ``moe_grad``, on one 8-core host).  ``recurrent`` and
+# ``recurrent_grad`` precede ``ranks``: its hybrid and SSM rank models
+# take their forward and gradients from them, and their odd prefills and
+# engines then compile warm (2.8 s where they took 14.2 s alone).
+LATER = ("counts", "collectives", "examples", "recurrent", "encdec",
+         "recurrent_grad", "moe_grad", "dryrun", "ranks")
 # The per-rank models of tests/test_torch_group.py beside TinyLlama, each
 # reduced and in fp32: DeepSeek-V2-Lite with 8 experts (2 a rank of 4)
 # and one shared expert; a SmolLM-360M with its 15 query and 5 K/V
@@ -195,6 +204,8 @@ RANK_MODELS = {
     "deepseek": dict(arch="deepseek-v2-lite-16b", moe=dict(num_experts=8)),
     "seamless": dict(arch="seamless-m4t-large-v2"),
     "internvl": dict(arch="internvl2-76b"),
+    "jamba": dict(arch="jamba-1.5-large-398b"),
+    "xlstm": dict(arch="xlstm-1.3b"),
     "smollm": dict(arch="smollm-360m", d_model=240, num_heads=15,
                    num_kv_heads=5, head_dim=16),
     "indivisible": dict(arch="arctic-480b", vocab_size=510, num_heads=3,
@@ -211,14 +222,19 @@ RANK_ODD = dict(seq=30, batch=2, seed=1)
 # axis the reference's rule cuts over 4 ranks.
 RANK_ENGINE = dict(batch=2, prompts=(5, 8), new=4, cache=1024, seed=53)
 # The rank models whose prefill also runs at RANK_ODD's shape: the
-# encoder-decoder's 30 frames and the VLM's 8 + 22 joined positions, which
-# a group of 4 does not divide (the residual replicated).
-RANK_ODD_PREFILL = ("seamless", "internvl")
+# encoder-decoder's 30 frames, the VLM's 8 + 22 joined positions and the
+# hybrid's and SSM's 30 tokens, which a group of 4 does not divide (the
+# residual replicated).
+RANK_ODD_PREFILL = ("seamless", "internvl", "jamba", "xlstm")
 # The rank models whose one-device forward, loss and gradients at
-# RANK_TRAIN's shape the ``encdec`` entry holds already (the same reduced
-# config, params and batch): ``ranks`` computes only their odd prefill and
-# engines, and the tests take the rest from ``encdec``.
-RANK_SHARED = ("seamless", "internvl")
+# RANK_TRAIN's shape earlier entries hold already (the same reduced
+# config, params and batch): the entry of the logits and the one of the
+# loss and gradients.  ``ranks`` computes only their odd prefill and
+# engines, and the tests take the rest from those entries.
+RANK_SHARED = {"seamless": ("encdec", "encdec"),
+               "internvl": ("encdec", "encdec"),
+               "jamba": ("recurrent", "recurrent_grad"),
+               "xlstm": ("recurrent", "recurrent_grad")}
 # An encoder-decoder engine's encoder lengths: one the reference's rule
 # keeps whole on every rank and one whose time axis it cuts over 4 ranks.
 RANK_ENC = (16, 1024)
@@ -227,6 +243,14 @@ RANK_ENC = (16, 1024)
 # projection's columns divide, so a rank's block straddles heads; batch,
 # prompt length and decode steps.
 RANK_MLA = dict(heads=6, batch=2, seq=32, decode=5, seed=57)
+# The recurrent layers per rank at the narrowest widths at which the
+# reference's cache rule cuts their state over 4 ranks (1024 or more): a
+# Mamba layer of d_inner 1024 (the reduced Jamba's d_model 256, expand
+# 4), an mLSTM of 4 heads of 1024 (the reduced xLSTM's d_model 256 and 4
+# heads, proj_factor 16) and an sLSTM of d_inner 1024 (proj_factor 4);
+# batch, prompt length (4 divides it) and decode steps.
+RANK_RECURRENT = dict(kinds=("mamba", "mlstm", "slstm"), batch=2, seq=8,
+                      decode=4, seed=58)
 
 
 def engine_frames(d_model: int, enc_len: int) -> np.ndarray:
@@ -255,6 +279,60 @@ def mla_operands(d_model: int, cfg) -> tuple:
     shape = (RANK_MLA["batch"], RANK_MLA["seq"], d_model)
     return (params, *(rng.standard_normal(shape).astype(np.float32)
                       for _ in range(2)))
+
+
+def recurrent_layer_config(get_config, kind: str) -> tuple:
+    """A ``RANK_RECURRENT`` layer's (d_model, heads, mixer config) from
+    either package's ``get_config``: the reduced Jamba's Mamba config at
+    expand 4, or the reduced xLSTM's at proj_factor 16 (mLSTM) or 4
+    (sLSTM)."""
+    if kind == "mamba":
+        cfg = get_config("jamba-1.5-large-398b").reduced()
+        return cfg.d_model, 0, dataclasses.replace(cfg.hybrid.mamba,
+                                                   expand=4)
+    cfg = get_config("xlstm-1.3b").reduced()
+    return cfg.d_model, cfg.num_heads, dataclasses.replace(
+        cfg.xlstm, proj_factor=16.0 if kind == "mlstm" else 4.0)
+
+
+def recurrent_operands(kind: str, d_model: int, heads: int, cfg) -> tuple:
+    """A ``RANK_RECURRENT`` layer's params (the reference's init tree of
+    ``kind`` at ``cfg``'s widths; a weight normal over the square root of
+    its input width, a vector near its init), its input x (B, S,
+    d_model) and the cotangent of its output; float32 numpy."""
+    rng = np.random.default_rng(RANK_RECURRENT["seed"])
+
+    def draw(*shape, scale=None):
+        w = rng.standard_normal(shape, dtype=np.float32)
+        return w / np.float32(np.sqrt(shape[0])) if scale is None \
+            else w * np.float32(scale)
+
+    def near(value, n):
+        return np.float32(value) + draw(n, scale=0.1)
+
+    if kind == "mamba":
+        d = cfg.expand * d_model
+        r, n = cfg.dt_rank or -(-d_model // 16), cfg.d_state
+        params = {"w_in": draw(d_model, 2 * d),
+                  "conv_w": draw(cfg.d_conv, d, scale=0.1),
+                  "conv_b": near(0.0, d), "w_x": draw(d, r + 2 * n),
+                  "w_dt": draw(r, d), "dt_bias": near(0.0, d),
+                  "a_log": np.log(np.broadcast_to(
+                      np.arange(1, n + 1, dtype=np.float32), (d, n)).copy()),
+                  "d_skip": near(1.0, d), "w_out": draw(d, d_model)}
+    elif kind == "mlstm":
+        d = int(cfg.proj_factor * d_model)
+        params = {"w_up": draw(d_model, 2 * d), "wq": draw(d, d),
+                  "wk": draw(d, d), "wv": draw(d, d),
+                  "w_if": draw(d, 2 * heads), "w_out": draw(d, d_model),
+                  "skip_scale": near(1.0, d)}
+    else:
+        d = int(cfg.proj_factor * d_model)
+        params = {"w_up": draw(d_model, d), "w_gates": draw(d, 4 * d),
+                  "r_gates": draw(d, 4 * d, scale=0.02),
+                  "w_out": draw(d, d_model)}
+    shape = (RANK_RECURRENT["batch"], RANK_RECURRENT["seq"], d_model)
+    return params, draw(*shape, scale=1.0), draw(*shape, scale=1.0)
 
 
 def engine_prompts(vocab: int, length: int) -> list:
@@ -475,8 +553,9 @@ def main(err_path: str, first_path: str, *later_paths: str) -> None:
     try:
         _write(paths["collectives"], later.pop("collectives")())
         _write(first_path, _evaluate())
-        for name, make in later.items():
-            _write(paths[name], make())
+        for name in LATER:
+            if name in later:
+                _write(paths[name], later[name]())
     except BaseException:
         with open(err_path, "w") as fh:
             fh.write(traceback.format_exc())
@@ -635,6 +714,9 @@ def _rank_model(name: str) -> dict:
 
     params = model.init(jax.random.PRNGKey(0))
     out = {"engine": {}}
+    # The reference's engine carries the recurrent state one run leaves
+    # into the next (ROADMAP R7): each run starts from a fresh cache here.
+    recurrent = cfg.hybrid is not None or cfg.xlstm is not None
     if name not in RANK_SHARED:
         logits, loss, grads, norm = jax.jit(run)(params, batch)
         out.update(logits=np.asarray(logits, np.float32), loss=float(loss),
@@ -650,6 +732,9 @@ def _rank_model(name: str) -> dict:
             engine.cache = jax.jit(model.prefill_cross)(
                 params, engine.cache, engine_frames(cfg.d_model, enc_len))
         for length in RANK_ENGINE["prompts"]:
+            if recurrent:
+                engine.cache = model.init_cache(RANK_ENGINE["batch"],
+                                                RANK_ENGINE["cache"])
             out["engine"][length, enc_len] = [
                 [int(t) for t in r.out] for r in engine.run(
                     [Request(p, RANK_ENGINE["new"])
